@@ -1,0 +1,202 @@
+"""Headline benchmark of the port — one JSON line.
+
+    python -m distributed_join_tpu_torch.bench
+
+The protocol of the JAX package's ``bench.py`` (``_run``): tables from
+seed 42, 10 M build x 10 M probe rows, selectivity 0.3, the radix
+hash-partition -> shuffle -> sort-merge inner join pipeline over every
+visible rank (one GPU: the single-bucket path, which joins directly),
+timed over ``--iters`` joins after a warm-up. Two output sizings, both
+in the line:
+
+- ``value``: the output block sized from the expected match count
+  (0.6 per row) plus 25% slack;
+- ``value_capacity_contract``: the general contract,
+  out_capacity_factor (1.2) x probe rows.
+
+Overflow escalates through the capacity ladder (``retry`` records the
+trail) instead of crashing. ``unit`` is M rows/sec per GPU, rows being
+build + probe rows per join. ``vs_baseline`` stays null: the port has
+no GPU baseline yet. ``--device cpu`` runs the same protocol on the CPU
+for rehearsals at small ``--nrows``; its times say nothing about a GPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+from distributed_join_tpu_torch.device import resolve_device
+from distributed_join_tpu_torch.parallel.communicator import (
+    LocalCommunicator,
+)
+from distributed_join_tpu_torch.parallel.distributed_join import (
+    DEFAULT_OUT_CAPACITY_FACTOR,
+    DEFAULT_SHUFFLE_CAPACITY_FACTOR,
+    make_join_step,
+)
+from distributed_join_tpu_torch.parallel.faults import CapacityLadder
+from distributed_join_tpu_torch.utils.benchmarking import (
+    timed_join_throughput,
+)
+from distributed_join_tpu_torch.utils.generators import (
+    generate_build_probe_tables,
+)
+
+SEED = 42
+NROWS = 10_000_000
+SELECTIVITY = 0.3
+MATCHES_PER_ROW = 0.6
+OUT_SLACK = 1.25
+ITERS = 8
+AUTO_RETRY = 2
+
+
+def gpu_identity() -> dict:
+    """The card's name and power limit as nvidia-smi reports them."""
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    name, limit = (s.strip() for s in line.rsplit(",", 1))
+    return {"device_name": name, "power_limit": limit, "nvidia_smi": line}
+
+
+def run(nrows: int = NROWS, iters: int = ITERS, device=None) -> dict:
+    """The headline protocol; returns the record (also what main
+    prints)."""
+    dev = resolve_device(device)
+    comm = LocalCommunicator()
+    n_ranks = comm.n_ranks
+    build, probe = generate_build_probe_tables(
+        seed=SEED, build_nrows=nrows, probe_nrows=nrows,
+        selectivity=SELECTIVITY, device=dev)
+    expected = int(MATCHES_PER_ROW * nrows)
+
+    def measure(out_rows_per_rank=None):
+        ladder = CapacityLadder(
+            shuffle_capacity_factor=DEFAULT_SHUFFLE_CAPACITY_FACTOR,
+            out_capacity_factor=DEFAULT_OUT_CAPACITY_FACTOR,
+            out_rows_per_rank=out_rows_per_rank)
+        for attempt in range(AUTO_RETRY + 1):
+            step = make_join_step(comm, key="key", **ladder.sizing())
+            per_join, total, overflow = timed_join_throughput(
+                comm, step, build, probe, iters)
+            ladder.note(overflow)
+            if not overflow:
+                break
+            if attempt < AUTO_RETRY:
+                ladder.escalate()
+        if total <= 0 or overflow:
+            raise RuntimeError(
+                ("join overflowed after ladder exhaustion" if overflow
+                 else "join produced zero matches") + ": " + json.dumps(
+                    {"total": total, "retry": ladder.report().as_record()}))
+        rate = 2 * nrows / per_join / 1e6 / n_ranks
+        return rate, per_join, total, ladder.report().as_record()
+
+    match_out = int(expected * OUT_SLACK / n_ranks)
+    value, sec_match, matches, retry_match = measure(match_out)
+    contract, sec_contract, _, retry_contract = measure()
+    record = {
+        "metric": "join throughput",
+        "value": value,
+        "value_capacity_contract": contract,
+        "unit": "M rows/sec/GPU",
+        "vs_baseline": None,
+        "ms_per_join": {"match_sized": sec_match * 1e3,
+                        "capacity_contract": sec_contract * 1e3},
+        "matches_per_join": matches,
+        "n_ranks": n_ranks,
+        "build_table_nrows": nrows,
+        "probe_table_nrows": nrows,
+        "selectivity": SELECTIVITY,
+        "iterations": iters,
+        "out_rows": {"match_sized": match_out * n_ranks,
+                     "contract": "out_capacity_factor=1.2 x probe rows"},
+        "retry": {"match_sized": retry_match,
+                  "capacity_contract": retry_contract},
+        "device": str(dev),
+    }
+    if dev.type == "cuda":
+        record.update(gpu_identity())
+        record["device_name_torch"] = torch.cuda.get_device_name(dev)
+    return record
+
+
+def profile(nrows: int = NROWS, joins: int = 3, top: int = 15) -> dict:
+    """Where a match-sized headline join spends its device time:
+    ``torch.profiler`` over ``joins`` joins after a warm-up. Returns the
+    device time of the top ``top`` kernels (self time, ms per join), the
+    device-busy total and the host wall time per join; their ratio is
+    the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    dev = resolve_device(None)
+    comm = LocalCommunicator()
+    build, probe = generate_build_probe_tables(
+        seed=SEED, build_nrows=nrows, probe_nrows=nrows,
+        selectivity=SELECTIVITY, device=dev)
+    step = make_join_step(
+        comm, key="key",
+        out_rows_per_rank=int(MATCHES_PER_ROW * nrows * OUT_SLACK))
+    step(build, probe)
+    torch.cuda.synchronize(dev)
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(joins):
+            res = step(build, probe)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    # device-side events only (kernels, copies, sets): the host-side
+    # aten:: events carry their kernels' time again
+    rows = [(e.device_time_total / 1e3 / joins, e.key, e.count // joins)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0]
+    if not rows:
+        raise RuntimeError("the profiler recorded no device time")
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    wall_ms = wall * 1e3 / joins
+    return {
+        "profile_joins": joins,
+        "total": int(res.total),
+        "device_busy_ms_per_join": busy,
+        "host_wall_ms_per_join": wall_ms,
+        "device_busy_share": busy / wall_ms if wall_ms else None,
+        "top_kernels_ms_per_join": [
+            {"name": k[:120], "ms": ms, "calls_per_join": c}
+            for ms, k, c in rows[:top]],
+        **gpu_identity(),
+    }
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    p.add_argument("--nrows", type=int, default=NROWS,
+                   help="rows per side (the headline is 10 M)")
+    p.add_argument("--iters", type=int, default=ITERS)
+    p.add_argument("--device", default=None,
+                   help="default: the GPU; 'cpu' only for rehearsals")
+    p.add_argument("--profile", type=int, default=0, metavar="JOINS",
+                   help="instead of the record, print where JOINS "
+                        "match-sized joins spend their device time "
+                        "(torch.profiler; GPU only)")
+    args = p.parse_args(argv)
+    if args.profile:
+        print(json.dumps(profile(args.nrows, args.profile)), flush=True)
+        return 0
+    print(json.dumps(run(args.nrows, args.iters, args.device)), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

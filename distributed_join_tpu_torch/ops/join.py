@@ -1,0 +1,343 @@
+"""Per-partition sort-merge inner join.
+
+Port of ``distributed_join_tpu/ops/join.py`` ``sort_merge_inner_join``,
+inner join over 1-D columns, in its two formulations:
+
+- the kernel pipeline (``_join_kernel_path``; CUDA tensors): ONE
+  value-carrying merged sort (``torch.sort``, stable by key then side
+  tag), the fused scans (ops/scan.py), two stream compactions
+  (ops/compact.py: the run-record block and the matched-build pack) and
+  the expand-gather with in-kernel build materialization
+  (ops/expand.py);
+- the plain formulation (``_join_plain``; CPU tensors, and the kernel
+  pipeline's twin): build-side sort, merged sort, scans as torch ops, a
+  record sort, and scatter + cummax + row gathers.
+
+Output capacity is static; the true match count (int64) and an overflow
+flag come back beside it. Duplicate keys on both sides are supported;
+padding rows never match. Row order inside a key run is arbitrary: the
+result is a multiset of rows, as in the JAX package. The kernel pipeline
+makes no host synchronisation.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+
+from distributed_join_tpu_torch.ops.compact import stream_compact
+from distributed_join_tpu_torch.ops.expand import (
+    expand_gather,
+    expand_gather_reference,
+)
+from distributed_join_tpu_torch.ops.kernel_config import (
+    KernelConfig,
+    resolve as resolve_kernel_config,
+)
+from distributed_join_tpu_torch.ops.lanes import (
+    from_u64_lane,
+    to_u64_lane,
+    u64_lane_ok,
+)
+from distributed_join_tpu_torch.ops.scan import join_scans
+from distributed_join_tpu_torch.table import Table
+
+I32_MAX = 2**31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class JoinResult:
+    table: Table            # static capacity; .valid marks result rows
+    total: torch.Tensor     # 0-d int64: true match count (may exceed capacity)
+    overflow: torch.Tensor  # 0-d bool: total > capacity, rows truncated
+    # distributed_inner_join attaches a host-side ``retry_report``
+    # (parallel/faults.RetryReport) as an extra attribute.
+
+
+def _sentinel_max(dt: torch.dtype):
+    if dt.is_floating_point:
+        return float("inf")
+    return torch.iinfo(dt).max
+
+
+def _lexsort(ops) -> torch.Tensor:
+    """Permutation sorting rows by ``ops`` (most significant first):
+    stable sorts from the least significant operand up."""
+    perm = None
+    for op in reversed(ops):
+        v = op if perm is None else op[perm]
+        idx = torch.sort(v, stable=True).indices
+        perm = idx if perm is None else perm[idx]
+    return perm
+
+
+def _masked_keys(build: Table, probe: Table, keys):
+    """Merged key operands (invalid rows -> dtype max) and side tag
+    (0 build, 1 probe, 2 padding)."""
+    m_ops = []
+    for k in keys:
+        b, p = build.columns[k], probe.columns[k]
+        s = _sentinel_max(b.dtype)
+        m_ops.append(torch.cat([
+            torch.where(build.valid, b, torch.full_like(b, s)),
+            torch.where(probe.valid, p, torch.full_like(p, s)),
+        ]))
+    dev = build.device
+    two = torch.full((), 2, dtype=torch.int8, device=dev)
+    tag = torch.cat([
+        torch.where(build.valid, torch.zeros((), dtype=torch.int8,
+                                             device=dev), two),
+        torch.where(probe.valid, torch.ones((), dtype=torch.int8,
+                                            device=dev), two),
+    ])
+    return m_ops, tag
+
+
+def _run_starts(skeys) -> torch.Tensor:
+    n = skeys[0].shape[0]
+    first = torch.zeros(n, dtype=torch.bool, device=skeys[0].device)
+    for sk in skeys:
+        first[1:] |= sk[1:] != sk[:-1]
+    first[:1] = True
+    return first
+
+
+def _kernel_path_ok(build, probe, keys, b1d, p1d, out_capacity) -> bool:
+    """Static rules for the kernel pipeline (the JAX package's
+    ``_kernel_path_ok``): both sides non-empty, the merged domain and
+    the output inside int32, and every column a u64 lane."""
+    nb, npr = build.capacity, probe.capacity
+    if not (0 < nb and npr > 0 and nb + npr < 2**31 - 2
+            and out_capacity < 2**31 - 2):
+        return False
+    dts = ([build.columns[k].dtype for k in keys]
+           + [build.columns[c].dtype for c in b1d]
+           + [probe.columns[c].dtype for c in p1d])
+    return all(u64_lane_ok(dt) for dt in dts)
+
+
+def _merged_sort(build: Table, probe: Table, keys, b1d, p1d):
+    """The kernel pipeline's one merged sort: keys + side tag as sort
+    keys; both sides' payloads ride as values, same-dtype (probe, build)
+    pairs sharing one lane (a build row never needs a probe value).
+    Returns (sorted keys, sorted tag, {("p"|"b", name): sorted lane})."""
+    nb, npr = build.capacity, probe.capacity
+    m_ops, tag = _masked_keys(build, probe, keys)
+    perm = _lexsort([*m_ops, tag])
+    bq = [(nm, build.columns[nm]) for nm in b1d]
+    svals = {}
+    for pnm in p1d:
+        pc = probe.columns[pnm]
+        mate = next((t for t in bq if t[1].dtype == pc.dtype), None)
+        if mate is not None:
+            bq.remove(mate)
+            lane = torch.cat([mate[1], pc])
+            svals[("b", mate[0])] = svals[("p", pnm)] = lane[perm]
+        else:
+            svals[("p", pnm)] = torch.cat([pc.new_zeros(nb), pc])[perm]
+    for bnm, bc in bq:
+        svals[("b", bnm)] = torch.cat([bc, bc.new_zeros(npr)])[perm]
+    return [op[perm] for op in m_ops], tag[perm], svals
+
+
+def _join_kernel_path(build, probe, keys, b1d, p1d, out_capacity):
+    nb = build.capacity
+    dev = build.device
+    skeys, stag, svals = _merged_sort(build, probe, keys, b1d, p1d)
+    sc = join_scans(stag, _run_starts(skeys))
+    cnt = sc["cnt"]
+    # start_out is int32; past 2**31 matches it wraps, but the int64
+    # total still raises `overflow`, flagging every row untrustworthy.
+    total = cnt.sum(dtype=torch.int64)
+    rec_total = sc["rec_pos"][-1] + 1
+    is_rec = (stag == 1) & (cnt > 0)
+
+    # Run records: one per matching probe, in start_out order (rec_pos
+    # is monotone over merged order), carrying S, the probe-side output
+    # values and lo_m.
+    rec_lanes = {"__S": to_u64_lane(sc["start_out"])}
+    for i, sk in enumerate(skeys):
+        rec_lanes[f"__key{i}"] = to_u64_lane(sk)
+    for nm in p1d:
+        rec_lanes[nm] = to_u64_lane(svals[("p", nm)])
+    rec_lanes["__lo"] = to_u64_lane(sc["lo_m"])
+    rec_names = list(rec_lanes)
+    compacted = dict(zip(rec_names, stream_compact(
+        is_rec, sc["rec_pos"], [rec_lanes[nm] for nm in rec_names],
+        out_capacity)))
+    j = torch.arange(out_capacity, dtype=torch.int32, device=dev)
+    live = j < torch.clamp(rec_total, max=out_capacity)
+    # slots past the survivor count are undefined: S gets the sentinel,
+    # lo zero
+    S = torch.where(live, compacted["__S"].to(torch.int32),
+                    torch.full_like(j, I32_MAX))
+    lo_rec = torch.where(live, compacted["__lo"].to(torch.int32),
+                         torch.zeros_like(j))
+
+    rec_value_names = [nm for nm in rec_names if nm not in ("__S", "__lo")]
+    cols_list = [compacted[nm] for nm in rec_value_names]
+    if b1d:
+        # matched-build pack: dense, key-ordered
+        pack = stream_compact(
+            sc["matched"] != 0, sc["mb_pos"],
+            [to_u64_lane(svals[("b", nm)]) for nm in b1d], nb)
+        rec_outs, build_outs = expand_gather(
+            S, cols_list, out_capacity, lo=lo_rec, build_cols=pack)
+    else:
+        rec_outs, _ = expand_gather(S, cols_list, out_capacity)
+        build_outs = []
+    rec_vals = dict(zip(rec_value_names, rec_outs))
+
+    out_cols = {}
+    for i, k in enumerate(keys):
+        out_cols[k] = from_u64_lane(rec_vals[f"__key{i}"],
+                                    build.columns[k].dtype)
+    for nm, c in zip(b1d, build_outs):
+        out_cols[nm] = from_u64_lane(c, build.columns[nm].dtype)
+    for nm in p1d:
+        out_cols[nm] = from_u64_lane(rec_vals[nm], probe.columns[nm].dtype)
+    return out_cols, total, j
+
+
+def _join_plain(build, probe, keys, b1d, p1d, out_capacity):
+    nb = build.capacity
+    n = nb + probe.capacity
+    dev = build.device
+
+    # 1. build-side sort: valid rows land in a key-sorted prefix whose
+    #    order agrees with the merge ranks below.
+    b_ops = []
+    for k in keys:
+        c = build.columns[k]
+        b_ops.append(torch.where(build.valid, c,
+                                 torch.full_like(c, _sentinel_max(c.dtype))))
+    btag = (~build.valid).to(torch.int8)
+    perm_b = _lexsort([*b_ops, btag])
+    sb_payload = {nm: build.columns[nm][perm_b] for nm in b1d}
+
+    # 2. merged sort: keys + side tag; probe payloads ride.
+    m_ops, tag = _masked_keys(build, probe, keys)
+    perm = _lexsort([*m_ops, tag])
+    skeys = [op[perm] for op in m_ops]
+    stag = tag[perm]
+    sp_payload = {
+        nm: torch.cat([probe.columns[nm].new_zeros(nb),
+                       probe.columns[nm]])[perm]
+        for nm in p1d
+    }
+
+    # 3. runs and counts
+    is_build = stag == 0
+    is_probe = stag == 1
+    zero = torch.zeros((), dtype=torch.int32, device=dev)
+    b_before = (torch.cumsum(is_build.to(torch.int32), 0, dtype=torch.int32)
+                - is_build.to(torch.int32))
+    lo = torch.cummax(torch.where(_run_starts(skeys), b_before, zero),
+                      0).values
+    cnt = torch.where(is_probe, b_before - lo, zero)
+    csum = torch.cumsum(cnt, 0, dtype=torch.int32)
+    total = cnt.sum(dtype=torch.int64)
+    start_out = csum - cnt
+    is_rec = is_probe & (cnt > 0)
+
+    # 4. run-record sort: one record per matching probe, keyed by its
+    #    first output slot; everything an output slot needs rides.
+    rkey = torch.where(is_rec, start_out, torch.full_like(start_out, I32_MAX))
+    rperm = torch.sort(rkey, stable=True).indices
+    rec_cols = {f"__key{i}": sk for i, sk in enumerate(skeys)}
+    rec_cols.update(sp_payload)
+    rec_cols["__lo"] = lo
+
+    def _prefix(a, fill):
+        a = a[rperm]
+        if n >= out_capacity:
+            return a[:out_capacity]
+        return torch.cat([a, torch.full((out_capacity - n,), fill,
+                                        dtype=a.dtype, device=dev)])
+
+    S = _prefix(rkey, I32_MAX)
+    recs = {nm: _prefix(c, 0) for nm, c in rec_cols.items()}
+
+    # 5. expansion: scatter + cummax + row gathers; the build side is a
+    #    row gather at the derived in-run rank.
+    names = list(recs)
+    outs, start_b = expand_gather_reference(S, [recs[nm] for nm in names],
+                                            out_capacity)
+    out_vals = dict(zip(names, outs))
+    j = torch.arange(out_capacity, dtype=torch.int32, device=dev)
+    rank = out_vals.pop("__lo").long() + (j - start_b).long()
+    safe = rank.clamp(0, max(nb - 1, 0))
+    out_cols = {k: out_vals[f"__key{i}"] for i, k in enumerate(keys)}
+    for nm in b1d:
+        out_cols[nm] = sb_payload[nm][safe]
+    for nm in p1d:
+        out_cols[nm] = out_vals[nm]
+    return out_cols, total, j
+
+
+def sort_merge_inner_join(
+    build: Table,
+    probe: Table,
+    key,
+    out_capacity: int,
+    build_payload: Optional[Sequence[str]] = None,
+    probe_payload: Optional[Sequence[str]] = None,
+    kernel_config: Optional[KernelConfig] = None,
+    join_type: str = "inner",
+) -> JoinResult:
+    """Join ``build`` and ``probe`` on equality of ``key`` (a column name
+    or a sequence of names). Output columns: the key column(s), then
+    build payloads, then probe payloads. Payload names must not collide.
+
+    ``kernel_config`` (ops/kernel_config.KernelConfig) picks the
+    formulation; by default the kernel pipeline runs on CUDA tensors and
+    the plain formulation on CPU tensors.
+
+    Inner join over 1-D columns only: the other join types and 2-D
+    (fixed-width string) columns refuse by name.
+    """
+    if join_type != "inner":
+        raise NotImplementedError(
+            f"join_type={join_type!r}: the port has the inner join only")
+    cfg = resolve_kernel_config(kernel_config)
+    keys = [key] if isinstance(key, str) else list(key)
+    if build_payload is None:
+        build_payload = [c for c in build.column_names if c not in keys]
+    if probe_payload is None:
+        probe_payload = [c for c in probe.column_names if c not in keys]
+    build_payload, probe_payload = list(build_payload), list(probe_payload)
+    clash = set(build_payload) & set(probe_payload)
+    if clash:
+        raise ValueError(f"payload name collision: {sorted(clash)}")
+    reserved = [c for c in (*keys, *build_payload, *probe_payload)
+                if c.startswith("__")]
+    if reserved:
+        raise ValueError("column names starting with '__' are reserved for "
+                         f"internal join lanes: {sorted(set(reserved))}")
+    two_d = [c for t, names in ((build, keys + build_payload),
+                                (probe, keys + probe_payload))
+             for c in names if t.columns[c].ndim != 1]
+    if two_d:
+        raise NotImplementedError(
+            f"2-D (string) columns {sorted(set(two_d))}: the port joins "
+            "1-D columns only")
+    for k in keys:
+        bdt, pdt = build.columns[k].dtype, probe.columns[k].dtype
+        if bdt != pdt:
+            raise TypeError(f"key dtype mismatch: build {bdt} vs probe {pdt}")
+    if build.device != probe.device:
+        raise ValueError("build and probe live on different devices")
+
+    if (cfg.kernel_pipeline(build.device) and _kernel_path_ok(
+            build, probe, keys, build_payload, probe_payload, out_capacity)):
+        out_cols, total, j = _join_kernel_path(
+            build, probe, keys, build_payload, probe_payload, out_capacity)
+    else:
+        out_cols, total, j = _join_plain(
+            build, probe, keys, build_payload, probe_payload, out_capacity)
+    out_cols = {c: out_cols[c] for c in [*keys, *build_payload,
+                                         *probe_payload]}
+    return JoinResult(Table(out_cols, j < total), total=total,
+                      overflow=total > out_capacity)

@@ -1,0 +1,211 @@
+"""The distributed inner-join orchestrator: partition both tables ->
+all-to-all shuffle -> local join, with over-decomposition batching and
+the ``auto_retry`` capacity ladder.
+
+Port of ``distributed_join_tpu/parallel/distributed_join.py``: the flat
+padded inner path of ``make_join_step`` (:517-801, including the
+single-bucket shortcut :640-655), ``resolve_join_ladder`` (:1421) and
+``distributed_inner_join`` (:1486). With n ranks and over-decomposition
+k, rows hash into ``bucket = h % (k*n)``; ``dest = bucket % n`` and
+``batch = bucket // n``, so one partition sort serves all k batches and
+matching keys always share (dest, batch).
+
+The JAX step's other options (skew sidecar, segmented sort, ragged /
+ppermute / hierarchical / compressed wires, metrics and integrity
+digests, aggregate pushdown, typed joins) refuse by name.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+
+from distributed_join_tpu_torch.ops.join import (
+    JoinResult,
+    sort_merge_inner_join,
+)
+from distributed_join_tpu_torch.ops.partition import radix_hash_partition
+from distributed_join_tpu_torch.parallel.communicator import Communicator
+from distributed_join_tpu_torch.parallel.faults import CapacityLadder
+from distributed_join_tpu_torch.parallel.shuffle import shuffle_padded
+from distributed_join_tpu_torch.table import Table
+
+DEFAULT_SHUFFLE_CAPACITY_FACTOR = 1.6
+DEFAULT_OUT_CAPACITY_FACTOR = 1.2
+# The table row-sharded; the summed total and overflow replicated.
+JOIN_SHARDED_OUT = JoinResult(table=False, total=True, overflow=True)
+
+# Options of the JAX package's join step and driver that the port does
+# not have, with the default each may still be passed as.
+_UNPORTED = {
+    "join_type": ("typed joins (left/right/full_outer/semi/anti)", "inner"),
+    "shuffle": ("the ragged, ppermute and hierarchical shuffles", "padded"),
+    "sort_mode": ("the segmented-sort pipeline", "flat"),
+    "sort_segments": ("the segmented-sort pipeline", None),
+    "skew_threshold": ("the skew sidecar", None),
+    "hh_slots": ("the skew sidecar", None),
+    "hh_build_capacity": ("the skew sidecar", None),
+    "hh_probe_capacity": ("the skew sidecar", None),
+    "hh_out_capacity": ("the skew sidecar", None),
+    "compression_bits": ("the compressed wire", None),
+    "dcn_codec": ("the hierarchical DCN codec", "auto"),
+    "aggregate": ("aggregate pushdown", None),
+    "with_metrics": ("device metrics", False),
+    "with_integrity": ("wire-integrity digests", False),
+    "metrics_static": ("device metrics", None),
+    "verify_integrity": ("wire-integrity digests", False),
+    "program_cache": ("the serving program cache", None),
+    "explain": ("plan explain", False),
+    "tuner": ("the autotuner", None),
+}
+
+
+def _refuse_unported(opts: dict) -> None:
+    for name, value in opts.items():
+        if name not in _UNPORTED:
+            raise TypeError(f"unexpected join option {name!r}")
+        what, default = _UNPORTED[name]
+        if value is not None and value != default:
+            raise NotImplementedError(
+                f"{name}={value!r}: {what} is not part of the port")
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def make_join_step(
+    comm: Communicator,
+    key="key",
+    over_decomposition: int = 1,
+    shuffle_capacity_factor: float = DEFAULT_SHUFFLE_CAPACITY_FACTOR,
+    out_capacity_factor: float = DEFAULT_OUT_CAPACITY_FACTOR,
+    out_rows_per_rank: Optional[int] = None,
+    build_payload: Optional[Sequence[str]] = None,
+    probe_payload: Optional[Sequence[str]] = None,
+    kernel_config=None,
+    **unported,
+):
+    """The per-rank join step ``step(build_local, probe_local) ->
+    JoinResult``, to run under ``comm.spmd``.
+
+    Static capacities, as in the JAX package:
+    - shuffle pad per (batch, destination) bucket =
+      ceil(local_rows / (k * n) * shuffle_capacity_factor), rounded up
+      to 8;
+    - join output block per batch = local probe rows / k *
+      out_capacity_factor (or out_rows_per_rank / k), rounded up to 8.
+    Overflow of either is reported, never hidden. A single bucket
+    (n * k == 1) skips partition and shuffle — both pure row
+    permutations — and joins directly.
+    """
+    _refuse_unported(unported)
+    n = comm.n_ranks
+    k = over_decomposition
+    if k < 1:
+        raise ValueError("over_decomposition must be >= 1")
+    nb = k * n
+    keys = [key] if isinstance(key, str) else list(key)
+
+    def step(build_local: Table, probe_local: Table) -> JoinResult:
+        for kname in keys:
+            bdt = build_local.columns[kname].dtype
+            pdt = probe_local.columns[kname].dtype
+            if bdt != pdt:
+                # hash routing is dtype-dependent
+                raise TypeError(
+                    f"key {kname!r} dtype mismatch: build {bdt} vs probe {pdt}")
+        b_rows, p_rows = build_local.capacity, probe_local.capacity
+        b_cap = _round_up(int(math.ceil(
+            b_rows / nb * shuffle_capacity_factor)), 8)
+        p_cap = _round_up(int(math.ceil(
+            p_rows / nb * shuffle_capacity_factor)), 8)
+        if out_rows_per_rank is not None:
+            out_cap = _round_up(int(math.ceil(out_rows_per_rank / k)), 8)
+        else:
+            out_cap = _round_up(int(math.ceil(
+                p_rows / k * out_capacity_factor)), 8)
+
+        def local_join(b, p):
+            return sort_merge_inner_join(
+                b, p, keys, out_cap, build_payload=build_payload,
+                probe_payload=probe_payload, kernel_config=kernel_config)
+
+        if nb == 1:
+            res = local_join(build_local, probe_local)
+            parts, total, overflow = [res.table], res.total, res.overflow
+        else:
+            ptb = radix_hash_partition(build_local, keys, nb)
+            ptp = radix_hash_partition(probe_local, keys, nb)
+            parts = []
+            total = torch.zeros((), dtype=torch.int64,
+                                device=build_local.device)
+            overflow = torch.zeros((), dtype=torch.bool,
+                                   device=build_local.device)
+            for b in range(k):
+                recv = []
+                for pt, cap in ((ptb, b_cap), (ptp, p_cap)):
+                    padded, counts, ovf, _ = pt.to_padded(
+                        cap, bucket_start=b * n, n_buckets=n)
+                    recv.append(shuffle_padded(comm, padded, counts, cap)[0])
+                    overflow = overflow | ovf
+                res = local_join(*recv)
+                parts.append(res.table)
+                total = total + res.total
+                overflow = overflow | res.overflow
+        out = Table(
+            {name: torch.cat([t.columns[name] for t in parts])
+             for name in parts[0].column_names},
+            torch.cat([t.valid for t in parts]))
+        total = comm.psum(total)
+        overflow = comm.psum(overflow.to(torch.int32)) > 0
+        return JoinResult(out, total=total, overflow=overflow)
+
+    return step
+
+
+def make_distributed_join(comm: Communicator, **opts):
+    """``fn(build, probe) -> JoinResult`` over row-sharded global tables
+    (capacity divisible by n_ranks): the result table row-sharded, the
+    global match count and overflow flag replicated."""
+    return comm.spmd(make_join_step(comm, **opts),
+                     sharded_out=JOIN_SHARDED_OUT)
+
+
+def resolve_join_ladder(opts: dict) -> CapacityLadder:
+    """Pop the sizing knobs from ``opts`` (mutated: what remains goes to
+    ``make_join_step``) and return the ladder at its first rung."""
+    return CapacityLadder(
+        shuffle_capacity_factor=opts.pop("shuffle_capacity_factor",
+                                         DEFAULT_SHUFFLE_CAPACITY_FACTOR),
+        out_capacity_factor=opts.pop("out_capacity_factor",
+                                     DEFAULT_OUT_CAPACITY_FACTOR),
+        out_rows_per_rank=opts.pop("out_rows_per_rank", None),
+    )
+
+
+def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
+                           key="key", auto_retry: int = 0,
+                           **opts) -> JoinResult:
+    """One-shot join: pad to rank-divisible capacity, run the step on
+    every rank, and on overflow re-run with the ladder's escalated
+    capacities up to ``auto_retry`` times. The result carries the
+    escalation trail as ``res.retry_report`` (faults.RetryReport)."""
+    _refuse_unported({k: v for k, v in opts.items() if k in _UNPORTED})
+    n = comm.n_ranks
+    build = build.pad_to(_round_up(build.capacity, n))
+    probe = probe.pad_to(_round_up(probe.capacity, n))
+    opts = dict(opts)
+    ladder = resolve_join_ladder(opts)
+    for attempt in range(auto_retry + 1):
+        fn = make_distributed_join(comm, key=key, **ladder.sizing(), **opts)
+        res = fn(build, probe)
+        overflow = bool(res.overflow)
+        ladder.note(overflow)
+        if attempt == auto_retry or not overflow:
+            object.__setattr__(res, "retry_report", ladder.report())
+            return res
+        ladder.escalate()
+    raise AssertionError("unreachable")

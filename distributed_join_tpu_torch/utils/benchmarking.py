@@ -1,0 +1,80 @@
+"""Join timing discipline on the GPU.
+
+Port of ``distributed_join_tpu/utils/benchmarking.py``
+``consume_all_columns`` (:75) and ``timed_join_throughput`` (:100). One
+warm-up run of the whole timed loop, then ``iters`` joins between two
+CUDA events, with both sides' keys shifted by the loop counter (the
+shift keeps the hit/miss structure — the generator's miss keys occupy a
+disjoint range that shifts with the hits — while every iteration sorts
+and hashes new values). Every output column is reduced into one device
+scalar, and the host synchronises once, at the end: nothing inside a
+join step reads a value back.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+from distributed_join_tpu_torch.table import Table
+
+
+def consume_all_columns(table: Table) -> torch.Tensor:
+    """Reduce every output column over the valid rows into one int64
+    scalar, so no part of the result goes unmaterialised."""
+    acc = torch.zeros((), dtype=torch.int64, device=table.device)
+    for c in table.columns.values():
+        if c.dtype.is_floating_point:
+            c = c.to(torch.int32)
+        acc = acc + torch.where(table.valid, c.to(torch.int64),
+                                torch.zeros_like(c, dtype=torch.int64)).sum()
+    return acc
+
+
+def timed_join_throughput(comm, step: Callable, build: Table, probe: Table,
+                          iters: int, key="key"):
+    """Time ``iters`` join steps; returns ``(sec_per_join,
+    total_matches_per_join, overflow)``. On a CUDA device the interval
+    is taken with CUDA events; on the CPU (rehearsals only) with the
+    host clock after the work."""
+    shift_key = key if isinstance(key, str) else key[0]
+    key_dtype = probe.columns[shift_key].dtype
+
+    def looped(build, probe):
+        dev = build.device
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        consumed = torch.zeros((), dtype=torch.int64, device=dev)
+        for i in range(iters):
+            shift = i if not key_dtype.is_floating_point else float(i)
+            bcols = dict(build.columns)
+            bcols[shift_key] = bcols[shift_key] + shift
+            pcols = dict(probe.columns)
+            pcols[shift_key] = pcols[shift_key] + shift
+            res = step(Table(bcols, build.valid), Table(pcols, probe.valid))
+            total = total + res.total
+            overflow = overflow | res.overflow
+            consumed = consumed + consume_all_columns(res.table)
+        return total, overflow, comm.psum(consumed)
+
+    fn = comm.spmd(looped, sharded_out=(True, True, True))
+    fn(build, probe)  # warm-up: kernel builds, allocator, caches
+    on_gpu = build.device.type == "cuda"
+    if on_gpu:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize(build.device)
+        start.record()
+    t0 = time.perf_counter()
+    total, overflow, consumed = fn(build, probe)
+    if on_gpu:
+        end.record()
+        end.synchronize()
+        sec = start.elapsed_time(end) / 1e3
+    else:
+        sec = time.perf_counter() - t0
+    total, overflow = int(total), bool(overflow)
+    int(consumed)
+    return sec / iters, total // iters, overflow

@@ -1,0 +1,247 @@
+"""The port's CUDA kernels against their plain twins on the card, at
+edge-case shapes (tile boundaries, one element, no survivors, truncated
+capacities, more lanes than one launch carries). Every test needs a
+CUDA device and the CUDA toolkit; without them each skips, decided in
+the ``card`` fixture. Run on a machine with a GPU:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_join_tpu_torch.ops import _kernels, compact, expand, scan
+from distributed_join_tpu_torch.ops.join import sort_merge_inner_join
+from distributed_join_tpu_torch.ops.kernel_config import KernelConfig
+from distributed_join_tpu_torch.table import Table
+
+pytestmark = pytest.mark.cuda
+
+I32_MAX = 2**31 - 1
+TILE = 2048  # join_scans.cu: THREADS * ITEMS
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _merged(rng, n_keys, max_b, max_p, pad):
+    tags, firsts = [], []
+    for _ in range(n_keys):
+        b = int(rng.integers(0, max_b + 1))
+        p = int(rng.integers(0, max_p + 1))
+        if b + p == 0:
+            b = 1
+        tags.extend([0] * b + [1] * p)
+        firsts.extend([1] + [0] * (b + p - 1))
+    if pad:
+        tags.extend([2] * pad)
+        firsts.extend([1] + [0] * (pad - 1))
+    return np.array(tags, np.int8), np.array(firsts, bool)
+
+
+@pytest.mark.parametrize("n,p_first", [
+    (1, 0.5), (TILE - 1, 0.05), (TILE, 0.05), (TILE + 1, 0.0),
+    (3 * TILE + 5, 0.001), (600_001, 0.0001), (600_001, 0.3)])
+def test_join_scans_kernel_on_arbitrary_tags(card, n, p_first):
+    rng = np.random.default_rng(n)
+    tag = torch.from_numpy(rng.integers(0, 3, n).astype(np.int8)).to(card)
+    first = torch.from_numpy(rng.random(n) < p_first).to(card)
+    got = scan.join_scans(tag, first)
+    want = scan.join_scans_reference(tag, first)
+    for k in scan.NAMES:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("n_keys,max_b,max_p,pad", [
+    (40, 3, 3, 0), (200, 5, 2, 37), (20_000, 20, 1, 0), (300, 400, 300, 5),
+    (5, 3000, 2000, 7)])
+def test_join_scans_kernel_on_merged_layouts(card, n_keys, max_b, max_p, pad):
+    rng = np.random.default_rng(n_keys)
+    tag, first = _merged(rng, n_keys, max_b, max_p, pad)
+    tag, first = torch.from_numpy(tag).to(card), torch.from_numpy(first).to(card)
+    got = scan.join_scans(tag, first)
+    want = scan.join_scans_reference(tag, first)
+    for k in scan.NAMES:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("n,density,capacity,k", [
+    (5000, 0.3, 4096, 2), (5000, 1.0, 8192, 4), (5000, 0.0, 1024, 1),
+    (5000, 0.7, 1000, 3), (257, 0.5, 256, 1), (40_000, 0.6, 30_000, 11),
+    (300, 0.5, 0, 2)])
+def test_stream_compact_kernel(card, n, density, capacity, k):
+    rng = np.random.default_rng(n + k)
+    mask = torch.from_numpy(rng.random(n) < density).to(card)
+    pos = (torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1)
+    cols = [torch.from_numpy(rng.integers(-2**63, 2**63 - 1, n,
+                                          dtype=np.int64)).to(card)
+            for _ in range(k)]
+    before = compact.stream_compact.launches
+    got = compact.stream_compact(mask, pos, cols, capacity)
+    launches = -(-k // _kernels.MAX_LANES) if capacity else 0
+    assert compact.stream_compact.launches == before + launches
+    want = compact.stream_compact_reference(mask, pos, cols, capacity)
+    total = min(int(mask.sum()), capacity)
+    for g, w in zip(got, want):
+        assert torch.equal(g[:total], w[:total])
+
+
+def _join_records(rng, key_specs, kb=2):
+    S_list, lo_list = [], []
+    lo = slot = 0
+    for c, p in key_specs:
+        for _ in range(p):
+            S_list.append(slot)
+            lo_list.append(lo)
+            slot += c
+        lo += c
+    m = len(S_list) + 7
+    S = np.full((m,), I32_MAX, np.int32)
+    S[:len(S_list)] = S_list
+    lo_arr = np.zeros((m,), np.int32)
+    lo_arr[:len(lo_list)] = lo_list
+    cols = [rng.integers(0, 1 << 63, m, dtype=np.int64) for _ in range(2)]
+    bcols = [rng.integers(0, 1 << 63, max(lo, 1), dtype=np.int64)
+             for _ in range(kb)]
+    t = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return t(S), t(lo_arr), [t(c) for c in cols], [t(b) for b in bcols], slot
+
+
+@pytest.mark.parametrize("key_specs", [
+    [(2, 3)] * 40 + [(1, 1)] * 30,
+    [(700, 2), (1, 5), (300, 3), (2, 2)],
+    [(2000, 1)],
+    [(1, 1), (1, 1), (5000, 0), (1, 1)],
+    [(3, 2), (400, 0), (2, 3), (900, 0), (1, 4)] * 3,
+])
+def test_expand_gather_kernel_both_modes(card, key_specs):
+    rng = np.random.default_rng(len(key_specs))
+    S, lo, cols, bcols, total = _join_records(rng, key_specs)
+    for out_cap in (total, total + 50, max(total // 2, 1)):
+        keep = min(total, out_cap)
+        got = expand.expand_gather(S, cols, out_cap, lo=lo, build_cols=bcols)
+        want = expand.expand_gather_reference(S, cols, out_cap, lo=lo,
+                                              build_cols=bcols)
+        for g, w in zip(got[0] + got[1], want[0] + want[1]):
+            assert torch.equal(g[:keep], w[:keep])
+        got_r, got_sb = expand.expand_gather(S, cols, out_cap)
+        want_r, want_sb = expand.expand_gather_reference(S, cols, out_cap)
+        for g, w in zip(got_r, want_r):
+            assert torch.equal(g[:keep], w[:keep])
+        assert torch.equal(got_sb[:keep], want_sb[:keep])
+
+
+@pytest.mark.parametrize("k,kb", [(11, 3), (2, 17), (9, 9)])
+def test_expand_gather_kernel_lane_groups(card, k, kb):
+    """More lanes than one launch carries: one launch per group of
+    MAX_LANES lanes on the longer side, every lane equal to the twin."""
+    rng = np.random.default_rng(k * 31 + kb)
+    S, lo, _, bcols, total = _join_records(rng, [(3, 2), (50, 4), (1, 7)],
+                                           kb=kb)
+    m = S.shape[0]
+    cols = [torch.from_numpy(rng.integers(0, 1 << 63, m, dtype=np.int64))
+            .to(card) for _ in range(k)]
+    groups = -(-max(k, kb) // _kernels.MAX_LANES)
+    before = expand.expand_gather.launches
+    got = expand.expand_gather(S, cols, total, lo=lo, build_cols=bcols)
+    assert expand.expand_gather.launches == before + groups
+    want = expand.expand_gather_reference(S, cols, total, lo=lo,
+                                          build_cols=bcols)
+    assert len(got[0]) == k and len(got[1]) == kb
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+    got_r, got_sb = expand.expand_gather(S, cols, total)
+    want_r, want_sb = expand.expand_gather_reference(S, cols, total)
+    for g, w in zip(got_r + [got_sb], want_r + [want_sb]):
+        assert torch.equal(g, w)
+
+
+def test_expand_gather_kernel_zero_capacity(card):
+    S = torch.zeros(0, dtype=torch.int32, device=card)
+    before = expand.expand_gather.launches
+    out, sb = expand.expand_gather(S, [torch.zeros(0, dtype=torch.int64,
+                                                   device=card)], 0)
+    assert expand.expand_gather.launches == before
+    assert out[0].shape == (0,) and sb.shape == (0,)
+
+
+def test_expand_gather_kernel_without_records(card):
+    S = torch.full((16,), I32_MAX, dtype=torch.int32, device=card)
+    out, sb = expand.expand_gather(S, [torch.arange(16, device=card)], 64)
+    torch.cuda.synchronize()
+    assert out[0].shape == (64,) and sb.shape == (64,)
+
+
+@pytest.mark.parametrize("key_dtype,payload_dtype", [
+    (torch.int64, torch.int64), (torch.int32, torch.float32),
+    (torch.int16, torch.int8)])
+def test_join_kernel_pipeline_equals_plain(card, key_dtype, payload_dtype):
+    g = torch.Generator(device=card)
+    g.manual_seed(3)
+    n = 50_000
+    bk = torch.randint(0, 3000, (n,), generator=g, device=card)
+    pk = torch.randint(0, 6000, (n,), generator=g, device=card)
+    b = Table({"key": bk.to(key_dtype),
+               "bp": torch.arange(n, device=card).to(payload_dtype)},
+              torch.rand(n, generator=g, device=card) < 0.9)
+    p = Table({"key": pk.to(key_dtype),
+               "pp": (-torch.arange(n, device=card)).to(payload_dtype)},
+              torch.rand(n, generator=g, device=card) < 0.95)
+    # ~17 build rows per key and half the probe keys hit: ~7 matches a row
+    k = sort_merge_inner_join(b, p, "key", 12 * n)
+    q = sort_merge_inner_join(b, p, "key", 12 * n,
+                              kernel_config=KernelConfig("plain"))
+    assert int(k.total) == int(q.total) > 0 and not bool(k.overflow)
+
+    def rows(r):
+        cols = [r.table.columns[c][r.table.valid].double()
+                for c in ("key", "bp", "pp")]
+        a = torch.stack(cols, 1).cpu().numpy()
+        return a[np.lexsort(a.T[::-1])]
+
+    np.testing.assert_array_equal(rows(k), rows(q))
+
+
+def test_join_kernel_pipeline_many_lanes_and_zero_capacity(card):
+    """Nine payloads a side (more than one launch carries) and an empty
+    output block both stay on the kernel pipeline and equal the plain
+    formulation."""
+    g = torch.Generator(device=card)
+    g.manual_seed(5)
+    n = 20_000
+    bcols = {"key": torch.randint(0, 2000, (n,), generator=g, device=card)}
+    pcols = {"key": torch.randint(0, 4000, (n,), generator=g, device=card)}
+    for i in range(9):
+        bcols[f"b{i}"] = torch.randint(-99, 99, (n,), generator=g,
+                                       device=card).to(torch.int32)
+        pcols[f"p{i}"] = torch.rand(n, generator=g, device=card)
+    b = Table(bcols, torch.ones(n, dtype=torch.bool, device=card))
+    p = Table(pcols, torch.ones(n, dtype=torch.bool, device=card))
+    names = list(bcols) + [c for c in pcols if c != "key"]
+    before = scan.join_scans.launches
+    k = sort_merge_inner_join(b, p, "key", 8 * n)
+    q = sort_merge_inner_join(b, p, "key", 8 * n,
+                              kernel_config=KernelConfig("plain"))
+    assert scan.join_scans.launches == before + 1
+    assert int(k.total) == int(q.total) > 0 and not bool(k.overflow)
+
+    def rows(r):
+        cols = [r.table.columns[c][r.table.valid].double() for c in names]
+        a = torch.stack(cols, 1).cpu().numpy()
+        return a[np.lexsort(a.T[::-1])]
+
+    np.testing.assert_array_equal(rows(k), rows(q))
+    z = sort_merge_inner_join(b, p, "key", 0)
+    assert scan.join_scans.launches == before + 2
+    assert int(z.total) == int(k.total) and bool(z.overflow)
+
+
+def test_kernel_wrappers_refuse_wrong_dtypes(card):
+    tag = torch.zeros(8, dtype=torch.int32, device=card)
+    with pytest.raises(TypeError):
+        scan.join_scans(tag, torch.ones(8, dtype=torch.bool, device=card))
