@@ -9,12 +9,15 @@ Phases (any failure raises, and the script exits non-zero):
    parallel), with its wall time.
 2. Each kernel against its plain PyTorch twin at the headline's shapes
    (10 M x 10 M rows, selectivity 0.3, seed 42): the fused join scans
-   over the 20 M merged positions, both stream compactions, and the
-   expand-gather in build mode and record mode. Outputs must be
-   bit-identical over the prefix each contract defines. Times with CUDA
-   events: kernel, plain twin, one PyTorch library call where one
-   computes the same function, and the bound (bytes this data needs over
-   3.35 TB/s, or operations over the scalar rate, whichever is larger).
+   over the 20 M merged positions, both stream compactions of the join,
+   the expand-gather in build mode and record mode, the merge sort on
+   the join's merged-sort operand set (int64 key + int8 tag as keys,
+   int64 value; and one int64 key with one int64 value), and
+   expand_pull in both modes. Outputs must be bit-identical over the
+   prefix each contract defines. Times with CUDA events: kernel, plain
+   twin, one PyTorch library call where one computes the same function,
+   and the bound (bytes this data needs over 3.35 TB/s, or operations
+   over the scalar rate, whichever is larger).
 3. The headline protocol (python -m distributed_join_tpu_torch.bench):
    no overflow, every kernel launched, and an order-independent digest of
    the result rows equal to the same join forced through the plain path;
@@ -23,10 +26,32 @@ Phases (any failure raises, and the script exits non-zero):
    plain path.
 5. An emulated 4-rank join on the one card (hash -> partition -> padded
    shuffle -> local join) at 2 M x 2 M rows, equal to the 1-rank join.
+6. BASELINE config 3 on one card (50 M x 50 M rows, Zipf alpha 1.5,
+   unique build keys, skew threshold 0.001, 64 heavy-hitter slots, HH
+   output block 48 M): first the config driver's protocol with the skew
+   path and without it (python -m distributed_join_tpu_torch.benchmarks.
+   distributed_join), alone on the card so that its peak memory is its
+   own: no overflow, 50 M matches, every kernel of the path launched.
+   Then, on tables of its own, the compaction at the skew call site
+   against its twin (the HH build mask at capacity 2048, the shape the
+   path launches; and, off the path, the HH probe mask at n/8), and one
+   untimed join of each kind through the kernels and through the plain
+   twins: the four row digests must be equal, which holds the join
+   kernels against their twins at config 3's shapes (100 M merged
+   positions in the normal join, 50 M in the HH join).
+7. An emulated 4-rank Zipf join on the card (2 M x 2 M, alpha 1.5,
+   shuffle capacity factor 1.6): the naive join's first attempt
+   overflows and the ladder relieves it; the skew join with the driver's
+   auto-policy capacities fits on its first attempt; both equal the
+   1-rank join.
+8. The merge sort and expand_pull through their own entry points
+   (``merged_sort``, ``expand_pull``), which no join path calls, each at
+   the shapes of phase 2.
 
 Launch counts are set to zero just before each path and read just after;
-the launches of phase 2 do not count. The line before the last is one
-JSON object with every kernel's numbers; the last line is
+the launches of phase 2 and of the config-3 kernel check do not count.
+The line before the last is one JSON object with every kernel's numbers,
+one row per kernel and call site; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
 prints a result.
@@ -47,6 +72,10 @@ SEED = 42
 NROWS = 10_000_000
 EMU_ROWS = 2_000_000
 EMU_RANKS = 4
+CONFIG3_ROWS = 50_000_000
+CONFIG3_HH_OUT = 48_000_000
+ZIPF_ALPHA = 1.5
+ZIPF_EMU_FACTOR = 1.6
 REPS = 10
 DEVICE = "cuda"
 
@@ -133,6 +162,9 @@ def stage_inputs(build, probe, out_cap: int) -> dict:
     from distributed_join_tpu_torch.ops.scan import join_scans_reference
 
     keys, b1d, p1d = ["key"], ["build_payload"], ["probe_payload"]
+    m_ops, m_tag = J._masked_keys(build, probe, keys)
+    m_val = torch.cat([build.columns["build_payload"],
+                       probe.columns["probe_payload"]])
     skeys, stag, svals = J._merged_sort(build, probe, keys, b1d, p1d)
     first = J._run_starts(skeys)
     sc = join_scans_reference(stag, first)
@@ -159,7 +191,32 @@ def stage_inputs(build, probe, out_cap: int) -> dict:
                 pack_lane=pack_lane, S=S, lo=lo,
                 rec_cols=[compacted[1], compacted[2]], pack=pack,
                 kept=kept, total=total, n_matched=int(matched.sum()),
-                nb=build.capacity, out_cap=out_cap)
+                nb=build.capacity, out_cap=out_cap,
+                sort_ops=(m_ops[0], m_tag, m_val),
+                join_sort=lambda: J._merged_sort(build, probe, keys, b1d,
+                                                 p1d))
+
+
+def check_and_time(rows, name, source, replaces, got, want, prefix, fn_k,
+                   fn_p, fn_lib, nbytes, ops, **extra):
+    """Hold one kernel's outputs against its twin's (bit-identical over
+    the first ``prefix`` entries), time kernel, twin and library call,
+    and append the kernel's row."""
+    torch.cuda.synchronize()
+    err = max_abs_err(got, want, prefix)
+    _check(err == 0, f"{name}: kernel disagrees with its plain twin "
+                     f"(max_abs_err {err})")
+    b, by = bound_ms(nbytes, ops)
+    row = dict(name=name, route="cuda", source=source, replaces=replaces,
+               max_abs_err=err, ms=time_ms(fn_k), plain_ms=time_ms(fn_p),
+               bound_ms=b, bound_by=by,
+               library_ms=None if fn_lib is None else time_ms(fn_lib),
+               **{k: time_ms(f) for k, f in extra.items()})
+    print(f"[kernel] {name}: kernel_ms={row['ms']:.4f} "
+          f"plain_ms={row['plain_ms']:.4f} bound_ms={b:.4f} ({by}) "
+          f"library_ms={row['library_ms']} max_abs_err={err}"
+          + "".join(f" {k}={row[k]:.4f}" for k in extra), flush=True)
+    rows.append(row)
 
 
 def kernel_phase(build, probe, out_cap: int) -> list:
@@ -169,22 +226,8 @@ def kernel_phase(build, probe, out_cap: int) -> list:
     n = x["tag"].shape[0]
     rows = []
 
-    def add(name, source, replaces, got, want, prefix, fn_k, fn_p, fn_lib,
-            nbytes, ops):
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want, prefix)
-        _check(err == 0, f"{name}: kernel disagrees with its plain twin "
-                         f"(max_abs_err {err})")
-        b, by = bound_ms(nbytes, ops)
-        row = dict(name=name, route="cuda", source=source, replaces=replaces,
-                   max_abs_err=err, ms=time_ms(fn_k), plain_ms=time_ms(fn_p),
-                   bound_ms=b, bound_by=by,
-                   library_ms=None if fn_lib is None else time_ms(fn_lib))
-        print(f"[kernel] {name}: kernel_ms={row['ms']:.4f} "
-              f"plain_ms={row['plain_ms']:.4f} bound_ms={b:.4f} ({by}) "
-              f"library_ms={row['library_ms']} max_abs_err={err}",
-              flush=True)
-        rows.append(row)
+    def add(*args, **kw):
+        check_and_time(rows, *args, **kw)
 
     # fused scans over the 20 M merged positions
     got = scan.join_scans(x["tag"], x["first"])
@@ -263,7 +306,84 @@ def kernel_phase(build, probe, out_cap: int) -> list:
                                         output_size=tot),
         nbytes=kept_r * (4 + 8 * kk) + tot * (8 * kk + 4),
         ops=tot * 2 * 32)
+
+    # expand_pull (B7) on the same records: equal to expand_gather's
+    # output, and to its own twin (which adds start_b and the zero rank
+    # placeholder in build mode)
+    gat_r, gat_b = expand.expand_gather(S, rc, out_cap, lo=lo, build_cols=pk)
+    got = expand.expand_pull(S, rc, out_cap, lo=lo, build_cols=pk)
+    want = expand.expand_pull_reference(S, rc, out_cap, lo=lo, build_cols=pk)
+    _check(max_abs_err(got[0] + got[3], gat_r + gat_b, tot) == 0,
+           "expand_pull[build] differs from expand_gather")
+    add("expand_pull[build]",
+        "distributed_join_tpu_torch/csrc/expand_gather.cu",
+        "distributed_join_tpu/ops/expand_planes.py:58 (_expand_kernel)",
+        got[0] + [got[1], got[2]] + got[3],
+        want[0] + [want[1], want[2]] + want[3], tot,
+        lambda: expand.expand_pull(S, rc, out_cap, lo=lo, build_cols=pk),
+        lambda: expand.expand_pull_reference(S, rc, out_cap, lo=lo,
+                                             build_cols=pk),
+        None,
+        nbytes=x["kept"] * (4 + 4 + 8 * kk) + nm * 8 * kb
+        + tot * (8 * (kk + kb) + 4 + 4),
+        ops=tot * 2 * 32)
+    got_r, got_s = expand.expand_pull(S, rc, out_cap)
+    want_r, want_s = expand.expand_pull_reference(S, rc, out_cap)
+    gat_r, gat_s = expand.expand_gather(S, rc, out_cap)
+    _check(max_abs_err(got_r + [got_s], gat_r + [gat_s], tot) == 0,
+           "expand_pull[record] differs from expand_gather")
+    add("expand_pull[record]",
+        "distributed_join_tpu_torch/csrc/expand_gather.cu",
+        "distributed_join_tpu/ops/expand_planes.py:58 (_expand_kernel)",
+        got_r + [got_s], want_r + [want_s], tot,
+        lambda: expand.expand_pull(S, rc, out_cap),
+        lambda: expand.expand_pull_reference(S, rc, out_cap),
+        lambda: torch.repeat_interleave(rec_pack, run_len, dim=0,
+                                        output_size=tot),
+        nbytes=kept_r * (4 + 8 * kk) + tot * (8 * kk + 4),
+        ops=tot * 2 * 32)
+    del rec_pack
+    rows.extend(merge_sort_rows(x["sort_ops"], x["join_sort"]))
     return rows
+
+
+def merge_sort_rows(sort_ops, join_sort) -> list:
+    """B6 at the join's merged-sort operand set (int64 key + int8 tag as
+    keys, int64 value) and at one int64 key with one int64 value: the
+    kernel route and the stable twin both give the stable order, so every
+    operand must be bit-identical (stronger than the contract's sorted
+    keys plus equal rows within each key run)."""
+    import math
+
+    from distributed_join_tpu_torch.ops import merge_sort as ms
+
+    key, tag, val = sort_ops
+    n = key.shape[0]
+    rows = []
+    src = "distributed_join_tpu_torch/csrc/merge_sort.cu"
+    rep = ("distributed_join_tpu/ops/sort_pallas.py:314 (_merge_tile_kernel)")
+    # a comparison sort's least work: n log2 n compares at the scalar
+    # rate (never binds next to the bytes)
+    ops = n * math.ceil(math.log2(max(n, 2)))
+    for name, operands, nk, lib in (
+            ("merge_sort[key+tag]", (key, tag, val), 2, None),
+            ("merge_sort[key]", (key, val), 1,
+             lambda: _sort_and_gather(key, val))):
+        got = ms.merged_sort(operands, nk)
+        want = ms.merged_sort_reference(operands, nk)
+        width = sum(c.element_size() for c in operands)
+        extra = {"join_merged_sort_ms": join_sort} if lib is None else {}
+        check_and_time(rows, name, src, rep, list(got), list(want), None,
+                       lambda o=operands, k=nk: ms.merged_sort(o, k),
+                       lambda o=operands, k=nk: ms.merged_sort_reference(o, k),
+                       lib, nbytes=2 * n * width, ops=ops, **extra)
+        del got, want
+    return rows
+
+
+def _sort_and_gather(key, val):
+    srt = torch.sort(key)
+    return srt.values, val[srt.indices]
 
 
 # -- the paths ----------------------------------------------------------
@@ -271,14 +391,31 @@ def kernel_phase(build, probe, out_cap: int) -> list:
 
 def counted(fn):
     """Run ``fn`` with every launch count set to zero; returns (its
-    result, the counts it left)."""
-    from distributed_join_tpu_torch.ops import _kernels, compact, expand, scan
-    wrappers = (scan.join_scans, compact.stream_compact, expand.expand_gather)
+    result, the counts it left, by wrapper or call site)."""
+    from distributed_join_tpu_torch.ops import (
+        _kernels,
+        compact,
+        expand,
+        merge_sort,
+        scan,
+    )
+    from distributed_join_tpu_torch.parallel import skew
+    wrappers = (scan.join_scans, compact.stream_compact, expand.expand_gather,
+                skew.extract_prefix, merge_sort.merge_sort_planes,
+                expand.expand_pull)
     torch.cuda.synchronize()
     _kernels.reset_launch_counts(*wrappers)
     out = fn()
     torch.cuda.synchronize()
     return out, {w.__name__: w.launches for w in wrappers}
+
+
+JOIN_KERNELS = ("join_scans", "stream_compact", "expand_gather")
+
+
+def _require_launched(counts: dict, names, where: str) -> None:
+    for name in names:
+        _check(counts[name] > 0, f"{name} was not launched on {where}")
 
 
 def headline_phase():
@@ -293,8 +430,7 @@ def headline_phase():
     record, counts = counted(lambda: bench.run(NROWS, bench.ITERS, device=DEVICE))
     print("[headline] " + json.dumps(record), flush=True)
     print(f"[headline] launches {counts}", flush=True)
-    for name, c in counts.items():
-        _check(c > 0, f"{name} was not launched on the headline path")
+    _require_launched(counts, JOIN_KERNELS, "the headline path")
 
     build, probe = generate_build_probe_tables(
         seed=SEED, build_nrows=NROWS, probe_nrows=NROWS,
@@ -381,12 +517,231 @@ def emulated_phase():
            "emulated 4-rank total differs from 1 rank")
     _check(row_digest(multi) == row_digest(one),
            "emulated 4-rank rows differ from 1 rank")
-    for name, c in counts.items():
-        _check(c > 0, f"{name} was not launched on the emulated path")
+    _require_launched(counts, JOIN_KERNELS, "the emulated path")
     print(f"[emulated] {EMU_RANKS} ranks on one card: total="
           f"{int(multi.total)} equal to 1 rank; wall {wall:.3f} s "
           f"(host clock, first call); launches {counts}", flush=True)
     return counts
+
+
+def _config3_args(skew_on: bool, rows: int | None = None):
+    """The config driver's arguments for BASELINE config 3: with the skew
+    path on, the driver's auto-policy sets threshold 0.001 and the HH
+    probe block; the HH output block is 48 M of 50 M (scaled with rows)."""
+    from distributed_join_tpu_torch.benchmarks import distributed_join as D
+    rows = CONFIG3_ROWS if rows is None else rows
+    argv = ["--communicator", "local", "--build-table-nrows", str(rows),
+            "--probe-table-nrows", str(rows), "--zipf-alpha",
+            str(ZIPF_ALPHA), "--hh-slots", "64", "--iterations", "4"]
+    if skew_on:
+        argv += ["--hh-out-capacity",
+                 str(CONFIG3_HH_OUT * rows // CONFIG3_ROWS)]
+    else:
+        argv += ["--skew-threshold", "0"]
+    return D.parse_args(argv)
+
+
+def skew_site_row(build, probe, args) -> dict:
+    """B5 at the skew call site, on the config-3 tables: the compaction
+    of the row iota under the HH build mask at capacity 2048 (the HH
+    build broadcast, the one skew-site shape config 3 launches), with
+    the library call iota[mask][:cap]. The HH probe mask at n/8 (the
+    generic HH probe block, which config 3's policy does not use: its
+    block covers every local row, and extract_prefix sorts) is checked
+    and timed too, on a log line of its own that the kernels line does
+    not carry. The bound reads each mask byte, each survivor's position
+    and each kept survivor's lane, and writes the kept lanes."""
+    from distributed_join_tpu_torch.benchmarks import distributed_join as D
+    from distributed_join_tpu_torch.ops import compact
+    from distributed_join_tpu_torch.ops.hashing import hash_columns
+    from distributed_join_tpu_torch.parallel import skew
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        HH_BUILD_SLOTS_PER_HH,
+    )
+
+    thr = D.skew_policy(args, 1)[0]
+    bh = hash_columns([build.columns["key"]]).view(torch.uint64)
+    ph = hash_columns([probe.columns["key"]]).view(torch.uint64)
+    hh = skew.global_heavy_hitters(
+        LocalCommunicator(), ph, probe.valid, args.hh_slots,
+        threshold=int(thr * probe.capacity))
+    n = probe.capacity
+    iota = torch.arange(n, dtype=torch.int64, device=probe.device)
+    sites = (("stream_compact[skew]", skew.mark_heavy(bh, hh) & build.valid,
+              args.hh_slots * HH_BUILD_SLOTS_PER_HH),
+             ("stream_compact[skew, HH probe at n/8, off the path]",
+              skew.mark_heavy(ph, hh) & probe.valid, n // 8))
+    del bh, ph
+    rows = []
+    for name, mask, cap in sites:
+        pos = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+        surv = int(mask.sum())
+        kept = min(surv, cap)
+        print(f"[config3] {name}: {surv} survivors, capacity {cap}",
+              flush=True)
+        _check(surv > 0, f"config 3 found no heavy hitters ({name})")
+        got = compact.stream_compact(mask, pos, [iota], cap)
+        want = compact.stream_compact_reference(mask, pos, [iota], cap)
+        check_and_time(
+            rows, name, "distributed_join_tpu_torch/csrc/stream_compact.cu",
+            "distributed_join_tpu/ops/compact_pallas.py:62 (_compact_kernel), "
+            "called from distributed_join_tpu/parallel/skew.py:252-269",
+            [got[0][:kept]], [want[0][:kept]], None,
+            lambda m=mask, p=pos, c=cap: compact.stream_compact(
+                m, p, [iota], c),
+            lambda m=mask, p=pos, c=cap: compact.stream_compact_reference(
+                m, p, [iota], c),
+            lambda m=mask, c=cap: iota[m][:c],
+            nbytes=n + 4 * surv + 2 * 8 * kept, ops=2 * n)
+        del got, want, pos
+    return rows[0]
+
+
+def config3_phase():
+    """BASELINE config 3 through the config driver, skew on and naive;
+    then the skew join's rows against the naive join's, each through the
+    kernels and through the plain twins, on the same tables."""
+    from distributed_join_tpu_torch.benchmarks import distributed_join as D
+    from distributed_join_tpu_torch.ops.kernel_config import KernelConfig
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        make_join_step,
+    )
+
+    skew_args, naive_args = _config3_args(True), _config3_args(False)
+    torch.cuda.empty_cache()
+    rec, counts = counted(lambda: D.run(skew_args, device=DEVICE))
+    print("[config3] skew " + json.dumps(rec), flush=True)
+    print(f"[config3] skew launches {counts}", flush=True)
+    torch.cuda.empty_cache()
+    naive, ncounts = counted(lambda: D.run(naive_args, device=DEVICE))
+    print("[config3] naive " + json.dumps(naive), flush=True)
+    print(f"[config3] peak_memory_bytes skew={rec.get('peak_memory_bytes')} "
+          f"naive={naive.get('peak_memory_bytes')} (each driver run alone "
+          "on the card)", flush=True)
+    rows = skew_args.build_table_nrows
+    for label, r in (("skew", rec), ("naive", naive)):
+        _check(not r["overflow"], f"config 3 {label} join overflowed")
+        _check(r["matches_per_join"] == rows,
+               f"config 3 {label}: {r['matches_per_join']} matches, "
+               f"expected {rows}")
+    _require_launched(counts, JOIN_KERNELS + ("extract_prefix",),
+                      "the config-3 skew path")
+    _require_launched(ncounts, JOIN_KERNELS, "the config-3 naive path")
+
+    build, probe = D.make_tables(skew_args, torch.device(DEVICE))
+    row = skew_site_row(build, probe, skew_args)
+    torch.cuda.empty_cache()
+
+    # the rows: one untimed join of each kind on the unshifted tables,
+    # through the kernels and through the plain twins (the plain skew
+    # join's extract_prefix takes its sort branch: no kernel at all)
+    comm = LocalCommunicator()
+    thr, hh_probe, hh_out, _ = D.skew_policy(skew_args, 1)
+    digests = {}
+    for label, opts in (("skew", dict(skew_threshold=thr,
+                                      hh_slots=skew_args.hh_slots,
+                                      hh_probe_capacity=hh_probe,
+                                      hh_out_capacity=hh_out)),
+                        ("naive", {})):
+        for route in ("kernel", "plain"):
+            res = make_join_step(comm, key="key",
+                                 kernel_config=KernelConfig(route),
+                                 **opts)(build, probe)
+            _check(not bool(res.overflow) and int(res.total) == rows,
+                   f"config 3 {label} {route} digest join: total "
+                   f"{int(res.total)}")
+            digests[f"{label}/{route}"] = row_digest(res)
+            del res
+            torch.cuda.empty_cache()
+    print(f"[config3] digests {digests}", flush=True)
+    _check(len(set(digests.values())) == 1,
+           "config 3: the skew and naive joins, through the kernels and "
+           "through the plain twins, do not give the same rows")
+    return row, counts
+
+
+def zipf_emulated_phase():
+    """The naive-overflows / skew-fits pair on 4 emulated ranks: JAX's
+    test_zipf_skew_relieves_shuffle_padding, on the card."""
+    from distributed_join_tpu_torch.benchmarks import distributed_join as D
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+
+    args = _config3_args(True, EMU_ROWS)
+    build, probe = D.make_tables(args, torch.device(DEVICE))
+    thr, hh_probe, hh_out, _ = D.skew_policy(args, EMU_RANKS)
+    sizing = dict(shuffle_capacity_factor=ZIPF_EMU_FACTOR,
+                  out_capacity_factor=2.0)
+    one = distributed_inner_join(build, probe, LocalCommunicator(),
+                                 auto_retry=2, **sizing)
+    naive, ncounts = counted(lambda: distributed_inner_join(
+        build, probe, EmulatedCommunicator(EMU_RANKS), auto_retry=2,
+        **sizing))
+    skewed, scounts = counted(lambda: distributed_inner_join(
+        build, probe, EmulatedCommunicator(EMU_RANKS), skew_threshold=thr,
+        hh_slots=args.hh_slots, hh_probe_capacity=hh_probe,
+        hh_out_capacity=hh_out, **sizing))
+    trail = naive.retry_report
+    print(f"[zipf-emulated] naive attempts "
+          f"{[a.overflow for a in trail.attempts]}; skew attempts "
+          f"{[a.overflow for a in skewed.retry_report.attempts]}",
+          flush=True)
+    _check(trail.attempts[0].overflow and trail.resolved,
+           "naive Zipf join: the first attempt did not overflow, or the "
+           "ladder did not relieve it")
+    _check(skewed.retry_report.n_attempts == 1 and not bool(skewed.overflow),
+           "skew Zipf join overflowed on its first attempt")
+    d1 = row_digest(one)
+    for label, r in (("naive", naive), ("skew", skewed)):
+        _check(int(r.total) == int(one.total) == EMU_ROWS
+               and row_digest(r) == d1,
+               f"emulated Zipf {label} join differs from the 1-rank join")
+    _require_launched(ncounts, JOIN_KERNELS, "the emulated naive Zipf path")
+    _require_launched(scounts, JOIN_KERNELS + ("extract_prefix",),
+                      "the emulated skew Zipf path")
+    print(f"[zipf-emulated] {EMU_RANKS} ranks, factor {ZIPF_EMU_FACTOR}: "
+          f"total={int(one.total)}, both equal to 1 rank; launches naive "
+          f"{ncounts} skew {scounts}", flush=True)
+
+
+def entry_points_phase(build, probe) -> dict:
+    """B6 and B7 through their own entry points, each call counted on
+    its own, at phase 2's shapes."""
+    from distributed_join_tpu_torch.ops import expand
+    from distributed_join_tpu_torch.ops.merge_sort import merged_sort
+
+    x = stage_inputs(build, probe, int(0.6 * NROWS * 1.25))
+    key, tag, val = x["sort_ops"]
+    S, lo, rc, pk, cap = x["S"], x["lo"], x["rec_cols"], x["pack"], \
+        x["out_cap"]
+    calls = {
+        "merge_sort[key+tag]": (lambda: merged_sort((key, tag, val), 2),
+                                "merge_sort_planes"),
+        "merge_sort[key]": (lambda: merged_sort((key, val), 1),
+                            "merge_sort_planes"),
+        "expand_pull[build]": (lambda: expand.expand_pull(
+            S, rc, cap, lo=lo, build_cols=pk), "expand_pull"),
+        "expand_pull[record]": (lambda: expand.expand_pull(S, rc, cap),
+                                "expand_pull"),
+    }
+    launches = {}
+    for name, (fn, wrapper) in calls.items():
+        _, counts = counted(fn)
+        _check(counts[wrapper] > 0, f"{name}: {wrapper} was not launched")
+        launches[name] = counts[wrapper]
+    print(f"[entry-points] launches {launches}", flush=True)
+    return launches
 
 
 def main() -> int:
@@ -422,23 +777,34 @@ def main() -> int:
     build, probe = generate_build_probe_tables(
         seed=SEED, build_nrows=NROWS, probe_nrows=NROWS, device=DEVICE)
     rows = kernel_phase(build, probe, int(0.6 * NROWS * 1.25))
+    own = entry_points_phase(build, probe)
     del build, probe
     torch.cuda.empty_cache()
 
     _, head = headline_phase()
     rec = record_mode_phase()
     emulated_phase()
+    skew_row, c3 = config3_phase()
+    zipf_emulated_phase()
 
     launches = {"join_scans": head["join_scans"],
                 "stream_compact": head["stream_compact"],
+                "stream_compact[skew]": c3["extract_prefix"],
                 "expand_gather[build]": head["expand_gather"],
-                "expand_gather[record]": rec["expand_gather"]}
+                "expand_gather[record]": rec["expand_gather"],
+                **{k: own[k] for k in ("merge_sort[key+tag]",
+                                       "merge_sort[key]")},
+                **{k: own[k] for k in ("expand_pull[build]",
+                                       "expand_pull[record]")}}
+    by_name = {r["name"]: r for r in [*rows, skew_row]}
     kernels = []
-    for r in rows:
-        r = dict(r, launches=launches[r["name"]])
+    for name, count in launches.items():
+        r = dict(by_name[name], launches=count)
         kernels.append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            *[k for k in r if k.endswith("_ms") and k not in (
+                "ms", "plain_ms", "bound_ms", "library_ms")])})
     print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -27,7 +27,6 @@ import argparse
 import json
 import subprocess
 import sys
-import time
 
 import torch
 
@@ -42,6 +41,7 @@ from distributed_join_tpu_torch.parallel.distributed_join import (
 )
 from distributed_join_tpu_torch.parallel.faults import CapacityLadder
 from distributed_join_tpu_torch.utils.benchmarking import (
+    profile_join,
     timed_join_throughput,
 )
 from distributed_join_tpu_torch.utils.generators import (
@@ -131,13 +131,8 @@ def run(nrows: int = NROWS, iters: int = ITERS, device=None) -> dict:
 
 
 def profile(nrows: int = NROWS, joins: int = 3, top: int = 15) -> dict:
-    """Where a match-sized headline join spends its device time:
-    ``torch.profiler`` over ``joins`` joins after a warm-up. Returns the
-    device time of the top ``top`` kernels (self time, ms per join), the
-    device-busy total and the host wall time per join; their ratio is
-    the device's busy share."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
+    """Where a match-sized headline join spends its device time
+    (``utils.benchmarking.profile_join``), with the card's identity."""
     dev = resolve_device(None)
     comm = LocalCommunicator()
     build, probe = generate_build_probe_tables(
@@ -146,37 +141,8 @@ def profile(nrows: int = NROWS, joins: int = 3, top: int = 15) -> dict:
     step = make_join_step(
         comm, key="key",
         out_rows_per_rank=int(MATCHES_PER_ROW * nrows * OUT_SLACK))
-    step(build, probe)
-    torch.cuda.synchronize(dev)
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(joins):
-            res = step(build, probe)
-        torch.cuda.synchronize(dev)
-        wall = time.perf_counter() - t0
-    # device-side events only (kernels, copies, sets): the host-side
-    # aten:: events carry their kernels' time again
-    rows = [(e.device_time_total / 1e3 / joins, e.key, e.count // joins)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.device_time_total > 0]
-    if not rows:
-        raise RuntimeError("the profiler recorded no device time")
-    rows.sort(reverse=True)
-    busy = sum(r[0] for r in rows)
-    wall_ms = wall * 1e3 / joins
-    return {
-        "profile_joins": joins,
-        "total": int(res.total),
-        "device_busy_ms_per_join": busy,
-        "host_wall_ms_per_join": wall_ms,
-        "device_busy_share": busy / wall_ms if wall_ms else None,
-        "top_kernels_ms_per_join": [
-            {"name": k[:120], "ms": ms, "calls_per_join": c}
-            for ms, k, c in rows[:top]],
-        **gpu_identity(),
-    }
+    return {**profile_join(step, build, probe, joins, top),
+            **gpu_identity()}
 
 
 def main(argv=None) -> int:

@@ -1,0 +1,313 @@
+"""Distributed-join benchmark driver of the port.
+
+    python -m distributed_join_tpu_torch.benchmarks.distributed_join \\
+        --communicator local --build-table-nrows 50000000 \\
+        --probe-table-nrows 50000000 --zipf-alpha 1.5 \\
+        --hh-out-capacity 48000000
+
+Port of ``distributed_join_tpu/benchmarks/distributed_join.py``
+(``parse_args`` :61, ``run`` :250) with the reference's flag names and
+only the options the port has: generate the tables from seed 42 (the
+Zipf probe side from seed 43), resolve the skew auto-policy, then time
+``--iterations`` dependent joins per ladder rung (``utils/benchmarking``:
+a warm-up run, CUDA events, one synchronisation) and print one JSON
+record. Every other flag of the JAX driver refuses by name.
+
+Skew auto-policy (JAX :359-405): with ``--zipf-alpha`` and no
+``--skew-threshold``, the skew path runs at threshold 0.001 with the
+heavy-hitter probe and output blocks pre-sized from alpha by the top-K
+mass model (``parallel/skew.zipf_top_k_mass``); ``--skew-threshold 0``
+forces the naive path. An explicit threshold keeps the generic HH
+defaults (probe block 1/8, output block 1/4 of the local probe rows).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+from distributed_join_tpu_torch.bench import gpu_identity
+from distributed_join_tpu_torch.device import resolve_device
+from distributed_join_tpu_torch.parallel.communicator import (
+    EmulatedCommunicator,
+    LocalCommunicator,
+)
+from distributed_join_tpu_torch.parallel.distributed_join import (
+    DEFAULT_HH_SLOTS,
+    DEFAULT_OUT_CAPACITY_FACTOR,
+    DEFAULT_SHUFFLE_CAPACITY_FACTOR,
+    make_join_step,
+    resolve_join_ladder,
+)
+from distributed_join_tpu_torch.parallel.skew import zipf_top_k_mass
+from distributed_join_tpu_torch.utils.benchmarking import (
+    profile_join,
+    timed_join_throughput,
+)
+from distributed_join_tpu_torch.utils.generators import (
+    generate_build_probe_tables,
+    generate_build_table,
+    generate_zipf_probe_table,
+)
+
+SEED = 42
+ZIPF_SEED = 43
+DEFAULT_SKEW_THRESHOLD = 0.001
+
+# Flags of the JAX driver that the port does not have.
+_REFUSED = {
+    "--key-type": "key dtypes other than int64",
+    "--payload-type": "payload dtypes other than int64",
+    "--shuffle": "the ragged, ppermute and hierarchical shuffles",
+    "--slices": "the hierarchical mesh",
+    "--dcn-codec": "the hierarchical DCN codec",
+    "--registration-method": "RDMA registration",
+    "--compression": "the compressed wire",
+    "--compression-bits": "the compressed wire",
+    "--expand-kernel": "the kernel knobs",
+    "--compact-kernel": "the kernel knobs",
+    "--kernel-block": "the kernel knobs",
+    "--key-columns": "composite-key tables",
+    "--string-payload-bytes": "string columns",
+    "--string-payload-columns": "string columns",
+    "--variable-length-strings": "string columns",
+    "--string-key-bytes": "string keys",
+    "--agg-ab": "the A/B modes",
+    "--sort-ab": "the A/B modes",
+    "--resident-ab": "the A/B modes",
+    "--sort-mode": "the segmented-sort pipeline",
+    "--sort-segments": "the segmented-sort pipeline",
+    "--platform": "platform selection (the driver runs on the GPU)",
+    "--telemetry": "telemetry",
+    "--trace": "telemetry",
+    "--history": "telemetry",
+    "--diagnose": "telemetry",
+    "--explain": "plan explain",
+    "--stage-profile": "the stage profile",
+    "--auto-tune": "the tuner",
+    "--verify-integrity": "wire-integrity digests",
+    "--chaos-seed": "chaos injection",
+    "--guard-deadline-s": "the watchdog",
+}
+
+
+def parse_args(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    for tok in argv:
+        flag = tok.split("=", 1)[0]
+        if flag in _REFUSED:
+            p.error(f"{flag}: {_REFUSED[flag]} is not part of the port")
+    p.add_argument("--communicator", choices=["local", "emulated"],
+                   default="local",
+                   help="local = one rank; emulated = --n-ranks ranks in "
+                        "one process, one thread each, on one device")
+    p.add_argument("--n-ranks", type=int, default=None,
+                   help="ranks of the emulated communicator")
+    p.add_argument("--build-table-nrows", type=int, default=1_000_000)
+    p.add_argument("--probe-table-nrows", type=int, default=1_000_000)
+    p.add_argument("--selectivity", type=float, default=0.3)
+    p.add_argument("--rand-max", type=int, default=None,
+                   help="key range [0, rand-max); default build-table-nrows")
+    p.add_argument("--duplicate-build-keys", action="store_true",
+                   help="draw build keys with replacement (default: unique)")
+    p.add_argument("--zipf-alpha", type=float, default=None,
+                   help="draw probe keys Zipf(alpha) (BASELINE config 3)")
+    p.add_argument("--skew-threshold", type=float, default=None,
+                   help="heavy-hitter handling: a key is heavy when its "
+                        "global probe count exceeds this fraction of one "
+                        "rank's probe rows; with --zipf-alpha it defaults "
+                        "on (0.001, HH blocks pre-sized from alpha); 0 "
+                        "forces the naive path")
+    p.add_argument("--hh-slots", type=int, default=DEFAULT_HH_SLOTS)
+    p.add_argument("--hh-build-capacity", type=int, default=None,
+                   help="HH build rows per rank (default hh-slots * 32)")
+    p.add_argument("--hh-probe-capacity", type=int, default=None,
+                   help="HH probe block rows per rank (default 1/8 of "
+                        "the local probe rows)")
+    p.add_argument("--hh-out-capacity", type=int, default=None,
+                   help="HH output rows per rank (default 1/4 of the "
+                        "local probe rows)")
+    p.add_argument("--over-decomposition-factor", type=int, default=1)
+    p.add_argument("--shuffle-capacity-factor", type=float,
+                   default=DEFAULT_SHUFFLE_CAPACITY_FACTOR)
+    p.add_argument("--out-capacity-factor", type=float,
+                   default=DEFAULT_OUT_CAPACITY_FACTOR)
+    p.add_argument("--auto-retry", type=int, default=0,
+                   help="on overflow, escalate capacities and re-time, up "
+                        "to this many times; the trail lands under 'retry'")
+    p.add_argument("--iterations", type=int, default=4,
+                   help="timed dependent join steps")
+    p.add_argument("--json-output", default=None,
+                   help="also write the record to this file")
+    p.add_argument("--profile", type=int, default=0, metavar="JOINS",
+                   help="instead of the record, print where JOINS joins at "
+                        "the first rung's sizing spend their device time "
+                        "(torch.profiler; GPU only)")
+    return p.parse_args(argv)
+
+
+def _communicator(args):
+    if args.communicator == "local":
+        if args.n_ranks not in (None, 1):
+            raise SystemExit("--communicator local has one rank")
+        return LocalCommunicator()
+    if not args.n_ranks:
+        raise SystemExit("--communicator emulated needs --n-ranks")
+    return EmulatedCommunicator(args.n_ranks)
+
+
+def skew_policy(args, n_ranks: int):
+    """``(skew_threshold, hh_probe_capacity, hh_out_capacity, policy
+    record)`` as the JAX driver resolves them."""
+    threshold = args.skew_threshold
+    hh_probe = args.hh_probe_capacity
+    hh_out = args.hh_out_capacity
+    if threshold is not None and threshold <= 0:
+        return None, hh_probe, hh_out, None
+    if args.zipf_alpha is None or threshold is not None:
+        return threshold, hh_probe, hh_out, None
+    domain = args.rand_max or args.build_table_nrows
+    f_top = zipf_top_k_mass(args.zipf_alpha, domain, args.hh_slots)
+    p_local = args.probe_table_nrows // n_ranks
+    if hh_probe is None:
+        # 1.3x slack over the expected HH mass, never beyond the rank's
+        # own rows (HH probe rows stay local)
+        hh_probe = min(p_local, int(1.3 * f_top * p_local) + 1024)
+    if hh_out is None and not args.duplicate_build_keys:
+        # one match per HH probe row against unique build keys; 2x for
+        # moderate duplication. With duplicate build keys the model has
+        # no bound, and the generic default sizes the block.
+        hh_out = min(int(1.3 * p_local), int(2.6 * f_top * p_local) + 1024)
+    return DEFAULT_SKEW_THRESHOLD, hh_probe, hh_out, {
+        "auto": True,
+        "top_k_mass": round(f_top, 4),
+        "hh_probe_capacity": hh_probe,
+        "hh_out_capacity": hh_out,
+        "hh_out_generic_fallback": hh_out is None,
+    }
+
+
+def make_tables(args, dev):
+    """The driver's tables on ``dev``: uniform hit/miss probe keys, or
+    with ``--zipf-alpha`` a Zipf probe side (seed 43)."""
+    b_rows, p_rows = args.build_table_nrows, args.probe_table_nrows
+    rand_max = args.rand_max or b_rows
+    if args.zipf_alpha is None:
+        return generate_build_probe_tables(
+            seed=SEED, build_nrows=b_rows, probe_nrows=p_rows,
+            rand_max=args.rand_max, selectivity=args.selectivity,
+            unique_build_keys=not args.duplicate_build_keys, device=dev)
+    gb = torch.Generator(device=dev)
+    gb.manual_seed(SEED)
+    gp = torch.Generator(device=dev)
+    gp.manual_seed(ZIPF_SEED)
+    build = generate_build_table(gb, b_rows, rand_max,
+                                 unique_keys=not args.duplicate_build_keys)
+    probe = generate_zipf_probe_table(gp, p_rows, args.zipf_alpha, rand_max)
+    return build, probe
+
+
+def _prepare(args, dev):
+    """The communicator, the tables, the ladder at its first rung, the
+    join options it leaves fixed, and the skew policy."""
+    comm = _communicator(args)
+    n = comm.n_ranks
+    b_rows, p_rows = args.build_table_nrows, args.probe_table_nrows
+    if b_rows % n or p_rows % n:
+        raise SystemExit(f"table nrows must be divisible by n_ranks={n}")
+    build, probe = make_tables(args, dev)
+    threshold, hh_probe, hh_out, policy = skew_policy(args, n)
+    opts = dict(shuffle_capacity_factor=args.shuffle_capacity_factor,
+                out_capacity_factor=args.out_capacity_factor,
+                skew_threshold=threshold, hh_slots=args.hh_slots,
+                hh_build_capacity=args.hh_build_capacity,
+                hh_probe_capacity=hh_probe, hh_out_capacity=hh_out)
+    ladder = resolve_join_ladder(build, probe, n, opts)
+    fixed = dict(key="key", over_decomposition=args.over_decomposition_factor,
+                 **opts)
+    return comm, build, probe, ladder, fixed, policy
+
+
+def run(args, device=None) -> dict:
+    """The protocol; returns the record. ``device`` defaults to the GPU
+    (``"cpu"`` for rehearsals: its times say nothing of a GPU). The peak
+    device memory covers the whole run, tables included."""
+    dev = resolve_device(device)
+    on_gpu = dev.type == "cuda"
+    if on_gpu:
+        torch.cuda.reset_peak_memory_stats(dev)
+    comm, build, probe, ladder, fixed, policy = _prepare(args, dev)
+    n = comm.n_ranks
+    b_rows, p_rows = args.build_table_nrows, args.probe_table_nrows
+    threshold = fixed["skew_threshold"]
+    for attempt in range(args.auto_retry + 1):
+        step = make_join_step(comm, **fixed, **ladder.sizing())
+        sec, matches, overflow = timed_join_throughput(
+            comm, step, build, probe, args.iterations)
+        ladder.note(overflow)
+        if not overflow or attempt == args.auto_retry:
+            break
+        ladder.escalate()
+
+    rows_per_sec = (b_rows + p_rows) / sec
+    record = {
+        "benchmark": "distributed_join",
+        "communicator": comm.name,
+        "n_ranks": n,
+        "key_type": "int64",
+        "payload_type": "int64",
+        "build_table_nrows": b_rows,
+        "probe_table_nrows": p_rows,
+        "selectivity": args.selectivity,
+        "duplicate_build_keys": args.duplicate_build_keys,
+        "over_decomposition_factor": args.over_decomposition_factor,
+        "zipf_alpha": args.zipf_alpha,
+        "skew_threshold": threshold,
+        "skew_policy": policy,
+        "hh_slots": args.hh_slots if threshold is not None else None,
+        "iterations": args.iterations,
+        "matches_per_join": matches,
+        "overflow": overflow,
+        "retry": ladder.report().as_record(),
+        "elapsed_per_join_s": sec,
+        "rows_per_sec": rows_per_sec,
+        "m_rows_per_sec_per_rank": rows_per_sec / 1e6 / n,
+        "device": str(dev),
+    }
+    if on_gpu:
+        record.update(gpu_identity())
+        record["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    return record
+
+
+def profile(args, device=None) -> dict:
+    """Where ``args.profile`` joins at the first rung's sizing spend
+    their device time (``utils.benchmarking.profile_join``)."""
+    dev = resolve_device(device)
+    comm, build, probe, ladder, fixed, policy = _prepare(args, dev)
+    step = make_join_step(comm, **fixed, **ladder.sizing())
+    return {"zipf_alpha": args.zipf_alpha,
+            "skew_threshold": fixed["skew_threshold"], "skew_policy": policy,
+            "build_table_nrows": args.build_table_nrows,
+            "probe_table_nrows": args.probe_table_nrows,
+            **profile_join(step, build, probe, args.profile),
+            **gpu_identity()}
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    record = profile(args) if args.profile else run(args)
+    line = json.dumps(record)
+    if args.json_output:
+        with open(args.json_output, "w") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -37,13 +37,17 @@ def stream_compact_reference(mask, pos, cols, capacity: int):
 
 
 def stream_compact(mask: torch.Tensor, pos: torch.Tensor, cols,
-                   capacity: int):
+                   capacity: int, launch_counter=None):
     """Compact k uint64 lanes (int64 bit patterns).
 
     mask: (n,) bool survivors; pos: (n,) int32 == cumsum(mask) - 1 (only
     read where mask is set); cols: k (n,) int64 lanes. Returns k
     (capacity,) int64 lanes; survivors with pos >= capacity are dropped,
     and slots at or past the survivor count are undefined.
+
+    Launches are counted on ``launch_counter`` (an object with a
+    ``launches`` integer; default this wrapper): a second call site
+    counts its launches apart from the join's.
     """
     if mask.device.type == "cpu":
         return stream_compact_reference(mask, pos, cols, capacity)
@@ -68,7 +72,7 @@ def stream_compact(mask: torch.Tensor, pos: torch.Tensor, cols,
             _kernels.ptr_array(dst), len(src), n, capacity,
             _kernels.stream(mask.device))
         _kernels.check(lib, rc, "stream_compact")
-        _kernels.count_launch(stream_compact)
+        _kernels.count_launch(launch_counter or stream_compact)
     return outs
 
 

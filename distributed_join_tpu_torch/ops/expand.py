@@ -3,7 +3,9 @@ in build mode, gather each slot's build values at its in-run rank.
 
 Port of ``distributed_join_tpu/ops/expand_pallas.py`` ``expand_gather``
 in both modes (record mode: ``_expand_kernel``; build mode:
-``_expand_kernel_b8``) as one kernel, ``csrc/expand_gather.cu``.
+``_expand_kernel_b8``) and of ``distributed_join_tpu/ops/expand_planes.py``
+``expand_pull`` (its ``_expand_kernel``, a drop-in for the same
+contract) as one kernel, ``csrc/expand_gather.cu``.
 :func:`expand_gather_reference` is the plain twin: the JAX reference's
 scatter + cummax + row gather, plus the rank gather of the join's
 fallback branch. A GPU gather has no window bound, so the port has no
@@ -28,10 +30,10 @@ _SIGNATURES = {
 }
 
 
-def expand_gather_reference(S, cols, out_capacity: int, lo=None,
-                            build_cols=None):
-    """The plain twin; same signature and results as
-    :func:`expand_gather`."""
+def _expand_reference(S, cols, out_capacity: int, lo=None,
+                      build_cols=None):
+    """``(rec_outs, start_b, build_outs or None)`` by scatter + cummax +
+    row gathers."""
     m = S.shape[0]
     dev = S.device
     r = torch.arange(m, dtype=torch.int32, device=dev)
@@ -46,11 +48,32 @@ def expand_gather_reference(S, cols, out_capacity: int, lo=None,
     start_b = torch.cummax(torch.where(raw > 0, j, torch.zeros_like(j)),
                            0).values
     if build_cols is None:
-        return rec_outs, start_b
+        return rec_outs, start_b, None
     nb = build_cols[0].shape[0]
     rank = lo[ridx].long() + (j - start_b).long()
     safe = rank.clamp(0, nb - 1)
-    return rec_outs, [b[safe] for b in build_cols]
+    return rec_outs, start_b, [b[safe] for b in build_cols]
+
+
+def expand_gather_reference(S, cols, out_capacity: int, lo=None,
+                            build_cols=None):
+    """The plain twin; same signature and results as
+    :func:`expand_gather`."""
+    rec_outs, start_b, build_outs = _expand_reference(
+        S, cols, out_capacity, lo, build_cols)
+    if build_cols is None:
+        return rec_outs, start_b
+    return rec_outs, build_outs
+
+
+def expand_pull_reference(S, cols, out_capacity: int, lo=None,
+                          build_cols=None):
+    """The plain twin of :func:`expand_pull`."""
+    rec_outs, start_b, build_outs = _expand_reference(
+        S, cols, out_capacity, lo, build_cols)
+    if build_cols is None:
+        return rec_outs, start_b
+    return rec_outs, start_b, torch.zeros_like(start_b), build_outs
 
 
 def expand_gather(S: torch.Tensor, cols, out_capacity: int,
@@ -72,40 +95,79 @@ def expand_gather(S: torch.Tensor, cols, out_capacity: int,
     caller). CPU tensors take the plain twin; CUDA tensors launch the
     kernel.
     """
-    build = build_cols is not None
-    if build and (lo is None or not build_cols):
+    if build_cols is not None and (lo is None or not build_cols):
         raise ValueError("build mode needs lo and at least one build lane")
     if S.device.type == "cpu":
         return expand_gather_reference(S, cols, out_capacity, lo, build_cols)
+    rec_outs, start_b, build_outs = _launch(
+        "expand_gather", expand_gather, S, cols, out_capacity, lo,
+        build_cols, with_start_b=build_cols is None)
+    if build_cols is None:
+        return rec_outs, start_b
+    return rec_outs, build_outs
+
+
+def expand_pull(S: torch.Tensor, cols, out_capacity: int,
+                lo: torch.Tensor | None = None, build_cols=None):
+    """The port of ``expand_planes.expand_pull``, a drop-in for
+    :func:`expand_gather` with the JAX function's return shapes:
+    ``(rec_outs, start_b)`` without a build side, ``(rec_outs, start_b,
+    rank, build_outs)`` with one (``rank`` a zero placeholder, as in the
+    JAX function). Arguments as :func:`expand_gather`; the TPU-only
+    ``block`` and ``interpret`` have no counterpart.
+
+    The JAX kernel's build side is wrong where build ranks repeat
+    (duplicate probe keys; ``expand_planes.py:23-32``); this one computes
+    the contract there too, equal to ``expand_gather_reference``. CPU
+    tensors take the plain twin; CUDA tensors launch
+    ``csrc/expand_gather.cu``, counted on ``expand_pull.launches``.
+    """
+    if build_cols is not None and (lo is None or not build_cols):
+        raise ValueError("build mode needs lo and at least one build lane")
+    if S.device.type == "cpu":
+        return expand_pull_reference(S, cols, out_capacity, lo, build_cols)
+    rec_outs, start_b, build_outs = _launch(
+        "expand_pull", expand_pull, S, cols, out_capacity, lo, build_cols,
+        with_start_b=True)
+    if build_cols is None:
+        return rec_outs, start_b
+    return rec_outs, start_b, torch.zeros_like(start_b), build_outs
+
+
+def _launch(what, counter, S, cols, out_capacity, lo, build_cols,
+            with_start_b):
+    """Check, allocate and launch ``csrc/expand_gather.cu`` once per
+    group of lanes; returns ``(rec_outs, start_b or None, build_outs)``
+    and counts each launch on ``counter``."""
+    build = build_cols is not None
     bcols = list(build_cols) if build else []
     if S.dtype != torch.int32 or (build and lo.dtype != torch.int32) or any(
             c.dtype != torch.int64 for c in [*cols, *bcols]):
-        raise TypeError("expand_gather takes int32 S/lo and int64 lanes")
-    _kernels.require_cuda("expand_gather", S, *cols, *bcols,
-                          *([lo] if build else []))
+        raise TypeError(f"{what} takes int32 S/lo and int64 lanes")
+    _kernels.require_cuda(what, S, *cols, *bcols, *([lo] if build else []))
     dev = S.device
     rec_outs = [torch.empty(out_capacity, dtype=torch.int64, device=dev)
                 for _ in cols]
     build_outs = [torch.empty(out_capacity, dtype=torch.int64, device=dev)
                   for _ in bcols]
-    start_b = None if build else torch.empty(out_capacity, dtype=torch.int32,
-                                             device=dev)
-    result = (rec_outs, build_outs) if build else (rec_outs, start_b)
+    start_b = (torch.empty(out_capacity, dtype=torch.int32, device=dev)
+               if with_start_b else None)
+    result = (rec_outs, start_b, build_outs)
     if out_capacity == 0:
         return result
     m = S.shape[0]
     if m < 1 or any(c.shape[0] != m for c in cols) or (
             build and lo.shape[0] != m):
-        raise ValueError("expand_gather: S, lo and record lanes must share "
-                         "a length >= 1")
+        raise ValueError(f"{what}: S, lo and record lanes must share a "
+                         "length >= 1")
     nb = bcols[0].shape[0] if build else 0
     if build and (nb < 1 or any(b.shape[0] != nb for b in bcols)):
-        raise ValueError("expand_gather: build lanes must share a length >= 1")
+        raise ValueError(f"{what}: build lanes must share a length >= 1")
     lib = _kernels.library("expand_gather", _SIGNATURES)
     p = _kernels.ptr
     step = _kernels.MAX_LANES
-    # one launch per group of lanes on each side; record mode writes
-    # start_b in the first
+    # one launch per group of lanes on each side; start_b is written in
+    # the first
     for g in range(0, max(len(cols), len(bcols), 1), step):
         rs, ro = cols[g:g + step], rec_outs[g:g + step]
         bs, bo = bcols[g:g + step], build_outs[g:g + step]
@@ -114,9 +176,10 @@ def expand_gather(S: torch.Tensor, cols, out_capacity: int,
             len(rs), _kernels.ptr_array(bs), _kernels.ptr_array(bo),
             len(bs), nb, out_capacity, p(start_b if g == 0 else None),
             _kernels.stream(dev))
-        _kernels.check(lib, rc, "expand_gather")
-        _kernels.count_launch(expand_gather)
+        _kernels.check(lib, rc, what)
+        _kernels.count_launch(counter)
     return result
 
 
 expand_gather.launches = 0
+expand_pull.launches = 0

@@ -3,16 +3,17 @@ all-to-all shuffle -> local join, with over-decomposition batching and
 the ``auto_retry`` capacity ladder.
 
 Port of ``distributed_join_tpu/parallel/distributed_join.py``: the flat
-padded inner path of ``make_join_step`` (:517-801, including the
-single-bucket shortcut :640-655), ``resolve_join_ladder`` (:1421) and
-``distributed_inner_join`` (:1486). With n ranks and over-decomposition
-k, rows hash into ``bucket = h % (k*n)``; ``dest = bucket % n`` and
-``batch = bucket // n``, so one partition sort serves all k batches and
-matching keys always share (dest, batch).
+padded inner path of ``make_join_step`` (:517-801, including the skew
+sidecar :568-628 and the single-bucket shortcut :640-655),
+``resolve_join_ladder`` (:1421) and ``distributed_inner_join`` (:1486).
+With n ranks and over-decomposition k, rows hash into
+``bucket = h % (k*n)``; ``dest = bucket % n`` and ``batch = bucket //
+n``, so one partition sort serves all k batches and matching keys always
+share (dest, batch).
 
-The JAX step's other options (skew sidecar, segmented sort, ragged /
-ppermute / hierarchical / compressed wires, metrics and integrity
-digests, aggregate pushdown, typed joins) refuse by name.
+The JAX step's other options (segmented sort, ragged / ppermute /
+hierarchical / compressed wires, metrics and integrity digests,
+aggregate pushdown, typed joins) refuse by name.
 """
 
 from __future__ import annotations
@@ -22,11 +23,13 @@ from typing import Optional, Sequence
 
 import torch
 
+from distributed_join_tpu_torch.ops.hashing import hash_columns
 from distributed_join_tpu_torch.ops.join import (
     JoinResult,
     sort_merge_inner_join,
 )
 from distributed_join_tpu_torch.ops.partition import radix_hash_partition
+from distributed_join_tpu_torch.parallel import skew
 from distributed_join_tpu_torch.parallel.communicator import Communicator
 from distributed_join_tpu_torch.parallel.faults import CapacityLadder
 from distributed_join_tpu_torch.parallel.shuffle import shuffle_padded
@@ -34,6 +37,8 @@ from distributed_join_tpu_torch.table import Table
 
 DEFAULT_SHUFFLE_CAPACITY_FACTOR = 1.6
 DEFAULT_OUT_CAPACITY_FACTOR = 1.2
+DEFAULT_HH_SLOTS = 64
+HH_BUILD_SLOTS_PER_HH = 32  # default hh_build_capacity = slots * this
 # The table row-sharded; the summed total and overflow replicated.
 JOIN_SHARDED_OUT = JoinResult(table=False, total=True, overflow=True)
 
@@ -44,11 +49,6 @@ _UNPORTED = {
     "shuffle": ("the ragged, ppermute and hierarchical shuffles", "padded"),
     "sort_mode": ("the segmented-sort pipeline", "flat"),
     "sort_segments": ("the segmented-sort pipeline", None),
-    "skew_threshold": ("the skew sidecar", None),
-    "hh_slots": ("the skew sidecar", None),
-    "hh_build_capacity": ("the skew sidecar", None),
-    "hh_probe_capacity": ("the skew sidecar", None),
-    "hh_out_capacity": ("the skew sidecar", None),
     "compression_bits": ("the compressed wire", None),
     "dcn_codec": ("the hierarchical DCN codec", "auto"),
     "aggregate": ("aggregate pushdown", None),
@@ -86,6 +86,11 @@ def make_join_step(
     build_payload: Optional[Sequence[str]] = None,
     probe_payload: Optional[Sequence[str]] = None,
     kernel_config=None,
+    skew_threshold: Optional[float] = None,
+    hh_slots: int = DEFAULT_HH_SLOTS,
+    hh_build_capacity: Optional[int] = None,
+    hh_probe_capacity: Optional[int] = None,
+    hh_out_capacity: Optional[int] = None,
     **unported,
 ):
     """The per-rank join step ``step(build_local, probe_local) ->
@@ -100,6 +105,16 @@ def make_join_step(
     Overflow of either is reported, never hidden. A single bucket
     (n * k == 1) skips partition and shuffle — both pure row
     permutations — and joins directly.
+
+    Skew sidecar (``skew_threshold``; parallel/skew.py): a key is heavy
+    when its global probe count exceeds ``skew_threshold`` x local probe
+    rows. Heavy probe rows stay on their rank, compacted into an
+    ``hh_probe_capacity`` block (default 1/8 of local probe rows); heavy
+    build rows are broadcast (``hh_build_capacity`` slots per rank,
+    default ``hh_slots * 32``) and joined locally into an output block of
+    ``hh_out_capacity`` rows (default 1/4 of local probe rows), which
+    comes first in the result. The normal path sees neither side's heavy
+    rows. Every overflow folds into the one flag.
     """
     _refuse_unported(unported)
     n = comm.n_ranks
@@ -128,22 +143,56 @@ def make_join_step(
             out_cap = _round_up(int(math.ceil(
                 p_rows / k * out_capacity_factor)), 8)
 
-        def local_join(b, p):
+        def local_join(b, p, cap=out_cap):
             return sort_merge_inner_join(
-                b, p, keys, out_cap, build_payload=build_payload,
+                b, p, keys, cap, build_payload=build_payload,
                 probe_payload=probe_payload, kernel_config=kernel_config)
+
+        parts = []
+        total = torch.zeros((), dtype=torch.int64, device=build_local.device)
+        overflow = torch.zeros((), dtype=torch.bool,
+                               device=build_local.device)
+        if skew_threshold is not None:
+            # Classify on the key-tuple hash: it only has to be
+            # consistent across sides and ranks (a collision merely
+            # makes a key heavy; the HH join matches on the real key).
+            bh = hash_columns([build_local.columns[c] for c in keys])
+            ph = hash_columns([probe_local.columns[c] for c in keys])
+            bh, ph = bh.view(torch.uint64), ph.view(torch.uint64)
+            hh = skew.global_heavy_hitters(
+                comm, ph, probe_local.valid, hh_slots,
+                threshold=int(skew_threshold * p_rows))
+            is_hh_b = skew.mark_heavy(bh, hh)
+            is_hh_p = skew.mark_heavy(ph, hh)
+            hh_build, ovf_hb = skew.broadcast_heavy_build(
+                comm, build_local, is_hh_b,
+                hh_build_capacity or hh_slots * HH_BUILD_SLOTS_PER_HH,
+                kernel_config=kernel_config)
+            # heavy probe rows stay local, compacted into a right-sized
+            # block first, so the HH join does not re-sort all p_rows
+            hh_probe_cap = _round_up(
+                hh_probe_capacity or max(p_rows // 8, 1024), 8)
+            hh_probe, _, ovf_hp = skew.extract_prefix(
+                probe_local, probe_local.valid & is_hh_p, hh_probe_cap,
+                kernel_config=kernel_config)
+            hh_res = local_join(hh_build, hh_probe,
+                                hh_out_capacity or max(p_rows // 4, 1024))
+            parts.append(hh_res.table)
+            total = total + hh_res.total
+            overflow = overflow | ovf_hb | ovf_hp | hh_res.overflow
+            build_local = Table(build_local.columns,
+                                build_local.valid & ~is_hh_b)
+            probe_local = Table(probe_local.columns,
+                                probe_local.valid & ~is_hh_p)
 
         if nb == 1:
             res = local_join(build_local, probe_local)
-            parts, total, overflow = [res.table], res.total, res.overflow
+            parts.append(res.table)
+            total = total + res.total
+            overflow = overflow | res.overflow
         else:
             ptb = radix_hash_partition(build_local, keys, nb)
             ptp = radix_hash_partition(probe_local, keys, nb)
-            parts = []
-            total = torch.zeros((), dtype=torch.int64,
-                                device=build_local.device)
-            overflow = torch.zeros((), dtype=torch.bool,
-                                   device=build_local.device)
             for b in range(k):
                 recv = []
                 for pt, cap in ((ptb, b_cap), (ptp, p_cap)):
@@ -174,15 +223,35 @@ def make_distributed_join(comm: Communicator, **opts):
                      sharded_out=JOIN_SHARDED_OUT)
 
 
-def resolve_join_ladder(opts: dict) -> CapacityLadder:
+def resolve_join_ladder(build: Table, probe: Table, n_ranks: int,
+                        opts: dict) -> CapacityLadder:
     """Pop the sizing knobs from ``opts`` (mutated: what remains goes to
-    ``make_join_step``) and return the ladder at its first rung."""
+    ``make_join_step``), resolve the skew defaults exactly as the step
+    would, and return the ladder at its first rung. The HH capacities
+    are resolved here so that a retry can double them too."""
+    shuffle_f = opts.pop("shuffle_capacity_factor",
+                         DEFAULT_SHUFFLE_CAPACITY_FACTOR)
+    out_f = opts.pop("out_capacity_factor", DEFAULT_OUT_CAPACITY_FACTOR)
+    skew_on = opts.get("skew_threshold") is not None
+    hh_build_cap = opts.pop("hh_build_capacity", None)
+    hh_probe_cap = opts.pop("hh_probe_capacity", None)
+    hh_out_cap = opts.pop("hh_out_capacity", None)
+    if skew_on:
+        hh_build_cap = hh_build_cap or (
+            opts.get("hh_slots", DEFAULT_HH_SLOTS) * HH_BUILD_SLOTS_PER_HH)
+        hh_probe_cap = hh_probe_cap or max(
+            probe.capacity // (8 * n_ranks), 1024)
+        hh_out_cap = hh_out_cap or max(
+            probe.capacity // (4 * n_ranks), 1024)
     return CapacityLadder(
-        shuffle_capacity_factor=opts.pop("shuffle_capacity_factor",
-                                         DEFAULT_SHUFFLE_CAPACITY_FACTOR),
-        out_capacity_factor=opts.pop("out_capacity_factor",
-                                     DEFAULT_OUT_CAPACITY_FACTOR),
+        shuffle_capacity_factor=shuffle_f,
+        out_capacity_factor=out_f,
         out_rows_per_rank=opts.pop("out_rows_per_rank", None),
+        skew=skew_on,
+        hh_build_capacity=hh_build_cap,
+        hh_probe_capacity=hh_probe_cap,
+        hh_out_capacity=hh_out_cap,
+        local_probe_rows=probe.capacity // n_ranks,
     )
 
 
@@ -191,14 +260,16 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
                            **opts) -> JoinResult:
     """One-shot join: pad to rank-divisible capacity, run the step on
     every rank, and on overflow re-run with the ladder's escalated
-    capacities up to ``auto_retry`` times. The result carries the
-    escalation trail as ``res.retry_report`` (faults.RetryReport)."""
+    capacities up to ``auto_retry`` times (every capacity doubles; the
+    skew path's HH probe and output blocks jump to full local probe
+    coverage). The result carries the escalation trail as
+    ``res.retry_report`` (faults.RetryReport)."""
     _refuse_unported({k: v for k, v in opts.items() if k in _UNPORTED})
     n = comm.n_ranks
     build = build.pad_to(_round_up(build.capacity, n))
     probe = probe.pad_to(_round_up(probe.capacity, n))
     opts = dict(opts)
-    ladder = resolve_join_ladder(opts)
+    ladder = resolve_join_ladder(build, probe, n, opts)
     for attempt in range(auto_retry + 1):
         fn = make_distributed_join(comm, key=key, **ladder.sizing(), **opts)
         res = fn(build, probe)

@@ -1,7 +1,8 @@
 """Join timing discipline on the GPU.
 
 Port of ``distributed_join_tpu/utils/benchmarking.py``
-``consume_all_columns`` (:75) and ``timed_join_throughput`` (:100). One
+``consume_all_columns`` (:75) and ``timed_join_throughput`` (:100), plus
+:func:`profile_join`, where a join's device time goes. One
 warm-up run of the whole timed loop, then ``iters`` joins between two
 CUDA events, with both sides' keys shifted by the loop counter (the
 shift keeps the hit/miss structure — the generator's miss keys occupy a
@@ -78,3 +79,46 @@ def timed_join_throughput(comm, step: Callable, build: Table, probe: Table,
     total, overflow = int(total), bool(overflow)
     int(consumed)
     return sec / iters, total // iters, overflow
+
+
+def profile_join(step: Callable, build: Table, probe: Table, joins: int = 3,
+                 top: int = 15) -> dict:
+    """Where ``joins`` calls of ``step`` (after a warm-up call) spend
+    their device time, by ``torch.profiler`` on a CUDA device: the top
+    ``top`` device events by self time (ms per join), the device-busy
+    total and the host wall time per join, whose ratio is the device's
+    busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = build.device
+    step(build, probe)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(joins):
+            res = step(build, probe)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    # device-side events only (kernels, copies, sets): the host-side
+    # aten:: events carry their kernels' time again
+    rows = [(e.device_time_total / 1e3 / joins, e.key, e.count // joins)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.device_time_total > 0]
+    if not rows:
+        raise RuntimeError("the profiler recorded no device time")
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    wall_ms = wall * 1e3 / joins
+    return {
+        "profile_joins": joins,
+        "total": int(res.total),
+        "overflow": bool(res.overflow),
+        "device_busy_ms_per_join": busy,
+        "host_wall_ms_per_join": wall_ms,
+        "device_busy_share": busy / wall_ms if wall_ms else None,
+        "top_kernels_ms_per_join": [
+            {"name": k[:120], "ms": ms, "calls_per_join": c}
+            for ms, k, c in rows[:top]],
+    }

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain twins on the card, at
 edge-case shapes (tile boundaries, one element, no survivors, truncated
-capacities, more lanes than one launch carries). Every test needs a
+capacities, more lanes than one launch carries, all-equal keys, merge
+trees that are not powers of two). Every test needs a
 CUDA device and the CUDA toolkit; without them each skips, decided in
 the ``card`` fixture. Run on a machine with a GPU:
 
@@ -11,9 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from distributed_join_tpu_torch.ops import _kernels, compact, expand, scan
+from distributed_join_tpu_torch.ops import (
+    _kernels,
+    compact,
+    expand,
+    merge_sort,
+    scan,
+)
 from distributed_join_tpu_torch.ops.join import sort_merge_inner_join
 from distributed_join_tpu_torch.ops.kernel_config import KernelConfig
+from distributed_join_tpu_torch.parallel import skew
 from distributed_join_tpu_torch.table import Table
 
 pytestmark = pytest.mark.cuda
@@ -245,3 +253,107 @@ def test_kernel_wrappers_refuse_wrong_dtypes(card):
     tag = torch.zeros(8, dtype=torch.int32, device=card)
     with pytest.raises(TypeError):
         scan.join_scans(tag, torch.ones(8, dtype=torch.bool, device=card))
+
+
+@pytest.mark.parametrize("dup", [0, 3])
+def test_expand_pull_kernel_both_modes(card, dup):
+    """expand_pull equals its twin (expand_gather_reference's contract)
+    in both modes, also where build ranks repeat (the JAX kernel's
+    known limit), and counts its launches apart from expand_gather."""
+    rng = np.random.default_rng(40 + dup)
+    specs = [(3, 1 + dup), (50, 2), (1, 7), (700, 1 + dup)] * 5
+    S, lo, cols, bcols, total = _join_records(rng, specs)
+    before = (expand.expand_pull.launches, expand.expand_gather.launches)
+    got = expand.expand_pull(S, cols, total, lo=lo, build_cols=bcols)
+    assert (expand.expand_pull.launches,
+            expand.expand_gather.launches) == (before[0] + 1, before[1])
+    want = expand.expand_pull_reference(S, cols, total, lo=lo,
+                                        build_cols=bcols)
+    assert len(got) == 4
+    for g, w in zip(got[0] + [got[1], got[2]] + got[3],
+                    want[0] + [want[1], want[2]] + want[3]):
+        assert torch.equal(g, w)
+    got_r, got_sb = expand.expand_pull(S, cols, total)
+    want_r, want_sb = expand.expand_pull_reference(S, cols, total)
+    for g, w in zip(got_r + [got_sb], want_r + [want_sb]):
+        assert torch.equal(g, w)
+
+
+def _planes(rng, n, nk, nv, key_max):
+    key = [rng.integers(0, key_max, n, dtype=np.uint32) for _ in range(nk)]
+    val = [rng.integers(0, 2**32, n, dtype=np.uint32) for _ in range(nv)]
+    return [torch.from_numpy(a.view(np.int32)).cuda() for a in key + val]
+
+
+@pytest.mark.parametrize("nk", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("tiles,extra", [
+    (0, 1), (0, 100), (1, 0), (1, 1), (2, 0), (3, 0), (3, 77), (5, -1),
+    (13, 1000), (64, 0)])
+def test_merge_sort_kernel_edge_shapes(card, nk, tiles, extra):
+    """Tile boundaries, one row, and ceil merge trees (a run without a
+    partner at a level): bit-identical to the stable twin."""
+    T = merge_sort.tile_rows(nk)
+    n = tiles * T + extra
+    rng = np.random.default_rng(n * 10 + nk)
+    planes = _planes(rng, n, nk, 2, 50 if nk < 3 else 4)
+    before = merge_sort.merge_sort_planes.launches
+    got = merge_sort.merge_sort_planes(planes, nk)
+    assert merge_sort.merge_sort_planes.launches == before + 1
+    want = merge_sort.merge_sort_planes_reference(planes, nk)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n", [0, 5, 3 * 2048 + 5])
+def test_merge_sort_kernel_all_equal_and_sentinel_keys(card, n):
+    """All-equal keys keep input order (the index breaks ties); rows
+    whose keys are all ones sort last and stay rows, no padding."""
+    ones = torch.full((n,), -1, dtype=torch.int32, device=card)
+    same = torch.full((n,), 7, dtype=torch.int32, device=card)
+    iota = torch.arange(n, dtype=torch.int32, device=card)
+    for keys in ([same], [ones, ones]):
+        got = merge_sort.merge_sort_planes(keys + [iota], len(keys))
+        assert torch.equal(got[-1], iota)
+    mixed = torch.where(iota % 3 == 0, ones, iota)
+    got = merge_sort.merge_sort_planes([mixed, iota], 1)
+    want = merge_sort.merge_sort_planes_reference([mixed, iota], 1)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_merged_sort_kernel_join_operands(card):
+    """The join's merged-sort operand set (int64 key + int8 tag as keys,
+    int64 value) against the stable twin run through the same codecs."""
+    g = torch.Generator(device=card)
+    g.manual_seed(11)
+    n = 300_000
+    key = torch.randint(-(1 << 62), 1 << 62, (n,), generator=g, device=card)
+    key[::7] = key[0]
+    tag = torch.randint(0, 3, (n,), generator=g, device=card).to(torch.int8)
+    val = torch.randint(-(1 << 62), 1 << 62, (n,), generator=g, device=card)
+    got = merge_sort.merged_sort((key, tag, val), 2)
+    cpu = merge_sort.merged_sort((key.cpu(), tag.cpu(), val.cpu()), 2)
+    for a, b in zip(got, cpu):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_extract_prefix_kernel_branch_counts_its_own_site(card):
+    """extract_prefix's kernel branch (n >= 2 * capacity) launches the
+    compaction under its own count, equal to the sort branch over the
+    valid rows."""
+    rng = np.random.default_rng(8)
+    n, cap = 50_000, 4096
+    sel = torch.from_numpy(rng.random(n) < 0.05).to(card)
+    t = Table({"key": torch.arange(n, device=card) * 3,
+               "v": torch.arange(n, device=card)},
+              torch.ones(n, dtype=torch.bool, device=card))
+    before = (skew.extract_prefix.launches, compact.stream_compact.launches)
+    k, kc, kovf = skew.extract_prefix(t, sel, cap)
+    assert (skew.extract_prefix.launches,
+            compact.stream_compact.launches) == (before[0] + 1, before[1])
+    p, pc, povf = skew.extract_prefix(t, sel, cap,
+                                      kernel_config=KernelConfig("plain"))
+    assert skew.extract_prefix.launches == before[0] + 1
+    assert int(kc) == int(pc) and bool(kovf) == bool(povf) is False
+    assert torch.equal(k.valid, p.valid)
+    for c in ("key", "v"):
+        assert torch.equal(k.columns[c][k.valid], p.columns[c][p.valid])

@@ -360,7 +360,7 @@ def test_distributed_join_retry_ladder_matches_jax(jcomm8):
 def test_distributed_join_refuses_unported_options():
     t = _ttable({"key": np.arange(8), "a": np.arange(8)}, np.ones(8, bool))
     u = _ttable({"key": np.arange(8), "b": np.arange(8)}, np.ones(8, bool))
-    for name, value in (("skew_threshold", 0.1), ("shuffle", "ragged"),
+    for name, value in (("join_type", "left"), ("shuffle", "ragged"),
                         ("sort_mode", "segmented"), ("compression_bits", 16),
                         ("with_metrics", True), ("aggregate", object())):
         with pytest.raises(NotImplementedError, match=name):
@@ -405,6 +405,10 @@ def test_entry_points_refuse_to_run_on_cpu_unasked():
         Table.from_numpy({"key": np.arange(4)}, np.ones(4, bool))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tbench.run(nrows=8, iters=1)
+    from distributed_join_tpu_torch.benchmarks import distributed_join
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        distributed_join.run(distributed_join.parse_args(
+            ["--build-table-nrows", "8", "--probe-table-nrows", "8"]))
 
 
 def test_port_imports_no_jax():
