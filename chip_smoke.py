@@ -9,15 +9,18 @@ Phases (any failure raises, and the script exits non-zero):
    parallel), with its wall time.
 2. Each kernel against its plain PyTorch twin at the headline's shapes
    (10 M x 10 M rows, selectivity 0.3, seed 42): the fused join scans
-   over the 20 M merged positions, both stream compactions of the join,
-   the expand-gather in build mode and record mode, the merge sort on
-   the join's merged-sort operand set (int64 key + int8 tag as keys,
-   int64 value; and one int64 key with one int64 value), and
+   over the 20 M merged positions, the stream compaction at each of the
+   join's two call sites (run records, matched-build pack),
+   the expand-gather in build mode and record mode, the radix sort (B6)
+   on the join's merged-sort operand set (int64 key + int8 tag as keys,
+   int64 value; and one int64 key with one int64 value, each with its
+   live digit passes counted from the keys), and
    expand_pull in both modes. Outputs must be bit-identical over the
    prefix each contract defines. Times with CUDA events: kernel, plain
    twin, one PyTorch library call where one computes the same function,
    and the bound (bytes this data needs over 3.35 TB/s, or operations
-   over the scalar rate, whichever is larger).
+   over the scalar rate, whichever is larger); and the kernel's device
+   time alone (torch.profiler), without the host's gaps between calls.
 3. The headline protocol (python -m distributed_join_tpu_torch.bench):
    no overflow, every kernel launched, and an order-independent digest of
    the result rows equal to the same join forced through the plain path;
@@ -44,7 +47,7 @@ Phases (any failure raises, and the script exits non-zero):
    overflows and the ladder relieves it; the skew join with the driver's
    auto-policy capacities fits on its first attempt; both equal the
    1-rank join.
-8. The merge sort and expand_pull through their own entry points
+8. The radix sort (B6) and expand_pull through their own entry points
    (``merged_sort``, ``expand_pull``), which no join path calls, each at
    the shapes of phase 2.
 
@@ -61,6 +64,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import sys
 import time
 
@@ -103,6 +107,28 @@ def time_ms(fn, reps: int = REPS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int = REPS) -> tuple[float, dict]:
+    """Mean device time of the kernels ``fn`` launches per call
+    (torch.profiler), after a warm-up call, and its split by kernel name:
+    what ``time_ms`` measures less the host's gaps between launches,
+    which bind a call whose kernels take tens of microseconds."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    parts = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            name = re.split(r"[(<]", e.key.replace(
+                "(anonymous namespace)::", ""))[0].split("::")[-1].strip()
+            ms = e.device_time_total / 1e3 / reps
+            parts[name] = parts.get(name, 0.0) + ms
+    return sum(parts.values()), parts
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -212,10 +238,17 @@ def check_and_time(rows, name, source, replaces, got, want, prefix, fn_k,
                bound_ms=b, bound_by=by,
                library_ms=None if fn_lib is None else time_ms(fn_lib),
                **{k: time_ms(f) for k, f in extra.items()})
+    row["device_ms"], parts = device_ms(fn_k)
     print(f"[kernel] {name}: kernel_ms={row['ms']:.4f} "
+          f"device_ms={row['device_ms']:.4f} "
           f"plain_ms={row['plain_ms']:.4f} bound_ms={b:.4f} ({by}) "
           f"library_ms={row['library_ms']} max_abs_err={err}"
           + "".join(f" {k}={row[k]:.4f}" for k in extra), flush=True)
+    if len(parts) > 1:
+        print(f"[kernel] {name}: device ms by kernel " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(parts.items(),
+                                              key=lambda kv: -kv[1])),
+              flush=True)
     rows.append(row)
 
 
@@ -240,9 +273,13 @@ def kernel_phase(build, probe, out_cap: int) -> list:
         lambda: scan.join_scans_reference(x["tag"], x["first"]), None,
         nbytes=2 * n + 6 * 4 * n, ops=40 * n)
 
-    # both compactions of one join (the wrapper's two call sites): the
-    # run-record block, 4 lanes, 20 M -> out_cap, then the matched-build
-    # pack, 1 lane, 20 M -> nb; each checked over its survivor prefix
+    # the two compactions of one join, each at its own call site: the
+    # run-record block, 4 lanes, 20 M -> out_cap, and the matched-build
+    # pack, 1 lane, 20 M -> nb; each checked over its survivor prefix.
+    # Bound: every mask byte read, and the kept survivors' lanes read and
+    # written. No pos byte: pos == cumsum(mask) - 1 (the contract) follows
+    # from the mask, so the function needs none of it (the kernel reads
+    # one a tile).
     surv = int(x["is_rec"].sum())
     kept = min(surv, out_cap)
     k = len(x["rec_lanes"])
@@ -250,24 +287,23 @@ def kernel_phase(build, probe, out_cap: int) -> list:
     mask_r, mask_m = x["is_rec"], x["matched"]
     packed = torch.stack(x["rec_lanes"], 1)
     pack_lane = x["pack_lane"][0]
-
-    def both(fn):
-        return (fn(mask_r, x["rec_pos"], x["rec_lanes"], out_cap),
-                fn(mask_m, x["mb_pos"], x["pack_lane"], x["nb"]))
-
-    got_r, got_p = both(compact.stream_compact)
-    want_r, want_p = both(compact.stream_compact_reference)
-    add("stream_compact",
-        "distributed_join_tpu_torch/csrc/stream_compact.cu",
-        "distributed_join_tpu/ops/compact_planes.py:53 (_compact_kernel); "
-        "distributed_join_tpu/ops/compact_pallas.py:62 (_compact_kernel)",
-        [g[:kept] for g in got_r] + [g[:nm] for g in got_p],
-        [w[:kept] for w in want_r] + [w[:nm] for w in want_p], None,
-        lambda: both(compact.stream_compact),
-        lambda: both(compact.stream_compact_reference),
-        lambda: (packed[mask_r], pack_lane[mask_m]),
-        nbytes=2 * n + surv * (4 + 8 * k) + kept * 8 * k
-        + nm * (4 + 8) + nm * 8, ops=2 * n)
+    for name, mask, pos, lanes, cap, n_kept, lib, nbytes in (
+            ("stream_compact[record]", mask_r, x["rec_pos"], x["rec_lanes"],
+             out_cap, kept, lambda: packed[mask_r], n + 2 * kept * 8 * k),
+            ("stream_compact[pack]", mask_m, x["mb_pos"], x["pack_lane"],
+             x["nb"], nm, lambda: pack_lane[mask_m], n + 2 * nm * 8)):
+        got = compact.stream_compact(mask, pos, lanes, cap)
+        want = compact.stream_compact_reference(mask, pos, lanes, cap)
+        add(name, "distributed_join_tpu_torch/csrc/stream_compact.cu",
+            "distributed_join_tpu/ops/compact_planes.py:53 (_compact_kernel); "
+            "distributed_join_tpu/ops/compact_pallas.py:62 (_compact_kernel)",
+            got, want, n_kept,
+            lambda m=mask, q=pos, ls=lanes, c=cap: compact.stream_compact(
+                m, q, ls, c),
+            lambda m=mask, q=pos, ls=lanes, c=cap:
+                compact.stream_compact_reference(m, q, ls, c),
+            lib, nbytes=nbytes, ops=n)
+        del got, want
     del packed
 
     # expand-gather, build mode: 2 record lanes + 1 build lane -> out_cap
@@ -347,24 +383,38 @@ def kernel_phase(build, probe, out_cap: int) -> list:
     return rows
 
 
+def live_digit_passes(operands, nk: int) -> tuple[int, int]:
+    """The radix sort's live passes on these operands, and its digit
+    positions, counted with torch ops: the key planes packed two to a
+    64-bit word, and a byte position is live where not every row has the
+    same byte there."""
+    from distributed_join_tpu_torch.ops import merge_sort as ms
+    planes = [p for c in operands[:nk] for p in ms.key_to_planes(c)]
+    live = 0
+    for i in range(0, len(planes), 2):
+        word = ms._wide(planes[i]) << 32
+        if i + 1 < len(planes):
+            word = word | ms._wide(planes[i + 1])
+        for b in range(8):
+            digit = (word >> (8 * b)) & 0xFF
+            live += int(digit.amin() != digit.amax())
+    return live, 8 * ((len(planes) + 1) // 2)
+
+
 def merge_sort_rows(sort_ops, join_sort) -> list:
     """B6 at the join's merged-sort operand set (int64 key + int8 tag as
     keys, int64 value) and at one int64 key with one int64 value: the
     kernel route and the stable twin both give the stable order, so every
     operand must be bit-identical (stronger than the contract's sorted
-    keys plus equal rows within each key run)."""
-    import math
-
+    keys plus equal rows within each key run). Each row carries the
+    number of live digit passes of these keys."""
     from distributed_join_tpu_torch.ops import merge_sort as ms
 
     key, tag, val = sort_ops
     n = key.shape[0]
     rows = []
-    src = "distributed_join_tpu_torch/csrc/merge_sort.cu"
+    src = "distributed_join_tpu_torch/csrc/radix_sort.cu"
     rep = ("distributed_join_tpu/ops/sort_pallas.py:314 (_merge_tile_kernel)")
-    # a comparison sort's least work: n log2 n compares at the scalar
-    # rate (never binds next to the bytes)
-    ops = n * math.ceil(math.log2(max(n, 2)))
     for name, operands, nk, lib in (
             ("merge_sort[key+tag]", (key, tag, val), 2, None),
             ("merge_sort[key]", (key, val), 1,
@@ -373,10 +423,18 @@ def merge_sort_rows(sort_ops, join_sort) -> list:
         want = ms.merged_sort_reference(operands, nk)
         width = sum(c.element_size() for c in operands)
         extra = {"join_merged_sort_ms": join_sort} if lib is None else {}
+        # bytes: every operand read once and written once; operations:
+        # one digit per row for each live digit position of these keys
+        # at the scalar rate (never binds next to the bytes)
+        live, digits = live_digit_passes(operands, nk)
         check_and_time(rows, name, src, rep, list(got), list(want), None,
                        lambda o=operands, k=nk: ms.merged_sort(o, k),
                        lambda o=operands, k=nk: ms.merged_sort_reference(o, k),
-                       lib, nbytes=2 * n * width, ops=ops, **extra)
+                       lib, nbytes=2 * n * width, ops=n * max(live, 1),
+                       **extra)
+        rows[-1]["live_passes"] = live
+        print(f"[kernel] {name}: {live} live digit passes of {digits}",
+              flush=True)
         del got, want
     return rows
 
@@ -396,13 +454,15 @@ def counted(fn):
         _kernels,
         compact,
         expand,
+        join,
         merge_sort,
         scan,
     )
     from distributed_join_tpu_torch.parallel import skew
-    wrappers = (scan.join_scans, compact.stream_compact, expand.expand_gather,
-                skew.extract_prefix, merge_sort.merge_sort_planes,
-                expand.expand_pull)
+    wrappers = (scan.join_scans, join.compact_records,
+                join.pack_matched_builds, compact.stream_compact,
+                expand.expand_gather, skew.extract_prefix,
+                merge_sort.merge_sort_planes, expand.expand_pull)
     torch.cuda.synchronize()
     _kernels.reset_launch_counts(*wrappers)
     out = fn()
@@ -410,7 +470,8 @@ def counted(fn):
     return out, {w.__name__: w.launches for w in wrappers}
 
 
-JOIN_KERNELS = ("join_scans", "stream_compact", "expand_gather")
+JOIN_KERNELS = ("join_scans", "compact_records", "pack_matched_builds",
+                "expand_gather")
 
 
 def _require_launched(counts: dict, names, where: str) -> None:
@@ -549,8 +610,9 @@ def skew_site_row(build, probe, args) -> dict:
     generic HH probe block, which config 3's policy does not use: its
     block covers every local row, and extract_prefix sorts) is checked
     and timed too, on a log line of its own that the kernels line does
-    not carry. The bound reads each mask byte, each survivor's position
-    and each kept survivor's lane, and writes the kept lanes."""
+    not carry. The bound reads each mask byte and each kept survivor's
+    lane, and writes the kept lanes (no pos byte, as at the join
+    sites)."""
     from distributed_join_tpu_torch.benchmarks import distributed_join as D
     from distributed_join_tpu_torch.ops import compact
     from distributed_join_tpu_torch.ops.hashing import hash_columns
@@ -595,7 +657,7 @@ def skew_site_row(build, probe, args) -> dict:
             lambda m=mask, p=pos, c=cap: compact.stream_compact_reference(
                 m, p, [iota], c),
             lambda m=mask, c=cap: iota[m][:c],
-            nbytes=n + 4 * surv + 2 * 8 * kept, ops=2 * n)
+            nbytes=n + 2 * 8 * kept, ops=2 * n)
         del got, want, pos
     return rows[0]
 
@@ -788,7 +850,8 @@ def main() -> int:
     zipf_emulated_phase()
 
     launches = {"join_scans": head["join_scans"],
-                "stream_compact": head["stream_compact"],
+                "stream_compact[record]": head["compact_records"],
+                "stream_compact[pack]": head["pack_matched_builds"],
                 "stream_compact[skew]": c3["extract_prefix"],
                 "expand_gather[build]": head["expand_gather"],
                 "expand_gather[record]": rec["expand_gather"],
@@ -804,7 +867,8 @@ def main() -> int:
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             *[k for k in r if k.endswith("_ms") and k not in (
-                "ms", "plain_ms", "bound_ms", "library_ms")])})
+                "ms", "plain_ms", "bound_ms", "library_ms")],
+            *(["live_passes"] if "live_passes" in r else []))})
     print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -31,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-SOURCES = ("join_scans", "stream_compact", "expand_gather", "merge_sort")
+SOURCES = ("join_scans", "stream_compact", "expand_gather", "radix_sort")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 # Lanes one launch carries per side (DJT_MAX_LANES in csrc/common.cuh);

@@ -40,14 +40,21 @@ def stream_compact(mask: torch.Tensor, pos: torch.Tensor, cols,
                    capacity: int, launch_counter=None):
     """Compact k uint64 lanes (int64 bit patterns).
 
-    mask: (n,) bool survivors; pos: (n,) int32 == cumsum(mask) - 1 (only
-    read where mask is set); cols: k (n,) int64 lanes. Returns k
-    (capacity,) int64 lanes; survivors with pos >= capacity are dropped,
-    and slots at or past the survivor count are undefined.
+    mask: (n,) bool survivors; pos: (n,) int32 == cumsum(mask) - 1;
+    cols: k (n,) int64 lanes. Returns k (capacity,) int64 lanes;
+    survivors with pos >= capacity are dropped, and slots at or past the
+    survivor count are undefined.
+
+    The kernel relies on ``pos == cumsum(mask) - 1`` exactly: it reads
+    ``pos`` once per tile of 8192 positions, at the tile's first
+    survivor, and places the tile's survivors one slot apart from there.
+    Every caller passes such a ``pos``: the join's ``rec_pos`` and
+    ``mb_pos`` (``ops/scan.py``) and ``extract_prefix``'s cumsum
+    (``parallel/skew.py``). The plain twin scatters by ``pos`` itself.
 
     Launches are counted on ``launch_counter`` (an object with a
-    ``launches`` integer; default this wrapper): a second call site
-    counts its launches apart from the join's.
+    ``launches`` integer; default this wrapper): each call site of the
+    join and ``extract_prefix`` counts its launches on itself.
     """
     if mask.device.type == "cpu":
         return stream_compact_reference(mask, pos, cols, capacity)

@@ -142,6 +142,24 @@ def _merged_sort(build: Table, probe: Table, keys, b1d, p1d):
     return [op[perm] for op in m_ops], tag[perm], svals
 
 
+def compact_records(mask, pos, cols, capacity):
+    """The run-record block of the kernel pipeline: :func:`stream_compact`
+    with its launches counted on this call site."""
+    return stream_compact(mask, pos, cols, capacity,
+                          launch_counter=compact_records)
+
+
+def pack_matched_builds(mask, pos, cols, capacity):
+    """The matched-build pack of the kernel pipeline: :func:`stream_compact`
+    with its launches counted on this call site."""
+    return stream_compact(mask, pos, cols, capacity,
+                          launch_counter=pack_matched_builds)
+
+
+compact_records.launches = 0
+pack_matched_builds.launches = 0
+
+
 def _join_kernel_path(build, probe, keys, b1d, p1d, out_capacity):
     nb = build.capacity
     dev = build.device
@@ -164,7 +182,7 @@ def _join_kernel_path(build, probe, keys, b1d, p1d, out_capacity):
         rec_lanes[nm] = to_u64_lane(svals[("p", nm)])
     rec_lanes["__lo"] = to_u64_lane(sc["lo_m"])
     rec_names = list(rec_lanes)
-    compacted = dict(zip(rec_names, stream_compact(
+    compacted = dict(zip(rec_names, compact_records(
         is_rec, sc["rec_pos"], [rec_lanes[nm] for nm in rec_names],
         out_capacity)))
     j = torch.arange(out_capacity, dtype=torch.int32, device=dev)
@@ -180,7 +198,7 @@ def _join_kernel_path(build, probe, keys, b1d, p1d, out_capacity):
     cols_list = [compacted[nm] for nm in rec_value_names]
     if b1d:
         # matched-build pack: dense, key-ordered
-        pack = stream_compact(
+        pack = pack_matched_builds(
             sc["matched"] != 0, sc["mb_pos"],
             [to_u64_lane(svals[("b", nm)]) for nm in b1d], nb)
         rec_outs, build_outs = expand_gather(

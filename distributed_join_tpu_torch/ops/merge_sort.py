@@ -9,18 +9,24 @@ stays on ``lax.sort``).
   is the dtype's order. uint64/uint32/uint16 columns come as torch's
   unsigned dtypes (int64 bit patterns ``.view(torch.uint64)``).
 - :func:`merge_sort_planes` (JAX :489): planes in the order of the first
-  ``num_keys`` planes. CUDA tensors launch ``csrc/merge_sort.cu``, a
-  tile sort plus one merge-path launch per level, then a gather of every
-  plane by the sorting permutation; CPU tensors take the plain twin
+  ``num_keys`` planes. CUDA tensors launch ``csrc/radix_sort.cu``, a
+  least-significant-digit radix sort that skips, on the device, the
+  digit positions where every row has the same digit; every plane then
+  comes out in sorted order (a key plane from the key words the last
+  pass left sorted, where it kept them; any other gathered by the
+  sorting permutation). CPU tensors take the plain twin
   :func:`merge_sort_planes_reference`, stable ``torch.sort`` passes from
   the least significant key plane up.
 - :func:`merged_sort` (JAX ``pallas_merged_sort`` :659): a drop-in for
-  ``lax.sort(operands, num_keys)``.
+  ``lax.sort(operands, num_keys)``. On CPU tensors it runs the codecs
+  around the plain twin; on CUDA tensors the same kernel reads the
+  operands in their own dtypes (it applies the key codecs' order map as
+  it packs, and gathers each operand whole), so no plane is made.
 
 The contract is the JAX function's: key operands come out sorted; ties
-may be permuted. Both routes here are stable (the kernel breaks ties on
-the row index), so they agree bit for bit. Unlike the TPU kernel, no key
-tuple is reserved for padding.
+may be permuted. Both routes here are stable (every radix pass is), so
+they agree bit for bit. Unlike the TPU kernel, no key tuple is reserved
+for padding.
 """
 
 from __future__ import annotations
@@ -33,20 +39,28 @@ from distributed_join_tpu_torch.ops import _kernels
 from distributed_join_tpu_torch.ops.lanes import MASK32, srl
 
 _SIGNATURES = {
-    "djt_merge_sort_tile": (ctypes.c_int, [ctypes.c_int]),
-    "djt_merge_sort": (ctypes.c_int, [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(ctypes.c_int),
-        ctypes.c_void_p]),
-    "djt_gather_planes": (ctypes.c_int, [
+    "djt_radix_sort_tile": (ctypes.c_int, [ctypes.c_int]),
+    "djt_radix_sort_scratch_bytes": (ctypes.c_longlong, [
+        ctypes.c_longlong, ctypes.c_int]),
+    "djt_radix_sort": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_longlong, ctypes.c_void_p]),
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]),
+    "djt_gather_sorted": (ctypes.c_int, [ctypes.c_void_p] * 10 + [
+        ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]),
 }
-# key planes the kernel takes: 4 words of 64 bits (csrc/merge_sort.cu)
+# how the kernel maps a key operand's bits to unsigned order (KIND_* in
+# csrc/radix_sort.cu): as they are, sign bit flipped, IEEE-754 monotone
+_RAW, _SIGNED, _FLOAT = 0, 1, 2
+# key planes the kernel takes: 4 words of 64 bits (csrc/radix_sort.cu)
 MAX_KEY_PLANES = 8
 _SIGN32 = 1 << 31
 _SIGN64 = -(1 << 63)
 _SMALL_INTS = (torch.int8, torch.uint8, torch.int16, torch.uint16)
+_ORDER_KINDS = {torch.int8: _SIGNED, torch.int16: _SIGNED,
+                torch.int32: _SIGNED, torch.int64: _SIGNED,
+                torch.uint8: _RAW, torch.uint16: _RAW, torch.uint32: _RAW,
+                torch.uint64: _RAW, torch.float32: _FLOAT}
 
 
 def _u32(x: torch.Tensor) -> torch.Tensor:
@@ -144,14 +158,13 @@ def merge_sort_planes_reference(planes, num_keys: int) -> list:
     return [p[perm] for p in planes]
 
 
-def _check_planes(planes, num_keys: int) -> int:
+def _check_planes(planes, num_keys: int) -> None:
     if not planes or not 0 < num_keys <= len(planes):
         raise ValueError("need 0 < num_keys <= len(planes)")
     n = planes[0].shape[0]
     if any(p.dtype != torch.int32 or p.ndim != 1 or p.shape[0] != n
            for p in planes):
         raise TypeError("planes must be 1-D int32 tensors of one length")
-    return n
 
 
 def merge_sort_planes(planes, num_keys: int) -> list:
@@ -162,43 +175,66 @@ def merge_sort_planes(planes, num_keys: int) -> list:
     fewer than 2^31 rows), counted once per sort on
     ``merge_sort_planes.launches``."""
     planes = list(planes)
-    n = _check_planes(planes, num_keys)
+    _check_planes(planes, num_keys)
     if planes[0].device.type == "cpu":
         return merge_sort_planes_reference(planes, num_keys)
-    _kernels.require_cuda("merge_sort_planes", *planes)
-    if num_keys > MAX_KEY_PLANES:
+    return _radix_sort(planes[:num_keys], [_RAW] * num_keys, planes)
+
+
+def _ints(values) -> ctypes.Array:
+    return (ctypes.c_int * len(values))(*values)
+
+
+def _radix_sort(keys, kinds, operands) -> list:
+    """Launch the kernel: the rows sorted by ``keys`` (each mapped to
+    unsigned order by its kind), every operand gathered in that order.
+    No host synchronisation."""
+    n = operands[0].shape[0]
+    _kernels.require_cuda("merge_sort_planes", *operands)
+    if any(op.ndim != 1 or op.shape[0] != n for op in operands):
+        raise ValueError("merge_sort_planes: operands must be 1-D, of one "
+                         "length")
+    n_planes = sum(2 if k.element_size() == 8 else 1 for k in keys)
+    if n_planes > MAX_KEY_PLANES:
         raise ValueError(f"merge_sort_planes: at most {MAX_KEY_PLANES} key "
-                         f"planes, got {num_keys}")
+                         f"planes, got {n_planes}")
     if n >= 2**31 - 1:
         raise ValueError("merge_sort_planes: at most 2^31 - 2 rows")
     if n == 0:
-        return [p.clone() for p in planes]
-    dev = planes[0].device
-    words = (num_keys + 1) // 2
-    k0 = torch.empty((n, words), dtype=torch.int64, device=dev)
-    for w in range(words):
-        hi = planes[2 * w]
-        lo = planes[2 * w + 1] if 2 * w + 1 < num_keys else None
-        k0[:, w] = (_wide(hi) << 32) | (0 if lo is None else _wide(lo))
+        return [op.clone() for op in operands]
+    dev = operands[0].device
+    words = (n_planes + 1) // 2
+    lib = _kernels.library("radix_sort", _SIGNATURES)
+    # key words (packed by the kernel), ping-pong with the row index
+    k0 = torch.empty((words, n), dtype=torch.int64, device=dev)
     k1 = torch.empty_like(k0)
     i0 = torch.empty(n, dtype=torch.int32, device=dev)
     i1 = torch.empty_like(i0)
-    lib = _kernels.library("merge_sort", _SIGNATURES)
-    p = _kernels.ptr
-    in_1 = ctypes.c_int(0)
-    rc = lib.djt_merge_sort(p(k0), p(k1), p(i0), p(i1), n, words,
-                            ctypes.byref(in_1), _kernels.stream(dev))
-    _kernels.check(lib, rc, "merge_sort")
+    scratch = torch.empty(lib.djt_radix_sort_scratch_bytes(n, words),
+                          dtype=torch.uint8, device=dev)
+    p, stream = _kernels.ptr, _kernels.stream(dev)
+    rc = lib.djt_radix_sort(
+        _kernels.ptr_array(keys), _ints([k.element_size() for k in keys]),
+        _ints(kinds), len(keys), p(k0), p(k1), p(i0), p(i1), p(scratch), n,
+        stream)
+    _kernels.check(lib, rc, "radix_sort")
     _kernels.count_launch(merge_sort_planes)
-    perm = i1 if in_1.value else i0
-    outs = [torch.empty_like(pl) for pl in planes]
+    # each key operand's first plane (values: -1), for the gather to read
+    # the keys the sort left sorted
+    first = [sum(2 if k.element_size() == 8 else 1 for k in keys[:i])
+             for i in range(len(keys))]
+    planes = first + [-1] * (len(operands) - len(keys))
+    kinds = list(kinds) + [_RAW] * (len(operands) - len(keys))
+    outs = [torch.empty_like(op) for op in operands]
     step = _kernels.MAX_LANES
-    for g in range(0, len(planes), step):
-        rc = lib.djt_gather_planes(
-            p(perm), _kernels.ptr_array(planes[g:g + step]),
-            _kernels.ptr_array(outs[g:g + step]),
-            len(planes[g:g + step]), n, _kernels.stream(dev))
-        _kernels.check(lib, rc, "merge_sort gather")
+    for g in range(0, len(operands), step):
+        src, dst = operands[g:g + step], outs[g:g + step]
+        rc = lib.djt_gather_sorted(
+            p(scratch), p(k0), p(k1), p(i0), p(i1), _kernels.ptr_array(src),
+            _kernels.ptr_array(dst), _ints([c.element_size() for c in src]),
+            _ints(planes[g:g + step]), _ints(kinds[g:g + step]), len(src),
+            n, stream)
+        _kernels.check(lib, rc, "radix_sort gather")
     return outs
 
 
@@ -206,10 +242,10 @@ merge_sort_planes.launches = 0
 
 
 def tile_rows(num_keys: int) -> int:
-    """The kernel's tile length for ``num_keys`` key planes (CUDA only;
-    the edge-shape tests straddle it)."""
-    lib = _kernels.library("merge_sort", _SIGNATURES)
-    return lib.djt_merge_sort_tile((num_keys + 1) // 2)
+    """Rows per block of the kernel's scatter passes for ``num_keys`` key
+    planes (CUDA only; the edge-shape tests straddle it)."""
+    lib = _kernels.library("radix_sort", _SIGNATURES)
+    return lib.djt_radix_sort_tile((num_keys + 1) // 2)
 
 
 def _sort_operands(sort_planes, operands, num_keys: int) -> tuple:
@@ -234,9 +270,22 @@ def _sort_operands(sort_planes, operands, num_keys: int) -> tuple:
 def merged_sort(operands, num_keys: int) -> tuple:
     """Drop-in for ``lax.sort(operands, num_keys=num_keys)``: the first
     ``num_keys`` operands are compare keys (most significant first), the
-    rest ride. Returns the operands in sorted order, through
-    :func:`merge_sort_planes`."""
-    return _sort_operands(merge_sort_planes, operands, num_keys)
+    rest ride. Returns the operands in sorted order: on CPU tensors
+    through the plane codecs and the plain twin, on CUDA tensors through
+    the kernel of :func:`merge_sort_planes` on the operands as they are
+    (the same order; dtypes the codecs refuse raise TypeError)."""
+    operands = list(operands)
+    if not 0 < num_keys <= len(operands):
+        raise ValueError("need 0 < num_keys <= len(operands)")
+    if operands[0].device.type == "cpu":
+        return _sort_operands(merge_sort_planes_reference, operands,
+                              num_keys)
+    for c in operands:
+        if c.dtype not in _ORDER_KINDS:
+            raise TypeError(f"unsupported dtype {c.dtype}")
+    keys = operands[:num_keys]
+    return tuple(_radix_sort(keys, [_ORDER_KINDS[k.dtype] for k in keys],
+                             operands))
 
 
 def merged_sort_reference(operands, num_keys: int) -> tuple:

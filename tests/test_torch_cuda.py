@@ -1,12 +1,14 @@
 """The port's CUDA kernels against their plain twins on the card, at
 edge-case shapes (tile boundaries, one element, no survivors, truncated
-capacities, more lanes than one launch carries, all-equal keys, merge
-trees that are not powers of two). Every test needs a
-CUDA device and the CUDA toolkit; without them each skips, decided in
-the ``card`` fixture. Run on a machine with a GPU:
+capacities, more lanes than one launch carries, unaligned mask views,
+all-equal keys, and every arrangement of dead and live radix digits).
+Every test needs a CUDA device and the CUDA toolkit; without them each
+skips, decided in the ``card`` fixture. Run on a machine with a GPU:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
+
+import zlib
 
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ pytestmark = pytest.mark.cuda
 
 I32_MAX = 2**31 - 1
 TILE = 2048  # join_scans.cu: THREADS * ITEMS
+COMPACT_TILE = 8192  # stream_compact.cu: THREADS * VEC
 
 
 @pytest.fixture
@@ -97,6 +100,83 @@ def test_stream_compact_kernel(card, n, density, capacity, k):
     total = min(int(mask.sum()), capacity)
     for g, w in zip(got, want):
         assert torch.equal(g[:total], w[:total])
+
+
+def _compact_check(mask, pos, cols, capacity):
+    got = compact.stream_compact(mask, pos, cols, capacity)
+    want = compact.stream_compact_reference(mask, pos, cols, capacity)
+    total = min(int(mask.sum()), capacity)
+    for g, w in zip(got, want):
+        assert torch.equal(g[:total], w[:total])
+
+
+def _lanes(rng, n, k, card):
+    return [torch.from_numpy(rng.integers(-2**63, 2**63 - 1, n,
+                                          dtype=np.int64)).to(card)
+            for _ in range(k)]
+
+
+@pytest.mark.parametrize("off", range(1, 16))
+def test_stream_compact_kernel_unaligned_views(card, off):
+    """A mask at any byte offset (the head and tail chunks take the byte
+    path), with pos and lanes views at the same offset."""
+    rng = np.random.default_rng(100 + off)
+    n = 3 * COMPACT_TILE + 777
+    full = torch.ones(n + 16, dtype=torch.bool, device=card)
+    full[:] = torch.from_numpy(rng.random(n + 16) < 0.3).to(card)
+    mask = full[off:off + n]
+    pos_full = torch.zeros(n + 16, dtype=torch.int32, device=card)
+    pos_full[off:off + n] = torch.cumsum(mask.to(torch.int32), 0,
+                                         dtype=torch.int32) - 1
+    pos = pos_full[off:off + n]
+    cols = [c[off:off + n] for c in _lanes(rng, n + 16, 3, card)]
+    assert mask.data_ptr() % 16 == (full.data_ptr() + off) % 16
+    _compact_check(mask, pos, cols, n)
+    _compact_check(mask, pos, cols, int(mask.sum()) // 2)
+
+
+@pytest.mark.parametrize("pattern,k,cut", [
+    ("dense-empty", 4, None), ("dense-empty", 11, None),
+    ("dense-empty", 1, "in-tile"), ("one-survivor-tiles", 2, None),
+    ("one-survivor-tiles", 2, "in-tile"), ("dense", 3, "in-tile")])
+def test_stream_compact_kernel_tile_patterns(card, pattern, k, cut):
+    """Tiles without survivors between dense ones, tiles with a single
+    survivor, a capacity that ends inside a tile, and 11 lanes (two
+    launches)."""
+    rng = np.random.default_rng(len(pattern) + k)
+    tiles = 9
+    n = tiles * COMPACT_TILE + 1234
+    m = np.zeros(n, bool)
+    for t in range(tiles + 1):
+        lo, hi = t * COMPACT_TILE, min((t + 1) * COMPACT_TILE, n)
+        if pattern == "dense":
+            m[lo:hi] = rng.random(hi - lo) < 0.9
+        elif pattern == "dense-empty" and t % 3 == 0:
+            m[lo:hi] = rng.random(hi - lo) < 0.8
+        elif pattern == "one-survivor-tiles":
+            m[lo + int(rng.integers(0, hi - lo))] = True
+    mask = torch.from_numpy(m).to(card)
+    pos = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    cols = _lanes(rng, n, k, card)
+    capacity = int(m.sum())
+    if cut == "in-tile":
+        # the output ends part way through the survivors of tile 3
+        capacity = int(m[:3 * COMPACT_TILE].sum()) + max(
+            1, int(m[3 * COMPACT_TILE:4 * COMPACT_TILE].sum()) // 2)
+    before = compact.stream_compact.launches
+    _compact_check(mask, pos, cols, capacity)
+    assert compact.stream_compact.launches == before + -(-k // 8)
+
+
+@pytest.mark.parametrize("n", [1, 15, 16, 17, 100, COMPACT_TILE - 1])
+def test_stream_compact_kernel_below_one_tile(card, n):
+    rng = np.random.default_rng(n)
+    for density in (0.0, 0.5, 1.0):
+        mask = torch.from_numpy(rng.random(n) < density).to(card)
+        pos = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+        cols = _lanes(rng, n, 2, card)
+        for cap in (n, max(n // 3, 1)):
+            _compact_check(mask, pos, cols, cap)
 
 
 def _join_records(rng, key_specs, kb=2):
@@ -290,8 +370,8 @@ def _planes(rng, n, nk, nv, key_max):
     (0, 1), (0, 100), (1, 0), (1, 1), (2, 0), (3, 0), (3, 77), (5, -1),
     (13, 1000), (64, 0)])
 def test_merge_sort_kernel_edge_shapes(card, nk, tiles, extra):
-    """Tile boundaries, one row, and ceil merge trees (a run without a
-    partner at a level): bit-identical to the stable twin."""
+    """Boundaries of the scatter passes' tiles and one row, keys of 1 to
+    8 planes: bit-identical to the stable twin."""
     T = merge_sort.tile_rows(nk)
     n = tiles * T + extra
     rng = np.random.default_rng(n * 10 + nk)
@@ -320,6 +400,87 @@ def test_merge_sort_kernel_all_equal_and_sentinel_keys(card, n):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _u32_planes(arrays, card):
+    return [torch.from_numpy(np.asarray(a, np.uint32).view(np.int32))
+            .to(card) for a in arrays]
+
+
+# the digit-pattern cases and their key planes
+_DIGIT_CASES = {
+    "all-dead": 2, "lowest-only": 2, "highest-only-1-word": 2,
+    "highest-only-2-words": 4, "high-word-only": 4, "tag-only-in-word-1": 3,
+    "two-passes": 2, "three-passes": 2, "all-ones-last": 2, "one-row": 2,
+    "2^20+3-rows": 3}
+
+
+def _digit_case(name, rng):
+    """(key planes, n): keys whose live digit positions are known.
+    Digit positions count bytes from the least significant of the last
+    key word."""
+    n = 5 * merge_sort.tile_rows(_DIGIT_CASES[name]) + 321
+
+    def const(v):
+        return np.full(n, v, np.uint32)
+
+    def rnd(bits):
+        return rng.integers(0, 1 << bits, n, dtype=np.uint64)
+
+    if name == "all-dead":               # every digit dead: no pass runs
+        return [const(0x12345678), const(0x9ABCDEF0)], n
+    if name == "lowest-only":            # digit 0: one pass (odd)
+        return [const(7), 0xABCDEF00 | rnd(8)], n
+    if name == "highest-only-1-word":    # digit 7 of one word
+        return [0x00ABCDEF | (rnd(8) << 24), const(3)], n
+    if name == "highest-only-2-words":   # digit 15 of two words
+        return [0x00ABCDEF | (rnd(8) << 24), const(1), const(2),
+                const(9)], n
+    if name == "high-word-only":         # 8 passes in word 0 only (even)
+        return [rnd(32), rnd(32), const(5), const(6)], n
+    if name == "tag-only-in-word-1":     # key + tag: 4 + 1 passes (odd)
+        return [const(0x80000000), rnd(25), 128 + rng.integers(
+            0, 3, n, dtype=np.uint64)], n
+    if name == "two-passes":             # even
+        return [const(0x80000000), rnd(16)], n
+    if name == "three-passes":           # odd
+        return [const(0x80000000), rnd(24)], n
+    if name == "all-ones-last":
+        hi, lo = rnd(3), rnd(32)
+        ones = rng.random(n) < 0.2
+        hi[ones] = lo[ones] = 0xFFFFFFFF
+        return [hi, lo], n
+    if name == "one-row":
+        return [rnd(32)[:1], rnd(32)[:1]], 1
+    if name == "2^20+3-rows":
+        m = (1 << 20) + 3
+        return [rng.integers(0, 1 << 32, m, dtype=np.uint64)
+                for _ in range(3)], m
+    raise ValueError(name)
+
+
+@pytest.mark.parametrize("name", list(_DIGIT_CASES))
+def test_radix_sort_kernel_digit_patterns(card, name):
+    """Dead and live digit positions in every arrangement the device-side
+    skipping meets: none live, one at either end, only the high word,
+    the tag alone in the second word, even and odd live counts (so each
+    ping-pong buffer ends a sort); bit-identical to the stable twin."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    keys, n = _digit_case(name, rng)
+    assert len(keys) == _DIGIT_CASES[name]
+    vals = [rng.integers(0, 1 << 32, n, dtype=np.uint64) for _ in range(2)]
+    planes = _u32_planes(list(keys) + vals, card)
+    nk = len(keys)
+    got = merge_sort.merge_sort_planes(planes, nk)
+    want = merge_sort.merge_sort_planes_reference(planes, nk)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if name == "all-dead":
+        assert torch.equal(got[nk], planes[nk])   # input order kept
+    if name == "all-ones-last":
+        ones = (planes[0] == -1) & (planes[1] == -1)
+        k = int(ones.sum())
+        assert bool(((got[0] == -1) & (got[1] == -1))[n - k:].all())
+
+
 def test_merged_sort_kernel_join_operands(card):
     """The join's merged-sort operand set (int64 key + int8 tag as keys,
     int64 value) against the stable twin run through the same codecs."""
@@ -334,6 +495,34 @@ def test_merged_sort_kernel_join_operands(card):
     cpu = merge_sort.merged_sort((key.cpu(), tag.cpu(), val.cpu()), 2)
     for a, b in zip(got, cpu):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("dtypes,nk", [
+    ((torch.int8, torch.int64, torch.int32), 2),
+    ((torch.float32, torch.uint64, torch.int16, torch.uint8), 3),
+    ((torch.uint32, torch.int32, torch.uint16, torch.uint8, torch.int64,
+      torch.float32), 5)])
+def test_merged_sort_kernel_operand_dtypes(card, dtypes, nk):
+    """Keys of every width and order map, 8-byte keys on odd planes
+    included, and values of several widths: the kernel reads the
+    operands as they are and equals the codecs' plain route on the CPU."""
+    rng = np.random.default_rng(len(dtypes) * 10 + nk)
+    planes = sum(2 if dt.itemsize == 8 else 1 for dt in dtypes[:nk])
+    n = 3 * merge_sort.tile_rows(planes) + 99
+    ops = []
+    for dt in dtypes:
+        if dt == torch.float32:
+            a = rng.choice([-2.5, -0.0, 0.0, 1.0, 3.25, -1e30, 7e20], n)
+            ops.append(torch.from_numpy(a.astype(np.float32)))
+        else:
+            bits = torch.iinfo(dt).bits
+            a = rng.integers(0, 1 << min(bits, 63), n, dtype=np.uint64)
+            a = a % 5 if len(ops) < nk else a   # ties among the keys
+            ops.append(torch.from_numpy(a.astype(np.int64)).to(dt))
+    got = merge_sort.merged_sort([o.to(card) for o in ops], nk)
+    want = merge_sort.merged_sort(ops, nk)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
 
 
 def test_extract_prefix_kernel_branch_counts_its_own_site(card):

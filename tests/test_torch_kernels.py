@@ -2,7 +2,9 @@
 kernel contracts of the join, bit for bit on the CPU. The JAX kernels
 run under the Pallas interpreter as their own tests run them; the
 port's wrappers take their plain twins on CPU tensors. Compaction
-outputs are compared over the prefix their contract defines."""
+outputs are compared over the prefix their contract defines, and every
+call site of the compaction is held to the ``pos == cumsum(mask) - 1``
+contract that its kernel relies on."""
 
 import numpy as np
 import pytest
@@ -13,9 +15,15 @@ import torch
 import distributed_join_tpu  # noqa: F401  (enables JAX x64)
 from distributed_join_tpu.ops import compact_pallas as jcp
 from distributed_join_tpu.ops import compact_planes as jpl
+from distributed_join_tpu.ops import join as jjoin
 from distributed_join_tpu.ops import scan_pallas as jsc
+from distributed_join_tpu.table import Table as JTable
 from distributed_join_tpu_torch.ops import compact as tcp
+from distributed_join_tpu_torch.ops import join as tjoin
 from distributed_join_tpu_torch.ops import scan as tsc
+from distributed_join_tpu_torch.ops.kernel_config import KernelConfig
+from distributed_join_tpu_torch.parallel import skew as tskew
+from distributed_join_tpu_torch.table import Table
 
 
 def _i64(a) -> torch.Tensor:
@@ -136,3 +144,106 @@ def test_stream_compact_join_widths():
         for g, w in zip(got, want):
             np.testing.assert_array_equal(_u64(g)[:total],
                                           np.asarray(w)[:total])
+
+
+# -- the compaction's position contract at its call sites ---------------
+
+
+def _assert_cumsum_positions(mask, pos):
+    """pos[mask] == (cumsum(mask) - 1)[mask]: the survivors' slots are
+    consecutive from 0, which the compaction kernel relies on."""
+    m = mask.bool()
+    want = torch.cumsum(m.to(torch.int64), 0) - 1
+    assert int(m.sum()) > 0
+    np.testing.assert_array_equal(pos[m].long().numpy(), want[m].numpy())
+
+
+def _recording(monkeypatch, module, calls):
+    real = module.stream_compact
+
+    def record(mask, pos, cols, capacity, launch_counter=None):
+        calls.append((launch_counter, mask, pos))
+        return real(mask, pos, cols, capacity, launch_counter=launch_counter)
+    monkeypatch.setattr(module, "stream_compact", record)
+
+
+@pytest.mark.parametrize("nb,npr,key_max,b_invalid,p_invalid,out_cap", [
+    (300, 400, 40, 0.2, 0.1, 4096),   # duplicate keys, padding rows
+    (256, 256, 8, 0.1, 0.25, 512),    # the output overflows
+    (500, 200, 300, 0.5, 0.0, 1024),  # sparse matches, half the builds pad
+])
+def test_join_compaction_sites_get_cumsum_positions(
+        monkeypatch, nb, npr, key_max, b_invalid, p_invalid, out_cap):
+    """The join's two compaction sites (run records, matched-build pack)
+    on reference-built tables: the scans that make their positions equal
+    the JAX package's on the same tags, and each site's pos is exactly
+    cumsum(mask) - 1 over its survivors."""
+    rng = np.random.default_rng(nb + npr + key_max)
+    cols = {}
+    for side, n in (("build", nb), ("probe", npr)):
+        cols[side] = ({"key": rng.integers(0, key_max, n),
+                       f"{side}_payload": rng.integers(-(1 << 40), 1 << 40,
+                                                       n)},
+                      rng.random(n) >= (b_invalid if side == "build"
+                                        else p_invalid))
+    scans, calls = [], []
+    real_scans = tjoin.join_scans
+
+    def record_scans(tag, first):
+        out = real_scans(tag, first)
+        scans.append((tag, first, out))
+        return out
+    monkeypatch.setattr(tjoin, "join_scans", record_scans)
+    _recording(monkeypatch, tjoin, calls)
+    got = tjoin.sort_merge_inner_join(
+        *[Table.from_numpy(c, v, device="cpu") for c, v in
+          (cols["build"], cols["probe"])], "key", out_cap,
+        kernel_config=KernelConfig("kernel"))
+    want = jjoin.sort_merge_inner_join(
+        *[JTable({k: jnp.asarray(a) for k, a in c.items()}, jnp.asarray(v))
+          for c, v in (cols["build"], cols["probe"])], "key", out_cap)
+    assert int(got.total) == int(want.total) > 0
+    assert bool(got.overflow) == bool(want.overflow) == (
+        int(want.total) > out_cap)
+
+    (tag, first, sc), = scans
+    assert bool((tag == 2).any()) and bool((~first).any())
+    jsc_ref = jsc.join_scans_reference(jnp.asarray(tag.numpy()),
+                                       jnp.asarray(first.numpy()))
+    for k in tsc.NAMES:
+        np.testing.assert_array_equal(sc[k].numpy(), np.asarray(jsc_ref[k]),
+                                      err_msg=k)
+    sites = {counter: (mask, pos) for counter, mask, pos in calls}
+    assert set(sites) == {tjoin.compact_records, tjoin.pack_matched_builds}
+    mask, pos = sites[tjoin.compact_records]
+    assert torch.equal(mask, (tag == 1) & (sc["cnt"] > 0))
+    assert torch.equal(pos, sc["rec_pos"])
+    _assert_cumsum_positions(mask, pos)
+    mask, pos = sites[tjoin.pack_matched_builds]
+    assert torch.equal(mask, sc["matched"] != 0)
+    assert torch.equal(pos, sc["mb_pos"])
+    _assert_cumsum_positions(mask, pos)
+
+
+@pytest.mark.parametrize("n,density,capacity", [
+    (5000, 0.05, 1024), (5000, 0.3, 600)])
+def test_skew_compaction_site_gets_cumsum_positions(monkeypatch, n, density,
+                                                    capacity):
+    """extract_prefix's kernel branch (n >= 2 * capacity) on a table with
+    padding rows, fitting and overflowing: its pos is cumsum(sel) - 1."""
+    rng = np.random.default_rng(n + capacity)
+    valid = rng.random(n) >= 0.2
+    t = Table.from_numpy({"key": rng.integers(0, 100, n),
+                          "v": np.arange(n)}, valid, device="cpu")
+    sel = torch.from_numpy((rng.random(n) < density) & valid)
+    calls = []
+    _recording(monkeypatch, tskew, calls)
+    out, count, overflow = tskew.extract_prefix(
+        t, sel, capacity, kernel_config=KernelConfig("kernel"))
+    assert bool(overflow) == (int(sel.sum()) > capacity) == (density > 0.1)
+    (counter, mask, pos), = calls
+    assert counter is tskew.extract_prefix and torch.equal(mask, sel)
+    _assert_cumsum_positions(mask, pos)
+    kept = min(int(count), capacity)
+    np.testing.assert_array_equal(out.columns["v"][:kept].numpy(),
+                                  np.flatnonzero(sel.numpy())[:kept])
