@@ -31,6 +31,8 @@ _SIGNATURES = {
                           ctypes.c_void_p]),
 }
 NAMES = ("cnt", "start_out", "lo_m", "rec_pos", "matched", "mb_pos")
+# The kernel's status words carry counts in 30 bits (csrc/join_scans.cu).
+MAX_N = (1 << 30) - 1
 
 
 def _cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -77,7 +79,12 @@ def join_scans(tag: torch.Tensor, first: torch.Tensor) -> dict:
     first: (n,) bool — run starts (key changes; ``first[0]`` True).
 
     Returns a dict of (n,) int32 tensors keyed by ``NAMES``. CPU
-    tensors take the plain twin; CUDA tensors launch the kernel.
+    tensors take the plain twin; CUDA tensors launch the kernel: two
+    single-pass look-back scans after one memset of their status words,
+    which the entry point issues in the stream each call (the scratch
+    comes from the caching allocator and may hold an earlier call's).
+    ``tag`` and ``first`` may be views at any byte offset: off a 16-byte
+    boundary the kernel reads them byte by byte.
     """
     if tag.device.type == "cpu":
         return join_scans_reference(tag, first)
@@ -85,6 +92,8 @@ def join_scans(tag: torch.Tensor, first: torch.Tensor) -> dict:
         raise TypeError("join_scans takes int8 tag and bool first")
     _kernels.require_cuda("join_scans", tag, first)
     n = tag.shape[0]
+    if n > MAX_N:
+        raise ValueError(f"join_scans takes at most {MAX_N} positions")
     outs = {nm: torch.empty(n, dtype=torch.int32, device=tag.device)
             for nm in NAMES}
     if n == 0:

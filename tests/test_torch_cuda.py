@@ -29,7 +29,7 @@ from distributed_join_tpu_torch.table import Table
 pytestmark = pytest.mark.cuda
 
 I32_MAX = 2**31 - 1
-TILE = 2048  # join_scans.cu: THREADS * ITEMS
+TILE = 4096  # join_scans.cu: THREADS * ITEMS
 COMPACT_TILE = 8192  # stream_compact.cu: THREADS * VEC
 
 
@@ -55,17 +55,67 @@ def _merged(rng, n_keys, max_b, max_p, pad):
     return np.array(tags, np.int8), np.array(firsts, bool)
 
 
+def _random_scan_inputs(rng, n, p_first, card):
+    tag = torch.from_numpy(rng.integers(0, 3, n).astype(np.int8)).to(card)
+    first = torch.from_numpy(rng.random(n) < p_first).to(card)
+    return tag, first
+
+
+def _scans_equal(tag, first):
+    got = scan.join_scans(tag, first)
+    want = scan.join_scans_reference(tag, first)
+    for k in scan.NAMES:
+        assert torch.equal(got[k], want[k]), k
+
+
 @pytest.mark.parametrize("n,p_first", [
     (1, 0.5), (TILE - 1, 0.05), (TILE, 0.05), (TILE + 1, 0.0),
     (3 * TILE + 5, 0.001), (600_001, 0.0001), (600_001, 0.3)])
 def test_join_scans_kernel_on_arbitrary_tags(card, n, p_first):
     rng = np.random.default_rng(n)
-    tag = torch.from_numpy(rng.integers(0, 3, n).astype(np.int8)).to(card)
-    first = torch.from_numpy(rng.random(n) < p_first).to(card)
-    got = scan.join_scans(tag, first)
-    want = scan.join_scans_reference(tag, first)
-    for k in scan.NAMES:
-        assert torch.equal(got[k], want[k]), k
+    _scans_equal(*_random_scan_inputs(rng, n, p_first, card))
+
+
+@pytest.mark.parametrize("n", [5 * TILE + 3, 200_003])
+def test_join_scans_kernel_back_to_back_calls(card, n):
+    """Two calls at the same n on different inputs: the second reuses
+    the caching allocator's scratch, which still holds the first call's
+    look-back status words; both must equal their twins."""
+    rng = np.random.default_rng(n + 1)
+    a = _random_scan_inputs(rng, n, 0.001, card)
+    b = _random_scan_inputs(rng, n, 0.2, card)
+    got_a = scan.join_scans(*a)
+    got_b = scan.join_scans(*b)
+    for inputs, got in ((a, got_a), (b, got_b)):
+        want = scan.join_scans_reference(*inputs)
+        for k in scan.NAMES:
+            assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.parametrize("off", [1, 7, 16])
+def test_join_scans_kernel_unaligned_views(card, off):
+    """tag and first views that start off a 16-byte boundary take the
+    byte path (an offset of 16 stays aligned)."""
+    rng = np.random.default_rng(50 + off)
+    n = 3 * TILE + 29
+    tag_full, first_full = _random_scan_inputs(rng, n + off, 0.01, card)
+    tag, first = tag_full[off:], first_full[off:]
+    assert (tag.data_ptr() % 16 == 0) == (off == 16)
+    _scans_equal(tag, first)
+    _scans_equal(tag, first_full[:n])  # one aligned, one not
+
+
+def test_join_scans_kernel_many_tiles(card):
+    """2^16 tiles and a ragged last one: the look-back chains of both
+    passes across every tile, runs spanning tiles, first[0] False."""
+    n = (1 << 16) * TILE + 1234
+    g = torch.Generator(device=card)
+    g.manual_seed(16)
+    tag = torch.randint(0, 3, (n,), generator=g, device=card,
+                        dtype=torch.int8)
+    first = torch.rand(n, generator=g, device=card) < 1e-4
+    first[0] = False
+    _scans_equal(tag, first)
 
 
 @pytest.mark.parametrize("n_keys,max_b,max_p,pad", [
@@ -74,11 +124,8 @@ def test_join_scans_kernel_on_arbitrary_tags(card, n, p_first):
 def test_join_scans_kernel_on_merged_layouts(card, n_keys, max_b, max_p, pad):
     rng = np.random.default_rng(n_keys)
     tag, first = _merged(rng, n_keys, max_b, max_p, pad)
-    tag, first = torch.from_numpy(tag).to(card), torch.from_numpy(first).to(card)
-    got = scan.join_scans(tag, first)
-    want = scan.join_scans_reference(tag, first)
-    for k in scan.NAMES:
-        assert torch.equal(got[k], want[k]), k
+    _scans_equal(torch.from_numpy(tag).to(card),
+                 torch.from_numpy(first).to(card))
 
 
 @pytest.mark.parametrize("n,density,capacity,k", [
