@@ -93,7 +93,9 @@ def expand_gather(S: torch.Tensor, cols, out_capacity: int,
 
     Values at slots >= the join's total are undefined (masked by the
     caller). CPU tensors take the plain twin; CUDA tensors launch the
-    kernel.
+    kernel, a tiled load-balanced search (one block a tile of 1024
+    slots). There ``S``, ``lo`` and the record lanes must start on a
+    16-byte boundary (fresh tensors do); a view off one raises.
     """
     if build_cols is not None and (lo is None or not build_cols):
         raise ValueError("build mode needs lo and at least one build lane")
@@ -145,6 +147,10 @@ def _launch(what, counter, S, cols, out_capacity, lo, build_cols,
             c.dtype != torch.int64 for c in [*cols, *bcols]):
         raise TypeError(f"{what} takes int32 S/lo and int64 lanes")
     _kernels.require_cuda(what, S, *cols, *bcols, *([lo] if build else []))
+    if any(t.data_ptr() % 16 for t in [S, *cols, *([lo] if build else [])]):
+        raise ValueError(f"{what}: S, lo and the record lanes must start "
+                         "on a 16-byte boundary (the kernel loads them 16 "
+                         "bytes at a time)")
     dev = S.device
     rec_outs = [torch.empty(out_capacity, dtype=torch.int64, device=dev)
                 for _ in cols]

@@ -1,6 +1,6 @@
 """The port's CUDA kernels against their plain twins on the card, at
 edge-case shapes (tile boundaries, one element, no survivors, truncated
-capacities, more lanes than one launch carries, unaligned mask views,
+capacities, more lanes than one launch carries, unaligned views,
 all-equal keys, and every arrangement of dead and live radix digits).
 Every test needs a CUDA device and the CUDA toolkit; without them each
 skips, decided in the ``card`` fixture. Run on a machine with a GPU:
@@ -21,6 +21,7 @@ from distributed_join_tpu_torch.ops import (
     merge_sort,
     scan,
 )
+from distributed_join_tpu_torch.ops import join as join_mod
 from distributed_join_tpu_torch.ops.join import sort_merge_inner_join
 from distributed_join_tpu_torch.ops.kernel_config import KernelConfig
 from distributed_join_tpu_torch.parallel import skew
@@ -31,6 +32,7 @@ pytestmark = pytest.mark.cuda
 I32_MAX = 2**31 - 1
 TILE = 4096  # join_scans.cu: THREADS * ITEMS
 COMPACT_TILE = 8192  # stream_compact.cu: THREADS * VEC
+EXPAND_TILE = 1024  # expand_gather.cu: THREADS * ITEMS
 
 
 @pytest.fixture
@@ -296,6 +298,99 @@ def test_expand_gather_kernel_lane_groups(card, k, kb):
         assert torch.equal(g, w)
 
 
+def _expand_equal(S, cols, out_cap, lo, bcols):
+    """Both modes of expand_gather equal to the twin on every slot."""
+    got = expand.expand_gather(S, cols, out_cap, lo=lo, build_cols=bcols)
+    want = expand.expand_gather_reference(S, cols, out_cap, lo=lo,
+                                          build_cols=bcols)
+    for g, w in zip(got[0] + got[1], want[0] + want[1]):
+        assert torch.equal(g, w)
+    got_r, got_sb = expand.expand_gather(S, cols, out_cap)
+    want_r, want_sb = expand.expand_gather_reference(S, cols, out_cap)
+    for g, w in zip(got_r + [got_sb], want_r + [want_sb]):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("out_cap", [
+    1, EXPAND_TILE - 1, EXPAND_TILE, EXPAND_TILE + 1, 3 * EXPAND_TILE + 5])
+def test_expand_gather_kernel_tile_boundaries(card, out_cap):
+    """Records starting on every tile boundary (runs of one tile, then
+    of one slot), cut at each tile-edge capacity; every slot, the
+    ragged last tile's too, equal to the twin."""
+    rng = np.random.default_rng(out_cap)
+    specs = [(EXPAND_TILE, 1)] * 2 + [(1, 1)] * 5 + [(EXPAND_TILE - 5, 1),
+                                                     (3, 2), (1, 1)]
+    S, lo, cols, bcols, total = _join_records(rng, specs)
+    if out_cap < total:
+        keep = S < out_cap
+        S = torch.where(keep, S, torch.full_like(S, I32_MAX))
+        lo = torch.where(keep, lo, torch.zeros_like(lo))
+    _expand_equal(S, cols, out_cap, lo, bcols)
+
+
+def test_expand_gather_kernel_run_over_tiles(card):
+    """One run covering more than three whole tiles (the window holds
+    one record), between short runs, and slots past the total."""
+    rng = np.random.default_rng(9)
+    specs = [(2, 3), (3 * EXPAND_TILE + 77, 1), (1, 4), (5, 2)]
+    S, lo, cols, bcols, total = _join_records(rng, specs)
+    _expand_equal(S, cols, total + EXPAND_TILE + 3, lo, bcols)
+
+
+def test_expand_gather_kernel_run_length_one_many_tiles(card):
+    """Config 3's shape: every run one slot long (full windows), over
+    2**16 tiles and a ragged one."""
+    n = (1 << 16) * EXPAND_TILE + 3
+    S = torch.arange(n, dtype=torch.int32, device=card)
+    g = torch.Generator(device=card)
+    g.manual_seed(11)
+    lo = torch.randperm(n, generator=g, device=card).to(torch.int32)
+    cols = [torch.randint(-(1 << 62), 1 << 62, (n,), generator=g,
+                          device=card) for _ in range(2)]
+    bcols = [torch.randint(-(1 << 62), 1 << 62, (n,), generator=g,
+                           device=card)]
+    _expand_equal(S, cols, n, lo, bcols)
+
+
+@pytest.mark.parametrize("off", [1, 3, 4])
+def test_expand_gather_kernel_unaligned_views(card, off):
+    """S, lo and record-lane views ``off`` elements into their storage:
+    off a 16-byte boundary (1, 3) every wrapper raises before launching;
+    on one (4) the views are taken and equal the twin."""
+    rng = np.random.default_rng(off)
+    S, lo, cols, bcols, total = _join_records(
+        rng, [(3, 2), (700, 1), (1, 9), (EXPAND_TILE, 1), (2, 2)])
+
+    def shifted(t):
+        big = torch.empty(t.shape[0] + off, dtype=t.dtype, device=card)
+        big[off:] = t
+        return big[off:]
+
+    Sv, lov = shifted(S), shifted(lo)
+    colsv = [shifted(c) for c in cols]
+    bcolsv = [shifted(b) for b in bcols]
+    if off == 4:
+        _expand_equal(Sv, colsv, total + 5, lov, bcolsv)
+        return
+    assert Sv.data_ptr() % 16 and colsv[0].data_ptr() % 16
+    before = (expand.expand_gather.launches, expand.expand_pull.launches)
+    calls = [
+        lambda: expand.expand_gather(Sv, colsv, total, lo=lov,
+                                     build_cols=bcolsv),
+        lambda: expand.expand_gather(Sv, colsv, total),
+        lambda: expand.expand_gather(S, colsv, total),
+        lambda: expand.expand_gather(S, cols, total, lo=lov,
+                                     build_cols=bcols),
+        lambda: expand.expand_pull(Sv, colsv, total, lo=lov,
+                                   build_cols=bcolsv),
+    ]
+    for call in calls:
+        with pytest.raises(ValueError, match="16-byte"):
+            call()
+    assert (expand.expand_gather.launches,
+            expand.expand_pull.launches) == before
+
+
 def test_expand_gather_kernel_zero_capacity(card):
     S = torch.zeros(0, dtype=torch.int32, device=card)
     before = expand.expand_gather.launches
@@ -374,6 +469,29 @@ def test_join_kernel_pipeline_many_lanes_and_zero_capacity(card):
     z = sort_merge_inner_join(b, p, "key", 0)
     assert scan.join_scans.launches == before + 2
     assert int(z.total) == int(k.total) and bool(z.overflow)
+
+
+def test_join_above_scan_limit_raises(card, monkeypatch):
+    """A merged domain above ``scan.MAX_N`` (lowered here) stays on the
+    kernel pipeline, whose scan raises; it never gives way to the plain
+    formulation on the card."""
+    g = torch.Generator(device=card)
+    g.manual_seed(8)
+    n = 5_000
+    b = Table({"key": torch.randint(0, 500, (n,), generator=g, device=card)},
+              torch.ones(n, dtype=torch.bool, device=card))
+    p = Table({"key": torch.randint(0, 900, (n,), generator=g, device=card)},
+              torch.ones(n, dtype=torch.bool, device=card))
+    monkeypatch.setattr(join_mod, "_join_plain",
+                        lambda *a, **kw: pytest.fail("took the plain path"))
+    monkeypatch.setattr(scan, "MAX_N", 2 * n - 1)
+    before = scan.join_scans.launches
+    with pytest.raises(ValueError, match="at most"):
+        sort_merge_inner_join(b, p, "key", 16 * n)
+    assert scan.join_scans.launches == before
+    monkeypatch.setattr(scan, "MAX_N", 2 * n)
+    r = sort_merge_inner_join(b, p, "key", 16 * n)
+    assert scan.join_scans.launches == before + 1 and int(r.total) > 0
 
 
 def test_kernel_wrappers_refuse_wrong_dtypes(card):
