@@ -50,11 +50,25 @@ Phases (any failure raises, and the script exits non-zero):
 8. The radix sort (B6) and expand_pull through their own entry points
    (``merged_sort``, ``expand_pull``), which no join path calls, each at
    the shapes of phase 2.
+9. The scan's int32 domain: one ``join_scans`` call on 2^30 + 2^20
+   positions (above its old 2^30 - 1 limit), every output exactly equal
+   to its closed form, with its time and byte bound.
+10. BASELINE config 5 at its size (5 M x 5 M rows, a 2-column composite
+   key, a 16-byte string payload) through the config driver: no
+   overflow, every join kernel launched; then one join of its tables
+   through the kernels and one through the plain formulation, with
+   equal row digests (the 2-D byte columns included).
+11. Types and strings, each as phase 10: the headline in float64 keys
+   and payloads (10 M x 10 M), a 16-byte string key (5 M x 5 M) and a
+   float32 join (8 M x 8 M, keys below 2^24); then 4 emulated ranks at
+   2 M x 2 M with a string key beside an int64 key and a string
+   payload, equal to the 1-rank join.
 
 Launch counts are set to zero just before each path and read just after;
 the launches of phase 2 and of the config-3 kernel check do not count.
 The line before the last is one JSON object with every kernel's numbers,
-one row per kernel and call site; the last line is
+one row per kernel and call site (the join sites also carry their
+launches on the paths of phases 10 and 11); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
 prints a result.
@@ -82,6 +96,10 @@ ZIPF_ALPHA = 1.5
 ZIPF_EMU_FACTOR = 1.6
 REPS = 10
 DEVICE = "cuda"
+C1_POSITIONS = 2**30 + 2**20   # above the scan's old 2^30 - 1 limit
+CONFIG5_ROWS = 5_000_000
+STRING_KEY_ROWS = 5_000_000
+FLOAT32_ROWS = 8_000_000       # keys up to 2 * rows < 2^24: exact in float32
 
 
 def _fail(msg: str) -> None:
@@ -150,15 +168,18 @@ def max_abs_err(got, want, n: int | None = None) -> float:
 
 def row_digest(res) -> tuple:
     """Order-independent digest of the valid rows: (rows, wrapping sum
-    and xor of a 64-bit hash of each row)."""
+    and xor of a 64-bit hash of each row). Floats enter by their bits; a
+    2-D column enters element by element."""
     from distributed_join_tpu_torch.ops.hashing import fmix64, hash_combine
     t = res.table
     h = None
     for name in t.column_names:
         c = t.columns[name]
-        hc = fmix64(c if not c.dtype.is_floating_point
-                    else c.view(torch.int32))
-        h = hc if h is None else hash_combine(h, hc)
+        if c.dtype.is_floating_point:
+            c = c.view(torch.int64 if c.element_size() == 8 else torch.int32)
+        for col in c.reshape(c.shape[0], -1).unbind(1):
+            hc = fmix64(col)
+            h = hc if h is None else hash_combine(h, hc)
     h = h[t.valid]
     return int(t.valid.sum()), int(h.sum()), _xor_reduce(h)
 
@@ -696,7 +717,7 @@ def config3_phase():
                       "the config-3 skew path")
     _require_launched(ncounts, JOIN_KERNELS, "the config-3 naive path")
 
-    build, probe = D.make_tables(skew_args, torch.device(DEVICE))
+    build, probe, _ = D.make_tables(skew_args, torch.device(DEVICE))
     row = skew_site_row(build, probe, skew_args)
     torch.cuda.empty_cache()
 
@@ -741,7 +762,7 @@ def zipf_emulated_phase():
     )
 
     args = _config3_args(True, EMU_ROWS)
-    build, probe = D.make_tables(args, torch.device(DEVICE))
+    build, probe, _ = D.make_tables(args, torch.device(DEVICE))
     thr, hh_probe, hh_out, _ = D.skew_policy(args, EMU_RANKS)
     sizing = dict(shuffle_capacity_factor=ZIPF_EMU_FACTOR,
                   out_capacity_factor=2.0)
@@ -806,6 +827,164 @@ def entry_points_phase(build, probe) -> dict:
     return launches
 
 
+# -- phases 9-11: the scan's int32 domain, config 5, types and strings --
+
+
+def c1_phase() -> dict:
+    """One ``join_scans`` call on C1_POSITIONS positions of runs
+    [build, build, probe, probe]: every output has a closed form in the
+    run index r = i // 4, checked exactly chunk by chunk, past the old
+    2^30 - 1 limit too. Device time by CUDA events; the bound reads tag
+    and first and writes six int32 outputs, 26 B a position."""
+    from distributed_join_tpu_torch.ops import scan
+
+    n = C1_POSITIONS
+    dev = torch.device(DEVICE)
+    tag = torch.tensor([0, 0, 1, 1], dtype=torch.int8, device=dev).repeat(
+        n // 4)
+    first = torch.tensor([1, 0, 0, 0], dtype=torch.bool, device=dev).repeat(
+        n // 4)
+    outs = scan.join_scans(tag, first)
+    torch.cuda.synchronize()
+    # per position of a run (b, b, p, p): value = a * r + c
+    forms = {"matched": ((0, 1), (0, 1), (0, 0), (0, 0)),
+             "cnt": ((0, 0), (0, 0), (0, 2), (0, 2)),
+             "start_out": ((4, 0), (4, 0), (4, 0), (4, 2)),
+             "lo_m": ((2, 0), (2, 0), (2, 0), (2, 0)),
+             "rec_pos": ((2, -1), (2, -1), (2, 0), (2, 1)),
+             "mb_pos": ((2, 0), (2, 1), (2, 1), (2, 1))}
+    chunk = 1 << 26
+    for lo in range(0, n, chunk):
+        i = torch.arange(lo, min(n, lo + chunk), device=dev)
+        r, q = i // 4, i % 4
+        for name, per_q in forms.items():
+            a = torch.tensor([f[0] for f in per_q], device=dev)[q]
+            c = torch.tensor([f[1] for f in per_q], device=dev)[q]
+            _check(torch.equal(outs[name][lo:lo + chunk],
+                               (a * r + c).to(torch.int32)),
+                   f"join_scans at {n} positions: {name} differs from its "
+                   f"closed form in [{lo}, {lo + chunk})")
+    del outs
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: scan.join_scans(tag, first), reps=3)
+    b, by = bound_ms(26 * n, 40 * n)
+    print(f"[c1] join_scans on {n} positions (2^30 + 2^20): all six "
+          f"outputs equal their closed forms; ms={ms:.4f} bound_ms={b:.4f} "
+          f"({by}, 26 B a position)", flush=True)
+    del tag, first
+    torch.cuda.empty_cache()
+    return {"positions": n, "ms": ms, "bound_ms": b}
+
+
+def _driver_and_digest(label: str, argv: list) -> dict:
+    """The config driver's protocol on ``argv`` (counted: every join
+    kernel launched, no overflow), then one join of its tables through
+    the kernel pipeline and one through the plain formulation, whose row
+    digests (2-D byte columns included) must be equal. Returns the
+    launch counts of the driver's run."""
+    from distributed_join_tpu_torch.benchmarks import distributed_join as D
+    from distributed_join_tpu_torch.ops.kernel_config import KernelConfig
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        make_join_step,
+    )
+
+    args = D.parse_args(["--communicator", "local", "--iterations", "4",
+                         *argv])
+    torch.cuda.empty_cache()
+    rec, counts = counted(lambda: D.run(args, device=DEVICE))
+    print(f"[{label}] " + json.dumps(rec), flush=True)
+    print(f"[{label}] launches {counts}", flush=True)
+    _check(not rec["overflow"], f"{label}: the driver's join overflowed")
+    _require_launched(counts, JOIN_KERNELS, f"the {label} path")
+    build, probe, key = D.make_tables(args, torch.device(DEVICE))
+    digests = {}
+    for route in ("kernel", "plain"):
+        res = make_join_step(LocalCommunicator(), key=key,
+                             kernel_config=KernelConfig(route))(build, probe)
+        _check(not bool(res.overflow) and int(res.total)
+               == rec["matches_per_join"],
+               f"{label} {route} digest join: total {int(res.total)}")
+        digests[route] = row_digest(res)
+        del res
+        torch.cuda.empty_cache()
+    print(f"[{label}] digests {digests}", flush=True)
+    _check(digests["kernel"] == digests["plain"],
+           f"{label}: the kernel pipeline and the plain formulation give "
+           "different rows")
+    return counts
+
+
+def config5_phase() -> dict:
+    """BASELINE config 5 (scripts/run_baseline_configs.sh:58-63) at its
+    size: a 2-column composite key and a 16-byte string payload."""
+    rows = str(CONFIG5_ROWS)
+    return _driver_and_digest("config5", [
+        "--build-table-nrows", rows, "--probe-table-nrows", rows,
+        "--key-columns", "2", "--string-payload-bytes", "16"])
+
+
+def types_phase() -> dict:
+    """The headline in float64 keys and payloads, a 16-byte string key,
+    and a float32 join whose keys stay below 2^24."""
+    counts = {}
+    for label, rows, argv in (
+            ("float64", NROWS, ["--key-type", "float64",
+                                "--payload-type", "float64"]),
+            ("string-key", STRING_KEY_ROWS, ["--string-key-bytes", "16"]),
+            ("float32", FLOAT32_ROWS, ["--key-type", "float32",
+                                       "--payload-type", "float32"])):
+        counts[label] = _driver_and_digest(label, [
+            "--build-table-nrows", str(rows), "--probe-table-nrows",
+            str(rows), *argv])
+    return counts
+
+
+def emulated_strings_phase() -> None:
+    """4 emulated ranks at EMU_ROWS x EMU_ROWS: a composite key of a
+    16-byte string key and an int64 column, with a 16-byte string
+    payload; equal to the 1-rank join (results, not speed)."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.table import Table
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_composite_build_probe_tables,
+    )
+    from distributed_join_tpu_torch.utils.strings import encode_int_strings
+
+    build, probe, _ = generate_composite_build_probe_tables(
+        seed=SEED, build_nrows=EMU_ROWS, probe_nrows=EMU_ROWS,
+        key_columns=2, string_payload_len=16, device=DEVICE)
+
+    def stringify(t):
+        cols = dict(t.columns)
+        cols["skey"], cols["skey#len"] = encode_int_strings(
+            cols.pop("key0"), prefix="itm-", digits=12)
+        return Table(cols, t.valid)
+
+    build, probe = stringify(build), stringify(probe)
+    opts = dict(key=["skey", "key1"], auto_retry=2)
+    multi, counts = counted(lambda: distributed_inner_join(
+        build, probe, EmulatedCommunicator(EMU_RANKS), **opts))
+    one = distributed_inner_join(build, probe, LocalCommunicator(), **opts)
+    _check(not bool(multi.overflow) and not bool(one.overflow),
+           "emulated string join overflowed")
+    _check(int(multi.total) == int(one.total) > 0
+           and row_digest(multi) == row_digest(one),
+           "emulated 4-rank string join differs from 1 rank")
+    _require_launched(counts, JOIN_KERNELS, "the emulated string path")
+    print(f"[emulated-strings] {EMU_RANKS} ranks: total={int(multi.total)} "
+          f"equal to 1 rank (string key + int64 key, string payload); "
+          f"launches {counts}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -848,6 +1027,9 @@ def main() -> int:
     emulated_phase()
     skew_row, c3 = config3_phase()
     zipf_emulated_phase()
+    c1 = c1_phase()
+    paths = {"config5": config5_phase(), **types_phase()}
+    emulated_strings_phase()
 
     launches = {"join_scans": head["join_scans"],
                 "stream_compact[record]": head["compact_records"],
@@ -859,16 +1041,27 @@ def main() -> int:
                                        "merge_sort[key]")},
                 **{k: own[k] for k in ("expand_pull[build]",
                                        "expand_pull[record]")}}
+    # the join sites' launches on this slice's paths, each path's own run
+    site = {"join_scans": "join_scans",
+            "stream_compact[record]": "compact_records",
+            "stream_compact[pack]": "pack_matched_builds",
+            "expand_gather[build]": "expand_gather"}
     by_name = {r["name"]: r for r in [*rows, skew_row]}
     kernels = []
     for name, count in launches.items():
         r = dict(by_name[name], launches=count)
+        if name in site:
+            r["launches_by_path"] = {p: c[site[name]]
+                                     for p, c in paths.items()}
+        if name == "join_scans":
+            r["c1_ms"], r["c1_bound_ms"] = c1["ms"], c1["bound_ms"]
         kernels.append({k: r[k] for k in (
             "name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             *[k for k in r if k.endswith("_ms") and k not in (
                 "ms", "plain_ms", "bound_ms", "library_ms")],
-            *(["live_passes"] if "live_passes" in r else []))})
+            *(["live_passes"] if "live_passes" in r else []),
+            *(["launches_by_path"] if "launches_by_path" in r else []))})
     print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,9 @@
 Port of ``distributed_join_tpu/benchmarks/distributed_join.py``
 (``parse_args`` :61, ``run`` :250) with the reference's flag names and
 only the options the port has: generate the tables from seed 42 (the
-Zipf probe side from seed 43), resolve the skew auto-policy, then time
+Zipf probe side from seed 43; ``--key-type``/``--payload-type``, the
+composite and string tables of config 5, and ``--string-key-bytes`` as
+in the JAX driver), resolve the skew auto-policy, then time
 ``--iterations`` dependent joins per ladder rung (``utils/benchmarking``:
 a warm-up run, CUDA events, one synchronisation) and print one JSON
 record. Every other flag of the JAX driver refuses by name.
@@ -43,6 +45,7 @@ from distributed_join_tpu_torch.parallel.distributed_join import (
     resolve_join_ladder,
 )
 from distributed_join_tpu_torch.parallel.skew import zipf_top_k_mass
+from distributed_join_tpu_torch.table import Table
 from distributed_join_tpu_torch.utils.benchmarking import (
     profile_join,
     timed_join_throughput,
@@ -50,17 +53,26 @@ from distributed_join_tpu_torch.utils.benchmarking import (
 from distributed_join_tpu_torch.utils.generators import (
     generate_build_probe_tables,
     generate_build_table,
+    generate_composite_build_probe_tables,
     generate_zipf_probe_table,
+)
+from distributed_join_tpu_torch.utils.strings import (
+    LEN_SUFFIX,
+    encode_int_strings,
 )
 
 SEED = 42
 ZIPF_SEED = 43
 DEFAULT_SKEW_THRESHOLD = 0.001
+DTYPES = {
+    "int32": torch.int32,
+    "int64": torch.int64,
+    "float32": torch.float32,
+    "float64": torch.float64,
+}
 
 # Flags of the JAX driver that the port does not have.
 _REFUSED = {
-    "--key-type": "key dtypes other than int64",
-    "--payload-type": "payload dtypes other than int64",
     "--shuffle": "the ragged, ppermute and hierarchical shuffles",
     "--slices": "the hierarchical mesh",
     "--dcn-codec": "the hierarchical DCN codec",
@@ -70,11 +82,6 @@ _REFUSED = {
     "--expand-kernel": "the kernel knobs",
     "--compact-kernel": "the kernel knobs",
     "--kernel-block": "the kernel knobs",
-    "--key-columns": "composite-key tables",
-    "--string-payload-bytes": "string columns",
-    "--string-payload-columns": "string columns",
-    "--variable-length-strings": "string columns",
-    "--string-key-bytes": "string keys",
     "--agg-ab": "the A/B modes",
     "--sort-ab": "the A/B modes",
     "--resident-ab": "the A/B modes",
@@ -107,6 +114,8 @@ def parse_args(argv=None):
                         "one process, one thread each, on one device")
     p.add_argument("--n-ranks", type=int, default=None,
                    help="ranks of the emulated communicator")
+    p.add_argument("--key-type", choices=DTYPES, default="int64")
+    p.add_argument("--payload-type", choices=DTYPES, default="int64")
     p.add_argument("--build-table-nrows", type=int, default=1_000_000)
     p.add_argument("--probe-table-nrows", type=int, default=1_000_000)
     p.add_argument("--selectivity", type=float, default=0.3)
@@ -131,6 +140,21 @@ def parse_args(argv=None):
     p.add_argument("--hh-out-capacity", type=int, default=None,
                    help="HH output rows per rank (default 1/4 of the "
                         "local probe rows)")
+    p.add_argument("--key-columns", type=int, default=1,
+                   help=">1 joins on a composite multi-column key "
+                        "(BASELINE config 5)")
+    p.add_argument("--string-payload-bytes", type=int, default=0,
+                   help="attach a fixed-width string payload of this "
+                        "many bytes to the build side (config 5)")
+    p.add_argument("--string-payload-columns", type=int, default=1,
+                   help="number of string payload columns")
+    p.add_argument("--variable-length-strings", action="store_true",
+                   help="render string payload ids without leading "
+                        "zeros, so row lengths vary")
+    p.add_argument("--string-key-bytes", type=int, default=0,
+                   help="join on a fixed-width STRING key of this many "
+                        "bytes (derived from the int key; packed-word "
+                        "composite-key machinery)")
     p.add_argument("--over-decomposition-factor", type=int, default=1)
     p.add_argument("--shuffle-capacity-factor", type=float,
                    default=DEFAULT_SHUFFLE_CAPACITY_FACTOR)
@@ -192,23 +216,103 @@ def skew_policy(args, n_ranks: int):
 
 
 def make_tables(args, dev):
-    """The driver's tables on ``dev``: uniform hit/miss probe keys, or
-    with ``--zipf-alpha`` a Zipf probe side (seed 43)."""
+    """The driver's tables on ``dev`` and the join key: uniform hit/miss
+    probe keys of ``--key-type``; with ``--key-columns`` > 1 or
+    ``--string-payload-bytes`` the composite config-5 tables (int64 keys
+    only); with ``--zipf-alpha`` a Zipf probe side (seed 43); then with
+    ``--string-key-bytes`` the key rendered as a fixed-width string."""
     b_rows, p_rows = args.build_table_nrows, args.probe_table_nrows
     rand_max = args.rand_max or b_rows
-    if args.zipf_alpha is None:
-        return generate_build_probe_tables(
+    key_dtype = DTYPES[args.key_type]
+    payload_dtype = DTYPES[args.payload_type]
+    join_key = "key"
+    if args.key_columns > 1 or args.string_payload_bytes > 0:
+        if args.zipf_alpha is not None:
+            raise SystemExit("--key-columns/--string-payload-bytes do not "
+                             "combine with --zipf-alpha yet")
+        if args.key_type != "int64":
+            raise SystemExit("composite keys currently use int64 columns")
+        build, probe, key_names = generate_composite_build_probe_tables(
+            seed=SEED, build_nrows=b_rows, probe_nrows=p_rows,
+            key_columns=args.key_columns, rand_max=args.rand_max,
+            selectivity=args.selectivity,
+            string_payload_len=args.string_payload_bytes,
+            string_payload_columns=args.string_payload_columns,
+            variable_length_strings=args.variable_length_strings,
+            unique_build_keys=not args.duplicate_build_keys, device=dev)
+        join_key = key_names if args.key_columns > 1 else key_names[0]
+    elif args.zipf_alpha is None:
+        build, probe = generate_build_probe_tables(
             seed=SEED, build_nrows=b_rows, probe_nrows=p_rows,
             rand_max=args.rand_max, selectivity=args.selectivity,
+            key_dtype=key_dtype, payload_dtype=payload_dtype,
             unique_build_keys=not args.duplicate_build_keys, device=dev)
-    gb = torch.Generator(device=dev)
-    gb.manual_seed(SEED)
-    gp = torch.Generator(device=dev)
-    gp.manual_seed(ZIPF_SEED)
-    build = generate_build_table(gb, b_rows, rand_max,
-                                 unique_keys=not args.duplicate_build_keys)
-    probe = generate_zipf_probe_table(gp, p_rows, args.zipf_alpha, rand_max)
-    return build, probe
+    else:
+        gb = torch.Generator(device=dev)
+        gb.manual_seed(SEED)
+        gp = torch.Generator(device=dev)
+        gp.manual_seed(ZIPF_SEED)
+        build = generate_build_table(
+            gb, b_rows, rand_max, key_dtype=key_dtype,
+            payload_dtype=payload_dtype,
+            unique_keys=not args.duplicate_build_keys)
+        probe = generate_zipf_probe_table(
+            gp, p_rows, args.zipf_alpha, rand_max, key_dtype=key_dtype,
+            payload_dtype=payload_dtype)
+    if args.string_key_bytes > 0:
+        build, probe, join_key = _stringify_key(build, probe, join_key,
+                                                args.string_key_bytes)
+    return build, probe, join_key
+
+
+def _stringify_key(build, probe, join_key, nbytes):
+    """Replace the (single, int) join key with a fixed-width string
+    rendering of it, ``'itm-'`` + zero-padded digits, with its '#len'
+    companion: the JAX driver's string-key join (JAX :1051)."""
+    if not isinstance(join_key, str):
+        raise SystemExit("--string-key-bytes needs a single key column")
+    digits = nbytes - 4
+    if digits < 1:
+        raise SystemExit("--string-key-bytes must be >= 5 ('itm-' + d)")
+    out = []
+    for t in (build, probe):
+        b, ln = encode_int_strings(t.columns[join_key], prefix="itm-",
+                                   digits=digits)
+        cols = {k: v for k, v in t.columns.items() if k != join_key}
+        cols["skey"] = b
+        cols["skey" + LEN_SUFFIX] = ln
+        out.append(Table(cols, t.valid))
+    return out[0], out[1], "skey"
+
+
+def string_wire_bytes(build) -> dict | None:
+    """The JAX driver's ``_string_wire_accounting`` (JAX :214): for every
+    2-D uint8 build column with a '#len' companion and a width divisible
+    by 4, the bytes its rows take on the padded wire (fixed width) and
+    what a byte-exact wire would take (lengths rounded up to 4). The
+    port's wire is the padded one, so ``byte_exact_on_wire`` is False."""
+    names = [n for n, c in build.columns.items()
+             if c.ndim == 2 and c.dtype == torch.uint8
+             and c.shape[1] % 4 == 0 and n + LEN_SUFFIX in build.columns]
+    if not names:
+        return None
+    per_col, fixed_total, exact_total = {}, 0, 0
+    for name in names:
+        col = build.columns[name]
+        lens = build.columns[name + LEN_SUFFIX].to(torch.int64)
+        fixed = int(col.shape[0]) * int(col.shape[1])
+        exact = int(((lens + 3) // 4 * 4).sum())
+        per_col[name] = {"fixed_width_bytes": fixed, "exact_bytes": exact}
+        fixed_total += fixed
+        exact_total += exact
+    return {
+        "columns": per_col,
+        "fixed_width_bytes": fixed_total,
+        "exact_bytes": exact_total,
+        "savings_pct": round(100.0 * (1 - exact_total / fixed_total), 2)
+        if fixed_total else 0.0,
+        "byte_exact_on_wire": False,
+    }
 
 
 def _prepare(args, dev):
@@ -219,7 +323,7 @@ def _prepare(args, dev):
     b_rows, p_rows = args.build_table_nrows, args.probe_table_nrows
     if b_rows % n or p_rows % n:
         raise SystemExit(f"table nrows must be divisible by n_ranks={n}")
-    build, probe = make_tables(args, dev)
+    build, probe, join_key = make_tables(args, dev)
     threshold, hh_probe, hh_out, policy = skew_policy(args, n)
     opts = dict(shuffle_capacity_factor=args.shuffle_capacity_factor,
                 out_capacity_factor=args.out_capacity_factor,
@@ -227,8 +331,8 @@ def _prepare(args, dev):
                 hh_build_capacity=args.hh_build_capacity,
                 hh_probe_capacity=hh_probe, hh_out_capacity=hh_out)
     ladder = resolve_join_ladder(build, probe, n, opts)
-    fixed = dict(key="key", over_decomposition=args.over_decomposition_factor,
-                 **opts)
+    fixed = dict(key=join_key,
+                 over_decomposition=args.over_decomposition_factor, **opts)
     return comm, build, probe, ladder, fixed, policy
 
 
@@ -247,7 +351,7 @@ def run(args, device=None) -> dict:
     for attempt in range(args.auto_retry + 1):
         step = make_join_step(comm, **fixed, **ladder.sizing())
         sec, matches, overflow = timed_join_throughput(
-            comm, step, build, probe, args.iterations)
+            comm, step, build, probe, args.iterations, key=fixed["key"])
         ladder.note(overflow)
         if not overflow or attempt == args.auto_retry:
             break
@@ -258,8 +362,8 @@ def run(args, device=None) -> dict:
         "benchmark": "distributed_join",
         "communicator": comm.name,
         "n_ranks": n,
-        "key_type": "int64",
-        "payload_type": "int64",
+        "key_type": args.key_type,
+        "payload_type": args.payload_type,
         "build_table_nrows": b_rows,
         "probe_table_nrows": p_rows,
         "selectivity": args.selectivity,
@@ -269,6 +373,12 @@ def run(args, device=None) -> dict:
         "skew_threshold": threshold,
         "skew_policy": policy,
         "hh_slots": args.hh_slots if threshold is not None else None,
+        "key_columns": args.key_columns,
+        "string_payload_bytes": args.string_payload_bytes,
+        "string_payload_columns": args.string_payload_columns,
+        "variable_length_strings": args.variable_length_strings,
+        "string_key_bytes": args.string_key_bytes,
+        "string_wire_bytes": string_wire_bytes(build),
         "iterations": args.iterations,
         "matches_per_join": matches,
         "overflow": overflow,

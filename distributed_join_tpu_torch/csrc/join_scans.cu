@@ -57,8 +57,8 @@
 // Traffic: about 2 + 4 + 1 B a position in the reverse pass and
 // 3 + 20 B in the forward pass, 30 B against the function's 26.
 // Sums that the reference takes in int32 wrap here the same way
-// (unsigned arithmetic). Counts take 30 bits in the status words, so a
-// call takes n < 2^30 positions.
+// (unsigned arithmetic). Counts take 31 bits in the status words, so a
+// call takes every n < 2^31 positions: the int32 domain of the join.
 
 #include "common.cuh"
 
@@ -448,37 +448,52 @@ __device__ RAgg r_lookback(const unsigned long long* status, long long tile,
 // valid bit (63) beside up to 63 bits of payload, written relaxed and
 // once a call each. A reader takes the summary only when all five words
 // are valid, so neither a flag word nor a fence is needed, and one round
-// trip to L2 brings flag and payload together. Counts take 30 bits
-// (n < 2^30), the wrapping sums 32.
+// trip to L2 brings flag and payload together. Counts take 31 bits
+// (n < 2^31), the wrapping sums 32:
+//   word 0: sumPre << 31 | nB          word 1: sumPost << 31 | nM
+//   word 2: endOpenB << 31 | endLM     word 3: npre << 31 | nrecPre0
+//   word 4: has << 31 | nrecPost
 constexpr unsigned long long VALID = 1ull << 63;
-constexpr unsigned long long M30 = (1ull << 30) - 1;
+constexpr unsigned long long M31 = (1ull << 31) - 1;
 constexpr int FWORDS = 5;
 
+// Two fields of a word: hi (up to 32 bits) at bit 31, lo (31 bits) below.
+__device__ __forceinline__ unsigned long long f_word(unsigned hi,
+                                                     unsigned lo) {
+  return VALID | static_cast<unsigned long long>(hi) << 31 | lo;
+}
+
 __device__ __forceinline__ void f_put(unsigned long long* r, const FAgg& a) {
-  using u64 = unsigned long long;
-  st_relaxed(r, VALID | u64{a.sumPre} << 30 | static_cast<unsigned>(a.nB));
-  st_relaxed(r + 1,
-             VALID | u64{a.sumPost} << 30 | static_cast<unsigned>(a.nM));
-  st_relaxed(r + 2, VALID | u64(static_cast<unsigned>(a.endOpenB)) << 31 |
-                        u64(static_cast<unsigned>(a.endLM)) << 1 |
-                        static_cast<unsigned>(a.has));
-  st_relaxed(r + 3, VALID | u64(static_cast<unsigned>(a.npre)) << 30 |
-                        static_cast<unsigned>(a.nrecPre0));
-  st_relaxed(r + 4, VALID | static_cast<unsigned>(a.nrecPost));
+  st_relaxed(r, f_word(a.sumPre, static_cast<unsigned>(a.nB)));
+  st_relaxed(r + 1, f_word(a.sumPost, static_cast<unsigned>(a.nM)));
+  st_relaxed(r + 2, f_word(static_cast<unsigned>(a.endOpenB),
+                           static_cast<unsigned>(a.endLM)));
+  st_relaxed(r + 3, f_word(static_cast<unsigned>(a.npre),
+                           static_cast<unsigned>(a.nrecPre0)));
+  st_relaxed(r + 4, f_word(static_cast<unsigned>(a.has),
+                           static_cast<unsigned>(a.nrecPost)));
+}
+
+__device__ __forceinline__ unsigned f_hi(unsigned long long w) {
+  return static_cast<unsigned>(w >> 31);  // VALID falls off the top
+}
+
+__device__ __forceinline__ int f_lo(unsigned long long w) {
+  return static_cast<int>(w & M31);
 }
 
 __device__ __forceinline__ FAgg f_unpack(const unsigned long long (&w)[5]) {
   FAgg o;
-  o.sumPre = static_cast<unsigned>(w[0] >> 30);
-  o.nB = static_cast<int>(w[0] & M30);
-  o.sumPost = static_cast<unsigned>(w[1] >> 30);
-  o.nM = static_cast<int>(w[1] & M30);
-  o.endOpenB = static_cast<int>(w[2] >> 31 & M30);
-  o.endLM = static_cast<int>(w[2] >> 1 & M30);
-  o.has = static_cast<int>(w[2] & 1);
-  o.npre = static_cast<int>(w[3] >> 30 & M30);
-  o.nrecPre0 = static_cast<int>(w[3] & M30);
-  o.nrecPost = static_cast<int>(w[4] & M30);
+  o.sumPre = f_hi(w[0]);
+  o.nB = f_lo(w[0]);
+  o.sumPost = f_hi(w[1]);
+  o.nM = f_lo(w[1]);
+  o.endOpenB = static_cast<int>(f_hi(w[2]) & M31);
+  o.endLM = f_lo(w[2]);
+  o.npre = static_cast<int>(f_hi(w[3]) & M31);
+  o.nrecPre0 = f_lo(w[3]);
+  o.has = static_cast<int>(f_hi(w[4]) & 1u);
+  o.nrecPost = f_lo(w[4]);
   return o;
 }
 
@@ -667,7 +682,7 @@ extern "C" int djt_join_scans(const int8_t* tag, const uint8_t* first,
                               int* lo_m, int* rec_pos, int* mb_pos,
                               long long n, void* scratch, void* stream) {
   if (n <= 0) return 0;
-  if (n > static_cast<long long>(M30)) return cudaErrorInvalidValue;
+  if (n > static_cast<long long>(M31)) return cudaErrorInvalidValue;
   int* outs[6] = {matched, cnt, start_out, lo_m, rec_pos, mb_pos};
   for (int* o : outs)
     if (reinterpret_cast<uintptr_t>(o) % 16) return cudaErrorInvalidValue;

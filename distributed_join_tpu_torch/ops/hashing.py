@@ -47,17 +47,30 @@ def _hash_one(col: torch.Tensor) -> torch.Tensor:
     if dt in (torch.int32, torch.int16, torch.int8, torch.uint8):
         return fmix32(col)
     if dt == torch.float64:
-        # The JAX package's arithmetic decomposition (no f64 bitcast):
-        # equal values hash equal; -0.0 folds onto 0.0.
+        # The JAX package's decomposition |x| = m * 2^e, m in [1, 2)
+        # (its arithmetic stands in for the f64 bitcast the TPU lacks):
+        # equal values hash equal; -0.0 folds onto 0.0. JAX writes it
+        # with floor(log2) and exp2, which are inexact on some devices
+        # (XLA:CPU; the H100 gives other bits than the CPU); frexp is
+        # exact everywhere. Infinities and NaNs take e = 1024 and their
+        # payload bits, the same on every device.
         a = col.abs()
+        frac, ex = torch.frexp(a)           # a = frac * 2^ex, frac in [.5, 1)
         pos = a > 0
-        e = torch.where(pos, torch.floor(torch.log2(a)), torch.zeros_like(a))
-        m = torch.where(pos, a / torch.exp2(e), torch.zeros_like(a))
-        mi = (m * 2.0 ** 52).to(torch.int64)
-        ebits = e.to(torch.int32) ^ ((col < 0).to(torch.int32) << 30)
+        finite = torch.isfinite(a)
+        mi = torch.where(pos & finite, (frac * 2.0 ** 53).to(torch.int64),
+                         torch.where(finite, 0, a.view(torch.int64)))
+        e = torch.where(pos & finite, ex - 1,
+                        torch.where(finite, 0, 1024)).to(torch.int32)
+        ebits = e ^ ((col < 0).to(torch.int32) << 30)
         return hash_combine(fmix64(mi), fmix32(ebits))
     if dt == torch.float32:
-        return fmix32(col.view(torch.int32))
+        # -0.0 folds onto 0.0 before the bit view, as the float64 hash
+        # folds it: the join's merge takes them as one key, so they must
+        # meet on one rank. (The JAX package hashes the raw bits, so its
+        # -0.0 lands apart; every other float32 id is its id.)
+        return fmix32(torch.where(col == 0, torch.zeros_like(col),
+                                  col).view(torch.int32))
     raise TypeError(f"unhashable column dtype {dt}")
 
 

@@ -1,7 +1,7 @@
 """Per-partition sort-merge inner join.
 
 Port of ``distributed_join_tpu/ops/join.py`` ``sort_merge_inner_join``,
-inner join over 1-D columns, in its two formulations:
+the inner join, in its two formulations:
 
 - the kernel pipeline (``_join_kernel_path``; CUDA tensors): ONE
   value-carrying merged sort (``torch.sort``, stable by key then side
@@ -18,6 +18,13 @@ flag come back beside it. Duplicate keys on both sides are supported;
 padding rows never match. Row order inside a key run is arbitrary: the
 result is a multiset of rows, as in the JAX package. The kernel pipeline
 makes no host synchronisation.
+
+Composite keys are extra key operands of the same sorts. 2-D columns
+(fixed-width strings, utils/strings.py) ride neither sort nor kernel:
+their row indices do (``__prow`` on the probe side, ``__browidx`` on the
+build side), and each 2-D column is one row gather after the expand. A
+2-D uint8 key joins on its bytes through packed 64-bit words, the
+composite-key machinery.
 """
 
 from __future__ import annotations
@@ -43,8 +50,15 @@ from distributed_join_tpu_torch.ops.lanes import (
 )
 from distributed_join_tpu_torch.ops.scan import join_scans
 from distributed_join_tpu_torch.table import Table
+from distributed_join_tpu_torch.utils.strings import (
+    LEN_SUFFIX,
+    check_key_ndim,
+    prepare_string_key_join,
+    rebuild_string_keys,
+)
 
 I32_MAX = 2**31 - 1
+PROBE_VALID = "probe#valid"   # the right and full outer joins' column
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,6 +68,24 @@ class JoinResult:
     overflow: torch.Tensor  # 0-d bool: total > capacity, rows truncated
     # distributed_inner_join attaches a host-side ``retry_report``
     # (parallel/faults.RetryReport) as an extra attribute.
+
+
+def patch_string_lengths(table: Table, keys, join_type: str) -> Table:
+    """Recompute '<key>#len' companions from the rebuilt key bytes on
+    rows whose probe side is absent (right and full outer joins: the
+    companion rides as probe payload and is zeroed there). The encoding
+    is zero-padded with no interior NULs, so the byte count is the
+    length. The inner join has no such rows: it returns ``table``."""
+    if join_type not in ("right", "full_outer"):
+        return table
+    cols = dict(table.columns)
+    pm = cols[PROBE_VALID]
+    for k in keys:
+        ln = k + LEN_SUFFIX
+        if ln in cols and cols[k].ndim == 2:
+            from_bytes = (cols[k] != 0).sum(1).to(cols[ln].dtype)
+            cols[ln] = torch.where(pm, cols[ln], from_bytes)
+    return Table(cols, table.valid)
 
 
 def _sentinel_max(dt: torch.dtype):
@@ -118,18 +150,27 @@ def _kernel_path_ok(build, probe, keys, b1d, p1d, out_capacity) -> bool:
     return all(u64_lane_ok(dt) for dt in dts)
 
 
-def _merged_sort(build: Table, probe: Table, keys, b1d, p1d):
+def _merged_sort(build: Table, probe: Table, keys, b1d, p1d,
+                 b2d=(), p2d=()):
     """The kernel pipeline's one merged sort: keys + side tag as sort
     keys; both sides' payloads ride as values, same-dtype (probe, build)
-    pairs sharing one lane (a build row never needs a probe value).
+    pairs sharing one lane (a build row never needs a probe value). With
+    2-D columns on a side, that side's row index rides too (``__prow``,
+    ``__browidx``: int32, per side).
     Returns (sorted keys, sorted tag, {("p"|"b", name): sorted lane})."""
     nb, npr = build.capacity, probe.capacity
     m_ops, tag = _masked_keys(build, probe, keys)
     perm = _lexsort([*m_ops, tag])
+    pq = [(nm, probe.columns[nm]) for nm in p1d]
     bq = [(nm, build.columns[nm]) for nm in b1d]
+    if p2d:
+        pq.append(("__prow", torch.arange(npr, dtype=torch.int32,
+                                          device=probe.device)))
+    if b2d:
+        bq.append(("__browidx", torch.arange(nb, dtype=torch.int32,
+                                             device=build.device)))
     svals = {}
-    for pnm in p1d:
-        pc = probe.columns[pnm]
+    for pnm, pc in pq:
         mate = next((t for t in bq if t[1].dtype == pc.dtype), None)
         if mate is not None:
             bq.remove(mate)
@@ -140,6 +181,30 @@ def _merged_sort(build: Table, probe: Table, keys, b1d, p1d):
     for bnm, bc in bq:
         svals[("b", bnm)] = torch.cat([bc, bc.new_zeros(npr)])[perm]
     return [op[perm] for op in m_ops], tag[perm], svals
+
+
+def _row_gather(col: torch.Tensor, idx: torch.Tensor, n: int):
+    """Rows ``idx`` of a 2-D column, indices clipped into [0, n): slots
+    past the total carry an arbitrary row, as in the JAX package (zeros
+    from a side with no rows).
+
+    A row is gathered as the widest words its bytes divide into, one
+    element of the index a word: on CUDA, ``col[idx]`` of narrow rows
+    takes a gather that spends a block a row (3.6 ms for config 5's
+    6 M rows of 16 bytes, PERF.md section 5)."""
+    shape = (idx.shape[0],) + tuple(col.shape[1:])
+    if n == 0:
+        return col.new_zeros(shape)
+    rows = col.reshape(n, -1)
+    nbytes = rows.shape[1] * rows.element_size()
+    word = next(dt for dt in (torch.int64, torch.int32, torch.int16,
+                              torch.uint8)
+                if nbytes % dt.itemsize == 0)
+    if rows.is_contiguous():
+        rows = rows.view(word)
+    k = torch.arange(rows.shape[1], device=col.device)
+    out = rows[idx.long().clamp(0, n - 1)[:, None], k[None, :]]
+    return out.view(col.dtype).reshape(shape)
 
 
 def compact_records(mask, pos, cols, capacity):
@@ -160,30 +225,38 @@ compact_records.launches = 0
 pack_matched_builds.launches = 0
 
 
-def _join_kernel_path(build, probe, keys, b1d, p1d, out_capacity):
-    nb = build.capacity
+def _join_kernel_path(build, probe, keys, b1d, p1d, out_capacity,
+                      b2d=(), p2d=()):
+    nb, npr = build.capacity, probe.capacity
     dev = build.device
-    skeys, stag, svals = _merged_sort(build, probe, keys, b1d, p1d)
-    sc = join_scans(stag, _run_starts(skeys))
-    cnt = sc["cnt"]
+    skeys, stag, svals = _merged_sort(build, probe, keys, b1d, p1d, b2d,
+                                      p2d)
+    # Scan outputs are dropped from (a copy of) the scans' dict as their
+    # last use passes: at 2^30 merged positions each is 4 GiB.
+    sc = dict(join_scans(stag, _run_starts(skeys)))
+    cnt = sc.pop("cnt")
     # start_out is int32; past 2**31 matches it wraps, but the int64
     # total still raises `overflow`, flagging every row untrustworthy.
     total = cnt.sum(dtype=torch.int64)
     rec_total = sc["rec_pos"][-1] + 1
     is_rec = (stag == 1) & (cnt > 0)
+    del cnt
 
     # Run records: one per matching probe, in start_out order (rec_pos
     # is monotone over merged order), carrying S, the probe-side output
-    # values and lo_m.
-    rec_lanes = {"__S": to_u64_lane(sc["start_out"])}
+    # values, lo_m and the probe row index of 2-D columns.
+    rec_lanes = {"__S": to_u64_lane(sc.pop("start_out"))}
     for i, sk in enumerate(skeys):
         rec_lanes[f"__key{i}"] = to_u64_lane(sk)
+    del skeys
     for nm in p1d:
         rec_lanes[nm] = to_u64_lane(svals[("p", nm)])
-    rec_lanes["__lo"] = to_u64_lane(sc["lo_m"])
+    rec_lanes["__lo"] = to_u64_lane(sc.pop("lo_m"))
+    if p2d:
+        rec_lanes["__prow"] = to_u64_lane(svals[("p", "__prow")])
     rec_names = list(rec_lanes)
     compacted = dict(zip(rec_names, compact_records(
-        is_rec, sc["rec_pos"], [rec_lanes[nm] for nm in rec_names],
+        is_rec, sc.pop("rec_pos"), [rec_lanes.pop(nm) for nm in rec_names],
         out_capacity)))
     j = torch.arange(out_capacity, dtype=torch.int32, device=dev)
     live = j < torch.clamp(rec_total, max=out_capacity)
@@ -196,36 +269,47 @@ def _join_kernel_path(build, probe, keys, b1d, p1d, out_capacity):
 
     rec_value_names = [nm for nm in rec_names if nm not in ("__S", "__lo")]
     cols_list = [compacted[nm] for nm in rec_value_names]
-    if b1d:
+    pack_names = list(b1d) + (["__browidx"] if b2d else [])
+    if pack_names:
         # matched-build pack: dense, key-ordered
         pack = pack_matched_builds(
             sc["matched"] != 0, sc["mb_pos"],
-            [to_u64_lane(svals[("b", nm)]) for nm in b1d], nb)
+            [to_u64_lane(svals[("b", nm)]) for nm in pack_names], nb)
         rec_outs, build_outs = expand_gather(
             S, cols_list, out_capacity, lo=lo_rec, build_cols=pack)
     else:
         rec_outs, _ = expand_gather(S, cols_list, out_capacity)
         build_outs = []
     rec_vals = dict(zip(rec_value_names, rec_outs))
+    build_vals = dict(zip(pack_names, build_outs))
 
     out_cols = {}
     for i, k in enumerate(keys):
         out_cols[k] = from_u64_lane(rec_vals[f"__key{i}"],
                                     build.columns[k].dtype)
-    for nm, c in zip(b1d, build_outs):
-        out_cols[nm] = from_u64_lane(c, build.columns[nm].dtype)
+    for nm in b1d:
+        out_cols[nm] = from_u64_lane(build_vals[nm], build.columns[nm].dtype)
+    for nm in b2d:
+        out_cols[nm] = _row_gather(build.columns[nm],
+                                   build_vals["__browidx"], nb)
     for nm in p1d:
         out_cols[nm] = from_u64_lane(rec_vals[nm], probe.columns[nm].dtype)
+    for nm in p2d:
+        # __prow is the per-side probe row index: no -nb rebase
+        out_cols[nm] = _row_gather(probe.columns[nm], rec_vals["__prow"],
+                                   npr)
     return out_cols, total, j
 
 
-def _join_plain(build, probe, keys, b1d, p1d, out_capacity):
-    nb = build.capacity
-    n = nb + probe.capacity
+def _join_plain(build, probe, keys, b1d, p1d, out_capacity, b2d=(),
+                p2d=()):
+    nb, npr = build.capacity, probe.capacity
+    n = nb + npr
     dev = build.device
 
     # 1. build-side sort: valid rows land in a key-sorted prefix whose
-    #    order agrees with the merge ranks below.
+    #    order agrees with the merge ranks below; the permutation itself
+    #    is the build row index of 2-D columns.
     b_ops = []
     for k in keys:
         c = build.columns[k]
@@ -235,7 +319,8 @@ def _join_plain(build, probe, keys, b1d, p1d, out_capacity):
     perm_b = _lexsort([*b_ops, btag])
     sb_payload = {nm: build.columns[nm][perm_b] for nm in b1d}
 
-    # 2. merged sort: keys + side tag; probe payloads ride.
+    # 2. merged sort: keys + side tag; probe payloads ride, and the
+    #    merged row index for 2-D columns (the permutation itself).
     m_ops, tag = _masked_keys(build, probe, keys)
     perm = _lexsort([*m_ops, tag])
     skeys = [op[perm] for op in m_ops]
@@ -267,6 +352,8 @@ def _join_plain(build, probe, keys, b1d, p1d, out_capacity):
     rec_cols = {f"__key{i}": sk for i, sk in enumerate(skeys)}
     rec_cols.update(sp_payload)
     rec_cols["__lo"] = lo
+    if p2d:
+        rec_cols["__prow"] = perm
 
     def _prefix(a, fill):
         a = a[rperm]
@@ -290,8 +377,15 @@ def _join_plain(build, probe, keys, b1d, p1d, out_capacity):
     out_cols = {k: out_vals[f"__key{i}"] for i, k in enumerate(keys)}
     for nm in b1d:
         out_cols[nm] = sb_payload[nm][safe]
+    if b2d:
+        bidx = perm_b[safe] if nb else safe
+        for nm in b2d:
+            out_cols[nm] = _row_gather(build.columns[nm], bidx, nb)
     for nm in p1d:
         out_cols[nm] = out_vals[nm]
+    for nm in p2d:
+        out_cols[nm] = _row_gather(probe.columns[nm],
+                                   out_vals["__prow"] - nb, npr)
     return out_cols, total, j
 
 
@@ -304,23 +398,42 @@ def sort_merge_inner_join(
     probe_payload: Optional[Sequence[str]] = None,
     kernel_config: Optional[KernelConfig] = None,
     join_type: str = "inner",
+    _internal: Sequence[str] = (),
 ) -> JoinResult:
     """Join ``build`` and ``probe`` on equality of ``key`` (a column name
-    or a sequence of names). Output columns: the key column(s), then
-    build payloads, then probe payloads. Payload names must not collide.
+    or a sequence of names). A key column may be a fixed-width 2-D uint8
+    byte column (utils/strings.py): it joins on equality of its
+    zero-padded bytes through packed 64-bit words, and comes back as
+    bytes. Output columns: the key column(s), then build payloads, then
+    probe payloads. Payload names must not collide.
 
     ``kernel_config`` (ops/kernel_config.KernelConfig) picks the
     formulation; by default the kernel pipeline runs on CUDA tensors and
     the plain formulation on CPU tensors.
 
-    Inner join over 1-D columns only: the other join types and 2-D
-    (fixed-width string) columns refuse by name.
+    The inner join only: the other join types refuse by name.
+    ``_internal`` names the packed string-key word columns, which the
+    string-key branch passes through the '__' reservation.
     """
     if join_type != "inner":
         raise NotImplementedError(
             f"join_type={join_type!r}: the port has the inner join only")
     cfg = resolve_kernel_config(kernel_config)
     keys = [key] if isinstance(key, str) else list(key)
+    check_key_ndim(build, probe, keys)
+    if any(build.columns[k].ndim == 2 for k in keys):
+        # String keys: packed into word columns, joined as a composite
+        # scalar key, and the byte columns rebuilt from the output words.
+        b2, p2, keys2, bp, pp, spec = prepare_string_key_join(
+            build, probe, keys, build_payload, probe_payload)
+        res = sort_merge_inner_join(
+            b2, p2, keys2, out_capacity, build_payload=bp, probe_payload=pp,
+            kernel_config=kernel_config,
+            _internal=tuple(nm for _, wns, _ in spec for nm in wns))
+        out = patch_string_lengths(
+            rebuild_string_keys(res.table, spec, keys), keys, join_type)
+        return JoinResult(out, total=res.total, overflow=res.overflow)
+
     if build_payload is None:
         build_payload = [c for c in build.column_names if c not in keys]
     if probe_payload is None:
@@ -329,32 +442,32 @@ def sort_merge_inner_join(
     clash = set(build_payload) & set(probe_payload)
     if clash:
         raise ValueError(f"payload name collision: {sorted(clash)}")
+    # Internal lanes (__S, __key{i}, __lo, __prow, __browidx) share one
+    # namespace with the columns; only the packed word names of the
+    # string-key branch are exempt.
     reserved = [c for c in (*keys, *build_payload, *probe_payload)
-                if c.startswith("__")]
+                if c.startswith("__") and c not in _internal]
     if reserved:
         raise ValueError("column names starting with '__' are reserved for "
                          f"internal join lanes: {sorted(set(reserved))}")
-    two_d = [c for t, names in ((build, keys + build_payload),
-                                (probe, keys + probe_payload))
-             for c in names if t.columns[c].ndim != 1]
-    if two_d:
-        raise NotImplementedError(
-            f"2-D (string) columns {sorted(set(two_d))}: the port joins "
-            "1-D columns only")
     for k in keys:
         bdt, pdt = build.columns[k].dtype, probe.columns[k].dtype
         if bdt != pdt:
             raise TypeError(f"key dtype mismatch: build {bdt} vs probe {pdt}")
     if build.device != probe.device:
         raise ValueError("build and probe live on different devices")
+    b1d = [c for c in build_payload if build.columns[c].ndim == 1]
+    b2d = [c for c in build_payload if build.columns[c].ndim > 1]
+    p1d = [c for c in probe_payload if probe.columns[c].ndim == 1]
+    p2d = [c for c in probe_payload if probe.columns[c].ndim > 1]
 
-    if (cfg.kernel_pipeline(build.device) and _kernel_path_ok(
-            build, probe, keys, build_payload, probe_payload, out_capacity)):
+    if (cfg.kernel_pipeline(build.device)
+            and _kernel_path_ok(build, probe, keys, b1d, p1d, out_capacity)):
         out_cols, total, j = _join_kernel_path(
-            build, probe, keys, build_payload, probe_payload, out_capacity)
+            build, probe, keys, b1d, p1d, out_capacity, b2d, p2d)
     else:
         out_cols, total, j = _join_plain(
-            build, probe, keys, build_payload, probe_payload, out_capacity)
+            build, probe, keys, b1d, p1d, out_capacity, b2d, p2d)
     out_cols = {c: out_cols[c] for c in [*keys, *build_payload,
                                          *probe_payload]}
     return JoinResult(Table(out_cols, j < total), total=total,

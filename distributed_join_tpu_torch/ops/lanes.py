@@ -35,10 +35,12 @@ _NARROW_INTS = (torch.int8, torch.uint8, torch.int16, torch.int32)
 
 
 def u64_lane_ok(dtype: torch.dtype) -> bool:
-    """Can a column of ``dtype`` ride a lane bit-exactly? (The JAX
-    package's static ``_u64_lane_ok``: 64-bit and narrower integers,
-    float32.)"""
-    return dtype in (torch.int64, torch.float32) or dtype in _NARROW_INTS
+    """Can a column of ``dtype`` ride a lane bit-exactly? The JAX
+    package's static ``_u64_lane_ok`` (64-bit and narrower integers,
+    float32) plus float64: the TPU cannot bitcast a float64, the GPU
+    views its 64 bits as they are."""
+    return (dtype in (torch.int64, torch.float32, torch.float64)
+            or dtype in _NARROW_INTS)
 
 
 def to_u64_lane(c: torch.Tensor) -> Optional[torch.Tensor]:
@@ -53,6 +55,8 @@ def to_u64_lane(c: torch.Tensor) -> Optional[torch.Tensor]:
         return c.to(torch.int64) & ((1 << bits) - 1)
     if dt == torch.float32:
         return c.view(torch.int32).to(torch.int64) & MASK32
+    if dt == torch.float64:
+        return c.view(torch.int64)
     return None
 
 
@@ -64,6 +68,8 @@ def from_u64_lane(c64: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         return c64.to(dtype)
     if dtype == torch.float32:
         return c64.to(torch.int32).view(torch.float32)
+    if dtype == torch.float64:
+        return c64.view(torch.float64)
     raise TypeError(f"no lane decoding for {dtype}")
 
 

@@ -31,8 +31,6 @@ _SIGNATURES = {
                           ctypes.c_void_p]),
 }
 NAMES = ("cnt", "start_out", "lo_m", "rec_pos", "matched", "mb_pos")
-# The kernel's status words carry counts in 30 bits (csrc/join_scans.cu).
-MAX_N = (1 << 30) - 1
 
 
 def _cumsum(x: torch.Tensor) -> torch.Tensor:
@@ -92,8 +90,6 @@ def join_scans(tag: torch.Tensor, first: torch.Tensor) -> dict:
         raise TypeError("join_scans takes int8 tag and bool first")
     _kernels.require_cuda("join_scans", tag, first)
     n = tag.shape[0]
-    if n > MAX_N:
-        raise ValueError(f"join_scans takes at most {MAX_N} positions")
     outs = {nm: torch.empty(n, dtype=torch.int32, device=tag.device)
             for nm in NAMES}
     if n == 0:

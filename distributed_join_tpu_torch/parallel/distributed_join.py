@@ -11,6 +11,10 @@ With n ranks and over-decomposition k, rows hash into
 n``, so one partition sort serves all k batches and matching keys always
 share (dest, batch).
 
+Composite keys, 2-D (fixed-width string) payload columns and string
+keys run as in the JAX package: 2-D columns are gathered and shuffled as
+whole rows, and string keys are packed into 64-bit word columns once,
+before hashing (JAX :536-552), and rebuilt on the way out (:783-790).
 The JAX step's other options (segmented sort, ragged / ppermute /
 hierarchical / compressed wires, metrics and integrity digests,
 aggregate pushdown, typed joins) refuse by name.
@@ -34,6 +38,10 @@ from distributed_join_tpu_torch.parallel.communicator import Communicator
 from distributed_join_tpu_torch.parallel.faults import CapacityLadder
 from distributed_join_tpu_torch.parallel.shuffle import shuffle_padded
 from distributed_join_tpu_torch.table import Table
+from distributed_join_tpu_torch.utils.strings import (
+    prepare_string_key_join,
+    rebuild_string_keys,
+)
 
 DEFAULT_SHUFFLE_CAPACITY_FACTOR = 1.6
 DEFAULT_OUT_CAPACITY_FACTOR = 1.2
@@ -132,6 +140,14 @@ def make_join_step(
                 # hash routing is dtype-dependent
                 raise TypeError(
                     f"key {kname!r} dtype mismatch: build {bdt} vs probe {pdt}")
+        # String keys: packed into word columns once, before hashing, so
+        # every stage below sees a composite scalar key (the build side's
+        # dead '#len' companion never rides the shuffle); the byte
+        # columns are rebuilt on the way out.
+        (build_local, probe_local, keys_eff, bpay, ppay,
+         str_spec) = prepare_string_key_join(
+            build_local, probe_local, keys, build_payload, probe_payload)
+        sk_names = tuple(nm for _, wns, _ in str_spec for nm in wns)
         b_rows, p_rows = build_local.capacity, probe_local.capacity
         b_cap = _round_up(int(math.ceil(
             b_rows / nb * shuffle_capacity_factor)), 8)
@@ -145,8 +161,8 @@ def make_join_step(
 
         def local_join(b, p, cap=out_cap):
             return sort_merge_inner_join(
-                b, p, keys, cap, build_payload=build_payload,
-                probe_payload=probe_payload, kernel_config=kernel_config)
+                b, p, keys_eff, cap, build_payload=bpay, probe_payload=ppay,
+                kernel_config=kernel_config, _internal=sk_names)
 
         parts = []
         total = torch.zeros((), dtype=torch.int64, device=build_local.device)
@@ -156,8 +172,8 @@ def make_join_step(
             # Classify on the key-tuple hash: it only has to be
             # consistent across sides and ranks (a collision merely
             # makes a key heavy; the HH join matches on the real key).
-            bh = hash_columns([build_local.columns[c] for c in keys])
-            ph = hash_columns([probe_local.columns[c] for c in keys])
+            bh = hash_columns([build_local.columns[c] for c in keys_eff])
+            ph = hash_columns([probe_local.columns[c] for c in keys_eff])
             bh, ph = bh.view(torch.uint64), ph.view(torch.uint64)
             hh = skew.global_heavy_hitters(
                 comm, ph, probe_local.valid, hh_slots,
@@ -191,8 +207,8 @@ def make_join_step(
             total = total + res.total
             overflow = overflow | res.overflow
         else:
-            ptb = radix_hash_partition(build_local, keys, nb)
-            ptp = radix_hash_partition(probe_local, keys, nb)
+            ptb = radix_hash_partition(build_local, keys_eff, nb)
+            ptp = radix_hash_partition(probe_local, keys_eff, nb)
             for b in range(k):
                 recv = []
                 for pt, cap in ((ptb, b_cap), (ptp, p_cap)):
@@ -208,6 +224,8 @@ def make_join_step(
             {name: torch.cat([t.columns[name] for t in parts])
              for name in parts[0].column_names},
             torch.cat([t.valid for t in parts]))
+        if str_spec:
+            out = rebuild_string_keys(out, str_spec, keys)
         total = comm.psum(total)
         overflow = comm.psum(overflow.to(torch.int32)) > 0
         return JoinResult(out, total=total, overflow=overflow)

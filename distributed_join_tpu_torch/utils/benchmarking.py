@@ -29,6 +29,8 @@ def consume_all_columns(table: Table) -> torch.Tensor:
     for c in table.columns.values():
         if c.dtype.is_floating_point:
             c = c.to(torch.int32)
+        if c.ndim > 1:  # string columns: every byte, not just byte 0
+            c = c.reshape(c.shape[0], -1).to(torch.int32).sum(1)
         acc = acc + torch.where(table.valid, c.to(torch.int64),
                                 torch.zeros_like(c, dtype=torch.int64)).sum()
     return acc
@@ -42,6 +44,8 @@ def timed_join_throughput(comm, step: Callable, build: Table, probe: Table,
     host clock after the work."""
     shift_key = key if isinstance(key, str) else key[0]
     key_dtype = probe.columns[shift_key].dtype
+    # A string key's bytes all shift (wrapping), as in the JAX package:
+    # equal byte rows stay equal, and no other pair becomes equal.
 
     def looped(build, probe):
         dev = build.device

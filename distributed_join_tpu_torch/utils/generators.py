@@ -2,7 +2,8 @@
 
 Port of ``distributed_join_tpu/utils/generators.py``
 ``generate_build_table`` (:41), ``generate_build_probe_tables`` (:95),
-``zipf_keys`` (:210) and ``generate_zipf_probe_table`` (:224).
+``expand_composite_key`` (:119), ``generate_composite_build_probe_tables``
+(:134), ``zipf_keys`` (:210) and ``generate_zipf_probe_table`` (:224).
 
 ``generate_build_probe_tables``: build keys uniform in
 [0, rand_max), payload = row id; probe keys drawn from the build keys
@@ -21,10 +22,33 @@ key 0 takes P(u > 1/sqrt 2) = 29.3 % of the rows.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from distributed_join_tpu_torch.device import resolve_device
+from distributed_join_tpu_torch.ops.hashing import _udivmod, fmix64
 from distributed_join_tpu_torch.table import Table
+from distributed_join_tpu_torch.utils.strings import (
+    LEN_SUFFIX,
+    encode_int_strings,
+)
+
+
+def check_float_key_range(key_dtype: torch.dtype, max_needed: int) -> None:
+    """Float keys must hold every integer in [0, max_needed) exactly, or
+    the guaranteed hit and miss keys (and unique keys) collide. A float
+    with ``m`` mantissa bits holds every integer up to 2^(m+1); the first
+    collision is 2^(m+1) + 1, which rounds onto 2^(m+1). (The JAX
+    package's ``_check_float_key_range`` refuses from 2^m on, half the
+    range: it also refuses ranges in which no two keys collide.)"""
+    if key_dtype.is_floating_point:
+        exact = 2 << round(-math.log2(torch.finfo(key_dtype).eps))
+        if max_needed - 1 > exact:
+            raise ValueError(
+                f"key range needs integers up to {max_needed - 1}, beyond "
+                f"{key_dtype}'s exact-integer range ({exact}); generated "
+                "keys would collide and break the hit/miss guarantees")
 
 
 def generate_build_table(generator: torch.Generator, nrows: int,
@@ -35,13 +59,7 @@ def generate_build_table(generator: torch.Generator, nrows: int,
     (``unique_keys``: key i is i, which needs nrows <= rand_max), payload
     = row id."""
     dev = generator.device
-    if key_dtype.is_floating_point:
-        exact = 1 << (torch.finfo(key_dtype).bits
-                      - 1 - (8 if key_dtype == torch.float32 else 11))
-        if 2 * rand_max > exact:
-            raise ValueError(
-                f"key range needs integers up to {2 * rand_max}, beyond "
-                f"{key_dtype}'s exact-integer range")
+    check_float_key_range(key_dtype, rand_max)
     if unique_keys:
         if nrows > rand_max:
             raise ValueError("unique keys need nrows <= rand_max")
@@ -71,6 +89,7 @@ def generate_build_probe_tables(
     dev = resolve_device(device)
     if rand_max is None:
         rand_max = build_nrows
+    check_float_key_range(key_dtype, 2 * rand_max)  # the miss keys
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     build = generate_build_table(g, build_nrows, rand_max, key_dtype,
@@ -122,3 +141,77 @@ def generate_zipf_probe_table(generator: torch.Generator, nrows: int,
         "probe_payload": torch.arange(nrows, dtype=payload_dtype,
                                       device=generator.device),
     })
+
+
+def expand_composite_key(base: torch.Tensor, n_cols: int, rand_max: int
+                         ) -> dict:
+    """``n_cols`` key columns derived from a scalar base key, so that two
+    rows' composite tuples are equal iff their bases are equal: the hit
+    and miss guarantees of the scalar generator carry over (BASELINE
+    config 5). Column i > 0 is ``fmix64(base + i) % rand_max``, unsigned,
+    as in the JAX package."""
+    cols = {"key0": base}
+    for i in range(1, n_cols):
+        h = fmix64(base.to(torch.int64) + i)
+        cols[f"key{i}"] = _udivmod(h, rand_max)[1].to(base.dtype)
+    return cols
+
+
+def generate_composite_build_probe_tables(
+    seed: int,
+    build_nrows: int,
+    probe_nrows: int,
+    key_columns: int = 2,
+    rand_max: int | None = None,
+    selectivity: float = 0.3,
+    string_payload_len: int = 0,
+    unique_build_keys: bool = False,
+    string_payload_columns: int = 1,
+    variable_length_strings: bool = False,
+    device=None,
+):
+    """The config-5 generator: multi-column keys, plus
+    ``string_payload_columns`` fixed-width string payload columns of
+    ``string_payload_len`` bytes on the build side (``build_tag``,
+    ``build_tag1``, ... with their '#len' companions), rendered on the
+    device from the build row id (column c > 0 from a scrambled id and
+    its own prefix). ``variable_length_strings`` renders the ids without
+    leading zeros, so row lengths vary. Returns (build, probe,
+    key_names) on ``device`` (default: the GPU)."""
+    if rand_max is None:
+        rand_max = build_nrows
+    build, probe = generate_build_probe_tables(
+        seed, build_nrows, probe_nrows, rand_max=rand_max,
+        selectivity=selectivity, unique_build_keys=unique_build_keys,
+        device=device)
+    key_names = [f"key{i}" for i in range(key_columns)]
+
+    def expand(t: Table, payload_names) -> Table:
+        cols = expand_composite_key(t.columns["key"], key_columns, rand_max)
+        for p in payload_names:
+            cols[p] = t.columns[p]
+        return Table(cols, t.valid)
+
+    build = expand(build, ["build_payload"])
+    probe = expand(probe, ["probe_payload"])
+    if string_payload_len > 0:
+        cols = dict(build.columns)
+        ids = build.columns["build_payload"].to(torch.int64)
+        for c in range(string_payload_columns):
+            prefix = "itm-" if c == 0 else f"tg{c % 10}-"
+            if string_payload_len <= len(prefix):
+                raise ValueError(
+                    f"string_payload_len must exceed {len(prefix)} (the "
+                    f"{prefix!r} prefix) so the payload has id digits")
+            col_ids = ids if c == 0 else (
+                (ids * (2 * c + 1) + c)
+                % (10 ** min(9, string_payload_len - len(prefix))))
+            sbytes, slens = encode_int_strings(
+                col_ids, prefix=prefix,
+                digits=string_payload_len - len(prefix),
+                pad_digits=not variable_length_strings)
+            name = "build_tag" if c == 0 else f"build_tag{c}"
+            cols[name] = sbytes
+            cols[name + LEN_SUFFIX] = slens
+        build = Table(cols, build.valid)
+    return build, probe, key_names

@@ -74,7 +74,7 @@ def inputs(config3: bool) -> dict:
     if config3:
         from distributed_join_tpu_torch.benchmarks import distributed_join as D
         args = chip_smoke._config3_args(False)
-        build_t, probe_t = D.make_tables(args, torch.device("cuda"))
+        build_t, probe_t, _ = D.make_tables(args, torch.device("cuda"))
         out_cap = -(-int(args.probe_table_nrows * 1.2) // 8) * 8
     else:
         from distributed_join_tpu_torch.utils.generators import (

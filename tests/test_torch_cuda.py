@@ -471,27 +471,183 @@ def test_join_kernel_pipeline_many_lanes_and_zero_capacity(card):
     assert int(z.total) == int(k.total) and bool(z.overflow)
 
 
-def test_join_above_scan_limit_raises(card, monkeypatch):
-    """A merged domain above ``scan.MAX_N`` (lowered here) stays on the
-    kernel pipeline, whose scan raises; it never gives way to the plain
-    formulation on the card."""
-    g = torch.Generator(device=card)
-    g.manual_seed(8)
-    n = 5_000
-    b = Table({"key": torch.randint(0, 500, (n,), generator=g, device=card)},
-              torch.ones(n, dtype=torch.bool, device=card))
-    p = Table({"key": torch.randint(0, 900, (n,), generator=g, device=card)},
-              torch.ones(n, dtype=torch.bool, device=card))
+def _closed_form_check(outs: dict, want, n: int, chunk: int = 1 << 27):
+    """Each output against ``want(name, i)`` (int64 positions ``i``),
+    exactly, chunk by chunk."""
+    for lo in range(0, n, chunk):
+        i = torch.arange(lo, min(n, lo + chunk), device=outs["cnt"].device)
+        for name in scan.NAMES:
+            w = want(name, i).to(torch.int32)
+            assert torch.equal(outs[name][lo:lo + chunk], w), (name, lo)
+
+
+def test_join_scans_kernel_at_the_int32_limit(card):
+    """n = 2^31 - 3 positions (the largest merged domain the join's
+    kernel pipeline admits, up to one): one run of builds ending in a
+    probe, then a run of 9,998 builds and two probes. Every count of the
+    forward status words (builds, matched builds, open builds, matched
+    builds before the last run start, the wrapping sum of cnt) passes
+    2^30 and reaches its 31-bit field's top; every output equals its
+    closed form. About 58 GB of the card."""
+    n = 2**31 - 3
+    s = n - 10_000                       # the second run's first position
+    tag = torch.zeros(n, dtype=torch.int8, device=card)
+    tag[s - 1] = 1
+    tag[n - 2:] = 1
+    first = torch.zeros(n, dtype=torch.bool, device=card)
+    first[0] = first[s] = True
+    before = scan.join_scans.launches
+    outs = scan.join_scans(tag, first)
+    torch.cuda.synchronize()
+    assert scan.join_scans.launches == before + 1
+    del tag, first
+
+    def want(name, i):
+        probe = (i == s - 1) | (i >= n - 2)
+        run2 = i >= s
+        if name == "matched":
+            return (~probe).long()
+        if name == "cnt":
+            return torch.where(i == s - 1, s - 1,
+                               torch.where(i >= n - 2, n - 2 - s, 0))
+        if name == "start_out":
+            return torch.where(i == n - 1, n - 3,
+                               torch.where(run2, s - 1, 0))
+        if name == "lo_m":
+            return torch.where(run2, s - 1, 0)
+        if name == "rec_pos":
+            return torch.where(i < s - 1, -1, torch.where(
+                i < n - 2, 0, torch.where(i == n - 2, 1, 2)))
+        # mb_pos: matched builds through i, less one
+        return torch.where(i < s - 1, i, torch.where(
+            i == s - 1, s - 2, torch.where(i < n - 2, i - 1, n - 4)))
+
+    _closed_form_check(outs, want, n)
+
+
+def test_join_above_2_30_merged_positions(card, monkeypatch):
+    """A join of 2^30 + 2^17 merged positions on the kernel pipeline
+    (above the scan's old limit of 2^30 - 1): int32 keys, no payloads.
+    Build keys are 0 .. nb - 1, probe keys the even numbers 0 ..
+    2 (npr - 1), so the result is exactly the even keys below nb, once
+    each. Prints the run's peak device memory."""
+    nb = npr = 2**29 + 2**16
+    keys = torch.arange(nb, dtype=torch.int32, device=card)
+    b = Table({"key": keys}, torch.ones(nb, dtype=torch.bool, device=card))
+    p = Table({"key": 2 * keys}, torch.ones(npr, dtype=torch.bool,
+                                            device=card))
+    del keys
+    total = nb // 2
     monkeypatch.setattr(join_mod, "_join_plain",
                         lambda *a, **kw: pytest.fail("took the plain path"))
-    monkeypatch.setattr(scan, "MAX_N", 2 * n - 1)
+    torch.cuda.reset_peak_memory_stats(card)
     before = scan.join_scans.launches
-    with pytest.raises(ValueError, match="at most"):
-        sort_merge_inner_join(b, p, "key", 16 * n)
-    assert scan.join_scans.launches == before
-    monkeypatch.setattr(scan, "MAX_N", 2 * n)
-    r = sort_merge_inner_join(b, p, "key", 16 * n)
-    assert scan.join_scans.launches == before + 1 and int(r.total) > 0
+    r = sort_merge_inner_join(b, p, "key", total)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(card)
+    assert scan.join_scans.launches == before + 1
+    assert int(r.total) == total and not bool(r.overflow)
+    got = torch.sort(r.table.columns["key"][r.table.valid]).values
+    assert torch.equal(got, torch.arange(0, nb, 2, dtype=torch.int32,
+                                         device=card))
+    print(f"[join above 2^30] {nb + npr} merged positions, total {total}, "
+          f"peak_memory_bytes {peak} "
+          f"({torch.cuda.get_device_name(0)})")
+
+
+def test_float64_bucket_ids_on_card_equal_cpu(card):
+    """The float64 key hash decomposes a = m * 2^e with log2 and exp2;
+    on the card it must give the CPU's bits, or equal keys would route
+    apart between devices. Integer keys over +-2^24, every power of two
+    from 2^-30 to 2^60 with both signs, and both zeros."""
+    from distributed_join_tpu_torch.ops.hashing import bucket_ids, hash_columns
+    rng = np.random.default_rng(31)
+    pw = 2.0 ** np.arange(-30, 61)
+    k = np.concatenate([rng.integers(-(1 << 24), 1 << 24, 100_000),
+                        pw, -pw, [0.0, -0.0]]).astype(np.float64)
+    cpu = torch.from_numpy(k)
+    gpu = cpu.to(card)
+    assert torch.equal(hash_columns([gpu]).cpu(), hash_columns([cpu]))
+    for n in (3, 8, 1_000_003):
+        assert torch.equal(bucket_ids([gpu], n).cpu(), bucket_ids([cpu], n))
+
+
+def _typed_case(name, g, card, n=40_000):
+    """Tables of one typed/composite/2-D/string case on the card."""
+    def ints(hi, n=n):
+        return torch.randint(0, hi, (n,), generator=g, device=card)
+
+    def signed_floats(k):
+        k = (k - 2000).double() / 4
+        k[k == -500] = -0.0          # two of every ~4000 keys are +-0.0
+        k[k == -499.75] = float("inf")
+        k[k == -499.5] = float("-inf")
+        return k
+
+    if name == "float64":
+        b = {"key": signed_floats(ints(4000)), "bp": ints(99).double()}
+        p = {"key": signed_floats(ints(4000)), "pp": ints(99).double()}
+        keys = "key"
+    elif name == "composite3":
+        b = {"k0": ints(30), "k1": ints(20).int(), "k2": ints(9).float(),
+             "bp": ints(99)}
+        p = {"k0": ints(30), "k1": ints(20).int(), "k2": ints(9).float(),
+             "pp": ints(99)}
+        keys = ["k0", "k1", "k2"]
+    elif name == "two_d":
+        b = {"key": ints(3000), "bs": ints(256, n * 7).view(n, 7)
+             .to(torch.uint8), "bp": ints(99)}
+        p = {"key": ints(6000), "ps": ints(256, n * 16).view(n, 16)
+             .to(torch.uint8)}
+        keys = "key"
+    else:  # string key beside an int32 key, 2-D payload
+        from distributed_join_tpu_torch.utils.strings import (
+            encode_int_strings,
+        )
+        b, p = {}, {}
+        for cols, hi, side in ((b, 3000, "b"), (p, 6000, "p")):
+            base = ints(hi)
+            cols["sk"], cols["sk#len"] = encode_int_strings(
+                base, prefix="itm-", digits=12)
+            cols["k"] = (base % 3).int()
+            cols[side + "tag"] = ints(256, n * 5).view(n, 5).to(torch.uint8)
+        keys = ["sk", "k"]
+    ones = torch.ones(n, dtype=torch.bool, device=card)
+    return Table(b, ones), Table(p, ones), keys
+
+
+@pytest.mark.parametrize("name", ["float64", "composite3", "two_d",
+                                  "string_key"])
+def test_join_kernel_pipeline_types_and_strings_equal_plain(card, name,
+                                                            monkeypatch):
+    """float64 keys with +-0.0 and +-inf, a 3-column mixed-dtype key,
+    2-D payloads on both sides, and a string key beside a scalar key:
+    each stays on the kernel pipeline (one join_scans launch, the plain
+    formulation never called) and gives the plain formulation's rows."""
+    g = torch.Generator(device=card)
+    g.manual_seed(zlib.crc32(name.encode()))
+    b, p, keys = _typed_case(name, g, card)
+    q = sort_merge_inner_join(b, p, keys, 40 * 40_000,
+                              kernel_config=KernelConfig("plain"))
+    monkeypatch.setattr(join_mod, "_join_plain",
+                        lambda *a, **kw: pytest.fail("took the plain path"))
+    before = scan.join_scans.launches
+    k = sort_merge_inner_join(b, p, keys, 40 * 40_000)
+    assert scan.join_scans.launches == before + 1
+    assert int(k.total) == int(q.total) > 0 and not bool(k.overflow)
+    assert k.table.column_names == q.table.column_names
+
+    def rows(r):
+        parts = []
+        for c in r.table.column_names:
+            x = r.table.columns[c][r.table.valid]
+            if x.dtype.is_floating_point:
+                x = x.double().view(torch.int64)
+            parts.append(x.reshape(x.shape[0], -1).long())
+        a = torch.cat(parts, 1).cpu().numpy()
+        return a[np.lexsort(a.T[::-1])]
+
+    np.testing.assert_array_equal(rows(k), rows(q))
 
 
 def test_kernel_wrappers_refuse_wrong_dtypes(card):

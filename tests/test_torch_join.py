@@ -238,11 +238,13 @@ def test_local_join_refuses_by_name():
     u = _ttable({"key": np.arange(8), "b": np.arange(8)}, np.ones(8, bool))
     with pytest.raises(NotImplementedError, match="left"):
         tjoin.sort_merge_inner_join(t, u, "key", 16, join_type="left")
+    # 2-D columns join; the same 2-D name on both sides is refused, as
+    # the JAX package refuses it
     s = Table({"key": torch.arange(8), "s": torch.zeros(8, 4,
                                                         dtype=torch.uint8)},
               torch.ones(8, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="2-D"):
-        tjoin.sort_merge_inner_join(s, u, "key", 16)
+    with pytest.raises(ValueError, match="collision"):
+        tjoin.sort_merge_inner_join(s, s, "key", 16)
     with pytest.raises(ValueError, match="expand"):
         KernelConfig(expand="pallas")
 
