@@ -63,12 +63,26 @@ Phases (any failure raises, and the script exits non-zero):
    float32 join (8 M x 8 M, keys below 2^24); then 4 emulated ranks at
    2 M x 2 M with a string key beside an int64 key and a string
    payload, equal to the 1-rank join.
+12. The join types: left, right, full outer, semi and anti joins of the
+   headline's tables (10 M x 10 M) through ``distributed_inner_join``,
+   each with an output block of its expected rows plus 25 %, the rows
+   counted from the tables alone (matches by binary search, unmatched
+   rows by ``torch.isin``): no overflow on the first rung, that total,
+   the scans, the compactions and the expand launched (record mode on
+   semi and anti), and a row digest equal to the plain formulation's;
+   each timed as benchmarks/distributed_join.py times a join (4 warm-up
+   and 4 timed joins, CUDA events), the full outer join profiled. The kernels at the typed
+   shapes the headline does not have (the full outer record block and
+   expand, the valid-build pack, the anti join's record-mode expand)
+   against their twins, their inputs taken from one join of each. Then
+   4 emulated ranks at 2 M x 2 M for the full outer and anti joins,
+   equal to the 1-rank join.
 
 Launch counts are set to zero just before each path and read just after;
 the launches of phase 2 and of the config-3 kernel check do not count.
 The line before the last is one JSON object with every kernel's numbers,
 one row per kernel and call site (the join sites also carry their
-launches on the paths of phases 10 and 11); the last line is
+launches on the paths of phases 10 to 12); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
 prints a result.
@@ -100,6 +114,10 @@ C1_POSITIONS = 2**30 + 2**20   # above the scan's old 2^30 - 1 limit
 CONFIG5_ROWS = 5_000_000
 STRING_KEY_ROWS = 5_000_000
 FLOAT32_ROWS = 8_000_000       # keys up to 2 * rows < 2^24: exact in float32
+TYPED = ("left", "right", "full_outer", "semi", "anti")
+TYPED_EMU = ("full_outer", "anti")
+TYPED_ITERS = 4                # 4 warm-up and 4 timed joins, as the config
+                               # benchmark times them
 
 
 def _fail(msg: str) -> None:
@@ -169,12 +187,14 @@ def max_abs_err(got, want, n: int | None = None) -> float:
 def row_digest(res) -> tuple:
     """Order-independent digest of the valid rows: (rows, wrapping sum
     and xor of a 64-bit hash of each row). Floats enter by their bits; a
-    2-D column enters element by element."""
+    2-D column enters element by element, a bool column as 0 or 1."""
     from distributed_join_tpu_torch.ops.hashing import fmix64, hash_combine
     t = res.table
     h = None
     for name in t.column_names:
         c = t.columns[name]
+        if c.dtype == torch.bool:   # an outer join's validity columns
+            c = c.to(torch.int64)
         if c.dtype.is_floating_point:
             c = c.view(torch.int64 if c.element_size() == 8 else torch.int32)
         for col in c.reshape(c.shape[0], -1).unbind(1):
@@ -481,7 +501,8 @@ def counted(fn):
     )
     from distributed_join_tpu_torch.parallel import skew
     wrappers = (scan.join_scans, join.compact_records,
-                join.pack_matched_builds, compact.stream_compact,
+                join.pack_matched_builds, join.pack_valid_builds,
+                compact.stream_compact,
                 expand.expand_gather, skew.extract_prefix,
                 merge_sort.merge_sort_planes, expand.expand_pull)
     torch.cuda.synchronize()
@@ -985,6 +1006,254 @@ def emulated_strings_phase() -> None:
           f"launches {counts}", flush=True)
 
 
+# -- phase 12: the join types -------------------------------------------
+
+
+def expected_typed_rows(build, probe) -> dict:
+    """Each type's output rows, counted from the tables alone: the
+    matches by binary search of the sorted valid build keys, unmatched
+    probes and builds by ``torch.isin`` on the valid keys."""
+    bk = build.columns["key"][build.valid]
+    pk = probe.columns["key"][probe.valid]
+    sb = torch.sort(bk).values
+    matches = int((torch.searchsorted(sb, pk, right=True)
+                   - torch.searchsorted(sb, pk)).sum())
+    hit_p = torch.isin(pk, bk)
+    unmatched_p = int((~hit_p).sum())
+    unmatched_b = int((~torch.isin(bk, pk)).sum())
+    return {"left": matches + unmatched_p, "right": matches + unmatched_b,
+            "full_outer": matches + unmatched_p + unmatched_b,
+            "semi": int(hit_p.sum()), "anti": unmatched_p}
+
+
+def join_kernel_ms(top: list) -> dict:
+    """Device ms a join of the port's join kernels in a profile's rows
+    (the compaction's two call sites share one kernel)."""
+    names = {"compaction": ("compact_kernel",),
+             "expand": ("expand_kernel",),
+             "join_scans": ("f_pass", "r_pass")}
+    return {k: sum(r["ms"] for r in top if any(p in r["name"] for p in pats))
+            for k, pats in names.items()}
+
+
+def captured_join_calls(fn):
+    """Run ``fn`` with the join's compaction and expand calls recorded:
+    returns (its result, {call site: the arguments of its last call})."""
+    from distributed_join_tpu_torch.ops import join as J
+    calls = {}
+    real_compact, real_expand = J.stream_compact, J.expand_gather
+
+    def compact(mask, pos, cols, capacity, launch_counter=None):
+        calls[launch_counter.__name__] = (mask, pos, list(cols), capacity)
+        return real_compact(mask, pos, cols, capacity,
+                            launch_counter=launch_counter)
+
+    def expand(S, cols, out_capacity, lo=None, build_cols=None):
+        calls["expand_gather"] = (S, list(cols), out_capacity, lo,
+                                  build_cols)
+        return real_expand(S, cols, out_capacity, lo=lo,
+                           build_cols=build_cols)
+
+    J.stream_compact, J.expand_gather = compact, expand
+    try:
+        return fn(), calls
+    finally:
+        J.stream_compact, J.expand_gather = real_compact, real_expand
+
+
+def typed_kernel_rows(build, probe, caps) -> list:
+    """The kernels at the typed joins' shapes that phase 2 does not have:
+    the full outer join's record block (5 lanes: S, key, probe payload,
+    build rank, side flags) and build-mode expand, the valid-build pack,
+    and the anti join's record-mode expand (run length 1); each with the
+    inputs one join of that type gives it, against its twin. Bounds as
+    phase 2's: a compaction reads every mask byte and the kept survivors'
+    lanes and writes them; an expand reads each live record (and each
+    valid build row the pack holds) and writes each slot up to the
+    total."""
+    from distributed_join_tpu_torch.ops import compact, expand
+    from distributed_join_tpu_torch.ops.join import sort_merge_inner_join
+    from distributed_join_tpu_torch.ops.kernel_config import KernelConfig
+
+    rows = []
+    route = KernelConfig("kernel")
+    src_c = "distributed_join_tpu_torch/csrc/stream_compact.cu"
+    src_e = "distributed_join_tpu_torch/csrc/expand_gather.cu"
+    rep_c = ("distributed_join_tpu/ops/compact_planes.py:53 "
+             "(_compact_kernel); distributed_join_tpu/ops/compact_pallas.py:"
+             "62 (_compact_kernel)")
+    res, calls = captured_join_calls(lambda: sort_merge_inner_join(
+        build, probe, "key", caps["full_outer"], join_type="full_outer",
+        kernel_config=route))
+    tot = min(int(res.total), caps["full_outer"])
+    del res
+    n = build.capacity + probe.capacity
+    for name, site in (("stream_compact[record, full_outer]",
+                        "compact_records"),
+                       ("stream_compact[valid-build pack]",
+                        "pack_valid_builds")):
+        mask, pos, lanes, cap = calls[site]
+        kept = min(int(mask.sum()), cap)
+        lib = (lambda m=mask, packed=torch.stack(lanes, 1): packed[m])
+        got = compact.stream_compact(mask, pos, lanes, cap)
+        want = compact.stream_compact_reference(mask, pos, lanes, cap)
+        check_and_time(
+            rows, name, src_c, rep_c, got, want, kept,
+            lambda m=mask, q=pos, ls=lanes, c=cap: compact.stream_compact(
+                m, q, ls, c),
+            lambda m=mask, q=pos, ls=lanes, c=cap:
+                compact.stream_compact_reference(m, q, ls, c),
+            lib, nbytes=n + 2 * kept * 8 * len(lanes), ops=n)
+        del got, want, lib
+    n_rec = int(calls["compact_records"][0].sum())
+    n_valid_b = int(build.valid.sum())
+    S, rc, cap, lo, pk = calls["expand_gather"]
+    got_r, got_b = expand.expand_gather(S, rc, cap, lo=lo, build_cols=pk)
+    want_r, want_b = expand.expand_gather_reference(S, rc, cap, lo=lo,
+                                                    build_cols=pk)
+    check_and_time(
+        rows, "expand_gather[build, full_outer]", src_e,
+        "distributed_join_tpu/ops/expand_pallas.py:335 (_expand_kernel_b8)",
+        got_r + got_b, want_r + want_b, tot,
+        lambda: expand.expand_gather(S, rc, cap, lo=lo, build_cols=pk),
+        lambda: expand.expand_gather_reference(S, rc, cap, lo=lo,
+                                               build_cols=pk), None,
+        nbytes=n_rec * (4 + 4 + 8 * len(rc)) + n_valid_b * 8 * len(pk)
+        + tot * 8 * (len(rc) + len(pk)), ops=tot * 2 * 32)
+    del calls, got_r, got_b, want_r, want_b, S, rc, lo, pk
+    torch.cuda.empty_cache()
+
+    res, calls = captured_join_calls(lambda: sort_merge_inner_join(
+        build, probe, "key", caps["anti"], join_type="anti",
+        kernel_config=route))
+    tot = min(int(res.total), caps["anti"])
+    del res
+    S, rc, cap, _, _ = calls["expand_gather"]
+    n_rec = int(calls["compact_records"][0].sum())
+    got_r, got_s = expand.expand_gather(S, rc, cap)
+    want_r, want_s = expand.expand_gather_reference(S, rc, cap)
+    run_len = torch.diff(torch.cat([
+        S[:n_rec].long(), torch.tensor([tot], device=S.device)]))
+    rec_pack = torch.stack(rc, 1)[:n_rec]
+    check_and_time(
+        rows, "expand_gather[record, anti]", src_e,
+        "distributed_join_tpu/ops/expand_pallas.py:264 (_expand_kernel)",
+        got_r + [got_s], want_r + [want_s], tot,
+        lambda: expand.expand_gather(S, rc, cap),
+        lambda: expand.expand_gather_reference(S, rc, cap),
+        lambda: torch.repeat_interleave(rec_pack, run_len, dim=0,
+                                        output_size=tot),
+        nbytes=n_rec * (4 + 8 * len(rc)) + tot * (8 * len(rc) + 4),
+        ops=tot * 2 * 32)
+    del calls, rec_pack
+    torch.cuda.empty_cache()
+    return rows
+
+
+def typed_phase():
+    """The five typed joins of the headline's tables (phase 12)."""
+    from distributed_join_tpu_torch import bench
+    from distributed_join_tpu_torch.ops.kernel_config import KernelConfig
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+        make_join_step,
+    )
+    from distributed_join_tpu_torch.utils.benchmarking import (
+        profile_join,
+        timed_join_throughput,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+
+    build, probe = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS, probe_nrows=NROWS,
+        selectivity=bench.SELECTIVITY, device=DEVICE)
+    want = expected_typed_rows(build, probe)
+    caps = {t: int(want[t] * bench.OUT_SLACK) for t in TYPED}
+    print(f"[typed] expected rows {want}; output blocks {caps}", flush=True)
+    comm = LocalCommunicator()
+    counts, timing = {}, {}
+    for t in TYPED:
+        res, c = counted(lambda: distributed_inner_join(
+            build, probe, comm, join_type=t, out_rows_per_rank=caps[t]))
+        _check(not bool(res.overflow) and res.retry_report.n_attempts == 1,
+               f"{t} join overflowed its first rung")
+        _check(int(res.total) == want[t],
+               f"{t} join: total {int(res.total)}, counted {want[t]}")
+        need = ["join_scans", "compact_records", "expand_gather"]
+        if t not in ("semi", "anti"):
+            need.append("pack_valid_builds")
+        _require_launched(c, need, f"the {t} path")
+        dk = row_digest(res)
+        del res
+        plain = distributed_inner_join(
+            build, probe, comm, join_type=t, out_rows_per_rank=caps[t],
+            kernel_config=KernelConfig("plain"))
+        dp = row_digest(plain)
+        _check(int(plain.total) == want[t] and dk == dp,
+               f"{t} join: the kernel pipeline and the plain formulation "
+               "give different rows")
+        del plain
+        torch.cuda.empty_cache()
+        step = make_join_step(comm, key="key", join_type=t,
+                              out_rows_per_rank=caps[t])
+        sec, total, ovf = timed_join_throughput(comm, step, build, probe,
+                                                TYPED_ITERS)
+        _check(not ovf and total == want[t],
+               f"{t} join: the timed joins gave {total} rows")
+        timing[t] = sec * 1e3
+        counts[t] = c
+        print(f"[typed] {t}: total={want[t]} out_rows={caps[t]} "
+              f"ms_per_join={sec * 1e3:.4f} "
+              f"m_rows_per_sec={2 * NROWS / sec / 1e6:.1f} digest equal to "
+              f"the plain formulation; launches {c}", flush=True)
+        prof = profile_join(step, build, probe, joins=3, top=60)
+        if t == "full_outer":
+            print("[typed] full_outer profile " + json.dumps(prof),
+                  flush=True)
+        print(f"[typed] {t} device ms a join: busy "
+              f"{prof['device_busy_ms_per_join']:.4f} of wall "
+              f"{prof['host_wall_ms_per_join']:.4f}; " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in
+                  join_kernel_ms(prof["top_kernels_ms_per_join"]).items()),
+              flush=True)
+    n = 2 * NROWS
+    x = torch.arange(n, dtype=torch.int32, device=DEVICE) % 1000
+    print(f"[typed] torch.cummax on {n} int32: "
+          f"{time_ms(lambda: torch.cummax(x, 0), reps=3):.3f} ms; "
+          f"torch.cumsum: {time_ms(lambda: torch.cumsum(x, 0)):.4f} ms",
+          flush=True)
+    del x
+    rows = typed_kernel_rows(build, probe, caps)
+    del build, probe
+    torch.cuda.empty_cache()
+
+    eb, ep = generate_build_probe_tables(
+        seed=SEED, build_nrows=EMU_ROWS, probe_nrows=EMU_ROWS, device=DEVICE)
+    for t in TYPED_EMU:
+        multi, c = counted(lambda: distributed_inner_join(
+            eb, ep, EmulatedCommunicator(EMU_RANKS), join_type=t,
+            auto_retry=2))
+        one = distributed_inner_join(eb, ep, comm, join_type=t,
+                                     auto_retry=2)
+        _check(not bool(multi.overflow) and not bool(one.overflow),
+               f"emulated {t} join overflowed")
+        _check(int(multi.total) == int(one.total) > 0
+               and row_digest(multi) == row_digest(one),
+               f"emulated 4-rank {t} join differs from 1 rank")
+        _require_launched(c, ("compact_records", "expand_gather"),
+                          f"the emulated {t} path")
+        print(f"[typed-emulated] {EMU_RANKS} ranks: {t} total="
+              f"{int(multi.total)} equal to 1 rank (attempts "
+              f"{multi.retry_report.n_attempts}); launches {c}", flush=True)
+    return counts, timing, rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1030,6 +1299,9 @@ def main() -> int:
     c1 = c1_phase()
     paths = {"config5": config5_phase(), **types_phase()}
     emulated_strings_phase()
+    typed, typed_ms, typed_rows = typed_phase()
+    paths.update(typed)
+    print(f"[typed] ms_per_join {json.dumps(typed_ms)}; {smi}", flush=True)
 
     launches = {"join_scans": head["join_scans"],
                 "stream_compact[record]": head["compact_records"],
@@ -1040,13 +1312,22 @@ def main() -> int:
                 **{k: own[k] for k in ("merge_sort[key+tag]",
                                        "merge_sort[key]")},
                 **{k: own[k] for k in ("expand_pull[build]",
-                                       "expand_pull[record]")}}
-    # the join sites' launches on this slice's paths, each path's own run
+                                       "expand_pull[record]")},
+                "stream_compact[record, full_outer]":
+                    typed["full_outer"]["compact_records"],
+                "stream_compact[valid-build pack]":
+                    typed["full_outer"]["pack_valid_builds"],
+                "expand_gather[build, full_outer]":
+                    typed["full_outer"]["expand_gather"],
+                "expand_gather[record, anti]": typed["anti"]["expand_gather"]}
+    # the join sites' launches on the paths of phases 10-12, each path's
+    # own run
     site = {"join_scans": "join_scans",
             "stream_compact[record]": "compact_records",
             "stream_compact[pack]": "pack_matched_builds",
+            "stream_compact[valid-build pack]": "pack_valid_builds",
             "expand_gather[build]": "expand_gather"}
-    by_name = {r["name"]: r for r in [*rows, skew_row]}
+    by_name = {r["name"]: r for r in [*rows, skew_row, *typed_rows]}
     kernels = []
     for name, count in launches.items():
         r = dict(by_name[name], launches=count)

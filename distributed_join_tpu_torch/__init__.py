@@ -3,7 +3,8 @@ CUDA, ported from the JAX package ``distributed_join_tpu`` beside it.
 
 The pipeline is the JAX package's: Murmur3 hash -> radix hash partition
 (stable bucket sort) -> capacity-padded all-to-all shuffle over a
-``Communicator`` -> local sort-merge inner join. The local join's Pallas
+``Communicator`` -> local sort-merge join (inner, and the left, right,
+full outer, semi and anti joins of ``join_type``). The local join's Pallas
 kernels (fused scans, stream compaction, expand-gather) are hand-written
 CUDA kernels for Hopper (``csrc/``), each with a plain PyTorch twin that
 CPU tensors take.

@@ -1,23 +1,31 @@
-"""Per-partition sort-merge inner join.
+"""Per-partition sort-merge join: the inner join and its typed family.
 
-Port of ``distributed_join_tpu/ops/join.py`` ``sort_merge_inner_join``,
-the inner join, in its two formulations:
+Port of ``distributed_join_tpu/ops/join.py`` ``sort_merge_inner_join``
+in its two formulations:
 
 - the kernel pipeline (``_join_kernel_path``; CUDA tensors): ONE
   value-carrying merged sort (``torch.sort``, stable by key then side
   tag), the fused scans (ops/scan.py), two stream compactions
-  (ops/compact.py: the run-record block and the matched-build pack) and
-  the expand-gather with in-kernel build materialization
-  (ops/expand.py);
+  (ops/compact.py: the run-record block and a build pack) and the
+  expand-gather with in-kernel build materialization (ops/expand.py).
+  The inner join packs the matched builds, the typed joins every valid
+  build, so that an unmatched build row can gather its own values;
 - the plain formulation (``_join_plain``; CPU tensors, and the kernel
   pipeline's twin): build-side sort, merged sort, scans as torch ops, a
   record sort, and scatter + cummax + row gathers.
 
-Output capacity is static; the true match count (int64) and an overflow
-flag come back beside it. Duplicate keys on both sides are supported;
-padding rows never match. Row order inside a key run is arbitrary: the
-result is a multiset of rows, as in the JAX package. The kernel pipeline
-makes no host synchronisation.
+Join types (``JOIN_TYPES``; the probe is the preserved, "left" side):
+each merged position emits ``emit`` output rows instead of its match
+count ``cnt`` (left and full outer pad an unmatched probe to one row,
+semi and anti keep a presence or absence bit, right and full outer emit
+an unmatched build row once). Outer types append bool validity columns
+(``BUILD_VALID``, ``PROBE_VALID``) and zero the absent side's values.
+
+Output capacity is static; the true output row count (int64) and an
+overflow flag come back beside it. Duplicate keys on both sides are
+supported; padding rows never match. Row order inside a key run is
+arbitrary: the result is a multiset of rows, as in the JAX package. The
+kernel pipeline makes no host synchronisation.
 
 Composite keys are extra key operands of the same sorts. 2-D columns
 (fixed-width strings, utils/strings.py) ride neither sort nor kernel:
@@ -58,7 +66,10 @@ from distributed_join_tpu_torch.utils.strings import (
 )
 
 I32_MAX = 2**31 - 1
-PROBE_VALID = "probe#valid"   # the right and full outer joins' column
+JOIN_TYPES = ("inner", "left", "right", "full_outer", "semi", "anti")
+OUTER_TYPES = ("left", "right", "full_outer")
+BUILD_VALID = "build#valid"   # emitted by left and full outer joins
+PROBE_VALID = "probe#valid"   # emitted by right and full outer joins
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,12 +232,50 @@ def pack_matched_builds(mask, pos, cols, capacity):
                           launch_counter=pack_matched_builds)
 
 
+def pack_valid_builds(mask, pos, cols, capacity):
+    """The valid-build pack of the typed joins' kernel pipeline:
+    :func:`stream_compact` with its launches counted on this call site."""
+    return stream_compact(mask, pos, cols, capacity,
+                          launch_counter=pack_valid_builds)
+
+
 compact_records.launches = 0
 pack_matched_builds.launches = 0
+pack_valid_builds.launches = 0
+
+
+def _emit(join_type, is_probe, cnt, b_unmatched):
+    """Output rows of each merged position (JAX ops/join.py:849-858):
+    a probe emits its match count ``cnt``, padded to one row by left and
+    full outer joins, collapsed to a presence (semi) or absence (anti)
+    bit; right and full outer joins add one row for each unmatched build
+    (``b_unmatched``: a build row whose key run holds no probe)."""
+    if join_type == "inner":
+        return cnt
+    if join_type == "semi":
+        return (is_probe & (cnt > 0)).to(torch.int32)
+    if join_type == "anti":
+        return (is_probe & (cnt == 0)).to(torch.int32)
+    # a position is a probe, a build or padding: one of the two terms
+    probe_rows = cnt if join_type == "right" else cnt.clamp(min=1)
+    return torch.where(is_probe, probe_rows,
+                       0 if join_type == "left" else
+                       b_unmatched.to(torch.int32))
 
 
 def _join_kernel_path(build, probe, keys, b1d, p1d, out_capacity,
-                      b2d=(), p2d=()):
+                      b2d=(), p2d=(), join_type="inner"):
+    """The kernel pipeline. The inner join takes its run records, output
+    slots and matched-build pack from the fused scans. A typed join takes
+    ``cnt`` and ``matched`` from them (an unmatched build is a build the
+    scans did not mark matched), its emission and output slots from
+    torch cumsums, and packs every valid build in merged order: a probe
+    record gathers from its run's first build, rank ``b_before - cnt``,
+    and an unmatched build record its own row, rank ``b_before``. The
+    merged sort shares a lane between a same-dtype (probe, build) pair,
+    so a build record carries build values in its probe lanes: right and
+    full outer joins zero every probe output where the probe side is
+    absent."""
     nb, npr = build.capacity, probe.capacity
     dev = build.device
     skeys, stag, svals = _merged_sort(build, probe, keys, b1d, p1d, b2d,
@@ -235,46 +284,82 @@ def _join_kernel_path(build, probe, keys, b1d, p1d, out_capacity,
     # last use passes: at 2^30 merged positions each is 4 GiB.
     sc = dict(join_scans(stag, _run_starts(skeys)))
     cnt = sc.pop("cnt")
-    # start_out is int32; past 2**31 matches it wraps, but the int64
-    # total still raises `overflow`, flagging every row untrustworthy.
-    total = cnt.sum(dtype=torch.int64)
-    rec_total = sc["rec_pos"][-1] + 1
-    is_rec = (stag == 1) & (cnt > 0)
+    pack_names = list(b1d) + (["__browidx"] if b2d else [])
+    lo = flags = None
+    if join_type == "inner":
+        # start_out is int32; past 2**31 matches it wraps, but the int64
+        # total still raises `overflow`, flagging every row untrustworthy.
+        total = cnt.sum(dtype=torch.int64)
+        rec_total = sc["rec_pos"][-1] + 1
+        is_rec = (stag == 1) & (cnt > 0)
+        start_out, rec_pos = sc.pop("start_out"), sc.pop("rec_pos")
+        lo = sc.pop("lo_m")
+    else:
+        is_build, is_probe = stag == 0, stag == 1
+        emit = _emit(join_type, is_probe, cnt,
+                     is_build & (sc.pop("matched") == 0))
+        total = emit.sum(dtype=torch.int64)
+        start_out = torch.cumsum(emit, 0, dtype=torch.int32) - emit
+        is_rec = emit > 0
+        del emit
+        rec_pos = torch.cumsum(is_rec.to(torch.int32), 0,
+                               dtype=torch.int32) - 1
+        rec_total = rec_pos[-1] + 1
+        if pack_names:
+            ib = is_build.to(torch.int32)
+            b_incl = torch.cumsum(ib, 0, dtype=torch.int32)
+            lo = b_incl - ib - cnt
+        if join_type in OUTER_TYPES:
+            # 1: only the build side is present (an unmatched build);
+            # 2: only the probe side (an unmatched probe); 3: both
+            flags = torch.where(is_probe, (cnt > 0).to(torch.int8) + 2,
+                                is_build.to(torch.int8)).long()
     del cnt
 
-    # Run records: one per matching probe, in start_out order (rec_pos
-    # is monotone over merged order), carrying S, the probe-side output
-    # values, lo_m and the probe row index of 2-D columns.
-    rec_lanes = {"__S": to_u64_lane(sc.pop("start_out"))}
+    # Run records: one per emitting position, in start_out order (their
+    # compaction slot rises with it), carrying S, the probe-side output
+    # values, the build rank of the run start (with a build pack), the
+    # side flags (outer joins) and the probe row index of 2-D columns.
+    rec_lanes = {"__S": to_u64_lane(start_out)}
+    del start_out
     for i, sk in enumerate(skeys):
         rec_lanes[f"__key{i}"] = to_u64_lane(sk)
     del skeys
     for nm in p1d:
         rec_lanes[nm] = to_u64_lane(svals[("p", nm)])
-    rec_lanes["__lo"] = to_u64_lane(sc.pop("lo_m"))
+    if pack_names:
+        rec_lanes["__lo"] = to_u64_lane(lo)
+    del lo
+    if flags is not None:
+        rec_lanes["__flags"] = flags
+        del flags
     if p2d:
         rec_lanes["__prow"] = to_u64_lane(svals[("p", "__prow")])
     rec_names = list(rec_lanes)
     compacted = dict(zip(rec_names, compact_records(
-        is_rec, sc.pop("rec_pos"), [rec_lanes.pop(nm) for nm in rec_names],
+        is_rec, rec_pos, [rec_lanes.pop(nm) for nm in rec_names],
         out_capacity)))
+    del rec_pos
     j = torch.arange(out_capacity, dtype=torch.int32, device=dev)
     live = j < torch.clamp(rec_total, max=out_capacity)
     # slots past the survivor count are undefined: S gets the sentinel,
     # lo zero
     S = torch.where(live, compacted["__S"].to(torch.int32),
                     torch.full_like(j, I32_MAX))
-    lo_rec = torch.where(live, compacted["__lo"].to(torch.int32),
-                         torch.zeros_like(j))
 
     rec_value_names = [nm for nm in rec_names if nm not in ("__S", "__lo")]
     cols_list = [compacted[nm] for nm in rec_value_names]
-    pack_names = list(b1d) + (["__browidx"] if b2d else [])
     if pack_names:
-        # matched-build pack: dense, key-ordered
-        pack = pack_matched_builds(
-            sc["matched"] != 0, sc["mb_pos"],
-            [to_u64_lane(svals[("b", nm)]) for nm in pack_names], nb)
+        lo_rec = torch.where(live, compacted["__lo"].to(torch.int32),
+                             torch.zeros_like(j))
+        lanes = [to_u64_lane(svals[("b", nm)]) for nm in pack_names]
+        if join_type == "inner":
+            # matched-build pack: dense, key-ordered
+            pack = pack_matched_builds(sc["matched"] != 0, sc["mb_pos"],
+                                       lanes, nb)
+        else:
+            # every valid build, in merged order
+            pack = pack_valid_builds(is_build, b_incl - 1, lanes, nb)
         rec_outs, build_outs = expand_gather(
             S, cols_list, out_capacity, lo=lo_rec, build_cols=pack)
     else:
@@ -298,11 +383,33 @@ def _join_kernel_path(build, probe, keys, b1d, p1d, out_capacity,
         # __prow is the per-side probe row index: no -nb rebase
         out_cols[nm] = _row_gather(probe.columns[nm], rec_vals["__prow"],
                                    npr)
+    if "__flags" in rec_vals:
+        f = rec_vals["__flags"].to(torch.int8)
+        _null_absent_sides(out_cols, join_type, (f & 1) != 0, f > 1,
+                           [*b1d, *b2d], [*p1d, *p2d])
     return out_cols, total, j
 
 
+def _null_absent_sides(out_cols, join_type, bm, pm, b_names, p_names):
+    """Zero the values of the side an outer join's row lacks (``bm``,
+    ``pm``: the build or probe side is present), and append the validity
+    columns (JAX ops/join.py:936-966). A right join's build side and a
+    left join's probe side are always present."""
+    zero_b = join_type in ("left", "full_outer")
+    zero_p = join_type in ("right", "full_outer")
+    for names, present, on in ((b_names, bm, zero_b), (p_names, pm, zero_p)):
+        for nm in names if on else ():
+            c = out_cols[nm]
+            keep = present.reshape(-1, *([1] * (c.ndim - 1)))
+            out_cols[nm] = torch.where(keep, c, 0)
+    if zero_b:
+        out_cols[BUILD_VALID] = bm
+    if zero_p:
+        out_cols[PROBE_VALID] = pm
+
+
 def _join_plain(build, probe, keys, b1d, p1d, out_capacity, b2d=(),
-                p2d=()):
+                p2d=(), join_type="inner"):
     nb, npr = build.capacity, probe.capacity
     n = nb + npr
     dev = build.device
@@ -319,7 +426,8 @@ def _join_plain(build, probe, keys, b1d, p1d, out_capacity, b2d=(),
     perm_b = _lexsort([*b_ops, btag])
     sb_payload = {nm: build.columns[nm][perm_b] for nm in b1d}
 
-    # 2. merged sort: keys + side tag; probe payloads ride, and the
+    # 2. merged sort: keys + side tag; probe payloads ride (zeros on
+    #    build rows, which an unmatched build's record carries), and the
     #    merged row index for 2-D columns (the permutation itself).
     m_ops, tag = _masked_keys(build, probe, keys)
     perm = _lexsort([*m_ops, tag])
@@ -331,27 +439,46 @@ def _join_plain(build, probe, keys, b1d, p1d, out_capacity, b2d=(),
         for nm in p1d
     }
 
-    # 3. runs and counts
+    # 3. runs and counts; the typed joins' emission
     is_build = stag == 0
     is_probe = stag == 1
     zero = torch.zeros((), dtype=torch.int32, device=dev)
+    first = _run_starts(skeys)
     b_before = (torch.cumsum(is_build.to(torch.int32), 0, dtype=torch.int32)
                 - is_build.to(torch.int32))
-    lo = torch.cummax(torch.where(_run_starts(skeys), b_before, zero),
-                      0).values
+    lo = torch.cummax(torch.where(first, b_before, zero), 0).values
     cnt = torch.where(is_probe, b_before - lo, zero)
-    csum = torch.cumsum(cnt, 0, dtype=torch.int32)
-    total = cnt.sum(dtype=torch.int64)
-    start_out = csum - cnt
-    is_rec = is_probe & (cnt > 0)
+    b_unmatched = None
+    if join_type in ("right", "full_outer"):
+        # probes through each run's end, broadcast back down the run (a
+        # reversed cummin of the run-last samples, which never decrease):
+        # a build whose run has no probe after it has none at all
+        p_incl = torch.cumsum(is_probe.to(torch.int32), 0,
+                              dtype=torch.int32)
+        run_last = torch.cat([first[1:], first.new_ones(1)])
+        p_thru = torch.flip(torch.cummin(torch.flip(torch.where(
+            run_last, p_incl, torch.full_like(p_incl, I32_MAX)), (0,)),
+            0).values, (0,))
+        b_unmatched = is_build & (p_thru == p_incl)
+    emit = _emit(join_type, is_probe, cnt, b_unmatched)
+    csum = torch.cumsum(emit, 0, dtype=torch.int32)
+    total = emit.sum(dtype=torch.int64)
+    start_out = csum - emit
+    is_rec = emit > 0
 
-    # 4. run-record sort: one record per matching probe, keyed by its
-    #    first output slot; everything an output slot needs rides.
+    # 4. run-record sort: one record per emitting position, keyed by its
+    #    first output slot; everything an output slot needs rides. An
+    #    unmatched build's record gathers its own row, rank b_before.
     rkey = torch.where(is_rec, start_out, torch.full_like(start_out, I32_MAX))
     rperm = torch.sort(rkey, stable=True).indices
     rec_cols = {f"__key{i}": sk for i, sk in enumerate(skeys)}
     rec_cols.update(sp_payload)
-    rec_cols["__lo"] = lo
+    if join_type == "inner":
+        rec_cols["__lo"] = lo
+    else:
+        rec_cols["__lo"] = torch.where(is_build, b_before, lo)
+        rec_cols["__bm"] = is_build | (cnt > 0)
+        rec_cols["__pm"] = is_probe
     if p2d:
         rec_cols["__prow"] = perm
 
@@ -386,6 +513,9 @@ def _join_plain(build, probe, keys, b1d, p1d, out_capacity, b2d=(),
     for nm in p2d:
         out_cols[nm] = _row_gather(probe.columns[nm],
                                    out_vals["__prow"] - nb, npr)
+    if join_type in OUTER_TYPES:
+        _null_absent_sides(out_cols, join_type, out_vals["__bm"],
+                           out_vals["__pm"], [*b1d, *b2d], [*p1d, *p2d])
     return out_cols, total, j
 
 
@@ -405,19 +535,24 @@ def sort_merge_inner_join(
     byte column (utils/strings.py): it joins on equality of its
     zero-padded bytes through packed 64-bit words, and comes back as
     bytes. Output columns: the key column(s), then build payloads, then
-    probe payloads. Payload names must not collide.
+    probe payloads, then the validity columns of an outer join
+    (``BUILD_VALID`` for left and full outer, ``PROBE_VALID`` for right
+    and full outer). Payload names must not collide.
+
+    ``join_type`` is one of ``JOIN_TYPES``; semi and anti joins emit
+    probe columns only and refuse an explicit build payload. ``total``
+    counts output rows.
 
     ``kernel_config`` (ops/kernel_config.KernelConfig) picks the
     formulation; by default the kernel pipeline runs on CUDA tensors and
     the plain formulation on CPU tensors.
 
-    The inner join only: the other join types refuse by name.
     ``_internal`` names the packed string-key word columns, which the
     string-key branch passes through the '__' reservation.
     """
-    if join_type != "inner":
-        raise NotImplementedError(
-            f"join_type={join_type!r}: the port has the inner join only")
+    if join_type not in JOIN_TYPES:
+        raise ValueError(f"unknown join_type {join_type!r}; expected one "
+                         f"of {JOIN_TYPES}")
     cfg = resolve_kernel_config(kernel_config)
     keys = [key] if isinstance(key, str) else list(key)
     check_key_ndim(build, probe, keys)
@@ -428,12 +563,19 @@ def sort_merge_inner_join(
             build, probe, keys, build_payload, probe_payload)
         res = sort_merge_inner_join(
             b2, p2, keys2, out_capacity, build_payload=bp, probe_payload=pp,
-            kernel_config=kernel_config,
+            kernel_config=kernel_config, join_type=join_type,
             _internal=tuple(nm for _, wns, _ in spec for nm in wns))
         out = patch_string_lengths(
             rebuild_string_keys(res.table, spec, keys), keys, join_type)
         return JoinResult(out, total=res.total, overflow=res.overflow)
 
+    if join_type in ("semi", "anti"):
+        if build_payload:
+            raise ValueError(
+                f"join_type={join_type!r} emits probe rows only; an "
+                "explicit build_payload cannot be honored: drop it or use "
+                "a left join with the build#valid column")
+        build_payload = []
     if build_payload is None:
         build_payload = [c for c in build.column_names if c not in keys]
     if probe_payload is None:
@@ -442,9 +584,17 @@ def sort_merge_inner_join(
     clash = set(build_payload) & set(probe_payload)
     if clash:
         raise ValueError(f"payload name collision: {sorted(clash)}")
-    # Internal lanes (__S, __key{i}, __lo, __prow, __browidx) share one
-    # namespace with the columns; only the packed word names of the
-    # string-key branch are exempt.
+    validity = ([BUILD_VALID] if join_type in ("left", "full_outer")
+                else []) + ([PROBE_VALID] if join_type in ("right",
+                                                           "full_outer")
+                            else [])
+    taken = {*keys, *build_payload, *probe_payload}
+    if any(nm in taken for nm in validity):
+        raise ValueError(f"column(s) {[nm for nm in validity if nm in taken]}"
+                         " collide with the outer-join validity columns")
+    # Internal lanes (__S, __key{i}, __lo, __flags, __prow, __browidx)
+    # share one namespace with the columns; only the packed word names
+    # of the string-key branch are exempt.
     reserved = [c for c in (*keys, *build_payload, *probe_payload)
                 if c.startswith("__") and c not in _internal]
     if reserved:
@@ -464,11 +614,11 @@ def sort_merge_inner_join(
     if (cfg.kernel_pipeline(build.device)
             and _kernel_path_ok(build, probe, keys, b1d, p1d, out_capacity)):
         out_cols, total, j = _join_kernel_path(
-            build, probe, keys, b1d, p1d, out_capacity, b2d, p2d)
+            build, probe, keys, b1d, p1d, out_capacity, b2d, p2d, join_type)
     else:
         out_cols, total, j = _join_plain(
-            build, probe, keys, b1d, p1d, out_capacity, b2d, p2d)
+            build, probe, keys, b1d, p1d, out_capacity, b2d, p2d, join_type)
     out_cols = {c: out_cols[c] for c in [*keys, *build_payload,
-                                         *probe_payload]}
+                                         *probe_payload, *validity]}
     return JoinResult(Table(out_cols, j < total), total=total,
                       overflow=total > out_capacity)

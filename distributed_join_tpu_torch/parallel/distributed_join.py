@@ -1,6 +1,6 @@
-"""The distributed inner-join orchestrator: partition both tables ->
+"""The distributed join orchestrator: partition both tables ->
 all-to-all shuffle -> local join, with over-decomposition batching and
-the ``auto_retry`` capacity ladder.
+the ``auto_retry`` capacity ladder, for every join type.
 
 Port of ``distributed_join_tpu/parallel/distributed_join.py``: the flat
 padded inner path of ``make_join_step`` (:517-801, including the skew
@@ -15,9 +15,12 @@ Composite keys, 2-D (fixed-width string) payload columns and string
 keys run as in the JAX package: 2-D columns are gathered and shuffled as
 whole rows, and string keys are packed into 64-bit word columns once,
 before hashing (JAX :536-552), and rebuilt on the way out (:783-790).
-The JAX step's other options (segmented sort, ragged / ppermute /
-hierarchical / compressed wires, metrics and integrity digests,
-aggregate pushdown, typed joins) refuse by name.
+Typed joins (``join_type``, ops/join.JOIN_TYPES) run each bucket's local
+join with the type: hash partitioning puts every key's rows of both
+sides in one bucket, so unmatched rows are local. The JAX step's other
+options (segmented sort, ragged / ppermute / hierarchical / compressed
+wires, metrics and integrity digests, aggregate pushdown) refuse by
+name.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ import torch
 
 from distributed_join_tpu_torch.ops.hashing import hash_columns
 from distributed_join_tpu_torch.ops.join import (
+    JOIN_TYPES,
     JoinResult,
+    patch_string_lengths,
     sort_merge_inner_join,
 )
 from distributed_join_tpu_torch.ops.partition import radix_hash_partition
@@ -53,7 +58,6 @@ JOIN_SHARDED_OUT = JoinResult(table=False, total=True, overflow=True)
 # Options of the JAX package's join step and driver that the port does
 # not have, with the default each may still be passed as.
 _UNPORTED = {
-    "join_type": ("typed joins (left/right/full_outer/semi/anti)", "inner"),
     "shuffle": ("the ragged, ppermute and hierarchical shuffles", "padded"),
     "sort_mode": ("the segmented-sort pipeline", "flat"),
     "sort_segments": ("the segmented-sort pipeline", None),
@@ -87,6 +91,7 @@ def _round_up(x: int, m: int) -> int:
 def make_join_step(
     comm: Communicator,
     key="key",
+    join_type: str = "inner",
     over_decomposition: int = 1,
     shuffle_capacity_factor: float = DEFAULT_SHUFFLE_CAPACITY_FACTOR,
     out_capacity_factor: float = DEFAULT_OUT_CAPACITY_FACTOR,
@@ -123,8 +128,21 @@ def make_join_step(
     ``hh_out_capacity`` rows (default 1/4 of local probe rows), which
     comes first in the result. The normal path sees neither side's heavy
     rows. Every overflow folds into the one flag.
+
+    ``join_type``: ``inner`` or one of left, right, full_outer, semi and
+    anti (ops/join.JOIN_TYPES; the probe is the preserved side). A typed
+    join refuses the skew sidecar, as in the JAX package.
     """
     _refuse_unported(unported)
+    if join_type not in JOIN_TYPES:
+        raise ValueError(f"unknown join_type {join_type!r}; expected one "
+                         f"of {JOIN_TYPES}")
+    if join_type != "inner" and skew_threshold is not None:
+        raise ValueError(
+            f"join_type={join_type!r} does not combine with the skew "
+            "sidecar: broadcast heavy-hitter build rows are replicated on "
+            "every rank, so an unmatched heavy build row would emit once "
+            "PER RANK; run typed joins without skew_threshold")
     n = comm.n_ranks
     k = over_decomposition
     if k < 1:
@@ -162,7 +180,8 @@ def make_join_step(
         def local_join(b, p, cap=out_cap):
             return sort_merge_inner_join(
                 b, p, keys_eff, cap, build_payload=bpay, probe_payload=ppay,
-                kernel_config=kernel_config, _internal=sk_names)
+                kernel_config=kernel_config, join_type=join_type,
+                _internal=sk_names)
 
         parts = []
         total = torch.zeros((), dtype=torch.int64, device=build_local.device)
@@ -225,7 +244,8 @@ def make_join_step(
              for name in parts[0].column_names},
             torch.cat([t.valid for t in parts]))
         if str_spec:
-            out = rebuild_string_keys(out, str_spec, keys)
+            out = patch_string_lengths(
+                rebuild_string_keys(out, str_spec, keys), keys, join_type)
         total = comm.psum(total)
         overflow = comm.psum(overflow.to(torch.int32)) > 0
         return JoinResult(out, total=total, overflow=overflow)

@@ -867,3 +867,152 @@ def test_extract_prefix_kernel_branch_counts_its_own_site(card):
     assert torch.equal(k.valid, p.valid)
     for c in ("key", "v"):
         assert torch.equal(k.columns[c][k.valid], p.columns[c][p.valid])
+
+
+# -- the typed joins (left, right, full outer, semi, anti) ---------------
+
+
+TYPED = ("left", "right", "full_outer", "semi", "anti")
+
+
+def _sorted_rows(res):
+    """The valid rows as a lexicographically sorted int64 array (floats
+    by their bits, bools as 0 and 1, 2-D columns an element a column)."""
+    parts = []
+    for c in res.table.column_names:
+        x = res.table.columns[c][res.table.valid]
+        if x.dtype.is_floating_point:
+            x = x.double().view(torch.int64)
+        parts.append(x.reshape(x.shape[0], -1).long())
+    a = torch.cat(parts, 1).cpu().numpy()
+    return a[np.lexsort(a.T[::-1])]
+
+
+@pytest.mark.parametrize("join_type", TYPED)
+def test_typed_join_kernel_route_equals_plain(card, join_type, monkeypatch):
+    """Each type at 2 M x 2 M rows (the headline's generator: duplicate
+    build keys, 30 % probe hits, invalid rows on both sides) through the
+    kernel pipeline, never the plain formulation, and equal to the plain
+    formulation's rows. Semi and anti joins expand in record mode."""
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    n = 2_000_000
+    b, p = generate_build_probe_tables(seed=17, build_nrows=n,
+                                       probe_nrows=n, device=card)
+    g = torch.Generator(device=card)
+    g.manual_seed(4)
+    b = Table(b.columns, torch.rand(n, generator=g, device=card) < 0.97)
+    p = Table(p.columns, torch.rand(n, generator=g, device=card) < 0.97)
+    cap = 2 * n
+    q = sort_merge_inner_join(b, p, "key", cap, join_type=join_type,
+                              kernel_config=KernelConfig("plain"))
+    monkeypatch.setattr(join_mod, "_join_plain",
+                        lambda *a, **kw: pytest.fail("took the plain path"))
+    sites = (scan.join_scans, join_mod.compact_records,
+             join_mod.pack_valid_builds, expand.expand_gather)
+    before = [w.launches for w in sites]
+    k = sort_merge_inner_join(b, p, "key", cap, join_type=join_type)
+    torch.cuda.synchronize()
+    packs = 0 if join_type in ("semi", "anti") else 1
+    assert [w.launches - x for w, x in zip(sites, before)] == [1, 1, packs, 1]
+    assert int(k.total) == int(q.total) > 0 and not bool(k.overflow)
+    assert k.table.column_names == q.table.column_names
+    np.testing.assert_array_equal(_sorted_rows(k), _sorted_rows(q))
+
+
+def _typed_stages(card, join_type, n=300_000):
+    """The typed kernel route's merged-domain quantities on the card,
+    from the plain twins' torch ops: (sorted keys, emit)."""
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    b, p = generate_build_probe_tables(seed=23, build_nrows=n,
+                                       probe_nrows=n, device=card)
+    g = torch.Generator(device=card)
+    g.manual_seed(9)
+    b = Table(b.columns, torch.rand(n, generator=g, device=card) < 0.9)
+    skeys, stag, _ = join_mod._merged_sort(b, p, ["key"], ["build_payload"],
+                                           ["probe_payload"])
+    sc = scan.join_scans_reference(stag, join_mod._run_starts(skeys))
+    is_b, is_p = stag == 0, stag == 1
+    return skeys, join_mod._emit(join_type, is_p, sc["cnt"],
+                                 is_b & (sc["matched"] == 0))
+
+
+def test_valid_build_pack_equals_the_build_side_sort(card):
+    """The valid-build pack (kernel, mask: the valid builds of the merged
+    order) equals the prefix of the plain formulation's build-side sort,
+    row for row: both sorts are stable, so valid builds come in (key,
+    row) order in both."""
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    n = 300_000
+    b, p = generate_build_probe_tables(seed=23, build_nrows=n,
+                                       probe_nrows=n, device=card)
+    g = torch.Generator(device=card)
+    g.manual_seed(9)
+    b = Table({"key": b.columns["key"], "row": torch.arange(n, device=card)},
+              torch.rand(n, generator=g, device=card) < 0.9)
+    _, stag, svals = join_mod._merged_sort(b, p, ["key"], ["row"], [])
+    mask = stag == 0
+    pos = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    got, = join_mod.pack_valid_builds(mask, pos, [svals[("b", "row")]], n)
+    keys = torch.where(b.valid, b.columns["key"],
+                       torch.full_like(b.columns["key"], 2**63 - 1))
+    perm_b = join_mod._lexsort([keys, (~b.valid).to(torch.int8)])
+    nv = int(b.valid.sum())
+    assert torch.equal(got[:nv], perm_b[:nv])
+
+
+@pytest.mark.parametrize("join_type", TYPED)
+def test_typed_record_compaction_equals_the_record_sort(card, join_type):
+    """The record block (kernel, mask: emit > 0) equals the prefix of the
+    plain formulation's record sort by start_out, on the key and the
+    start_out lanes."""
+    skeys, emit = _typed_stages(card, join_type)
+    start_out = torch.cumsum(emit, 0, dtype=torch.int32) - emit
+    mask = emit > 0
+    pos = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
+    n_rec = int(mask.sum())
+    cap = n_rec + 5000
+    got = join_mod.compact_records(mask, pos, [start_out.long(), skeys[0]],
+                                   cap)
+    rkey = torch.where(mask, start_out, torch.full_like(start_out, I32_MAX))
+    rperm = torch.sort(rkey, stable=True).indices[:n_rec]
+    assert torch.equal(got[0][:n_rec], start_out[rperm].long())
+    assert torch.equal(got[1][:n_rec], skeys[0][rperm])
+
+
+def test_right_join_shared_lanes_zero_probe_outputs(card):
+    """Same-dtype build and probe payloads (int32, float32, 2-D bytes)
+    share the merged sort's lanes; the right and full outer joins' rows
+    without a probe side carry zeros in every probe output on the kernel
+    pipeline, as in the plain formulation."""
+    g = torch.Generator(device=card)
+    g.manual_seed(12)
+    n = 200_000
+
+    def ints(lo, hi, m=n):
+        return torch.randint(lo, hi, (m,), generator=g, device=card)
+
+    ones = torch.ones(n, dtype=torch.bool, device=card)
+    b = Table({"key": ints(0, 80_000), "b32": ints(1, 999).int(),
+               "bf": ints(1, 99).float(),
+               "bs": ints(1, 256, n * 5).view(n, 5).to(torch.uint8)}, ones)
+    p = Table({"key": ints(40_000, 120_000), "p32": ints(1, 999).int(),
+               "pf": ints(1, 99).float(),
+               "ps": ints(1, 256, n * 4).view(n, 4).to(torch.uint8)}, ones)
+    for jt in ("right", "full_outer"):
+        k = sort_merge_inner_join(b, p, "key", 4 * n, join_type=jt)
+        q = sort_merge_inner_join(b, p, "key", 4 * n, join_type=jt,
+                                  kernel_config=KernelConfig("plain"))
+        assert int(k.total) == int(q.total) and not bool(k.overflow)
+        np.testing.assert_array_equal(_sorted_rows(k), _sorted_rows(q))
+        c = k.table.columns
+        absent = k.table.valid & ~c["probe#valid"]
+        assert int(absent.sum()) > 1000
+        for nm in ("p32", "pf", "ps"):
+            assert not bool(c[nm][absent].any()), nm
+        assert bool(c["b32"][absent].all())

@@ -236,8 +236,8 @@ def test_local_join_zero_out_capacity_matches_jax(port_mode):
 def test_local_join_refuses_by_name():
     t = _ttable({"key": np.arange(8), "a": np.arange(8)}, np.ones(8, bool))
     u = _ttable({"key": np.arange(8), "b": np.arange(8)}, np.ones(8, bool))
-    with pytest.raises(NotImplementedError, match="left"):
-        tjoin.sort_merge_inner_join(t, u, "key", 16, join_type="left")
+    with pytest.raises(ValueError, match="join_type"):
+        tjoin.sort_merge_inner_join(t, u, "key", 16, join_type="cross")
     # 2-D columns join; the same 2-D name on both sides is refused, as
     # the JAX package refuses it
     s = Table({"key": torch.arange(8), "s": torch.zeros(8, 4,
@@ -362,7 +362,7 @@ def test_distributed_join_retry_ladder_matches_jax(jcomm8):
 def test_distributed_join_refuses_unported_options():
     t = _ttable({"key": np.arange(8), "a": np.arange(8)}, np.ones(8, bool))
     u = _ttable({"key": np.arange(8), "b": np.arange(8)}, np.ones(8, bool))
-    for name, value in (("join_type", "left"), ("shuffle", "ragged"),
+    for name, value in (("dcn_codec", "on"), ("shuffle", "ragged"),
                         ("sort_mode", "segmented"), ("compression_bits", 16),
                         ("with_metrics", True), ("aggregate", object())):
         with pytest.raises(NotImplementedError, match=name):
