@@ -77,12 +77,34 @@ Phases (any failure raises, and the script exits non-zero):
    against their twins, their inputs taken from one join of each. Then
    4 emulated ranks at 2 M x 2 M for the full outer and anti joins,
    equal to the 1-rank join.
+13. The join over NCCL, one process a card on every card of the machine
+   (a world of 1 on one card), started by the port's launcher
+   (benchmarks/launch.py): the config driver at BASELINE config 2's
+   shape with 10 M x 10 M rows a rank, at over-decomposition 1 and 4
+   (with 4 even one card partitions into 4 buckets and sends each batch
+   through NCCL's all_to_all_single): no overflow, the match count of
+   the plain 1-rank join of the same global tables, ms a join and M
+   rows/s a rank; the same driver with ``--profile 3`` (rank 0); then a
+   worker rank of this script (``--nccl-rank-worker``) runs one untimed
+   ``distributed_inner_join`` at over-decomposition 4 in every rank:
+   the scans, both compaction sites and the build-mode expand launched
+   on every rank, and the ranks' row digests combined equal to the
+   plain 1-rank join's; rank 0 then holds the scans, both compaction
+   sites and the expand against their twins on the inputs the last
+   bucket's local join gave them (the padded bucket's shapes), and
+   every rank times the partition and shuffle of such a join alone.
+   Last, the all-to-all benchmark at 64 and 256 MiB a rank with two
+   cards or more (the median of 5 timed windows, each window printed);
+   on one card its refusal (it needs two ranks). ``python3
+   chip_smoke.py --phase 13`` runs this phase alone (after the build).
 
 Launch counts are set to zero just before each path and read just after;
-the launches of phase 2 and of the config-3 kernel check do not count.
+the launches of phase 2, of the config-3 kernel check and of the
+bucket-shape checks do not count.
 The line before the last is one JSON object with every kernel's numbers,
 one row per kernel and call site (the join sites also carry their
-launches on the paths of phases 10 to 12); the last line is
+launches on the paths of phases 10 to 13, phase 13's summed over the
+ranks); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
 prints a result.
@@ -1037,11 +1059,17 @@ def join_kernel_ms(top: list) -> dict:
 
 
 def captured_join_calls(fn):
-    """Run ``fn`` with the join's compaction and expand calls recorded:
-    returns (its result, {call site: the arguments of its last call})."""
+    """Run ``fn`` with the join's scans, compaction and expand calls
+    recorded: returns (its result, {call site: the arguments of its last
+    call})."""
     from distributed_join_tpu_torch.ops import join as J
     calls = {}
+    real_scans = J.join_scans
     real_compact, real_expand = J.stream_compact, J.expand_gather
+
+    def scans(tag, first):
+        calls["join_scans"] = (tag, first)
+        return real_scans(tag, first)
 
     def compact(mask, pos, cols, capacity, launch_counter=None):
         calls[launch_counter.__name__] = (mask, pos, list(cols), capacity)
@@ -1054,10 +1082,11 @@ def captured_join_calls(fn):
         return real_expand(S, cols, out_capacity, lo=lo,
                            build_cols=build_cols)
 
-    J.stream_compact, J.expand_gather = compact, expand
+    J.join_scans, J.stream_compact, J.expand_gather = scans, compact, expand
     try:
         return fn(), calls
     finally:
+        J.join_scans = real_scans
         J.stream_compact, J.expand_gather = real_compact, real_expand
 
 
@@ -1254,7 +1283,345 @@ def typed_phase():
     return counts, timing, rows
 
 
-def main() -> int:
+# -- phase 13: the join over NCCL, one process a card ---------------------
+
+
+NCCL_SITES = ("join_scans", "compact_records", "pack_matched_builds",
+              "pack_valid_builds", "expand_gather")
+NCCL_K = 4                     # over-decomposition of the worker's join
+A2A_MIB = (64, 256)
+NCCL_TIMEOUT_S = 600
+
+
+def _launch(n: int, argv: list, timeout: float = NCCL_TIMEOUT_S):
+    """``python <argv>`` on ``n`` processes, one a card, through the
+    port's launcher (NCCL), from this script's directory."""
+    import signal
+    import socket
+    import subprocess
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "distributed_join_tpu_torch.benchmarks.launch",
+           "--num-processes", str(n), "--coordinator", f"localhost:{port}",
+           "--", sys.executable, *argv]
+    # a session of its own, so that a timeout stops every rank with it
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, cwd=root,
+                            env=env, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        _fail(f"the launched job {argv[:3]} passed {timeout} s")
+    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+
+
+def _launched_record(label: str, n: int, argv: list) -> dict:
+    """The JSON record rank 0 printed last; fails the phase if any rank
+    failed (the launcher's exit code)."""
+    r = _launch(n, argv)
+    if r.returncode != 0:
+        print(r.stderr[-6000:], file=sys.stderr, flush=True)
+        _fail(f"{label}: the launched job exited with {r.returncode}")
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    _check(len(lines) == 1, f"{label}: {len(lines)} records on stdout "
+                            "(rank 0 alone prints one)")
+    for ln in r.stdout.splitlines():
+        if ln.strip() and not ln.startswith("{"):
+            print(f"[nccl] {label}: {ln}", flush=True)
+    return json.loads(lines[0])
+
+
+def bucket_kernel_rows(calls) -> list:
+    """The join kernels at the shapes one bucket of the NCCL path gives
+    them: the inputs the last bucket's local join passed to the scans,
+    both compaction sites and the build-mode expand (``calls``, from
+    ``captured_join_calls``), each held against its twin. The buckets
+    arrive padded (the shuffle's capacity factor), so the merged domain
+    is not the headline's. Bounds as phase 2's."""
+    from distributed_join_tpu_torch.ops import compact, expand, scan
+
+    rows = []
+    tag, first = calls["join_scans"]
+    n = tag.shape[0]
+    got = scan.join_scans(tag, first)
+    want = scan.join_scans_reference(tag, first)
+    check_and_time(
+        rows, "join_scans[nccl bucket]",
+        "distributed_join_tpu_torch/csrc/join_scans.cu",
+        "distributed_join_tpu/ops/scan_pallas.py:106,150 "
+        "(_scan_r_kernel, _scan_f_kernel)",
+        [got[k] for k in scan.NAMES], [want[k] for k in scan.NAMES], None,
+        lambda: scan.join_scans(tag, first),
+        lambda: scan.join_scans_reference(tag, first), None,
+        nbytes=2 * n + 6 * 4 * n, ops=40 * n)
+    total = int(want["cnt"].sum(dtype=torch.int64))
+    del got, want
+    kept = {}
+    for name, site in (("stream_compact[record, nccl bucket]",
+                        "compact_records"),
+                       ("stream_compact[pack, nccl bucket]",
+                        "pack_matched_builds")):
+        mask, pos, lanes, cap = calls[site]
+        kept[site] = min(int(mask.sum()), cap)
+        lib = (lambda m=mask, packed=torch.stack(lanes, 1): packed[m])
+        got = compact.stream_compact(mask, pos, lanes, cap)
+        want = compact.stream_compact_reference(mask, pos, lanes, cap)
+        check_and_time(
+            rows, name, "distributed_join_tpu_torch/csrc/stream_compact.cu",
+            "distributed_join_tpu/ops/compact_planes.py:53 (_compact_kernel)"
+            "; distributed_join_tpu/ops/compact_pallas.py:62 "
+            "(_compact_kernel)",
+            got, want, kept[site],
+            lambda m=mask, q=pos, ls=lanes, c=cap: compact.stream_compact(
+                m, q, ls, c),
+            lambda m=mask, q=pos, ls=lanes, c=cap:
+                compact.stream_compact_reference(m, q, ls, c),
+            lib, nbytes=n + 2 * kept[site] * 8 * len(lanes), ops=n)
+        del got, want, lib
+    S, rc, cap, lo, pk = calls["expand_gather"]
+    tot = min(total, cap)
+    got_r, got_b = expand.expand_gather(S, rc, cap, lo=lo, build_cols=pk)
+    want_r, want_b = expand.expand_gather_reference(S, rc, cap, lo=lo,
+                                                    build_cols=pk)
+    check_and_time(
+        rows, "expand_gather[build, nccl bucket]",
+        "distributed_join_tpu_torch/csrc/expand_gather.cu",
+        "distributed_join_tpu/ops/expand_pallas.py:335 (_expand_kernel_b8)",
+        got_r + got_b, want_r + want_b, tot,
+        lambda: expand.expand_gather(S, rc, cap, lo=lo, build_cols=pk),
+        lambda: expand.expand_gather_reference(S, rc, cap, lo=lo,
+                                               build_cols=pk), None,
+        nbytes=kept["compact_records"] * (4 + 4 + 8 * len(rc))
+        + kept["pack_matched_builds"] * 8 * len(pk)
+        + tot * 8 * (len(rc) + len(pk)), ops=tot * 2 * 32)
+    for r in rows:
+        r["merged_positions"] = n
+    return rows
+
+
+def partition_shuffle_ms(comm, build, probe) -> tuple:
+    """The partition and the NCCL shuffle of one join at
+    over-decomposition ``NCCL_K``, with no local join: the step's own
+    calls (parallel/distributed_join.py ``make_join_step``) at its
+    default capacity factor. Returns, each the slowest rank's: the ms a
+    call as ``time_ms`` times it (host gaps included), and the device ms
+    of its kernels as ``device_ms`` sums them, NCCL's apart (an NCCL
+    kernel also counts the time it waits for a peer)."""
+    import math
+
+    from distributed_join_tpu_torch.ops.partition import (
+        radix_hash_partition,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        DEFAULT_SHUFFLE_CAPACITY_FACTOR,
+        _round_up,
+    )
+    from distributed_join_tpu_torch.parallel.shuffle import shuffle_padded
+    n = comm.n_ranks
+    nb = NCCL_K * n
+
+    def step(b_local, p_local):
+        rows = 0
+        for t in (b_local, p_local):
+            cap = _round_up(int(math.ceil(
+                t.capacity / nb * DEFAULT_SHUFFLE_CAPACITY_FACTOR)), 8)
+            pt = radix_hash_partition(t, ["key"], nb)
+            for b in range(NCCL_K):
+                padded, counts, _, _ = pt.to_padded(
+                    cap, bucket_start=b * n, n_buckets=n)
+                recv, _ = shuffle_padded(comm, padded, counts, cap)
+                rows += recv.capacity
+        return torch.tensor([rows], device=b_local.valid.device)
+
+    fn = comm.spmd(step, sharded_out=True)
+    ms = comm.host_max(time_ms(lambda: fn(build, probe)))
+    # the first profiler of a process starts CUPTI, which stalls this
+    # rank while its peers' NCCL kernels wait: that run is not kept
+    device_ms(lambda: fn(build, probe), reps=1)
+    _, parts = device_ms(lambda: fn(build, probe))
+    nccl = sum(v for k, v in parts.items() if "nccl" in k.lower())
+    other = sum(parts.values()) - nccl
+    return ms, comm.host_max(other), comm.host_max(nccl)
+
+
+def nccl_rank_worker() -> int:
+    """One rank of phase 13(b), started by the launcher: the global
+    tables of ``NROWS`` rows a rank from the seed, one untimed
+    ``distributed_inner_join`` over NCCL at over-decomposition
+    ``NCCL_K`` with the launch counts set to zero just before it and read
+    just after, then this rank's row digest and counts, all-gathered to
+    rank 0, which prints them as one JSON line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distributed_join_tpu_torch.parallel.bootstrap import (
+        maybe_initialize_from_env,
+    )
+    from distributed_join_tpu_torch.parallel.communicator import (
+        make_communicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    _check(maybe_initialize_from_env(), "the worker runs under the launcher")
+    comm = make_communicator("nccl")
+    n = comm.n_ranks
+    build, probe = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS * n, probe_nrows=NROWS * n,
+        unique_build_keys=True, device=comm.device)
+    rank0 = comm.axis_index() == 0
+    join = (lambda: distributed_inner_join(
+        build, probe, comm, over_decomposition=NCCL_K))
+    if rank0:
+        (res, counts), calls = captured_join_calls(lambda: counted(join))
+    else:
+        res, counts = counted(join)
+    digest = row_digest(res)
+    mine = torch.tensor([[*digest, int(res.total), int(res.overflow),
+                          *(counts[s] for s in NCCL_SITES)]],
+                        dtype=torch.int64, device=comm.device)
+    del res
+    # rank 0's kernel checks launch nothing on the path: its counts are
+    # read above; the other ranks wait at the next collective
+    rows = bucket_kernel_rows(calls) if rank0 else []
+    if rank0:
+        del calls
+    ps_ms = partition_shuffle_ms(comm, build, probe)
+    every = comm.all_gather(mine).tolist()
+    if rank0:
+        print(json.dumps({"ranks": [
+            {"digest": v[:3], "total": v[3], "overflow": bool(v[4]),
+             "launches": dict(zip(NCCL_SITES, v[5:]))} for v in every],
+            "bucket_rows": rows, "partition_shuffle_ms": ps_ms}),
+            flush=True)
+    comm.finalize()
+    return 0
+
+
+def _combine_digests(digests) -> tuple:
+    """Per-rank row digests as one: rows and hash sums add (the sum
+    wrapping in 64 bits, as ``row_digest``'s), xors fold."""
+    rows, total, x = 0, 0, 0
+    for d in digests:
+        rows += d[0]
+        total = (total + d[1] + 2**63) % 2**64 - 2**63
+        x ^= d[2]
+    return rows, total, x
+
+
+def nccl_phase() -> dict:
+    """Phase 13: the port's driver over NCCL on every card, one process
+    a card (a world of 1 on a one-card machine), at ``NROWS`` rows a
+    rank; the worker's join digests against the plain 1-rank join of the
+    same global tables; the all-to-all benchmark. Returns the launch
+    counts summed over ranks, by call site, and the kernel rows at a
+    bucket's shapes (rank 0)."""
+    from distributed_join_tpu_torch.ops.kernel_config import KernelConfig
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    smi = gpu_line()
+    n = torch.cuda.device_count()
+    rows = NROWS * n
+    # the driver's tables: selectivity 0.3, unique build keys
+    build, probe = generate_build_probe_tables(
+        seed=SEED, build_nrows=rows, probe_nrows=rows,
+        unique_build_keys=True, device=DEVICE)
+    plain = distributed_inner_join(build, probe, LocalCommunicator(),
+                                   kernel_config=KernelConfig("plain"))
+    _check(not bool(plain.overflow), "phase 13: the 1-rank join overflowed")
+    want_total, want_digest = int(plain.total), row_digest(plain)
+    del build, probe, plain
+    torch.cuda.empty_cache()
+    print(f"[nccl] {n} process(es), one a card; global tables {rows:,} x "
+          f"{rows:,}; the plain 1-rank join: total={want_total} digest="
+          f"{want_digest}", flush=True)
+
+    driver = ["-m", "distributed_join_tpu_torch.benchmarks.distributed_join",
+              "--communicator", "nccl", "--build-table-nrows", str(rows),
+              "--probe-table-nrows", str(rows), "--iterations", "4"]
+    for k in (1, NCCL_K):
+        rec = _launched_record(f"nccl k={k}", n, [
+            *driver, "--over-decomposition-factor", str(k)])
+        print(f"[nccl] k={k} " + json.dumps(rec), flush=True)
+        _check(rec["communicator"] == "nccl" and rec["n_ranks"] == n,
+               f"nccl k={k}: record of {rec['communicator']} x "
+               f"{rec['n_ranks']}")
+        _check(not rec["overflow"], f"nccl k={k}: the join overflowed")
+        _check(rec["matches_per_join"] == want_total,
+               f"nccl k={k}: {rec['matches_per_join']} matches, the 1-rank "
+               f"join has {want_total}")
+        print(f"[nccl] k={k}: {rec['elapsed_per_join_s'] * 1e3:.3f} ms a "
+              f"join, {rec['m_rows_per_sec_per_rank']:.2f} M rows/s a rank "
+              f"({n} rank(s)); {smi}", flush=True)
+    prof = _launched_record("nccl profile", n, [
+        *driver, "--over-decomposition-factor", str(NCCL_K),
+        "--profile", "3"])
+    print(f"[nccl] profile k={NCCL_K}, rank 0: " + json.dumps(prof),
+          flush=True)
+
+    worker = _launched_record("nccl worker", n, [
+        os.path.abspath(__file__), "--nccl-rank-worker"])
+    got = worker["ranks"]
+    _check(len(got) == n, f"nccl worker: {len(got)} ranks reported")
+    ps_ms, ps_busy, ps_nccl = worker["partition_shuffle_ms"]
+    print(f"[nccl] partition + shuffle at k={NCCL_K}, no local join: "
+          f"{ps_ms:.4f} ms a join; device ms of its kernels {ps_busy:.4f} "
+          f"besides NCCL's {ps_nccl:.4f} (slowest rank of {n}); {smi}",
+          flush=True)
+    for r, g in enumerate(got):
+        print(f"[nccl] worker rank {r}: {json.dumps(g)}", flush=True)
+        _check(not g["overflow"] and g["total"] == want_total,
+               f"nccl worker rank {r}: total {g['total']}, overflow "
+               f"{g['overflow']}")
+        _require_launched(g["launches"], JOIN_KERNELS,
+                          f"rank {r} of the NCCL path")
+    combined = _combine_digests(tuple(g["digest"]) for g in got)
+    _check(combined == want_digest,
+           f"nccl worker: combined digest {combined} != the plain 1-rank "
+           f"join's {want_digest}")
+    print(f"[nccl] combined row digest over {n} rank(s) equals the plain "
+          "1-rank join's", flush=True)
+
+    a2a = ["-m", "distributed_join_tpu_torch.benchmarks.all_to_all",
+           "--communicator", "nccl"]
+    if n < 2:
+        r = _launch(n, [*a2a, "--buffer-size", str(A2A_MIB[0] << 20)])
+        _check(r.returncode != 0 and "needs >= 2 ranks" in r.stderr,
+               "all_to_all on one card: expected its refusal")
+        print("[nccl] all_to_all needs >= 2 ranks: one card, not measured "
+              "(the benchmark refused, as the JAX benchmark does)",
+              flush=True)
+    for mib in (A2A_MIB if n >= 2 else ()):
+        rec = _launched_record(f"all_to_all {mib} MiB", n, [
+            *a2a, "--buffer-size", str(mib << 20)])
+        print(f"[nccl] all_to_all {mib} MiB a rank x {n}: "
+              f"{rec['aggregate_offchip_gb_per_sec']:.2f} GB/s off-chip, "
+              f"{rec['aggregate_gb_per_sec_incl_local']:.2f} GB/s incl. "
+              f"local ({rec['elapsed_per_exchange_s'] * 1e3:.4f} ms an "
+              f"exchange, median window); {smi}", flush=True)
+    return ({s: sum(g["launches"][s] for g in got) for s in NCCL_SITES},
+            worker["bucket_rows"])
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv not in ([], ["--phase", "13"], ["--nccl-rank-worker"]):
+        print("usage: chip_smoke.py [--phase 13]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
@@ -1265,6 +1632,8 @@ def main() -> int:
         print("chip_smoke: distributed_join_tpu_torch/ is not beside this "
               "script; run it from the root of a checkout", file=sys.stderr)
         return 3
+    if argv == ["--nccl-rank-worker"]:
+        return nccl_rank_worker()
     from distributed_join_tpu_torch.utils.generators import (
         generate_build_probe_tables,
     )
@@ -1283,6 +1652,16 @@ def main() -> int:
         regs = [ln.strip() for ln in text.splitlines()
                 if "registers" in ln or "stack frame" in ln]
         print(f"[build] {name}: " + " | ".join(regs), flush=True)
+    ok = json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
+    if argv == ["--phase", "13"]:
+        nccl, _ = nccl_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps({"nccl_launches": nccl}), flush=True)
+        print(ok, flush=True)
+        return 0
 
     build, probe = generate_build_probe_tables(
         seed=SEED, build_nrows=NROWS, probe_nrows=NROWS, device=DEVICE)
@@ -1302,6 +1681,7 @@ def main() -> int:
     typed, typed_ms, typed_rows = typed_phase()
     paths.update(typed)
     print(f"[typed] ms_per_join {json.dumps(typed_ms)}; {smi}", flush=True)
+    paths["nccl"], bucket_rows = nccl_phase()
 
     launches = {"join_scans": head["join_scans"],
                 "stream_compact[record]": head["compact_records"],
@@ -1319,7 +1699,14 @@ def main() -> int:
                     typed["full_outer"]["pack_valid_builds"],
                 "expand_gather[build, full_outer]":
                     typed["full_outer"]["expand_gather"],
-                "expand_gather[record, anti]": typed["anti"]["expand_gather"]}
+                "expand_gather[record, anti]": typed["anti"]["expand_gather"],
+                "join_scans[nccl bucket]": paths["nccl"]["join_scans"],
+                "stream_compact[record, nccl bucket]":
+                    paths["nccl"]["compact_records"],
+                "stream_compact[pack, nccl bucket]":
+                    paths["nccl"]["pack_matched_builds"],
+                "expand_gather[build, nccl bucket]":
+                    paths["nccl"]["expand_gather"]}
     # the join sites' launches on the paths of phases 10-12, each path's
     # own run
     site = {"join_scans": "join_scans",
@@ -1327,7 +1714,8 @@ def main() -> int:
             "stream_compact[pack]": "pack_matched_builds",
             "stream_compact[valid-build pack]": "pack_valid_builds",
             "expand_gather[build]": "expand_gather"}
-    by_name = {r["name"]: r for r in [*rows, skew_row, *typed_rows]}
+    by_name = {r["name"]: r for r in [*rows, skew_row, *typed_rows,
+                                      *bucket_rows]}
     kernels = []
     for name, count in launches.items():
         r = dict(by_name[name], launches=count)
@@ -1342,12 +1730,11 @@ def main() -> int:
             *[k for k in r if k.endswith("_ms") and k not in (
                 "ms", "plain_ms", "bound_ms", "library_ms")],
             *(["live_passes"] if "live_passes" in r else []),
+            *(["merged_positions"] if "merged_positions" in r else []),
             *(["launches_by_path"] if "launches_by_path" in r else []))})
     print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
+    print(ok, flush=True)
     return 0
 
 

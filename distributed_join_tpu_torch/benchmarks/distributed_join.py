@@ -21,26 +21,48 @@ heavy-hitter probe and output blocks pre-sized from alpha by the top-K
 mass model (``parallel/skew.zipf_top_k_mass``); ``--skew-threshold 0``
 forces the naive path. An explicit threshold keeps the generic HH
 defaults (probe block 1/8, output block 1/4 of the local probe rows).
+
+Communicators: ``local`` (one rank), ``emulated`` (``--n-ranks`` threads
+in one process, on one device), and ``nccl`` or ``gloo`` over a process
+group, one process a rank, started by the launcher::
+
+    python -m distributed_join_tpu_torch.benchmarks.launch \
+        --num-processes 4 -- python -m \
+        distributed_join_tpu_torch.benchmarks.distributed_join \
+        --communicator nccl --build-table-nrows 40000000 \
+        --probe-table-nrows 40000000 --over-decomposition-factor 4
+
+Under a process group every process builds the same global tables from
+the seed and joins its own rows (JAX :300-351); rank 0 prints the record.
 """
 
 from __future__ import annotations
 
 import argparse
-import json
 import sys
 
 import torch
 
 from distributed_join_tpu_torch.bench import gpu_identity
-from distributed_join_tpu_torch.device import resolve_device
+from distributed_join_tpu_torch.benchmarks import (
+    UNPORTED_FLAGS,
+    rank_device,
+    refuse_flags,
+    report,
+)
+from distributed_join_tpu_torch.parallel.bootstrap import (
+    is_coordinator,
+    maybe_initialize_from_env,
+    shutdown,
+)
 from distributed_join_tpu_torch.parallel.communicator import (
-    EmulatedCommunicator,
-    LocalCommunicator,
+    make_communicator,
 )
 from distributed_join_tpu_torch.parallel.distributed_join import (
     DEFAULT_HH_SLOTS,
     DEFAULT_OUT_CAPACITY_FACTOR,
     DEFAULT_SHUFFLE_CAPACITY_FACTOR,
+    JOIN_SHARDED_OUT,
     make_join_step,
     resolve_join_ladder,
 )
@@ -88,32 +110,27 @@ _REFUSED = {
     "--sort-mode": "the segmented-sort pipeline",
     "--sort-segments": "the segmented-sort pipeline",
     "--platform": "platform selection (the driver runs on the GPU)",
-    "--telemetry": "telemetry",
-    "--trace": "telemetry",
-    "--history": "telemetry",
-    "--diagnose": "telemetry",
     "--explain": "plan explain",
     "--stage-profile": "the stage profile",
     "--auto-tune": "the tuner",
-    "--verify-integrity": "wire-integrity digests",
-    "--chaos-seed": "chaos injection",
-    "--guard-deadline-s": "the watchdog",
+    **UNPORTED_FLAGS,
 }
 
 
 def parse_args(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    for tok in argv:
-        flag = tok.split("=", 1)[0]
-        if flag in _REFUSED:
-            p.error(f"{flag}: {_REFUSED[flag]} is not part of the port")
-    p.add_argument("--communicator", choices=["local", "emulated"],
+    refuse_flags(p, argv, _REFUSED)
+    p.add_argument("--communicator",
+                   choices=["local", "emulated", "nccl", "gloo"],
                    default="local",
                    help="local = one rank; emulated = --n-ranks ranks in "
-                        "one process, one thread each, on one device")
+                        "one process, one thread each, on one device; "
+                        "nccl / gloo = one process a rank, under the "
+                        "launcher (benchmarks/launch.py)")
     p.add_argument("--n-ranks", type=int, default=None,
-                   help="ranks of the emulated communicator")
+                   help="ranks of the emulated communicator; with nccl or "
+                        "gloo it must equal the process group's size")
     p.add_argument("--key-type", choices=DTYPES, default="int64")
     p.add_argument("--payload-type", choices=DTYPES, default="int64")
     p.add_argument("--build-table-nrows", type=int, default=1_000_000)
@@ -175,13 +192,11 @@ def parse_args(argv=None):
 
 
 def _communicator(args):
-    if args.communicator == "local":
-        if args.n_ranks not in (None, 1):
-            raise SystemExit("--communicator local has one rank")
-        return LocalCommunicator()
-    if not args.n_ranks:
-        raise SystemExit("--communicator emulated needs --n-ranks")
-    return EmulatedCommunicator(args.n_ranks)
+    try:
+        return make_communicator(args.communicator, n_ranks=args.n_ranks)
+    except (ValueError, RuntimeError) as exc:
+        raise SystemExit(f"--communicator {args.communicator} "
+                         f"(--n-ranks {args.n_ranks}): {exc}") from exc
 
 
 def skew_policy(args, n_ranks: int):
@@ -315,10 +330,15 @@ def string_wire_bytes(build) -> dict | None:
     }
 
 
-def _prepare(args, dev):
-    """The communicator, the tables, the ladder at its first rung, the
-    join options it leaves fixed, and the skew policy."""
+def _prepare(args, device):
+    """The communicator, the device (``rank_device``), the tables, the
+    ladder at its first rung, the join options it leaves fixed, and the
+    skew policy. The peak device memory is counted from here, before
+    the tables."""
     comm = _communicator(args)
+    dev = rank_device(comm, device)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
     n = comm.n_ranks
     b_rows, p_rows = args.build_table_nrows, args.probe_table_nrows
     if b_rows % n or p_rows % n:
@@ -333,18 +353,16 @@ def _prepare(args, dev):
     ladder = resolve_join_ladder(build, probe, n, opts)
     fixed = dict(key=join_key,
                  over_decomposition=args.over_decomposition_factor, **opts)
-    return comm, build, probe, ladder, fixed, policy
+    return comm, dev, build, probe, ladder, fixed, policy
 
 
 def run(args, device=None) -> dict:
-    """The protocol; returns the record. ``device`` defaults to the GPU
-    (``"cpu"`` for rehearsals: its times say nothing of a GPU). The peak
-    device memory covers the whole run, tables included."""
-    dev = resolve_device(device)
+    """The protocol; returns the record. ``device`` defaults to the
+    rank's device (``rank_device``; ``"cpu"`` for rehearsals: its times
+    say nothing of a GPU). The peak device memory covers the whole run,
+    tables included."""
+    comm, dev, build, probe, ladder, fixed, policy = _prepare(args, device)
     on_gpu = dev.type == "cuda"
-    if on_gpu:
-        torch.cuda.reset_peak_memory_stats(dev)
-    comm, build, probe, ladder, fixed, policy = _prepare(args, dev)
     n = comm.n_ranks
     b_rows, p_rows = args.build_table_nrows, args.probe_table_nrows
     threshold = fixed["skew_threshold"]
@@ -394,28 +412,35 @@ def run(args, device=None) -> dict:
     return record
 
 
-def profile(args, device=None) -> dict:
+def profile(args, device=None) -> dict | None:
     """Where ``args.profile`` joins at the first rung's sizing spend
-    their device time (``utils.benchmarking.profile_join``)."""
-    dev = resolve_device(device)
-    comm, build, probe, ladder, fixed, policy = _prepare(args, dev)
-    step = make_join_step(comm, **fixed, **ladder.sizing())
-    return {"zipf_alpha": args.zipf_alpha,
+    their device time (``utils.benchmarking.profile_join``), on rank 0;
+    the other ranks of a process group join unprofiled and return
+    None."""
+    comm, _, build, probe, ladder, fixed, policy = _prepare(args, device)
+    fn = comm.spmd(make_join_step(comm, **fixed, **ladder.sizing()),
+                   sharded_out=JOIN_SHARDED_OUT)
+    prof = profile_join(fn, build, probe, args.profile,
+                        record=is_coordinator())
+    if prof is None:
+        return None
+    return {"communicator": comm.name, "n_ranks": comm.n_ranks,
+            "zipf_alpha": args.zipf_alpha,
             "skew_threshold": fixed["skew_threshold"], "skew_policy": policy,
             "build_table_nrows": args.build_table_nrows,
             "probe_table_nrows": args.probe_table_nrows,
-            **profile_join(step, build, probe, args.profile),
-            **gpu_identity()}
+            **prof, **gpu_identity()}
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    # the handshake (and, under NCCL, the choice of this rank's card)
+    # comes before any tensor
+    maybe_initialize_from_env()
     record = profile(args) if args.profile else run(args)
-    line = json.dumps(record)
-    if args.json_output:
-        with open(args.json_output, "w") as f:
-            f.write(line + "\n")
-    print(line, flush=True)
+    if record is not None:
+        report(record, args.json_output)
+    shutdown()
     return 0
 
 

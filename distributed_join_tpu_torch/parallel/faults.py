@@ -6,12 +6,62 @@ port has: the shuffle and output factors, ``out_rows_per_rank``, and the
 skew sidecar's three heavy-hitter blocks. (The JAX ladder's
 compression-bit rung and its tuner seeding belong to options the port
 refuses.) The same shapes give the same rungs.
+
+Also ``retry_with_backoff`` (JAX :636), which the bootstrap's handshake
+retries through.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import time
+from typing import Callable, Optional
+
+
+def retry_with_backoff(
+    fn: Callable,
+    *,
+    max_attempts: int = 3,
+    backoff_s: float = 1.0,
+    deadline_s: Optional[float] = None,
+    sleep: Callable[[float], None] = time.sleep,
+    clock: Callable[[], float] = time.monotonic,
+):
+    """Call ``fn()`` on failure again after ``backoff_s``, doubling the
+    wait after each failure.
+
+    Returns ``(result, attempts)``, ``attempts`` being one record
+    ``{"attempt", "elapsed_s", "error"}`` a try (``error`` None on the
+    success). When the attempts or the deadline run out, raises the last
+    error with the trail attached as ``exc._retry_attempts``; the caller
+    wraps it in its own error. No retry starts when its backoff would
+    end past ``deadline_s``. ``sleep`` and ``clock`` are for tests."""
+    if max_attempts < 1:
+        raise ValueError(f"max_attempts must be >= 1, got {max_attempts}")
+    t0 = clock()
+    attempts = []
+    delay = backoff_s
+    last = None
+    for attempt in range(max_attempts):
+        ta = clock()
+        try:
+            result = fn()
+            attempts.append({"attempt": attempt,
+                             "elapsed_s": clock() - ta, "error": None})
+            return result, attempts
+        except Exception as exc:  # noqa: PERF203 - retry loop
+            last = exc
+            attempts.append({"attempt": attempt,
+                             "elapsed_s": clock() - ta,
+                             "error": f"{type(exc).__name__}: {exc}"})
+            out_of_time = (deadline_s is not None
+                           and clock() - t0 + delay > deadline_s)
+            if attempt == max_attempts - 1 or out_of_time:
+                break
+            sleep(delay)
+            delay *= 2.0
+    last._retry_attempts = attempts
+    raise last
 
 
 @dataclasses.dataclass(frozen=True)

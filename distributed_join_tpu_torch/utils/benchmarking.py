@@ -9,11 +9,14 @@ shift keeps the hit/miss structure — the generator's miss keys occupy a
 disjoint range that shifts with the hits — while every iteration sorts
 and hashes new values). Every output column is reduced into one device
 scalar, and the host synchronises once, at the end: nothing inside a
-join step reads a value back.
+join step reads a value back. Under a process group every rank starts
+its interval after a barrier, and the time reported is the slowest
+rank's, as one SPMD program's time is in the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable
 
@@ -40,8 +43,9 @@ def timed_join_throughput(comm, step: Callable, build: Table, probe: Table,
                           iters: int, key="key"):
     """Time ``iters`` join steps; returns ``(sec_per_join,
     total_matches_per_join, overflow)``. On a CUDA device the interval
-    is taken with CUDA events; on the CPU (rehearsals only) with the
-    host clock after the work."""
+    is taken with CUDA events; on the CPU (rehearsals, gloo) with the
+    host clock after the work. The interval is the largest over the
+    job's processes."""
     shift_key = key if isinstance(key, str) else key[0]
     key_dtype = probe.columns[shift_key].dtype
     # A string key's bytes all shift (wrapping), as in the JAX package:
@@ -71,6 +75,8 @@ def timed_join_throughput(comm, step: Callable, build: Table, probe: Table,
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize(build.device)
+    comm.barrier()
+    if on_gpu:
         start.record()
     t0 = time.perf_counter()
     total, overflow, consumed = fn(build, probe)
@@ -82,28 +88,31 @@ def timed_join_throughput(comm, step: Callable, build: Table, probe: Table,
         sec = time.perf_counter() - t0
     total, overflow = int(total), bool(overflow)
     int(consumed)
-    return sec / iters, total // iters, overflow
+    return comm.host_max(sec) / iters, total // iters, overflow
 
 
 def profile_join(step: Callable, build: Table, probe: Table, joins: int = 3,
-                 top: int = 15) -> dict:
+                 top: int = 15, record: bool = True) -> dict | None:
     """Where ``joins`` calls of ``step`` (after a warm-up call) spend
     their device time, by ``torch.profiler`` on a CUDA device: the top
     ``top`` device events by self time (ms per join), the device-busy
     total and the host wall time per join, whose ratio is the device's
-    busy share."""
+    busy share. ``record=False`` (every rank of a process group but
+    rank 0) makes the same calls unprofiled and returns None."""
     from torch.profiler import ProfilerActivity, profile
 
     dev = build.device
     step(build, probe)
     torch.cuda.synchronize(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+          if record else contextlib.nullcontext()) as prof:
         t0 = time.perf_counter()
         for _ in range(joins):
             res = step(build, probe)
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
+    if not record:
+        return None
     # device-side events only (kernels, copies, sets): the host-side
     # aten:: events carry their kernels' time again
     rows = [(e.device_time_total / 1e3 / joins, e.key, e.count // joins)

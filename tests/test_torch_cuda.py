@@ -1016,3 +1016,88 @@ def test_right_join_shared_lanes_zero_probe_outputs(card):
         for nm in ("p32", "pf", "ps"):
             assert not bool(c[nm][absent].any()), nm
         assert bool(c["b32"][absent].all())
+
+
+_NCCL_WORKER = r'''
+import sys
+import numpy as np
+import torch
+from distributed_join_tpu_torch.parallel import bootstrap
+from distributed_join_tpu_torch.parallel.communicator import make_communicator
+from distributed_join_tpu_torch.parallel.distributed_join import (
+    distributed_inner_join)
+from distributed_join_tpu_torch.utils.generators import (
+    generate_build_probe_tables)
+
+assert bootstrap.maybe_initialize_from_env()
+comm = make_communicator("nccl")
+assert comm.n_ranks == 1 and comm.device.type == "cuda"
+b, p = generate_build_probe_tables(seed=3, build_nrows=1_000_000,
+                                   probe_nrows=1_000_000, device=comm.device)
+res = distributed_inner_join(b, p, comm, over_decomposition=4)
+out = {"total": np.int64(int(res.total)),
+       "overflow": np.bool_(bool(res.overflow))}
+cols = res.table.columns
+for name in res.table.column_names:
+    out["col/" + name] = cols[name][res.table.valid].cpu().numpy()
+# dtypes NCCL lacks or takes as bytes, through every collective
+x = {"u64": torch.tensor([-(1 << 63) + 12345 * i for i in range(8)],
+                        device=comm.device).view(torch.uint64),
+     "bool": torch.arange(8, device=comm.device) % 3 == 0,
+     "bytes2d": torch.arange(40, device=comm.device).view(8, 5).to(
+         torch.uint8)}
+for k, t in x.items():
+    for tag, v in (("a2a", comm.all_to_all(t)), ("gather", comm.all_gather(t)),
+                   ("psum", comm.psum(t))):
+        assert v.dtype == t.dtype, (k, tag)
+        bits = torch.int64 if t.dtype == torch.uint64 else t.dtype
+        assert torch.equal(v.view(bits), t.view(bits)), (k, tag)
+np.savez(sys.argv[1], **out)
+comm.finalize()
+'''
+
+
+def test_nccl_world_of_one_join_equals_local(card, tmp_path):
+    """One NCCL process (a world of 1, started by the port's launcher)
+    joins 1 M x 1 M rows at over-decomposition 4, so the partition runs
+    and every batch crosses NCCL's all_to_all_single; its rows equal the
+    LocalCommunicator join's on the same tables. The same process sends
+    uint64, bool and 2-D byte columns through all_to_all, all_gather
+    and psum unchanged."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    out = tmp_path / "rank0.npz"
+    r = subprocess.run(
+        [sys.executable, "-m", "distributed_join_tpu_torch.benchmarks.launch",
+         "--num-processes", "1", "--coordinator", f"localhost:{port}", "--",
+         sys.executable, "-c", _NCCL_WORKER, str(out)],
+        capture_output=True, text=True, timeout=120, env=env, cwd=repo)
+    assert r.returncode == 0, r.stderr[-4000:]
+    got = np.load(out)
+    b, p = generate_build_probe_tables(seed=3, build_nrows=1_000_000,
+                                       probe_nrows=1_000_000, device=card)
+    want = distributed_inner_join(b, p, LocalCommunicator())
+    assert not bool(want.overflow) and not bool(got["overflow"])
+    assert int(got["total"]) == int(want.total) > 0
+    names = want.table.column_names
+    rows = np.stack([got["col/" + n] for n in names], 1)
+    np.testing.assert_array_equal(rows[np.lexsort(rows.T[::-1])],
+                                  _sorted_rows(want))

@@ -416,7 +416,11 @@ def test_entry_points_refuse_to_run_on_cpu_unasked():
 def test_port_imports_no_jax():
     mods = [m.name for m in pkgutil.walk_packages(
         distributed_join_tpu_torch.__path__, "distributed_join_tpu_torch.")]
-    assert "distributed_join_tpu_torch.ops.join" in mods
+    assert {"distributed_join_tpu_torch.ops.join",
+            "distributed_join_tpu_torch.parallel.bootstrap",
+            "distributed_join_tpu_torch.parallel.mesh",
+            "distributed_join_tpu_torch.benchmarks.launch",
+            "distributed_join_tpu_torch.benchmarks.all_to_all"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['distributed_join_tpu'] = None\n"
