@@ -97,14 +97,32 @@ Phases (any failure raises, and the script exits non-zero):
    cards or more (the median of 5 timed windows, each window printed);
    on one card its refusal (it needs two ranks). ``python3
    chip_smoke.py --phase 13`` runs this phase alone (after the build).
+14. The wires over NCCL, one process a card as in phase 13, at config
+   2's shape (10 M x 10 M rows a rank, over-decomposition 4): first the
+   codec (ops/compression.py) on one such batch's padded key and payload
+   blocks of this card's rows at 16 and 32 bits (encode and decode ms,
+   the bytes saved, the wire rate at which the saving pays for the
+   codec); then the config driver on each wire (padded, ragged,
+   ppermute, compressed at 32 bits, and compressed at 16 bits with
+   ``--auto-retry 2``, whose trail must widen the bits): no overflow, the
+   plain 1-rank join's matches, ms a join, and the rows, bytes and host
+   reads of a join on rank 0 as the driver counts them; then a worker
+   rank of this script (``--nccl-rank-worker --wires JSON``) joins once
+   in each wire (the ranks' digests combined equal to the plain 1-rank
+   join's, every join kernel launched on every rank) and times that
+   wire's partition and shuffle alone; last, BASELINE config 5 at 5 M x
+   5 M rows a rank on the padded wire and on the ragged wire with fixed
+   and variable-length strings: the padded run's matches, and
+   ``byte_exact_on_wire`` on the ragged wire. ``python3 chip_smoke.py
+   --phase 14`` runs this phase alone (after the build).
 
 Launch counts are set to zero just before each path and read just after;
 the launches of phase 2, of the config-3 kernel check and of the
 bucket-shape checks do not count.
 The line before the last is one JSON object with every kernel's numbers,
 one row per kernel and call site (the join sites also carry their
-launches on the paths of phases 10 to 13, phase 13's summed over the
-ranks); the last line is
+launches on the paths of phases 10 to 14, phases 13's and 14's summed
+over the ranks); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
 prints a result.
@@ -1405,14 +1423,17 @@ def bucket_kernel_rows(calls) -> list:
     return rows
 
 
-def partition_shuffle_ms(comm, build, probe) -> tuple:
-    """The partition and the NCCL shuffle of one join at
-    over-decomposition ``NCCL_K``, with no local join: the step's own
-    calls (parallel/distributed_join.py ``make_join_step``) at its
-    default capacity factor. Returns, each the slowest rank's: the ms a
-    call as ``time_ms`` times it (host gaps included), and the device ms
-    of its kernels as ``device_ms`` sums them, NCCL's apart (an NCCL
-    kernel also counts the time it waits for a peer)."""
+def partition_shuffle_ms(comm, build, probe, shuffle: str = "padded",
+                         compression_bits=None) -> tuple:
+    """The partition and the shuffle of one join at over-decomposition
+    ``NCCL_K`` on the wire ``shuffle`` (with ``compression_bits``, the
+    codec), with no local join: the step's own calls
+    (parallel/distributed_join.py ``make_join_step``, ``_batch_shuffle``)
+    at its default capacity factor. Returns, each the slowest rank's: the
+    ms a call as ``time_ms`` times it (host gaps and the ragged wire's
+    host reads included), and the device ms of its kernels as
+    ``device_ms`` sums them, NCCL's apart (an NCCL kernel also counts
+    the time it waits for a peer)."""
     import math
 
     from distributed_join_tpu_torch.ops.partition import (
@@ -1420,9 +1441,9 @@ def partition_shuffle_ms(comm, build, probe) -> tuple:
     )
     from distributed_join_tpu_torch.parallel.distributed_join import (
         DEFAULT_SHUFFLE_CAPACITY_FACTOR,
+        _batch_shuffle,
         _round_up,
     )
-    from distributed_join_tpu_torch.parallel.shuffle import shuffle_padded
     n = comm.n_ranks
     nb = NCCL_K * n
 
@@ -1433,9 +1454,8 @@ def partition_shuffle_ms(comm, build, probe) -> tuple:
                 t.capacity / nb * DEFAULT_SHUFFLE_CAPACITY_FACTOR)), 8)
             pt = radix_hash_partition(t, ["key"], nb)
             for b in range(NCCL_K):
-                padded, counts, _, _ = pt.to_padded(
-                    cap, bucket_start=b * n, n_buckets=n)
-                recv, _ = shuffle_padded(comm, padded, counts, cap)
+                recv, _ = _batch_shuffle(comm, pt, b, n, cap, mode=shuffle,
+                                         compression_bits=compression_bits)
                 rows += recv.capacity
         return torch.tensor([rows], device=b_local.valid.device)
 
@@ -1450,13 +1470,18 @@ def partition_shuffle_ms(comm, build, probe) -> tuple:
     return ms, comm.host_max(other), comm.host_max(nccl)
 
 
-def nccl_rank_worker() -> int:
+def nccl_rank_worker(wires: dict | None = None) -> int:
     """One rank of phase 13(b), started by the launcher: the global
     tables of ``NROWS`` rows a rank from the seed, one untimed
     ``distributed_inner_join`` over NCCL at over-decomposition
     ``NCCL_K`` with the launch counts set to zero just before it and read
     just after, then this rank's row digest and counts, all-gathered to
-    rank 0, which prints them as one JSON line."""
+    rank 0, which prints them as one JSON line. With ``wires`` (phase
+    14: ``{mode: join options}`` from the command line) it does so once a
+    mode, with the mode's options, and times each mode's partition and
+    shuffle; the phase-13 kernel checks are not repeated."""
+    if wires is not None:
+        return wire_rank_worker(wires)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from distributed_join_tpu_torch.parallel.bootstrap import (
         maybe_initialize_from_env,
@@ -1614,13 +1639,262 @@ def nccl_phase() -> dict:
               f"local ({rec['elapsed_per_exchange_s'] * 1e3:.4f} ms an "
               f"exchange, median window); {smi}", flush=True)
     return ({s: sum(g["launches"][s] for g in got) for s in NCCL_SITES},
-            worker["bucket_rows"])
+            worker["bucket_rows"], (want_total, want_digest))
+
+
+# -- phase 14: the wires over NCCL ------------------------------------------
+
+
+# the wires at config 2's shape: the driver's flags and the join options
+WIRES = {
+    "padded": ([], {}),
+    "ragged": (["--shuffle", "ragged"], {"shuffle": "ragged"}),
+    "ppermute": (["--shuffle", "ppermute"], {"shuffle": "ppermute"}),
+    "compressed32": (["--compression", "--compression-bits", "32"],
+                     {"compression_bits": 32}),
+    "compressed16": (["--compression", "--auto-retry", "2"],
+                     {"compression_bits": 16, "auto_retry": 2}),
+}
+CONFIG5_RAGGED = {
+    "padded": [],
+    "ragged": ["--shuffle", "ragged"],
+    "ragged_varlen": ["--shuffle", "ragged", "--variable-length-strings"],
+}
+CODEC_BITS = (16, 32)
+
+
+def wire_rank_worker(wires: dict) -> int:
+    """Phase 14's rank: for each wire, one counted
+    ``distributed_inner_join`` at over-decomposition ``NCCL_K`` (digest,
+    launch counts, this rank's host reads, wire rows and bytes), then the
+    wire's partition and shuffle alone; rank 0 prints one JSON line."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distributed_join_tpu_torch.parallel.bootstrap import (
+        maybe_initialize_from_env,
+    )
+    from distributed_join_tpu_torch.parallel.communicator import (
+        make_communicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    _check(maybe_initialize_from_env(), "the worker runs under the launcher")
+    comm = make_communicator("nccl")
+    n = comm.n_ranks
+    build, probe = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS * n, probe_nrows=NROWS * n,
+        unique_build_keys=True, device=comm.device)
+    out = {}
+    for mode, opts in wires.items():
+        before = comm.counters()
+        res, counts = counted(lambda: distributed_inner_join(
+            build, probe, comm, over_decomposition=NCCL_K, **opts))
+        after = comm.counters()
+        mine = torch.tensor([[*row_digest(res), int(res.total),
+                              int(res.overflow),
+                              *(counts[s] for s in NCCL_SITES),
+                              *(after[k] - before[k] for k in after)]],
+                            dtype=torch.int64, device=comm.device)
+        del res
+        ps = partition_shuffle_ms(comm, build, probe,
+                                  opts.get("shuffle", "padded"),
+                                  opts.get("compression_bits"))
+        every = comm.all_gather(mine).tolist()
+        out[mode] = {"ranks": [
+            {"digest": v[:3], "total": v[3], "overflow": bool(v[4]),
+             "launches": dict(zip(NCCL_SITES, v[5:5 + len(NCCL_SITES)])),
+             "counters": dict(zip(before, v[5 + len(NCCL_SITES):]))}
+            for v in every], "partition_shuffle_ms": ps}
+    if comm.axis_index() == 0:
+        print(json.dumps({"wires": out}), flush=True)
+    comm.finalize()
+    return 0
+
+
+def codec_rows(build, probe) -> list:
+    """The codec on one k = 4 batch's padded block of the headline's
+    tables (this card as a world of 1: 10 M rows into 4 buckets, each
+    padded to 1.6x): encode plus decode ms of its int64 key and payload
+    blocks at each of ``CODEC_BITS``, the bytes it saves, and the wire
+    rate at which the saving pays for the codec (saved bytes over the
+    codec's time). Encode and decode are also held against each other
+    where the block packs."""
+    import math
+
+    from distributed_join_tpu_torch.ops import compression
+    from distributed_join_tpu_torch.ops.partition import (
+        radix_hash_partition,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        DEFAULT_SHUFFLE_CAPACITY_FACTOR,
+        _round_up,
+    )
+    cap = _round_up(int(math.ceil(
+        build.capacity / NCCL_K * DEFAULT_SHUFFLE_CAPACITY_FACTOR)), 8)
+    rows = []
+    for side, t in (("build", build), ("probe", probe)):
+        pt = radix_hash_partition(t, ["key"], NCCL_K)
+        padded, counts, _, row_valid = pt.to_padded(cap, 0, 1)
+        for name, col in padded.items():
+            col = torch.where(row_valid, col, col[0, counts[0] - 1])
+            for bits in CODEC_BITS:
+                enc = compression.encode_rows(col, bits, 256)
+                dec = compression.decode_rows(enc[0], enc[1], cap, bits,
+                                              256, col.dtype)
+                if not bool(enc[2].any()):
+                    _check(torch.equal(dec, col),
+                           f"codec {side}.{name} bits={bits}: decode differs")
+                # timed as the wire encodes: without the required bits
+                e_ms = time_ms(lambda c=col, b=bits: compression.encode_rows(
+                    c, b, 256, required_bits=False))
+                d_ms = time_ms(lambda e=enc, b=bits, d=col.dtype:
+                               compression.decode_rows(e[0], e[1], cap, b,
+                                                       256, d))
+                saved = col.nbytes - enc[0].nbytes - enc[1].nbytes
+                rows.append({
+                    "column": f"{side}.{name}", "bits": bits, "rows": cap,
+                    "overflow": bool(enc[2].any()),
+                    "required_bits": int(enc[3].max()),
+                    "encode_ms": e_ms, "decode_ms": d_ms,
+                    "raw_bytes": col.nbytes, "saved_bytes": saved,
+                    "break_even_gb_per_s": saved / ((e_ms + d_ms) * 1e6)})
+    return rows
+
+
+def wire_phase(want_total: int | None = None,
+               want_digest: tuple | None = None) -> dict:
+    """Phase 14: the wires over NCCL on every card, one process a card,
+    at config 2's shape (``NROWS`` a rank, k = ``NCCL_K``): the driver
+    in each wire of ``WIRES`` (no overflow, the plain 1-rank join's
+    matches); the worker in each wire (digests combined equal the plain
+    1-rank join's, every join kernel launched on every rank, the
+    partition and shuffle alone); config 5 at 5 M x 5 M a rank on the
+    ragged wire, fixed and variable-length strings, against the padded
+    run's matches, byte-exact on the wire; the codec on one batch.
+    Returns the join sites' launches summed over ranks, by wire."""
+    from distributed_join_tpu_torch.ops.kernel_config import KernelConfig
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    smi = gpu_line()
+    n = torch.cuda.device_count()
+    rows = NROWS * n
+    build, probe = generate_build_probe_tables(
+        seed=SEED, build_nrows=rows, probe_nrows=rows,
+        unique_build_keys=True, device=DEVICE)
+    if want_total is None:
+        plain = distributed_inner_join(build, probe, LocalCommunicator(),
+                                       kernel_config=KernelConfig("plain"))
+        _check(not bool(plain.overflow),
+               "phase 14: the 1-rank join overflowed")
+        want_total, want_digest = int(plain.total), row_digest(plain)
+        del plain
+    local = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS, probe_nrows=NROWS,
+        unique_build_keys=True, device=DEVICE)
+    for r in codec_rows(*local):
+        print(f"[wire] codec {json.dumps(r)}; {smi}", flush=True)
+    del build, probe, local
+    torch.cuda.empty_cache()
+
+    driver = ["-m", "distributed_join_tpu_torch.benchmarks.distributed_join",
+              "--communicator", "nccl", "--build-table-nrows", str(rows),
+              "--probe-table-nrows", str(rows), "--iterations", "4",
+              "--over-decomposition-factor", str(NCCL_K)]
+    for mode, (flags, _) in WIRES.items():
+        rec = _launched_record(f"wire {mode}", n, [*driver, *flags])
+        _check(not rec["overflow"], f"wire {mode}: the join overflowed")
+        _check(rec["matches_per_join"] == want_total,
+               f"wire {mode}: {rec['matches_per_join']} matches, the 1-rank "
+               f"join has {want_total}")
+        trail = [a["action"] for a in (rec["retry"] or {}).get(
+            "attempts", [])]
+        if mode == "compressed16":
+            # keys of 10 M-row tables span 2^24 in a 256-row block
+            _check(trail[:2] == ["initial", "widen_compression_bits"],
+                   f"wire {mode}: retry trail {trail}")
+        print(f"[wire] {mode}: {rec['elapsed_per_join_s'] * 1e3:.4f} ms a "
+              f"join, {rec['m_rows_per_sec_per_rank']:.2f} M rows/s a rank "
+              f"({n} rank(s), k={NCCL_K}); rank 0 sends "
+              f"{rec['wire_rows_per_join']:.0f} rows, "
+              f"{rec['wire_bytes_per_join']:.0f} bytes a join; host reads "
+              f"a join {rec['host_reads_per_join']:.1f}; retry {trail}; "
+              f"{smi}", flush=True)
+
+    worker = _launched_record("wire worker", n, [
+        os.path.abspath(__file__), "--nccl-rank-worker", "--wires",
+        json.dumps({m: o for m, (_, o) in WIRES.items()})])["wires"]
+    launches = {}
+    for mode, got in worker.items():
+        _check(len(got["ranks"]) == n,
+               f"wire worker {mode}: {len(got['ranks'])} ranks reported")
+        for r, g in enumerate(got["ranks"]):
+            _check(not g["overflow"] and g["total"] == want_total,
+                   f"wire worker {mode} rank {r}: total {g['total']}, "
+                   f"overflow {g['overflow']}")
+            _require_launched(g["launches"], JOIN_KERNELS,
+                              f"rank {r} of the {mode} wire")
+        combined = _combine_digests(tuple(g["digest"]) for g in got["ranks"])
+        _check(combined == want_digest,
+               f"wire worker {mode}: combined digest {combined} != the "
+               f"plain 1-rank join's {want_digest}")
+        c0 = got["ranks"][0]["counters"]
+        ps_ms, ps_busy, ps_nccl = got["partition_shuffle_ms"]
+        print(f"[wire] {mode}: partition + shuffle at k={NCCL_K}, no local "
+              f"join: {ps_ms:.4f} ms; device ms of its kernels "
+              f"{ps_busy:.4f} besides NCCL's {ps_nccl:.4f} (slowest rank "
+              f"of {n}); one join on rank 0 (every rung of it): "
+              f"{c0['wire_rows']} rows, {c0['wire_bytes']} bytes sent, "
+              f"{c0['host_reads']} host reads; digest equal, every join "
+              f"kernel launched on every rank; {smi}", flush=True)
+        launches[mode] = {s: sum(g["launches"][s] for g in got["ranks"])
+                          for s in NCCL_SITES}
+
+    c5 = ["-m", "distributed_join_tpu_torch.benchmarks.distributed_join",
+          "--communicator", "nccl", "--build-table-nrows",
+          str(CONFIG5_ROWS * n), "--probe-table-nrows", str(CONFIG5_ROWS * n),
+          "--key-columns", "2", "--string-payload-bytes", "16",
+          "--iterations", "4", "--over-decomposition-factor", str(NCCL_K)]
+    c5_matches = None
+    for mode, flags in CONFIG5_RAGGED.items():
+        rec = _launched_record(f"config 5 {mode}", n, [*c5, *flags])
+        _check(not rec["overflow"], f"config 5 {mode}: the join overflowed")
+        c5_matches = (rec["matches_per_join"] if c5_matches is None
+                      else c5_matches)
+        _check(rec["matches_per_join"] == c5_matches,
+               f"config 5 {mode}: {rec['matches_per_join']} matches, the "
+               f"padded run has {c5_matches}")
+        exact = rec["string_wire_bytes"]["byte_exact_on_wire"]
+        _check(exact == (mode != "padded"),
+               f"config 5 {mode}: byte_exact_on_wire {exact}")
+        print(f"[wire] config 5 {mode}: "
+              f"{rec['elapsed_per_join_s'] * 1e3:.4f} ms a join, "
+              f"{rec['m_rows_per_sec_per_rank']:.2f} M rows/s a rank; rank 0 "
+              f"sends {rec['wire_rows_per_join']:.0f} rows, "
+              f"{rec['wire_bytes_per_join']:.0f} bytes a join; host reads "
+              f"a join {rec['host_reads_per_join']:.1f}; string bytes "
+              f"{json.dumps(rec['string_wire_bytes'])}; {smi}", flush=True)
+    return launches
 
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    if argv not in ([], ["--phase", "13"], ["--nccl-rank-worker"]):
-        print("usage: chip_smoke.py [--phase 13]", file=sys.stderr)
+    wires = (json.loads(argv[2]) if argv[:2] == ["--nccl-rank-worker",
+                                                 "--wires"]
+             and len(argv) == 3 else None)
+    if argv not in ([], ["--phase", "13"], ["--phase", "14"],
+                    ["--nccl-rank-worker"]) and wires is None:
+        print("usage: chip_smoke.py [--phase 13 | --phase 14]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1632,8 +1906,8 @@ def main(argv=None) -> int:
         print("chip_smoke: distributed_join_tpu_torch/ is not beside this "
               "script; run it from the root of a checkout", file=sys.stderr)
         return 3
-    if argv == ["--nccl-rank-worker"]:
-        return nccl_rank_worker()
+    if argv[:1] == ["--nccl-rank-worker"]:
+        return nccl_rank_worker(wires)
     from distributed_join_tpu_torch.utils.generators import (
         generate_build_probe_tables,
     )
@@ -1656,10 +1930,17 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})
     if argv == ["--phase", "13"]:
-        nccl, _ = nccl_phase()
+        nccl, _, _ = nccl_phase()
         print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
               flush=True)
         print(json.dumps({"nccl_launches": nccl}), flush=True)
+        print(ok, flush=True)
+        return 0
+    if argv == ["--phase", "14"]:
+        wires = wire_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps({"wire_launches": wires}), flush=True)
         print(ok, flush=True)
         return 0
 
@@ -1681,7 +1962,9 @@ def main(argv=None) -> int:
     typed, typed_ms, typed_rows = typed_phase()
     paths.update(typed)
     print(f"[typed] ms_per_join {json.dumps(typed_ms)}; {smi}", flush=True)
-    paths["nccl"], bucket_rows = nccl_phase()
+    paths["nccl"], bucket_rows, plain = nccl_phase()
+    paths.update({f"nccl_{mode}": c
+                  for mode, c in wire_phase(*plain).items()})
 
     launches = {"join_scans": head["join_scans"],
                 "stream_compact[record]": head["compact_records"],

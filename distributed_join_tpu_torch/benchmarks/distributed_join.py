@@ -7,7 +7,8 @@
 
 Port of ``distributed_join_tpu/benchmarks/distributed_join.py``
 (``parse_args`` :61, ``run`` :250) with the reference's flag names and
-only the options the port has: generate the tables from seed 42 (the
+only the options the port has (the wires ``--shuffle padded|ppermute|
+ragged`` and ``--compression``): generate the tables from seed 42 (the
 Zipf probe side from seed 43; ``--key-type``/``--payload-type``, the
 composite and string tables of config 5, and ``--string-key-bytes`` as
 in the JAX driver), resolve the skew auto-policy, then time
@@ -56,6 +57,7 @@ from distributed_join_tpu_torch.parallel.bootstrap import (
     shutdown,
 )
 from distributed_join_tpu_torch.parallel.communicator import (
+    ProcessGroupCommunicator,
     make_communicator,
 )
 from distributed_join_tpu_torch.parallel.distributed_join import (
@@ -63,6 +65,8 @@ from distributed_join_tpu_torch.parallel.distributed_join import (
     DEFAULT_OUT_CAPACITY_FACTOR,
     DEFAULT_SHUFFLE_CAPACITY_FACTOR,
     JOIN_SHARDED_OUT,
+    SHUFFLE_MODES,
+    _varwidth_cols,
     make_join_step,
     resolve_join_ladder,
 )
@@ -95,12 +99,9 @@ DTYPES = {
 
 # Flags of the JAX driver that the port does not have.
 _REFUSED = {
-    "--shuffle": "the ragged, ppermute and hierarchical shuffles",
     "--slices": "the hierarchical mesh",
     "--dcn-codec": "the hierarchical DCN codec",
     "--registration-method": "RDMA registration",
-    "--compression": "the compressed wire",
-    "--compression-bits": "the compressed wire",
     "--expand-kernel": "the kernel knobs",
     "--compact-kernel": "the kernel knobs",
     "--kernel-block": "the kernel knobs",
@@ -173,6 +174,18 @@ def parse_args(argv=None):
                         "bytes (derived from the int key; packed-word "
                         "composite-key machinery)")
     p.add_argument("--over-decomposition-factor", type=int, default=1)
+    p.add_argument("--shuffle", choices=SHUFFLE_MODES, default="padded",
+                   help="the wire: padded = capacity-padded blocks, one "
+                        "all-to-all; ppermute = the same blocks as a chain "
+                        "of point-to-point steps; ragged = the exact-size "
+                        "exchange, string payloads byte-exact "
+                        "(hierarchical is not part of the port)")
+    p.add_argument("--compression", action="store_true",
+                   help="FoR + bit-pack the integer columns on the padded "
+                        "or ppermute wire")
+    p.add_argument("--compression-bits", type=int, default=16,
+                   help="packed residual width for --compression "
+                        "(2/4/8/16/32; --auto-retry widens it on overflow)")
     p.add_argument("--shuffle-capacity-factor", type=float,
                    default=DEFAULT_SHUFFLE_CAPACITY_FACTOR)
     p.add_argument("--out-capacity-factor", type=float,
@@ -188,7 +201,11 @@ def parse_args(argv=None):
                    help="instead of the record, print where JOINS joins at "
                         "the first rung's sizing spend their device time "
                         "(torch.profiler; GPU only)")
-    return p.parse_args(argv)
+    args = p.parse_args(argv)
+    if args.shuffle == "hierarchical":
+        p.error("--shuffle hierarchical: the hierarchical shuffle is not "
+                "part of the port")
+    return args
 
 
 def _communicator(args):
@@ -300,15 +317,13 @@ def _stringify_key(build, probe, join_key, nbytes):
     return out[0], out[1], "skey"
 
 
-def string_wire_bytes(build) -> dict | None:
+def string_wire_bytes(build, shuffle: str) -> dict | None:
     """The JAX driver's ``_string_wire_accounting`` (JAX :214): for every
     2-D uint8 build column with a '#len' companion and a width divisible
-    by 4, the bytes its rows take on the padded wire (fixed width) and
-    what a byte-exact wire would take (lengths rounded up to 4). The
-    port's wire is the padded one, so ``byte_exact_on_wire`` is False."""
-    names = [n for n, c in build.columns.items()
-             if c.ndim == 2 and c.dtype == torch.uint8
-             and c.shape[1] % 4 == 0 and n + LEN_SUFFIX in build.columns]
+    by 4, the bytes its rows take at fixed width and on the byte-exact
+    wire (lengths rounded up to 4); ``byte_exact_on_wire`` says whether
+    ``shuffle`` is the ragged wire, which ships the latter."""
+    names = _varwidth_cols(build)
     if not names:
         return None
     per_col, fixed_total, exact_total = {}, 0, 0
@@ -326,8 +341,13 @@ def string_wire_bytes(build) -> dict | None:
         "exact_bytes": exact_total,
         "savings_pct": round(100.0 * (1 - exact_total / fixed_total), 2)
         if fixed_total else 0.0,
-        "byte_exact_on_wire": False,
+        "byte_exact_on_wire": shuffle == "ragged",
     }
+
+
+def compression_bits(args):
+    """The codec's width when ``--compression`` is on, else None."""
+    return args.compression_bits if args.compression else None
 
 
 def _prepare(args, device):
@@ -343,15 +363,23 @@ def _prepare(args, device):
     b_rows, p_rows = args.build_table_nrows, args.probe_table_nrows
     if b_rows % n or p_rows % n:
         raise SystemExit(f"table nrows must be divisible by n_ranks={n}")
+    if args.shuffle == "ragged" and args.string_payload_bytes % 4:
+        # the byte-exact wire ships u32 planes (JAX :295)
+        raise SystemExit("--string-payload-bytes must be a multiple of 4 "
+                         "in ragged mode (u32-plane byte-exact wire)")
+    if args.shuffle == "ragged" and args.compression:
+        raise SystemExit("--compression applies to the padded and ppermute "
+                         "wires; the ragged wire already sends exact rows")
     build, probe, join_key = make_tables(args, dev)
     threshold, hh_probe, hh_out, policy = skew_policy(args, n)
     opts = dict(shuffle_capacity_factor=args.shuffle_capacity_factor,
                 out_capacity_factor=args.out_capacity_factor,
+                compression_bits=compression_bits(args),
                 skew_threshold=threshold, hh_slots=args.hh_slots,
                 hh_build_capacity=args.hh_build_capacity,
                 hh_probe_capacity=hh_probe, hh_out_capacity=hh_out)
     ladder = resolve_join_ladder(build, probe, n, opts)
-    fixed = dict(key=join_key,
+    fixed = dict(key=join_key, shuffle=args.shuffle,
                  over_decomposition=args.over_decomposition_factor, **opts)
     return comm, dev, build, probe, ladder, fixed, policy
 
@@ -368,12 +396,19 @@ def run(args, device=None) -> dict:
     threshold = fixed["skew_threshold"]
     for attempt in range(args.auto_retry + 1):
         step = make_join_step(comm, **fixed, **ladder.sizing())
+        before = comm.counters()
         sec, matches, overflow = timed_join_throughput(
             comm, step, build, probe, args.iterations, key=fixed["key"])
         ladder.note(overflow)
         if not overflow or attempt == args.auto_retry:
             break
         ladder.escalate()
+    # the last rung's warm-up and timed joins; an in-process
+    # communicator counts every rank's
+    joins = 2 * args.iterations * (
+        1 if isinstance(comm, ProcessGroupCommunicator) else n)
+    per_join = {k: (v - before[k]) / joins
+                for k, v in comm.counters().items()}
 
     rows_per_sec = (b_rows + p_rows) / sec
     record = {
@@ -387,6 +422,8 @@ def run(args, device=None) -> dict:
         "selectivity": args.selectivity,
         "duplicate_build_keys": args.duplicate_build_keys,
         "over_decomposition_factor": args.over_decomposition_factor,
+        "shuffle": args.shuffle,
+        "compression_bits": compression_bits(args),
         "zipf_alpha": args.zipf_alpha,
         "skew_threshold": threshold,
         "skew_policy": policy,
@@ -396,7 +433,7 @@ def run(args, device=None) -> dict:
         "string_payload_columns": args.string_payload_columns,
         "variable_length_strings": args.variable_length_strings,
         "string_key_bytes": args.string_key_bytes,
-        "string_wire_bytes": string_wire_bytes(build),
+        "string_wire_bytes": string_wire_bytes(build, args.shuffle),
         "iterations": args.iterations,
         "matches_per_join": matches,
         "overflow": overflow,
@@ -404,6 +441,11 @@ def run(args, device=None) -> dict:
         "elapsed_per_join_s": sec,
         "rows_per_sec": rows_per_sec,
         "m_rows_per_sec_per_rank": rows_per_sec / 1e6 / n,
+        # a rank's data-plane rows and bytes handed to the exchange and
+        # its host reads, a join (counted on the host)
+        "wire_rows_per_join": per_join["wire_rows"],
+        "wire_bytes_per_join": per_join["wire_bytes"],
+        "host_reads_per_join": per_join["host_reads"],
         "device": str(dev),
     }
     if on_gpu:
@@ -425,6 +467,8 @@ def profile(args, device=None) -> dict | None:
     if prof is None:
         return None
     return {"communicator": comm.name, "n_ranks": comm.n_ranks,
+            "shuffle": args.shuffle,
+            "compression_bits": compression_bits(args),
             "zipf_alpha": args.zipf_alpha,
             "skew_threshold": fixed["skew_threshold"], "skew_policy": policy,
             "build_table_nrows": args.build_table_nrows,

@@ -1,7 +1,8 @@
 """Radix hash partition: hash -> bucket id -> stable sort of row
 indices by bucket -> offsets. The port of
 ``distributed_join_tpu/ops/partition.py``; the sort carries only the
-bucket id and the row order, and ``to_padded`` gathers every column
+bucket id and the row order (and, for the byte-exact string wire, a
+within-bucket order column), and ``to_padded`` gathers every column
 once, straight into its padded layout.
 """
 
@@ -14,6 +15,10 @@ import torch
 
 from distributed_join_tpu_torch.ops.hashing import bucket_ids
 from distributed_join_tpu_torch.table import Table
+
+
+INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64,
+              torch.uint8, torch.uint16, torch.uint32, torch.uint64)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,18 +69,36 @@ def radix_hash_partition(table: Table, key_cols: Sequence[str],
                          sub_buckets: int = 1) -> PartitionedTable:
     """Partition ``table`` into ``n_buckets`` by the hash of
     ``key_cols``. ``sub_buckets`` > 1 partitions at the fine
-    granularity of ``bucket_ids``. ``order_within`` (the ragged
-    varwidth wire's within-bucket order) is not part of the port."""
-    if order_within is not None:
-        raise NotImplementedError(
-            "order_within serves the ragged varwidth shuffle, which the "
-            "port does not have; partition without it")
+    granularity of ``bucket_ids``.
+
+    ``order_within`` names a 1-D integer column: rows within each
+    bucket then sort by it descending (cast to int32, as in the JAX
+    package), the row index last. The byte-exact string wire
+    (``parallel/shuffle.shuffle_ragged``) needs each bucket's rows by
+    length descending, so that the rows alive at a u32 word plane form
+    a prefix of the bucket. Two stable sorts give the JAX package's
+    two-key stable sort: the column first, then the bucket id."""
+    if sub_buckets > 1 and order_within is not None:
+        raise ValueError(
+            "sub_buckets and order_within are mutually exclusive: the "
+            "within-bucket order slot is either the segment id or the "
+            "varwidth length, never both")
     b = bucket_ids([table.columns[c] for c in key_cols], n_buckets,
                    sub_buckets=sub_buckets)
     n_buckets = n_buckets * max(int(sub_buckets), 1)
     # Padding rows get bucket n_buckets: they sort after every real one.
     b = torch.where(table.valid, b, torch.full_like(b, n_buckets))
-    sorted_b, order = torch.sort(b, stable=True)
+    if order_within is None:
+        sorted_b, order = torch.sort(b, stable=True)
+    else:
+        oc = table.columns[order_within]
+        if oc.ndim != 1 or oc.dtype not in INT_DTYPES:
+            raise TypeError(
+                f"order_within column {order_within!r} must be a 1-D "
+                f"integer column, got ndim={oc.ndim} dtype={oc.dtype}")
+        _, by_col = torch.sort(-oc.to(torch.int32), stable=True)
+        sorted_b, within = torch.sort(b[by_col], stable=True)
+        order = by_col[within]
     offsets = torch.searchsorted(
         sorted_b,
         torch.arange(n_buckets + 1, dtype=torch.int32, device=b.device),

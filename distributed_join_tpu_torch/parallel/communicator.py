@@ -2,7 +2,8 @@
 ``spmd`` to run a per-rank function over row-sharded inputs.
 
 Port of ``distributed_join_tpu/parallel/communicator.py`` (the ABC at
-:51-183 with ``ragged_all_to_all`` and its emulation, ``LocalCommunicator``
+:51-183 with ``ragged_all_to_all`` and its emulation,
+``ppermute_all_to_all`` at :68 and its chain at :208, ``LocalCommunicator``
 at :400, ``make_communicator`` at :423). Backends:
 
 - :class:`LocalCommunicator` — one rank; collectives are identities.
@@ -56,9 +57,51 @@ class Communicator(abc.ABC):
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise sum over ranks, replicated."""
 
+    def ppermute_all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`all_to_all`'s result by a chain of point-to-point
+        steps where the backend has one (``ProcessGroupCommunicator``);
+        the default, a plain ``all_to_all``, is correct by definition."""
+        return self.all_to_all(x)
+
     def axis_index(self) -> int:
         """The calling rank (0 on a single-rank backend)."""
         return 0
+
+    # Counters the shuffles keep, read by the drivers (the ranks of an
+    # emulated communicator count into one): reads of device values to
+    # the host made through host_ints, and the data-plane rows and bytes
+    # the shuffles hand to the exchange (count_wire; own block included,
+    # metadata not).
+    host_reads: int = 0
+    wire_rows: int = 0
+    wire_bytes: int = 0
+
+    def count_wire(self, rows: int, nbytes: int) -> None:
+        with _COUNTER_LOCK:
+            self.wire_rows += int(rows)
+            self.wire_bytes += int(nbytes)
+
+    def counters(self) -> dict:
+        return {"host_reads": self.host_reads, "wire_rows": self.wire_rows,
+                "wire_bytes": self.wire_bytes}
+
+    def host_ints(self, *vectors) -> list:
+        """Small integer tensors read back to the host as (nested)
+        lists, in one read (one device synchronisation), counted in
+        ``host_reads``. A host sequence passes through as a list."""
+        out = [None if isinstance(v, torch.Tensor) else list(v)
+               for v in vectors]
+        dev = [v for v in vectors if isinstance(v, torch.Tensor)]
+        if dev:
+            with _COUNTER_LOCK:
+                self.host_reads += 1
+            flat = torch.cat([v.reshape(-1).to(torch.int64) for v in dev])
+            vals = iter(flat.tolist())
+            for i, v in enumerate(vectors):
+                if out[i] is None:
+                    got = [next(vals) for _ in range(v.numel())]
+                    out[i] = _reshape_list(got, tuple(v.shape))
+        return out
 
     @abc.abstractmethod
     def spmd(self, fn: Callable, *, sharded_out=None) -> Callable:
@@ -71,36 +114,50 @@ class Communicator(abc.ABC):
         outputs: see :class:`ProcessGroupCommunicator`.)"""
 
     def ragged_all_to_all(self, operand, output, input_offsets,
-                          send_sizes, output_offsets, recv_sizes):
+                          send_sizes, output_offsets, recv_sizes,
+                          recv_offsets=None):
         """Exact-size exchange: peer i receives ``operand[input_offsets[i]
         : + send_sizes[i]]`` (rows), written at ``output_offsets[i]`` of
         its ``output`` buffer. The (n_ranks,) int vectors must be
         consistent across ranks (``recv_sizes[j]`` = what rank j sends
-        here). Inside :meth:`spmd`; returns the filled output buffer
-        (``output`` itself is not written)."""
-        return self._ragged_emulate(operand, output, input_offsets,
-                                    send_sizes, output_offsets, recv_sizes)
+        here); each is a tensor or a host sequence. ``recv_offsets``,
+        where the caller knows it (a host sequence), is where each
+        sender's window lands in this rank's ``output``: the senders'
+        ``output_offsets`` entries for this rank, which a backend would
+        otherwise exchange. Inside :meth:`spmd`; returns the filled
+        output buffer (``output`` itself is not written)."""
+        dev = operand.device
+        vecs = [v if isinstance(v, torch.Tensor)
+                else torch.tensor(list(v), dtype=torch.int64, device=dev)
+                for v in (input_offsets, send_sizes, output_offsets)]
+        return self._ragged_emulate(output,
+                                    self._ragged_peers(operand, *vecs))
 
-    def _ragged_emulate(self, operand, output, input_offsets, send_sizes,
-                        output_offsets, recv_sizes):
-        """The JAX package's exact emulation (JAX :152-176): all-gather
-        every operand and offset vector, then fill each sender's window
-        by masked copies. Wire-inefficient, bit-identical in semantics;
-        no value is read back to the host."""
-        n = self.n_ranks
-        me = self.axis_index()
+    def _ragged_peers(self, operand, input_offsets, send_sizes,
+                      output_offsets) -> list:
+        """Every rank's (operand, input_offsets, send_sizes,
+        output_offsets), in rank order, by all-gathers (the operands
+        must share a shape)."""
         g_op = self.all_gather(operand[None, ...])        # (n, len, ...)
-        g_in = self.all_gather(input_offsets[None, :])    # (n, n)
-        g_sz = self.all_gather(send_sizes[None, :])
-        g_out = self.all_gather(output_offsets[None, :])
+        g = [self.all_gather(v[None, :]) for v in (
+            input_offsets, send_sizes, output_offsets)]   # (n, n) each
+        return [(g_op[j], *(v[j] for v in g)) for j in range(self.n_ranks)]
+
+    def _ragged_emulate(self, output, peers):
+        """The JAX package's exact emulation (JAX :152-176): fill each
+        sender's window from its operand by masked copies.
+        Wire-inefficient, bit-identical in semantics; no value is read
+        back to the host."""
+        me = self.axis_index()
         out = output
         idx = torch.arange(output.shape[0], dtype=torch.int64,
                            device=output.device)
-        for j in range(n):
-            rel = idx - g_out[j, me].to(torch.int64)
-            take = (rel >= 0) & (rel < g_sz[j, me])
-            src = g_op[j][(g_in[j, me] + rel).clamp(
-                0, max(operand.shape[0] - 1, 0))]
+        for op, ins, sizes, offs in peers:
+            if op.shape[0] == 0:
+                continue  # a sender with no rows sends none
+            rel = idx - offs[me].to(torch.int64)
+            take = (rel >= 0) & (rel < sizes[me])
+            src = op[(ins[me] + rel).clamp(0, op.shape[0] - 1)]
             mask = take.reshape((-1,) + (1,) * (out.ndim - 1))
             out = torch.where(mask, src, out)
         return out
@@ -119,6 +176,18 @@ class Communicator(abc.ABC):
 
 
 # -- structure helpers for spmd ----------------------------------------
+
+
+_COUNTER_LOCK = threading.Lock()
+
+
+def _reshape_list(flat: list, shape: tuple):
+    """A flat list as nested lists of ``shape``."""
+    if len(shape) <= 1:
+        return flat
+    step = len(flat) // shape[0]
+    return [_reshape_list(flat[i * step:(i + 1) * step], shape[1:])
+            for i in range(shape[0])]
 
 
 def _map(fn, tree):
@@ -242,6 +311,13 @@ class EmulatedCommunicator(Communicator):
     def all_to_all(self, x):
         me, got = self._exchange(x)
         return torch.cat([g.chunk(self._n)[me] for g in got])
+
+    def _ragged_peers(self, operand, input_offsets, send_sizes,
+                      output_offsets) -> list:
+        # the slots take the ranks' operands as they are: no common shape
+        _, got = self._exchange((operand, input_offsets, send_sizes,
+                                 output_offsets))
+        return got
 
     def all_gather(self, x):
         _, got = self._exchange(x)
@@ -370,26 +446,65 @@ class ProcessGroupCommunicator(Communicator):
         dist.all_reduce(y)
         return y.view(x.dtype) if how == "view" else y.to(x.dtype)
 
+    def ppermute_all_to_all(self, x):
+        """:meth:`all_to_all` as a chain of n - 1 point-to-point steps
+        (the JAX package's collective-permute chain, JAX :208-241): at
+        step d this rank sends block ``(r + d) % n`` to rank ``(r + d) %
+        n`` and receives rank ``(r - d) % n``'s block, one send and one
+        receive a step through ``batch_isend_irecv``; its own block is a
+        local copy. The bytes cross as ``all_to_all``'s do, and the
+        result is the same, bit for bit. (Under NCCL the first step
+        between a pair of ranks sets up their channel: warm up before
+        timing.)"""
+        n, r = self.n_ranks, self.axis_index()
+        b = _to_bytes(x)
+        m = b.shape[0] // n
+        out = torch.empty_like(b)
+        out[r * m:(r + 1) * m] = b[r * m:(r + 1) * m]
+        for d in range(1, n):
+            dst, src = (r + d) % n, (r - d) % n
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, b[dst * m:(dst + 1) * m], dst),
+                dist.P2POp(dist.irecv, out[src * m:(src + 1) * m], src)])
+            for q in reqs:
+                q.wait()
+        return _from_bytes(out, x)
+
     def ragged_all_to_all(self, operand, output, input_offsets,
-                          send_sizes, output_offsets, recv_sizes):
+                          send_sizes, output_offsets, recv_sizes,
+                          recv_offsets=None):
         """``all_to_all_single`` with split sizes: the send windows are
-        packed in peer order, and each received window lands at the
-        offset its sender chose (the senders' ``output_offsets``, moved
-        by one small all-to-all). Reads the size and offset vectors back
-        to the host."""
-        dst_off = self.all_to_all(output_offsets.to(torch.int64))
-        ins, sends, recvs, dsts = (
-            v.tolist() for v in (input_offsets, send_sizes, recv_sizes,
-                                 dst_off))
+        packed in peer order (one slice when they are contiguous), and
+        each received window lands at the offset its sender chose. The
+        size and offset vectors are read to the host in one read unless
+        they are host sequences already; without ``recv_offsets`` the
+        senders' ``output_offsets`` move by one small all-to-all first."""
+        if recv_offsets is None:
+            recv_offsets = self.all_to_all(
+                torch.as_tensor(output_offsets, device=operand.device)
+                .to(torch.int64))
+        ins, sends, recvs, dsts = self.host_ints(
+            input_offsets, send_sizes, recv_sizes, recv_offsets)
         src = _to_bytes(operand)
-        packed = torch.cat([src[o:o + s] for o, s in zip(ins, sends)])
-        got = src.new_empty((sum(recvs), src.shape[1]))
+        if all(ins[i + 1] == ins[i] + sends[i] for i in range(len(ins) - 1)):
+            packed = src[ins[0]:ins[0] + sum(sends)]
+        else:
+            packed = torch.cat([src[o:o + s] for o, s in zip(ins, sends)])
+        out = _to_bytes(output).clone()
+        total = sum(recvs)
+        if all(dsts[j] == sum(recvs[:j]) for j in range(len(dsts))):
+            # the windows tile a prefix of the output: receive in place
+            dist.all_to_all_single(out[:total], packed,
+                                   output_split_sizes=recvs,
+                                   input_split_sizes=sends)
+            return _from_bytes(out, output)
+        got = src.new_empty((total, src.shape[1]))
         dist.all_to_all_single(got, packed, output_split_sizes=recvs,
                                input_split_sizes=sends)
-        out = _to_bytes(output).clone()
         at = 0
         for d, s in zip(dsts, recvs):
-            out[d:d + s] = got[at:at + s]
+            if s:
+                out[d:d + s] = got[at:at + s]
             at += s
         return _from_bytes(out, output)
 

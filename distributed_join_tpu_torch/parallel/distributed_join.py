@@ -3,13 +3,19 @@ all-to-all shuffle -> local join, with over-decomposition batching and
 the ``auto_retry`` capacity ladder, for every join type.
 
 Port of ``distributed_join_tpu/parallel/distributed_join.py``: the flat
-padded inner path of ``make_join_step`` (:517-801, including the skew
-sidecar :568-628 and the single-bucket shortcut :640-655),
-``resolve_join_ladder`` (:1421) and ``distributed_inner_join`` (:1486).
-With n ranks and over-decomposition k, rows hash into
-``bucket = h % (k*n)``; ``dest = bucket % n`` and ``batch = bucket //
-n``, so one partition sort serves all k batches and matching keys always
-share (dest, batch).
+inner path of ``make_join_step`` (:517-801, including the skew sidecar
+:568-628 and the single-bucket shortcut :640-655), the shuffle dispatch
+``_batch_shuffle`` (:95-141), ``resolve_join_ladder`` (:1421) and
+``distributed_inner_join`` (:1486). With n ranks and over-decomposition
+k, rows hash into ``bucket = h % (k*n)``; ``dest = bucket % n`` and
+``batch = bucket // n``, so one partition sort serves all k batches and
+matching keys always share (dest, batch).
+
+Three wires (``shuffle``): ``padded`` (capacity-padded blocks, one
+all-to-all), ``ppermute`` (the same blocks over the communicator's
+point-to-point chain) and ``ragged`` (the exact-size exchange, with
+every string payload column on the byte-exact wire); the padded and
+ppermute wires take the FoR + bit-pack codec (``compression_bits``).
 
 Composite keys, 2-D (fixed-width string) payload columns and string
 keys run as in the JAX package: 2-D columns are gathered and shuffled as
@@ -18,9 +24,8 @@ before hashing (JAX :536-552), and rebuilt on the way out (:783-790).
 Typed joins (``join_type``, ops/join.JOIN_TYPES) run each bucket's local
 join with the type: hash partitioning puts every key's rows of both
 sides in one bucket, so unmatched rows are local. The JAX step's other
-options (segmented sort, ragged / ppermute / hierarchical / compressed
-wires, metrics and integrity digests, aggregate pushdown) refuse by
-name.
+options (the hierarchical wire, segmented sort, metrics and integrity
+digests, aggregate pushdown) refuse by name.
 """
 
 from __future__ import annotations
@@ -40,10 +45,17 @@ from distributed_join_tpu_torch.ops.join import (
 from distributed_join_tpu_torch.ops.partition import radix_hash_partition
 from distributed_join_tpu_torch.parallel import skew
 from distributed_join_tpu_torch.parallel.communicator import Communicator
+from distributed_join_tpu_torch.parallel import faults
 from distributed_join_tpu_torch.parallel.faults import CapacityLadder
-from distributed_join_tpu_torch.parallel.shuffle import shuffle_padded
+from distributed_join_tpu_torch.parallel.shuffle import (
+    prefetch_ragged_plans,
+    shuffle_padded,
+    shuffle_padded_compressed,
+    shuffle_ragged,
+)
 from distributed_join_tpu_torch.table import Table
 from distributed_join_tpu_torch.utils.strings import (
+    LEN_SUFFIX,
     prepare_string_key_join,
     rebuild_string_keys,
 )
@@ -52,16 +64,15 @@ DEFAULT_SHUFFLE_CAPACITY_FACTOR = 1.6
 DEFAULT_OUT_CAPACITY_FACTOR = 1.2
 DEFAULT_HH_SLOTS = 64
 HH_BUILD_SLOTS_PER_HH = 32  # default hh_build_capacity = slots * this
+SHUFFLE_MODES = ("padded", "ragged", "ppermute", "hierarchical")
 # The table row-sharded; the summed total and overflow replicated.
 JOIN_SHARDED_OUT = JoinResult(table=False, total=True, overflow=True)
 
 # Options of the JAX package's join step and driver that the port does
 # not have, with the default each may still be passed as.
 _UNPORTED = {
-    "shuffle": ("the ragged, ppermute and hierarchical shuffles", "padded"),
     "sort_mode": ("the segmented-sort pipeline", "flat"),
     "sort_segments": ("the segmented-sort pipeline", None),
-    "compression_bits": ("the compressed wire", None),
     "dcn_codec": ("the hierarchical DCN codec", "auto"),
     "aggregate": ("aggregate pushdown", None),
     "with_metrics": ("device metrics", False),
@@ -88,6 +99,38 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def _varwidth_cols(table: Table) -> list:
+    """The 2-D uint8 columns with a ``<name>#len`` companion and a width
+    divisible by 4: the columns the ragged wire ships byte-exactly (JAX
+    :80)."""
+    return [name for name, c in table.columns.items()
+            if c.ndim == 2 and c.dtype == torch.uint8 and c.shape[1] % 4 == 0
+            and name + LEN_SUFFIX in table.columns]
+
+
+def _batch_shuffle(comm, pt, batch: int, n_ranks: int, capacity: int,
+                   mode: str = "padded",
+                   compression_bits: Optional[int] = None, varwidth=None):
+    """One batch's shuffle of one side (JAX :95): the received table and
+    the overflow flag. The ragged wire's receive buffer holds what the
+    padded layout would flatten to (``n_ranks * capacity`` rows), and
+    ``capacity_per_bucket`` gives it the padded wire's overflow
+    contract, so ``auto_retry`` fires under the same conditions."""
+    if mode == "ragged":
+        return shuffle_ragged(
+            comm, pt, n_ranks * capacity, bucket_start=batch * n_ranks,
+            capacity_per_bucket=capacity, varwidth=varwidth)
+    padded, counts, overflow, _ = pt.to_padded(
+        capacity, bucket_start=batch * n_ranks, n_buckets=n_ranks)
+    via = "ppermute" if mode == "ppermute" else "all_to_all"
+    if compression_bits is not None:
+        table, _, c_ovf = shuffle_padded_compressed(
+            comm, padded, counts, capacity, bits=compression_bits, via=via)
+        return table, overflow | c_ovf
+    table, _ = shuffle_padded(comm, padded, counts, capacity, via=via)
+    return table, overflow
+
+
 def make_join_step(
     comm: Communicator,
     key="key",
@@ -104,6 +147,8 @@ def make_join_step(
     hh_build_capacity: Optional[int] = None,
     hh_probe_capacity: Optional[int] = None,
     hh_out_capacity: Optional[int] = None,
+    shuffle: str = "padded",
+    compression_bits: Optional[int] = None,
     **unported,
 ):
     """The per-rank join step ``step(build_local, probe_local) ->
@@ -132,8 +177,30 @@ def make_join_step(
     ``join_type``: ``inner`` or one of left, right, full_outer, semi and
     anti (ops/join.JOIN_TYPES; the probe is the preserved side). A typed
     join refuses the skew sidecar, as in the JAX package.
+
+    ``shuffle``: the wire, ``padded``, ``ppermute`` or ``ragged``
+    (``hierarchical`` is not part of the port). With ``ragged``, each
+    side's string payload columns (2-D uint8 with a ``#len`` companion,
+    width divisible by 4) ride the byte-exact wire, the partition
+    ordering each bucket by the first one's length. ``compression_bits``
+    (2, 4, 8, 16 or 32) puts the FoR + bit-pack codec on the padded and
+    ppermute wires; a block it cannot pack raises the overflow flag.
+    The skew sidecar's light rows ride the chosen wire.
     """
     _refuse_unported(unported)
+    if shuffle not in SHUFFLE_MODES:
+        # checked for every configuration: a one-bucket join never
+        # reaches the shuffle, and a typo must not pass
+        raise ValueError(f"unknown shuffle mode {shuffle!r}")
+    if compression_bits is not None and shuffle == "ragged":
+        raise ValueError(
+            "compression applies to the padded/ppermute shuffles; the "
+            "ragged exchange already sends exact rows (combining the "
+            "two is unimplemented)")
+    if shuffle == "hierarchical":
+        raise NotImplementedError(
+            "shuffle='hierarchical': the hierarchical (slice, chip) "
+            "shuffle is not part of the port")
     if join_type not in JOIN_TYPES:
         raise ValueError(f"unknown join_type {join_type!r}; expected one "
                          f"of {JOIN_TYPES}")
@@ -226,14 +293,25 @@ def make_join_step(
             total = total + res.total
             overflow = overflow | res.overflow
         else:
-            ptb = radix_hash_partition(build_local, keys_eff, nb)
-            ptp = radix_hash_partition(probe_local, keys_eff, nb)
+            # The byte-exact string wire: each bucket ordered by its
+            # first string column's length, descending.
+            sides = []
+            for t, cap in ((build_local, b_cap), (probe_local, p_cap)):
+                vw = _varwidth_cols(t) if shuffle == "ragged" else []
+                pt = radix_hash_partition(
+                    t, keys_eff, nb,
+                    order_within=vw[0] + LEN_SUFFIX if vw else None)
+                sides.append((pt, cap, vw))
+            if shuffle == "ragged":
+                # both sides' plans in one read to the host
+                prefetch_ragged_plans(comm, [(pt, vw) for pt, _, vw in sides])
             for b in range(k):
                 recv = []
-                for pt, cap in ((ptb, b_cap), (ptp, p_cap)):
-                    padded, counts, ovf, _ = pt.to_padded(
-                        cap, bucket_start=b * n, n_buckets=n)
-                    recv.append(shuffle_padded(comm, padded, counts, cap)[0])
+                for pt, cap, vw in sides:
+                    table, ovf = _batch_shuffle(
+                        comm, pt, b, n, cap, mode=shuffle,
+                        compression_bits=compression_bits, varwidth=vw)
+                    recv.append(table)
                     overflow = overflow | ovf
                 res = local_join(*recv)
                 parts.append(res.table)
@@ -271,6 +349,7 @@ def resolve_join_ladder(build: Table, probe: Table, n_ranks: int,
                          DEFAULT_SHUFFLE_CAPACITY_FACTOR)
     out_f = opts.pop("out_capacity_factor", DEFAULT_OUT_CAPACITY_FACTOR)
     skew_on = opts.get("skew_threshold") is not None
+    comp_bits = opts.pop("compression_bits", None)
     hh_build_cap = opts.pop("hh_build_capacity", None)
     hh_probe_cap = opts.pop("hh_probe_capacity", None)
     hh_out_cap = opts.pop("hh_out_capacity", None)
@@ -285,6 +364,7 @@ def resolve_join_ladder(build: Table, probe: Table, n_ranks: int,
         shuffle_capacity_factor=shuffle_f,
         out_capacity_factor=out_f,
         out_rows_per_rank=opts.pop("out_rows_per_rank", None),
+        compression_bits=comp_bits,
         skew=skew_on,
         hh_build_capacity=hh_build_cap,
         hh_probe_capacity=hh_probe_cap,
@@ -300,8 +380,11 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
     every rank, and on overflow re-run with the ladder's escalated
     capacities up to ``auto_retry`` times (every capacity doubles; the
     skew path's HH probe and output blocks jump to full local probe
-    coverage). The result carries the escalation trail as
-    ``res.retry_report`` (faults.RetryReport)."""
+    coverage; compression bits widen first). The result carries the
+    escalation trail as ``res.retry_report`` (faults.RetryReport).
+    With plan validation on (``faults.plan_validation_enabled``), a
+    violation recorded by an attempt's ragged shuffles raises
+    ``faults.PlanValidationError`` after it, instead of a retry."""
     _refuse_unported({k: v for k, v in opts.items() if k in _UNPORTED})
     n = comm.n_ranks
     build = build.pad_to(_round_up(build.capacity, n))
@@ -310,8 +393,13 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
     ladder = resolve_join_ladder(build, probe, n, opts)
     for attempt in range(auto_retry + 1):
         fn = make_distributed_join(comm, key=key, **ladder.sizing(), **opts)
+        validating = faults.plan_validation_enabled()
+        if validating:
+            faults.clear_plan_violations()
         res = fn(build, probe)
         overflow = bool(res.overflow)
+        if validating:
+            faults.check_plan_violations()
         ladder.note(overflow)
         if attempt == auto_retry or not overflow:
             object.__setattr__(res, "retry_report", ladder.report())

@@ -1,21 +1,131 @@
-"""The ``auto_retry`` capacity ladder.
+"""The ``auto_retry`` capacity ladder and the ragged plan's validation.
 
 Port of ``distributed_join_tpu/parallel/faults.py`` ``RetryAttempt``,
 ``RetryReport`` and ``CapacityLadder`` (:697-892) over the capacities the
-port has: the shuffle and output factors, ``out_rows_per_rank``, and the
-skew sidecar's three heavy-hitter blocks. (The JAX ladder's
-compression-bit rung and its tuner seeding belong to options the port
-refuses.) The same shapes give the same rungs.
+port has: the compressed wire's bits, the shuffle and output factors,
+``out_rows_per_rank``, and the skew sidecar's three heavy-hitter blocks.
+(The JAX ladder's tuner seeding and integrity rung belong to options the
+port refuses.) The same shapes give the same rungs.
 
-Also ``retry_with_backoff`` (JAX :636), which the bootstrap's handshake
+Also the ragged plan's cross-rank validation (JAX :472-634, switched on
+by ``DJTPU_VALIDATE_PLANS`` or :func:`validate_plans`) and
+``retry_with_backoff`` (JAX :636), which the bootstrap's handshake
 retries through.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+import warnings
+from contextlib import contextmanager
 from typing import Callable, Optional
+
+import torch
+
+
+class PlanValidationError(RuntimeError):
+    """A ragged transfer plan failed the cross-rank consistency check.
+    Raised by :func:`check_plan_violations`: the check itself records
+    the violation and trips the overflow flag, as the JAX package's
+    in-program callback does."""
+
+
+# -- ragged-plan validation -------------------------------------------
+
+_PLAN_VALIDATION: Optional[bool] = None  # None: the environment decides
+_plan_violations: list = []
+
+
+def plan_validation_enabled() -> bool:
+    """Whether ragged shuffles validate their plan before the exchange
+    (``DJTPU_VALIDATE_PLANS`` set and not 0, unless
+    :func:`validate_plans` overrides it)."""
+    if _PLAN_VALIDATION is not None:
+        return _PLAN_VALIDATION
+    return os.environ.get("DJTPU_VALIDATE_PLANS", "") not in ("", "0")
+
+
+@contextmanager
+def validate_plans(enabled: bool = True):
+    """Force plan validation on (or off) inside the context."""
+    global _PLAN_VALIDATION
+    prev = _PLAN_VALIDATION
+    _PLAN_VALIDATION = enabled
+    try:
+        yield
+    finally:
+        _PLAN_VALIDATION = prev
+
+
+def plan_violations() -> list:
+    """Messages recorded since the last :func:`check_plan_violations`
+    (newest last)."""
+    return list(_plan_violations)
+
+
+def clear_plan_violations() -> None:
+    """Drop recorded violations (``distributed_inner_join`` does before
+    each attempt, so that what it raises belongs to that attempt)."""
+    _plan_violations.clear()
+
+
+def check_plan_violations(clear: bool = True) -> None:
+    """Raise :class:`PlanValidationError` if a validated shuffle saw an
+    inconsistent plan."""
+    if not _plan_violations:
+        return
+    msg = "; ".join(_plan_violations)
+    if clear:
+        _plan_violations.clear()
+    raise PlanValidationError(msg)
+
+
+def validate_ragged_plan(comm, send_sizes, recv_sizes, output_offsets,
+                         out_capacity: int,
+                         where: str = "shuffle_ragged") -> torch.Tensor:
+    """Cross-rank consistency check of a ragged transfer plan (JAX
+    :547-634): every rank all-gathers its (send, recv, offset) vectors
+    and checks, with the same arithmetic everywhere, that rank j's
+    ``send_sizes[i]`` is rank i's ``recv_sizes[j]``; that sizes and
+    offsets are non-negative and every write ``[offset, offset + send)``
+    of a sender that sends rows ends within ``out_capacity``; and that
+    on each receiver the senders' windows are in rank order and do not
+    overlap. One unhappy rank fails all (a psum of the verdicts).
+
+    Returns a 0-d int32 token, 1 on a violation, which the caller folds
+    into its overflow flag; the violation is also recorded (see
+    :func:`check_plan_violations`, the raise point) and warned. The
+    verdict is read on the host: a debug-mode cost."""
+    n = comm.n_ranks
+    dev = send_sizes.device
+    mine = torch.stack([send_sizes.to(torch.int32),
+                        recv_sizes.to(torch.int32),
+                        output_offsets.to(torch.int32)])
+    g = comm.all_gather(mine.reshape(1, 3 * n)).reshape(n, 3, n)
+    g_send, g_recv, g_off = g[:, 0, :], g[:, 1, :], g[:, 2, :]
+    ok = torch.equal(g_send, g_recv.T)
+    ok = ok and bool((g_send >= 0).all() & (g_recv >= 0).all()
+                     & (g_off >= 0).all())
+    # a sender squeezed out by a clamp carries start > out_capacity with
+    # nothing to send: valid
+    ok = ok and bool(torch.where(g_send > 0, g_off + g_send <= out_capacity,
+                                 True).all())
+    off_r = g_off.T                          # (receiver, sender)
+    ok = ok and bool((off_r[:, 1:] >= off_r[:, :-1] + g_recv[:, :-1]).all())
+    n_bad = comm.psum(torch.tensor(0 if ok else 1, dtype=torch.int32,
+                                   device=dev))
+    if int(n_bad) == 0:
+        return torch.zeros((), dtype=torch.int32, device=dev)
+    msg = (f"ragged plan inconsistent across ranks in {where}: "
+           "send/recv/offset vectors disagree — the exchange would "
+           "corrupt rows. A rank computed its plan from a different "
+           "count matrix; suspect a corrupted or raced metadata "
+           "all-gather.")
+    _plan_violations.append(msg)
+    warnings.warn(msg, stacklevel=2)
+    return torch.ones((), dtype=torch.int32, device=dev)
 
 
 def retry_with_backoff(
@@ -67,8 +177,8 @@ def retry_with_backoff(
 @dataclasses.dataclass(frozen=True)
 class RetryAttempt:
     """One rung: the sizing that ran and whether it overflowed.
-    ``action`` is what produced the sizing ("initial" or
-    "double_capacities")."""
+    ``action`` is what produced the sizing ("initial",
+    "widen_compression_bits" or "double_capacities")."""
 
     attempt: int
     action: str
@@ -76,6 +186,7 @@ class RetryAttempt:
     shuffle_capacity_factor: float
     out_capacity_factor: float
     out_rows_per_rank: Optional[int]
+    compression_bits: Optional[int]
     hh_build_capacity: Optional[int]
     hh_probe_capacity: Optional[int]
     hh_out_capacity: Optional[int]
@@ -115,16 +226,19 @@ class RetryReport:
 
 
 class CapacityLadder:
-    """Overflow escalation: each rung doubles every capacity a retry can
-    relieve — both factors, ``out_rows_per_rank`` when set (it
-    supersedes the output factor), and, with the skew path on, the
-    heavy-hitter blocks. The HH probe and output blocks jump straight to
-    at least the rank's full probe rows (``local_probe_rows``): one
-    retry must cover any skew."""
+    """Overflow escalation. With the compressed wire on, a rung first
+    widens its bits (2 -> 4 -> ... -> 32): a codec overflow reads like
+    a capacity overflow on the flag, and bits are the cheap axis. Then
+    each rung doubles every capacity a retry can relieve — both factors,
+    ``out_rows_per_rank`` when set (it supersedes the output factor),
+    and, with the skew path on, the heavy-hitter blocks. The HH probe
+    and output blocks jump straight to at least the rank's full probe
+    rows (``local_probe_rows``): one retry must cover any skew."""
 
     def __init__(self, *, shuffle_capacity_factor: float,
                  out_capacity_factor: float,
                  out_rows_per_rank: Optional[int] = None,
+                 compression_bits: Optional[int] = None,
                  skew: bool = False,
                  hh_build_capacity: Optional[int] = None,
                  hh_probe_capacity: Optional[int] = None,
@@ -133,6 +247,7 @@ class CapacityLadder:
         self.shuffle_f = shuffle_capacity_factor
         self.out_f = out_capacity_factor
         self.out_rows = out_rows_per_rank
+        self.bits = compression_bits
         self.skew = skew
         self.hh_build = hh_build_capacity
         self.hh_probe = hh_probe_capacity
@@ -146,6 +261,7 @@ class CapacityLadder:
         return dict(shuffle_capacity_factor=self.shuffle_f,
                     out_capacity_factor=self.out_f,
                     out_rows_per_rank=self.out_rows,
+                    compression_bits=self.bits,
                     hh_build_capacity=self.hh_build,
                     hh_probe_capacity=self.hh_probe,
                     hh_out_capacity=self.hh_out)
@@ -157,12 +273,17 @@ class CapacityLadder:
             overflow=overflow, shuffle_capacity_factor=self.shuffle_f,
             out_capacity_factor=self.out_f,
             out_rows_per_rank=self.out_rows,
+            compression_bits=self.bits,
             hh_build_capacity=self.hh_build,
             hh_probe_capacity=self.hh_probe,
             hh_out_capacity=self.hh_out))
 
     def escalate(self) -> str:
         """Advance one rung; returns the action taken."""
+        if self.bits is not None and self.bits < 32:
+            self.bits = min(self.bits * 2, 32)
+            self._action = "widen_compression_bits"
+            return self._action
         self.shuffle_f *= 2.0
         self.out_f *= 2.0
         if self.out_rows is not None:

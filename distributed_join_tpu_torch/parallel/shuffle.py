@@ -1,25 +1,493 @@
-"""Two-phase all-to-all table shuffle over capacity-padded blocks.
+"""The table shuffle: the padded two-phase all-to-all, its compressed
+form, and the exact-size (ragged) exchange with its byte-exact string
+wire.
 
-Port of ``distributed_join_tpu/parallel/shuffle.py`` ``shuffle_padded``
-(:46): phase 1 exchanges the (n_ranks,) count vector, phase 2 each
-column laid out (n_ranks, capacity); the received block flattens into a
-validity-masked Table. The ragged, compressed, segmented and
-hierarchical variants are not part of the port.
+Port of ``distributed_join_tpu/parallel/shuffle.py``:
+
+- :func:`shuffle_padded` (JAX :46): phase 1 exchanges the (n_ranks,)
+  count vector, phase 2 each column laid out (n_ranks, capacity), by one
+  ``all_to_all`` or (``via='ppermute'``) by the communicator's chain of
+  point-to-point steps; the received block flattens into a
+  validity-masked Table.
+- :func:`shuffle_padded_compressed` (JAX :97): the same with every
+  eligible integer column FoR + bit-packed (``ops/compression.py``) a
+  destination block at a time; a residual wider than ``bits`` raises the
+  codec's overflow flag, and the ladder retries wider.
+- :func:`shuffle_ragged` (JAX :524): the reference's exact-size exchange.
+  Phase 1 all-gathers each rank's counts, so every rank holds the (n, n)
+  count matrix and computes the same plan: sizes, where each block lands
+  in its receiver's buffer, and a deterministic clamp when a receiver's
+  buffer would overflow. Phase 2 moves exactly the planned rows with
+  ``Communicator.ragged_all_to_all``. 2-D uint8 string columns named in
+  ``varwidth`` ship byte-exactly, one u32 word plane at a time.
+
+The plan is computed on the host: every rank's bucket counts and
+offsets are gathered and read back in one read a partition (all its
+batches), and each string column's plane counts in one more, so the
+process-group exchange gets host lists and reads nothing itself.
+The emulated and local backends' results are those of the JAX
+package's emulation. The hierarchical and segmented shuffles and the
+metrics and integrity tapes are not part of the port.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+
 import torch
 
-from distributed_join_tpu_torch.ops.partition import unpad
+from distributed_join_tpu_torch.ops.compression import (
+    decode_rows,
+    encode_rows,
+)
+from distributed_join_tpu_torch.ops.partition import PartitionedTable, unpad
+from distributed_join_tpu_torch.parallel import faults
 from distributed_join_tpu_torch.parallel.communicator import Communicator
 from distributed_join_tpu_torch.table import Table
+from distributed_join_tpu_torch.utils.strings import LEN_SUFFIX, _WORD_PREFIX
+
+VIAS = ("all_to_all", "ppermute")
+CODEC_DTYPES = (torch.int32, torch.int64, torch.uint32, torch.uint64)
+
+
+def _mover(comm: Communicator, via: str):
+    if via not in VIAS:
+        raise ValueError(f"via={via!r}: expected one of {VIAS}")
+    return comm.ppermute_all_to_all if via == "ppermute" else comm.all_to_all
 
 
 def shuffle_padded(comm: Communicator, padded_columns, counts: torch.Tensor,
-                   capacity: int) -> tuple[Table, torch.Tensor]:
+                   capacity: int, via: str = "all_to_all"
+                   ) -> tuple[Table, torch.Tensor]:
     """Shuffle a pre-padded (n_ranks, capacity) block; returns the
-    received rows as a masked Table plus the received counts."""
+    received rows as a masked Table plus the received counts.
+    ``via='ppermute'`` moves the data blocks by the communicator's
+    point-to-point chain: the same bytes and result."""
+    a2a = _mover(comm, via)
     recv_counts = comm.all_to_all(counts)
-    recv_cols = {n: comm.all_to_all(c) for n, c in padded_columns.items()}
+    recv_cols = {n: a2a(c) for n, c in padded_columns.items()}
+    comm.count_wire(counts.shape[0] * capacity,
+                    sum(c.nbytes for c in padded_columns.values()))
     return unpad(recv_cols, recv_counts, capacity), recv_counts
+
+
+def _codec_eligible(name: str, col: torch.Tensor) -> bool:
+    """The compressed wire's columns (JAX :448): (n_ranks, capacity)
+    integer blocks of 4- or 8-byte lanes, except the packed string-key
+    word columns, whose byte packs span more than any packable width and
+    ride raw."""
+    return (col.ndim == 2 and col.dtype in CODEC_DTYPES
+            and not name.startswith(_WORD_PREFIX))
+
+
+def shuffle_padded_compressed(comm: Communicator, padded_columns,
+                              counts: torch.Tensor, capacity: int,
+                              bits: int, block: int = 256,
+                              via: str = "all_to_all"):
+    """The padded shuffle with the FoR + bit-pack codec on the wire:
+    each eligible column's destination block is encoded as one row
+    (its own frames, so no codec block straddles two destinations), the
+    int32 word and int64 frame planes ride the exchange, and the
+    receiver decodes. Other columns ride raw. The eligible columns of
+    one dtype are encoded, moved and decoded together, as (n_ranks,
+    columns) rows: the same rows, so the same words, as one by one.
+
+    Padding slots would mix a neighbouring bucket's rows into a block's
+    span, so they are filled with the bucket's last valid row first
+    (residual 0 against a real frame). Returns ``(received table,
+    received counts, compression overflow)``: the flag fires when a
+    block's residuals need more than ``bits``; rows are then wrong, and
+    the caller retries wider."""
+    a2a = _mover(comm, via)
+    recv_counts = comm.all_to_all(counts)
+    n = counts.shape[0]
+    lane = torch.arange(capacity, dtype=torch.int32, device=counts.device)
+    row_valid = lane[None, :, None] < counts[:, None, None]
+    last = (counts.to(torch.int64) - 1).clamp(min=0)
+    c_ovf = torch.zeros((), dtype=torch.bool, device=counts.device)
+    recv_cols = {}
+    groups: dict = {}
+    sent = 0
+    for name, col in padded_columns.items():
+        if _codec_eligible(name, col):
+            groups.setdefault(col.dtype, []).append(name)
+        else:
+            recv_cols[name] = a2a(col)
+            sent += col.nbytes
+    for dtype, names in groups.items():
+        cols = torch.stack([padded_columns[m] for m in names], dim=2)
+        fill = cols[torch.arange(n, device=counts.device), last]
+        cols = torch.where(row_valid, cols, fill[:, None, :])
+        g = len(names)
+        rows = cols.transpose(1, 2).reshape(n * g, capacity)
+        words, frames, ovf, _ = encode_rows(rows, bits, block,
+                                            required_bits=False)
+        c_ovf = c_ovf | ovf.any()
+        sent += words.nbytes + frames.nbytes
+        rw = a2a(words.reshape(n, -1)).reshape(n * g, -1)
+        rf = a2a(frames.reshape(n, -1)).reshape(n * g, -1)
+        got = decode_rows(rw, rf, capacity, bits, block, dtype)
+        for name, col in zip(names, got.reshape(n, g, capacity).unbind(1)):
+            recv_cols[name] = col
+    comm.count_wire(n * capacity, sent)
+    recv_cols = {name: recv_cols[name] for name in padded_columns}
+    return unpad(recv_cols, recv_counts, capacity), recv_counts, c_ovf
+
+
+# -- the ragged (exact-size) exchange ------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RaggedPlan:
+    """One (table, batch) transfer plan, on the host (JAX
+    ``_ragged_plan_matrices`` :480). ``counts[j][i]``: rows rank j sends
+    rank i; ``start[j][i]``: where rank j's block starts in rank i's
+    buffer (the exclusive prefix down column i); ``allowed[j][i]``: the
+    rows of it that fit ``out_capacity``. ``row_clamped``: a row bound
+    for this rank was dropped; ``overflow`` also fires when a bucket
+    exceeds ``capacity_per_bucket`` (the padded wire's contract), which
+    drops nothing. ``in_offsets``: this rank's buckets in its
+    bucket-sorted rows."""
+
+    me: int
+    counts: list
+    start: list
+    allowed: list
+    in_offsets: list
+    row_clamped: bool
+    overflow: bool
+
+    @property
+    def send_sizes(self) -> list:
+        return list(self.allowed[self.me])
+
+    @property
+    def recv_sizes(self) -> list:
+        return [a[self.me] for a in self.allowed]
+
+    @property
+    def output_offsets(self) -> list:
+        return list(self.start[self.me])
+
+    @property
+    def recv_offsets(self) -> list:
+        return [s[self.me] for s in self.start]
+
+    @property
+    def total_recv(self) -> int:
+        return sum(self.recv_sizes)
+
+
+def _plan(me: int, m: list, in_offsets: list, out_capacity: int,
+          capacity_per_bucket: int | None = None) -> RaggedPlan:
+    """The plan from the (n, n) count matrix on the host: plain
+    arithmetic, the same on every rank."""
+    n = len(m)
+    start = [[0] * n for _ in range(n)]
+    allowed = [[0] * n for _ in range(n)]
+    for i in range(n):
+        at = 0
+        for j in range(n):
+            start[j][i] = at
+            allowed[j][i] = min(max(out_capacity - at, 0), m[j][i])
+            at += m[j][i]
+    row_clamped = any(allowed[j][me] < m[j][me] for j in range(n))
+    overflow = row_clamped or (capacity_per_bucket is not None and any(
+        c > capacity_per_bucket for row in m for c in row))
+    return RaggedPlan(me, m, start, allowed, list(in_offsets), row_clamped,
+                      overflow)
+
+
+def _host_cache(pt: PartitionedTable) -> dict:
+    """What the ragged shuffles of one partition read to the host, kept
+    on ``pt`` (as :func:`varwidth_sort_plan`'s cache is): every batch of
+    the partition plans from the same reads."""
+    cache = getattr(pt, "_ragged_host_cache", None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(pt, "_ragged_host_cache", cache)
+    return cache
+
+
+def _sorted_lens(pt: PartitionedTable, names: tuple, i: int):
+    """The i-th varwidth column's bucket-sorted row order and lengths in
+    that order: the partition's own for the first (its ``order_within``),
+    :func:`varwidth_sort_plan`'s for the others."""
+    if i:
+        return varwidth_sort_plan(pt, names)[names[i]]
+    cache = _host_cache(pt)
+    if ("lens", names[0]) not in cache:
+        cache[("lens", names[0])] = pt.source.columns[
+            names[0] + LEN_SUFFIX][pt.order.to(torch.int64)]
+    return pt.order, cache[("lens", names[0])]
+
+
+def _plane_counts(pt: PartitionedTable, lens: torch.Tensor,
+                  planes: int) -> torch.Tensor:
+    """(n_buckets, W): the rows of each bucket alive at u32 plane w
+    (``len > 4w``), ``lens`` in the column's bucket-sorted order. Each
+    plane counts by a 1-D cumulative sum (a cumsum down the rows of a 2-D
+    tensor runs one thread a column on CUDA)."""
+    dev = lens.device
+    nb = pt.n_buckets
+    starts = pt.offsets[:nb].to(torch.int64)
+    ends = pt.offsets[1:nb + 1].to(torch.int64)
+    ln = lens.to(torch.int32)
+    k = []
+    for w in range(planes):
+        cs = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                        torch.cumsum((ln > 4 * w).to(torch.int64), 0)])
+        k.append(cs[ends] - cs[starts])
+    return torch.stack(k, dim=1)
+
+
+def prefetch_ragged_plans(comm: Communicator, parts) -> None:
+    """Read to the host, in one read, what the ragged shuffles of the
+    partitions ``parts`` (``(pt, varwidth names)`` pairs) plan from:
+    every rank's counts and start offsets of all of a partition's
+    buckets, ``(n, 2 * n_buckets)``, and each string column's plane
+    counts ``k[j][b][w]`` (:func:`_plane_counts`), ``(n, n_buckets, W)``.
+    Each is all-gathered and kept on its ``pt`` (:func:`_host_cache`), so
+    every batch of a join plans from the same read; what a ``pt`` holds
+    already is not read again. The join step calls this once both sides
+    are partitioned; :func:`shuffle_ragged` calls it for its own
+    partition."""
+    wanted = []
+    for pt, names in parts:
+        cache = _host_cache(pt)
+        nb = pt.n_buckets
+        if "buckets" not in cache:
+            wanted.append((cache, "buckets", torch.cat(
+                [pt.counts, pt.offsets[:nb]]).to(torch.int64)[None]))
+        for i, name in enumerate(names):
+            if ("planes", name) not in cache:
+                _, lens = _sorted_lens(pt, tuple(names), i)
+                planes = pt.source.columns[name].shape[1] // 4
+                wanted.append((cache, ("planes", name),
+                               _plane_counts(pt, lens, planes)[None]))
+    if wanted:
+        got = comm.host_ints(*(comm.all_gather(t) for _, _, t in wanted))
+        for (cache, key, _), value in zip(wanted, got):
+            cache[key] = value
+
+
+def _vec(values, device) -> torch.Tensor:
+    return torch.tensor(values, dtype=torch.int32, device=device)
+
+
+def ragged_plan(comm: Communicator, counts: torch.Tensor, out_capacity: int,
+                capacity_per_bucket: int | None = None):
+    """Phase 1 of the exact-size shuffle (JAX :465): ``(send_sizes,
+    recv_sizes, output_offsets, total_recv, overflow)``, entry i of
+    ``output_offsets`` being where this rank's block starts in rank i's
+    buffer. Sizes are clamped so that no write passes
+    ``out_capacity``; a clamp raises the flag on the receiver it
+    affects, and so, with ``capacity_per_bucket``, does any bucket above
+    it."""
+    (m,) = comm.host_ints(comm.all_gather(counts.to(torch.int64)[None]))
+    plan = _plan(comm.axis_index(), m, [0] * comm.n_ranks, out_capacity,
+                 capacity_per_bucket)
+    dev = counts.device
+    return (_vec(plan.send_sizes, dev), _vec(plan.recv_sizes, dev),
+            _vec(plan.output_offsets, dev),
+            torch.full((), plan.total_recv, dtype=torch.int32, device=dev),
+            torch.full((), plan.overflow, dtype=torch.bool, device=dev))
+
+
+def _exchange(comm: Communicator, operand: torch.Tensor, out_capacity: int,
+              in_offsets, send_sizes, plan: RaggedPlan,
+              recv_sizes) -> torch.Tensor:
+    out = operand.new_zeros((out_capacity,) + tuple(operand.shape[1:]))
+    return comm.ragged_all_to_all(operand, out, in_offsets, send_sizes,
+                                  plan.output_offsets, recv_sizes,
+                                  recv_offsets=plan.recv_offsets)
+
+
+def shuffle_ragged(comm: Communicator, pt: PartitionedTable,
+                   out_capacity: int, bucket_start: int = 0,
+                   capacity_per_bucket: int | None = None,
+                   varwidth=None) -> tuple[Table, torch.Tensor]:
+    """Exact-size shuffle of the ``n_ranks`` buckets from
+    ``bucket_start``: the wire carries the rows, not padded blocks.
+
+    Returns (received table, overflow flag). The received rows fill a
+    prefix of the ``out_capacity``-row buffer in sender-rank order; the
+    valid mask marks that prefix. Rows a clamp dropped raise the flag.
+
+    ``varwidth`` names 2-D uint8 string columns (a name or a sequence)
+    to ship byte-exactly: each of a column's width/4 u32 word planes
+    ships as its own ragged slice of the rows still alive at that plane
+    (``len > 4w``), so the column costs ``sum(ceil(len / 4) * 4)`` bytes
+    instead of ``rows * width``. The planes form prefixes of a bucket
+    only when its rows are ordered by length descending:
+    - the first name's order is the caller's (``radix_hash_partition``'s
+      ``order_within``), and its planes land row-aligned;
+    - every further column is length-sorted within its bucket on the
+      sender (:func:`varwidth_sort_plan`) and un-sorted on the receiver
+      from the received ``#len`` companion, the same stable sort on both
+      sides. Under an actual clamp the row exchange and a re-sorted
+      column drop different rows, so such a column arrives all zero on
+      the clamping receiver; a ``capacity_per_bucket`` trip clamps
+      nothing and leaves it intact.
+
+    With plan validation on (``faults.plan_validation_enabled``) the
+    plan is checked across ranks first, and a violation trips the flag.
+    """
+    n, me = comm.n_ranks, comm.axis_index()
+    nb = pt.n_buckets
+    dev = pt.order.device
+    vw = (varwidth,) if isinstance(varwidth, str) else tuple(varwidth or ())
+    for name in vw:
+        if pt.source.columns[name].shape[1] % 4:
+            raise ValueError(
+                f"varwidth column {name!r} width "
+                f"{pt.source.columns[name].shape[1]} must be 4-aligned")
+    prefetch_ragged_plans(comm, [(pt, vw)])
+    g = _host_cache(pt)["buckets"]
+    batch = slice(bucket_start, bucket_start + n)
+    plan = _plan(me, [row[batch] for row in g],
+                 g[me][nb + bucket_start:nb + bucket_start + n],
+                 out_capacity, capacity_per_bucket)
+    overflow = torch.full((), plan.overflow, dtype=torch.bool, device=dev)
+    if faults.plan_validation_enabled():
+        tok = faults.validate_ragged_plan(
+            comm, _vec(plan.send_sizes, dev), _vec(plan.recv_sizes, dev),
+            _vec(plan.output_offsets, dev), out_capacity)
+        overflow = overflow | (tok > 0)
+    # Only this batch's rows of the bucket-sorted layout are gathered:
+    # [lo, hi) of ``order``, with the input offsets rebased onto it.
+    my_counts = plan.counts[plan.me]
+    lo = plan.in_offsets[0]
+    hi = plan.in_offsets[-1] + my_counts[-1]
+    rel = [o - lo for o in plan.in_offsets]
+    rows = pt.order[lo:hi].to(torch.int64)
+    out_cols = {}
+    sent = sum(plan.send_sizes)
+    comm.count_wire(sent, 0)
+    for name, col in pt.source.columns.items():
+        if name not in vw:
+            out_cols[name] = _exchange(comm, col[rows], out_capacity, rel,
+                                       plan.send_sizes, plan,
+                                       plan.recv_sizes)
+            comm.count_wire(0, sent * col.element_size()
+                            * math.prod(col.shape[1:]))
+    for i, name in enumerate(vw):
+        order, _ = _sorted_lens(pt, vw, i)
+        k = _host_cache(pt)[("planes", name)]
+        raw = _varwidth_exchange(
+            comm, pt.source.columns[name][order[lo:hi].to(torch.int64)],
+            [row[batch] for row in k], rel, plan, out_capacity)
+        if i == 0:
+            out_cols[name] = raw
+            continue
+        if plan.row_clamped:
+            out_cols[name] = torch.zeros_like(raw)
+        else:
+            out_cols[name] = _receiver_unsort(
+                raw, out_cols[name + LEN_SUFFIX], plan.recv_offsets,
+                plan.total_recv)
+    valid = torch.arange(out_capacity, device=dev) < plan.total_recv
+    return (Table({name: out_cols[name] for name in pt.source.columns},
+                  valid), overflow)
+
+
+def varwidth_sort_plan(pt: PartitionedTable, names) -> dict:
+    """For every varwidth column after the first: ``{name: (order2,
+    lens2)}``, the bucket-sorted row order with each bucket's rows by
+    that column's length descending, and the lengths in that order.
+    It covers all buckets at once, so it is computed once a partition
+    and cached on ``pt``. Only the int32 order and the lengths are
+    cached (the JAX package's eager rule): the wide column is gathered
+    by each call, so the cache never pins a sorted copy of it. ``pt``
+    must not outlive the tables its order refers to;
+    ``radix_hash_partition`` makes a new one a step."""
+    names = tuple(names or ())[1:]
+    if not names:
+        return {}
+    cache = getattr(pt, "_varwidth_sort_cache", None)
+    if cache is None:
+        cache = {}
+        object.__setattr__(pt, "_varwidth_sort_cache", cache)
+    for name in names:
+        if name not in cache:
+            lens_sorted = pt.source.columns[name + LEN_SUFFIX][
+                pt.order.to(torch.int64)]
+            perm = _within_bucket_len_order(pt.offsets, lens_sorted)
+            cache[name] = (pt.order[perm], lens_sorted[perm])
+    return {name: cache[name] for name in names}
+
+
+def _stable_two_key_order(major: torch.Tensor,
+                          minor: torch.Tensor) -> torch.Tensor:
+    """The permutation of a stable sort on (major, minor): two stable
+    sorts, the less significant key first."""
+    _, by_minor = torch.sort(minor, stable=True)
+    _, by_major = torch.sort(major[by_minor], stable=True)
+    return by_minor[by_major]
+
+
+def _within_bucket_len_order(all_offsets: torch.Tensor,
+                             lens: torch.Tensor) -> torch.Tensor:
+    """The permutation putting each bucket's rows in length-descending
+    order, buckets in place: a stable sort on (bucket, -len)."""
+    idx = torch.arange(lens.shape[0], dtype=torch.int32, device=lens.device)
+    bid = torch.searchsorted(all_offsets.to(torch.int32), idx,
+                             right=True) - 1
+    return _stable_two_key_order(bid, -lens.to(torch.int32))
+
+
+def _receiver_unsort(raw: torch.Tensor, recv_lens: torch.Tensor,
+                     recv_offsets, total_recv: int) -> torch.Tensor:
+    """Undo the sender's within-bucket length sort: the receiver holds
+    the same lengths (the ``#len`` companion rode the row exchange, in
+    bucket order, per sender block), so the same stable (block, len
+    desc) sort rebuilds the sender's permutation with no extra bytes.
+    Row i of ``raw`` belongs at row ``perm[i]``."""
+    dev = raw.device
+    idx = torch.arange(raw.shape[0], dtype=torch.int32, device=dev)
+    rb = torch.searchsorted(_vec(recv_offsets, dev), idx, right=True) - 1
+    # Rows past the received prefix take length -1: they sort after
+    # their block's real rows and take raw's zero tail.
+    key_len = torch.where(idx < total_recv, recv_lens.to(torch.int32),
+                          torch.full_like(idx, -1))
+    perm = _stable_two_key_order(rb, -key_len)
+    out = torch.zeros_like(raw)
+    out[perm] = raw
+    return out
+
+
+def _varwidth_exchange(comm: Communicator, col: torch.Tensor, k: list,
+                       in_offsets, plan: RaggedPlan,
+                       out_capacity: int) -> torch.Tensor:
+    """Byte-exact exchange of one batch's bucket-sorted (rows, L) uint8
+    column whose buckets are ordered by length descending. Plane ``w``
+    of the u32 view is alive for the first ``k[j][i][w]`` rows of rank
+    j's bucket for rank i (:func:`_plane_counts`). A clamp drops each
+    bucket's tail, its shortest rows, so ``min(k, allowed)`` keeps every
+    plane consistent with the row exchange."""
+    n, me = comm.n_ranks, plan.me
+    rows, width = col.shape
+    planes = width // 4
+    w32 = col.contiguous().view(torch.int32)            # (rows, W)
+    kw = [[[min(k[j][i][w], plan.allowed[j][i]) for w in range(planes)]
+           for i in range(n)] for j in range(n)]
+    comm.count_wire(0, 4 * sum(map(sum, kw[me])))
+    out = [_exchange(comm, w32[:, w], out_capacity, in_offsets,
+                     [kw[me][i][w] for i in range(n)], plan,
+                     [kw[j][me][w] for j in range(n)])
+           for w in range(planes)]
+    return torch.stack(out, dim=1).view(torch.uint8).reshape(
+        out_capacity, width)
+
+
+def shuffle_partitioned(comm: Communicator, pt: PartitionedTable,
+                        capacity: int) -> tuple[Table, torch.Tensor]:
+    """Shuffle a table partitioned into exactly n_ranks buckets (JAX
+    :843); returns (received table, overflow flag)."""
+    if pt.n_buckets != comm.n_ranks:
+        raise ValueError(f"partitioned into {pt.n_buckets} buckets but "
+                         f"{comm.n_ranks} ranks")
+    padded, counts, overflow, _ = pt.to_padded(capacity)
+    table, _ = shuffle_padded(comm, padded, counts, capacity)
+    return table, overflow

@@ -1101,3 +1101,142 @@ def test_nccl_world_of_one_join_equals_local(card, tmp_path):
     rows = np.stack([got["col/" + n] for n in names], 1)
     np.testing.assert_array_equal(rows[np.lexsort(rows.T[::-1])],
                                   _sorted_rows(want))
+
+
+_WIRE_WORKER = r'''
+import json, sys
+import numpy as np
+from distributed_join_tpu_torch.parallel import bootstrap
+from distributed_join_tpu_torch.parallel.communicator import make_communicator
+from distributed_join_tpu_torch.parallel.distributed_join import (
+    distributed_inner_join)
+from distributed_join_tpu_torch.utils.generators import (
+    generate_build_probe_tables, generate_composite_build_probe_tables)
+
+assert bootstrap.maybe_initialize_from_env()
+comm = make_communicator("nccl")
+cases = json.loads(sys.argv[2])
+out = {}
+for name, (tables, opts) in cases.items():
+    if tables == "strings":
+        b, p, keys = generate_composite_build_probe_tables(
+            seed=5, build_nrows=200_000, probe_nrows=200_000, key_columns=2,
+            string_payload_len=16, variable_length_strings=True,
+            device=comm.device)
+    else:
+        b, p = generate_build_probe_tables(
+            seed=3, build_nrows=1_000_000, probe_nrows=1_000_000,
+            device=comm.device)
+        keys = ["key"]
+    res = distributed_inner_join(b, p, comm, key=keys, **opts)
+    out[name + "/total"] = np.int64(int(res.total))
+    out[name + "/overflow"] = np.bool_(bool(res.overflow))
+    for col in res.table.column_names:
+        out[f"{name}/col/{col}"] = (
+            res.table.columns[col][res.table.valid].cpu().numpy())
+np.savez(sys.argv[1], **out)
+comm.finalize()
+'''
+
+WIRE_CASES = {
+    "ragged": ("ints", dict(shuffle="ragged", over_decomposition=4)),
+    "ppermute": ("ints", dict(shuffle="ppermute", over_decomposition=4)),
+    "compressed": ("ints", dict(compression_bits=16, over_decomposition=4,
+                                auto_retry=2)),
+    "ragged_strings": ("strings", dict(shuffle="ragged",
+                                       over_decomposition=4)),
+}
+
+
+@pytest.fixture(scope="module")
+def wire_run(tmp_path_factory):
+    """One NCCL process (a world of 1) joins in every wire mode."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: NCCL runs between cards")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    out = tmp_path_factory.mktemp("wires") / "rank0.npz"
+    r = subprocess.run(
+        [sys.executable, "-m", "distributed_join_tpu_torch.benchmarks.launch",
+         "--num-processes", "1", "--coordinator", f"localhost:{port}", "--",
+         sys.executable, "-c", _WIRE_WORKER, str(out),
+         json.dumps(WIRE_CASES)],
+        capture_output=True, text=True, timeout=300, env=env, cwd=repo)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return dict(np.load(out))
+
+
+@pytest.mark.parametrize("case", sorted(WIRE_CASES))
+def test_nccl_world_of_one_wire_equals_local(card, wire_run, case):
+    """Each wire (ragged, ppermute, compressed, and the byte-exact
+    string wire at config 5's shape) over NCCL at over-decomposition 4:
+    the rows, total and flag of the LocalCommunicator join of the same
+    tables (one bucket, no shuffle)."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+        generate_composite_build_probe_tables,
+    )
+    tables, _ = WIRE_CASES[case]
+    if tables == "strings":
+        b, p, keys = generate_composite_build_probe_tables(
+            seed=5, build_nrows=200_000, probe_nrows=200_000, key_columns=2,
+            string_payload_len=16, variable_length_strings=True, device=card)
+    else:
+        b, p = generate_build_probe_tables(seed=3, build_nrows=1_000_000,
+                                           probe_nrows=1_000_000,
+                                           device=card)
+        keys = ["key"]
+    want = distributed_inner_join(b, p, LocalCommunicator(), key=keys)
+    assert not bool(want.overflow) and not bool(wire_run[case + "/overflow"])
+    assert int(wire_run[case + "/total"]) == int(want.total) > 0
+    names = want.table.column_names
+    got = [wire_run[f"{case}/col/{n}"] for n in names]
+    rows = np.concatenate([g.reshape(g.shape[0], -1).astype(np.int64)
+                           for g in got], axis=1)
+    cols = [want.table.columns[n][want.table.valid].cpu().numpy()
+            for n in names]
+    ref = np.concatenate([c.reshape(c.shape[0], -1).astype(np.int64)
+                          for c in cols], axis=1)
+    np.testing.assert_array_equal(rows[np.lexsort(rows.T[::-1])],
+                                  ref[np.lexsort(ref.T[::-1])])
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("bits", [2, 8, 16, 32])
+def test_codec_on_card_equals_cpu(card, bits, dtype):
+    """The FoR + bit-pack codec on CUDA tensors: words, frames, flags,
+    required bits and decoded rows equal the CPU's bit for bit, on a
+    batch of rows with narrow, negative and full-range blocks."""
+    from distributed_join_tpu_torch.ops import compression
+    g = torch.Generator().manual_seed(bits)
+    info = torch.iinfo(dtype)
+    x = torch.randint(info.min, info.max, (4, 3000), generator=g,
+                      dtype=dtype)
+    x[0] = torch.randint(-1000, 1 << (bits - 1), (3000,), generator=g,
+                         dtype=dtype)
+    x[1, :1024] = info.min + 5
+    cpu = compression.encode_rows(x, bits, 256)
+    gpu = compression.encode_rows(x.to(card), bits, 256)
+    for a, b_ in zip(cpu, gpu):
+        assert torch.equal(a, b_.cpu())
+    back = compression.decode_rows(gpu[0], gpu[1], 3000, bits, 256, dtype)
+    assert torch.equal(back.cpu(), compression.decode_rows(
+        cpu[0], cpu[1], 3000, bits, 256, dtype))
+    if bits >= 16:  # row 0 spans less than 2^16
+        assert not bool(cpu[2][0])

@@ -58,6 +58,16 @@ JOIN_CASES = {
     "k2": ("uniform", dict(over_decomposition=2, out_capacity_factor=4.0)),
     # the first rung's output block overflows; one retry relieves it
     "ladder": ("uniform", dict(out_capacity_factor=1.0, auto_retry=1)),
+    # the wires: the exact-size exchange, the point-to-point chain, the
+    # compressed padded wire, and string payloads on the byte-exact wire
+    "ragged": ("uniform", dict(shuffle="ragged", over_decomposition=2,
+                               out_capacity_factor=4.0)),
+    "ppermute": ("uniform", dict(shuffle="ppermute", over_decomposition=2,
+                                 out_capacity_factor=4.0)),
+    "compressed": ("uniform", dict(compression_bits=16,
+                                   out_capacity_factor=3.0)),
+    "ragged_strings": ("strings", dict(shuffle="ragged",
+                                       out_capacity_factor=4.0)),
 }
 SKEW_OPTS = dict(skew_threshold=0.05, hh_slots=32, auto_retry=1,
                  out_capacity_factor=2.0)
@@ -65,7 +75,8 @@ SHUFFLE_CAP = 4096  # no bucket of the probe side overflows it
 RAGGED_LEN = 40
 DTYPE_ROWS = 8  # rows a rank: one block of 4 or 2 rows a peer
 LADDER_FIELDS = ("attempt", "action", "overflow", "shuffle_capacity_factor",
-                 "out_capacity_factor", "out_rows_per_rank")
+                 "out_capacity_factor", "out_rows_per_rank",
+                 "compression_bits")
 
 WORKER = r'''
 import json, sys
@@ -141,7 +152,9 @@ for k in z.files:
         x = x.view(torch.uint64)
     x = comm.spmd(lambda t: t)(x)
     a2a, gat, tot = comm.all_to_all(x), comm.all_gather(x), comm.psum(x)
-    for tag, v in (("a2a", a2a), ("gather", gat), ("psum", tot)):
+    chain = comm.ppermute_all_to_all(x)
+    for tag, v in (("a2a", a2a), ("gather", gat), ("psum", tot),
+                   ("ppermute", chain)):
         assert v.dtype == x.dtype, (k, tag, v.dtype)
         v = v.view(torch.int64) if v.dtype == torch.uint64 else v
         out[f"dtype/{k}/{tag}"] = v.numpy()
@@ -196,6 +209,29 @@ def _uniform_tables():
             np.asarray(b.valid),
             {k: np.asarray(v) for k, v in p.columns.items()},
             np.asarray(p.valid))
+
+
+@functools.lru_cache(maxsize=None)
+def _string_tables():
+    """2,048 x 4,096 rows, keys in [0, 600): a variable-length 12-byte
+    string payload on each side (tied lengths), with '#len'."""
+    rng = np.random.default_rng(7)
+
+    def strings(n, width):
+        lens = (rng.integers(0, width + 1, n) // 4 * 4).astype(np.int32)
+        raw = rng.integers(1, 256, (n, width)).astype(np.uint8)
+        raw[np.arange(width)[None, :] >= lens[:, None]] = 0
+        return raw, lens
+
+    bc = {"key": rng.integers(0, 600, 2048),
+          "build_payload": rng.integers(0, 1 << 20, 2048)}
+    pc = {"key": rng.integers(0, 600, 4096)}
+    bc["bs"], bc["bs#len"] = strings(2048, 12)
+    pc["ps"], pc["ps#len"] = strings(4096, 8)
+    return bc, np.ones(2048, bool), pc, np.ones(4096, bool)
+
+
+TABLES = {"uniform": _uniform_tables, "strings": _string_tables}
 
 
 @functools.lru_cache(maxsize=None)
@@ -258,7 +294,8 @@ def worker_runs(tmp_path_factory):
     runs = {}
     for n in (2, 4):
         d = tmp_path_factory.mktemp(f"gloo{n}")
-        _save_tables(d / "uniform.npz", *_uniform_tables())
+        for kind, make in TABLES.items():
+            _save_tables(d / f"{kind}.npz", *make())
         ragged = _ragged_inputs(n)
         np.savez(d / "ragged.npz", **ragged)
         dtypes = _dtype_arrays(n)
@@ -302,10 +339,14 @@ def _ttable(cols, valid):
 
 def _multiset(cols: dict, valid, names) -> np.ndarray:
     """Valid rows as a lexicographically sorted (rows, cols) int64
-    array: a multiset in canonical order."""
+    array (a 2-D column one int64 column a byte): a multiset in
+    canonical order."""
     valid = np.asarray(valid)
-    a = np.stack([np.asarray(cols[k])[valid].astype(np.int64)
-                  for k in names], axis=1)
+    parts = []
+    for k in names:
+        a = np.asarray(cols[k])[valid]
+        parts.append(a.reshape(a.shape[0], -1).astype(np.int64))
+    a = np.concatenate(parts, axis=1)
     return a[np.lexsort(a.T[::-1])] if len(a) else a
 
 
@@ -339,8 +380,8 @@ def test_gloo_join_equals_emulated_and_jax(worker_runs, jcomms, n, case):
     on the same global tables (plain; over-decomposition 2; the ladder
     from an overflowing first rung)."""
     ranks, _ = worker_runs[n]
-    bc, bv, pc, pv = _uniform_tables()
-    opts = JOIN_CASES[case][1]
+    kind, opts = JOIN_CASES[case]
+    bc, bv, pc, pv = TABLES[kind]()
     want = jdist.distributed_inner_join(_jtable(bc, bv), _jtable(pc, pv),
                                         jcomms[n], **opts)
     emu = tdist.distributed_inner_join(_ttable(bc, bv), _ttable(pc, pv),
@@ -358,12 +399,14 @@ def test_gloo_join_equals_emulated_and_jax(worker_runs, jcomms, n, case):
         want.retry_report)
     if case == "ladder":
         assert len(got_trail) == 2 and got_trail[0]["overflow"]
-    gloo = [_gloo_part(rk, case, NAMES) for rk in ranks]
+    names = sorted(emu.table.columns)
+    assert names == sorted(want.table.columns)
+    gloo = [_gloo_part(rk, case, names) for rk in ranks]
     ecols, evalid = emu.table.to_numpy()
     jcols = {k: np.asarray(v) for k, v in want.table.columns.items()}
     for i, (g, e, j) in enumerate(zip(
-            gloo, _per_rank(ecols, evalid, n, NAMES),
-            _per_rank(jcols, want.table.valid, n, NAMES))):
+            gloo, _per_rank(ecols, evalid, n, names),
+            _per_rank(jcols, want.table.valid, n, names))):
         np.testing.assert_array_equal(g, e, err_msg=f"rank {i}")
         np.testing.assert_array_equal(g, j, err_msg=f"rank {i}")
 
@@ -500,6 +543,20 @@ def test_dtypes_cross_gloo_bit_exact(worker_runs, n, dtype):
             assert got.dtype == want.numpy().dtype, (tag, got.dtype)
             np.testing.assert_array_equal(got, want.numpy(),
                                           err_msg=f"{tag} rank {i}")
+
+
+@pytest.mark.parametrize("dtype", ["u64", "bool", "int8", "float64",
+                                   "bytes2d"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_ppermute_chain_over_gloo_equals_all_to_all(worker_runs, n, dtype):
+    """The point-to-point chain (``batch_isend_irecv``, one send and one
+    receive a step) delivers what ``all_to_all`` delivers, bit for bit,
+    in every dtype."""
+    ranks, _ = worker_runs[n]
+    for i, rk in enumerate(ranks):
+        got, want = rk[f"dtype/{dtype}/ppermute"], rk[f"dtype/{dtype}/a2a"]
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want, err_msg=f"rank {i}")
 
 
 # -- (f), (g): the launcher and the bootstrap ----------------------------

@@ -120,10 +120,15 @@ def test_partition_bit_exact(n, n_buckets, invalid_frac):
 
 
 def test_partition_refuses_order_within():
-    t = Table.from_numpy({"key": np.arange(8)}, np.ones(8, bool),
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="order_within"):
-        tpart.radix_hash_partition(t, ["key"], 2, order_within="key")
+    """order_within is refused where the JAX package refuses it: with
+    sub_buckets > 1, and on a column that is not 1-D integer."""
+    t = Table.from_numpy({"key": np.arange(8), "f": np.ones(8)},
+                         np.ones(8, bool), device="cpu")
+    with pytest.raises(ValueError, match="order_within"):
+        tpart.radix_hash_partition(t, ["key"], 2, order_within="key",
+                                   sub_buckets=2)
+    with pytest.raises(TypeError, match="order_within"):
+        tpart.radix_hash_partition(t, ["key"], 2, order_within="f")
 
 
 def test_f64_hash_is_the_exact_decomposition():
