@@ -116,13 +116,31 @@ Phases (any failure raises, and the script exits non-zero):
    ``byte_exact_on_wire`` on the ragged wire. ``python3 chip_smoke.py
    --phase 14`` runs this phase alone (after the build).
 
+15. BASELINE config 4, TPC-H lineitem ⋈ orders (the Q3 join pattern):
+   the driver (python -m distributed_join_tpu_torch.benchmarks.tpch_join)
+   at SF-10 on the host generator in 4 key-range batches, in this
+   process: 15,000,000 orders, 60,000,261 lines and as many matches (the
+   numpy generator is the JAX package's, bit for bit), no overflow, the
+   phase seconds (generate, pad, put, dispatch, fetch wait) and peak host
+   memory, every join kernel launched; the scans, both compaction sites
+   and the build-mode expand against their twins on the inputs the last
+   batch's join gave them. Then the batch loop at SF-1 with Q3's
+   filters, a manifest and a consumer that digests each fetched batch:
+   the total equal to numpy's count (a sparse key maps back to its
+   order), the manifest holding every batch, every join kernel launched
+   on every dispatch, and the digest equal to the same batches joined
+   through the plain path. Last, the single-shot and key-range paths on
+   the card's generator at SF-1 (1 and 4 batches): as many matches as
+   lines. ``python3 chip_smoke.py --phase 15`` runs this phase alone
+   (after the build).
+
 Launch counts are set to zero just before each path and read just after;
 the launches of phase 2, of the config-3 kernel check and of the
 bucket-shape checks do not count.
 The line before the last is one JSON object with every kernel's numbers,
 one row per kernel and call site (the join sites also carry their
-launches on the paths of phases 10 to 14, phases 13's and 14's summed
-over the ranks); the last line is
+launches on the paths of phases 10 to 15, phases 13's and 14's summed
+over the ranks, 15's the SF-10 run's); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
 prints a result.
@@ -136,6 +154,7 @@ import re
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
@@ -528,11 +547,9 @@ def _sort_and_gather(key, val):
 # -- the paths ----------------------------------------------------------
 
 
-def counted(fn):
-    """Run ``fn`` with every launch count set to zero; returns (its
-    result, the counts it left, by wrapper or call site)."""
+def _launch_wrappers() -> tuple:
+    """Every kernel wrapper and call site that counts its launches."""
     from distributed_join_tpu_torch.ops import (
-        _kernels,
         compact,
         expand,
         join,
@@ -540,11 +557,18 @@ def counted(fn):
         scan,
     )
     from distributed_join_tpu_torch.parallel import skew
-    wrappers = (scan.join_scans, join.compact_records,
-                join.pack_matched_builds, join.pack_valid_builds,
-                compact.stream_compact,
-                expand.expand_gather, skew.extract_prefix,
-                merge_sort.merge_sort_planes, expand.expand_pull)
+    return (scan.join_scans, join.compact_records,
+            join.pack_matched_builds, join.pack_valid_builds,
+            compact.stream_compact,
+            expand.expand_gather, skew.extract_prefix,
+            merge_sort.merge_sort_planes, expand.expand_pull)
+
+
+def counted(fn):
+    """Run ``fn`` with every launch count set to zero; returns (its
+    result, the counts it left, by wrapper or call site)."""
+    from distributed_join_tpu_torch.ops import _kernels
+    wrappers = _launch_wrappers()
     torch.cuda.synchronize()
     _kernels.reset_launch_counts(*wrappers)
     out = fn()
@@ -1355,13 +1379,14 @@ def _launched_record(label: str, n: int, argv: list) -> dict:
     return json.loads(lines[0])
 
 
-def bucket_kernel_rows(calls) -> list:
-    """The join kernels at the shapes one bucket of the NCCL path gives
-    them: the inputs the last bucket's local join passed to the scans,
-    both compaction sites and the build-mode expand (``calls``, from
-    ``captured_join_calls``), each held against its twin. The buckets
-    arrive padded (the shuffle's capacity factor), so the merged domain
-    is not the headline's. Bounds as phase 2's."""
+def bucket_kernel_rows(calls, label: str = "nccl bucket") -> list:
+    """The join kernels at the shapes one bucket of the NCCL path (or
+    one batch of the config-4 path: ``label``) gives them: the inputs
+    the last local join passed to the scans, both compaction sites and
+    the build-mode expand (``calls``, from ``captured_join_calls``),
+    each held against its twin. The buckets arrive padded (the shuffle's
+    capacity factor), so the merged domain is not the headline's. Bounds
+    as phase 2's."""
     from distributed_join_tpu_torch.ops import compact, expand, scan
 
     rows = []
@@ -1370,7 +1395,7 @@ def bucket_kernel_rows(calls) -> list:
     got = scan.join_scans(tag, first)
     want = scan.join_scans_reference(tag, first)
     check_and_time(
-        rows, "join_scans[nccl bucket]",
+        rows, f"join_scans[{label}]",
         "distributed_join_tpu_torch/csrc/join_scans.cu",
         "distributed_join_tpu/ops/scan_pallas.py:106,150 "
         "(_scan_r_kernel, _scan_f_kernel)",
@@ -1381,9 +1406,9 @@ def bucket_kernel_rows(calls) -> list:
     total = int(want["cnt"].sum(dtype=torch.int64))
     del got, want
     kept = {}
-    for name, site in (("stream_compact[record, nccl bucket]",
+    for name, site in ((f"stream_compact[record, {label}]",
                         "compact_records"),
-                       ("stream_compact[pack, nccl bucket]",
+                       (f"stream_compact[pack, {label}]",
                         "pack_matched_builds")):
         mask, pos, lanes, cap = calls[site]
         kept[site] = min(int(mask.sum()), cap)
@@ -1408,7 +1433,7 @@ def bucket_kernel_rows(calls) -> list:
     want_r, want_b = expand.expand_gather_reference(S, rc, cap, lo=lo,
                                                     build_cols=pk)
     check_and_time(
-        rows, "expand_gather[build, nccl bucket]",
+        rows, f"expand_gather[build, {label}]",
         "distributed_join_tpu_torch/csrc/expand_gather.cu",
         "distributed_join_tpu/ops/expand_pallas.py:335 (_expand_kernel_b8)",
         got_r + got_b, want_r + want_b, tot,
@@ -1886,14 +1911,188 @@ def wire_phase(want_total: int | None = None,
     return launches
 
 
+# -- phase 15: BASELINE config 4, TPC-H lineitem ⋈ orders --------------------
+
+
+TPCH_SF = 10.0                 # the driver's run: SF-10, host generator
+TPCH_BATCHES = 4
+TPCH_SF10_ORDERS = 15_000_000
+TPCH_SF10_LINES = 60_000_261   # results/tpch_sf10_1chip.json (numpy PCG64)
+TPCH_SMALL_SF = 1.0            # the phase's own checks
+# the kernel rows at a config-4 batch's shape, and their call sites
+TPCH_SITES = {"join_scans[tpch batch]": "join_scans",
+              "stream_compact[record, tpch batch]": "compact_records",
+              "stream_compact[pack, tpch batch]": "pack_matched_builds",
+              "expand_gather[build, tpch batch]": "expand_gather"}
+
+
+def _tpch_driver(argv: list) -> dict:
+    """The config-4 driver in this process, on this card."""
+    from distributed_join_tpu_torch.benchmarks import tpch_join
+    rec = tpch_join.run(tpch_join.parse_args(argv), device=DEVICE)
+    print("[tpch] " + json.dumps(rec), flush=True)
+    _check(not rec["overflow"], f"tpch {argv}: the join overflowed")
+    return rec
+
+
+def _per_dispatch_launches(fn):
+    """Run ``fn`` with every join the batch loop dispatches counted on
+    its own: returns (its result, the launch counts of each dispatch, in
+    order). A dispatch launches on this thread, so the counts before and
+    after it are its own."""
+    from distributed_join_tpu_torch.parallel import out_of_core
+    wrappers = _launch_wrappers()
+    real = out_of_core.make_distributed_join
+    seen = []
+
+    def factory(*args, **kwargs):
+        join = real(*args, **kwargs)
+
+        def each(*tables):
+            before = [w.launches for w in wrappers]
+            res = join(*tables)
+            seen.append({w.__name__: w.launches - b
+                         for w, b in zip(wrappers, before)})
+            return res
+        return each
+
+    out_of_core.make_distributed_join = factory
+    try:
+        return fn(), seen
+    finally:
+        out_of_core.make_distributed_join = real
+
+
+def tpch_expected_matches(orders_batches, lineitem_batches) -> int:
+    """The matches of the host batches, counted by numpy without a join:
+    a sparse order key maps back to its order's index, and a line matches
+    when its order survived the filters (order keys are unique)."""
+    from distributed_join_tpu_torch.utils.tpch import ORDERS_PER_SF
+    present = np.zeros(int(ORDERS_PER_SF * TPCH_SMALL_SF), bool)
+
+    def index(keys):
+        k = keys.astype(np.int64) - 1
+        return (k // 32) * 8 + k % 32
+
+    for b in orders_batches:
+        present[index(b["o_orderkey"])] = True
+    return sum(int(present[index(b["l_orderkey"])].sum())
+               for b in lineitem_batches)
+
+
+def tpch_phase():
+    """Phase 15: config 4 through its driver at SF-10 on the host
+    generator (4 batches), with the last batch's kernel inputs captured
+    and held against their twins; then the batch loop at SF-1 with Q3's
+    filters, a manifest and a fetching consumer, against numpy's count
+    and the plain path's digest, every join kernel launched on every
+    batch; then the single-shot and key-range paths on the card's
+    generator at SF-1. Returns the launch counts of the SF-10 run and
+    the kernel rows at its batch shape."""
+    import tempfile
+
+    from distributed_join_tpu_torch.ops.kernel_config import KernelConfig
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.out_of_core import (
+        batched_join_host,
+    )
+    from distributed_join_tpu_torch.utils.tpch_host import (
+        generate_tpch_host_batches,
+        rename_batches,
+    )
+    smi = gpu_line()
+    (rec, counts), calls = captured_join_calls(lambda: counted(
+        lambda: _tpch_driver(["--scale-factor", str(TPCH_SF),
+                              "--host-generator", "--batches",
+                              str(TPCH_BATCHES)])))
+    _check(rec["lineitem_nrows"] == rec["matches_per_join"]
+           == TPCH_SF10_LINES and rec["orders_nrows"] == TPCH_SF10_ORDERS,
+           f"tpch SF-{TPCH_SF:g}: {rec['orders_nrows']} orders, "
+           f"{rec['lineitem_nrows']} lines, {rec['matches_per_join']} "
+           f"matches; expected {TPCH_SF10_ORDERS}, {TPCH_SF10_LINES}")
+    _require_launched(counts, JOIN_KERNELS, f"the SF-{TPCH_SF:g} path")
+    print(f"[tpch] SF-{TPCH_SF:g}, {TPCH_BATCHES} batches, host generator: "
+          f"generate_s={rec['generate_s']:.3f} pad_s={rec['pad_s']:.3f} "
+          f"put_s={rec['put_s']:.3f} dispatch_s={rec['dispatch_s']:.3f} "
+          f"fetch_wait_s={rec['fetch_wait_s']:.3f} elapsed_per_join_s="
+          f"{rec['elapsed_per_join_s']:.3f} "
+          f"({rec['rows_per_sec'] / 1e6:.2f} M rows/s); peak host RSS "
+          f"{rec['peak_host_rss_bytes']:,} B; launches {counts}; {smi}",
+          flush=True)
+    rows = bucket_kernel_rows(calls, label="tpch batch")
+    del calls
+    torch.cuda.empty_cache()
+
+    ob, lb = generate_tpch_host_batches(SEED, TPCH_SMALL_SF, TPCH_BATCHES,
+                                        q3_filters=True)
+    want = tpch_expected_matches(ob, lb)
+    build = rename_batches(ob, {"o_orderkey": "key"})
+    probe = rename_batches(lb, {"l_orderkey": "key"})
+    digests = {}
+
+    def run(label, **opts):
+        got = {}
+        with tempfile.TemporaryDirectory() as d:
+            stats = {}
+            manifest = os.path.join(d, "manifest.json")
+            (total, overflow), per = _per_dispatch_launches(
+                lambda: batched_join_host(
+                    build, probe, LocalCommunicator(), device=DEVICE,
+                    stats=stats,
+                    manifest_path=manifest, out_capacity_factor=1.5,
+                    on_batch_result=lambda b, res: got.__setitem__(
+                        b, row_digest(res)), **opts))
+            with open(manifest) as f:
+                done = json.load(f)["batches"]
+        _check(not overflow and total == want,
+               f"tpch SF-{TPCH_SMALL_SF:g} {label}: total {total}, "
+               f"overflow {overflow}; numpy counts {want}")
+        _check(sorted(got) == list(range(TPCH_BATCHES))
+               and sum(v["total"] for v in done.values()) == want
+               and len(done) == TPCH_BATCHES,
+               f"tpch SF-{TPCH_SMALL_SF:g} {label}: fetched {sorted(got)}, "
+               f"manifest {done}")
+        digests[label] = _combine_digests(got.values())
+        print(f"[tpch] SF-{TPCH_SMALL_SF:g} Q3 filters, {label}: total "
+              f"{total} = numpy's count; {len(per)} dispatches "
+              f"(the warm-up and {TPCH_BATCHES} batches); digest "
+              f"{digests[label]}; stats {json.dumps(stats)}", flush=True)
+        return per
+
+    per = run("kernels")
+    for i, c in enumerate(per):
+        _require_launched(c, JOIN_KERNELS, f"dispatch {i} of the batch loop")
+    run("plain", kernel_config=KernelConfig("plain"))
+    _check(digests["kernels"] == digests["plain"],
+           f"tpch SF-{TPCH_SMALL_SF:g}: the batched digest "
+           f"{digests['kernels']} != the plain path's {digests['plain']}")
+    del ob, lb, build, probe
+
+    for batches in (1, TPCH_BATCHES):
+        r = _tpch_driver(["--scale-factor", str(TPCH_SMALL_SF),
+                          "--batches", str(batches)])
+        _check(r["matches_per_join"] == r["lineitem_nrows"] > 0,
+               f"tpch SF-{TPCH_SMALL_SF:g} --batches {batches}: "
+               f"{r['matches_per_join']} matches of "
+               f"{r['lineitem_nrows']} lines")
+        print(f"[tpch] SF-{TPCH_SMALL_SF:g} device generator, --batches "
+              f"{batches}: {r['matches_per_join']} matches = lines, "
+              f"{r['elapsed_per_join_s'] * 1e3:.3f} ms a join; {smi}",
+              flush=True)
+    return counts, rows
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     wires = (json.loads(argv[2]) if argv[:2] == ["--nccl-rank-worker",
                                                  "--wires"]
              and len(argv) == 3 else None)
     if argv not in ([], ["--phase", "13"], ["--phase", "14"],
-                    ["--nccl-rank-worker"]) and wires is None:
-        print("usage: chip_smoke.py [--phase 13 | --phase 14]",
+                    ["--phase", "15"], ["--nccl-rank-worker"]) \
+            and wires is None:
+        print("usage: chip_smoke.py [--phase 13 | --phase 14 | --phase 15]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -1944,6 +2143,16 @@ def main(argv=None) -> int:
         print(ok, flush=True)
         return 0
 
+    if argv == ["--phase", "15"]:
+        counts, rows = tpch_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps({"kernels": [dict(
+            r, launches=counts[TPCH_SITES[r["name"]]]) for r in rows]}),
+            flush=True)
+        print(ok, flush=True)
+        return 0
+
     build, probe = generate_build_probe_tables(
         seed=SEED, build_nrows=NROWS, probe_nrows=NROWS, device=DEVICE)
     rows = kernel_phase(build, probe, int(0.6 * NROWS * 1.25))
@@ -1965,6 +2174,7 @@ def main(argv=None) -> int:
     paths["nccl"], bucket_rows, plain = nccl_phase()
     paths.update({f"nccl_{mode}": c
                   for mode, c in wire_phase(*plain).items()})
+    paths["tpch"], tpch_rows = tpch_phase()
 
     launches = {"join_scans": head["join_scans"],
                 "stream_compact[record]": head["compact_records"],
@@ -1989,7 +2199,9 @@ def main(argv=None) -> int:
                 "stream_compact[pack, nccl bucket]":
                     paths["nccl"]["pack_matched_builds"],
                 "expand_gather[build, nccl bucket]":
-                    paths["nccl"]["expand_gather"]}
+                    paths["nccl"]["expand_gather"],
+                **{name: paths["tpch"][site]
+                   for name, site in TPCH_SITES.items()}}
     # the join sites' launches on the paths of phases 10-12, each path's
     # own run
     site = {"join_scans": "join_scans",
@@ -1998,7 +2210,7 @@ def main(argv=None) -> int:
             "stream_compact[valid-build pack]": "pack_valid_builds",
             "expand_gather[build]": "expand_gather"}
     by_name = {r["name"]: r for r in [*rows, skew_row, *typed_rows,
-                                      *bucket_rows]}
+                                      *bucket_rows, *tpch_rows]}
     kernels = []
     for name, count in launches.items():
         r = dict(by_name[name], launches=count)

@@ -101,7 +101,6 @@ DTYPES = {
 _REFUSED = {
     "--slices": "the hierarchical mesh",
     "--dcn-codec": "the hierarchical DCN codec",
-    "--registration-method": "RDMA registration",
     "--expand-kernel": "the kernel knobs",
     "--compact-kernel": "the kernel knobs",
     "--kernel-block": "the kernel knobs",
@@ -197,6 +196,10 @@ def parse_args(argv=None):
                    help="timed dependent join steps")
     p.add_argument("--json-output", default=None,
                    help="also write the record to this file")
+    p.add_argument("--registration-method", default=None,
+                   help="accepted for the reference CLI's sake and "
+                        "ignored: NCCL registers its own buffers (the JAX "
+                        "driver ignores it too)")
     p.add_argument("--profile", type=int, default=0, metavar="JOINS",
                    help="instead of the record, print where JOINS joins at "
                         "the first rung's sizing spend their device time "

@@ -15,6 +15,10 @@ at :400, ``make_communicator`` at :423). Backends:
   ``torch.distributed`` process group (``parallel/bootstrap.py`` forms
   it): NCCL between CUDA devices, one process a card; gloo on the CPU.
 
+Staging (JAX ``device_put_sharded``): ``local_rows`` names the rows of a
+global table that this process holds and stages, and ``spmd(...,
+local_inputs=True)`` takes a table of those rows as it is.
+
 Collectives run inside ``spmd``; ``axis_index`` is the calling rank.
 """
 
@@ -104,14 +108,27 @@ class Communicator(abc.ABC):
         return out
 
     @abc.abstractmethod
-    def spmd(self, fn: Callable, *, sharded_out=None) -> Callable:
+    def spmd(self, fn: Callable, *, sharded_out=None,
+             local_inputs: bool = False) -> Callable:
         """Run ``fn`` once per rank. Tensor arguments (also inside Tables
         and other dataclasses, dicts, tuples) are row-sharded: rank r
         gets rows [r*c/n, (r+1)*c/n). Outputs are concatenated over
         ranks, except those flagged replicated in ``sharded_out`` (a
         prefix structure of bools), which are taken from rank 0. (A
         process-group backend returns each process its own rank's
-        outputs: see :class:`ProcessGroupCommunicator`.)"""
+        outputs: see :class:`ProcessGroupCommunicator`.)
+        ``local_inputs``: the arguments hold only this process's rows,
+        :meth:`local_rows` of the global capacity; one process holds
+        every rank's rows, so only a process-group backend reads the
+        flag."""
+
+    def local_rows(self, capacity: int) -> range:
+        """The rows of a table of ``capacity`` global rows that this
+        process holds, and so stages onto its device (the counterpart of
+        JAX ``Communicator.device_put_sharded``; the out-of-core batch
+        loop pads and copies only these): every row where one process
+        runs every rank."""
+        return range(capacity)
 
     def ragged_all_to_all(self, operand, output, input_offsets,
                           send_sizes, output_offsets, recv_sizes,
@@ -263,7 +280,7 @@ class LocalCommunicator(Communicator):
     def psum(self, x):
         return x
 
-    def spmd(self, fn, *, sharded_out=None):
+    def spmd(self, fn, *, sharded_out=None, local_inputs=False):
         return fn
 
 
@@ -327,7 +344,7 @@ class EmulatedCommunicator(Communicator):
         _, got = self._exchange(x)
         return torch.stack(got).sum(0).to(x.dtype)
 
-    def spmd(self, fn, *, sharded_out=None):
+    def spmd(self, fn, *, sharded_out=None, local_inputs=False):
         n = self._n
 
         def run(*args):
@@ -508,13 +525,24 @@ class ProcessGroupCommunicator(Communicator):
             at += s
         return _from_bytes(out, output)
 
-    def spmd(self, fn, *, sharded_out=None):
+    def spmd(self, fn, *, sharded_out=None, local_inputs=False):
         n, r = self.n_ranks, self.axis_index()
+        if local_inputs:
+            return fn
 
         def run(*args):
             return fn(*_map(lambda t: _shard(t, r, n), args))
 
         return run
+
+    def local_rows(self, capacity: int) -> range:
+        """This rank's rows ``[r*c/n, (r+1)*c/n)``."""
+        n, r = self.n_ranks, self.axis_index()
+        if capacity % n:
+            raise ValueError(f"row count {capacity} is not divisible by "
+                             f"{n} ranks")
+        m = capacity // n
+        return range(r * m, (r + 1) * m)
 
     def barrier(self) -> None:
         if self.name == "nccl":

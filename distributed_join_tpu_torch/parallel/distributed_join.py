@@ -331,12 +331,15 @@ def make_join_step(
     return step
 
 
-def make_distributed_join(comm: Communicator, **opts):
+def make_distributed_join(comm: Communicator, local_inputs: bool = False,
+                          **opts):
     """``fn(build, probe) -> JoinResult`` over row-sharded global tables
     (capacity divisible by n_ranks): the result table row-sharded, the
-    global match count and overflow flag replicated."""
+    global match count and overflow flag replicated. ``local_inputs``:
+    the tables hold this process's rows only (``Communicator.local_rows``;
+    see ``Communicator.spmd``)."""
     return comm.spmd(make_join_step(comm, **opts),
-                     sharded_out=JOIN_SHARDED_OUT)
+                     sharded_out=JOIN_SHARDED_OUT, local_inputs=local_inputs)
 
 
 def resolve_join_ladder(build: Table, probe: Table, n_ranks: int,

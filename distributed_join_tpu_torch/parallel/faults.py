@@ -8,19 +8,23 @@ port has: the compressed wire's bits, the shuffle and output factors,
 port refuses.) The same shapes give the same rungs.
 
 Also the ragged plan's cross-rank validation (JAX :472-634, switched on
-by ``DJTPU_VALIDATE_PLANS`` or :func:`validate_plans`) and
-``retry_with_backoff`` (JAX :636), which the bootstrap's handshake
-retries through.
+by ``DJTPU_VALIDATE_PLANS`` or :func:`validate_plans`),
+``retry_with_backoff`` (JAX :636), which the bootstrap's handshake and
+the out-of-core batch loop retry through, and the out-of-core resume
+manifest: ``ManifestMismatchError`` (JAX :898), ``JoinManifest`` (:904)
+and ``batch_config_fingerprint`` (:990), whose JSON is the JAX
+package's, so a manifest one package writes the other reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 import warnings
 from contextlib import contextmanager
-from typing import Callable, Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -302,3 +306,103 @@ class CapacityLadder:
 
     def report(self) -> RetryReport:
         return RetryReport(attempts=tuple(self._attempts))
+
+
+# -- the out-of-core resume manifest ------------------------------------
+
+
+class ManifestMismatchError(RuntimeError):
+    """An existing manifest describes another run (batch count,
+    capacities or per-batch row counts differ): resuming against it
+    would merge unrelated partial totals."""
+
+
+class JoinManifest:
+    """Durable per-batch progress of the out-of-core batch loop.
+
+    One JSON file, rewritten atomically (a temporary file, then
+    ``os.replace``) after every completed batch: ``version``, the run's
+    ``config`` fingerprint, ``batches`` (each completed batch's exact
+    total and overflow flag, by batch id as a string) and ``failures``
+    (the last ``MAX_FAILURES`` failed attempts). A killed run resumes
+    from the first incomplete batch; matching keys share a batch, so the
+    batch totals are independent and the resumed sum is exact. The
+    format is the JAX package's (its telemetry events are not part of
+    the port)."""
+
+    VERSION = 1
+    MAX_FAILURES = 50
+
+    def __init__(self, path: str, config: dict,
+                 on_mismatch: str = "raise"):
+        """Load and check the manifest at ``path``, or start one.
+        ``on_mismatch``: ``"raise"`` (the default) or ``"restart"``
+        (discard a manifest of another run)."""
+        self.path = path
+        self.config = config
+        self._data = {"version": self.VERSION, "config": config,
+                      "batches": {}, "failures": []}
+        if os.path.exists(path):
+            with open(path) as f:
+                existing = json.load(f)
+            if (existing.get("version") != self.VERSION
+                    or existing.get("config") != config):
+                if on_mismatch != "restart":
+                    raise ManifestMismatchError(
+                        f"manifest {path} was written by a different "
+                        f"run config; refusing to resume against it "
+                        f"(have {existing.get('config')!r}, "
+                        f"want {config!r}). Delete the file or pass "
+                        "a fresh manifest path to start over.")
+                self._write()
+            else:
+                self._data = existing
+        else:
+            self._write()
+
+    @property
+    def completed(self) -> dict:
+        """``{batch id: {"total": int, "overflow": bool}}``"""
+        return {int(k): v for k, v in self._data["batches"].items()}
+
+    @property
+    def failures(self) -> list:
+        return list(self._data["failures"])
+
+    def record_batch(self, batch: int, total: int, overflow: bool) -> None:
+        self._data["batches"][str(batch)] = {
+            "total": int(total), "overflow": bool(overflow)}
+        self._write()
+
+    def record_failure(self, batch: int, error: str, attempt: int) -> None:
+        log = self._data["failures"]
+        log.append({"batch": int(batch), "attempt": int(attempt),
+                    "error": error})
+        del log[:-self.MAX_FAILURES]
+        self._write()
+
+    def _write(self) -> None:
+        tmp = self.path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(self._data, f, indent=1)
+        os.replace(tmp, self.path)
+
+
+def batch_config_fingerprint(build_batches: Sequence, probe_batches:
+                             Sequence, n_ranks: int, key,
+                             bcap: int, pcap: int) -> dict:
+    """What a manifest binds to: the same batching of the same tables,
+    witnessed by the per-batch row counts, the rank count, the key and
+    the capacities. (The join's sizing factors are left out on purpose:
+    a run that overflowed resumes with larger ones.)"""
+    return {
+        "n_batches": len(build_batches),
+        "n_ranks": int(n_ranks),
+        "key": list(key) if isinstance(key, (list, tuple)) else key,
+        "build_capacity": int(bcap),
+        "probe_capacity": int(pcap),
+        "build_rows": [int(next(iter(b.values())).shape[0])
+                       for b in build_batches],
+        "probe_rows": [int(next(iter(b.values())).shape[0])
+                       for b in probe_batches],
+    }

@@ -55,6 +55,16 @@ class Table:
     def device(self) -> torch.device:
         return self.valid.device
 
+    def num_valid(self) -> torch.Tensor:
+        """Count of real rows, a device scalar (JAX ``table.py:52``)."""
+        return self.valid.sum(dtype=torch.int64)
+
+    def rename(self, mapping: Mapping[str, str]) -> "Table":
+        """Rename columns; unlisted names pass through (JAX
+        ``table.py:95``)."""
+        return Table({mapping.get(n, n): c for n, c in self.columns.items()},
+                     self.valid)
+
     @staticmethod
     def from_dense(columns: Mapping[str, torch.Tensor]) -> "Table":
         """All rows valid."""

@@ -1240,3 +1240,154 @@ def test_codec_on_card_equals_cpu(card, bits, dtype):
         cpu[0], cpu[1], 3000, bits, 256, dtype))
     if bits >= 16:  # row 0 spans less than 2^16
         assert not bool(cpu[2][0])
+
+
+# -- the out-of-core batch loop (config 4) on the card --------------------
+
+
+def _batch_rows(res) -> np.ndarray:
+    """A batch result's valid rows as an int64 matrix, columns in name
+    order."""
+    t = res.table
+    cols = [t.columns[n][t.valid].cpu().numpy().astype(np.int64)
+            for n in sorted(t.column_names)]
+    return np.stack(cols, axis=1)
+
+
+def _batch_multiset(parts) -> np.ndarray:
+    rows = np.concatenate(parts)
+    return rows[np.lexsort(rows.T[::-1])]
+
+
+def test_pinned_rotation_waits_for_a_copy_in_flight(card):
+    """Two pinned buffer sets and three batches: the third refills the
+    first's buffers while the first's copy still waits behind a busy
+    copy stream. The refill must wait for it (counted), and every
+    staged table must hold its own batch's rows."""
+    from distributed_join_tpu_torch.parallel import out_of_core
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+
+    def batch(v, m):
+        return {"key": np.full(m, v, np.int32),
+                "x": np.arange(m, dtype=np.int32) * v}
+
+    phase = {}
+    st = out_of_core._Stager(
+        LocalCommunicator(), card, (4096, 8192),
+        lambda k, dt: phase.__setitem__(k, phase.get(k, 0.0) + dt), slots=2)
+    with torch.cuda.stream(st.stream):
+        torch.cuda._sleep(400_000_000)  # ~0.2 s of a busy copy stream
+    staged = [st.stage(batch(v, 4000), batch(v + 10, 8000))
+              for v in (1, 2, 3)]
+    assert st.refills_waited == 1
+    torch.cuda.synchronize()
+    st.close()
+    assert phase["put_s"] > 0
+    for v, (bt, pt, _) in zip((1, 2, 3), staged):
+        for t, w, m, cap in ((bt, v, 4000, 4096), (pt, v + 10, 8000, 8192)):
+            assert torch.equal(t.columns["key"][:m].cpu(),
+                               torch.full((m,), w, dtype=torch.int32))
+            assert torch.equal(t.columns["x"][:m].cpu(),
+                               torch.arange(m, dtype=torch.int32) * w)
+            assert t.valid[:m].all() and not t.valid[m:].any()
+            assert t.capacity == cap
+
+
+def test_slow_consumer_and_many_small_batches_fetch_every_row(card):
+    """Twelve small key-range batches (four times the pinned sets) with a
+    consumer that sleeps on every batch: the fetched rows equal the CPU
+    batch loop's, batch by batch, and the totals agree."""
+    import time
+
+    from distributed_join_tpu_torch.parallel import out_of_core
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.utils.tpch_host import (
+        generate_tpch_host_batches,
+        rename_batches,
+    )
+    ob, lb = generate_tpch_host_batches(3, 0.01, 12, chunk_orders=2000)
+    bb = rename_batches(ob, {"o_orderkey": "key"})
+    pb = rename_batches(lb, {"l_orderkey": "key"})
+    runs = {}
+    for dev in (card, torch.device("cpu")):
+        got = {}
+
+        def consumer(b, res):
+            time.sleep(0.02)
+            got[b] = _batch_rows(res)
+
+        stats = {}
+        total, overflow = out_of_core.batched_join_host(
+            bb, pb, LocalCommunicator(), device=dev, stats=stats,
+            on_batch_result=consumer, out_capacity_factor=1.5)
+        assert not overflow and stats["failed_batches"] == []
+        runs[dev.type] = (total, got)
+    assert runs["cuda"][0] == runs["cpu"][0] == sum(len(b["key"])
+                                                    for b in pb)
+    assert sorted(runs["cuda"][1]) == list(range(12))
+    for b in range(12):
+        np.testing.assert_array_equal(_batch_multiset([runs["cuda"][1][b]]),
+                                      _batch_multiset([runs["cpu"][1][b]]))
+
+
+def test_settle_of_a_batch_does_not_wait_for_the_next_join(card):
+    """A batch's scalars settle on their own event: with a long kernel
+    queued behind the batch on the join's stream (standing for the next
+    batch's join), ``get`` returns while that kernel still runs."""
+    import time
+
+    from distributed_join_tpu_torch.parallel import out_of_core
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        make_distributed_join,
+    )
+    from distributed_join_tpu_torch.utils.tpch import (
+        generate_tpch_join_tables,
+    )
+    orders, lineitem = generate_tpch_join_tables(1, 0.01, device=card)
+    fn = make_distributed_join(LocalCommunicator(), key="key",
+                               out_capacity_factor=1.5)
+    res = fn(orders.rename({"o_orderkey": "key"}),
+             lineitem.rename({"l_orderkey": "key"}))
+    sc = out_of_core._Scalars(res, card)
+    torch.cuda._sleep(2_000_000_000)  # ~1 s on the join's stream
+    t0 = time.perf_counter()
+    total, overflow = sc.get()
+    waited = time.perf_counter() - t0
+    still_busy = not torch.cuda.current_stream(card).query()
+    torch.cuda.synchronize()
+    assert still_busy and waited < 0.25, waited
+    assert total == int(res.total) == lineitem.capacity and not overflow
+
+
+def test_batched_path_at_sf_0_1_equals_the_plain_path(card):
+    """The host batches at SF 0.1 (4 batches) through the batch loop on
+    the card's kernels and through the plain path: equal rows (sorted
+    multisets), totals equal to the line count, no overflow."""
+    from distributed_join_tpu_torch.parallel import out_of_core
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.utils.tpch_host import (
+        generate_tpch_host_batches,
+        rename_batches,
+    )
+    ob, lb = generate_tpch_host_batches(42, 0.1, 4)
+    bb = rename_batches(ob, {"o_orderkey": "key"})
+    pb = rename_batches(lb, {"l_orderkey": "key"})
+    rows = {}
+    for label, cfg in (("kernels", None), ("plain", KernelConfig("plain"))):
+        got = []
+        total, overflow = out_of_core.batched_join_host(
+            bb, pb, LocalCommunicator(), device=card,
+            on_batch_result=lambda b, res: got.append(_batch_rows(res)),
+            out_capacity_factor=1.5, kernel_config=cfg)
+        assert total == sum(len(b["key"]) for b in pb) and not overflow
+        rows[label] = _batch_multiset(got)
+    np.testing.assert_array_equal(rows["kernels"], rows["plain"])

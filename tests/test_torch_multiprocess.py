@@ -746,3 +746,108 @@ def test_config_driver_over_gloo_equals_one_rank(tmp_path):
     assert rec["communicator"] == "gloo" and rec["n_ranks"] == 2
     assert rec["matches_per_join"] == one["matches_per_join"] > 0
     assert not rec["overflow"] and rec["rank"] == 0
+
+
+TPCH_WORKER = r'''
+import json, sys
+import numpy as np
+from distributed_join_tpu_torch.parallel import bootstrap, out_of_core
+from distributed_join_tpu_torch.parallel.communicator import make_communicator
+from distributed_join_tpu_torch.utils.tpch_host import (
+    generate_tpch_host_batches, rename_batches)
+
+spec = json.loads(sys.argv[1])
+assert bootstrap.maybe_initialize_from_env()
+comm = make_communicator("gloo")
+ob, lb = generate_tpch_host_batches(spec["seed"], spec["sf"],
+                                    spec["batches"], chunk_orders=1000,
+                                    q3_filters=True)
+bb = rename_batches(ob, {"o_orderkey": "key"})
+pb = rename_batches(lb, {"l_orderkey": "key"})
+staged = []
+real = out_of_core.make_distributed_join
+
+
+def factory(*args, **kwargs):
+    fn = real(*args, **kwargs)
+
+    def each(bt, pt):
+        staged.append([bt.capacity, pt.capacity, int(bt.valid.sum()),
+                       int(pt.valid.sum()),
+                       int(bt.columns["key"][bt.valid].sum()),
+                       int(pt.columns["key"][pt.valid].sum())])
+        return fn(bt, pt)
+    return each
+
+
+out_of_core.make_distributed_join = factory
+stats = {}
+total, overflow = out_of_core.batched_join_host(
+    bb, pb, comm, stats=stats, out_capacity_factor=3.0,
+    shuffle_capacity_factor=3.0)
+with open(f"{spec['out']}/rank{comm.axis_index()}.json", "w") as f:
+    json.dump({"total": total, "overflow": overflow, "staged": staged,
+               "caps": [stats["build_capacity"], stats["probe_capacity"]]},
+              f)
+bootstrap.shutdown()
+'''
+
+
+def test_host_generator_batches_over_gloo_stage_each_rank_rows(tmp_path):
+    """The out-of-core batch loop on 2 gloo processes: the total and
+    overflow of the 1-rank loop on the same host batches, and each rank
+    stages only its half of every padded batch (its capacity, and its
+    window of the batch's rows: the two ranks' valid rows and key sums
+    add up to the batch's)."""
+    from distributed_join_tpu_torch.parallel import out_of_core
+    from distributed_join_tpu_torch.utils.tpch_host import (
+        generate_tpch_host_batches,
+        rename_batches,
+    )
+    spec = {"seed": 3, "sf": 0.004, "batches": 3, "out": str(tmp_path)}
+    worker = tmp_path / "tpch_worker.py"
+    worker.write_text(TPCH_WORKER)
+    r = _launch(2, [sys.executable, str(worker), json.dumps(spec)])
+    assert r.returncode == 0, r.stderr[-4000:]
+    ranks = [json.loads((tmp_path / f"rank{i}.json").read_text())
+             for i in range(2)]
+    ob, lb = generate_tpch_host_batches(3, 0.004, 3, chunk_orders=1000,
+                                        q3_filters=True)
+    bb = rename_batches(ob, {"o_orderkey": "key"})
+    pb = rename_batches(lb, {"l_orderkey": "key"})
+    stats = {}
+    total, overflow = out_of_core.batched_join_host(
+        bb, pb, LocalCommunicator(), device="cpu", stats=stats,
+        out_capacity_factor=3.0, shuffle_capacity_factor=3.0)
+    bcap, pcap = ranks[0]["caps"]
+    for g in ranks:
+        assert g["total"] == total > 0 and g["overflow"] == overflow is False
+        assert g["caps"] == [bcap, pcap]
+        # the warm-up (batch 0) and the loop's 3 batches
+        assert [s[:2] for s in g["staged"]] == [[bcap // 2, pcap // 2]] * 4
+    for i, b in enumerate([0, 0, 1, 2]):
+        got = [sum(g["staged"][i][k] for g in ranks) for k in (2, 3, 4, 5)]
+        assert got == [len(bb[b]["key"]), len(pb[b]["key"]),
+                       int(bb[b]["key"].sum()), int(pb[b]["key"].sum())]
+
+
+def test_tpch_driver_over_gloo_equals_one_rank(tmp_path):
+    """The config-4 driver on the host generator, launched on 2 gloo
+    processes: rank 0's record only, with the 1-rank driver's rows and
+    matches and no overflow."""
+    from distributed_join_tpu_torch.benchmarks import tpch_join
+    argv = ["--scale-factor", "0.004", "--host-generator", "--batches", "3",
+            "--q3-filters"]
+    out = tmp_path / "rec.json"
+    r = _launch(2, [sys.executable, "-m",
+                    "distributed_join_tpu_torch.benchmarks.tpch_join",
+                    "--communicator", "gloo", "--json-output", str(out),
+                    *argv])
+    assert r.returncode == 0, r.stderr[-3000:]
+    assert len([ln for ln in r.stdout.splitlines() if ln.startswith("{")]) == 1
+    rec = json.loads(out.read_text())
+    one = tpch_join.run(tpch_join.parse_args(argv), device="cpu")
+    assert rec["communicator"] == "gloo" and rec["n_ranks"] == 2
+    for k in ("orders_nrows", "lineitem_nrows", "matches_per_join"):
+        assert rec[k] == one[k], k
+    assert rec["matches_per_join"] > 0 and not rec["overflow"]

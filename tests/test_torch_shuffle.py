@@ -726,6 +726,25 @@ def test_driver_refuses_what_the_port_lacks(argv, match, capsys):
     assert match in capsys.readouterr().err
 
 
+def test_driver_accepts_and_ignores_registration_method():
+    """A JAX command line carrying ``--registration-method`` (the
+    reference CLI's RDMA flag, which the JAX driver accepts and ignores)
+    parses on the port's driver too, and changes nothing."""
+    from distributed_join_tpu.benchmarks import distributed_join as jdriver
+    from distributed_join_tpu_torch.benchmarks import (
+        distributed_join as tdriver,
+    )
+    flag = ["--registration-method", "buffer"]
+    assert jdriver.parse_args(flag).registration_method == "buffer"
+    assert tdriver.parse_args(flag).registration_method == "buffer"
+    assert "--registration-method" not in tdriver._REFUSED
+    argv = ["--communicator", "emulated", "--n-ranks", "2", *DRIVER_BASE]
+    plain = tdriver.run(tdriver.parse_args(argv), device="cpu")
+    got = tdriver.run(tdriver.parse_args(argv + flag), device="cpu")
+    assert got["matches_per_join"] == plain["matches_per_join"] > 0
+    assert not got["overflow"]
+
+
 def test_driver_refuses_compression_on_the_ragged_wire():
     from distributed_join_tpu_torch.benchmarks import (
         distributed_join as tdriver,
