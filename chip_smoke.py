@@ -2003,6 +2003,8 @@ def tpch_phase():
         rename_batches,
     )
     smi = gpu_line()
+    print(f"[tpch] before SF-{TPCH_SF:g}: device memory reserved "
+          f"{torch.cuda.memory_reserved(DEVICE):,} B", flush=True)
     (rec, counts), calls = captured_join_calls(lambda: counted(
         lambda: _tpch_driver(["--scale-factor", str(TPCH_SF),
                               "--host-generator", "--batches",
@@ -2018,8 +2020,10 @@ def tpch_phase():
           f"put_s={rec['put_s']:.3f} dispatch_s={rec['dispatch_s']:.3f} "
           f"fetch_wait_s={rec['fetch_wait_s']:.3f} elapsed_per_join_s="
           f"{rec['elapsed_per_join_s']:.3f} "
-          f"({rec['rows_per_sec'] / 1e6:.2f} M rows/s); peak host RSS "
-          f"{rec['peak_host_rss_bytes']:,} B; launches {counts}; {smi}",
+          f"({rec['rows_per_sec'] / 1e6:.2f} M rows/s); host RSS "
+          f"{rec['host_rss_bytes']} B, peak "
+          f"{rec['peak_host_rss_bytes']:,} B, pinned "
+          f"{rec['pinned_host_bytes']} B; launches {counts}; {smi}",
           flush=True)
     rows = bucket_kernel_rows(calls, label="tpch batch")
     del calls

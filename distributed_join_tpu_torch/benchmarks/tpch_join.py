@@ -37,6 +37,7 @@ import argparse
 import resource
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -180,6 +181,20 @@ def _guards(args) -> None:
             "--batches > 1 or --host-generator")
 
 
+def _host_rss() -> Optional[int]:
+    """This process's resident bytes now (Linux), or None."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * resource.getpagesize()
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def _peak_host_rss() -> int:
+    # ru_maxrss is in KiB on Linux
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
 def run(args, device=None) -> dict:
     """The protocol; returns the record. ``device`` defaults to the
     rank's device (``rank_device``; ``"cpu"`` for rehearsals: its times
@@ -196,12 +211,15 @@ def run(args, device=None) -> dict:
     n = comm.n_ranks
 
     if args.host_generator:
+        rss = {"before_generate": _host_rss()}
         gen_t0 = time.perf_counter()
         ob, lb = generate_tpch_host_batches(
             seed=SEED, scale_factor=args.scale_factor,
             n_batches=args.batches, q3_filters=args.q3_filters,
             narrow_wire=not args.wide_wire)
         gen_s = time.perf_counter() - gen_t0
+        rss["after_generate"] = _host_rss()
+        peak_gen = _peak_host_rss()
         build_b = rename_batches(ob, {"o_orderkey": "key"})
         probe_b = rename_batches(lb, {"l_orderkey": "key"})
         del ob, lb
@@ -212,6 +230,7 @@ def run(args, device=None) -> dict:
         total, overflow = batched_join_host(
             build_b, probe_b, comm, device=dev,
             **_batched_opts(args, consumer, stats))
+        rss["after_loop"] = _host_rss()
         extra = {
             "host_generator": True,
             "verify_integrity": False,
@@ -229,6 +248,8 @@ def run(args, device=None) -> dict:
             "manifest": args.manifest,
             "resumed_batches": stats["resumed_batches"],
             "failed_batches": stats["failed_batches"],
+            "host_rss_bytes": rss,
+            "peak_host_rss_generate_bytes": peak_gen,
         }
         return _report(args, comm, dev, orders_rows, lineitem_rows,
                        orders_rows + lineitem_rows, total, overflow,
@@ -286,7 +307,9 @@ def run(args, device=None) -> dict:
 def _report(args, comm, dev, orders_rows, lineitem_rows, rows, matches,
             overflow, sec, extra) -> dict:
     """The record: the JAX driver's fields, then the device, the card's
-    name and power limit, and peak device and host memory."""
+    name and power limit, and peak device, host and pinned host memory
+    (the caching host allocator's bytes, each allocation rounded up to a
+    power of two)."""
     n = comm.n_ranks
     rows_per_sec = rows / sec
     record = {
@@ -305,13 +328,13 @@ def _report(args, comm, dev, orders_rows, lineitem_rows, rows, matches,
         "m_rows_per_sec_per_rank": rows_per_sec / 1e6 / n,
         **extra,
         "device": str(dev),
-        # ru_maxrss is in KiB on Linux
-        "peak_host_rss_bytes":
-            resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+        "peak_host_rss_bytes": _peak_host_rss(),
     }
     if dev.type == "cuda":
         record.update(gpu_identity())
         record["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+        record["pinned_host_bytes"] = torch.cuda.host_memory_stats().get(
+            "allocated_bytes.peak")
     return record
 
 

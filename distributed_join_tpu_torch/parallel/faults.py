@@ -333,11 +333,9 @@ class JoinManifest:
     VERSION = 1
     MAX_FAILURES = 50
 
-    def __init__(self, path: str, config: dict,
-                 on_mismatch: str = "raise"):
-        """Load and check the manifest at ``path``, or start one.
-        ``on_mismatch``: ``"raise"`` (the default) or ``"restart"``
-        (discard a manifest of another run)."""
+    def __init__(self, path: str, config: dict):
+        """Load and check the manifest at ``path``, or start one. A
+        manifest of another run raises ``ManifestMismatchError``."""
         self.path = path
         self.config = config
         self._data = {"version": self.VERSION, "config": config,
@@ -347,14 +345,12 @@ class JoinManifest:
                 existing = json.load(f)
             if (existing.get("version") != self.VERSION
                     or existing.get("config") != config):
-                if on_mismatch != "restart":
-                    raise ManifestMismatchError(
-                        f"manifest {path} was written by a different "
-                        f"run config; refusing to resume against it "
-                        f"(have {existing.get('config')!r}, "
-                        f"want {config!r}). Delete the file or pass "
-                        "a fresh manifest path to start over.")
-                self._write()
+                raise ManifestMismatchError(
+                    f"manifest {path} was written by a different "
+                    f"run config; refusing to resume against it "
+                    f"(have {existing.get('config')!r}, "
+                    f"want {config!r}). Delete the file or pass "
+                    "a fresh manifest path to start over.")
             else:
                 self._data = existing
         else:

@@ -57,6 +57,7 @@ from distributed_join_tpu_torch.parallel.faults import (
 from distributed_join_tpu_torch.table import Table
 
 PINNED_SLOTS = 3  # pinned buffer sets: one copying, one staged, one free
+PINNED_ALIGN = 512  # bytes: where each column starts in its set
 
 
 def fmix64_np(x: np.ndarray) -> np.ndarray:
@@ -156,42 +157,73 @@ class _Stager:
     batch capacity, zero-padded, valid = row < the batch's rows) and puts
     them on ``device``. Runs on the staging thread.
 
-    On a CUDA device the rows go through ``slots`` sets of pinned
-    buffers, used in rotation, copied on ``self.stream``; before a set
-    is refilled its last copy's event is waited on, and that copy's time
-    on the stream is added to ``put_s``. ``stage`` returns the tables
-    and the copy's event, which the join's stream must wait on. On the
-    CPU the padded buffers are the tables."""
+    On a CUDA device the rows go through ``PINNED_SLOTS`` sets of pinned
+    buffers, used in rotation, copied on ``self.stream``. Before a set is
+    refilled its last copy's event is waited on, and that copy's time on
+    the stream is added to ``put_s``. ``stage`` returns the tables and
+    the copy's event, which the join's stream must wait on. On the CPU
+    the padded buffers are the tables."""
 
     def __init__(self, comm: Communicator, device: torch.device, caps,
-                 phase_add: Callable, slots: int = PINNED_SLOTS):
+                 phase_add: Callable):
         self.comm, self.device, self.caps = comm, device, caps
         self.phase_add = phase_add
         self.cuda = device.type == "cuda"
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self.compute = (torch.cuda.current_stream(device) if self.cuda
                         else None)
-        self.slots = [None] * slots   # pinned buffers, by (side, column)
-        self.pending = [None] * slots  # (start, end) events of the last copy
+        self.slots = [None] * PINNED_SLOTS  # pinned buffers, by (side, col)
+        self.pending = [None] * PINNED_SLOTS  # (start, end) of last copy
         self.next_slot = 0
         self.refills_waited = 0       # refills that found a copy in flight
+
+    def _columns(self, cols: dict, cap: int):
+        """``(name, shape, numpy dtype)`` of each staged column of a
+        side, its validity last."""
+        n = len(self.comm.local_rows(cap))
+        return [(name, (n,) + c.shape[1:], c.dtype) for name, c in
+                cols.items()] + [("#valid", (n,), np.dtype(bool))]
+
+    def _pinned_set(self, build_cols: dict, probe_cols: dict) -> dict:
+        """A set's pinned columns, as views by ``(side, name)``. torch's
+        caching host allocator rounds each allocation up to a power of
+        two, and what it pins costs host memory and, for the sets first
+        filled in the loop, the pad's time: the set is one allocation or
+        one a column, whichever pins fewer bytes."""
+        cols = [((side, name), shape, dt, int(np.prod(shape)) * dt.itemsize)
+                for side, cc, cap in (("b", build_cols, self.caps[0]),
+                                      ("p", probe_cols, self.caps[1]))
+                for name, shape, dt in self._columns(cc, cap)]
+
+        def span(group):  # bytes of a group's columns, each aligned
+            return max(sum(-(-c[3] // PINNED_ALIGN) * PINNED_ALIGN
+                           for c in group), 1)
+
+        def pinned(groups):
+            return sum(1 << (span(g) - 1).bit_length() for g in groups)
+
+        bufs = {}
+        for group in min([cols], [[c] for c in cols], key=pinned):
+            flat = torch.empty(span(group), dtype=torch.uint8,
+                               pin_memory=True)
+            off = 0
+            for key, shape, dt, size in group:
+                tdt = torch.from_numpy(np.empty(0, dt)).dtype
+                bufs[key] = flat[off:off + size].view(tdt).view(shape)
+                off += -(-size // PINNED_ALIGN) * PINNED_ALIGN
+        return bufs
 
     def _pad(self, cols: dict, cap: int, bufs: Optional[dict], side: str):
         rows = self.comm.local_rows(cap)
         m = next(iter(cols.values())).shape[0]
         k = max(0, min(rows.stop, m) - rows.start)
         out = {}
-        for name, c in [*cols.items(), ("#valid", None)]:
-            shape = (len(rows),) + (c.shape[1:] if c is not None else ())
-            dtype = c.dtype if c is not None else np.dtype(bool)
+        for (name, shape, dt), c in zip(self._columns(cols, cap),
+                                        [*cols.values(), None]):
             if bufs is None:
-                buf = torch.from_numpy(np.empty(shape, dtype))
+                buf = torch.from_numpy(np.empty(shape, dt))
             else:
-                buf = bufs.get((side, name))
-                if buf is None:
-                    tdt = torch.from_numpy(np.empty(0, dtype)).dtype
-                    buf = torch.empty(shape, dtype=tdt, pin_memory=True)
-                    bufs[(side, name)] = buf
+                buf = bufs[(side, name)]
             a = buf.numpy()
             if c is None:
                 a[:k] = True
@@ -219,7 +251,7 @@ class _Stager:
             self.pending[s] = None
             t0 = time.perf_counter()
         if self.slots[s] is None:
-            self.slots[s] = {}
+            self.slots[s] = self._pinned_set(build_cols, probe_cols)
         host = [self._pad(build_cols, self.caps[0], self.slots[s], "b"),
                 self._pad(probe_cols, self.caps[1], self.slots[s], "p")]
         self.phase_add("pad_s", time.perf_counter() - t0)

@@ -1,7 +1,8 @@
 """TPC-H ``orders`` and ``lineitem`` for the config-4 join (the Q3 join
 pattern), generated on the device from a seed.
 
-Port of ``distributed_join_tpu/utils/tpch.py``: the constants (:48-53),
+Port of ``distributed_join_tpu/utils/tpch.py``: the join's constants
+(:48-53, less the customer table's),
 ``sparse_order_keys`` (:56), ``generate_orders`` (:64),
 ``generate_lineitem`` (:81), ``generate_tpch_join_tables`` (:117) and
 ``q3_filter`` (:207). dbgen's join structure: ``orders`` holds SF * 1.5 M
@@ -34,8 +35,6 @@ from distributed_join_tpu_torch.device import resolve_device
 from distributed_join_tpu_torch.table import Table
 
 ORDERS_PER_SF = 1_500_000
-CUSTOMERS_PER_SF = 150_000
-N_MKT_SEGMENTS = 5
 DATE_RANGE_DAYS = 2406       # 1992-01-01 .. 1998-08-02
 MAX_SHIP_LAG_DAYS = 121
 MAX_LINES_PER_ORDER = 7

@@ -1260,10 +1260,10 @@ def _batch_multiset(parts) -> np.ndarray:
 
 
 def test_pinned_rotation_waits_for_a_copy_in_flight(card):
-    """Two pinned buffer sets and three batches: the third refills the
-    first's buffers while the first's copy still waits behind a busy
-    copy stream. The refill must wait for it (counted), and every
-    staged table must hold its own batch's rows."""
+    """PINNED_SLOTS (three) pinned buffer sets and four batches: the
+    fourth refills the first's buffers while the first's copy still
+    waits behind a busy copy stream. The refill must wait for it
+    (counted), and every staged table must hold its own batch's rows."""
     from distributed_join_tpu_torch.parallel import out_of_core
     from distributed_join_tpu_torch.parallel.communicator import (
         LocalCommunicator,
@@ -1273,19 +1273,20 @@ def test_pinned_rotation_waits_for_a_copy_in_flight(card):
         return {"key": np.full(m, v, np.int32),
                 "x": np.arange(m, dtype=np.int32) * v}
 
+    assert out_of_core.PINNED_SLOTS == 3
     phase = {}
     st = out_of_core._Stager(
         LocalCommunicator(), card, (4096, 8192),
-        lambda k, dt: phase.__setitem__(k, phase.get(k, 0.0) + dt), slots=2)
+        lambda k, dt: phase.__setitem__(k, phase.get(k, 0.0) + dt))
     with torch.cuda.stream(st.stream):
         torch.cuda._sleep(400_000_000)  # ~0.2 s of a busy copy stream
     staged = [st.stage(batch(v, 4000), batch(v + 10, 8000))
-              for v in (1, 2, 3)]
+              for v in (1, 2, 3, 4)]
     assert st.refills_waited == 1
     torch.cuda.synchronize()
     st.close()
     assert phase["put_s"] > 0
-    for v, (bt, pt, _) in zip((1, 2, 3), staged):
+    for v, (bt, pt, _) in zip((1, 2, 3, 4), staged):
         for t, w, m, cap in ((bt, v, 4000, 4096), (pt, v + 10, 8000, 8192)):
             assert torch.equal(t.columns["key"][:m].cpu(),
                                torch.full((m,), w, dtype=torch.int32))
@@ -1293,6 +1294,42 @@ def test_pinned_rotation_waits_for_a_copy_in_flight(card):
                                torch.arange(m, dtype=torch.int32) * w)
             assert t.valid[:m].all() and not t.valid[m:].any()
             assert t.capacity == cap
+
+
+@pytest.mark.parametrize("caps,allocations", [
+    ((4096, 8192), 6),  # powers of two: a column each pins no more
+    ((4200, 8400), 1),  # a column each would pin ~1.9x the bytes
+])
+def test_pinned_set_takes_the_allocation_that_pins_less(card, caps,
+                                                        allocations):
+    """A pinned set is one allocation or one a column (the caching host
+    allocator rounds each up to a power of two), whichever pins fewer
+    bytes; every column is pinned and stages its batch's rows."""
+    from distributed_join_tpu_torch.parallel import out_of_core
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    st = out_of_core._Stager(LocalCommunicator(), card, caps,
+                             lambda k, dt: None)
+    bt, pt, _ = st.stage(
+        {"key": np.arange(4000, dtype=np.int32),
+         "x": np.arange(4000, dtype=np.int32) * 3},
+        {"key": np.arange(8000, dtype=np.int32) % 97,
+         "y": np.arange(8000, dtype=np.int32) * 5})
+    bufs = st.slots[0]
+    assert len({t.untyped_storage().data_ptr()
+                for t in bufs.values()}) == allocations
+    assert all(t.is_pinned() for t in bufs.values())
+    st.close()
+    assert torch.equal(bt.columns["x"][:4000].cpu(),
+                       torch.arange(4000, dtype=torch.int32) * 3)
+    assert torch.equal(pt.columns["key"][:8000].cpu(),
+                       torch.arange(8000, dtype=torch.int32) % 97)
+    assert torch.equal(pt.columns["y"][:8000].cpu(),
+                       torch.arange(8000, dtype=torch.int32) * 5)
+    assert bt.valid[:4000].all() and not bt.valid[4000:].any()
+    assert pt.valid[:8000].all() and not pt.valid[8000:].any()
+    assert (bt.capacity, pt.capacity) == caps
 
 
 def test_slow_consumer_and_many_small_batches_fetch_every_row(card):

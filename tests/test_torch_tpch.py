@@ -99,8 +99,7 @@ def test_host_generator_constants_and_limits_equal_jax():
                  "NARROW_LINEITEM_DTYPES", "MAX_NARROW_ORDERS",
                  "DEFAULT_CHUNK_ORDERS"):
         assert getattr(thost, name) == getattr(jhost, name), name
-    for name in ("ORDERS_PER_SF", "CUSTOMERS_PER_SF", "N_MKT_SEGMENTS",
-                 "DATE_RANGE_DAYS", "MAX_SHIP_LAG_DAYS",
+    for name in ("ORDERS_PER_SF", "DATE_RANGE_DAYS", "MAX_SHIP_LAG_DAYS",
                  "MAX_LINES_PER_ORDER"):
         assert getattr(ttpch, name) == getattr(jtpch, name), name
     # the narrow wire refuses where order keys reach 2^31 (SF ~358)
@@ -603,10 +602,8 @@ def test_manifest_refuses_mismatched_config(tmp_path, ooc_tables):
         tooc.keyrange_batched_join(b, p, EmulatedCommunicator(8),
                                    n_batches=4, warmup=False,
                                    manifest_path=path, **OOC_OPTS)
-    # "restart" discards it
-    m = tfaults.JoinManifest(path, {"n_batches": 4}, on_mismatch="restart")
-    assert m.completed == {} and json.load(open(path))["config"] == {
-        "n_batches": 4}
+    # the refusal leaves the other run's manifest as it was
+    assert json.load(open(path))["config"] == {"n_batches": 999}
 
 
 def test_manifest_atomic_roundtrip_and_failure_log(tmp_path):
@@ -739,6 +736,11 @@ def test_driver_record_equals_jax(path, tmp_path):
                   "batch_build_capacity", "batch_probe_capacity",
                   "fetched_bytes"):
             assert got[k] == want[k], k
+        rss = got["host_rss_bytes"]
+        assert set(rss) == {"before_generate", "after_generate",
+                            "after_loop"} and all(v > 0 for v in rss.values())
+        assert 0 < got["peak_host_rss_generate_bytes"] \
+            <= got["peak_host_rss_bytes"]
     else:
         assert got["matches_per_join"] == got["lineitem_nrows"]
         assert want["matches_per_join"] == want["lineitem_nrows"]
