@@ -134,13 +134,37 @@ Phases (any failure raises, and the script exits non-zero):
    lines. ``python3 chip_smoke.py --phase 15`` runs this phase alone
    (after the build).
 
+16. The segmented sort and the hierarchical wire. (a) Config 2's shape
+   (10 M x 10 M rows a rank, over-decomposition 4) with ``--sort-mode
+   segmented`` through the config driver over NCCL, one process a card
+   (128 segments): no overflow, the plain 1-rank join's matches, ms a
+   join; the same run's ``--sort-ab 5`` (min and median ms of each mode,
+   totals and row digests equal); ``--profile 3`` of each mode (the
+   sorts' device ms); on one card, one in-process segmented join of the
+   same tables on a local communicator at k = 4, digest-equal to the
+   plain 1-rank join and launching no hand kernel (the batched
+   formulation). (b) 4 emulated ranks as 2 slices x 2 on the card at
+   2 M x 2 M: the hierarchical wire with the codec off, and on at 16
+   bits with ``auto_retry=2`` (the trail printed), each equal to the
+   1-rank join with every join kernel launched once a rank at least,
+   and the segmented sort over the same hierarchy (no hand kernel).
+   (c) the one-slice hierarchy (``--shuffle hierarchical``) over NCCL
+   through a worker rank: the combined digest equal to the plain 1-rank
+   join's, as the padded wire's is; with an even number of cards above
+   one, also 2 slices over NCCL subgroups, codec off and on: the driver
+   (ms a join, a rank's bytes on each tier, the retry trail) and the
+   worker (digests, every join kernel on every rank). ``python3
+   chip_smoke.py --phase 16`` runs this phase alone (after the build).
+
 Launch counts are set to zero just before each path and read just after;
 the launches of phase 2, of the config-3 kernel check and of the
 bucket-shape checks do not count.
 The line before the last is one JSON object with every kernel's numbers,
 one row per kernel and call site (the join sites also carry their
-launches on the paths of phases 10 to 15, phases 13's and 14's summed
-over the ranks, 15's the SF-10 run's); the last line is
+launches on the paths of phases 10 to 16, phases 13's, 14's and 16's
+NCCL paths summed over the ranks, 15's the SF-10 run's; the segmented
+paths launch none, with the reason in ``no_launch_reason``); the last
+line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
 prints a result.
@@ -580,9 +604,12 @@ JOIN_KERNELS = ("join_scans", "compact_records", "pack_matched_builds",
                 "expand_gather")
 
 
-def _require_launched(counts: dict, names, where: str) -> None:
+def _require_launched(counts: dict, names, where: str,
+                      at_least: int = 1) -> None:
     for name in names:
-        _check(counts[name] > 0, f"{name} was not launched on {where}")
+        _check(counts[name] >= at_least,
+               f"{name} was launched {counts[name]} times on {where} (at "
+               f"least {at_least} expected)")
 
 
 def headline_phase():
@@ -1337,30 +1364,39 @@ NCCL_TIMEOUT_S = 600
 
 def _launch(n: int, argv: list, timeout: float = NCCL_TIMEOUT_S):
     """``python <argv>`` on ``n`` processes, one a card, through the
-    port's launcher (NCCL), from this script's directory."""
+    port's launcher (NCCL), from this script's directory. The rendezvous
+    port is one the OS hands a wildcard bind; a job whose store still
+    finds it taken (a socket of an earlier job in TIME_WAIT on it) runs
+    once more on another."""
     import signal
     import socket
     import subprocess
     root = os.path.dirname(os.path.abspath(__file__))
-    with socket.socket() as sk:
-        sk.bind(("localhost", 0))
-        port = sk.getsockname()[1]
     env = dict(os.environ)
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
-    cmd = [sys.executable, "-m", "distributed_join_tpu_torch.benchmarks.launch",
-           "--num-processes", str(n), "--coordinator", f"localhost:{port}",
-           "--", sys.executable, *argv]
-    # a session of its own, so that a timeout stops every rank with it
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True, cwd=root,
-                            env=env, start_new_session=True)
-    try:
-        out, err = proc.communicate(timeout=timeout)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        proc.communicate()
-        _fail(f"the launched job {argv[:3]} passed {timeout} s")
-    return subprocess.CompletedProcess(cmd, proc.returncode, out, err)
+    for attempt in range(2):
+        with socket.socket() as sk:
+            sk.bind(("", 0))
+            port = sk.getsockname()[1]
+        cmd = [sys.executable, "-m",
+               "distributed_join_tpu_torch.benchmarks.launch",
+               "--num-processes", str(n), "--coordinator",
+               f"localhost:{port}", "--", sys.executable, *argv]
+        # a session of its own, so that a timeout stops every rank with it
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, cwd=root,
+                                env=env, start_new_session=True)
+        try:
+            out, err = proc.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.communicate()
+            _fail(f"the launched job {argv[:3]} passed {timeout} s")
+        if proc.returncode == 0 or "EADDRINUSE" not in err or attempt:
+            return subprocess.CompletedProcess(cmd, proc.returncode, out,
+                                               err)
+        print(f"[launch] port {port} was taken; once more on another",
+              flush=True)
 
 
 def _launched_record(label: str, n: int, argv: list) -> dict:
@@ -1449,10 +1485,13 @@ def bucket_kernel_rows(calls, label: str = "nccl bucket") -> list:
 
 
 def partition_shuffle_ms(comm, build, probe, shuffle: str = "padded",
-                         compression_bits=None) -> tuple:
+                         compression_bits=None,
+                         dcn_codec_on: bool = False) -> tuple:
     """The partition and the shuffle of one join at over-decomposition
     ``NCCL_K`` on the wire ``shuffle`` (with ``compression_bits``, the
-    codec), with no local join: the step's own calls
+    codec; on the hierarchical wire ``dcn_codec_on`` puts it on the
+    cross-slice hop, 16 bits without ``compression_bits``), with no
+    local join: the step's own calls
     (parallel/distributed_join.py ``make_join_step``, ``_batch_shuffle``)
     at its default capacity factor. Returns, each the slowest rank's: the
     ms a call as ``time_ms`` times it (host gaps and the ragged wire's
@@ -1480,7 +1519,8 @@ def partition_shuffle_ms(comm, build, probe, shuffle: str = "padded",
             pt = radix_hash_partition(t, ["key"], nb)
             for b in range(NCCL_K):
                 recv, _ = _batch_shuffle(comm, pt, b, n, cap, mode=shuffle,
-                                         compression_bits=compression_bits)
+                                         compression_bits=compression_bits,
+                                         dcn_codec_on=dcn_codec_on)
                 rows += recv.capacity
         return torch.tensor([rows], device=b_local.valid.device)
 
@@ -1664,7 +1704,7 @@ def nccl_phase() -> dict:
               f"local ({rec['elapsed_per_exchange_s'] * 1e3:.4f} ms an "
               f"exchange, median window); {smi}", flush=True)
     return ({s: sum(g["launches"][s] for g in got) for s in NCCL_SITES},
-            worker["bucket_rows"], (want_total, want_digest))
+            worker["bucket_rows"], (want_total, want_digest), prof)
 
 
 # -- phase 14: the wires over NCCL ------------------------------------------
@@ -1714,19 +1754,24 @@ def wire_rank_worker(wires: dict) -> int:
         unique_build_keys=True, device=comm.device)
     out = {}
     for mode, opts in wires.items():
-        before = comm.counters()
+        opts = dict(opts)
+        slices = opts.pop("slices", None)
+        c = comm if slices is None else make_communicator("nccl",
+                                                          n_slices=slices)
+        before = c.counters()
         res, counts = counted(lambda: distributed_inner_join(
-            build, probe, comm, over_decomposition=NCCL_K, **opts))
-        after = comm.counters()
+            build, probe, c, over_decomposition=NCCL_K, **opts))
+        after = c.counters()
         mine = torch.tensor([[*row_digest(res), int(res.total),
                               int(res.overflow),
                               *(counts[s] for s in NCCL_SITES),
                               *(after[k] - before[k] for k in after)]],
                             dtype=torch.int64, device=comm.device)
         del res
-        ps = partition_shuffle_ms(comm, build, probe,
+        ps = partition_shuffle_ms(c, build, probe,
                                   opts.get("shuffle", "padded"),
-                                  opts.get("compression_bits"))
+                                  opts.get("compression_bits"),
+                                  opts.get("dcn_codec") == "on")
         every = comm.all_gather(mine).tolist()
         out[mode] = {"ranks": [
             {"digest": v[:3], "total": v[3], "overflow": bool(v[4]),
@@ -2088,16 +2133,242 @@ def tpch_phase():
     return counts, rows
 
 
+# -- phase 16: the segmented sort and the hierarchical wire -----------------
+
+
+SEG_SITES = ("join_scans", "compact_records", "pack_matched_builds",
+             "expand_gather")
+SEG_REASON = ("the segmented local join is a batched torch formulation (as "
+              "the JAX package's is XLA, reaching no Pallas kernel): it "
+              "launches no hand kernel")
+SORT_AB_JOINS = 5
+HIER_SLICES = 2
+
+
+def _sort_rows(prof: dict) -> dict:
+    """The sort kernels of a ``--profile`` record: their device ms and
+    calls a join, summed, and the rows themselves."""
+    rows = [r for r in prof["top_kernels_ms_per_join"]
+            if "sort" in r["name"].lower()]
+    return {"ms": sum(r["ms"] for r in rows),
+            "calls": sum(r["calls_per_join"] for r in rows), "rows": rows}
+
+
+def segmented_phase(want_total: int | None = None,
+                    want_digest: tuple | None = None,
+                    flat_profile: dict | None = None) -> dict:
+    """Phase 16: (a) the segmented sort at config 2's shape (``NROWS`` a
+    rank, k = ``NCCL_K``, auto segments) through the driver over NCCL,
+    one process a card: no overflow, the plain 1-rank join's matches,
+    ms a join; the same driver's ``--sort-ab`` (both modes' totals and
+    row digests equal); ``--profile 3`` of each mode (the sorts' device
+    ms); one in-process join of the same tables on a local communicator
+    at k = ``NCCL_K``, counted (no hand kernel launched) and digest-equal
+    to the plain 1-rank join. (b) 4 emulated ranks as 2 x 2 slices on
+    this card at ``EMU_ROWS``: the hierarchical wire with the codec off,
+    and on at 16 bits with ``auto_retry=2``, each equal to the 1-rank
+    join with every join kernel launched once a rank at least; then the
+    segmented sort over the same emulated hierarchy. (c) the degenerate
+    hierarchy (``--shuffle hierarchical``, one slice) over NCCL through
+    the worker: the combined digest equals the plain 1-rank join's, as
+    the padded wire's does. With an even number of cards above one, the
+    hierarchical wire as ``HIER_SLICES`` slices over NCCL subgroups, codec
+    off and on: the driver (ms a join, bytes on each tier) and the
+    worker (digests). Returns the launch counts by path."""
+    from distributed_join_tpu_torch.ops.kernel_config import KernelConfig
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    smi = gpu_line()
+    n = torch.cuda.device_count()
+    rows = NROWS * n
+    build, probe = generate_build_probe_tables(
+        seed=SEED, build_nrows=rows, probe_nrows=rows,
+        unique_build_keys=True, device=DEVICE)
+    if want_total is None:
+        plain = distributed_inner_join(build, probe, LocalCommunicator(),
+                                       kernel_config=KernelConfig("plain"))
+        _check(not bool(plain.overflow),
+               "phase 16: the 1-rank join overflowed")
+        want_total, want_digest = int(plain.total), row_digest(plain)
+        del plain
+    paths = {}
+    # (a) in process: the segmented join of the same tables at k = 4 on a
+    # local communicator (one rank, four buckets)
+    if n == 1:
+        seg, paths["segmented"] = counted(lambda: distributed_inner_join(
+            build, probe, LocalCommunicator(), over_decomposition=NCCL_K,
+            sort_mode="segmented"))
+        _check(not bool(seg.overflow) and int(seg.total) == want_total
+               and row_digest(seg) == want_digest,
+               f"segmented local k={NCCL_K}: total {int(seg.total)}, "
+               f"overflow {bool(seg.overflow)}, digest differs from the "
+               "plain 1-rank join's")
+        _check(not any(paths["segmented"].values()),
+               f"the segmented path launched {paths['segmented']}")
+        print(f"[segmented] local k={NCCL_K}: total {int(seg.total)}, "
+              f"digest equal to the plain 1-rank join's; launches "
+              f"{paths['segmented']} ({SEG_REASON})", flush=True)
+        del seg
+    del build, probe
+    torch.cuda.empty_cache()
+
+    driver = ["-m", "distributed_join_tpu_torch.benchmarks.distributed_join",
+              "--communicator", "nccl", "--build-table-nrows", str(rows),
+              "--probe-table-nrows", str(rows), "--iterations", "4",
+              "--over-decomposition-factor", str(NCCL_K)]
+    rec = _launched_record("segmented", n, [
+        *driver, "--sort-mode", "segmented", "--sort-ab",
+        str(SORT_AB_JOINS)])
+    ab = rec["sort_ab"]
+    print(f"[segmented] driver: " + json.dumps(rec), flush=True)
+    _check(not rec["overflow"] and rec["matches_per_join"] == want_total,
+           f"segmented driver: {rec['matches_per_join']} matches, overflow "
+           f"{rec['overflow']}; the 1-rank join has {want_total}")
+    _check("skipped" not in ab and ab["matches_equal"]
+           and ab["digest_equal"] and ab["matches"] == want_total,
+           f"segmented --sort-ab: {json.dumps(ab)}")
+    print(f"[segmented] k={NCCL_K}, {n} rank(s), {ab['sort_segments']} "
+          f"segments: {rec['elapsed_per_join_s'] * 1e3:.4f} ms a join "
+          f"(driver); --sort-ab {SORT_AB_JOINS}: flat min "
+          f"{ab['flat_ms_min']:.4f} median {ab['flat_ms_median']:.4f} ms, "
+          f"segmented min {ab['segmented_ms_min']:.4f} median "
+          f"{ab['segmented_ms_median']:.4f} ms, speedup "
+          f"{ab['segmented_speedup']:.4f}; totals and digests equal; {smi}",
+          flush=True)
+    profs = {"segmented": _launched_record("segmented profile", n, [
+        *driver, "--sort-mode", "segmented", "--profile", "3"])}
+    profs["flat"] = flat_profile or _launched_record("flat profile", n, [
+        *driver, "--profile", "3"])
+    for mode, prof in profs.items():
+        srt = _sort_rows(prof)
+        print(f"[segmented] profile {mode}, rank 0: device busy "
+              f"{prof['device_busy_ms_per_join']:.4f} ms a join, sorts "
+              f"{srt['ms']:.4f} ms in {srt['calls']} calls a join: "
+              f"{json.dumps(srt['rows'])}; top kernels "
+              f"{json.dumps(prof['top_kernels_ms_per_join'])}; {smi}",
+              flush=True)
+
+    # (b) the emulated hierarchy on this card
+    eb, ep = generate_build_probe_tables(
+        seed=SEED, build_nrows=EMU_ROWS, probe_nrows=EMU_ROWS, device=DEVICE)
+    one = distributed_inner_join(eb, ep, LocalCommunicator(), auto_retry=2)
+    _check(not bool(one.overflow), "phase 16: the emulated 1-rank join "
+                                   "overflowed")
+    want_emu = (int(one.total), row_digest(one))
+    del one
+    for label, opts in (
+            ("hierarchical off", dict(dcn_codec="off")),
+            ("hierarchical on", dict(dcn_codec="on", compression_bits=16)),
+            ("hierarchical segmented", dict(dcn_codec="off",
+                                            sort_mode="segmented"))):
+        comm = EmulatedCommunicator(EMU_RANKS, n_slices=HIER_SLICES)
+        t0 = time.perf_counter()
+        res, counts = counted(lambda: distributed_inner_join(
+            eb, ep, comm, shuffle="hierarchical", auto_retry=2, **opts))
+        wall = time.perf_counter() - t0
+        got = (int(res.total), row_digest(res))
+        trail = [(a.action, a.compression_bits)
+                 for a in res.retry_report.attempts]
+        _check(not bool(res.overflow) and got == want_emu,
+               f"emulated {label}: total {got[0]}, overflow "
+               f"{bool(res.overflow)}; differs from the 1-rank join")
+        if label.endswith("segmented"):
+            _check(not any(counts.values()),
+                   f"emulated {label} launched {counts}")
+            paths["hierarchical_segmented"] = counts
+        else:
+            _require_launched(counts, JOIN_KERNELS, f"emulated {label}",
+                              at_least=EMU_RANKS)
+            paths[label.replace(" ", "_")] = counts
+        print(f"[hierarchical] emulated {EMU_RANKS} ranks as "
+              f"{HIER_SLICES} x {EMU_RANKS // HIER_SLICES}, {label}: total "
+              f"{got[0]} equal to the 1-rank join; retry {trail}; counters "
+              f"{json.dumps(comm.counters())}; wall {wall:.3f} s (host "
+              f"clock, first call); launches {counts}", flush=True)
+        del res
+    del eb, ep
+    torch.cuda.empty_cache()
+
+    # (c) hierarchical over NCCL: one slice (the padded wire), and with an
+    # even number of cards two slices over subgroups, codec off and on
+    wires = {"hierarchical_1": {"shuffle": "hierarchical", "slices": 1}}
+    multi = n > 1 and n % HIER_SLICES == 0
+    if multi:
+        wires.update({
+            f"hierarchical_{HIER_SLICES}_{codec}": {
+                "shuffle": "hierarchical", "slices": HIER_SLICES,
+                "dcn_codec": codec, "auto_retry": 2}
+            for codec in ("off", "on")})
+        for codec in ("off", "on"):
+            rec = _launched_record(f"hierarchical {codec}", n, [
+                *driver, "--shuffle", "hierarchical", "--slices",
+                str(HIER_SLICES), "--dcn-codec", codec, "--auto-retry",
+                "2"])
+            _check(not rec["overflow"]
+                   and rec["matches_per_join"] == want_total,
+                   f"hierarchical {codec}: {rec['matches_per_join']} "
+                   f"matches, overflow {rec['overflow']}")
+            trail = [(a["action"], a["compression_bits"])
+                     for a in (rec["retry"] or {}).get("attempts", [])]
+            print(f"[hierarchical] NCCL {HIER_SLICES} x "
+                  f"{n // HIER_SLICES}, codec {codec}, k={NCCL_K}: "
+                  f"{rec['elapsed_per_join_s'] * 1e3:.4f} ms a join; rank 0 "
+                  f"bytes a join: intra-slice "
+                  f"{rec['wire_bytes_ici_per_join']:.0f}, cross-slice "
+                  f"{rec['wire_bytes_dcn_per_join']:.0f}, saved "
+                  f"{rec['wire_bytes_saved_per_join']:.0f}, total "
+                  f"{rec['wire_bytes_per_join']:.0f}; retry {trail}; "
+                  f"(both tiers are NVLink on one node); {smi}", flush=True)
+    else:
+        print(f"[hierarchical] {n} card(s): {HIER_SLICES} slices over "
+              "NCCL need an even number of cards above one; not run",
+              flush=True)
+    worker = _launched_record("hierarchical worker", n, [
+        os.path.abspath(__file__), "--nccl-rank-worker", "--wires",
+        json.dumps(wires)])["wires"]
+    for mode, got in worker.items():
+        for r, g in enumerate(got["ranks"]):
+            _check(not g["overflow"] and g["total"] == want_total,
+                   f"{mode} worker rank {r}: total {g['total']}, overflow "
+                   f"{g['overflow']}")
+            _require_launched(g["launches"], JOIN_KERNELS,
+                              f"rank {r} of the {mode} wire")
+        combined = _combine_digests(tuple(g["digest"]) for g in got["ranks"])
+        _check(combined == want_digest,
+               f"{mode} worker: combined digest {combined} != the plain "
+               f"1-rank join's {want_digest}")
+        ps_ms, ps_busy, ps_nccl = got["partition_shuffle_ms"]
+        print(f"[hierarchical] worker {mode}: digest equal to the plain "
+              f"1-rank join's (as the padded wire's), every join kernel "
+              f"launched on every rank; rank 0 counters "
+              f"{json.dumps(got['ranks'][0]['counters'])}; partition + "
+              f"shuffle alone {ps_ms:.4f} ms, device ms of its kernels "
+              f"{ps_busy:.4f} besides NCCL's {ps_nccl:.4f}; {smi}",
+              flush=True)
+        paths[f"nccl_{mode}"] = {s: sum(g["launches"][s]
+                                        for g in got["ranks"])
+                                 for s in NCCL_SITES}
+    return paths
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     wires = (json.loads(argv[2]) if argv[:2] == ["--nccl-rank-worker",
                                                  "--wires"]
              and len(argv) == 3 else None)
     if argv not in ([], ["--phase", "13"], ["--phase", "14"],
-                    ["--phase", "15"], ["--nccl-rank-worker"]) \
-            and wires is None:
-        print("usage: chip_smoke.py [--phase 13 | --phase 14 | --phase 15]",
-              file=sys.stderr)
+                    ["--phase", "15"], ["--phase", "16"],
+                    ["--nccl-rank-worker"]) and wires is None:
+        print("usage: chip_smoke.py [--phase 13 | --phase 14 | --phase 15 | "
+              "--phase 16]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2133,7 +2404,7 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})
     if argv == ["--phase", "13"]:
-        nccl, _, _ = nccl_phase()
+        nccl, _, _, _ = nccl_phase()
         print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
               flush=True)
         print(json.dumps({"nccl_launches": nccl}), flush=True)
@@ -2157,6 +2428,15 @@ def main(argv=None) -> int:
         print(ok, flush=True)
         return 0
 
+    if argv == ["--phase", "16"]:
+        seg_paths = segmented_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps({"launches_by_path": seg_paths,
+                          "segmented_reason": SEG_REASON}), flush=True)
+        print(ok, flush=True)
+        return 0
+
     build, probe = generate_build_probe_tables(
         seed=SEED, build_nrows=NROWS, probe_nrows=NROWS, device=DEVICE)
     rows = kernel_phase(build, probe, int(0.6 * NROWS * 1.25))
@@ -2175,10 +2455,11 @@ def main(argv=None) -> int:
     typed, typed_ms, typed_rows = typed_phase()
     paths.update(typed)
     print(f"[typed] ms_per_join {json.dumps(typed_ms)}; {smi}", flush=True)
-    paths["nccl"], bucket_rows, plain = nccl_phase()
+    paths["nccl"], bucket_rows, plain, flat_prof = nccl_phase()
     paths.update({f"nccl_{mode}": c
                   for mode, c in wire_phase(*plain).items()})
     paths["tpch"], tpch_rows = tpch_phase()
+    paths.update(segmented_phase(*plain, flat_profile=flat_prof))
 
     launches = {"join_scans": head["join_scans"],
                 "stream_compact[record]": head["compact_records"],
@@ -2221,6 +2502,8 @@ def main(argv=None) -> int:
         if name in site:
             r["launches_by_path"] = {p: c[site[name]]
                                      for p, c in paths.items()}
+            r["no_launch_reason"] = {"segmented": SEG_REASON,
+                                     "hierarchical_segmented": SEG_REASON}
         if name == "join_scans":
             r["c1_ms"], r["c1_bound_ms"] = c1["ms"], c1["bound_ms"]
         kernels.append({k: r[k] for k in (
@@ -2230,7 +2513,8 @@ def main(argv=None) -> int:
                 "ms", "plain_ms", "bound_ms", "library_ms")],
             *(["live_passes"] if "live_passes" in r else []),
             *(["merged_positions"] if "merged_positions" in r else []),
-            *(["launches_by_path"] if "launches_by_path" in r else []))})
+            *(["launches_by_path", "no_launch_reason"]
+              if "launches_by_path" in r else []))})
     print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ok, flush=True)

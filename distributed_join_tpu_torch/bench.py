@@ -19,6 +19,9 @@ trail) instead of crashing. ``unit`` is M rows/sec per GPU, rows being
 build + probe rows per join. ``vs_baseline`` stays null: the port has
 no GPU baseline yet. ``--device cpu`` runs the same protocol on the CPU
 for rehearsals at small ``--nrows``; its times say nothing about a GPU.
+``--sort-mode`` and ``--sort-segments`` pick the local sort as the JAX
+``bench.py`` does (:354-382); the headline is one bucket, where both
+modes are the flat program.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import sys
 
 import torch
 
+from distributed_join_tpu_torch.benchmarks import resolve_sort_mode
 from distributed_join_tpu_torch.device import resolve_device
 from distributed_join_tpu_torch.parallel.communicator import (
     LocalCommunicator,
@@ -68,12 +72,26 @@ def gpu_identity() -> dict:
     return {"device_name": name, "power_limit": limit, "nvidia_smi": line}
 
 
-def run(nrows: int = NROWS, iters: int = ITERS, device=None) -> dict:
+def _sort_opts(sort_mode, sort_segments, nrows: int, n_ranks: int) -> dict:
+    """The join options of ``--sort-mode`` (``auto`` resolved as the
+    drivers resolve it); ``{}`` for the flat sort."""
+    mode = resolve_sort_mode(
+        argparse.Namespace(sort_mode=sort_mode, sort_segments=sort_segments),
+        n_ranks, 1, nrows // n_ranks, nrows // n_ranks,
+        DEFAULT_SHUFFLE_CAPACITY_FACTOR, "padded")
+    if mode == "flat":
+        return {}
+    return {"sort_mode": mode, "sort_segments": sort_segments}
+
+
+def run(nrows: int = NROWS, iters: int = ITERS, device=None,
+        sort_mode=None, sort_segments=None) -> dict:
     """The headline protocol; returns the record (also what main
     prints)."""
     dev = resolve_device(device)
     comm = LocalCommunicator()
     n_ranks = comm.n_ranks
+    sort_opts = _sort_opts(sort_mode, sort_segments, nrows, n_ranks)
     build, probe = generate_build_probe_tables(
         seed=SEED, build_nrows=nrows, probe_nrows=nrows,
         selectivity=SELECTIVITY, device=dev)
@@ -85,7 +103,8 @@ def run(nrows: int = NROWS, iters: int = ITERS, device=None) -> dict:
             out_capacity_factor=DEFAULT_OUT_CAPACITY_FACTOR,
             out_rows_per_rank=out_rows_per_rank)
         for attempt in range(AUTO_RETRY + 1):
-            step = make_join_step(comm, key="key", **ladder.sizing())
+            step = make_join_step(comm, key="key", **sort_opts,
+                                  **ladder.sizing())
             per_join, total, overflow = timed_join_throughput(
                 comm, step, build, probe, iters)
             ladder.note(overflow)
@@ -117,6 +136,8 @@ def run(nrows: int = NROWS, iters: int = ITERS, device=None) -> dict:
         "build_table_nrows": nrows,
         "probe_table_nrows": nrows,
         "selectivity": SELECTIVITY,
+        "sort_mode": sort_opts.get("sort_mode"),
+        "sort_segments": sort_opts.get("sort_segments"),
         "iterations": iters,
         "out_rows": {"match_sized": match_out * n_ranks,
                      "contract": "out_capacity_factor=1.2 x probe rows"},
@@ -156,11 +177,18 @@ def main(argv=None) -> int:
                    help="instead of the record, print where JOINS "
                         "match-sized joins spend their device time "
                         "(torch.profiler; GPU only)")
+    p.add_argument("--sort-mode", choices=["flat", "segmented", "auto"],
+                   default=None,
+                   help="the local sort (default flat; one bucket is the "
+                        "flat program in every mode)")
+    p.add_argument("--sort-segments", type=int, default=None, metavar="N",
+                   help="segments of --sort-mode segmented")
     args = p.parse_args(argv)
     if args.profile:
         print(json.dumps(profile(args.nrows, args.profile)), flush=True)
         return 0
-    print(json.dumps(run(args.nrows, args.iters, args.device)), flush=True)
+    print(json.dumps(run(args.nrows, args.iters, args.device,
+                         args.sort_mode, args.sort_segments)), flush=True)
     return 0
 
 

@@ -76,3 +76,36 @@ def report(record: dict, json_output: str | None,
     if headline:
         print(headline)
     print(line, flush=True)
+
+
+def resolve_sort_mode(args, n_ranks: int, k: int, b_local: int,
+                      p_local: int, shuffle_factor: float, shuffle: str,
+                      n_slices: int = 1, dcn_codec: str = "auto",
+                      compression_bits=None, kernel_config=None) -> str:
+    """The drivers' ``--sort-mode`` (JAX :654-691): ``flat`` and
+    ``segmented`` pass as they are (the step refuses what does not
+    combine); ``auto`` is ``segmented`` exactly when
+    ``resolve_sort_segments`` would segment this shape and the
+    combination runs: never over the ragged or compressed wire, with
+    kernel flags, or on a multi-slice mesh with the DCN codec on. Unset
+    is ``flat``."""
+    from distributed_join_tpu_torch.ops.segmented import (
+        resolve_sort_segments,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        resolve_dcn_codec,
+    )
+
+    mode = getattr(args, "sort_mode", None) or "flat"
+    if mode != "auto":
+        return mode
+    if (shuffle == "ragged" or n_ranks * k <= 1
+            or compression_bits is not None or kernel_config is not None):
+        return "flat"
+    if (shuffle == "hierarchical" and n_slices > 1
+            and resolve_dcn_codec(dcn_codec or "auto", n_slices)):
+        return "flat"
+    segs = resolve_sort_segments(getattr(args, "sort_segments", None),
+                                 max(b_local, p_local), n_ranks, k,
+                                 shuffle_factor)
+    return "segmented" if segs > 1 else "flat"

@@ -8,7 +8,9 @@
 Port of ``distributed_join_tpu/benchmarks/distributed_join.py``
 (``parse_args`` :61, ``run`` :250) with the reference's flag names and
 only the options the port has (the wires ``--shuffle padded|ppermute|
-ragged`` and ``--compression``): generate the tables from seed 42 (the
+ragged|hierarchical`` with ``--slices`` and ``--dcn-codec``,
+``--compression``, and the local sort ``--sort-mode flat|segmented|auto``
+with ``--sort-ab N``): generate the tables from seed 42 (the
 Zipf probe side from seed 43; ``--key-type``/``--payload-type``, the
 composite and string tables of config 5, and ``--string-key-bytes`` as
 in the JAX driver), resolve the skew auto-policy, then time
@@ -40,8 +42,11 @@ the seed and joins its own rows (JAX :300-351); rank 0 prints the record.
 from __future__ import annotations
 
 import argparse
+import statistics
 import sys
+import time
 
+import numpy as np
 import torch
 
 from distributed_join_tpu_torch.bench import gpu_identity
@@ -50,7 +55,10 @@ from distributed_join_tpu_torch.benchmarks import (
     rank_device,
     refuse_flags,
     report,
+    resolve_sort_mode,
 )
+from distributed_join_tpu_torch.ops.hashing import hash_columns
+from distributed_join_tpu_torch.ops.segmented import resolve_sort_segments
 from distributed_join_tpu_torch.parallel.bootstrap import (
     is_coordinator,
     maybe_initialize_from_env,
@@ -68,6 +76,7 @@ from distributed_join_tpu_torch.parallel.distributed_join import (
     SHUFFLE_MODES,
     _varwidth_cols,
     make_join_step,
+    resolve_dcn_bits,
     resolve_join_ladder,
 )
 from distributed_join_tpu_torch.parallel.skew import zipf_top_k_mass
@@ -99,16 +108,11 @@ DTYPES = {
 
 # Flags of the JAX driver that the port does not have.
 _REFUSED = {
-    "--slices": "the hierarchical mesh",
-    "--dcn-codec": "the hierarchical DCN codec",
     "--expand-kernel": "the kernel knobs",
     "--compact-kernel": "the kernel knobs",
     "--kernel-block": "the kernel knobs",
     "--agg-ab": "the A/B modes",
-    "--sort-ab": "the A/B modes",
     "--resident-ab": "the A/B modes",
-    "--sort-mode": "the segmented-sort pipeline",
-    "--sort-segments": "the segmented-sort pipeline",
     "--platform": "platform selection (the driver runs on the GPU)",
     "--explain": "plan explain",
     "--stage-profile": "the stage profile",
@@ -177,8 +181,38 @@ def parse_args(argv=None):
                    help="the wire: padded = capacity-padded blocks, one "
                         "all-to-all; ppermute = the same blocks as a chain "
                         "of point-to-point steps; ragged = the exact-size "
-                        "exchange, string payloads byte-exact "
-                        "(hierarchical is not part of the port)")
+                        "exchange, string payloads byte-exact; "
+                        "hierarchical = the padded blocks in two hops, "
+                        "intra-slice then cross-slice (--slices)")
+    p.add_argument("--slices", type=int, default=None,
+                   help="slice count of the hierarchical (slice, chip) "
+                        "mesh; must divide the rank count (e.g. 4 ranks "
+                        "as --slices 2 = 2 x 2)")
+    p.add_argument("--dcn-codec", choices=["off", "auto", "on"],
+                   default="auto",
+                   help="FoR + bit-pack codec on the cross-slice hop of "
+                        "--shuffle hierarchical (width --compression-bits); "
+                        "auto resolves from the JAX package's cost model, "
+                        "which the port does not have, and refuses on "
+                        "more than one slice")
+    p.add_argument("--sort-mode", choices=["flat", "segmented", "auto"],
+                   default=None,
+                   help="the local sort: flat = one merged sort a batch; "
+                        "segmented = fine buckets from the shuffle, "
+                        "joined as one batch of short runs; auto = "
+                        "segmented where resolve_sort_segments segments "
+                        "this shape and the wire allows it (default flat)")
+    p.add_argument("--sort-segments", type=int, default=None, metavar="N",
+                   help="segments per (batch, rank) receive of the "
+                        "segmented sort (default: resolve_sort_segments)")
+    p.add_argument("--sort-ab", type=int, default=0, metavar="N",
+                   help="after the timed run: time N warm segmented joins "
+                        "and N warm flat joins of the same tables (CUDA "
+                        "events), graded against each other (totals, row "
+                        "digests) and, on local and emulated ranks, the "
+                        "pandas oracle; the record under 'sort_ab'. "
+                        "Shapes the segmented path refuses skip with the "
+                        "reason")
     p.add_argument("--compression", action="store_true",
                    help="FoR + bit-pack the integer columns on the padded "
                         "or ppermute wire")
@@ -204,19 +238,23 @@ def parse_args(argv=None):
                    help="instead of the record, print where JOINS joins at "
                         "the first rung's sizing spend their device time "
                         "(torch.profiler; GPU only)")
-    args = p.parse_args(argv)
-    if args.shuffle == "hierarchical":
-        p.error("--shuffle hierarchical: the hierarchical shuffle is not "
-                "part of the port")
-    return args
+    return p.parse_args(argv)
 
 
 def _communicator(args):
+    if (args.slices or 1) > 1 and args.shuffle != "hierarchical":
+        raise SystemExit(
+            f"--slices {args.slices} builds a multi-slice mesh, and "
+            f"--shuffle {args.shuffle} would route one global collective "
+            "across its slow tier: pass --shuffle hierarchical (or drop "
+            "--slices)")
     try:
-        return make_communicator(args.communicator, n_ranks=args.n_ranks)
+        return make_communicator(args.communicator, n_ranks=args.n_ranks,
+                                 n_slices=args.slices)
     except (ValueError, RuntimeError) as exc:
         raise SystemExit(f"--communicator {args.communicator} "
-                         f"(--n-ranks {args.n_ranks}): {exc}") from exc
+                         f"(--n-ranks {args.n_ranks}, --slices "
+                         f"{args.slices}): {exc}") from exc
 
 
 def skew_policy(args, n_ranks: int):
@@ -348,9 +386,13 @@ def string_wire_bytes(build, shuffle: str) -> dict | None:
     }
 
 
-def compression_bits(args):
-    """The codec's width when ``--compression`` is on, else None."""
-    return args.compression_bits if args.compression else None
+def compression_bits(args, n_slices: int = 1):
+    """The codec's width when ``--compression`` is on, or when the
+    hierarchical wire's cross-slice codec is (more than one slice and
+    ``--dcn-codec on``), else None."""
+    dcn = (args.shuffle == "hierarchical"
+           and resolve_dcn_bits(args.dcn_codec, n_slices=n_slices))
+    return args.compression_bits if args.compression or dcn else None
 
 
 def _prepare(args, device):
@@ -363,6 +405,10 @@ def _prepare(args, device):
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     n = comm.n_ranks
+    try:
+        bits = compression_bits(args, comm.n_slices)
+    except NotImplementedError as exc:
+        raise SystemExit(f"--dcn-codec {args.dcn_codec}: {exc}") from exc
     b_rows, p_rows = args.build_table_nrows, args.probe_table_nrows
     if b_rows % n or p_rows % n:
         raise SystemExit(f"table nrows must be divisible by n_ranks={n}")
@@ -375,16 +421,200 @@ def _prepare(args, device):
                          "wires; the ragged wire already sends exact rows")
     build, probe, join_key = make_tables(args, dev)
     threshold, hh_probe, hh_out, policy = skew_policy(args, n)
+    k = args.over_decomposition_factor
+    sort_mode = resolve_sort_mode(
+        args, n, k, b_rows // n, p_rows // n, args.shuffle_capacity_factor,
+        args.shuffle, n_slices=comm.n_slices, dcn_codec=args.dcn_codec,
+        compression_bits=bits)
     opts = dict(shuffle_capacity_factor=args.shuffle_capacity_factor,
                 out_capacity_factor=args.out_capacity_factor,
-                compression_bits=compression_bits(args),
+                compression_bits=bits,
                 skew_threshold=threshold, hh_slots=args.hh_slots,
                 hh_build_capacity=args.hh_build_capacity,
                 hh_probe_capacity=hh_probe, hh_out_capacity=hh_out)
-    ladder = resolve_join_ladder(build, probe, n, opts)
+    ladder = resolve_join_ladder(build, probe, n, opts,
+                                 n_slices=comm.n_slices)
+    # --sort-segments alone (armed for a --sort-ab side pass) leaves the
+    # timed flat join as it is
     fixed = dict(key=join_key, shuffle=args.shuffle,
-                 over_decomposition=args.over_decomposition_factor, **opts)
+                 dcn_codec=args.dcn_codec, over_decomposition=k,
+                 sort_mode=sort_mode,
+                 sort_segments=(args.sort_segments
+                                if sort_mode == "segmented" else None),
+                 **opts)
     return comm, dev, build, probe, ladder, fixed, policy
+
+
+def row_digest(table: Table) -> torch.Tensor:
+    """An order-independent digest of a table's valid rows: the int64
+    wrapping sum of each row's hash over every column (a 2-D column by
+    its bytes)."""
+    cols = []
+    for c in table.columns.values():
+        cols.extend(c.reshape(c.shape[0], -1).unbind(1) if c.ndim > 1
+                    else [c])
+    h = hash_columns(cols)
+    return torch.where(table.valid, h, 0).sum()
+
+
+def _host_rows(table: Table, names) -> np.ndarray:
+    """The valid rows of ``table``'s ``names`` as a lexicographically
+    sorted (rows, fields) int64 array (a 2-D column a field a byte,
+    floats by their bits): a multiset in canonical order."""
+    valid = table.valid.cpu().numpy()
+    parts = []
+    for nm in names:
+        a = table.columns[nm].cpu().numpy()[valid]
+        if a.dtype.kind == "f":
+            a = a.view(np.int64 if a.itemsize == 8 else np.int32)
+        parts.append(a.reshape(a.shape[0], -1).astype(np.int64))
+    a = np.concatenate(parts, axis=1)
+    return a[np.lexsort(a.T[::-1])] if len(a) else a
+
+
+def _oracle_rows(build: Table, probe: Table, keys, names) -> np.ndarray:
+    """The inner join of the valid rows by pandas, as :func:`_host_rows`
+    gives a result: rows are matched on key ids (a 2-D key's distinct
+    byte rows numbered over both sides) and gathered by row index."""
+    import pandas as pd
+
+    bv, pv = build.valid.cpu().numpy(), probe.valid.cpu().numpy()
+    bdf, pdf = {"__b": np.flatnonzero(bv)}, {"__p": np.flatnonzero(pv)}
+    for k in keys:
+        b = build.columns[k].cpu().numpy()[bv]
+        q = probe.columns[k].cpu().numpy()[pv]
+        if b.ndim > 1:
+            _, ids = np.unique(np.concatenate([b, q]), axis=0,
+                               return_inverse=True)
+            b, q = ids[:len(b)], ids[len(b):]
+        bdf[k], pdf[k] = b, q
+    m = pd.DataFrame(bdf).merge(pd.DataFrame(pdf), on=list(keys))
+    bi, pi = m["__b"].to_numpy(), m["__p"].to_numpy()
+    cols = {}
+    for nm in names:
+        side, idx = ((build, bi) if nm in build.columns else (probe, pi))
+        cols[nm] = side.columns[nm][torch.from_numpy(np.array(idx)).to(
+            side.device)]
+    return _host_rows(Table(cols, torch.ones(len(bi), dtype=torch.bool,
+                                             device=build.device)), names)
+
+
+def sort_ab(comm, build, probe, n_joins: int, join_opts: dict, args):
+    """The segmented sort against the flat one on the same join (JAX
+    ``_sort_ab``, :901-1040): N warm joins of each mode, each timed
+    alone (CUDA events on a card, the host clock on the CPU, the slowest
+    rank's), min and median; graded by equal totals and equal row
+    digests (``row_digest``, summed over ranks), and on local and
+    emulated ranks against the pandas oracle. Shapes the segmented path
+    refuses skip with the reason. The JAX record's ``warm_new_traces``,
+    counter signature and plan wire verdict ride the program cache,
+    telemetry and planning layers, which the port does not have yet
+    (``not_ported``)."""
+    if join_opts.get("shuffle") == "ragged":
+        return {"skipped": "ragged wire: the segmented path needs static "
+                           "receive boundaries"}
+    if join_opts.get("compression_bits") is not None:
+        return {"skipped": "compressed wire: the codec's per-block framing "
+                           "and the fine layout are disjoint"
+                           + (" (the hierarchical DCN codec is armed: "
+                              "rerun with --dcn-codec off)"
+                              if join_opts.get("shuffle") == "hierarchical"
+                              else "")}
+    if join_opts.get("kernel_config") is not None:
+        return {"skipped": "explicit kernel flags tune the flat pipeline; "
+                           "the segmented path is the batched formulation"}
+    n = comm.n_ranks
+    k = join_opts.get("over_decomposition") or 1
+    if n * k <= 1:
+        return {"skipped": "single-bucket mesh: the segmented and flat "
+                           "paths are the same program"}
+    segs = resolve_sort_segments(
+        args.sort_segments, max(build.capacity, probe.capacity) // n, n, k,
+        join_opts.get("shuffle_capacity_factor")
+        or DEFAULT_SHUFFLE_CAPACITY_FACTOR)
+    if segs <= 1:
+        return {"skipped": "segment resolution is 1 at this shape (flat "
+                           "parity): pass --sort-segments N to force a "
+                           "segmentation"}
+    opts = {kk: v for kk, v in join_opts.items()
+            if kk not in ("sort_mode", "sort_segments")}
+
+    def program(mode):
+        step = make_join_step(comm, sort_mode=mode, sort_segments=(
+            segs if mode == "segmented" else None), **opts)
+
+        def graded(b, p):
+            res = step(b, p)
+            return res, comm.psum(row_digest(res.table))
+
+        return comm.spmd(graded, sharded_out=(JOIN_SHARDED_OUT, True))
+
+    fns = {mode: program(mode) for mode in ("flat", "segmented")}
+    dev = build.device
+    on_gpu = dev.type == "cuda"
+
+    def timed(fn):
+        if on_gpu:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize(dev)
+        comm.barrier()
+        if on_gpu:
+            start.record()
+        t0 = time.perf_counter()
+        out = fn(build, probe)
+        if on_gpu:
+            end.record()
+            end.synchronize()
+            ms = start.elapsed_time(end)
+        else:
+            ms = (time.perf_counter() - t0) * 1e3
+        return out, comm.host_max(ms)
+
+    warm = {mode: fn(build, probe) for mode, fn in fns.items()}
+    overflow = {mode: bool(res.overflow) for mode, (res, _) in warm.items()}
+    if any(overflow.values()):
+        return {"skipped": "overflow at this sizing: rerun with larger "
+                           "capacity factors (a clamped A/B would time "
+                           "partial answers)",
+                "overflow_flat": overflow["flat"],
+                "overflow_segmented": overflow["segmented"]}
+    ms = {"flat": [], "segmented": []}
+    for mode, fn in fns.items():
+        for _ in range(n_joins):
+            ms[mode].append(timed(fn)[1])
+    (flat, fd), (seg, sd) = warm["flat"], warm["segmented"]
+    rec = {
+        "kind": "sort_ab",
+        "n_joins": n_joins,
+        "n_ranks": n,
+        "over_decomposition_factor": k,
+        "sort_segments": segs,
+        "matches": int(seg.total),
+        "matches_equal": int(seg.total) == int(flat.total),
+        "digest_equal": int(sd) == int(fd),
+        "flat_ms_min": min(ms["flat"]),
+        "flat_ms_median": statistics.median(ms["flat"]),
+        "segmented_ms_min": min(ms["segmented"]),
+        "segmented_ms_median": statistics.median(ms["segmented"]),
+        "segmented_speedup": min(ms["flat"]) / min(ms["segmented"]),
+        "flat_ms": ms["flat"],
+        "segmented_ms": ms["segmented"],
+        "oracle_equal_flat": None,
+        "oracle_equal_segmented": None,
+        "not_ported": ["warm_new_traces", "counter_signature",
+                       "wire_exact"],
+    }
+    if not isinstance(comm, ProcessGroupCommunicator):
+        keys = ([join_opts["key"]] if isinstance(join_opts["key"], str)
+                else list(join_opts["key"]))
+        names = list(flat.table.columns)
+        want = _oracle_rows(build, probe, keys, names)
+        rec["oracle_equal_flat"] = bool(np.array_equal(
+            _host_rows(flat.table, names), want))
+        rec["oracle_equal_segmented"] = bool(np.array_equal(
+            _host_rows(seg.table, names), want))
+    return rec
 
 
 def run(args, device=None) -> dict:
@@ -426,7 +656,21 @@ def run(args, device=None) -> dict:
         "duplicate_build_keys": args.duplicate_build_keys,
         "over_decomposition_factor": args.over_decomposition_factor,
         "shuffle": args.shuffle,
-        "compression_bits": compression_bits(args),
+        # normalized as the JAX driver's record: set only where they
+        # change the program
+        "slices": comm.n_slices if comm.n_slices > 1 else None,
+        # whether the slices are the job's nodes (else both hops stay
+        # inside one node)
+        "slices_are_nodes": (comm.hier.real_topology
+                             if comm.n_slices > 1 else None),
+        "dcn_codec": (args.dcn_codec if args.shuffle == "hierarchical"
+                      else None),
+        "compression_bits": (args.compression_bits if args.compression
+                             else None),
+        "sort_mode": (fixed["sort_mode"] if fixed["sort_mode"] != "flat"
+                      else None),
+        "sort_segments": (args.sort_segments
+                          if fixed["sort_mode"] != "flat" else None),
         "zipf_alpha": args.zipf_alpha,
         "skew_threshold": threshold,
         "skew_policy": policy,
@@ -449,6 +693,14 @@ def run(args, device=None) -> dict:
         "wire_rows_per_join": per_join["wire_rows"],
         "wire_bytes_per_join": per_join["wire_bytes"],
         "host_reads_per_join": per_join["host_reads"],
+        # the hierarchical wire's bytes on each tier, and what its
+        # cross-slice codec saved
+        "wire_bytes_ici_per_join": per_join["wire_bytes_ici"],
+        "wire_bytes_dcn_per_join": per_join["wire_bytes_dcn"],
+        "wire_bytes_saved_per_join": per_join["wire_bytes_saved"],
+        "sort_ab": (sort_ab(comm, build, probe, args.sort_ab,
+                            dict(fixed, **ladder.sizing()), args)
+                    if args.sort_ab > 0 else None),
         "device": str(dev),
     }
     if on_gpu:
@@ -470,8 +722,12 @@ def profile(args, device=None) -> dict | None:
     if prof is None:
         return None
     return {"communicator": comm.name, "n_ranks": comm.n_ranks,
-            "shuffle": args.shuffle,
-            "compression_bits": compression_bits(args),
+            "shuffle": args.shuffle, "slices": args.slices,
+            "sort_mode": fixed["sort_mode"],
+            "sort_segments": fixed["sort_segments"],
+            "over_decomposition_factor": args.over_decomposition_factor,
+            "compression_bits": (args.compression_bits if args.compression
+                                 else None),
             "zipf_alpha": args.zipf_alpha,
             "skew_threshold": fixed["skew_threshold"], "skew_policy": policy,
             "build_table_nrows": args.build_table_nrows,

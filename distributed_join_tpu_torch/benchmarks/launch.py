@@ -19,7 +19,8 @@
         --num-processes 8 --process-id $ID --coordinator host0:9876 -- ...
 
 Port of ``distributed_join_tpu/benchmarks/launch.py``: the same flags and
-the same ``DJTPU_*`` environment (``parallel/bootstrap.py``). With
+the same ``DJTPU_*`` environment (``parallel/bootstrap.py``); ``--slices``,
+``--sort-mode`` and ``--sort-segments`` are handed on to the command. With
 ``--process-id`` the launcher execs the command in place for that one
 process; without it, it starts every process here and reaps them with
 mpirun's semantics: the first process to exit non-zero ends the others
@@ -46,7 +47,11 @@ from distributed_join_tpu_torch.parallel.bootstrap import (
     ENV_PROCESS_ID,
 )
 
-_REFUSED = {"--slices": "the hierarchical mesh", **UNPORTED_FLAGS}
+_REFUSED = dict(UNPORTED_FLAGS)
+# Launcher flags handed on to every process's command, as the JAX
+# launcher forwards them (JAX benchmarks/__init__.py:559): (flag, dest).
+FORWARDED = (("--slices", "slices"), ("--sort-mode", "sort_mode"),
+             ("--sort-segments", "sort_segments"))
 # How long the others get to exit after a terminate before they are
 # killed.
 TERMINATE_GRACE_S = 10.0
@@ -66,6 +71,13 @@ def parse_args(argv=None):
     p.add_argument("--cpu-devices-per-process", type=int, default=None,
                    help="1 = one rank a process on the CPU, over gloo "
                         "(without it: NCCL, one process a card)")
+    p.add_argument("--slices", type=int, default=None,
+                   help="hierarchical-mesh slice count, handed on to every "
+                        "process (--shuffle hierarchical)")
+    p.add_argument("--sort-mode", default=None,
+                   help="handed on to every process")
+    p.add_argument("--sort-segments", type=int, default=None,
+                   help="handed on to every process")
     p.add_argument("command", nargs=argparse.REMAINDER,
                    help="the command to launch (after --)")
     args = p.parse_args(argv)
@@ -73,6 +85,11 @@ def parse_args(argv=None):
         args.command = args.command[1:]
     if not args.command:
         p.error("no command given (append: -- <command> [args...])")
+    for flag, dest in FORWARDED:
+        value = getattr(args, dest)
+        if value is not None and not any(
+                c == flag or c.startswith(flag + "=") for c in args.command):
+            args.command += [flag, str(value)]
     if args.num_processes < 1:
         p.error("--num-processes must be >= 1")
     if args.cpu_devices_per_process not in (None, 1):

@@ -80,8 +80,6 @@ _REFUSED = {
     "--explain": "plan explain",
     "--stage-profile": "the stage profile",
     "--auto-tune": "the tuner",
-    "--sort-mode": "the segmented-sort pipeline",
-    "--sort-segments": "the segmented-sort pipeline",
     **UNPORTED_FLAGS,
 }
 
@@ -133,6 +131,14 @@ def parse_args(argv=None):
     p.add_argument("--shuffle-capacity-factor", type=float, default=1.6)
     p.add_argument("--out-capacity-factor", type=float, default=1.5)
     p.add_argument("--json-output", default=None)
+    p.add_argument("--sort-mode", choices=["flat", "segmented", "auto"],
+                   default=None,
+                   help="the local sort; this driver runs the flat one "
+                        "(A/B the segmented sort with the join driver's "
+                        "--sort-ab)")
+    p.add_argument("--sort-segments", type=int, default=None, metavar="N",
+                   help="taken for the JAX command line's sake; the flat "
+                        "sort never reads it")
     return p.parse_args(argv)
 
 
@@ -168,6 +174,13 @@ def _batched_opts(args, consumer, stats):
 def _guards(args) -> None:
     """The JAX driver's refusals of flags that do not apply (JAX
     :160-199; those of the flags the port refuses by name are moot)."""
+    if args.sort_mode not in (None, "flat"):
+        # the TPC-H joins carry string payloads end to end; refusing
+        # beats timing the flat path under a segmented label
+        raise SystemExit(
+            "--sort-mode is wired for the join driver and bench.py; the "
+            "tpch driver runs the flat pipeline: A/B the segmented sort on "
+            "the generator workload (distributed_join --sort-ab)")
     batched = args.batches > 1 or args.host_generator
     if (args.manifest or args.batch_retries
             or args.continue_on_batch_failure) and not batched:

@@ -3,8 +3,10 @@
 
 Port of ``distributed_join_tpu/parallel/communicator.py`` (the ABC at
 :51-183 with ``ragged_all_to_all`` and its emulation,
-``ppermute_all_to_all`` at :68 and its chain at :208, ``LocalCommunicator``
-at :400, ``make_communicator`` at :423). Backends:
+``ppermute_all_to_all`` at :68 and its chain at :208, the (slice, chip)
+exchanges ``all_to_all_chip`` and ``all_to_all_slice`` at :118-145 and
+``HierarchicalTpuCommunicator`` at :326, ``LocalCommunicator`` at :400,
+``make_communicator`` at :423). Backends:
 
 - :class:`LocalCommunicator` — one rank; collectives are identities.
 - :class:`EmulatedCommunicator` — n ranks in one process, one thread
@@ -14,6 +16,10 @@ at :400, ``make_communicator`` at :423). Backends:
 - :class:`ProcessGroupCommunicator` — one OS process a rank over a
   ``torch.distributed`` process group (``parallel/bootstrap.py`` forms
   it): NCCL between CUDA devices, one process a card; gloo on the CPU.
+
+The emulated and process-group backends nest their ranks as
+``n_slices`` slices of chips when asked (the hierarchical shuffle's
+mesh); a flat backend is one slice.
 
 Staging (JAX ``device_put_sharded``): ``local_rows`` names the rows of a
 global table that this process holds and stages, and ``spmd(...,
@@ -34,7 +40,11 @@ import torch
 import torch.distributed as dist
 
 from distributed_join_tpu_torch.parallel.bootstrap import shutdown
-from distributed_join_tpu_torch.parallel.mesh import Mesh, make_mesh
+from distributed_join_tpu_torch.parallel.mesh import (
+    Mesh,
+    make_hierarchical_mesh,
+    make_mesh,
+)
 
 
 class Communicator(abc.ABC):
@@ -71,23 +81,62 @@ class Communicator(abc.ABC):
         """The calling rank (0 on a single-rank backend)."""
         return 0
 
+    # The (slice, chip) split of the hierarchical shuffle (JAX :118-145).
+    # A flat backend is one slice: the intra-slice exchange is the global
+    # all_to_all and the cross-slice exchange the identity.
+
+    @property
+    def n_slices(self) -> int:
+        """Slow-tier groups of ranks; 1 = no slow tier."""
+        return 1
+
+    @property
+    def chips_per_slice(self) -> int:
+        """Fast-tier ranks a slice."""
+        return self.n_ranks
+
+    def all_to_all_chip(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`all_to_all` inside this rank's slice: ``x`` has
+        ``chips_per_slice`` leading blocks; block j goes to chip j of
+        this slice."""
+        return self.all_to_all(x)
+
+    def all_to_all_slice(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`all_to_all` across slices at this rank's chip index:
+        ``x`` has ``n_slices`` leading blocks; block t goes to this
+        chip's peer on slice t."""
+        return x
+
     # Counters the shuffles keep, read by the drivers (the ranks of an
     # emulated communicator count into one): reads of device values to
-    # the host made through host_ints, and the data-plane rows and bytes
+    # the host made through host_ints, the data-plane rows and bytes
     # the shuffles hand to the exchange (count_wire; own block included,
-    # metadata not).
+    # metadata not), and the hierarchical shuffle's bytes on each tier
+    # with what its cross-slice codec saved (count_tiers).
     host_reads: int = 0
     wire_rows: int = 0
     wire_bytes: int = 0
+    wire_bytes_ici: int = 0
+    wire_bytes_dcn: int = 0
+    wire_bytes_saved: int = 0
 
     def count_wire(self, rows: int, nbytes: int) -> None:
         with _COUNTER_LOCK:
             self.wire_rows += int(rows)
             self.wire_bytes += int(nbytes)
 
+    def count_tiers(self, ici: int, dcn: int, saved: int = 0) -> None:
+        with _COUNTER_LOCK:
+            self.wire_bytes_ici += int(ici)
+            self.wire_bytes_dcn += int(dcn)
+            self.wire_bytes_saved += int(saved)
+
     def counters(self) -> dict:
         return {"host_reads": self.host_reads, "wire_rows": self.wire_rows,
-                "wire_bytes": self.wire_bytes}
+                "wire_bytes": self.wire_bytes,
+                "wire_bytes_ici": self.wire_bytes_ici,
+                "wire_bytes_dcn": self.wire_bytes_dcn,
+                "wire_bytes_saved": self.wire_bytes_saved}
 
     def host_ints(self, *vectors) -> list:
         """Small integer tensors read back to the host as (nested)
@@ -294,13 +343,22 @@ class EmulatedCommunicator(Communicator):
     so stream order covers the hand-over. A failing rank breaks the
     barrier, so the others raise instead of waiting forever; ``spmd``
     re-raises the first rank's exception.
+
+    ``n_slices`` > 1 nests the ranks as ``(slice, chip)``
+    (``mesh.make_hierarchical_mesh``), as the JAX package's CPU mesh
+    fakes a multi-slice topology: ``all_to_all_chip`` and
+    ``all_to_all_slice`` exchange among a rank's slice and among its
+    chip's peers.
     """
 
     name = "emulated"
 
-    def __init__(self, n_ranks: int, timeout_s: float = 600.0):
+    def __init__(self, n_ranks: int, timeout_s: float = 600.0,
+                 n_slices: int = 1):
         if n_ranks < 1:
             raise ValueError("n_ranks must be >= 1")
+        self.hier = make_hierarchical_mesh(n_slices, n_ranks,
+                                           process_group=False)
         self._n = n_ranks
         self._timeout = timeout_s
         self._local = threading.local()
@@ -328,6 +386,27 @@ class EmulatedCommunicator(Communicator):
     def all_to_all(self, x):
         me, got = self._exchange(x)
         return torch.cat([g.chunk(self._n)[me] for g in got])
+
+    @property
+    def n_slices(self) -> int:
+        return self.hier.n_slices
+
+    @property
+    def chips_per_slice(self) -> int:
+        return self.hier.chips_per_slice
+
+    def all_to_all_chip(self, x):
+        me, got = self._exchange(x)
+        t, j = self.hier.coords(me)
+        c = self.chips_per_slice
+        return torch.cat([got[r].chunk(c)[j]
+                          for r in self.hier.chip_group(t)])
+
+    def all_to_all_slice(self, x):
+        me, got = self._exchange(x)
+        t, j = self.hier.coords(me)
+        return torch.cat([got[r].chunk(self.n_slices)[t]
+                          for r in self.hier.slice_group(j)])
 
     def _ragged_peers(self, operand, input_offsets, send_sizes,
                       output_offsets) -> list:
@@ -430,9 +509,19 @@ class ProcessGroupCommunicator(Communicator):
     collective returns a new tensor and leaves its argument as it was.
     """
 
-    def __init__(self, mesh: Optional[Mesh] = None):
+    def __init__(self, mesh: Optional[Mesh] = None, n_slices: int = 1):
         self.mesh = mesh if mesh is not None else make_mesh()
         self.name = self.mesh.backend
+        self.hier = make_hierarchical_mesh(n_slices, self.mesh.n_ranks)
+        self._chip_group = self._slice_group = None
+        if n_slices > 1:
+            # every rank creates every group, in the same order
+            chip = [dist.new_group(self.hier.chip_group(t))
+                    for t in range(self.hier.n_slices)]
+            peers = [dist.new_group(self.hier.slice_group(j))
+                     for j in range(self.hier.chips_per_slice)]
+            t, j = self.hier.coords(self.mesh.rank)
+            self._chip_group, self._slice_group = chip[t], peers[j]
 
     @property
     def n_ranks(self) -> int:
@@ -445,11 +534,32 @@ class ProcessGroupCommunicator(Communicator):
     def axis_index(self) -> int:
         return self.mesh.rank
 
-    def all_to_all(self, x):
+    def all_to_all(self, x, group=None):
         b = _to_bytes(x)
         out = torch.empty_like(b)
-        dist.all_to_all_single(out, b)
+        dist.all_to_all_single(out, b, group=group)
         return _from_bytes(out, x)
+
+    @property
+    def n_slices(self) -> int:
+        return self.hier.n_slices
+
+    @property
+    def chips_per_slice(self) -> int:
+        return self.hier.chips_per_slice
+
+    def all_to_all_chip(self, x):
+        """The exchange among this rank's slice, over its subgroup."""
+        if self._chip_group is None:
+            return self.all_to_all(x)
+        return self.all_to_all(x, group=self._chip_group)
+
+    def all_to_all_slice(self, x):
+        """The exchange among this chip's peers on every slice, over
+        its subgroup."""
+        if self._slice_group is None:
+            return x
+        return self.all_to_all(x, group=self._slice_group)
 
     def all_gather(self, x):
         b = _to_bytes(x)
@@ -569,28 +679,33 @@ def make_communicator(name: str, n_ranks: Optional[int] = None,
     the port's counterpart of the JAX package's ``tpu`` backend) and
     ``gloo`` run over the process group that ``parallel/bootstrap.py``
     formed, whose backend must be the one named; ``n_ranks``, where
-    given, must equal its size. ``ucx``, ``tpu`` and ``n_slices`` > 1
-    (the hierarchical mesh) refuse by name."""
+    given, must equal its size. ``n_slices`` > 1 (the drivers'
+    ``--slices``) nests the ranks as the hierarchical (slice, chip) mesh
+    (``emulated``, ``nccl`` and ``gloo``); 1 or None keeps the flat
+    one. ``ucx`` and ``tpu`` refuse by name, and so does ``local`` with
+    more than one slice."""
     lname = name.lower()
-    if n_slices is not None and n_slices > 1:
-        raise ValueError(
-            f"n_slices={n_slices}: the hierarchical (slice, chip) mesh is "
-            "not part of the port; run the flat process group")
+    slices = n_slices or 1
     if lname == "local":
+        if slices > 1:
+            raise ValueError(
+                "the local (1-rank) communicator has no hierarchical "
+                "(multi-slice) topology; --slices needs emulated, nccl "
+                "or gloo")
         if n_ranks not in (None, 1):
             raise ValueError("the local communicator has one rank")
         return LocalCommunicator()
     if lname == "emulated":
         if not n_ranks:
             raise ValueError("the emulated communicator needs n_ranks")
-        return EmulatedCommunicator(n_ranks)
+        return EmulatedCommunicator(n_ranks, n_slices=slices)
     if lname in ("nccl", "gloo"):
         mesh = make_mesh(n_ranks)
         if mesh.backend != lname:
             raise ValueError(
                 f"communicator {name!r} asked for, but the process group "
                 f"runs {mesh.backend!r}")
-        return ProcessGroupCommunicator(mesh)
+        return ProcessGroupCommunicator(mesh, n_slices=slices)
     if lname == "ucx":
         raise ValueError("communicator 'ucx': the UCX backend is not part "
                          "of the port; use nccl")

@@ -2,20 +2,25 @@
 all-to-all shuffle -> local join, with over-decomposition batching and
 the ``auto_retry`` capacity ladder, for every join type.
 
-Port of ``distributed_join_tpu/parallel/distributed_join.py``: the flat
-inner path of ``make_join_step`` (:517-801, including the skew sidecar
-:568-628 and the single-bucket shortcut :640-655), the shuffle dispatch
-``_batch_shuffle`` (:95-141), ``resolve_join_ladder`` (:1421) and
-``distributed_inner_join`` (:1486). With n ranks and over-decomposition
-k, rows hash into ``bucket = h % (k*n)``; ``dest = bucket % n`` and
-``batch = bucket // n``, so one partition sort serves all k batches and
-matching keys always share (dest, batch).
+Port of ``distributed_join_tpu/parallel/distributed_join.py``: the
+materializing path of ``make_join_step`` (:517-801, including the skew
+sidecar :568-628, the single-bucket shortcut :640-655 and the segmented
+sort :656-715), the shuffle dispatch ``_batch_shuffle`` (:95-141) and
+``_batch_shuffle_segmented`` (:144-171), ``resolve_join_ladder``
+(:1421) and ``distributed_inner_join`` (:1486). With n ranks and
+over-decomposition k, rows hash into ``bucket = h % (k*n)``; ``dest =
+bucket % n`` and ``batch = bucket // n``, so one partition sort serves
+all k batches and matching keys always share (dest, batch).
 
-Three wires (``shuffle``): ``padded`` (capacity-padded blocks, one
+Four wires (``shuffle``): ``padded`` (capacity-padded blocks, one
 all-to-all), ``ppermute`` (the same blocks over the communicator's
-point-to-point chain) and ``ragged`` (the exact-size exchange, with
-every string payload column on the byte-exact wire); the padded and
-ppermute wires take the FoR + bit-pack codec (``compression_bits``).
+point-to-point chain), ``ragged`` (the exact-size exchange, with every
+string payload column on the byte-exact wire) and ``hierarchical`` (the
+padded blocks in two hops over a ``(slice, chip)`` communicator); the
+padded and ppermute wires take the FoR + bit-pack codec
+(``compression_bits``), the hierarchical wire takes it on its
+cross-slice hop (``dcn_codec``). Two local sorts (``sort_mode``):
+``flat`` and ``segmented`` (ops/segmented.py).
 
 Composite keys, 2-D (fixed-width string) payload columns and string
 keys run as in the JAX package: 2-D columns are gathered and shuffled as
@@ -24,8 +29,8 @@ before hashing (JAX :536-552), and rebuilt on the way out (:783-790).
 Typed joins (``join_type``, ops/join.JOIN_TYPES) run each bucket's local
 join with the type: hash partitioning puts every key's rows of both
 sides in one bucket, so unmatched rows are local. The JAX step's other
-options (the hierarchical wire, segmented sort, metrics and integrity
-digests, aggregate pushdown) refuse by name.
+options (metrics and integrity digests, aggregate pushdown) refuse by
+name.
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from distributed_join_tpu_torch.ops.join import (
     patch_string_lengths,
     sort_merge_inner_join,
 )
+from distributed_join_tpu_torch.ops import segmented as seg_ops
 from distributed_join_tpu_torch.ops.partition import radix_hash_partition
 from distributed_join_tpu_torch.parallel import skew
 from distributed_join_tpu_torch.parallel.communicator import Communicator
@@ -49,9 +55,11 @@ from distributed_join_tpu_torch.parallel import faults
 from distributed_join_tpu_torch.parallel.faults import CapacityLadder
 from distributed_join_tpu_torch.parallel.shuffle import (
     prefetch_ragged_plans,
+    shuffle_hierarchical,
     shuffle_padded,
     shuffle_padded_compressed,
     shuffle_ragged,
+    shuffle_segmented,
 )
 from distributed_join_tpu_torch.table import Table
 from distributed_join_tpu_torch.utils.strings import (
@@ -65,15 +73,17 @@ DEFAULT_OUT_CAPACITY_FACTOR = 1.2
 DEFAULT_HH_SLOTS = 64
 HH_BUILD_SLOTS_PER_HH = 32  # default hh_build_capacity = slots * this
 SHUFFLE_MODES = ("padded", "ragged", "ppermute", "hierarchical")
+SORT_MODES = ("flat", "segmented")
+DCN_CODEC_KNOBS = ("off", "auto", "on")
+# The hierarchical codec's residual width when the caller set the codec
+# on but no compression_bits; the ladder widens it on overflow.
+DEFAULT_DCN_CODEC_BITS = 16
 # The table row-sharded; the summed total and overflow replicated.
 JOIN_SHARDED_OUT = JoinResult(table=False, total=True, overflow=True)
 
 # Options of the JAX package's join step and driver that the port does
 # not have, with the default each may still be passed as.
 _UNPORTED = {
-    "sort_mode": ("the segmented-sort pipeline", "flat"),
-    "sort_segments": ("the segmented-sort pipeline", None),
-    "dcn_codec": ("the hierarchical DCN codec", "auto"),
     "aggregate": ("aggregate pushdown", None),
     "with_metrics": ("device metrics", False),
     "with_integrity": ("wire-integrity digests", False),
@@ -99,6 +109,38 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def resolve_dcn_codec(knob: str, n_slices: int = 1) -> bool:
+    """The hierarchical shuffle's ``dcn_codec`` knob as on or off.
+    ``off`` and ``on`` resolve as in the JAX package. ``auto`` is the
+    JAX package's cost-model verdict (``planning/cost.py``, whose
+    bandwidths are TPU constants), which the port does not have: on a
+    multi-slice mesh it refuses by name; on one slice there is no
+    cross-slice tier, and it resolves off. Every value is validated."""
+    if knob not in DCN_CODEC_KNOBS:
+        raise ValueError(f"unknown dcn_codec {knob!r}; pick one of "
+                         f"{DCN_CODEC_KNOBS}")
+    if knob == "auto":
+        if n_slices > 1:
+            raise NotImplementedError(
+                "dcn_codec='auto': the cost model that resolves it (the "
+                "JAX package's planning/cost.py) is not part of the port; "
+                "pass dcn_codec='on' or 'off'")
+        return False
+    return knob == "on"
+
+
+def resolve_dcn_bits(knob: str, compression_bits: Optional[int] = None,
+                     n_slices: int = 1) -> Optional[int]:
+    """The cross-slice residual width (JAX ``planning/cost.py:179``):
+    the caller's bits, by default ``DEFAULT_DCN_CODEC_BITS``, when the
+    codec resolves on and there is more than one slice; else None (one
+    slice routes the flat padded wire, with no codec)."""
+    on = resolve_dcn_codec(knob, n_slices)
+    if n_slices <= 1 or not on:
+        return None
+    return compression_bits or DEFAULT_DCN_CODEC_BITS
+
+
 def _varwidth_cols(table: Table) -> list:
     """The 2-D uint8 columns with a ``<name>#len`` companion and a width
     divisible by 4: the columns the ragged wire ships byte-exactly (JAX
@@ -110,12 +152,24 @@ def _varwidth_cols(table: Table) -> list:
 
 def _batch_shuffle(comm, pt, batch: int, n_ranks: int, capacity: int,
                    mode: str = "padded",
-                   compression_bits: Optional[int] = None, varwidth=None):
+                   compression_bits: Optional[int] = None, varwidth=None,
+                   dcn_codec_on: bool = False):
     """One batch's shuffle of one side (JAX :95): the received table and
     the overflow flag. The ragged wire's receive buffer holds what the
     padded layout would flatten to (``n_ranks * capacity`` rows), and
     ``capacity_per_bucket`` gives it the padded wire's overflow
-    contract, so ``auto_retry`` fires under the same conditions."""
+    contract, so ``auto_retry`` fires under the same conditions. On one
+    slice the hierarchical wire is the padded one, byte for byte."""
+    if mode == "hierarchical" and comm.n_slices > 1:
+        padded, counts, overflow, _ = pt.to_padded(
+            capacity, bucket_start=batch * n_ranks, n_buckets=n_ranks)
+        dcn_bits = ((compression_bits or DEFAULT_DCN_CODEC_BITS)
+                    if dcn_codec_on else None)
+        table, _, c_ovf = shuffle_hierarchical(
+            comm, padded, counts, capacity, dcn_bits=dcn_bits)
+        return table, overflow | c_ovf
+    if mode == "hierarchical":
+        mode, compression_bits = "padded", None
     if mode == "ragged":
         return shuffle_ragged(
             comm, pt, n_ranks * capacity, bucket_start=batch * n_ranks,
@@ -129,6 +183,23 @@ def _batch_shuffle(comm, pt, batch: int, n_ranks: int, capacity: int,
         return table, overflow | c_ovf
     table, _ = shuffle_padded(comm, padded, counts, capacity, via=via)
     return table, overflow
+
+
+def _batch_shuffle_segmented(comm, pt, batch: int, n_ranks: int,
+                             segments: int, seg_cap: int, mode: str):
+    """One batch of the segmented exchange (JAX :144-171): the fine
+    buckets pad to ``seg_cap`` and ride one block a destination
+    (``shuffle_segmented``). Returns ``(recv_cols (n, s, seg_cap, ...),
+    recv_fine_counts (n, s), overflow)``; the flag fires when a fine
+    bucket exceeds ``seg_cap``."""
+    padded, counts, overflow, _ = pt.to_padded(
+        seg_cap, bucket_start=batch * n_ranks * segments,
+        n_buckets=n_ranks * segments)
+    via = {"padded": "all_to_all", "ppermute": "ppermute",
+           "hierarchical": "hierarchical"}[mode]
+    recv_cols, recv_counts = shuffle_segmented(
+        comm, padded, counts, seg_cap, segments, via=via)
+    return recv_cols, recv_counts, overflow
 
 
 def make_join_step(
@@ -149,6 +220,9 @@ def make_join_step(
     hh_out_capacity: Optional[int] = None,
     shuffle: str = "padded",
     compression_bits: Optional[int] = None,
+    dcn_codec: str = "auto",
+    sort_mode: str = "flat",
+    sort_segments: Optional[int] = None,
     **unported,
 ):
     """The per-rank join step ``step(build_local, probe_local) ->
@@ -178,16 +252,49 @@ def make_join_step(
     anti (ops/join.JOIN_TYPES; the probe is the preserved side). A typed
     join refuses the skew sidecar, as in the JAX package.
 
-    ``shuffle``: the wire, ``padded``, ``ppermute`` or ``ragged``
-    (``hierarchical`` is not part of the port). With ``ragged``, each
-    side's string payload columns (2-D uint8 with a ``#len`` companion,
-    width divisible by 4) ride the byte-exact wire, the partition
-    ordering each bucket by the first one's length. ``compression_bits``
-    (2, 4, 8, 16 or 32) puts the FoR + bit-pack codec on the padded and
-    ppermute wires; a block it cannot pack raises the overflow flag.
-    The skew sidecar's light rows ride the chosen wire.
+    ``shuffle``: the wire, ``padded``, ``ppermute``, ``ragged`` or
+    ``hierarchical``. With ``ragged``, each side's string payload
+    columns (2-D uint8 with a ``#len`` companion, width divisible by 4)
+    ride the byte-exact wire, the partition ordering each bucket by the
+    first one's length. ``compression_bits`` (2, 4, 8, 16 or 32) puts
+    the FoR + bit-pack codec on the padded and ppermute wires; a block
+    it cannot pack raises the overflow flag. ``hierarchical`` is the
+    two-level shuffle over a ``(slice, chip)`` communicator
+    (``n_slices`` > 1): every block rides the intra-slice exchange,
+    then the cross-slice one, with the codec on that tier alone when
+    ``dcn_codec`` is ``on`` (``compression_bits`` its width, default
+    16); on one slice it is the padded wire. The skew sidecar's light
+    rows ride the chosen wire.
+
+    ``sort_mode``: ``flat`` (the local join above) or ``segmented``
+    (ops/segmented.py): the partition splits each (batch, destination)
+    bucket into ``sort_segments`` fine buckets (default
+    ``resolve_sort_segments`` of the table shapes), the padded,
+    ppermute or hierarchical wire carries them as static
+    per-(source, segment) blocks, and the receiver joins all segments
+    as one batch of short runs, each segment with its share of the
+    output block. A fine bucket or segment overflow raises the shared
+    flag. The result is the flat path's row multiset, segment-major. The
+    ragged wire, the compressed wire, the DCN codec on a multi-slice
+    mesh, ``kernel_config`` and typed joins refuse; one segment, or one
+    bucket (n * k == 1), is the flat path.
     """
     _refuse_unported(unported)
+    if join_type not in JOIN_TYPES:
+        raise ValueError(f"unknown join_type {join_type!r}; expected one "
+                         f"of {JOIN_TYPES}")
+    if join_type != "inner":
+        if skew_threshold is not None:
+            raise ValueError(
+                f"join_type={join_type!r} does not combine with the skew "
+                "sidecar: broadcast heavy-hitter build rows are replicated "
+                "on every rank, so an unmatched heavy build row would emit "
+                "once PER RANK; run typed joins without skew_threshold")
+        if sort_mode == "segmented":
+            raise ValueError(
+                f"join_type={join_type!r} is not part of the segmented-"
+                "sort path (the batched short-run formulation emits "
+                "matches only): use sort_mode='flat'")
     if shuffle not in SHUFFLE_MODES:
         # checked for every configuration: a one-bucket join never
         # reaches the shuffle, and a typo must not pass
@@ -197,20 +304,58 @@ def make_join_step(
             "compression applies to the padded/ppermute shuffles; the "
             "ragged exchange already sends exact rows (combining the "
             "two is unimplemented)")
-    if shuffle == "hierarchical":
-        raise NotImplementedError(
-            "shuffle='hierarchical': the hierarchical (slice, chip) "
-            "shuffle is not part of the port")
-    if join_type not in JOIN_TYPES:
-        raise ValueError(f"unknown join_type {join_type!r}; expected one "
-                         f"of {JOIN_TYPES}")
-    if join_type != "inner" and skew_threshold is not None:
-        raise ValueError(
-            f"join_type={join_type!r} does not combine with the skew "
-            "sidecar: broadcast heavy-hitter build rows are replicated on "
-            "every rank, so an unmatched heavy build row would emit once "
-            "PER RANK; run typed joins without skew_threshold")
     n = comm.n_ranks
+    if shuffle == "hierarchical":
+        if compression_bits is not None and dcn_codec == "off":
+            raise ValueError(
+                "dcn_codec='off' contradicts compression_bits="
+                f"{compression_bits}: the hierarchical mode's codec rides "
+                "only the cross-slice tier; drop the bits or the knob")
+        dcn_on = resolve_dcn_codec(dcn_codec, comm.n_slices)
+    else:
+        resolve_dcn_codec(dcn_codec)
+        dcn_on = False
+        if n > 1 and comm.n_slices > 1:
+            raise ValueError(
+                f"shuffle {shuffle!r} routes one global collective over a "
+                "multi-slice mesh, dragging intra-slice traffic across "
+                "the slow tier: use shuffle='hierarchical' (or a flat "
+                "communicator)")
+    if sort_mode not in SORT_MODES:
+        raise ValueError(
+            f"unknown sort_mode {sort_mode!r}; pick one of {SORT_MODES}")
+    if sort_segments is not None and int(sort_segments) < 1:
+        raise ValueError("sort_segments must be >= 1")
+    if sort_mode == "flat" and sort_segments is not None:
+        raise ValueError(
+            "sort_segments applies to sort_mode='segmented' only: the "
+            "flat pipeline never reads it; drop the knob or pass "
+            "sort_mode='segmented'")
+    if sort_mode == "segmented":
+        if shuffle == "ragged":
+            raise ValueError(
+                "sort_mode='segmented' needs static per-(source, segment) "
+                "receive boundaries; the ragged exchange's exist only at "
+                "run time: use shuffle='padded'/'ppermute' (or "
+                "sort_mode='flat')")
+        if compression_bits is not None:
+            raise ValueError(
+                "sort_mode='segmented' does not combine with the "
+                "compressed wire: the codec's per-destination frame "
+                "streams assume one valid prefix per block, which the "
+                "fine-bucket layout breaks; drop compression_bits (or use "
+                "sort_mode='flat')")
+        if shuffle == "hierarchical" and dcn_on and comm.n_slices > 1:
+            raise ValueError(
+                "sort_mode='segmented' does not combine with the "
+                "hierarchical DCN codec (the same per-block framing "
+                "problem as compression_bits): pass dcn_codec='off' (or "
+                "sort_mode='flat')")
+        if kernel_config is not None:
+            raise ValueError(
+                "sort_mode='segmented' ignores kernel_config (the knob "
+                "tunes the flat kernel pipeline; the segmented path is the "
+                "batched formulation): drop the knob")
     k = over_decomposition
     if k < 1:
         raise ValueError("over_decomposition must be >= 1")
@@ -287,11 +432,41 @@ def make_join_step(
             probe_local = Table(probe_local.columns,
                                 probe_local.valid & ~is_hh_p)
 
+        seg = 1
+        if sort_mode == "segmented" and nb > 1:
+            # one segment count for both sides: segments must be the same
+            # hash classes on build and probe
+            seg = seg_ops.resolve_sort_segments(
+                sort_segments, max(b_rows, p_rows), n, k,
+                shuffle_capacity_factor)
         if nb == 1:
             res = local_join(build_local, probe_local)
             parts.append(res.table)
             total = total + res.total
             overflow = overflow | res.overflow
+        elif seg > 1:
+            # the fine partition (sub-bucket bits on the same partition
+            # sort), the per-segment padded wire, one batched join a batch
+            caps = [seg_ops.segment_capacity(rows, n, k, seg,
+                                             shuffle_capacity_factor)
+                    for rows in (b_rows, p_rows)]
+            out_cap_s = seg_ops.segmented_out_capacity(
+                p_rows, k, seg, out_capacity_factor, out_rows_per_rank)
+            pts = [radix_hash_partition(t, keys_eff, nb, sub_buckets=seg)
+                   for t in (build_local, probe_local)]
+            for b in range(k):
+                runs = []
+                for pt, cap in zip(pts, caps):
+                    cols, counts, ovf = _batch_shuffle_segmented(
+                        comm, pt, b, n, seg, cap, shuffle)
+                    runs.extend(seg_ops.runs_from_blocks(cols, counts))
+                    overflow = overflow | ovf
+                table, t_batch, ovf_j = seg_ops.batched_sort_merge_inner_join(
+                    *runs, keys_eff, out_cap_s, build_payload=bpay,
+                    probe_payload=ppay, _internal=sk_names)
+                parts.append(table)
+                total = total + t_batch
+                overflow = overflow | ovf_j
         else:
             # The byte-exact string wire: each bucket ordered by its
             # first string column's length, descending.
@@ -310,7 +485,8 @@ def make_join_step(
                 for pt, cap, vw in sides:
                     table, ovf = _batch_shuffle(
                         comm, pt, b, n, cap, mode=shuffle,
-                        compression_bits=compression_bits, varwidth=vw)
+                        compression_bits=compression_bits, varwidth=vw,
+                        dcn_codec_on=dcn_on)
                     recv.append(table)
                     overflow = overflow | ovf
                 res = local_join(*recv)
@@ -343,16 +519,21 @@ def make_distributed_join(comm: Communicator, local_inputs: bool = False,
 
 
 def resolve_join_ladder(build: Table, probe: Table, n_ranks: int,
-                        opts: dict) -> CapacityLadder:
+                        opts: dict, n_slices: int = 1) -> CapacityLadder:
     """Pop the sizing knobs from ``opts`` (mutated: what remains goes to
     ``make_join_step``), resolve the skew defaults exactly as the step
     would, and return the ladder at its first rung. The HH capacities
-    are resolved here so that a retry can double them too."""
+    are resolved here so that a retry can double them too, and so are
+    the hierarchical codec's bits (JAX :1452-1467), so that a
+    cross-slice residual overflow widens them first."""
     shuffle_f = opts.pop("shuffle_capacity_factor",
                          DEFAULT_SHUFFLE_CAPACITY_FACTOR)
     out_f = opts.pop("out_capacity_factor", DEFAULT_OUT_CAPACITY_FACTOR)
     skew_on = opts.get("skew_threshold") is not None
     comp_bits = opts.pop("compression_bits", None)
+    if opts.get("shuffle") == "hierarchical" and comp_bits is None:
+        comp_bits = resolve_dcn_bits(opts.get("dcn_codec", "auto"),
+                                     n_slices=n_slices)
     hh_build_cap = opts.pop("hh_build_capacity", None)
     hh_probe_cap = opts.pop("hh_probe_capacity", None)
     hh_out_cap = opts.pop("hh_out_capacity", None)
@@ -393,7 +574,8 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
     build = build.pad_to(_round_up(build.capacity, n))
     probe = probe.pad_to(_round_up(probe.capacity, n))
     opts = dict(opts)
-    ladder = resolve_join_ladder(build, probe, n, opts)
+    ladder = resolve_join_ladder(build, probe, n, opts,
+                                 n_slices=comm.n_slices)
     for attempt in range(auto_retry + 1):
         fn = make_distributed_join(comm, key=key, **ladder.sizing(), **opts)
         validating = faults.plan_validation_enabled()

@@ -7,11 +7,16 @@ on ``cuda:<local rank>`` under NCCL and on the CPU under gloo, and the
 rank axis is the group itself. Several ranks on one card are not a
 process group (NCCL refuses two ranks on one device): they remain the
 job of ``EmulatedCommunicator``.
+
+:func:`make_hierarchical_mesh` splits the ranks into ``(slice, chip)``
+for the hierarchical shuffle (JAX ``make_hierarchical_mesh``, :46-108),
+slice-major: the chip axis is the fast tier, the slice axis the slow one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
 import torch
@@ -62,9 +67,71 @@ def make_mesh(n_ranks: Optional[int] = None) -> Mesh:
     return Mesh(backend, world, dist.get_rank(), device)
 
 
-def make_hierarchical_mesh(*args, **kwargs):
-    """The 2-D (slice, chip) mesh of the hierarchical shuffle is not part
-    of the port yet."""
-    raise NotImplementedError(
-        "make_hierarchical_mesh: the hierarchical (slice, chip) mesh is "
-        "not part of the port; use the flat process group")
+def device_slice_id(rank: int) -> int:
+    """The slow-tier group (node) of process ``rank``: ``rank //
+    LOCAL_WORLD_SIZE`` where the launcher sets ``LOCAL_WORLD_SIZE`` (the
+    processes of one node), else 0 (one node; the counterpart of the JAX
+    package's ``process_index`` fallback)."""
+    local = int(os.environ.get("LOCAL_WORLD_SIZE", "0") or 0)
+    return rank // local if local > 0 else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class HierarchicalMesh:
+    """The 2-D (slice, chip) split of ``n_slices * chips_per_slice``
+    ranks, slice-major: rank ``r`` is ``(r // chips_per_slice, r %
+    chips_per_slice)``, so a table row-sharded over it shards as over the
+    flat rank axis. ``real_topology``: the ranks are a process group's
+    and the slices are its nodes (``device_slice_id``), so the chip axis
+    stays inside a node and the slice axis crosses nodes; otherwise the
+    ranks are nested as they are, as the JAX package's CPU mesh is."""
+
+    n_slices: int
+    chips_per_slice: int
+    real_topology: bool = False
+
+    def coords(self, rank: int) -> tuple:
+        return divmod(rank, self.chips_per_slice)
+
+    def chip_group(self, slice_id: int) -> list:
+        """The ranks of one slice (the fast, intra-slice tier)."""
+        c = self.chips_per_slice
+        return list(range(slice_id * c, (slice_id + 1) * c))
+
+    def slice_group(self, chip: int) -> list:
+        """The ranks holding chip ``chip`` of every slice (the slow,
+        cross-slice tier)."""
+        return [t * self.chips_per_slice + chip
+                for t in range(self.n_slices)]
+
+
+def make_hierarchical_mesh(n_slices: int,
+                           n_ranks: Optional[int] = None,
+                           process_group: bool = True
+                           ) -> HierarchicalMesh:
+    """The (slice, chip) mesh over ``n_ranks`` ranks: those of the
+    process group (whose size ``n_ranks`` must then equal), or, with no
+    process group or ``process_group=False``, ``n_ranks`` ranks of one
+    process. A slice count below 1 or not dividing the rank count
+    refuses (JAX ``parallel/mesh.py:46-108``)."""
+    flat = None
+    if process_group and dist.is_initialized():
+        flat = make_mesh(n_ranks)
+        n = flat.n_ranks
+    elif n_ranks is None:
+        raise RuntimeError(
+            "no process group and no n_ranks: a hierarchical mesh over "
+            "the ranks of one process needs n_ranks")
+    else:
+        n = n_ranks
+    if n_slices < 1:
+        raise ValueError(f"n_slices must be >= 1, got {n_slices}")
+    if n % n_slices:
+        raise ValueError(
+            f"n_slices={n_slices} does not divide the rank count {n}; "
+            "a hierarchical mesh needs equal-size slices: pick a divisor "
+            "(or drop --slices for the flat 1-D mesh)")
+    chips = n // n_slices
+    real = flat is not None and all(
+        device_slice_id(r) == r // chips for r in range(n))
+    return HierarchicalMesh(n_slices, chips, real)

@@ -26,13 +26,21 @@ offsets are gathered and read back in one read a partition (all its
 batches), and each string column's plane counts in one more, so the
 process-group exchange gets host lists and reads nothing itself.
 The emulated and local backends' results are those of the JAX
-package's emulation. The hierarchical and segmented shuffles and the
-metrics and integrity tapes are not part of the port.
+package's emulation.
+
+- :func:`shuffle_segmented` (JAX :203): the fine-partitioned padded
+  blocks of the segmented sort, one block a destination.
+- :func:`shuffle_hierarchical` (JAX :326): the two-level exchange over a
+  ``(slice, chip)`` communicator, intra-slice then cross-slice
+  (:func:`_hier_route`), with the codec on the cross-slice tier alone.
+
+The metrics and integrity tapes are not part of the port.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import torch
@@ -102,9 +110,6 @@ def shuffle_padded_compressed(comm: Communicator, padded_columns,
     a2a = _mover(comm, via)
     recv_counts = comm.all_to_all(counts)
     n = counts.shape[0]
-    lane = torch.arange(capacity, dtype=torch.int32, device=counts.device)
-    row_valid = lane[None, :, None] < counts[:, None, None]
-    last = (counts.to(torch.int64) - 1).clamp(min=0)
     c_ovf = torch.zeros((), dtype=torch.bool, device=counts.device)
     recv_cols = {}
     groups: dict = {}
@@ -116,9 +121,8 @@ def shuffle_padded_compressed(comm: Communicator, padded_columns,
             recv_cols[name] = a2a(col)
             sent += col.nbytes
     for dtype, names in groups.items():
-        cols = torch.stack([padded_columns[m] for m in names], dim=2)
-        fill = cols[torch.arange(n, device=counts.device), last]
-        cols = torch.where(row_valid, cols, fill[:, None, :])
+        cols = _pad_fill(torch.stack([padded_columns[m] for m in names],
+                                     dim=2), counts)
         g = len(names)
         rows = cols.transpose(1, 2).reshape(n * g, capacity)
         words, frames, ovf, _ = encode_rows(rows, bits, block,
@@ -131,6 +135,143 @@ def shuffle_padded_compressed(comm: Communicator, padded_columns,
         for name, col in zip(names, got.reshape(n, g, capacity).unbind(1)):
             recv_cols[name] = col
     comm.count_wire(n * capacity, sent)
+    recv_cols = {name: recv_cols[name] for name in padded_columns}
+    return unpad(recv_cols, recv_counts, capacity), recv_counts, c_ovf
+
+
+def _pad_fill(cols: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """(n, capacity, ...) blocks with every padding slot filled with its
+    block's last valid row (residual 0 against a real frame)."""
+    n, capacity = cols.shape[:2]
+    lane = torch.arange(capacity, dtype=torch.int32, device=counts.device)
+    row_valid = (lane[None, :] < counts[:, None]).reshape(
+        (n, capacity) + (1,) * (cols.ndim - 2))
+    last = (counts.to(torch.int64) - 1).clamp(min=0)
+    fill = cols[torch.arange(n, device=counts.device), last]
+    return torch.where(row_valid, cols, fill[:, None])
+
+
+# -- the segmented and hierarchical shuffles -----------------------------
+
+
+def shuffle_segmented(comm: Communicator, padded_fine, fine_counts:
+                      torch.Tensor, seg_cap: int, segments: int,
+                      via: str = "all_to_all"):
+    """The padded shuffle of a fine-partitioned block for the segmented
+    sort (JAX :203-290): ``padded_fine`` holds ``(n_ranks * segments,
+    seg_cap, ...)`` blocks, destination-major and segment-minor (the
+    layout of ``radix_hash_partition(sub_buckets=)``), ``fine_counts``
+    the ``(n_ranks * segments,)`` counts. Each destination's ``segments
+    * seg_cap`` slots ride as one block (``via``: ``all_to_all``,
+    ``ppermute`` or ``hierarchical``, whose route moves both tiers raw),
+    the fine counts as metadata over ``all_to_all`` (the hierarchical
+    route on a multi-slice communicator).
+
+    Returns ``(recv_cols, recv_counts)``: columns ``(n_src, segments,
+    seg_cap, ...)`` and counts ``(n_src, segments)``. The wire counters
+    bill the full block, on both tiers of a multi-slice hierarchical
+    route."""
+    n, s = comm.n_ranks, segments
+    hier = via == "hierarchical" and comm.n_slices > 1
+    if hier:
+        route = route_meta = functools.partial(_hier_route, comm)
+    else:
+        # one slice: the hierarchical route is the flat padded one
+        route = _mover(comm, "all_to_all" if via == "hierarchical" else via)
+        route_meta = comm.all_to_all
+    recv_counts = route_meta(fine_counts.reshape(n, s))
+    recv_cols = {}
+    block_bytes = 0
+    for name, col in padded_fine.items():
+        block = col.reshape((n, s * seg_cap) + tuple(col.shape[2:]))
+        block_bytes += block.nbytes
+        recv_cols[name] = route(block).reshape(
+            (n, s, seg_cap) + tuple(col.shape[2:]))
+    comm.count_wire(n * s * seg_cap, 2 * block_bytes if hier else block_bytes)
+    if hier:
+        comm.count_tiers(block_bytes, block_bytes)
+    return recv_cols, recv_counts
+
+
+def _hier_route(comm: Communicator, x: torch.Tensor) -> torch.Tensor:
+    """Two-level routing of an ``(n_ranks, ...)`` destination-major block
+    (JAX :293-311): the intra-slice exchange, then the cross-slice one.
+    Returns the ``(n_ranks, ...)`` block received, in sender-rank order,
+    as one global ``all_to_all`` of it would. Phase 1 regroups the
+    ``s * c`` destination blocks by destination chip, so after it chip j
+    holds everything its slice sends to chip j of any slice, as
+    ``(dest slice, src chip)``; phase 2 exchanges over the slice axis,
+    and ``(src slice, src chip)`` is sender-rank order."""
+    z = comm.all_to_all_slice(_hier_phase1(comm, x).contiguous())
+    return z.reshape(x.shape)
+
+
+def _hier_phase1(comm: Communicator, x: torch.Tensor) -> torch.Tensor:
+    """The intra-slice hop of :func:`_hier_route` alone: the ``(dest
+    slice, src chip, ...)`` block the cross-slice hop exchanges (split
+    out so that the DCN codec encodes exactly that payload)."""
+    s, c = comm.n_slices, comm.chips_per_slice
+    tail = tuple(x.shape[1:])
+    y = x.reshape((s, c) + tail).transpose(0, 1).contiguous()
+    return comm.all_to_all_chip(y).transpose(0, 1)
+
+
+def shuffle_hierarchical(comm: Communicator, padded_columns,
+                         counts: torch.Tensor, capacity: int,
+                         dcn_bits: int | None = None, block: int = 256):
+    """The two-level shuffle of a pre-padded ``(n_ranks, capacity)``
+    block over a ``(slice, chip)`` communicator (JAX :326-443): every
+    block rides the intra-slice exchange raw, then the cross-slice one,
+    with the FoR + bit-pack codec on that tier alone when ``dcn_bits``
+    is set. A codec column's padding slots are filled with the bucket's
+    last valid row before routing, and each destination slice's payload
+    is one frame stream (rows flattened chip-major), so no codec block
+    straddles two destinations.
+
+    Returns ``(received table, received counts, codec overflow)``; the
+    table is :func:`shuffle_padded`'s for the same input, and the flag
+    fires when a cross-slice residual needs more than ``dcn_bits``. The
+    counters take both tiers: the full block on the intra-slice one,
+    the codec's planes (or the full block) on the cross-slice one, and
+    what the codec saved."""
+    s, c = comm.n_slices, comm.chips_per_slice
+    n = s * c
+    if counts.shape[0] != n:
+        raise ValueError(f"hierarchical shuffle needs {n} destination "
+                         f"buckets, got {counts.shape[0]}")
+    recv_counts = _hier_route(comm, counts)
+    c_ovf = torch.zeros((), dtype=torch.bool, device=counts.device)
+    recv_cols = {}
+    groups: dict = {}
+    ici = dcn_raw = dcn_sent = 0
+    for name, col in padded_columns.items():
+        ici += col.nbytes
+        dcn_raw += col.nbytes
+        if dcn_bits is not None and _codec_eligible(name, col):
+            groups.setdefault(col.dtype, []).append(name)
+        else:
+            dcn_sent += col.nbytes
+            recv_cols[name] = _hier_route(comm, col)
+    for dtype, names in groups.items():
+        g = len(names)
+        cols = _pad_fill(torch.stack([padded_columns[m] for m in names],
+                                     dim=2), counts)
+        staged = _hier_phase1(comm, cols)          # (s, c, capacity, g)
+        rows = staged.permute(0, 3, 1, 2).reshape(s * g, c * capacity)
+        words, frames, ovf, _ = encode_rows(rows, dcn_bits, block,
+                                            required_bits=False)
+        c_ovf = c_ovf | ovf.any()
+        dcn_sent += words.nbytes + frames.nbytes
+        rw = comm.all_to_all_slice(words.reshape(s, -1)).reshape(s * g, -1)
+        rf = comm.all_to_all_slice(frames.reshape(s, -1)).reshape(s * g, -1)
+        got = decode_rows(rw, rf, c * capacity, dcn_bits, block, dtype)
+        got = got.reshape(s, g, c, capacity).permute(0, 2, 3, 1).reshape(
+            n, capacity, g)
+        for name, col in zip(names, got.unbind(2)):
+            recv_cols[name] = col
+    comm.count_wire(n * capacity, ici + dcn_sent)
+    comm.count_tiers(ici, dcn_sent,
+                     dcn_raw - dcn_sent if dcn_bits is not None else 0)
     recv_cols = {name: recv_cols[name] for name in padded_columns}
     return unpad(recv_cols, recv_counts, capacity), recv_counts, c_ovf
 

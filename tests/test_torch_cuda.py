@@ -1428,3 +1428,83 @@ def test_batched_path_at_sf_0_1_equals_the_plain_path(card):
         assert total == sum(len(b["key"]) for b in pb) and not overflow
         rows[label] = _batch_multiset(got)
     np.testing.assert_array_equal(rows["kernels"], rows["plain"])
+
+
+def _table_rows(table) -> np.ndarray:
+    """A result table's valid rows as a sorted (rows, fields) int64
+    array, columns by name (a 2-D column a field a byte)."""
+    valid = table.valid.cpu().numpy()
+    parts = []
+    for nm in sorted(table.columns):
+        a = table.columns[nm].cpu().numpy()[valid]
+        parts.append(a.reshape(a.shape[0], -1).astype(np.int64))
+    a = np.concatenate(parts, axis=1)
+    return a[np.lexsort(a.T[::-1])] if len(a) else a
+
+
+@pytest.mark.parametrize("case", ["plain", "two_d_composite", "overflow"])
+def test_batched_join_on_card_equals_cpu(card, case):
+    """The segmented sort's batched join on the card against the same
+    call on the CPU (held against the JAX package by
+    tests/test_torch_segmented.py): rows, total, overflow; 128 segments
+    of runs past a tile, duplicate keys, invalid rows."""
+    from distributed_join_tpu_torch.ops.segmented import (
+        batched_sort_merge_inner_join,
+    )
+    rng = np.random.default_rng(len(case))
+    s, rb, rp = 128, 3000, 5000
+    b = {"key": rng.integers(0, 2000, (s, rb)),
+         "bp": rng.integers(-(1 << 40), 1 << 40, (s, rb))}
+    p = {"key": rng.integers(0, 2000, (s, rp)),
+         "pp": rng.integers(0, 1 << 20, (s, rp)).astype(np.int32)}
+    keys = ["key"]
+    if case == "two_d_composite":
+        b["k2"] = rng.integers(0, 2, (s, rb)).astype(np.int32)
+        p["k2"] = rng.integers(0, 2, (s, rp)).astype(np.int32)
+        b["bs"] = rng.integers(0, 256, (s, rb, 6)).astype(np.uint8)
+        p["ps"] = rng.integers(0, 256, (s, rp, 4)).astype(np.uint8)
+        keys = ["key", "k2"]
+    bv, pv = rng.random((s, rb)) >= 0.1, rng.random((s, rp)) >= 0.1
+    out_cap = 8000 if case != "overflow" else 4000
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        outs.append(batched_sort_merge_inner_join(
+            {k: torch.from_numpy(v).to(dev) for k, v in b.items()},
+            torch.from_numpy(bv).to(dev),
+            {k: torch.from_numpy(v).to(dev) for k, v in p.items()},
+            torch.from_numpy(pv).to(dev), keys, out_cap))
+    (gt, gtot, govf), (ct, ctot, covf) = outs
+    assert int(gtot) == int(ctot) > 0
+    assert bool(govf) == bool(covf) == (case == "overflow")
+    np.testing.assert_array_equal(_table_rows(gt), _table_rows(ct))
+
+
+def test_emulated_hierarchy_on_card_equals_one_rank(card):
+    """4 emulated ranks as 2 slices x 2 on the card: the hierarchical
+    wire with the codec off and on (4 bits: the ladder widens) and the
+    segmented sort over it, each equal to the 1-rank join."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    build, probe = generate_build_probe_tables(
+        seed=3, build_nrows=400_000, probe_nrows=400_000, device=card)
+    one = distributed_inner_join(build, probe, LocalCommunicator(),
+                                 auto_retry=2)
+    want = _table_rows(one.table)
+    for opts in (dict(dcn_codec="off"),
+                 dict(dcn_codec="on", compression_bits=4, auto_retry=3),
+                 dict(dcn_codec="off", sort_mode="segmented",
+                      sort_segments=8)):
+        comm = EmulatedCommunicator(4, n_slices=2)
+        res = distributed_inner_join(build, probe, comm,
+                                     shuffle="hierarchical", **opts)
+        assert not bool(res.overflow) and int(res.total) == int(one.total)
+        np.testing.assert_array_equal(_table_rows(res.table), want)
+        assert comm.wire_bytes_ici > 0 and comm.wire_bytes_dcn > 0

@@ -362,9 +362,9 @@ def test_distributed_join_retry_ladder_matches_jax(jcomm8):
 def test_distributed_join_refuses_unported_options():
     t = _ttable({"key": np.arange(8), "a": np.arange(8)}, np.ones(8, bool))
     u = _ttable({"key": np.arange(8), "b": np.arange(8)}, np.ones(8, bool))
-    for name, value in (("dcn_codec", "on"), ("shuffle", "hierarchical"),
-                        ("sort_mode", "segmented"), ("with_integrity", True),
-                        ("with_metrics", True), ("aggregate", object())):
+    for name, value in (("with_integrity", True), ("with_metrics", True),
+                        ("aggregate", object()), ("explain", True),
+                        ("tuner", object())):
         with pytest.raises(NotImplementedError, match=name):
             tdist.distributed_inner_join(t, u, LocalCommunicator(),
                                          **{name: value})
@@ -421,7 +421,8 @@ def test_port_imports_no_jax():
             "distributed_join_tpu_torch.parallel.mesh",
             "distributed_join_tpu_torch.benchmarks.launch",
             "distributed_join_tpu_torch.benchmarks.all_to_all",
-            "distributed_join_tpu_torch.ops.compression"} <= set(mods)
+            "distributed_join_tpu_torch.ops.compression",
+            "distributed_join_tpu_torch.ops.segmented"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['distributed_join_tpu'] = None\n"

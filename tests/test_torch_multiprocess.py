@@ -68,6 +68,25 @@ JOIN_CASES = {
                                    out_capacity_factor=3.0)),
     "ragged_strings": ("strings", dict(shuffle="ragged",
                                        out_capacity_factor=4.0)),
+    # the segmented sort: fine buckets on the padded wire, the batched
+    # short-run join
+    "segmented": ("uniform", dict(sort_mode="segmented", sort_segments=4,
+                                  over_decomposition=2,
+                                  shuffle_capacity_factor=3.0,
+                                  out_capacity_factor=4.0)),
+}
+# the hierarchical wire over 4 processes as 2 slices x 2 (gloo subgroups)
+HIER_SLICES = 2
+HIER_CASES = {
+    "hier_off": dict(shuffle="hierarchical", dcn_codec="off",
+                     over_decomposition=2, out_capacity_factor=3.0),
+    "hier_on": dict(shuffle="hierarchical", dcn_codec="on",
+                    compression_bits=4, auto_retry=3,
+                    out_capacity_factor=3.0),
+    "hier_segmented": dict(shuffle="hierarchical", dcn_codec="off",
+                           sort_mode="segmented", sort_segments=4,
+                           shuffle_capacity_factor=3.0,
+                           out_capacity_factor=4.0),
 }
 SKEW_OPTS = dict(skew_threshold=0.05, hh_slots=32, auto_retry=1,
                  out_capacity_factor=2.0)
@@ -158,6 +177,17 @@ for k in z.files:
         assert v.dtype == x.dtype, (k, tag, v.dtype)
         v = v.view(torch.int64) if v.dtype == torch.uint64 else v
         out[f"dtype/{k}/{tag}"] = v.numpy()
+
+if "hier_joins" in spec:
+    hcomm = make_communicator("gloo", n_slices=spec["hier_slices"])
+    for name, opts in spec["hier_joins"].items():
+        b = table(spec["shuffle_tables"], "build")
+        p = table(spec["shuffle_tables"], "probe")
+        before = hcomm.counters()
+        save_result(name, distributed_inner_join(b, p, hcomm, **opts))
+        after = hcomm.counters()
+        out[f"{name}/counters"] = np.array(json.dumps(
+            {k: after[k] - before[k] for k in after}))
 
 if "skew_tables" in spec:
     b = table(spec["skew_tables"], "build")
@@ -307,6 +337,9 @@ def worker_runs(tmp_path_factory):
                 "shuffle_cap": SHUFFLE_CAP,
                 "ragged": str(d / "ragged.npz"),
                 "dtypes": str(d / "dtypes.npz")}
+        if n == 4:
+            spec["hier_joins"] = HIER_CASES
+            spec["hier_slices"] = HIER_SLICES
         if n == 2:
             _save_tables(d / "zipf.npz", *_zipf_tables())
             spec["skew_tables"] = str(d / "zipf.npz")
@@ -454,6 +487,55 @@ def test_gloo_shuffle_equals_emulated_and_jax(worker_runs, jcomms, n):
         np.testing.assert_array_equal(g, j, err_msg=f"rank {i}")
 
 
+# -- the hierarchical wire over 4 gloo processes as 2 x 2 -----------------
+
+
+@pytest.mark.parametrize("case", sorted(HIER_CASES))
+def test_gloo_hierarchical_join_equals_emulated_and_jax(worker_runs, case):
+    """4 processes as 2 slices of 2 over gloo subgroups (the codec off;
+    on at 4 bits, which overflows and widens; the segmented sort on the
+    route): each rank's rows, the total, the retry trail and the ranks'
+    tier bytes summed equal the emulated 2 x 2 join's and the JAX
+    package's on its 2 x 2 hierarchical mesh."""
+    n = 4
+    ranks, _ = worker_runs[n]
+    opts = HIER_CASES[case]
+    bc, bv, pc, pv = _uniform_tables()
+    jc = jcomm.HierarchicalTpuCommunicator(n_slices=HIER_SLICES, n_ranks=n)
+    want = jdist.distributed_inner_join(_jtable(bc, bv), _jtable(pc, pv),
+                                        jc, **opts)
+    ecomm = EmulatedCommunicator(n, n_slices=HIER_SLICES)
+    emu = tdist.distributed_inner_join(_ttable(bc, bv), _ttable(pc, pv),
+                                       ecomm, **opts)
+    assert not bool(want.overflow) and not bool(emu.overflow)
+    assert {int(rk[f"{case}/total"]) for rk in ranks} == {
+        int(emu.total)} == {int(want.total)}
+    assert int(want.total) > 0
+    trails = {rk[f"{case}/attempts"].item() for rk in ranks}
+    assert len(trails) == 1
+    got_trail = [{f: a[f] for f in LADDER_FIELDS}
+                 for a in json.loads(trails.pop())]
+    assert got_trail == _attempts(emu.retry_report) == _attempts(
+        want.retry_report)
+    if case == "hier_on":
+        assert [a["action"] for a in got_trail][:2] == [
+            "initial", "widen_compression_bits"]
+    names = sorted(emu.table.columns)
+    assert names == sorted(want.table.columns)
+    ecols, evalid = emu.table.to_numpy()
+    jcols = {k: np.asarray(v) for k, v in want.table.columns.items()}
+    for i, (rk, e, j) in enumerate(zip(
+            ranks, _per_rank(ecols, evalid, n, names),
+            _per_rank(jcols, want.table.valid, n, names))):
+        g = _gloo_part(rk, case, names)
+        np.testing.assert_array_equal(g, e, err_msg=f"rank {i}")
+        np.testing.assert_array_equal(g, j, err_msg=f"rank {i}")
+    counted = [json.loads(rk[f"{case}/counters"].item()) for rk in ranks]
+    for k, v in ecomm.counters().items():
+        assert sum(c[k] for c in counted) == v, k
+    assert ecomm.wire_bytes_ici > 0 and ecomm.wire_bytes_dcn > 0
+
+
 # -- (c): the skew sidecar over 2 gloo processes --------------------------
 
 
@@ -580,7 +662,7 @@ def test_launcher_refusals():
     base = [sys.executable, "-m",
             "distributed_join_tpu_torch.benchmarks.launch",
             "--num-processes", "2"]
-    for extra, match in ((["--slices", "2"], "--slices"),
+    for extra, match in ((["--chaos-seed", "2"], "--chaos-seed"),
                          (["--cpu-devices-per-process", "4"], "one rank"),
                          (["--telemetry", "x"], "--telemetry")):
         r = subprocess.run([*base, *extra, "--", "true"], env=_env(),
@@ -590,6 +672,20 @@ def test_launcher_refusals():
         r = subprocess.run([*base, "--", "true"], env=_env(),
                            capture_output=True, text=True, timeout=60)
         assert r.returncode != 0 and "CUDA devices" in r.stderr, r.stderr
+
+
+def test_launcher_forwards_hierarchy_and_sort_flags():
+    """--slices, --sort-mode and --sort-segments given to the launcher
+    reach every process's command (as the JAX launcher forwards them),
+    unless the command carries the flag already."""
+    from distributed_join_tpu_torch.benchmarks import launch
+    args = launch.parse_args(["--num-processes", "2", "--slices", "2",
+                              "--sort-mode", "segmented", "--", "drv",
+                              "--sort-segments=8"])
+    assert args.command == ["drv", "--sort-segments=8", "--slices", "2",
+                            "--sort-mode", "segmented"]
+    bare = launch.parse_args(["--num-processes", "2", "--", "drv"])
+    assert bare.command == ["drv"]
 
 
 def test_bootstrap_against_a_silent_coordinator_raises_in_its_deadline():
@@ -669,8 +765,11 @@ def test_make_communicator_names_and_refusals():
                             ("gloo", {}, "no process group")):
         with pytest.raises((ValueError, RuntimeError), match=match):
             make_communicator(name, **kw)
-    with pytest.raises(NotImplementedError, match="hierarchical"):
+    # no process group: a hierarchical mesh needs its rank count
+    with pytest.raises(RuntimeError, match="n_ranks"):
         make_hierarchical_mesh(2)
+    with pytest.raises(ValueError, match="does not divide"):
+        make_hierarchical_mesh(3, 8)
 
 
 # -- (h): the all-to-all benchmark ---------------------------------------

@@ -636,8 +636,9 @@ def test_string_key_join_on_the_ragged_wire_matches_jax(jcomms):
     (dict(shuffle="ragged", compression_bits=16), ValueError,
      "compression applies"),
     (dict(shuffle="bogus"), ValueError, "unknown shuffle mode"),
-    (dict(shuffle="hierarchical"), NotImplementedError, "hierarchical"),
-    (dict(sort_mode="segmented"), NotImplementedError, "sort_mode"),
+    (dict(shuffle="hierarchical", dcn_codec="bogus"), ValueError,
+     "dcn_codec"),
+    (dict(sort_mode="bogus"), ValueError, "sort_mode"),
     (dict(with_integrity=True), NotImplementedError, "with_integrity"),
 ])
 def test_join_refusals(opts, exc, match):
@@ -712,10 +713,10 @@ def test_driver_record_matches_jax_driver(flags):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--shuffle", "hierarchical"], "--shuffle"),
-    (["--slices", "2"], "--slices"),
-    (["--dcn-codec", "on"], "--dcn-codec"),
-    (["--sort-mode", "segmented"], "--sort-mode"),
+    (["--agg-ab", "2"], "--agg-ab"),
+    (["--resident-ab", "2"], "--resident-ab"),
+    (["--expand-kernel", "xla"], "--expand-kernel"),
+    (["--explain"], "--explain"),
 ])
 def test_driver_refuses_what_the_port_lacks(argv, match, capsys):
     from distributed_join_tpu_torch.benchmarks import (

@@ -698,6 +698,8 @@ def test_driver_refuses_what_the_port_lacks(flag, capsys):
     (["--batch-retries", "2"], "apply to the batched paths"),
     (["--continue-on-batch-failure"], "apply to the batched paths"),
     (["--fetch-results"], "--fetch-results applies"),
+    (["--sort-mode", "segmented"], "--sort-ab"),
+    (["--sort-mode", "auto", "--sort-segments", "4"], "--sort-ab"),
 ])
 def test_driver_guards_equal_jax(argv, match):
     with pytest.raises(SystemExit, match=match):
