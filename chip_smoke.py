@@ -155,15 +155,35 @@ Phases (any failure raises, and the script exits non-zero):
    (ms a join, a rank's bytes on each tier, the retry trail) and the
    worker (digests, every join kernel on every rank). ``python3
    chip_smoke.py --phase 16`` runs this phase alone (after the build).
+17. The query layer. (a) TPC-H Q3 and Q10 at SF-10 through the tpch
+   driver (``--query``, one rank): customer ⋈ orders ⋈ lineitem with
+   the group-by fused into the second join, no overflow after the
+   ladder, the groups equal to the numpy whole-query oracle, the op
+   totals, ms a query over warm repeats and peak device memory; the
+   first join launches the scans, both compaction sites and the
+   expand, the second the groups compaction. (b) ``--agg`` at SF-10 with
+   Q3's filters, oracle-equal. (c) the join driver's ``--agg-ab 5`` at
+   config 2's shape: min ms of the pushdown and of materialize then
+   group on the host, both oracle-equal. (d) Q3 and Q10 at SF-1 on 4
+   emulated ranks and on an emulated 2 x 2 hierarchy, each equal to the
+   1-rank groups (Q10 runs the partials exchange). (e) Q10 at SF-1
+   through the NCCL launcher, one process a card, its groups digest
+   equal to the 1-rank one; with four or more cards also Q3 and Q10 at
+   SF-10 over 4 NCCL ranks, equal to (a)'s. (f) the groups compaction at
+   (a)'s Q3 shape against its twin (``stream_compact[groups]``).
+   ``python3 chip_smoke.py --phase 17`` runs this phase alone (after
+   the build).
 
 Launch counts are set to zero just before each path and read just after;
 the launches of phase 2, of the config-3 kernel check and of the
 bucket-shape checks do not count.
 The line before the last is one JSON object with every kernel's numbers,
 one row per kernel and call site (the join sites also carry their
-launches on the paths of phases 10 to 16, phases 13's, 14's and 16's
+launches on the paths of phases 10 to 17, phases 13's, 14's and 16's
 NCCL paths summed over the ranks, 15's the SF-10 run's; the segmented
-paths launch none, with the reason in ``no_launch_reason``); the last
+paths launch none, and the fused aggregate none of the materializing
+join's, with the reason in ``no_launch_reason``; the groups site's
+launches are those of phase 17's Q3 and Q10 at SF-10); the last
 line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
@@ -228,25 +248,53 @@ def time_ms(fn, reps: int = REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = REPS) -> tuple[float, dict]:
+def _own_kernel_names() -> frozenset:
+    """The names of the ``__global__`` functions in the port's CUDA
+    sources: the kernels its wrappers launch."""
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "distributed_join_tpu_torch", "csrc")
+    names = set()
+    for f in sorted(os.listdir(src)):
+        if f.endswith(".cu"):
+            with open(os.path.join(src, f)) as fh:
+                names.update(re.findall(
+                    r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                    r"(\w+)", fh.read()))
+    return frozenset(names)
+
+
+def device_ms(fn, reps: int = REPS) -> tuple[float | None, dict]:
     """Mean device time of the kernels ``fn`` launches per call
     (torch.profiler), after a warm-up call, and its split by kernel name:
     what ``time_ms`` measures less the host's gaps between launches,
-    which bind a call whose kernels take tens of microseconds."""
+    which bind a call whose kernels take tens of microseconds. The time
+    is None when the profiler caught fewer of the port's kernels than
+    its wrappers launched in the profiled calls: a sum with launches
+    missing is not a measurement."""
     from torch.profiler import ProfilerActivity, profile
+    wrappers = _launch_wrappers()
+    own = _own_kernel_names()
     fn()
     torch.cuda.synchronize()
+    made = -sum(w.launches for w in wrappers)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    parts = {}
+    made += sum(w.launches for w in wrappers)
+    parts, caught = {}, 0
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             name = re.split(r"[(<]", e.key.replace(
                 "(anonymous namespace)::", ""))[0].split("::")[-1].strip()
             ms = e.device_time_total / 1e3 / reps
             parts[name] = parts.get(name, 0.0) + ms
+            if name.split()[-1] in own:
+                caught += e.count
+    if caught < made:
+        print(f"[profile] the profiler caught {caught} of the {made} "
+              "kernel launches made: device time not measured", flush=True)
+        return None, parts
     return sum(parts.values()), parts
 
 
@@ -362,9 +410,15 @@ def check_and_time(rows, name, source, replaces, got, want, prefix, fn_k,
                bound_ms=b, bound_by=by,
                library_ms=None if fn_lib is None else time_ms(fn_lib),
                **{k: time_ms(f) for k, f in extra.items()})
-    row["device_ms"], parts = device_ms(fn_k)
+    dev, parts = device_ms(fn_k)
+    if dev is not None and dev < b:
+        print(f"[kernel] {name}: device_ms {dev:.4f} is below the bound "
+              f"{b:.4f}: the profiler missed work; device time not "
+              "measured", flush=True)
+        dev = None
+    row["device_ms"] = dev
     print(f"[kernel] {name}: kernel_ms={row['ms']:.4f} "
-          f"device_ms={row['device_ms']:.4f} "
+          f"device_ms={'not measured' if dev is None else f'{dev:.4f}'} "
           f"plain_ms={row['plain_ms']:.4f} bound_ms={b:.4f} ({by}) "
           f"library_ms={row['library_ms']} max_abs_err={err}"
           + "".join(f" {k}={row[k]:.4f}" for k in extra), flush=True)
@@ -574,6 +628,7 @@ def _sort_and_gather(key, val):
 def _launch_wrappers() -> tuple:
     """Every kernel wrapper and call site that counts its launches."""
     from distributed_join_tpu_torch.ops import (
+        aggregate,
         compact,
         expand,
         join,
@@ -585,7 +640,8 @@ def _launch_wrappers() -> tuple:
             join.pack_matched_builds, join.pack_valid_builds,
             compact.stream_compact,
             expand.expand_gather, skew.extract_prefix,
-            merge_sort.merge_sort_planes, expand.expand_pull)
+            merge_sort.merge_sort_planes, expand.expand_pull,
+            aggregate.compact_groups)
 
 
 def counted(fn):
@@ -2359,16 +2415,300 @@ def segmented_phase(want_total: int | None = None,
     return paths
 
 
+# -- phase 17: the query layer -------------------------------------------
+
+
+QUERY_SF = 10.0                # Q3 and Q10, --agg: TPC-H SF-10
+QUERY_SMALL_SF = 1.0           # emulated ranks, the NCCL world of 1
+QUERY_ITERS = 3                # warm queries timed after the cold one
+AGG_AB_JOINS = 5
+QUERIES = ("q3", "q10")
+QUERY_SITES = JOIN_KERNELS + ("compact_groups",)
+GROUPS_REASON = ("the materializing join runs no groups compaction; the "
+                 "fused aggregate runs no join scan, compaction of records "
+                 "or expand")
+
+
+def captured_groups_calls(fn):
+    """Run ``fn`` with the groups compaction's inputs recorded: returns
+    (its result, the arguments of its last call)."""
+    from distributed_join_tpu_torch.ops import aggregate as A
+    calls = {}
+    real = A.stream_compact
+
+    def compact(mask, pos, cols, capacity, launch_counter=None):
+        calls["compact_groups"] = (mask, pos, list(cols), capacity)
+        return real(mask, pos, cols, capacity,
+                    launch_counter=launch_counter)
+
+    A.stream_compact = compact
+    try:
+        return fn(), calls
+    finally:
+        A.stream_compact = real
+
+
+def groups_kernel_row(call) -> dict:
+    """B2 at the groups site: the compaction of a query's per-run
+    domain (the second join's merged positions) into the groups block,
+    held against its twin over the survivor prefix; the library call is
+    ``packed[mask]``. Bound as the other compaction sites: every mask
+    byte, the kept survivors' lanes read and written."""
+    from distributed_join_tpu_torch.ops import compact
+    mask, pos, lanes, cap = call
+    n = mask.shape[0]
+    kept = min(int(mask.sum()), cap)
+    packed = torch.stack(lanes, 1)
+    rows = []
+    got = compact.stream_compact(mask, pos, lanes, cap)
+    want = compact.stream_compact_reference(mask, pos, lanes, cap)
+    check_and_time(
+        rows, "stream_compact[groups]",
+        "distributed_join_tpu_torch/csrc/stream_compact.cu",
+        "distributed_join_tpu/ops/compact_planes.py:53 (_compact_kernel), "
+        "at the site of distributed_join_tpu/ops/aggregate.py:460 "
+        "(_compact_runs, a lax.sort)",
+        got, want, kept,
+        lambda: compact.stream_compact(mask, pos, lanes, cap),
+        lambda: compact.stream_compact_reference(mask, pos, lanes, cap),
+        lambda: packed[mask], nbytes=n + 2 * kept * 8 * len(lanes), ops=n)
+    rows[0].update(merged_positions=n, lanes=len(lanes), survivors=kept)
+    return rows[0]
+
+
+def _query_frame(tables, plan, comm, **opts):
+    """The groups of ``plan`` over ``comm`` (counted) as a host frame,
+    with the run's launch counts and its host wall seconds."""
+    from distributed_join_tpu_torch.ops.aggregate import groups_frame
+    from distributed_join_tpu_torch.parallel.query_exec import (
+        distributed_query,
+    )
+    spec = plan.aggregate
+    t0 = time.perf_counter()
+    res, counts = counted(lambda: distributed_query(
+        tables, plan, comm, auto_retry=4, **opts))
+    wall = time.perf_counter() - t0
+    _check(not bool(res.overflow), f"{plan.output} on {comm.name}: overflow "
+                                   "after the ladder")
+    return (groups_frame(res.table, spec, list(spec.group_keys)), res,
+            counts, wall)
+
+
+def query_profile(query: str, joins: int = 3) -> dict:
+    """Where one warm query at SF-10 on one rank spends its device time
+    (``utils.benchmarking.profile_calls``: top kernels, busy ms against
+    the host wall)."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.query_exec import (
+        distributed_query,
+    )
+    from distributed_join_tpu_torch.planning.query import tpch_query_plan
+    from distributed_join_tpu_torch.utils.benchmarking import profile_calls
+    from distributed_join_tpu_torch.utils.tpch import (
+        generate_tpch_query_tables,
+        query_filters,
+    )
+    tables = query_filters(generate_tpch_query_tables(
+        SEED, QUERY_SF, device=DEVICE), query)
+    plan = tpch_query_plan(query)
+    return profile_calls(lambda: distributed_query(
+        tables, plan, LocalCommunicator(), auto_retry=4),
+        torch.device(DEVICE), joins, top=20)
+
+
+def query_phase() -> tuple:
+    """Phase 17: the query layer. (a) Q3 and Q10 at SF-10 through the
+    tpch driver (``--query``, local communicator): no overflow after the
+    ladder, groups equal to the numpy whole-query oracle (the driver
+    refuses otherwise), op totals, ms a query over warm repeats, peak
+    device memory; the first join launches the scans, both compaction
+    sites and the expand, the second the groups compaction. (b) ``--agg``
+    at SF-10 with Q3's filters, oracle-equal. (c) the join driver's
+    ``--agg-ab`` at config 2's shape, both sides oracle-equal. (d) Q3
+    and Q10 at SF-1 on 4 emulated ranks and on an emulated 2 x 2
+    hierarchy, each equal to the 1-rank groups (Q10 runs the partials
+    exchange). (e) Q10 at SF-1 through the NCCL launcher, one process a
+    card, its groups digest equal to the 1-rank one; with four or more
+    cards also Q3 and Q10 at SF-10 over 4 NCCL ranks, equal to (a)'s.
+    (f) the groups compaction of (a)'s Q3 against its twin, right after
+    that query. Prints each part's seconds. Returns the launch counts by
+    path and the kernel row."""
+    from distributed_join_tpu_torch.benchmarks import (
+        distributed_join as jdriver,
+    )
+    from distributed_join_tpu_torch.ops.aggregate import frames_equal
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.planning.query import tpch_query_plan
+    from distributed_join_tpu_torch.utils.tpch import (
+        generate_tpch_query_tables,
+        query_filters,
+    )
+    smi = gpu_line()
+    paths, digests = {}, {}
+    t_part = time.perf_counter()
+
+    def part_done(label):
+        nonlocal t_part
+        now = time.perf_counter()
+        print(f"[phase] 17{label}: {now - t_part:.1f} s", flush=True)
+        t_part = now
+
+    # (a) the driver at SF-10 on this card, and (f) the groups
+    # compaction at its Q3 shape
+    for q in QUERIES:
+        torch.cuda.empty_cache()
+        (rec, counts), got = captured_groups_calls(lambda: counted(
+            lambda: _tpch_driver(["--query", q, "--scale-factor",
+                                  str(QUERY_SF), "--iterations",
+                                  str(QUERY_ITERS)])))
+        _check(rec["oracle_equal"] and rec["groups"] > 0,
+               f"--query {q}: {rec['groups']} groups, oracle "
+               f"{rec['oracle_equal']}")
+        _require_launched(counts, QUERY_SITES, f"the {q} query path")
+        paths[f"query_{q}"] = counts
+        if q == "q3":
+            # (f) the groups compaction at this query's shape, measured
+            # before the query's own profiler runs
+            row = groups_kernel_row(got["compact_groups"])
+        del got
+        prof = query_profile(q)
+        print(f"[query] {q} SF-{QUERY_SF:g} profile: device busy "
+              f"{prof['device_busy_ms_per_join']:.4f} of "
+              f"{prof['host_wall_ms_per_join']:.4f} ms a query (busy share "
+              f"{prof['device_busy_share']:.4f}); top kernels "
+              f"{json.dumps(prof['top_kernels_ms_per_join'])}; {smi}",
+              flush=True)
+        digests[q] = rec["groups_digest"]
+        print(f"[query] {q} SF-{QUERY_SF:g}: op_totals {rec['op_totals']}, "
+              f"{rec['groups']} groups equal to the numpy oracle, retry "
+              f"attempts {rec['retry_attempts']}; ms a query (warm, host "
+              f"clock) {[round(t * 1e3, 4) for t in rec['query_s']]}, min "
+              f"{rec['query_ms_min']:.4f}; peak device memory "
+              f"{rec['peak_memory_bytes']:,} B; launches {counts}; {smi}",
+              flush=True)
+    part_done("a+f")
+    # (b) --agg at SF-10 with Q3's filters
+    torch.cuda.empty_cache()
+    rec, counts = counted(lambda: _tpch_driver([
+        "--agg", "--q3-filters", "--scale-factor", str(QUERY_SF),
+        "--iterations", str(QUERY_ITERS)]))
+    agg = rec["aggregate"]
+    _check(agg["oracle_equal"] and agg["groups"] > 0,
+           f"--agg: {json.dumps(agg)}")
+    _require_launched(counts, ("compact_groups",), "the --agg path")
+    paths["agg"] = counts
+    print(f"[query] --agg SF-{QUERY_SF:g} Q3 filters: {agg['groups']} "
+          f"groups equal to the numpy oracle; "
+          f"{rec['elapsed_per_join_s'] * 1e3:.4f} ms a join "
+          f"({rec['rows_per_sec'] / 1e6:.2f} M rows/s); peak device memory "
+          f"{rec['peak_memory_bytes']:,} B; launches {counts}; {smi}",
+          flush=True)
+    part_done("b")
+    # (c) --agg-ab at config 2's shape, one rank
+    torch.cuda.empty_cache()
+    rec, counts = counted(lambda: jdriver.run(jdriver.parse_args([
+        "--build-table-nrows", str(NROWS), "--probe-table-nrows",
+        str(NROWS), "--iterations", "4", "--agg-ab", str(AGG_AB_JOINS)]),
+        device=DEVICE))
+    ab = rec["agg_ab"]
+    _check("skipped" not in ab and ab["oracle_equal_pushdown"]
+           and ab["oracle_equal_materialize"] and not ab["overflow"],
+           f"--agg-ab: {json.dumps(ab)}")
+    paths["agg_ab"] = counts
+    print(f"[query] --agg-ab {AGG_AB_JOINS} at {NROWS:,} x {NROWS:,}: "
+          f"materialize min {ab['materialize_wall_min_s'] * 1e3:.4f} ms, "
+          f"pushdown min {ab['pushdown_wall_min_s'] * 1e3:.4f} ms (host "
+          f"clock, the fetch included), speedup "
+          f"{ab['pushdown_speedup']:.4f}; {ab['groups']} groups, both "
+          f"oracle-equal; walls {json.dumps(ab['materialize_walls_s'])} / "
+          f"{json.dumps(ab['pushdown_walls_s'])}; {smi}", flush=True)
+    part_done("c")
+    # (d) emulated ranks and the emulated hierarchy at SF-1
+    torch.cuda.empty_cache()
+    small = {}
+    base = generate_tpch_query_tables(SEED, QUERY_SMALL_SF, device=DEVICE)
+    for q in QUERIES:
+        plan = tpch_query_plan(q)
+        tables = query_filters(base, q)
+        one, res, _, _ = _query_frame(tables, plan, LocalCommunicator())
+        small[q] = jdriver.row_digest(res.table)
+        for label, comm, opts in (
+                ("emulated", EmulatedCommunicator(EMU_RANKS), {}),
+                ("hierarchical", EmulatedCommunicator(
+                    EMU_RANKS, n_slices=HIER_SLICES),
+                 dict(shuffle="hierarchical", dcn_codec="off"))):
+            got, res, counts, wall = _query_frame(tables, plan, comm, **opts)
+            _check(frames_equal(got, one),
+                   f"{q} {label}: groups differ from the 1-rank groups")
+            _require_launched(counts, JOIN_KERNELS, f"{q} {label}",
+                              at_least=EMU_RANKS)
+            _require_launched(counts, ("compact_groups",), f"{q} {label}",
+                              at_least=EMU_RANKS)
+            paths[f"{label}_{q}"] = counts
+            print(f"[query] {q} SF-{QUERY_SMALL_SF:g} {label} "
+                  f"{EMU_RANKS} ranks: {len(got[plan.aggregate.group_keys[0]])}"
+                  f" groups equal to 1 rank; retry attempts "
+                  f"{res.retry_attempts}; wall {wall:.3f} s (host clock, "
+                  f"first call); launches {counts}", flush=True)
+    del base
+    torch.cuda.empty_cache()
+    part_done("d")
+    # (e) over NCCL, one process a card
+    n = torch.cuda.device_count()
+    driver = ["-m", "distributed_join_tpu_torch.benchmarks.tpch_join",
+              "--communicator", "nccl", "--iterations", "2"]
+    runs = [("q10", QUERY_SMALL_SF, small["q10"])]
+    if n >= EMU_RANKS:
+        runs += [(q, QUERY_SF, digests[q]) for q in QUERIES]
+    for q, sf, want in runs:
+        rec = _launched_record(f"query {q} nccl", n, [
+            *driver, "--query", q, "--scale-factor", str(sf)])
+        _check(rec["oracle_equal"] and rec["groups_digest"] == want,
+               f"{q} over NCCL ({n} ranks, SF-{sf:g}): groups digest "
+               f"{rec['groups_digest']} != the 1-rank {want}")
+        print(f"[query] {q} SF-{sf:g} over NCCL, {n} rank(s): "
+              f"{rec['groups']} groups, digest equal to the 1-rank run's, "
+              f"oracle-equal; ms a query {[round(t * 1e3, 4) for t in rec['query_s']]}; "
+              f"{smi}", flush=True)
+    part_done("e")
+    torch.cuda.empty_cache()
+    return paths, row
+
+
+def groups_kernel_entry(row: dict, paths: dict) -> dict:
+    """The groups site's entry of the kernels line: its launches on the
+    main query paths (Q3 and Q10 at SF-10), by path (the paths counted in
+    this process; the NCCL workers count the join sites only), and why
+    the paths without one launch none."""
+    counts = {p: c["compact_groups"] for p, c in paths.items()
+              if "compact_groups" in c}
+    return {**{k: row[k] for k in (
+        "name", "route", "source", "replaces")},
+        "launches": counts["query_q3"] + counts["query_q10"],
+        **{k: row[k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "device_ms", "merged_positions", "lanes",
+            "survivors")},
+        "launches_by_path": counts,
+        "no_launch_reason": {p: GROUPS_REASON
+                             for p, c in counts.items() if not c}}
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     wires = (json.loads(argv[2]) if argv[:2] == ["--nccl-rank-worker",
                                                  "--wires"]
              and len(argv) == 3 else None)
     if argv not in ([], ["--phase", "13"], ["--phase", "14"],
-                    ["--phase", "15"], ["--phase", "16"],
+                    ["--phase", "15"], ["--phase", "16"], ["--phase", "17"],
                     ["--nccl-rank-worker"]) and wires is None:
         print("usage: chip_smoke.py [--phase 13 | --phase 14 | --phase 15 | "
-              "--phase 16]", file=sys.stderr)
+              "--phase 16 | --phase 17]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2437,29 +2777,47 @@ def main(argv=None) -> int:
         print(ok, flush=True)
         return 0
 
+    if argv == ["--phase", "17"]:
+        query_paths, groups_row = query_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps({"kernels": [groups_kernel_entry(
+            groups_row, query_paths)]}), flush=True)
+        print(ok, flush=True)
+        return 0
+
+    def timed(phase, *args, **kwargs):
+        t = time.perf_counter()
+        out = phase(*args, **kwargs)
+        print(f"[phase] {phase.__name__}: {time.perf_counter() - t:.1f} s",
+              flush=True)
+        return out
+
     build, probe = generate_build_probe_tables(
         seed=SEED, build_nrows=NROWS, probe_nrows=NROWS, device=DEVICE)
-    rows = kernel_phase(build, probe, int(0.6 * NROWS * 1.25))
-    own = entry_points_phase(build, probe)
+    rows = timed(kernel_phase, build, probe, int(0.6 * NROWS * 1.25))
+    own = timed(entry_points_phase, build, probe)
     del build, probe
     torch.cuda.empty_cache()
 
-    _, head = headline_phase()
-    rec = record_mode_phase()
-    emulated_phase()
-    skew_row, c3 = config3_phase()
-    zipf_emulated_phase()
-    c1 = c1_phase()
-    paths = {"config5": config5_phase(), **types_phase()}
-    emulated_strings_phase()
-    typed, typed_ms, typed_rows = typed_phase()
+    _, head = timed(headline_phase)
+    rec = timed(record_mode_phase)
+    timed(emulated_phase)
+    skew_row, c3 = timed(config3_phase)
+    timed(zipf_emulated_phase)
+    c1 = timed(c1_phase)
+    paths = {"config5": timed(config5_phase), **timed(types_phase)}
+    timed(emulated_strings_phase)
+    typed, typed_ms, typed_rows = timed(typed_phase)
     paths.update(typed)
     print(f"[typed] ms_per_join {json.dumps(typed_ms)}; {smi}", flush=True)
-    paths["nccl"], bucket_rows, plain, flat_prof = nccl_phase()
+    paths["nccl"], bucket_rows, plain, flat_prof = timed(nccl_phase)
     paths.update({f"nccl_{mode}": c
-                  for mode, c in wire_phase(*plain).items()})
-    paths["tpch"], tpch_rows = tpch_phase()
-    paths.update(segmented_phase(*plain, flat_profile=flat_prof))
+                  for mode, c in timed(wire_phase, *plain).items()})
+    paths["tpch"], tpch_rows = timed(tpch_phase)
+    paths.update(timed(segmented_phase, *plain, flat_profile=flat_prof))
+    query_paths, groups_row = timed(query_phase)
+    paths.update(query_paths)
 
     launches = {"join_scans": head["join_scans"],
                 "stream_compact[record]": head["compact_records"],
@@ -2503,7 +2861,8 @@ def main(argv=None) -> int:
             r["launches_by_path"] = {p: c[site[name]]
                                      for p, c in paths.items()}
             r["no_launch_reason"] = {"segmented": SEG_REASON,
-                                     "hierarchical_segmented": SEG_REASON}
+                                     "hierarchical_segmented": SEG_REASON,
+                                     "agg": GROUPS_REASON}
         if name == "join_scans":
             r["c1_ms"], r["c1_bound_ms"] = c1["ms"], c1["bound_ms"]
         kernels.append({k: r[k] for k in (
@@ -2515,6 +2874,7 @@ def main(argv=None) -> int:
             *(["merged_positions"] if "merged_positions" in r else []),
             *(["launches_by_path", "no_launch_reason"]
               if "launches_by_path" in r else []))})
+    kernels.append(groups_kernel_entry(groups_row, paths))
     print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ok, flush=True)

@@ -17,6 +17,7 @@ from distributed_join_tpu_torch.parallel.bootstrap import (
 from distributed_join_tpu_torch.parallel.communicator import (
     ProcessGroupCommunicator,
 )
+from distributed_join_tpu_torch.table import Table
 
 # The JAX package's record layout version (its optional telemetry block
 # is not part of the port).
@@ -50,6 +51,17 @@ def rank_device(comm, device=None) -> torch.device:
     if device is None and isinstance(comm, ProcessGroupCommunicator):
         return comm.device
     return resolve_device(device)
+
+
+def global_table(comm, table: Table) -> Table:
+    """Every rank's rows of a row-sharded result. Under a process group
+    ``spmd`` hands each process its own rank's part, so the parts are
+    all-gathered (every rank's part has the same capacity); an
+    in-process communicator's result holds every rank's rows already."""
+    if not isinstance(comm, ProcessGroupCommunicator):
+        return table
+    return Table({n: comm.all_gather(c) for n, c in table.columns.items()},
+                 comm.all_gather(table.valid))
 
 
 def stamp_record(record: dict) -> dict:

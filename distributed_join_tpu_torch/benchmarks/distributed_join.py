@@ -9,8 +9,9 @@ Port of ``distributed_join_tpu/benchmarks/distributed_join.py``
 (``parse_args`` :61, ``run`` :250) with the reference's flag names and
 only the options the port has (the wires ``--shuffle padded|ppermute|
 ragged|hierarchical`` with ``--slices`` and ``--dcn-codec``,
-``--compression``, and the local sort ``--sort-mode flat|segmented|auto``
-with ``--sort-ab N``): generate the tables from seed 42 (the
+``--compression``, the local sort ``--sort-mode flat|segmented|auto``
+with ``--sort-ab N``, and the aggregate pushdown's ``--agg-ab N``):
+generate the tables from seed 42 (the
 Zipf probe side from seed 43; ``--key-type``/``--payload-type``, the
 composite and string tables of config 5, and ``--string-key-bytes`` as
 in the JAX driver), resolve the skew auto-policy, then time
@@ -52,10 +53,19 @@ import torch
 from distributed_join_tpu_torch.bench import gpu_identity
 from distributed_join_tpu_torch.benchmarks import (
     UNPORTED_FLAGS,
+    global_table,
     rank_device,
     refuse_flags,
     report,
     resolve_sort_mode,
+)
+from distributed_join_tpu_torch.ops.aggregate import (
+    AggregatePushdownUnsupported,
+    AggregateSpec,
+    aggregate_oracle,
+    frames_equal,
+    group_reduce_frame,
+    groups_frame,
 )
 from distributed_join_tpu_torch.ops.hashing import hash_columns
 from distributed_join_tpu_torch.ops.segmented import resolve_sort_segments
@@ -95,6 +105,7 @@ from distributed_join_tpu_torch.utils.strings import (
     LEN_SUFFIX,
     encode_int_strings,
 )
+from distributed_join_tpu_torch.utils.tpch_host import _key_ids, inner_match
 
 SEED = 42
 ZIPF_SEED = 43
@@ -111,8 +122,7 @@ _REFUSED = {
     "--expand-kernel": "the kernel knobs",
     "--compact-kernel": "the kernel knobs",
     "--kernel-block": "the kernel knobs",
-    "--agg-ab": "the A/B modes",
-    "--resident-ab": "the A/B modes",
+    "--resident-ab": "the resident build tables",
     "--platform": "platform selection (the driver runs on the GPU)",
     "--explain": "plan explain",
     "--stage-profile": "the stage profile",
@@ -210,9 +220,19 @@ def parse_args(argv=None):
                         "and N warm flat joins of the same tables (CUDA "
                         "events), graded against each other (totals, row "
                         "digests) and, on local and emulated ranks, the "
-                        "pandas oracle; the record under 'sort_ab'. "
+                        "numpy oracle; the record under 'sort_ab'. "
                         "Shapes the segmented path refuses skip with the "
                         "reason")
+    p.add_argument("--agg-ab", type=int, default=0, metavar="N",
+                   help="after the timed run: time N warm fused "
+                        "join+aggregate (pushdown) calls against N warm "
+                        "materialize-then-host-group-by passes of the "
+                        "same query (group by the join key, count and a "
+                        "sum of each side's first scalar payload), both "
+                        "graded against the numpy group-by oracle; the "
+                        "record under 'agg_ab'. Shapes the pushdown "
+                        "refuses (string keys, the skew sidecar) skip "
+                        "with the reason")
     p.add_argument("--compression", action="store_true",
                    help="FoR + bit-pack the integer columns on the padded "
                         "or ppermute wire")
@@ -473,23 +493,16 @@ def _host_rows(table: Table, names) -> np.ndarray:
 
 
 def _oracle_rows(build: Table, probe: Table, keys, names) -> np.ndarray:
-    """The inner join of the valid rows by pandas, as :func:`_host_rows`
-    gives a result: rows are matched on key ids (a 2-D key's distinct
-    byte rows numbered over both sides) and gathered by row index."""
-    import pandas as pd
-
+    """The inner join of the valid rows by numpy (the join the query
+    oracle uses, ``utils/tpch_host.inner_match``), as :func:`_host_rows`
+    gives a result: rows are matched on key ids (a composite or 2-D
+    key's distinct rows numbered over both sides) and gathered by row
+    index."""
     bv, pv = build.valid.cpu().numpy(), probe.valid.cpu().numpy()
-    bdf, pdf = {"__b": np.flatnonzero(bv)}, {"__p": np.flatnonzero(pv)}
-    for k in keys:
-        b = build.columns[k].cpu().numpy()[bv]
-        q = probe.columns[k].cpu().numpy()[pv]
-        if b.ndim > 1:
-            _, ids = np.unique(np.concatenate([b, q]), axis=0,
-                               return_inverse=True)
-            b, q = ids[:len(b)], ids[len(b):]
-        bdf[k], pdf[k] = b, q
-    m = pd.DataFrame(bdf).merge(pd.DataFrame(pdf), on=list(keys))
-    bi, pi = m["__b"].to_numpy(), m["__p"].to_numpy()
+    bk, pk = _key_ids(*({k: t.columns[k].cpu().numpy()[v] for k in keys}
+                        for t, v in ((build, bv), (probe, pv))), keys)
+    p_idx, b_idx, _ = inner_match(bk, pk)
+    bi, pi = np.flatnonzero(bv)[b_idx], np.flatnonzero(pv)[p_idx]
     cols = {}
     for nm in names:
         side, idx = ((build, bi) if nm in build.columns else (probe, pi))
@@ -505,7 +518,7 @@ def sort_ab(comm, build, probe, n_joins: int, join_opts: dict, args):
     alone (CUDA events on a card, the host clock on the CPU, the slowest
     rank's), min and median; graded by equal totals and equal row
     digests (``row_digest``, summed over ranks), and on local and
-    emulated ranks against the pandas oracle. Shapes the segmented path
+    emulated ranks against the numpy oracle. Shapes the segmented path
     refuses skip with the reason. The JAX record's ``warm_new_traces``,
     counter signature and plan wire verdict ride the program cache,
     telemetry and planning layers, which the port does not have yet
@@ -617,6 +630,100 @@ def sort_ab(comm, build, probe, n_joins: int, join_opts: dict, args):
     return rec
 
 
+def agg_ab(comm, build, probe, join_key, n_joins: int, join_opts: dict,
+           args) -> dict:
+    """The aggregate pushdown against materialize-then-reduce (JAX
+    ``_agg_ab``, :788-889): one aggregate query, grouped by the join key
+    (a count and a sum of each side's first scalar payload), answered
+    two ways. A: the warm materializing join, its rows fetched to the
+    host and grouped there (numpy). B: the warm fused pushdown, its
+    groups fetched. N of each, each timed alone on the host clock (the
+    fetch synchronises); both graded against the numpy oracle. Shapes
+    the pushdown refuses skip with the reason. The JAX record's
+    ``warm_pushdown_new_traces`` and counter signature ride the program
+    cache and telemetry (``not_ported``)."""
+    if args.string_key_bytes:
+        return {"skipped": "string join keys: the fused pushdown covers "
+                           "scalar keys"}
+    if join_opts.get("skew_threshold") is not None:
+        return {"skipped": "skew sidecar on: the fused pushdown refuses "
+                           "the heavy-hitter path"}
+    keys = [join_key] if isinstance(join_key, str) else list(join_key)
+
+    def scalar_payload(t):
+        return next((nm for nm, c in t.columns.items()
+                     if nm not in keys and c.ndim == 1
+                     and not nm.endswith(LEN_SUFFIX)), None)
+
+    aggs = [("count", None, "n_rows")]
+    for nm in (scalar_payload(build), scalar_payload(probe)):
+        if nm is not None:
+            aggs.append(("sum", nm, f"sum_{nm}"))
+    spec = AggregateSpec.of(keys, aggs)
+    opts = {k: v for k, v in join_opts.items() if k != "key"}
+
+    try:
+        mat_fn = comm.spmd(make_join_step(comm, key=join_key, **opts),
+                           sharded_out=JOIN_SHARDED_OUT)
+        push_fn = comm.spmd(make_join_step(comm, key=join_key,
+                                           aggregate=spec, **opts),
+                            sharded_out=JOIN_SHARDED_OUT)
+    except AggregatePushdownUnsupported as exc:
+        return {"skipped": str(exc)}
+
+    def run_materialize():
+        # the workload consumes aggregates: side A's time includes
+        # fetching the join's rows and grouping them on the host
+        res = mat_fn(build, probe)
+        return res, group_reduce_frame(
+            global_table(comm, res.table).to_host(), spec)
+
+    def run_pushdown():
+        res = push_fn(build, probe)
+        return res, groups_frame(global_table(comm, res.table), spec, keys)
+
+    try:
+        mat_res, _ = run_materialize()      # warm both
+        push_res, _ = run_pushdown()
+    except AggregatePushdownUnsupported as exc:
+        return {"skipped": str(exc)}
+    if bool(mat_res.overflow):
+        return {"skipped": "materializing join overflowed at this sizing; "
+                           "A-side frame would be partial — rerun with "
+                           "larger capacity factors"}
+    walls = {"materialize": [], "pushdown": []}
+    for side, fn in (("materialize", run_materialize),
+                     ("pushdown", run_pushdown)):
+        for _ in range(n_joins):
+            comm.barrier()
+            t0 = time.perf_counter()
+            res, frame = fn()
+            walls[side].append(comm.host_max(time.perf_counter() - t0))
+            if side == "materialize":
+                mat_frame = frame
+            else:
+                push_res, push_frame = res, frame
+    oracle = aggregate_oracle(build, probe, keys, spec)
+    mat_min, push_min = min(walls["materialize"]), min(walls["pushdown"])
+    return {
+        "kind": "agg_ab",
+        "n_joins": n_joins,
+        "n_ranks": comm.n_ranks,
+        "spec": spec.as_record(),
+        "matches": int(push_res.total),
+        "groups": len(push_frame[keys[0]]),
+        "overflow": bool(push_res.overflow),
+        "materialize_wall_min_s": mat_min,
+        "pushdown_wall_min_s": push_min,
+        "pushdown_speedup": mat_min / push_min if push_min else None,
+        "materialize_walls_s": walls["materialize"],
+        "pushdown_walls_s": walls["pushdown"],
+        "oracle_equal_pushdown": frames_equal(push_frame, oracle),
+        "oracle_equal_materialize": frames_equal(mat_frame, oracle),
+        "not_ported": ["warm_pushdown_new_traces", "counter_signature"],
+    }
+
+
 def run(args, device=None) -> dict:
     """The protocol; returns the record. ``device`` defaults to the
     rank's device (``rank_device``; ``"cpu"`` for rehearsals: its times
@@ -698,6 +805,9 @@ def run(args, device=None) -> dict:
         "wire_bytes_ici_per_join": per_join["wire_bytes_ici"],
         "wire_bytes_dcn_per_join": per_join["wire_bytes_dcn"],
         "wire_bytes_saved_per_join": per_join["wire_bytes_saved"],
+        "agg_ab": (agg_ab(comm, build, probe, fixed["key"], args.agg_ab,
+                          dict(fixed, **ladder.sizing()), args)
+                   if args.agg_ab > 0 else None),
         "sort_ab": (sort_ab(comm, build, probe, args.sort_ab,
                             dict(fixed, **ladder.sizing()), args)
                     if args.sort_ab > 0 else None),

@@ -7,12 +7,23 @@ config 4, in core and out of core, on the port.
 Port of ``distributed_join_tpu/benchmarks/tpch_join.py``: ``parse_args``
 (:42), ``_make_consumer`` (:110), ``run`` (:130) with its guards
 (:160-199), the host-generator path (:219-279), the key-range path
-(:295-331), the single-shot path (:332-368) and ``_report`` (:590),
-with the JAX driver's record field names. Three paths:
+(:295-331), the single-shot path (:332-398, with ``--agg``),
+``_run_query`` (:426-587, ``--query``) and ``_report`` (:590), with the
+JAX driver's record field names. Four paths:
 
 - single shot (``--batches 1``): the tables generated on the card
   (``utils/tpch.py``, seed 42), ``--iterations`` dependent joins timed
-  as the config driver times them (``utils/benchmarking``);
+  as the config driver times them (``utils/benchmarking``); with
+  ``--agg`` the join is the fused join+group-by (group by the order key:
+  revenue, line count, last ship date, the order date carried), graded
+  against the numpy oracle;
+- query (``--query q3|q10``): ``customer ⋈ orders ⋈ lineitem`` with the
+  group-by fused into the second join, generated on the card with the
+  query's filters (``utils/tpch.py``) and run as one plan
+  (``parallel/query_exec.distributed_query``, ``auto_retry=4``): a cold
+  run, then ``--iterations`` warm ones timed one by one (host clock
+  around each query and a synchronisation), the groups graded against
+  the numpy whole-query oracle (``utils/tpch_host.query_oracle``);
 - key range (``--batches k``): the same tables, binned on the host into
   k key-range batches and joined one batch at a time
   (``parallel/out_of_core.keyrange_batched_join``);
@@ -23,9 +34,10 @@ with the JAX driver's record field names. Three paths:
   phase seconds and the peak host memory.
 
 A batched path's seconds are the batch loop's, host-to-device staging
-included. ``--agg`` and ``--query`` (the query layer) and the telemetry,
-integrity, chaos, watchdog, tuner, plan and segmented-sort flags are not
-part of the port and refuse by name. Communicators as in the config
+included. The telemetry, integrity, chaos, watchdog, tuner, plan and
+segmented-sort flags are not part of the port and refuse by name; the
+``--query`` record lists what the JAX record takes from the program
+cache, telemetry and the cost model under ``not_ported``. Communicators as in the config
 driver: ``local``, ``emulated`` (``--n-ranks``), and ``nccl`` or
 ``gloo`` under the launcher (``benchmarks/launch.py``), where every
 process generates the same tables and stages only its own rows.
@@ -44,6 +56,7 @@ import torch
 from distributed_join_tpu_torch.bench import gpu_identity
 from distributed_join_tpu_torch.benchmarks import (
     UNPORTED_FLAGS,
+    global_table,
     rank_device,
     refuse_flags,
     report,
@@ -52,8 +65,20 @@ from distributed_join_tpu_torch.parallel.bootstrap import (
     maybe_initialize_from_env,
     shutdown,
 )
+from distributed_join_tpu_torch.benchmarks.distributed_join import row_digest
+from distributed_join_tpu_torch.ops.aggregate import (
+    AggregateSpec,
+    aggregate_oracle,
+    frames_equal,
+    groups_frame,
+)
 from distributed_join_tpu_torch.parallel.communicator import make_communicator
-from distributed_join_tpu_torch.parallel.distributed_join import make_join_step
+from distributed_join_tpu_torch.parallel.distributed_join import (
+    JOIN_SHARDED_OUT,
+    make_join_step,
+)
+from distributed_join_tpu_torch.parallel.query_exec import distributed_query
+from distributed_join_tpu_torch.planning.query import tpch_query_plan
 from distributed_join_tpu_torch.parallel.out_of_core import (
     batched_join_host,
     keyrange_batched_join,
@@ -63,10 +88,13 @@ from distributed_join_tpu_torch.utils.benchmarking import (
 )
 from distributed_join_tpu_torch.utils.tpch import (
     generate_tpch_join_tables,
+    generate_tpch_query_tables,
     q3_filter,
+    query_filters,
 )
 from distributed_join_tpu_torch.utils.tpch_host import (
     generate_tpch_host_batches,
+    query_oracle,
     rename_batches,
 )
 
@@ -74,8 +102,6 @@ SEED = 42
 
 # Flags of the JAX driver that the port does not have.
 _REFUSED = {
-    "--agg": "aggregation pushdown (the query layer)",
-    "--query": "the multi-operator query plans (the query layer)",
     "--platform": "platform selection (the driver runs on the GPU)",
     "--explain": "plan explain",
     "--stage-profile": "the stage profile",
@@ -101,6 +127,18 @@ def parse_args(argv=None):
     p.add_argument("--iterations", type=int, default=4)
     p.add_argument("--q3-filters", action="store_true",
                    help="apply Q3's date predicates before the join")
+    p.add_argument("--agg", action="store_true",
+                   help="run the single-shot join as the fused "
+                        "join+group-by (group by the order key: revenue "
+                        "= sum(l_extendedprice), line count, last ship "
+                        "date, o_orderdate carried), graded against the "
+                        "numpy group-by oracle")
+    p.add_argument("--query", choices=("q3", "q10"), default=None,
+                   help="run a whole query plan, customer ⋈ orders ⋈ "
+                        "lineitem with the group-by fused into the last "
+                        "join (q3 groups by orderkey: key mode; q10 by "
+                        "custkey: build mode), graded against the numpy "
+                        "whole-query oracle. Single-shot only")
     p.add_argument("--batches", type=int, default=1,
                    help=">1 engages the out-of-core key-range path")
     p.add_argument("--host-generator", action="store_true",
@@ -182,6 +220,25 @@ def _guards(args) -> None:
             "tpch driver runs the flat pipeline: A/B the segmented sort on "
             "the generator workload (distributed_join --sort-ab)")
     batched = args.batches > 1 or args.host_generator
+    if args.query is not None:
+        bad = [flag for flag, on in (
+            ("--agg", args.agg),
+            ("--batches > 1", args.batches > 1),
+            ("--host-generator", args.host_generator),
+            ("--q3-filters", args.q3_filters),
+            ("--fetch-results", args.fetch_results),
+            ("--manifest", bool(args.manifest)),
+        ) if on]
+        if bad:
+            # the query path is a single-shot program family of its own
+            raise SystemExit(
+                f"--query composes its own plan; {', '.join(bad)} "
+                "do(es) not apply — drop the flag(s)")
+    if args.agg and batched:
+        raise SystemExit(
+            "--agg covers the single-shot path; the batched/"
+            "out-of-core paths materialize per batch — drop "
+            "--batches/--host-generator")
     if (args.manifest or args.batch_retries
             or args.continue_on_batch_failure) and not batched:
         raise SystemExit(
@@ -222,6 +279,9 @@ def run(args, device=None) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     n = comm.n_ranks
+
+    if args.query is not None:
+        return _run_query(args, comm, dev)
 
     if args.host_generator:
         rss = {"before_generate": _host_rss()}
@@ -305,16 +365,110 @@ def run(args, device=None) -> dict:
     else:
         build = build.pad_to(build.capacity + (-build.capacity) % n)
         probe = probe.pad_to(probe.capacity + (-probe.capacity) % n)
+        spec = AggregateSpec.of(
+            "key", [("sum", "l_extendedprice", "revenue"),
+                    ("count", None, "n_lines"),
+                    ("max", "l_shipdate", "last_ship")],
+            carry=("o_orderdate",)) if args.agg else None
         step = make_join_step(
             comm, key="key",
             over_decomposition=args.over_decomposition_factor,
             shuffle_capacity_factor=args.shuffle_capacity_factor,
-            out_capacity_factor=args.out_capacity_factor)
+            out_capacity_factor=args.out_capacity_factor, aggregate=spec)
         sec, matches, overflow = timed_join_throughput(
             comm, step, build, probe, args.iterations)
-        extra = {}
+        extra = {} if spec is None else {
+            "agg": True, "aggregate": _grade_agg(comm, step, build, probe,
+                                                 spec)}
     return _report(args, comm, dev, orders_rows, lineitem_rows, rows,
                    matches, overflow, sec, extra)
+
+
+def _grade_agg(comm, step, build, probe, spec) -> dict:
+    """One untimed fused join+group-by on the unshifted tables (the timed
+    loop shifts keys), its groups held against the numpy join+group-by;
+    wrong groups refuse, never land in a record."""
+    res = comm.spmd(step, sharded_out=JOIN_SHARDED_OUT)(build, probe)
+    got = global_table(comm, res.table)
+    oracle_ok = frames_equal(groups_frame(got, spec, ["key"]),
+                             aggregate_oracle(build, probe, "key", spec))
+    if not oracle_ok and not bool(res.overflow):
+        raise SystemExit("--agg: fused group-by diverged from the numpy "
+                         "oracle — refusing to report wrong aggregates")
+    return dict(spec.as_record(), groups=int(got.valid.sum()),
+                oracle_equal=oracle_ok)
+
+
+def _run_query(args, comm, dev) -> dict:
+    """The whole-query path (JAX :426-587): generate the three tables on
+    the card with the query's filters, run the plan cold through the
+    ladder, then ``--iterations`` warm runs timed one by one (host
+    clock around the query and a synchronisation, the slowest rank's),
+    and grade the groups against the numpy whole-query oracle. The
+    record has the JAX record's fields the port computes, and names the
+    others (program cache, telemetry, cost model) under
+    ``not_ported``."""
+    plan = tpch_query_plan(args.query)
+    tables = query_filters(generate_tpch_query_tables(
+        seed=SEED, scale_factor=args.scale_factor, device=dev), args.query)
+    rows = sum(int(t.num_valid()) for t in tables.values())
+    factors = dict(over_decomposition=args.over_decomposition_factor,
+                   shuffle_capacity_factor=args.shuffle_capacity_factor,
+                   out_capacity_factor=args.out_capacity_factor)
+
+    def run_once():
+        return distributed_query(tables, plan, comm, auto_retry=4,
+                                 **factors)
+
+    res = run_once()
+    if bool(res.overflow):
+        raise SystemExit(
+            "--query: the capacity ladder ran out — raise "
+            "--out-capacity-factor/--shuffle-capacity-factor")
+    query_s = []
+    for _ in range(max(args.iterations, 1)):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        comm.barrier()
+        t0 = time.perf_counter()
+        res = run_once()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        query_s.append(comm.host_max(time.perf_counter() - t0))
+    spec = plan.aggregate
+    groups = global_table(comm, res.table)
+    got = groups_frame(groups, spec, list(spec.group_keys))
+    want = query_oracle(plan, {name: t.to_host()
+                               for name, t in tables.items()})
+    oracle_ok = frames_equal(got, want)
+    if not oracle_ok:
+        raise SystemExit(
+            f"--query {args.query}: the composed program diverged from "
+            "the whole-query numpy oracle — refusing to report wrong "
+            "groups")
+    extra = {
+        "kind": "query_smoke",
+        "query": args.query,
+        "plan_digest": res.plan_digest,
+        "n_operators": plan.n_operators(),
+        "customer_nrows": int(tables["customer"].num_valid()),
+        "op_totals": [int(t) for t in res.op_totals],
+        "groups": int(groups.valid.sum()),
+        "groups_digest": int(row_digest(groups)),
+        "oracle_equal": oracle_ok,
+        "retry_attempts": res.retry_attempts,
+        "query_s": query_s,
+        "query_ms_min": min(query_s) * 1e3,
+        "aggregate": spec.as_record(),
+        "not_ported": ["programs_traced", "warm_new_traces",
+                       "warm_cache_hit", "counter_signature", "wire_exact",
+                       "wire", "cost_total_s", "order_candidates",
+                       "stage_profile"],
+    }
+    return _report(args, comm, dev, int(tables["orders"].num_valid()),
+                   int(tables["lineitem"].num_valid()), rows,
+                   int(res.total), bool(res.overflow),
+                   sum(query_s) / len(query_s), extra)
 
 
 def _report(args, comm, dev, orders_rows, lineitem_rows, rows, matches,

@@ -29,8 +29,16 @@ before hashing (JAX :536-552), and rebuilt on the way out (:783-790).
 Typed joins (``join_type``, ops/join.JOIN_TYPES) run each bucket's local
 join with the type: hash partitioning puts every key's rows of both
 sides in one bucket, so unmatched rows are local. The JAX step's other
-options (metrics and integrity digests, aggregate pushdown) refuse by
-name.
+options (metrics and integrity digests) refuse by name.
+
+Aggregate pushdown (``aggregate=``, an ``ops.aggregate.AggregateSpec``;
+JAX :475-507 and ``_make_join_agg_step`` :804-983): each side partitions
+and shuffles only the columns the reduction reads, each batch reduces in
+its merged domain (``ops.aggregate.local_join_aggregate``), and the
+result holds the finalized groups, with ``total`` the rows the
+materializing join would emit. Key mode is final per rank; probe and
+build modes combine their batches' partials and exchange them across
+ranks (the padded wire, or the hierarchical one on a multi-slice mesh).
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from distributed_join_tpu_torch.ops import aggregate as agg_ops
 from distributed_join_tpu_torch.ops.hashing import hash_columns
 from distributed_join_tpu_torch.ops.join import (
     JOIN_TYPES,
@@ -84,7 +93,6 @@ JOIN_SHARDED_OUT = JoinResult(table=False, total=True, overflow=True)
 # Options of the JAX package's join step and driver that the port does
 # not have, with the default each may still be passed as.
 _UNPORTED = {
-    "aggregate": ("aggregate pushdown", None),
     "with_metrics": ("device metrics", False),
     "with_integrity": ("wire-integrity digests", False),
     "metrics_static": ("device metrics", None),
@@ -185,6 +193,57 @@ def _batch_shuffle(comm, pt, batch: int, n_ranks: int, capacity: int,
     return table, overflow
 
 
+def _step_capacities(b_rows: int, p_rows: int, n: int, k: int,
+                     shuffle_capacity_factor: float,
+                     out_capacity_factor: float,
+                     out_rows_per_rank: Optional[int]):
+    """The step's static capacities, shared by the materializing and the
+    fused aggregate step so that the ladder relieves one contract: each
+    side's shuffle pad per (batch, destination) bucket, and the join
+    output block per batch."""
+    nb = k * n
+    b_cap = _round_up(int(math.ceil(b_rows / nb * shuffle_capacity_factor)),
+                      8)
+    p_cap = _round_up(int(math.ceil(p_rows / nb * shuffle_capacity_factor)),
+                      8)
+    if out_rows_per_rank is not None:
+        out_cap = _round_up(int(math.ceil(out_rows_per_rank / k)), 8)
+    else:
+        out_cap = _round_up(int(math.ceil(p_rows / k * out_capacity_factor)),
+                            8)
+    return b_cap, p_cap, out_cap
+
+
+def _flat_batches(comm, sides, keys, k: int, shuffle: str,
+                  compression_bits, dcn_on: bool, strings: bool):
+    """Partition both ``(table, bucket capacity)`` sides (build first)
+    into ``k * n_ranks`` buckets and yield each of the ``k`` batches as
+    ``(received build, received probe, overflow)``. With ``strings`` on
+    the ragged wire, each side's string payload columns ride the
+    byte-exact wire, each bucket ordered by the first one's length,
+    descending."""
+    n = comm.n_ranks
+    parted = []
+    for t, cap in sides:
+        vw = _varwidth_cols(t) if strings and shuffle == "ragged" else []
+        pt = radix_hash_partition(
+            t, keys, k * n, order_within=vw[0] + LEN_SUFFIX if vw else None)
+        parted.append((pt, cap, vw))
+    if shuffle == "ragged":
+        # both sides' plans in one read to the host
+        prefetch_ragged_plans(comm, [(pt, vw) for pt, _, vw in parted])
+    for b in range(k):
+        recv, overflow = [], None
+        for pt, cap, vw in parted:
+            table, ovf = _batch_shuffle(
+                comm, pt, b, n, cap, mode=shuffle,
+                compression_bits=compression_bits, varwidth=vw,
+                dcn_codec_on=dcn_on)
+            recv.append(table)
+            overflow = ovf if overflow is None else overflow | ovf
+        yield recv[0], recv[1], overflow
+
+
 def _batch_shuffle_segmented(comm, pt, batch: int, n_ranks: int,
                              segments: int, seg_cap: int, mode: str):
     """One batch of the segmented exchange (JAX :144-171): the fine
@@ -223,6 +282,7 @@ def make_join_step(
     dcn_codec: str = "auto",
     sort_mode: str = "flat",
     sort_segments: Optional[int] = None,
+    aggregate=None,
     **unported,
 ):
     """The per-rank join step ``step(build_local, probe_local) ->
@@ -278,6 +338,12 @@ def make_join_step(
     ragged wire, the compressed wire, the DCN codec on a multi-slice
     mesh, ``kernel_config`` and typed joins refuse; one segment, or one
     bucket (n * k == 1), is the flat path.
+
+    ``aggregate``: an ``ops.aggregate.AggregateSpec`` runs the fused
+    join+aggregate step (:func:`_make_join_agg_step`) in place of the
+    materializing one. The segmented sort, the skew sidecar, explicit
+    payload lists, ``kernel_config`` and typed joins refuse, as in the
+    JAX package.
     """
     _refuse_unported(unported)
     if join_type not in JOIN_TYPES:
@@ -290,6 +356,13 @@ def make_join_step(
                 "sidecar: broadcast heavy-hitter build rows are replicated "
                 "on every rank, so an unmatched heavy build row would emit "
                 "once PER RANK; run typed joins without skew_threshold")
+        if aggregate is not None:
+            raise ValueError(
+                f"join_type={join_type!r} does not combine with "
+                "aggregate pushdown: the fused reduction counts "
+                "matches in the merged domain and has no NULL-row "
+                "emission — aggregate over a materialized typed join "
+                "instead")
         if sort_mode == "segmented":
             raise ValueError(
                 f"join_type={join_type!r} is not part of the segmented-"
@@ -362,6 +435,43 @@ def make_join_step(
     nb = k * n
     keys = [key] if isinstance(key, str) else list(key)
 
+    if aggregate is not None:
+        if not isinstance(aggregate, agg_ops.AggregateSpec):
+            raise TypeError(
+                "aggregate must be an ops.aggregate.AggregateSpec "
+                f"(got {type(aggregate).__name__}); build one with "
+                "AggregateSpec.of(group_by, aggs, ...)")
+        if sort_mode == "segmented":
+            raise agg_ops.AggregatePushdownUnsupported(
+                "aggregate pushdown unsupported under "
+                "sort_mode='segmented': the fused reduction rides "
+                "the flat pipeline's own sorts — run aggregates with "
+                "sort_mode='flat'")
+        if skew_threshold is not None:
+            raise agg_ops.AggregatePushdownUnsupported(
+                "aggregate pushdown unsupported: the skew sidecar "
+                "joins heavy hitters through a separate output block "
+                "the fused reduction does not cover — run skewed "
+                "workloads through the materializing join")
+        if build_payload is not None or probe_payload is not None:
+            raise agg_ops.AggregatePushdownUnsupported(
+                "aggregate pushdown unsupported: explicit payload "
+                "lists conflict with the pushdown's own wire-column "
+                "resolution (ops.aggregate.wire_columns resolves "
+                "exactly the columns the reduction reads)")
+        if kernel_config is not None:
+            raise agg_ops.AggregatePushdownUnsupported(
+                "aggregate pushdown unsupported: kernel_config tunes "
+                "the materializing expand/compact gathers the fused "
+                "reduction never runs — drop the knob (silently "
+                "ignoring it would cache one program per value)")
+        return _make_join_agg_step(
+            comm, aggregate, keys=keys, k=k,
+            shuffle_capacity_factor=shuffle_capacity_factor,
+            out_capacity_factor=out_capacity_factor,
+            out_rows_per_rank=out_rows_per_rank, shuffle=shuffle,
+            compression_bits=compression_bits, dcn_on=dcn_on)
+
     def step(build_local: Table, probe_local: Table) -> JoinResult:
         for kname in keys:
             bdt = build_local.columns[kname].dtype
@@ -379,15 +489,9 @@ def make_join_step(
             build_local, probe_local, keys, build_payload, probe_payload)
         sk_names = tuple(nm for _, wns, _ in str_spec for nm in wns)
         b_rows, p_rows = build_local.capacity, probe_local.capacity
-        b_cap = _round_up(int(math.ceil(
-            b_rows / nb * shuffle_capacity_factor)), 8)
-        p_cap = _round_up(int(math.ceil(
-            p_rows / nb * shuffle_capacity_factor)), 8)
-        if out_rows_per_rank is not None:
-            out_cap = _round_up(int(math.ceil(out_rows_per_rank / k)), 8)
-        else:
-            out_cap = _round_up(int(math.ceil(
-                p_rows / k * out_capacity_factor)), 8)
+        b_cap, p_cap, out_cap = _step_capacities(
+            b_rows, p_rows, n, k, shuffle_capacity_factor,
+            out_capacity_factor, out_rows_per_rank)
 
         def local_join(b, p, cap=out_cap):
             return sort_merge_inner_join(
@@ -468,28 +572,12 @@ def make_join_step(
                 total = total + t_batch
                 overflow = overflow | ovf_j
         else:
-            # The byte-exact string wire: each bucket ordered by its
-            # first string column's length, descending.
-            sides = []
-            for t, cap in ((build_local, b_cap), (probe_local, p_cap)):
-                vw = _varwidth_cols(t) if shuffle == "ragged" else []
-                pt = radix_hash_partition(
-                    t, keys_eff, nb,
-                    order_within=vw[0] + LEN_SUFFIX if vw else None)
-                sides.append((pt, cap, vw))
-            if shuffle == "ragged":
-                # both sides' plans in one read to the host
-                prefetch_ragged_plans(comm, [(pt, vw) for pt, _, vw in sides])
-            for b in range(k):
-                recv = []
-                for pt, cap, vw in sides:
-                    table, ovf = _batch_shuffle(
-                        comm, pt, b, n, cap, mode=shuffle,
-                        compression_bits=compression_bits, varwidth=vw,
-                        dcn_codec_on=dcn_on)
-                    recv.append(table)
-                    overflow = overflow | ovf
-                res = local_join(*recv)
+            for recv_b, recv_p, ovf in _flat_batches(
+                    comm, ((build_local, b_cap), (probe_local, p_cap)),
+                    keys_eff, k, shuffle, compression_bits, dcn_on,
+                    strings=True):
+                overflow = overflow | ovf
+                res = local_join(recv_b, recv_p)
                 parts.append(res.table)
                 total = total + res.total
                 overflow = overflow | res.overflow
@@ -500,6 +588,103 @@ def make_join_step(
         if str_spec:
             out = patch_string_lengths(
                 rebuild_string_keys(out, str_spec, keys), keys, join_type)
+        total = comm.psum(total)
+        overflow = comm.psum(overflow.to(torch.int32)) > 0
+        return JoinResult(out, total=total, overflow=overflow)
+
+    return step
+
+
+def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
+                        out_capacity_factor, out_rows_per_rank, shuffle,
+                        compression_bits, dcn_on):
+    """The fused join+aggregate step (JAX :804-983): partition and
+    shuffle only the columns the reduction reads
+    (``ops.aggregate.wire_columns``), with the materializing step's
+    capacity arithmetic, and reduce each batch with
+    ``ops.aggregate.local_join_aggregate``. Key mode is final per rank
+    (a key lives in one (batch, rank)); probe and build modes combine
+    the batches' partials, then exchange them by the hash of the group
+    columns (a destination block holds the whole partials block, so a
+    send never overflows) and combine what arrives. Returns
+    ``step(build, probe) -> JoinResult``: ``table`` the finalized groups,
+    ``total`` the would-be join row count, ``overflow`` any shuffle
+    bucket or groups block that overflowed."""
+    n = comm.n_ranks
+    nb = k * n
+    partials_mode = "hierarchical" if shuffle == "hierarchical" \
+        else "padded"
+
+    def step(build_local: Table, probe_local: Table) -> JoinResult:
+        for kname in keys:
+            bc = build_local.columns[kname]
+            pc = probe_local.columns[kname]
+            if bc.ndim != 1:
+                raise agg_ops.AggregatePushdownUnsupported(
+                    f"aggregate pushdown unsupported: join key "
+                    f"{kname!r} is a 2-D (string) column; the fused "
+                    "reduction covers scalar keys — run string-key "
+                    "workloads through the materializing join")
+            if bc.dtype != pc.dtype:
+                raise TypeError(
+                    f"key {kname!r} dtype mismatch: build {bc.dtype} "
+                    f"vs probe {pc.dtype}")
+        bschema = agg_ops.table_schema(build_local)
+        pschema = agg_ops.table_schema(probe_local)
+        mode = agg_ops.resolve_agg_mode(spec, keys, bschema, pschema)
+        wire_b, wire_p = agg_ops.wire_columns(spec, mode, keys, bschema,
+                                              pschema)
+        build_w = build_local.select(wire_b)
+        probe_w = probe_local.select(wire_p)
+        lanes_schema = agg_ops.partial_lane_schema(spec, bschema, pschema)
+        group_names = list(keys) if mode == "key" \
+            else list(spec.group_keys)
+
+        b_cap, p_cap, out_cap = _step_capacities(
+            build_w.capacity, probe_w.capacity, n, k,
+            shuffle_capacity_factor, out_capacity_factor, out_rows_per_rank)
+        groups_cap = agg_ops.resolve_groups_capacity(spec, out_cap)
+
+        dev = build_local.device
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        parts = []
+        if nb == 1:
+            partials, t, _, ovf = agg_ops.local_join_aggregate(
+                build_w, probe_w, keys, spec, mode, groups_cap)
+            parts.append(partials)
+            total = total + t
+            overflow = overflow | ovf
+        else:
+            for recv_b, recv_p, ovf in _flat_batches(
+                    comm, ((build_w, b_cap), (probe_w, p_cap)), keys, k,
+                    shuffle, compression_bits, dcn_on, strings=False):
+                partials, t, _, ovf_j = agg_ops.local_join_aggregate(
+                    recv_b, recv_p, keys, spec, mode, groups_cap)
+                parts.append(partials)
+                total = total + t
+                overflow = overflow | ovf | ovf_j
+        if mode in ("probe", "build"):
+            # non-key groups recur across batches and ranks
+            if len(parts) > 1:
+                combined, _, ovf = agg_ops.combine_partials(
+                    parts, spec, group_names, lanes_schema, groups_cap)
+                overflow = overflow | ovf
+                parts = [combined]
+            if n > 1:
+                ptg = radix_hash_partition(parts[0], group_names, n)
+                recv, ovf_x = _batch_shuffle(comm, ptg, 0, n, groups_cap,
+                                             mode=partials_mode)
+                combined, _, ovf_c = agg_ops.combine_partials(
+                    [recv], spec, group_names, lanes_schema, groups_cap)
+                overflow = overflow | ovf_x | ovf_c
+                parts = [combined]
+        finals = [agg_ops.finalize_groups(p, spec, group_names)
+                  for p in parts]
+        out = finals[0] if len(finals) == 1 else Table(
+            {name: torch.cat([t.columns[name] for t in finals])
+             for name in finals[0].column_names},
+            torch.cat([t.valid for t in finals]))
         total = comm.psum(total)
         overflow = comm.psum(overflow.to(torch.int32)) > 0
         return JoinResult(out, total=total, overflow=overflow)

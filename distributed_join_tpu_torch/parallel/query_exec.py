@@ -1,0 +1,164 @@
+"""Run a ``planning.query.QueryPlan`` as one per-rank program.
+
+Port of ``distributed_join_tpu/parallel/query_exec.py``: ``QueryResult``
+(:55), ``make_query_step`` (:95), ``query_sharded_out`` (:149),
+``make_distributed_query`` (:158) and ``distributed_query`` (:235).
+Every ``make_join_step`` step is a per-rank function over collectives,
+so a plan runs by calling the operators' steps in turn inside one
+function under ``comm.spmd``: each intermediate is an ordinary table of
+the rank's rows that stays on the device, and each operator's own
+partition and shuffle re-shards it by the next key.
+
+``distributed_query`` pads the base tables to a rank-divisible capacity
+and, on overflow anywhere in the chain, doubles every operator's
+``shuffle_capacity_factor`` and ``out_capacity_factor`` together, up to
+``auto_retry`` times (the JAX package's ladder for whole queries). The
+JAX package's program cache (``program_cache``, ``QuerySignature``) and
+per-operator metrics (``with_metrics``) are not part of the port and
+refuse by name.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping, Optional
+
+import torch
+
+from distributed_join_tpu_torch.parallel.distributed_join import (
+    DEFAULT_OUT_CAPACITY_FACTOR,
+    DEFAULT_SHUFFLE_CAPACITY_FACTOR,
+    make_join_step,
+)
+from distributed_join_tpu_torch.table import Table
+
+__all__ = [
+    "QueryResult",
+    "make_query_step",
+    "make_distributed_query",
+    "distributed_query",
+]
+
+
+@dataclasses.dataclass(frozen=True)
+class QueryResult:
+    """The terminal operator's output and the chain's health: ``total``
+    is the last operator's count (the would-be join rows of a fused
+    aggregate, as its step reports them; matches otherwise),
+    ``op_totals`` each operator's, in plan order, and ``overflow`` the
+    OR over every operator, so a retry re-runs the whole query.
+    ``distributed_query`` attaches ``plan_digest`` and
+    ``retry_attempts`` as attributes."""
+
+    table: Table
+    total: torch.Tensor
+    overflow: torch.Tensor
+    op_totals: tuple
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _op_steps(comm, plan, defaults):
+    from distributed_join_tpu_torch.ops import aggregate as agg_ops
+
+    steps = []
+    for op in plan.ops:
+        opts = dict(defaults)
+        opts.update(op.opts())
+        if op.aggregate is not None:
+            opts["aggregate"] = agg_ops.AggregateSpec.from_wire(op.aggregate)
+        key = list(op.keys) if len(op.keys) > 1 else op.keys[0]
+        steps.append(make_join_step(comm, key=key, join_type=op.join_type,
+                                    **opts))
+    return steps
+
+
+def make_query_step(comm, plan, *, defaults: Optional[dict] = None):
+    """The per-rank step of the whole plan, ``step(*tables) ->
+    QueryResult``, the tables in ``plan.tables`` order; run it under
+    ``comm.spmd`` with :func:`query_sharded_out`. ``defaults`` are join
+    options of every operator (an operator's own plan options win)."""
+    op_steps = _op_steps(comm, plan, dict(defaults or {}))
+    names = tuple(plan.tables)
+    ops = plan.ops
+
+    def step(*tables):
+        if len(tables) != len(names):
+            raise TypeError(f"query step takes {len(names)} tables "
+                            f"{list(names)}, got {len(tables)}")
+        env = dict(zip(names, tables))
+        op_totals = []
+        overflow = None
+        res = None
+        for op, op_step in zip(ops, op_steps):
+            res = op_step(env[op.build], env[op.probe])
+            env[op.op_id] = res.table
+            op_totals.append(res.total)
+            overflow = res.overflow if overflow is None \
+                else overflow | res.overflow
+        return QueryResult(table=res.table, total=res.total,
+                           overflow=overflow, op_totals=tuple(op_totals))
+
+    return step
+
+
+def query_sharded_out(plan) -> QueryResult:
+    """The ``comm.spmd`` out-spec of :func:`make_query_step`: the table
+    row-sharded, every summed count and the flag replicated."""
+    return QueryResult(table=False, total=True, overflow=True,
+                       op_totals=(True,) * len(plan.ops))
+
+
+def make_distributed_query(comm, plan, with_metrics=None, **defaults):
+    """``fn(*tables) -> QueryResult`` over row-sharded global tables
+    (capacities divisible by the rank count) in ``plan.tables`` order:
+    the whole chain as one per-rank program. ``defaults`` are join
+    options of every operator."""
+    if with_metrics:
+        raise NotImplementedError(
+            "with_metrics=True: device metrics are not part of the port")
+    return comm.spmd(make_query_step(comm, plan, defaults=defaults),
+                     sharded_out=query_sharded_out(plan))
+
+
+def distributed_query(tables: Mapping[str, Table], plan, comm,
+                      auto_retry: int = 0, program_cache=None,
+                      with_metrics=None, **defaults) -> QueryResult:
+    """Run the whole plan: pad each base table to a rank-divisible
+    capacity, run the one program, and on overflow anywhere in the
+    chain double every operator's ``shuffle_capacity_factor`` and
+    ``out_capacity_factor`` and run again, up to ``auto_retry`` times.
+    The result carries ``plan_digest`` and ``retry_attempts``."""
+    if program_cache is not None:
+        raise NotImplementedError(
+            "program_cache: the serving program cache is not part of the "
+            "port")
+    if with_metrics:
+        raise NotImplementedError(
+            "with_metrics=True: device metrics are not part of the port")
+    n = comm.n_ranks
+    missing = [name for name in plan.tables if name not in tables]
+    if missing:
+        raise ValueError(
+            f"plan references base tables {missing} not supplied "
+            f"(have {sorted(tables)})")
+    args = tuple(tables[name].pad_to(_round_up(tables[name].capacity, n))
+                 for name in plan.tables)
+    defaults = dict(defaults)
+    shuffle_f = float(defaults.pop("shuffle_capacity_factor",
+                                   DEFAULT_SHUFFLE_CAPACITY_FACTOR))
+    out_f = float(defaults.pop("out_capacity_factor",
+                               DEFAULT_OUT_CAPACITY_FACTOR))
+    for attempt in range(auto_retry + 1):
+        scale = 2 ** attempt
+        fn = make_distributed_query(
+            comm, plan, shuffle_capacity_factor=shuffle_f * scale,
+            out_capacity_factor=out_f * scale, **defaults)
+        res = fn(*args)
+        if not bool(res.overflow):
+            break
+    object.__setattr__(res, "plan_digest", plan.digest())
+    object.__setattr__(res, "retry_attempts", attempt)
+    return res

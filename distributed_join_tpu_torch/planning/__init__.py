@@ -1,0 +1,1 @@
+"""planning of the PyTorch port (see the package docstring)."""

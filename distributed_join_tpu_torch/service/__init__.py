@@ -1,0 +1,1 @@
+"""service of the PyTorch port (see the package docstring)."""

@@ -59,6 +59,17 @@ class Table:
         """Count of real rows, a device scalar (JAX ``table.py:52``)."""
         return self.valid.sum(dtype=torch.int64)
 
+    def select(self, names) -> "Table":
+        """The columns ``names``, in that order (JAX ``table.py:92``)."""
+        return Table({n: self.columns[n] for n in names}, self.valid)
+
+    def to_host(self) -> dict:
+        """The valid rows as numpy columns, in column order: what the JAX
+        package's ``to_pandas`` gives, without pandas (the host oracles'
+        frames)."""
+        valid = self.valid
+        return {n: c[valid].cpu().numpy() for n, c in self.columns.items()}
+
     def rename(self, mapping: Mapping[str, str]) -> "Table":
         """Rename columns; unlisted names pass through (JAX
         ``table.py:95``)."""

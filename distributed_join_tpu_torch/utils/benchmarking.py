@@ -2,7 +2,8 @@
 
 Port of ``distributed_join_tpu/utils/benchmarking.py``
 ``consume_all_columns`` (:75) and ``timed_join_throughput`` (:100), plus
-:func:`profile_join`, where a join's device time goes. One
+:func:`profile_join` and :func:`profile_calls`, where a join's (or a
+query's) device time goes. One
 warm-up run of the whole timed loop, then ``iters`` joins between two
 CUDA events, with both sides' keys shifted by the loop counter (the
 shift keeps the hit/miss structure — the generator's miss keys occupy a
@@ -99,16 +100,24 @@ def profile_join(step: Callable, build: Table, probe: Table, joins: int = 3,
     total and the host wall time per join, whose ratio is the device's
     busy share. ``record=False`` (every rank of a process group but
     rank 0) makes the same calls unprofiled and returns None."""
+    return profile_calls(lambda: step(build, probe), build.device, joins,
+                         top, record)
+
+
+def profile_calls(call: Callable, dev, joins: int = 3, top: int = 15,
+                  record: bool = True) -> dict | None:
+    """:func:`profile_join` of any ``call()`` whose result has ``total``
+    and ``overflow`` (a join, or a whole query) on the CUDA device
+    ``dev``."""
     from torch.profiler import ProfilerActivity, profile
 
-    dev = build.device
-    step(build, probe)
+    call()
     torch.cuda.synchronize(dev)
     with (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
           if record else contextlib.nullcontext()) as prof:
         t0 = time.perf_counter()
         for _ in range(joins):
-            res = step(build, probe)
+            res = call()
         torch.cuda.synchronize(dev)
         wall = time.perf_counter() - t0
     if not record:

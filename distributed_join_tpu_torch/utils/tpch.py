@@ -5,7 +5,9 @@ Port of ``distributed_join_tpu/utils/tpch.py``: the join's constants
 (:48-53, less the customer table's),
 ``sparse_order_keys`` (:56), ``generate_orders`` (:64),
 ``generate_lineitem`` (:81), ``generate_tpch_join_tables`` (:117) and
-``q3_filter`` (:207). dbgen's join structure: ``orders`` holds SF * 1.5 M
+``q3_filter`` (:207), and the query layer's three tables:
+``generate_customer`` (:129), ``generate_tpch_query_tables`` (:148) and
+``query_filters`` (:181). dbgen's join structure: ``orders`` holds SF * 1.5 M
 rows with dbgen's sparse order keys (8 used in every block of 32),
 ``o_orderdate`` uniform over the 2406 days of 1992-01-01..1998-08-02 and
 ``o_totalprice`` in cents; ``lineitem`` holds 1..7 lines an order,
@@ -20,9 +22,11 @@ the JAX package's; the bits are not (``torch.Generator`` is not
 ``jax.random``). The line count is read to the host once, at generation,
 as in the JAX package: the join never does this.
 
-The customer table and the query filters (``generate_customer``,
-``generate_tpch_query_tables``, ``query_filters``) belong to the query
-layer, which the port does not have yet.
+The query tables add ``customer`` (SF * 150 k rows, dbgen's dense keys
+1..n, a market segment of 5, an account balance in cents and a nation
+key) and give ``orders`` its ``o_custkey`` foreign key, uniform over the
+customers; the join keys carry the plans' names, ``custkey`` and
+``orderkey``.
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ from distributed_join_tpu_torch.device import resolve_device
 from distributed_join_tpu_torch.table import Table
 
 ORDERS_PER_SF = 1_500_000
+CUSTOMERS_PER_SF = 150_000
+N_MKT_SEGMENTS = 5
 DATE_RANGE_DAYS = 2406       # 1992-01-01 .. 1998-08-02
 MAX_SHIP_LAG_DAYS = 121
 MAX_LINES_PER_ORDER = 7
@@ -110,3 +116,66 @@ def q3_filter(orders: Table, lineitem: Table,
     li = Table(lineitem.columns,
                lineitem.valid & (lineitem.columns["l_shipdate"] > cutoff_day))
     return o, li
+
+
+def generate_customer(generator: torch.Generator,
+                      scale_factor: float) -> Table:
+    """SF * 150 k customers with dbgen's dense keys 1..n:
+    ``c_mktsegment`` uniform over 5 segments, ``c_acctbal`` in cents in
+    dbgen's [-999.99, 9999.99], ``c_nationkey`` 0..24."""
+    g = generator
+    n = int(CUSTOMERS_PER_SF * scale_factor)
+    return Table.from_dense({
+        "c_custkey": torch.arange(1, n + 1, dtype=torch.int64,
+                                  device=g.device),
+        "c_mktsegment": _randint(g, 0, N_MKT_SEGMENTS, n, torch.int32),
+        "c_acctbal": _randint(g, -99_999, 1_000_000, n, torch.int64),
+        "c_nationkey": _randint(g, 0, 25, n, torch.int32),
+    })
+
+
+def generate_tpch_query_tables(seed: int, scale_factor: float,
+                               device=None) -> dict:
+    """``{"customer", "orders", "lineitem"}`` for the query plans, the
+    join keys under the plans' names: ``custkey`` on customer and
+    orders, ``orderkey`` on orders and lineitem. ``orders`` gains the
+    ``o_custkey`` foreign key, uniform over the customers (unmatched
+    customers included)."""
+    g = torch.Generator(device=resolve_device(device))
+    g.manual_seed(seed)
+    customer = generate_customer(g, scale_factor)
+    orders = generate_orders(g, scale_factor)
+    lineitem = generate_lineitem(g, scale_factor, orders)
+    custkey = _randint(g, 1, customer.capacity + 1, orders.capacity,
+                       torch.int64)
+    orders = Table(dict(orders.columns, o_custkey=custkey), orders.valid)
+    return {
+        "customer": customer.rename({"c_custkey": "custkey"}),
+        "orders": orders.rename({"o_custkey": "custkey",
+                                 "o_orderkey": "orderkey"}),
+        "lineitem": lineitem.rename({"l_orderkey": "orderkey"}),
+    }
+
+
+def query_filters(tables: dict, query: str,
+                  cutoff_day: int = DATE_RANGE_DAYS // 2,
+                  segment: int = 1) -> dict:
+    """The queries' predicates as validity masks (the shapes stay). Q3:
+    ``c_mktsegment == segment``, ``o_orderdate < cutoff``,
+    ``l_shipdate > cutoff``. Q10: ``o_orderdate`` in the 90 days from
+    ``cutoff`` (dbgen's quarter)."""
+    c, o, li = (tables["customer"], tables["orders"], tables["lineitem"])
+    if query == "q3":
+        c = Table(c.columns,
+                  c.valid & (c.columns["c_mktsegment"] == segment))
+        o = Table(o.columns,
+                  o.valid & (o.columns["o_orderdate"] < cutoff_day))
+        li = Table(li.columns,
+                   li.valid & (li.columns["l_shipdate"] > cutoff_day))
+    elif query == "q10":
+        date = o.columns["o_orderdate"]
+        o = Table(o.columns, o.valid & (date >= cutoff_day)
+                  & (date < cutoff_day + 90))
+    else:
+        raise ValueError(f"unknown query {query!r}")
+    return {"customer": c, "orders": o, "lineitem": li}

@@ -17,8 +17,10 @@ at generation and never cross PCIe. ``narrow_wire`` (the default) stages
 every column as int32: every value fits while the sparse order keys stay
 below 2^31 (SF up to about 357), and the H2D bytes nearly halve.
 
-The pandas query oracle (``query_oracle``) belongs to the query layer,
-which the port does not have yet.
+The whole-query oracle (``_merge_oracle`` :198 and ``query_oracle``
+:237) is numpy here, where the JAX package's is pandas: a frame is a
+dict of equal-length numpy columns (``Table.to_host``), so the oracle
+runs on a machine without pandas.
 """
 
 from __future__ import annotations
@@ -178,3 +180,110 @@ def rename_batches(batches: HostBatches, mapping: dict) -> HostBatches:
     """Rename the columns of every batch (``Table.rename`` on the host)."""
     return [{mapping.get(n, n): c for n, c in cols.items()}
             for cols in batches]
+
+
+# -- the whole-query oracle (multi-operator plans) --------------------------
+#
+# The replay mirrors the device semantics: the probe is the preserved
+# (left) side, an absent side's payloads are zero, and the outer types
+# add the `build#valid` / `probe#valid` columns, so
+# `ops.aggregate.frames_equal` compares frames as they are.
+
+
+def _key_ids(build: dict, probe: dict, keys) -> tuple:
+    """Comparable 1-D key values of both sides: a single 1-D key as it
+    is, a composite or 2-D key as ids numbered over both sides."""
+    if len(keys) == 1 and np.asarray(build[keys[0]]).ndim == 1:
+        return np.asarray(build[keys[0]]), np.asarray(probe[keys[0]])
+    nb = len(build[keys[0]])
+    ids = []
+    for k in keys:
+        both = np.concatenate([np.asarray(build[k]), np.asarray(probe[k])])
+        _, inv = np.unique(both.reshape(both.shape[0], -1), axis=0,
+                           return_inverse=True)
+        ids.append(inv.reshape(-1))
+    if len(ids) == 1:
+        inv = ids[0]
+    else:
+        _, inv = np.unique(np.stack(ids, 1), axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+    return inv[:nb], inv[nb:]
+
+
+def inner_match(bk: np.ndarray, pk: np.ndarray) -> tuple:
+    """Every (probe row, build row) pair with equal keys: ``(probe
+    index, build index, matches of each probe row)``, probe-major."""
+    order = np.argsort(bk, kind="stable")
+    sb = bk[order]
+    lo = np.searchsorted(sb, pk, "left")
+    cnt = np.searchsorted(sb, pk, "right") - lo
+    p_idx = np.repeat(np.arange(len(pk)), cnt)
+    first = np.cumsum(cnt) - cnt
+    b_idx = order[np.repeat(lo - first, cnt) + np.arange(int(cnt.sum()))]
+    return p_idx, b_idx, cnt
+
+
+def _merge_oracle(probe: dict, build: dict, keys, join_type: str) -> dict:
+    """The join of two host frames (JAX ``utils/tpch_host.py:198``):
+    probe columns, then the build's non-key columns, then the outer
+    types' validity columns; an absent side's values are zero."""
+    keys = list(keys)
+    bk, pk = _key_ids(build, probe, keys)
+    p_idx, b_idx, cnt = inner_match(bk, pk)
+    if join_type in ("semi", "anti"):
+        keep = cnt > 0 if join_type == "semi" else cnt == 0
+        return {c: np.asarray(v)[keep] for c, v in probe.items()}
+    b_pay = [c for c in build if c not in keys]
+    # (probe rows, build rows): None for an absent side
+    parts = [(p_idx, b_idx)]
+    if join_type in ("left", "full_outer"):
+        parts.append((np.flatnonzero(cnt == 0), None))
+    if join_type in ("right", "full_outer"):
+        parts.append((None, np.flatnonzero(~np.isin(bk, pk))))
+
+    def column(frame, idx, rows, col):
+        a = np.asarray(frame[col])
+        if idx is None:
+            return np.zeros((rows,) + a.shape[1:], a.dtype)
+        return a[idx]
+
+    out = {}
+    for frame, cols, side in ((probe, list(probe), 0), (build, b_pay, 1)):
+        for col in cols:
+            pieces = []
+            for pb in parts:
+                rows = len(pb[0] if pb[0] is not None else pb[1])
+                if col in keys and pb[0] is None:   # a lone build's key
+                    pieces.append(np.asarray(build[col])[pb[1]])
+                else:
+                    pieces.append(column(frame, pb[side], rows, col))
+            out[col] = np.concatenate(pieces)
+    for name, side, types in (("build#valid", 1, ("left", "full_outer")),
+                              ("probe#valid", 0, ("right", "full_outer"))):
+        if join_type in types:
+            out[name] = np.concatenate([
+                np.full(len(pb[0] if pb[0] is not None else pb[1]),
+                        pb[side] is not None) for pb in parts])
+    return out
+
+
+def query_oracle(plan, frames: dict) -> dict:
+    """Replay ``plan`` (a ``planning.query.QueryPlan``) over host frames
+    (``Table.to_host`` of each base table). Returns the final frame:
+    the joined rows of a materializing plan, or one row per group
+    (sorted by the group keys) when the plan ends in a fused
+    aggregate."""
+    from distributed_join_tpu_torch.ops.aggregate import (
+        AggregateSpec,
+        group_reduce_frame,
+    )
+
+    env = dict(frames)
+    for op in plan.ops:
+        env[op.op_id] = _merge_oracle(env[op.probe], env[op.build],
+                                      op.keys, op.join_type)
+    final = env[plan.ops[-1].op_id]
+    wire = plan.ops[-1].aggregate
+    if wire is None:
+        return final
+    return group_reduce_frame(final, AggregateSpec.from_wire(wire))

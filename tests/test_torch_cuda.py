@@ -1508,3 +1508,96 @@ def test_emulated_hierarchy_on_card_equals_one_rank(card):
         assert not bool(res.overflow) and int(res.total) == int(one.total)
         np.testing.assert_array_equal(_table_rows(res.table), want)
         assert comm.wire_bytes_ici > 0 and comm.wire_bytes_dcn > 0
+
+
+# -- the fused join+aggregate (ops/aggregate.py) ----------------------------
+
+
+def _groups_site_inputs(rng, n, runs, p_rec, card):
+    """A per-run domain as the aggregate compacts it: n slots, the first
+    ``runs`` of them runs, each a record with probability ``p_rec``; four
+    lanes (an int64 key, an int64 sum, a count, an int32 carry)."""
+    from distributed_join_tpu_torch.ops.lanes import to_u64_lane
+    rec = np.zeros(n, bool)
+    rec[:runs] = rng.random(runs) < p_rec
+    mask = torch.from_numpy(rec).to(card)
+    pos = torch.cumsum(mask, 0, dtype=torch.int32) - 1
+    lanes = [torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n)).to(card),
+             torch.from_numpy(rng.integers(0, 1 << 40, n)).to(card),
+             torch.from_numpy(rng.integers(1, 8, n)).to(card),
+             to_u64_lane(torch.from_numpy(
+                 rng.integers(-2**31, 2**31, n).astype(np.int32)).to(card))]
+    return mask, pos, lanes
+
+
+@pytest.mark.parametrize("n,runs,p_rec,cap", [
+    (3 * COMPACT_TILE + 17, 2 * COMPACT_TILE, 0.3, 4096),
+    (600_001, 400_000, 0.05, 32_768),
+    # an overflowing groups block: the first ``cap`` groups, in order
+    (600_001, 400_000, 0.05, 1000),
+    (COMPACT_TILE, COMPACT_TILE, 1.0, COMPACT_TILE)])
+def test_groups_compaction_kernel(card, n, runs, p_rec, cap):
+    """``stream_compact`` at the groups site (``compact_groups``)
+    against its twin over the survivor prefix, its launch counted on the
+    site."""
+    from distributed_join_tpu_torch.ops import aggregate
+    rng = np.random.default_rng(n + cap)
+    mask, pos, lanes = _groups_site_inputs(rng, n, runs, p_rec, card)
+    kept = min(int(mask.sum()), cap)
+    _kernels.reset_launch_counts(aggregate.compact_groups)
+    got = aggregate.compact_groups(mask, pos, lanes, cap)
+    want = compact.stream_compact_reference(mask, pos, lanes, cap)
+    torch.cuda.synchronize()
+    assert aggregate.compact_groups.launches == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g[:kept], w[:kept])
+
+
+def _aggregate_tables(dev, seed=9, nb=200_000, npr=600_000, kmax=150_000):
+    rng = np.random.default_rng(seed)
+    bk = rng.integers(0, kmax, nb)
+    pk = rng.integers(0, kmax, npr)
+    bg = rng.integers(0, 97, nb)
+    build = Table.from_numpy({
+        "key": bk, "bgroup": bg, "bcarry": bg * 3 + 1,
+        "b_val": rng.integers(-1000, 1000, nb),
+        "b_f": rng.random(nb)}, rng.random(nb) < 0.95, device=dev)
+    probe = Table.from_numpy({
+        "key": pk, "p_val": rng.integers(0, 1 << 30, npr).astype(np.int32),
+        "p_f": rng.random(npr).astype(np.float32)},
+        rng.random(npr) < 0.95, device=dev)
+    return build, probe
+
+
+@pytest.mark.parametrize("mode", ["key", "build"])
+def test_local_join_aggregate_on_card_equals_cpu(card, mode):
+    """Key and build mode on the card (the groups compaction's kernel,
+    torch's CUDA sorts, scans and scatters) equal to the same call on
+    the CPU: integer lanes exactly, float lanes within ``frames_equal``'s
+    rtol 1e-5, atol 1e-8 (the segment sums add in another order, and a
+    float32 sum rounds at ~1e-7)."""
+    from distributed_join_tpu_torch.ops import aggregate as A
+    aggs = [("count", None), ("sum", "p_val"), ("sum", "b_val"),
+            ("min", "p_val"), ("max", "b_val"), ("mean", "p_val"),
+            ("sum", "b_f"), ("sum", "p_f")]
+    spec = (A.AggregateSpec.of("key", aggs, carry=("bcarry",))
+            if mode == "key" else
+            A.AggregateSpec.of("bgroup", aggs, carry=("bcarry",)))
+    gn = ["key"] if mode == "key" else ["bgroup"]
+    frames = []
+    for dev in (card, torch.device("cpu")):
+        build, probe = _aggregate_tables(dev)
+        _kernels.reset_launch_counts(A.compact_groups)
+        part, total, groups, ovf = A.local_join_aggregate(
+            build, probe, ["key"], spec, mode, 300_000)
+        assert not bool(ovf) and int(groups) > 0
+        if dev.type == "cuda":
+            assert A.compact_groups.launches >= 1
+        frames.append((int(total), A.groups_frame(
+            A.finalize_groups(part, spec, gn), spec, gn)))
+    (gt, got), (ct, want) = frames
+    assert gt == ct
+    assert A.frames_equal(got, want)
+    for c in want:
+        if want[c].dtype.kind != "f":
+            np.testing.assert_array_equal(got[c], want[c])

@@ -363,11 +363,24 @@ def test_distributed_join_refuses_unported_options():
     t = _ttable({"key": np.arange(8), "a": np.arange(8)}, np.ones(8, bool))
     u = _ttable({"key": np.arange(8), "b": np.arange(8)}, np.ones(8, bool))
     for name, value in (("with_integrity", True), ("with_metrics", True),
-                        ("aggregate", object()), ("explain", True),
-                        ("tuner", object())):
+                        ("explain", True), ("tuner", object())):
         with pytest.raises(NotImplementedError, match=name):
             tdist.distributed_inner_join(t, u, LocalCommunicator(),
                                          **{name: value})
+    # aggregate pushdown is ported: a value that is no AggregateSpec is a
+    # TypeError, in the JAX package's words
+    cols = ({"key": np.arange(8), "a": np.arange(8)},
+            {"key": np.arange(8), "b": np.arange(8)})
+    msgs = []
+    for fn, mk, comm in ((jdist.distributed_inner_join, _jtable,
+                          jcomm.make_communicator("local")),
+                         (tdist.distributed_inner_join, _ttable,
+                          LocalCommunicator())):
+        with pytest.raises(TypeError, match="AggregateSpec") as exc:
+            fn(mk(cols[0], np.ones(8, bool)), mk(cols[1], np.ones(8, bool)),
+               comm, aggregate=object())
+        msgs.append(str(exc.value))
+    assert msgs[0] == msgs[1]
 
 
 def test_one_rank_join_equals_emulated_ranks():

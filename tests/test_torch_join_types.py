@@ -387,10 +387,11 @@ def test_typed_refusals_match_jax():
         with pytest.raises(ValueError, match="skew"):
             fn(mk(bc, v), mk(pc, v), comm, join_type="left",
                skew_threshold=0.01)
-    with pytest.raises(NotImplementedError, match="aggregate"):
-        tdist.distributed_inner_join(_ttable(bc, v), _ttable(pc, v),
-                                     LocalCommunicator(), join_type="left",
-                                     aggregate=object())
+        # a typed join refuses the aggregate pushdown, as in the JAX
+        # package (before it looks at the spec)
+        with pytest.raises(ValueError, match="aggregate pushdown"):
+            fn(mk(bc, v), mk(pc, v), comm, join_type="left",
+               aggregate=object())
 
 
 # -- the distributed join -----------------------------------------------

@@ -34,6 +34,10 @@ from distributed_join_tpu.parallel.shuffle import (
     shuffle_padded as jshuffle_padded,
 )
 from distributed_join_tpu.table import Table as JTable
+from distributed_join_tpu.ops import aggregate as jagg
+from distributed_join_tpu.parallel import query_exec as jquery
+from distributed_join_tpu.planning.query import tpch_query_plan
+from distributed_join_tpu.utils import tpch as jtpch
 from distributed_join_tpu.utils.generators import (
     generate_build_probe_tables as jgenerate,
 )
@@ -189,6 +193,20 @@ if "hier_joins" in spec:
         out[f"{name}/counters"] = np.array(json.dumps(
             {k: after[k] - before[k] for k in after}))
 
+for q, path in spec.get("queries", {}).items():
+    from distributed_join_tpu_torch.parallel.query_exec import (
+        distributed_query)
+    from distributed_join_tpu_torch.planning.query import tpch_query_plan
+    tables = {name: table(path, name)
+              for name in ("customer", "orders", "lineitem")}
+    res = distributed_query(tables, tpch_query_plan(q), comm, auto_retry=4)
+    cols, valid = res.table.to_numpy()
+    for k, v in cols.items():
+        out[f"query_{q}/col/{k}"] = v
+    out[f"query_{q}/valid"] = valid
+    out[f"query_{q}/overflow"] = np.bool_(bool(res.overflow))
+    out[f"query_{q}/op_totals"] = np.array([int(t) for t in res.op_totals])
+
 if "skew_tables" in spec:
     b = table(spec["skew_tables"], "build")
     p = table(spec["skew_tables"], "probe")
@@ -262,6 +280,26 @@ def _string_tables():
 
 
 TABLES = {"uniform": _uniform_tables, "strings": _string_tables}
+QUERIES = ("q3", "q10")
+QUERY_SF = 0.004
+
+
+@functools.lru_cache(maxsize=None)
+def _query_tables(q: str) -> dict:
+    """The JAX package's TPC-H query tables (SF 0.004) with ``q``'s
+    filters."""
+    return jtpch.query_filters(
+        jtpch.generate_tpch_query_tables(seed=7, scale_factor=QUERY_SF), q)
+
+
+def _query_arrays(q: str) -> dict:
+    """:func:`_query_tables` as the worker's npz arrays."""
+    arrays = {}
+    for name, t in _query_tables(q).items():
+        arrays[f"{name}_valid"] = np.asarray(t.valid)
+        arrays.update({f"{name}/{k}": np.asarray(v)
+                       for k, v in t.columns.items()})
+    return arrays
 
 
 @functools.lru_cache(maxsize=None)
@@ -341,6 +379,10 @@ def worker_runs(tmp_path_factory):
             spec["hier_joins"] = HIER_CASES
             spec["hier_slices"] = HIER_SLICES
         if n == 2:
+            spec["queries"] = {}
+            for q in QUERIES:
+                np.savez(d / f"{q}.npz", **_query_arrays(q))
+                spec["queries"][q] = str(d / f"{q}.npz")
             _save_tables(d / "zipf.npz", *_zipf_tables())
             spec["skew_tables"] = str(d / "zipf.npz")
             spec["skew_opts"] = SKEW_OPTS
@@ -537,6 +579,34 @@ def test_gloo_hierarchical_join_equals_emulated_and_jax(worker_runs, case):
 
 
 # -- (c): the skew sidecar over 2 gloo processes --------------------------
+
+
+@pytest.mark.parametrize("q", QUERIES)
+def test_gloo_query_equals_jax(worker_runs, jcomms, q):
+    """TPC-H Q3 (key mode) and Q10 (build mode: the partials exchange
+    over gloo) through ``distributed_query`` on 2 processes: every
+    rank's groups together equal JAX's ``distributed_query`` on its
+    2-device mesh, and so do the operators' totals."""
+    from distributed_join_tpu_torch.ops import aggregate as tagg
+    ranks, _ = worker_runs[2]
+    plan = tpch_query_plan(q)
+    want = jquery.distributed_query(_query_tables(q), plan, jcomms[2],
+                                    auto_retry=4)
+    spec = plan.aggregate
+    gk = list(spec.group_keys)
+    wframe = jagg.groups_frame(want.table, spec, gk)
+    names = list(wframe.columns)
+    valid = np.concatenate([r[f"query_{q}/valid"] for r in ranks])
+    cols = {k: np.concatenate([r[f"query_{q}/col/{k}"] for r in ranks])[valid]
+            for k in names}
+    order = np.lexsort([cols[g] for g in gk][::-1])
+    got = {k: cols[k][order] for k in names}
+    assert valid.sum() > 0
+    assert tagg.frames_equal(got, {c: wframe[c].to_numpy() for c in names})
+    for r in ranks:
+        assert not r[f"query_{q}/overflow"]
+        assert list(r[f"query_{q}/op_totals"]) == [
+            int(t) for t in want.op_totals]
 
 
 def test_gloo_skew_join_gathers_uint64_hashes(worker_runs, jcomms):

@@ -495,10 +495,20 @@ def test_kernel_config_and_dcn_codec_refusals_match_jax(jc8):
         # the codec off: segments ride the hierarchical route
         mod.make_join_step(comm, sort_mode="segmented",
                            shuffle="hierarchical", dcn_codec="off")
-    # aggregate pushdown stays behind the port's own refusal
-    with pytest.raises(NotImplementedError, match="aggregate"):
-        tdist.make_join_step(EmulatedCommunicator(N), sort_mode="segmented",
-                             aggregate=object())
+    # aggregate pushdown refuses the segmented sort, in the JAX
+    # package's words
+    from distributed_join_tpu.ops import aggregate as jagg
+    from distributed_join_tpu_torch.ops import aggregate as tagg
+    msgs = []
+    for mod, agg, comm in ((jdist, jagg, jc8),
+                           (tdist, tagg, EmulatedCommunicator(N))):
+        with pytest.raises(agg.AggregatePushdownUnsupported,
+                           match="segmented") as exc:
+            mod.make_join_step(comm, sort_mode="segmented",
+                               aggregate=agg.AggregateSpec.of(
+                                   "key", [("count", None)]))
+        msgs.append(str(exc.value))
+    assert msgs[0] == msgs[1]
 
 
 # -- the drivers ----------------------------------------------------------

@@ -713,15 +713,33 @@ def test_driver_record_matches_jax_driver(flags):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--agg-ab", "2"], "--agg-ab"),
+    (["--agg-ab", "2"], None),
     (["--resident-ab", "2"], "--resident-ab"),
     (["--expand-kernel", "xla"], "--expand-kernel"),
     (["--explain"], "--explain"),
 ])
 def test_driver_refuses_what_the_port_lacks(argv, match, capsys):
+    """The JAX driver's flags the port lacks refuse by name; ``--agg-ab``
+    (``match`` None) is ported: on 4 emulated ranks over the ragged wire
+    its record holds both sides of the aggregate A/B, each equal to the
+    numpy oracle."""
     from distributed_join_tpu_torch.benchmarks import (
         distributed_join as tdriver,
     )
+    if match is None:
+        rec = tdriver.run(tdriver.parse_args(argv + [
+            "--communicator", "emulated", "--n-ranks", "4", "--shuffle",
+            "ragged", "--build-table-nrows", "4000", "--probe-table-nrows",
+            "4000", "--iterations", "1"]), device="cpu")
+        ab = rec["agg_ab"]
+        assert ab["kind"] == "agg_ab" and ab["n_joins"] == 2
+        assert ab["oracle_equal_pushdown"] and ab["oracle_equal_materialize"]
+        assert ab["matches"] == rec["matches_per_join"] > 0
+        assert 0 < ab["groups"] <= ab["matches"] and not ab["overflow"]
+        assert [a[0] for a in ab["spec"]["aggs"]] == ["count", "sum", "sum"]
+        assert len(ab["materialize_walls_s"]) == len(ab["pushdown_walls_s"]) \
+            == 2
+        return
     with pytest.raises(SystemExit):
         tdriver.parse_args(argv)
     assert match in capsys.readouterr().err

@@ -465,12 +465,24 @@ def test_config_driver_emulated_ranks_and_refusals(capsys):
         "--iterations", "1"]), device="cpu")
     assert rec["n_ranks"] == 4 and rec["communicator"] == "emulated"
     assert rec["skew_threshold"] is None and rec["matches_per_join"] > 0
-    for argv in (["--agg-ab", "2"], ["--resident-ab", "2"],
-                 ["--expand-kernel=xla"], ["--platform", "cpu"],
-                 ["--stage-profile", "3"]):
+    for argv in (["--resident-ab", "2"], ["--expand-kernel=xla"],
+                 ["--platform", "cpu"], ["--stage-profile", "3"]):
         with pytest.raises(SystemExit):
             tdriver.parse_args(argv)
         assert argv[0].split("=")[0] in capsys.readouterr().err
+    # --agg-ab is ported: with the skew sidecar on it records the JAX
+    # driver's skip reason (the pushdown refuses the heavy-hitter path)
+    import argparse
+    from distributed_join_tpu.benchmarks import distributed_join as jdriver
+    rec = tdriver.run(tdriver.parse_args([
+        "--communicator", "emulated", "--n-ranks", "4",
+        "--build-table-nrows", "8000", "--probe-table-nrows", "8000",
+        "--zipf-alpha", "1.5", "--iterations", "1", "--agg-ab", "2"]),
+        device="cpu")
+    assert rec["skew_threshold"] is not None
+    assert rec["agg_ab"] == jdriver._agg_ab(
+        None, None, None, "key", 2, {"skew_threshold": 0.001},
+        argparse.Namespace(string_key_bytes=0))
     with pytest.raises(SystemExit, match="n-ranks"):
         tdriver.run(tdriver.parse_args(["--communicator", "emulated"]),
                     device="cpu")

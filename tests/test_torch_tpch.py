@@ -700,6 +700,10 @@ def test_driver_refuses_what_the_port_lacks(flag, capsys):
     (["--fetch-results"], "--fetch-results applies"),
     (["--sort-mode", "segmented"], "--sort-ab"),
     (["--sort-mode", "auto", "--sort-segments", "4"], "--sort-ab"),
+    (["--query", "q3", "--agg"], "--query composes its own plan"),
+    (["--query", "q10", "--batches", "2", "--q3-filters"],
+     "--batches > 1, --q3-filters do"),
+    (["--agg", "--host-generator"], "--agg covers the single-shot path"),
 ])
 def test_driver_guards_equal_jax(argv, match):
     with pytest.raises(SystemExit, match=match):
@@ -760,3 +764,56 @@ def test_driver_manifest_resume_through_the_driver(tmp_path):
     assert first["resumed_batches"] == []
     assert second["resumed_batches"] == [0, 1, 2]
     assert first["matches_per_join"] == second["matches_per_join"] > 0
+
+
+# the JAX --query record's fields (benchmarks/tpch_join.py:553-572)
+JAX_QUERY_FIELDS = {
+    "kind", "query", "counter_signature", "plan_digest", "n_operators",
+    "customer_nrows", "op_totals", "groups", "oracle_equal",
+    "retry_attempts", "programs_traced", "warm_new_traces",
+    "warm_cache_hit", "wire_exact", "wire", "cost_total_s",
+    "order_candidates", "aggregate", "stage_profile"}
+
+
+@pytest.mark.parametrize("q", ["q3", "q10"])
+def test_driver_query_record(q):
+    """``--query`` on the CPU, one rank and 4 emulated ranks: every
+    field of the JAX record present or named under ``not_ported``, the
+    plan's digest and aggregate equal to JAX's, the groups equal to the
+    numpy oracle, and the same groups on both rank counts."""
+    from distributed_join_tpu.planning.query import tpch_query_plan
+    base = ["--scale-factor", "0.004", "--iterations", "2", "--query", q]
+    one = tdriver.run(tdriver.parse_args(base), device="cpu")
+    four = tdriver.run(tdriver.parse_args(
+        base + ["--communicator", "emulated", "--n-ranks", "4"]),
+        device="cpu")
+    plan = tpch_query_plan(q)
+    for rec in (one, four):
+        assert JAX_QUERY_FIELDS <= set(rec) | set(rec["not_ported"])
+        assert rec["plan_digest"] == plan.digest()
+        assert rec["aggregate"] == plan.aggregate.as_record()
+        assert rec["kind"] == "query_smoke" and rec["n_operators"] == 3
+        assert rec["oracle_equal"] and rec["groups"] > 0
+        assert rec["op_totals"][-1] == rec["matches_per_join"]
+        assert len(rec["query_s"]) == 2 and not rec["overflow"]
+    assert one["groups_digest"] == four["groups_digest"]
+    assert one["op_totals"] == four["op_totals"]
+    assert one["customer_nrows"] == (600 if q == "q10" else
+                                     one["customer_nrows"]) > 0
+
+
+def test_driver_agg_record():
+    """``--agg`` on the single-shot path: JAX's spec, groups equal to the
+    numpy oracle."""
+    from distributed_join_tpu.ops.aggregate import AggregateSpec
+    rec = tdriver.run(tdriver.parse_args([
+        "--scale-factor", "0.004", "--iterations", "2", "--agg",
+        "--q3-filters"]), device="cpu")
+    want = AggregateSpec.of(
+        "key", [("sum", "l_extendedprice", "revenue"),
+                ("count", None, "n_lines"),
+                ("max", "l_shipdate", "last_ship")],
+        carry=("o_orderdate",)).as_record()
+    agg = rec["aggregate"]
+    assert rec["agg"] and {k: agg[k] for k in want} == want
+    assert agg["oracle_equal"] and agg["groups"] > 0 and not rec["overflow"]
