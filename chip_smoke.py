@@ -79,13 +79,17 @@ Phases (any failure raises, and the script exits non-zero):
    equal to the 1-rank join.
 13. The join over NCCL, one process a card on every card of the machine
    (a world of 1 on one card), started by the port's launcher
-   (benchmarks/launch.py): the config driver at BASELINE config 2's
-   shape with 10 M x 10 M rows a rank, at over-decomposition 1 and 4
-   (with 4 even one card partitions into 4 buckets and sends each batch
-   through NCCL's all_to_all_single): no overflow, the match count of
-   the plain 1-rank join of the same global tables, ms a join and M
-   rows/s a rank; the same driver with ``--profile 3`` (rank 0); then a
-   worker rank of this script (``--nccl-rank-worker``) runs one untimed
+   (benchmarks/launch.py) once: each process is a worker rank of this
+   script (``--nccl-rank-worker JOB``), which runs the config driver in
+   its own process, then its own checks. The config driver at BASELINE
+   config 2's shape with 10 M x 10 M rows a rank, at over-decomposition
+   1 and 4 (with 4 even one card partitions into 4 buckets and sends
+   each batch through NCCL's all_to_all_single): no overflow, the match
+   count of the plain 1-rank join of the same global tables, ms a join
+   and M rows/s a rank; at 1 with ``--resident-ab 2`` (phase 18(f)):
+   the probe-only matches equal to that join's, digests equal, no warm
+   build; the same driver with ``--profile 3`` (rank 0); then the
+   worker runs one untimed
    ``distributed_inner_join`` at over-decomposition 4 in every rank:
    the scans, both compaction sites and the build-mode expand launched
    on every rank, and the ranks' row digests combined equal to the
@@ -106,9 +110,9 @@ Phases (any failure raises, and the script exits non-zero):
    ppermute, compressed at 32 bits, and compressed at 16 bits with
    ``--auto-retry 2``, whose trail must widen the bits): no overflow, the
    plain 1-rank join's matches, ms a join, and the rows, bytes and host
-   reads of a join on rank 0 as the driver counts them; then a worker
-   rank of this script (``--nccl-rank-worker --wires JSON``) joins once
-   in each wire (the ranks' digests combined equal to the plain 1-rank
+   reads of a join on rank 0 as the driver counts them; then the worker
+   (one launch for the whole phase, as in phase 13) joins once in each
+   wire (the ranks' digests combined equal to the plain 1-rank
    join's, every join kernel launched on every rank) and times that
    wire's partition and shuffle alone; last, BASELINE config 5 at 5 M x
    5 M rows a rank on the padded wire and on the ragged wire with fixed
@@ -148,6 +152,8 @@ Phases (any failure raises, and the script exits non-zero):
    bits with ``auto_retry=2`` (the trail printed), each equal to the
    1-rank join with every join kernel launched once a rank at least,
    and the segmented sort over the same hierarchy (no hand kernel).
+   The driver runs of (a) and (c) and the worker's joins of (c) share
+   one launch, as in phase 13.
    (c) the one-slice hierarchy (``--shuffle hierarchical``) over NCCL
    through a worker rank: the combined digest equal to the plain 1-rank
    join's, as the padded wire's is; with an even number of cards above
@@ -174,6 +180,34 @@ Phases (any failure raises, and the script exits non-zero):
    ``python3 chip_smoke.py --phase 17`` runs this phase alone (after
    the build).
 
+18. The serving core, at BASELINE config 2's width (int64 key and
+   payload, seed 42, selectivity 0.3): (a) the join driver's
+   ``--resident-ab 5`` at 10 M x 10 M (register s, the minima of warm
+   full and probe-only joins, equal matches and row digests, no warm
+   build); (b) a 10 M-row build registered once, 32 probe requests of
+   2^18 rows, each from its own seed, each row digest equal to a cold
+   full join of the same pair, the program cache 1 miss, 31 hits and 1
+   build, ms a request, and the scans, both compaction sites and the
+   build-mode expand at one request's shapes (10,262,144 merged
+   positions) against their twins; (c) four appends of 1 M-row deltas,
+   one ``maintain``, conservation at every step, a re-probe equal to a
+   cold join on the concatenated build, generation evictions of that
+   table's entries only, and a drop; (d) the probe-only aggregate at
+   10 M x 10 M, key mode and probe mode (1024 groups, k = 2), every
+   group equal to the numpy oracle; (e) 8 requests of 1 M x 1 M
+   micro-batched into one step and split, each equal to its own join,
+   no match across requests, the second batch a cache hit; (f) 4
+   emulated ranks at 1 M rows equal to one rank (its NCCL part runs in
+   phase 13's launch). ``python3 chip_smoke.py --phase 18`` runs this
+   phase alone (after the build).
+
+The whole script runs phases 2 to 14 and 16 in one process, then 15,
+17 and 18 each in a process of its own (``--phase N``): late in one long
+process the profiler has dropped launches and scaled durations. A device
+time counts only when the profiler caught every launch the wrappers made
+and its clock agrees with the CUDA events' on a spin kernel in the same
+session; otherwise the row says "not measured".
+
 Launch counts are set to zero just before each path and read just after;
 the launches of phase 2, of the config-3 kernel check and of the
 bucket-shape checks do not count.
@@ -183,7 +217,9 @@ launches on the paths of phases 10 to 17, phases 13's, 14's and 16's
 NCCL paths summed over the ranks, 15's the SF-10 run's; the segmented
 paths launch none, and the fused aggregate none of the materializing
 join's, with the reason in ``no_launch_reason``; the groups site's
-launches are those of phase 17's Q3 and Q10 at SF-10); the last
+launches are those of phase 17's Q3 and Q10 at SF-10; the serving
+rows' are those of phase 18(b)'s warm request, and the join sites also
+carry the paths ``resident``, ``resident_agg`` and ``batched``); the last
 line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
@@ -263,39 +299,81 @@ def _own_kernel_names() -> frozenset:
     return frozenset(names)
 
 
-def device_ms(fn, reps: int = REPS) -> tuple[float | None, dict]:
+PROFILE_SESSIONS = 3           # profiler sessions before "not measured"
+PROFILE_PAD_S = 0.05           # host seconds either side of the profiled calls
+SPIN_CYCLES = 1_000_000        # each spin kernel of the clock check
+# the spin's profiled time over its CUDA events' time: 0.91-0.94 in a
+# fresh process on the H100; late in a long process durations have come
+# out scaled by ~0.55
+CLOCK_TOLERANCE = 0.15
+
+
+def device_ms(fn, reps: int = REPS, floor: float | None = None,
+              sessions: int = PROFILE_SESSIONS
+              ) -> tuple[float | None, dict]:
     """Mean device time of the kernels ``fn`` launches per call
     (torch.profiler), after a warm-up call, and its split by kernel name:
     what ``time_ms`` measures less the host's gaps between launches,
-    which bind a call whose kernels take tens of microseconds. The time
-    is None when the profiler caught fewer of the port's kernels than
-    its wrappers launched in the profiled calls: a sum with launches
-    missing is not a measurement."""
+    which bind a call whose kernels take tens of microseconds.
+
+    A session is a measurement only when the profiler caught every
+    launch the port's wrappers made in it; when its clock agrees with the
+    CUDA events' on a spin kernel in the same session (within
+    ``CLOCK_TOLERANCE``: the events bracket the second of two spins,
+    which starts behind the first with no host gap); and, with ``floor``
+    (the work's bound), when its sum is not below it. Late in a long
+    process (the whole script) sessions have dropped launches, and kept
+    them with every duration scaled by ~0.55, memsets included, while a
+    fresh process measures them right. The calls keep ``PROFILE_PAD_S``
+    of host time on either side inside the session, and a session that
+    misses is run again, up to ``sessions`` (1 where ``fn`` runs
+    collectives: every rank must run it as often). The time is None
+    when none measured."""
     from torch.profiler import ProfilerActivity, profile
     wrappers = _launch_wrappers()
     own = _own_kernel_names()
     fn()
     torch.cuda.synchronize()
-    made = -sum(w.launches for w in wrappers)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    made += sum(w.launches for w in wrappers)
-    parts, caught = {}, 0
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    spin = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    cuda = torch.autograd.DeviceType.CUDA
+    for session in range(1, sessions + 1):
+        made = -sum(w.launches for w in wrappers)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
+            torch.cuda._sleep(SPIN_CYCLES)
+            spin[0].record()
+            torch.cuda._sleep(SPIN_CYCLES)
+            spin[1].record()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        made += sum(w.launches for w in wrappers)
+        spins = sorted((e.time_range.start, e.device_time_total)
+                       for e in prof.events()
+                       if e.device_type == cuda and "spin_kernel" in e.name)
+        clock = (spins[-1][1] / 1e3 / spin[0].elapsed_time(spin[1])
+                 if spins else 0.0)
+        parts, caught = {}, 0
+        for e in prof.key_averages():
+            if e.device_type != cuda or "spin_kernel" in e.key:
+                continue
             name = re.split(r"[(<]", e.key.replace(
                 "(anonymous namespace)::", ""))[0].split("::")[-1].strip()
             ms = e.device_time_total / 1e3 / reps
             parts[name] = parts.get(name, 0.0) + ms
             if name.split()[-1] in own:
                 caught += e.count
-    if caught < made:
-        print(f"[profile] the profiler caught {caught} of the {made} "
-              "kernel launches made: device time not measured", flush=True)
-        return None, parts
-    return sum(parts.values()), parts
+        total = sum(parts.values())
+        if (caught >= made and abs(clock - 1) <= CLOCK_TOLERANCE
+                and (floor is None or total >= floor)):
+            return total, parts
+        print(f"[profile] session {session}: the profiler caught {caught} "
+              f"of the {made} kernel launches made, {total:.4f} device ms"
+              + ("" if floor is None else f" (bound {floor:.4f})")
+              + f"; its clock {clock:.4f} of the CUDA events'", flush=True)
+    print("[profile] device time not measured", flush=True)
+    return None, parts
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -410,12 +488,7 @@ def check_and_time(rows, name, source, replaces, got, want, prefix, fn_k,
                bound_ms=b, bound_by=by,
                library_ms=None if fn_lib is None else time_ms(fn_lib),
                **{k: time_ms(f) for k, f in extra.items()})
-    dev, parts = device_ms(fn_k)
-    if dev is not None and dev < b:
-        print(f"[kernel] {name}: device_ms {dev:.4f} is below the bound "
-              f"{b:.4f}: the profiler missed work; device time not "
-              "measured", flush=True)
-        dev = None
+    dev, parts = device_ms(fn_k, floor=b)
     row["device_ms"] = dev
     print(f"[kernel] {name}: kernel_ms={row['ms']:.4f} "
           f"device_ms={'not measured' if dev is None else f'{dev:.4f}'} "
@@ -1414,6 +1487,7 @@ def typed_phase():
 NCCL_SITES = ("join_scans", "compact_records", "pack_matched_builds",
               "pack_valid_builds", "expand_gather")
 NCCL_K = 4                     # over-decomposition of the worker's join
+NCCL_RESIDENT_AB = 2           # phase 18(f): the resident A/B over NCCL
 A2A_MIB = (64, 256)
 NCCL_TIMEOUT_S = 600
 
@@ -1584,44 +1658,41 @@ def partition_shuffle_ms(comm, build, probe, shuffle: str = "padded",
     ms = comm.host_max(time_ms(lambda: fn(build, probe)))
     # the first profiler of a process starts CUPTI, which stalls this
     # rank while its peers' NCCL kernels wait: that run is not kept
-    device_ms(lambda: fn(build, probe), reps=1)
-    _, parts = device_ms(lambda: fn(build, probe))
+    device_ms(lambda: fn(build, probe), reps=1, sessions=1)
+    _, parts = device_ms(lambda: fn(build, probe), sessions=1)
     nccl = sum(v for k, v in parts.items() if "nccl" in k.lower())
     other = sum(parts.values()) - nccl
     return ms, comm.host_max(other), comm.host_max(nccl)
 
 
-def nccl_rank_worker(wires: dict | None = None) -> int:
-    """One rank of phase 13(b), started by the launcher: the global
-    tables of ``NROWS`` rows a rank from the seed, one untimed
-    ``distributed_inner_join`` over NCCL at over-decomposition
-    ``NCCL_K`` with the launch counts set to zero just before it and read
-    just after, then this rank's row digest and counts, all-gathered to
-    rank 0, which prints them as one JSON line. With ``wires`` (phase
-    14: ``{mode: join options}`` from the command line) it does so once a
-    mode, with the mode's options, and times each mode's partition and
-    shuffle; the phase-13 kernel checks are not repeated."""
-    if wires is not None:
-        return wire_rank_worker(wires)
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from distributed_join_tpu_torch.parallel.bootstrap import (
-        maybe_initialize_from_env,
-    )
-    from distributed_join_tpu_torch.parallel.communicator import (
-        make_communicator,
-    )
+def _worker_drivers(drivers: dict) -> dict:
+    """The join driver (benchmarks/distributed_join.py, its ``run`` or,
+    with ``--profile``, its ``profile``) on each ``{label: argv}`` in
+    turn, in this process and its process group: one launch serves a
+    phase's driver runs. Returns rank 0's records (None elsewhere)."""
+    from distributed_join_tpu_torch.benchmarks import distributed_join as D
+    from distributed_join_tpu_torch.parallel.bootstrap import process_id
+    rank0 = process_id() == 0
+    out = {}
+    for label, argv in drivers.items():
+        t = time.perf_counter()
+        args = D.parse_args(argv)
+        out[label] = D.profile(args) if args.profile else D.run(args)
+        torch.cuda.empty_cache()
+        if rank0:
+            print(f"driver {label}: {time.perf_counter() - t:.1f} s",
+                  flush=True)
+    return out if rank0 else None
+
+
+def _worker_join(comm, build, probe) -> dict:
+    """Phase 13(b) on this rank: one counted ``distributed_inner_join``
+    of the global tables at ``NCCL_K``, this rank's digest and counts
+    gathered to rank 0, rank 0's kernel checks at a bucket's shapes, and
+    the partition and shuffle timed alone."""
     from distributed_join_tpu_torch.parallel.distributed_join import (
         distributed_inner_join,
     )
-    from distributed_join_tpu_torch.utils.generators import (
-        generate_build_probe_tables,
-    )
-    _check(maybe_initialize_from_env(), "the worker runs under the launcher")
-    comm = make_communicator("nccl")
-    n = comm.n_ranks
-    build, probe = generate_build_probe_tables(
-        seed=SEED, build_nrows=NROWS * n, probe_nrows=NROWS * n,
-        unique_build_keys=True, device=comm.device)
     rank0 = comm.axis_index() == 0
     join = (lambda: distributed_inner_join(
         build, probe, comm, over_decomposition=NCCL_K))
@@ -1641,14 +1712,100 @@ def nccl_rank_worker(wires: dict | None = None) -> int:
         del calls
     ps_ms = partition_shuffle_ms(comm, build, probe)
     every = comm.all_gather(mine).tolist()
-    if rank0:
-        print(json.dumps({"ranks": [
+    return {"ranks": [
+        {"digest": v[:3], "total": v[3], "overflow": bool(v[4]),
+         "launches": dict(zip(NCCL_SITES, v[5:]))} for v in every],
+        "bucket_rows": rows, "partition_shuffle_ms": ps_ms}
+
+
+def _worker_wires(comm, build, probe, wires: dict) -> dict:
+    """Phases 14 and 16 on this rank: for each wire, one counted
+    ``distributed_inner_join`` at ``NCCL_K`` (digest, launch counts,
+    this rank's host reads, wire rows and bytes, gathered to rank 0),
+    then the wire's partition and shuffle alone."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        make_communicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    out = {}
+    for mode, opts in wires.items():
+        opts = dict(opts)
+        slices = opts.pop("slices", None)
+        c = comm if slices is None else make_communicator("nccl",
+                                                          n_slices=slices)
+        before = c.counters()
+        res, counts = counted(lambda: distributed_inner_join(
+            build, probe, c, over_decomposition=NCCL_K, **opts))
+        after = c.counters()
+        mine = torch.tensor([[*row_digest(res), int(res.total),
+                              int(res.overflow),
+                              *(counts[s] for s in NCCL_SITES),
+                              *(after[k] - before[k] for k in after)]],
+                            dtype=torch.int64, device=comm.device)
+        del res
+        ps = partition_shuffle_ms(c, build, probe,
+                                  opts.get("shuffle", "padded"),
+                                  opts.get("compression_bits"),
+                                  opts.get("dcn_codec") == "on")
+        every = comm.all_gather(mine).tolist()
+        out[mode] = {"ranks": [
             {"digest": v[:3], "total": v[3], "overflow": bool(v[4]),
-             "launches": dict(zip(NCCL_SITES, v[5:]))} for v in every],
-            "bucket_rows": rows, "partition_shuffle_ms": ps_ms}),
-            flush=True)
+             "launches": dict(zip(NCCL_SITES, v[5:5 + len(NCCL_SITES)])),
+             "counters": dict(zip(before, v[5 + len(NCCL_SITES):]))}
+            for v in every], "partition_shuffle_ms": ps}
+    return out
+
+
+def nccl_rank_worker(job: dict) -> int:
+    """One rank of a launched NCCL phase (13, 14 or 16), started by the
+    launcher with a JSON job: ``drivers`` (``{label: argv}`` of the join
+    driver, each run in this process: one launch a phase), ``join``
+    (phase 13's counted join and kernel checks) and ``wires`` (``{mode:
+    join options}``: phases 14 and 16). The global tables are ``NROWS``
+    rows a rank from the seed; launch counts are set to zero just before
+    each join and read just after. Rank 0 prints one JSON line with
+    every part's results."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distributed_join_tpu_torch.parallel.bootstrap import (
+        maybe_initialize_from_env,
+    )
+    from distributed_join_tpu_torch.parallel.communicator import (
+        make_communicator,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    _check(maybe_initialize_from_env(), "the worker runs under the launcher")
+    comm = make_communicator("nccl")
+    n = comm.n_ranks
+    out = {"drivers": _worker_drivers(job.get("drivers", {}))}
+    if job.get("join") or job.get("wires"):
+        build, probe = generate_build_probe_tables(
+            seed=SEED, build_nrows=NROWS * n, probe_nrows=NROWS * n,
+            unique_build_keys=True, device=comm.device)
+        if job.get("join"):
+            out.update(_worker_join(comm, build, probe))
+        if job.get("wires"):
+            out["wires"] = _worker_wires(comm, build, probe, job["wires"])
+    if comm.axis_index() == 0:
+        print(json.dumps(out), flush=True)
     comm.finalize()
     return 0
+
+
+def _worker_record(label: str, n: int, job: dict) -> dict:
+    """Launch ``n`` worker ranks with ``job``; rank 0's JSON line."""
+    return _launched_record(label, n, [os.path.abspath(__file__),
+                                       "--nccl-rank-worker", json.dumps(job)])
+
+
+def _driver_argv(rows: int, *flags) -> list:
+    """The join driver's flags over NCCL at ``rows`` x ``rows`` global
+    rows (config 2's shape a rank)."""
+    return ["--communicator", "nccl", "--build-table-nrows", str(rows),
+            "--probe-table-nrows", str(rows), *flags]
 
 
 def _combine_digests(digests) -> tuple:
@@ -1696,12 +1853,18 @@ def nccl_phase() -> dict:
           f"{rows:,}; the plain 1-rank join: total={want_total} digest="
           f"{want_digest}", flush=True)
 
-    driver = ["-m", "distributed_join_tpu_torch.benchmarks.distributed_join",
-              "--communicator", "nccl", "--build-table-nrows", str(rows),
-              "--probe-table-nrows", str(rows), "--iterations", "4"]
+    # one launch: the driver at k = 1 (with the resident A/B) and k = 4,
+    # the k = 4 profile, then the worker's counted join and kernel checks
+    driver = _driver_argv(rows, "--iterations", "4")
+    worker = _worker_record("nccl", n, {"join": True, "drivers": {
+        "k=1": [*driver, "--over-decomposition-factor", "1",
+                "--resident-ab", str(NCCL_RESIDENT_AB)],
+        f"k={NCCL_K}": [*driver, "--over-decomposition-factor",
+                        str(NCCL_K)],
+        "profile": [*driver, "--over-decomposition-factor", str(NCCL_K),
+                    "--profile", "3"]}})
     for k in (1, NCCL_K):
-        rec = _launched_record(f"nccl k={k}", n, [
-            *driver, "--over-decomposition-factor", str(k)])
+        rec = worker["drivers"][f"k={k}"]
         print(f"[nccl] k={k} " + json.dumps(rec), flush=True)
         _check(rec["communicator"] == "nccl" and rec["n_ranks"] == n,
                f"nccl k={k}: record of {rec['communicator']} x "
@@ -1713,14 +1876,23 @@ def nccl_phase() -> dict:
         print(f"[nccl] k={k}: {rec['elapsed_per_join_s'] * 1e3:.3f} ms a "
               f"join, {rec['m_rows_per_sec_per_rank']:.2f} M rows/s a rank "
               f"({n} rank(s)); {smi}", flush=True)
-    prof = _launched_record("nccl profile", n, [
-        *driver, "--over-decomposition-factor", str(NCCL_K),
-        "--profile", "3"])
+    # phase 18(f): the resident A/B inside this world
+    ab = worker["drivers"]["k=1"]["resident_ab"]
+    _check("skipped" not in ab and ab["matches_equal"] and ab["digest_equal"]
+           and ab["matches_probe_only"] == want_total
+           and ab["warm_probe_new_traces"] == 0 and not ab["overflow"],
+           f"nccl --resident-ab: {json.dumps(ab)}")
+    print(f"[nccl] --resident-ab {NCCL_RESIDENT_AB}, {n} rank(s): "
+          f"register {ab['register_s']:.4f} s; cold min "
+          f"{ab['cold_wall_min_s'] * 1e3:.4f} ms, probe-only min "
+          f"{ab['probe_only_wall_min_s'] * 1e3:.4f} ms (speedup "
+          f"{ab['probe_only_speedup']:.4f}); matches "
+          f"{ab['matches_probe_only']} equal to the plain 1-rank join's, "
+          f"digests equal, no warm build; {smi}", flush=True)
+    prof = worker["drivers"]["profile"]
     print(f"[nccl] profile k={NCCL_K}, rank 0: " + json.dumps(prof),
           flush=True)
 
-    worker = _launched_record("nccl worker", n, [
-        os.path.abspath(__file__), "--nccl-rank-worker"])
     got = worker["ranks"]
     _check(len(got) == n, f"nccl worker: {len(got)} ranks reported")
     ps_ms, ps_busy, ps_nccl = worker["partition_shuffle_ms"]
@@ -1782,62 +1954,6 @@ CONFIG5_RAGGED = {
     "ragged_varlen": ["--shuffle", "ragged", "--variable-length-strings"],
 }
 CODEC_BITS = (16, 32)
-
-
-def wire_rank_worker(wires: dict) -> int:
-    """Phase 14's rank: for each wire, one counted
-    ``distributed_inner_join`` at over-decomposition ``NCCL_K`` (digest,
-    launch counts, this rank's host reads, wire rows and bytes), then the
-    wire's partition and shuffle alone; rank 0 prints one JSON line."""
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from distributed_join_tpu_torch.parallel.bootstrap import (
-        maybe_initialize_from_env,
-    )
-    from distributed_join_tpu_torch.parallel.communicator import (
-        make_communicator,
-    )
-    from distributed_join_tpu_torch.parallel.distributed_join import (
-        distributed_inner_join,
-    )
-    from distributed_join_tpu_torch.utils.generators import (
-        generate_build_probe_tables,
-    )
-    _check(maybe_initialize_from_env(), "the worker runs under the launcher")
-    comm = make_communicator("nccl")
-    n = comm.n_ranks
-    build, probe = generate_build_probe_tables(
-        seed=SEED, build_nrows=NROWS * n, probe_nrows=NROWS * n,
-        unique_build_keys=True, device=comm.device)
-    out = {}
-    for mode, opts in wires.items():
-        opts = dict(opts)
-        slices = opts.pop("slices", None)
-        c = comm if slices is None else make_communicator("nccl",
-                                                          n_slices=slices)
-        before = c.counters()
-        res, counts = counted(lambda: distributed_inner_join(
-            build, probe, c, over_decomposition=NCCL_K, **opts))
-        after = c.counters()
-        mine = torch.tensor([[*row_digest(res), int(res.total),
-                              int(res.overflow),
-                              *(counts[s] for s in NCCL_SITES),
-                              *(after[k] - before[k] for k in after)]],
-                            dtype=torch.int64, device=comm.device)
-        del res
-        ps = partition_shuffle_ms(c, build, probe,
-                                  opts.get("shuffle", "padded"),
-                                  opts.get("compression_bits"),
-                                  opts.get("dcn_codec") == "on")
-        every = comm.all_gather(mine).tolist()
-        out[mode] = {"ranks": [
-            {"digest": v[:3], "total": v[3], "overflow": bool(v[4]),
-             "launches": dict(zip(NCCL_SITES, v[5:5 + len(NCCL_SITES)])),
-             "counters": dict(zip(before, v[5 + len(NCCL_SITES):]))}
-            for v in every], "partition_shuffle_ms": ps}
-    if comm.axis_index() == 0:
-        print(json.dumps({"wires": out}), flush=True)
-    comm.finalize()
-    return 0
 
 
 def codec_rows(build, probe) -> list:
@@ -1932,12 +2048,21 @@ def wire_phase(want_total: int | None = None,
     del build, probe, local
     torch.cuda.empty_cache()
 
-    driver = ["-m", "distributed_join_tpu_torch.benchmarks.distributed_join",
-              "--communicator", "nccl", "--build-table-nrows", str(rows),
-              "--probe-table-nrows", str(rows), "--iterations", "4",
-              "--over-decomposition-factor", str(NCCL_K)]
-    for mode, (flags, _) in WIRES.items():
-        rec = _launched_record(f"wire {mode}", n, [*driver, *flags])
+    # one launch: the driver on every wire and on config 5, then the
+    # worker's join on every wire
+    driver = _driver_argv(rows, "--iterations", "4",
+                          "--over-decomposition-factor", str(NCCL_K))
+    c5 = _driver_argv(CONFIG5_ROWS * n, "--key-columns", "2",
+                      "--string-payload-bytes", "16", "--iterations", "4",
+                      "--over-decomposition-factor", str(NCCL_K))
+    job = _worker_record("wires", n, {
+        "drivers": {**{mode: [*driver, *flags]
+                       for mode, (flags, _) in WIRES.items()},
+                    **{f"config 5 {mode}": [*c5, *flags]
+                       for mode, flags in CONFIG5_RAGGED.items()}},
+        "wires": {m: o for m, (_, o) in WIRES.items()}})
+    for mode in WIRES:
+        rec = job["drivers"][mode]
         _check(not rec["overflow"], f"wire {mode}: the join overflowed")
         _check(rec["matches_per_join"] == want_total,
                f"wire {mode}: {rec['matches_per_join']} matches, the 1-rank "
@@ -1956,9 +2081,7 @@ def wire_phase(want_total: int | None = None,
               f"a join {rec['host_reads_per_join']:.1f}; retry {trail}; "
               f"{smi}", flush=True)
 
-    worker = _launched_record("wire worker", n, [
-        os.path.abspath(__file__), "--nccl-rank-worker", "--wires",
-        json.dumps({m: o for m, (_, o) in WIRES.items()})])["wires"]
+    worker = job["wires"]
     launches = {}
     for mode, got in worker.items():
         _check(len(got["ranks"]) == n,
@@ -1985,14 +2108,9 @@ def wire_phase(want_total: int | None = None,
         launches[mode] = {s: sum(g["launches"][s] for g in got["ranks"])
                           for s in NCCL_SITES}
 
-    c5 = ["-m", "distributed_join_tpu_torch.benchmarks.distributed_join",
-          "--communicator", "nccl", "--build-table-nrows",
-          str(CONFIG5_ROWS * n), "--probe-table-nrows", str(CONFIG5_ROWS * n),
-          "--key-columns", "2", "--string-payload-bytes", "16",
-          "--iterations", "4", "--over-decomposition-factor", str(NCCL_K)]
     c5_matches = None
-    for mode, flags in CONFIG5_RAGGED.items():
-        rec = _launched_record(f"config 5 {mode}", n, [*c5, *flags])
+    for mode in CONFIG5_RAGGED:
+        rec = job["drivers"][f"config 5 {mode}"]
         _check(not rec["overflow"], f"config 5 {mode}: the join overflowed")
         c5_matches = (rec["matches_per_join"] if c5_matches is None
                       else c5_matches)
@@ -2276,13 +2394,30 @@ def segmented_phase(want_total: int | None = None,
     del build, probe
     torch.cuda.empty_cache()
 
-    driver = ["-m", "distributed_join_tpu_torch.benchmarks.distributed_join",
-              "--communicator", "nccl", "--build-table-nrows", str(rows),
-              "--probe-table-nrows", str(rows), "--iterations", "4",
-              "--over-decomposition-factor", str(NCCL_K)]
-    rec = _launched_record("segmented", n, [
-        *driver, "--sort-mode", "segmented", "--sort-ab",
-        str(SORT_AB_JOINS)])
+    # one launch: the segmented driver with its --sort-ab, the profiles,
+    # the hierarchical drivers (an even number of cards above one), then
+    # the worker's joins on the hierarchical wires
+    driver = _driver_argv(rows, "--iterations", "4",
+                          "--over-decomposition-factor", str(NCCL_K))
+    drivers = {"segmented": [*driver, "--sort-mode", "segmented",
+                             "--sort-ab", str(SORT_AB_JOINS)],
+               "segmented profile": [*driver, "--sort-mode", "segmented",
+                                     "--profile", "3"]}
+    if flat_profile is None:
+        drivers["flat profile"] = [*driver, "--profile", "3"]
+    wires = {"hierarchical_1": {"shuffle": "hierarchical", "slices": 1}}
+    multi = n > 1 and n % HIER_SLICES == 0
+    if multi:
+        for codec in ("off", "on"):
+            drivers[f"hierarchical {codec}"] = [
+                *driver, "--shuffle", "hierarchical", "--slices",
+                str(HIER_SLICES), "--dcn-codec", codec, "--auto-retry", "2"]
+            wires[f"hierarchical_{HIER_SLICES}_{codec}"] = {
+                "shuffle": "hierarchical", "slices": HIER_SLICES,
+                "dcn_codec": codec, "auto_retry": 2}
+    job = _worker_record("segmented", n, {"drivers": drivers,
+                                          "wires": wires})
+    rec = job["drivers"]["segmented"]
     ab = rec["sort_ab"]
     print(f"[segmented] driver: " + json.dumps(rec), flush=True)
     _check(not rec["overflow"] and rec["matches_per_join"] == want_total,
@@ -2299,10 +2434,8 @@ def segmented_phase(want_total: int | None = None,
           f"{ab['segmented_ms_median']:.4f} ms, speedup "
           f"{ab['segmented_speedup']:.4f}; totals and digests equal; {smi}",
           flush=True)
-    profs = {"segmented": _launched_record("segmented profile", n, [
-        *driver, "--sort-mode", "segmented", "--profile", "3"])}
-    profs["flat"] = flat_profile or _launched_record("flat profile", n, [
-        *driver, "--profile", "3"])
+    profs = {"segmented": job["drivers"]["segmented profile"],
+             "flat": flat_profile or job["drivers"]["flat profile"]}
     for mode, prof in profs.items():
         srt = _sort_rows(prof)
         print(f"[segmented] profile {mode}, rank 0: device busy "
@@ -2355,41 +2488,27 @@ def segmented_phase(want_total: int | None = None,
 
     # (c) hierarchical over NCCL: one slice (the padded wire), and with an
     # even number of cards two slices over subgroups, codec off and on
-    wires = {"hierarchical_1": {"shuffle": "hierarchical", "slices": 1}}
-    multi = n > 1 and n % HIER_SLICES == 0
-    if multi:
-        wires.update({
-            f"hierarchical_{HIER_SLICES}_{codec}": {
-                "shuffle": "hierarchical", "slices": HIER_SLICES,
-                "dcn_codec": codec, "auto_retry": 2}
-            for codec in ("off", "on")})
-        for codec in ("off", "on"):
-            rec = _launched_record(f"hierarchical {codec}", n, [
-                *driver, "--shuffle", "hierarchical", "--slices",
-                str(HIER_SLICES), "--dcn-codec", codec, "--auto-retry",
-                "2"])
-            _check(not rec["overflow"]
-                   and rec["matches_per_join"] == want_total,
-                   f"hierarchical {codec}: {rec['matches_per_join']} "
-                   f"matches, overflow {rec['overflow']}")
-            trail = [(a["action"], a["compression_bits"])
-                     for a in (rec["retry"] or {}).get("attempts", [])]
-            print(f"[hierarchical] NCCL {HIER_SLICES} x "
-                  f"{n // HIER_SLICES}, codec {codec}, k={NCCL_K}: "
-                  f"{rec['elapsed_per_join_s'] * 1e3:.4f} ms a join; rank 0 "
-                  f"bytes a join: intra-slice "
-                  f"{rec['wire_bytes_ici_per_join']:.0f}, cross-slice "
-                  f"{rec['wire_bytes_dcn_per_join']:.0f}, saved "
-                  f"{rec['wire_bytes_saved_per_join']:.0f}, total "
-                  f"{rec['wire_bytes_per_join']:.0f}; retry {trail}; "
-                  f"(both tiers are NVLink on one node); {smi}", flush=True)
-    else:
+    for codec in (("off", "on") if multi else ()):
+        rec = job["drivers"][f"hierarchical {codec}"]
+        _check(not rec["overflow"] and rec["matches_per_join"] == want_total,
+               f"hierarchical {codec}: {rec['matches_per_join']} matches, "
+               f"overflow {rec['overflow']}")
+        trail = [(a["action"], a["compression_bits"])
+                 for a in (rec["retry"] or {}).get("attempts", [])]
+        print(f"[hierarchical] NCCL {HIER_SLICES} x {n // HIER_SLICES}, "
+              f"codec {codec}, k={NCCL_K}: "
+              f"{rec['elapsed_per_join_s'] * 1e3:.4f} ms a join; rank 0 "
+              f"bytes a join: intra-slice "
+              f"{rec['wire_bytes_ici_per_join']:.0f}, cross-slice "
+              f"{rec['wire_bytes_dcn_per_join']:.0f}, saved "
+              f"{rec['wire_bytes_saved_per_join']:.0f}, total "
+              f"{rec['wire_bytes_per_join']:.0f}; retry {trail}; (both "
+              f"tiers are NVLink on one node); {smi}", flush=True)
+    if not multi:
         print(f"[hierarchical] {n} card(s): {HIER_SLICES} slices over "
               "NCCL need an even number of cards above one; not run",
               flush=True)
-    worker = _launched_record("hierarchical worker", n, [
-        os.path.abspath(__file__), "--nccl-rank-worker", "--wires",
-        json.dumps(wires)])["wires"]
+    worker = job["wires"]
     for mode, got in worker.items():
         for r, g in enumerate(got["ranks"]):
             _check(not g["overflow"] and g["total"] == want_total,
@@ -2680,6 +2799,427 @@ def query_phase() -> tuple:
     return paths, row
 
 
+# -- phase 18: the serving core ------------------------------------------
+
+
+RESIDENT_AB_JOINS = 5
+SERVING_REQUESTS = 32
+SERVING_PROBE_ROWS = 1 << 18
+LSM_DELTAS = 4
+LSM_DELTA_ROWS = 1_000_000
+AGG_GROUPS = 1024
+AGG_ITERS = 3
+BATCH_REQUESTS = 8
+BATCH_ROWS = 1_000_000
+RESIDENT_EMU_ROWS = 1_000_000
+# (b)'s two registries: (label of the kernel rows, launch path, capacity
+# factor): the registry's default (None: room for appends), then 1 (the
+# shard unpadded)
+SERVING_SETTINGS = (("serving", "resident", None),
+                    ("serving, factor 1", "resident_factor1", 1.0))
+SERVING_SITES = {"join_scans[{}]": "join_scans",
+                 "stream_compact[record, {}]": "compact_records",
+                 "stream_compact[pack, {}]": "pack_matched_builds",
+                 "expand_gather[build, {}]": "expand_gather"}
+
+
+def _timed_s(fn):
+    """(result, host seconds) of one call, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _serving_probe(seed: int, rows: int, groups: int = 0):
+    """A probe of config 2's kind against the unique build keys [0,
+    NROWS) (the generator's build is the same at every seed): hits at
+    selectivity 0.3, from ``seed``; with ``groups``, a ``grp`` column of
+    that many values."""
+    from distributed_join_tpu_torch.table import Table
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    _, probe = generate_build_probe_tables(
+        seed=seed, build_nrows=NROWS, probe_nrows=rows,
+        unique_build_keys=True, device=DEVICE)
+    if not groups:
+        return probe
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(seed)
+    grp = torch.randint(0, groups, (rows,), generator=g, device=DEVICE)
+    return Table({**probe.columns, "grp": grp}, probe.valid)
+
+
+def _key_digest(table) -> int:
+    """The conservation digest of a table as the registry computes it:
+    the uint64 sum of the valid rows' key hashes."""
+    from distributed_join_tpu_torch.ops.hashing import hash_columns
+    h = hash_columns([table.columns["key"]])
+    return int(torch.where(table.valid, h, 0).sum()) % 2**64
+
+
+def serving_profile(registry, probe, joins: int = 3) -> dict:
+    """Where one warm probe-only request spends its device time
+    (``utils.benchmarking.profile_calls``)."""
+    from distributed_join_tpu_torch.utils.benchmarking import profile_calls
+    return profile_calls(lambda: registry.join("dim", probe),
+                         torch.device(DEVICE), joins, top=10)
+
+
+def resident_phase() -> tuple:
+    """Phase 18: the serving core at BASELINE config 2's width (an int64
+    key and payload, seed 42, selectivity 0.3, one card). (a) the join
+    driver's ``--resident-ab 5`` at 10 M x 10 M: equal matches and row
+    digests, no warm build; register s, both minima and the speedup.
+    (b) a 10 M-row build registered once, then 32 probe requests of
+    2^18 rows, each from its own seed: each request's row digest equal
+    to a cold full join of the same pair, the cache 1 miss, 31 hits and
+    1 build; ms a request; the kernels at one request's shapes against
+    their twins; all of it at the registry's default capacity factor
+    (1.5: a 15 M-row shard) and again at 1 (10 M rows); a profile of a
+    warm request at the default. (c) four
+    appends of 1 M-row deltas, one ``maintain`` (s), conservation at
+    every step (rows and key-hash sums also counted here), a re-probe
+    whose digest equals a cold join on the concatenated build, the
+    generation evictions hitting only that table's entries, and a
+    ``drop``. (d) the probe-only aggregate at 10 M x 10 M: key mode
+    grouped by the join key (count and a sum of each side's payload),
+    and probe mode grouped by a probe column of 1024 values (k = 2: the
+    cross-batch combine), every group equal to the numpy oracle; ms a
+    query. (e) K = 8 requests of 1 M x 1 M combined into one step and
+    split: each request's rows equal its own join's, no match crosses
+    requests, and a second batch in the same slots is a cache hit. (f) 4
+    emulated ranks at 1 M rows: the probe-only joins at k = 1 and 2, an
+    append and the probe-mode aggregate equal to one rank's (its NCCL
+    part runs in phase 13's launch). Returns the launch counts by path
+    and the kernel rows at the serving shape."""
+    from distributed_join_tpu_torch.benchmarks import (
+        distributed_join as jdriver,
+    )
+    from distributed_join_tpu_torch.ops.aggregate import (
+        AggregateSpec,
+        aggregate_oracle,
+        frames_equal,
+        groups_frame,
+    )
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.service import batching
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+    from distributed_join_tpu_torch.service.resident import (
+        ResidentTableRegistry,
+    )
+    from distributed_join_tpu_torch.table import Table
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    smi = gpu_line()
+    paths = {}
+    t_part = time.perf_counter()
+
+    def part_done(label):
+        nonlocal t_part
+        now = time.perf_counter()
+        print(f"[phase] 18{label}: {now - t_part:.1f} s", flush=True)
+        t_part = now
+
+    # (a) --resident-ab through the driver
+    torch.cuda.empty_cache()
+    rec = jdriver.run(jdriver.parse_args([
+        "--build-table-nrows", str(NROWS), "--probe-table-nrows",
+        str(NROWS), "--iterations", "4", "--resident-ab",
+        str(RESIDENT_AB_JOINS)]), device=DEVICE)
+    ab = rec["resident_ab"]
+    _check("skipped" not in ab and ab["matches_equal"] and ab["digest_equal"]
+           and ab["warm_probe_new_traces"] == 0 and not ab["overflow"]
+           and ab["matches_cold"] == rec["matches_per_join"],
+           f"--resident-ab: {json.dumps(ab)}")
+    print(f"[resident] --resident-ab {RESIDENT_AB_JOINS} at {NROWS:,} x "
+          f"{NROWS:,}: register {ab['register_s']:.4f} s; cold min "
+          f"{ab['cold_wall_min_s'] * 1e3:.4f} ms, probe-only min "
+          f"{ab['probe_only_wall_min_s'] * 1e3:.4f} ms (host clock), "
+          f"speedup {ab['probe_only_speedup']:.4f}; matches "
+          f"{ab['matches_probe_only']}, digests equal, warm builds "
+          f"{ab['warm_probe_new_traces']}; walls "
+          f"{json.dumps(ab['cold_walls_s'])} / "
+          f"{json.dumps(ab['probe_only_walls_s'])}; resident "
+          f"{json.dumps(ab['resident'])}; {smi}", flush=True)
+    del rec
+    part_done("a")
+
+    # (b) the serving stream against a resident 10 M-row build, at each
+    # capacity factor of SERVING_SETTINGS
+    torch.cuda.empty_cache()
+    build, _ = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS, probe_nrows=1, unique_build_keys=True,
+        device=DEVICE)
+    local = LocalCommunicator()
+    rows = []
+    for label, path, factor in SERVING_SETTINGS:
+        cache = JoinProgramCache(local)
+        serving = ResidentTableRegistry(
+            local, cache,
+            **({} if factor is None else {"capacity_factor": factor}))
+        serving.register("dim", build)
+        shard = serving.peek("dim").capacity_per_rank
+        before = cache.stats()
+        walls, counts = [], None
+        for i in range(SERVING_REQUESTS):
+            probe = _serving_probe(SEED + 1 + i, SERVING_PROBE_ROWS)
+            if i == 1:
+                # the warm request's launches and kernel inputs
+                ((res, wall), counts), calls = captured_join_calls(
+                    lambda: counted(lambda: _timed_s(
+                        lambda: serving.join("dim", probe))))
+            else:
+                res, wall = _timed_s(lambda: serving.join("dim", probe))
+            walls.append(wall)
+            cold = distributed_inner_join(build, probe, local)
+            _check(not bool(res.overflow) and not bool(cold.overflow)
+                   and row_digest(res) == row_digest(cold),
+                   f"serving request {i} ({label}): total "
+                   f"{int(res.total)} against the cold join's "
+                   f"{int(cold.total)}")
+            del res, cold, probe
+        after = cache.stats()
+        delta = {k: after[k] - before[k]
+                 for k in ("hits", "misses", "traces")}
+        _check(delta == {"hits": SERVING_REQUESTS - 1, "misses": 1,
+                         "traces": 1}, f"serving cache ({label}): {delta}")
+        _require_launched(counts, JOIN_KERNELS, f"a request ({label})")
+        paths[path] = counts
+        warm = walls[1:]
+        print(f"[resident] serving, capacity factor "
+              f"{serving.capacity_factor} ({shard:,}-row shard): "
+              f"{SERVING_REQUESTS} requests of {SERVING_PROBE_ROWS:,} probe "
+              f"rows against the resident {NROWS:,}-row build, each digest "
+              f"equal to a cold full join; cache {json.dumps(delta)}; ms a "
+              f"request (host clock, warm) min {min(warm) * 1e3:.4f} median "
+              f"{sorted(warm)[len(warm) // 2] * 1e3:.4f}, first "
+              f"{walls[0] * 1e3:.4f}; launches {counts}; {smi}", flush=True)
+        for r in bucket_kernel_rows(calls, label=label):
+            rows.append(dict(r, path=path))
+        del calls
+        if factor is None:
+            prof = serving_profile(serving, _serving_probe(
+                SEED + 1, SERVING_PROBE_ROWS))
+            print(f"[resident] serving profile, one warm request: device "
+                  f"busy {prof['device_busy_ms_per_join']:.4f} of "
+                  f"{prof['host_wall_ms_per_join']:.4f} ms (busy share "
+                  f"{prof['device_busy_share']:.4f}); top kernels "
+                  f"{json.dumps(prof['top_kernels_ms_per_join'])}; {smi}",
+                  flush=True)
+        del serving, cache
+    part_done("b")
+
+    # (c) LSM maintenance: four appends, one maintain, a re-probe, a drop
+    torch.cuda.empty_cache()
+    cache = JoinProgramCache(local)
+    reg = ResidentTableRegistry(local, cache)
+    reg.register("dim", build)
+    other_build, other_probe = generate_build_probe_tables(
+        seed=SEED + 90, build_nrows=RESIDENT_EMU_ROWS,
+        probe_nrows=RESIDENT_EMU_ROWS, unique_build_keys=True,
+        device=DEVICE)
+    reg.register("other", other_build)
+    probe = _serving_probe(SEED + 91, SERVING_PROBE_ROWS)
+    reg.join("dim", probe)
+    reg.join("other", other_probe)
+    want_rows, want_digest = NROWS, _key_digest(build)
+    _check((reg.get("dim").rows, reg.get("dim").key_digest)
+           == (want_rows, want_digest), "register: conservation pair")
+    deltas = []
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED + 92)
+    for i in range(LSM_DELTAS):
+        d = Table.from_dense({
+            "key": torch.randint(0, 2 * NROWS, (LSM_DELTA_ROWS,),
+                                 generator=g, device=DEVICE),
+            "build_payload": torch.arange(LSM_DELTA_ROWS, device=DEVICE)
+            + NROWS * (i + 1)})
+        deltas.append(d)
+        h = reg.append("dim", d, maintain=False)
+        want_rows += LSM_DELTA_ROWS
+        want_digest = (want_digest + _key_digest(d)) % 2**64
+        _check(h.generation == i + 2 and len(h.pending_runs) == i + 1,
+               f"append {i}: generation {h.generation}")
+    _, maintain_s = _timed_s(lambda: reg.maintain("dim"))
+    h = reg.get("dim")
+    _check((h.rows, h.key_digest, h.merges) == (want_rows, want_digest,
+                                                LSM_DELTAS),
+           f"maintain: rows {h.rows}, digest {h.key_digest:#x}, merges "
+           f"{h.merges}; counted {want_rows}, {want_digest:#x}")
+    _check(cache.generation_evictions == 1,
+           f"generation evictions {cache.generation_evictions}: only dim's "
+           "one probe program")
+    other = reg.join("other", other_probe)
+    _check(other.resident["warm"], "the other table's repeat was evicted")
+    res = reg.join("dim", probe)
+    full = Table({n: torch.cat([build.columns[n],
+                                *(d.columns[n] for d in deltas)])
+                  for n in build.columns},
+                 torch.cat([build.valid, *(d.valid for d in deltas)]))
+    cold = distributed_inner_join(full, probe, local)
+    _check(not bool(res.overflow) and row_digest(res) == row_digest(cold),
+           f"re-probe: total {int(res.total)}, cold {int(cold.total)}")
+    reg.drop("dim")
+    _check(reg.names() == ["other"] and cache.generation_evictions == 2,
+           f"drop: {reg.names()}, {cache.stats()}")
+    print(f"[resident] LSM: {LSM_DELTAS} appends of {LSM_DELTA_ROWS:,} "
+          f"rows, one maintain {maintain_s:.4f} s (host clock), "
+          f"{want_rows:,} rows and the key-hash sum conserved at every "
+          f"step; re-probe digest equal to a cold join on the concatenated "
+          f"build ({int(res.total)} matches); generation evictions "
+          f"{cache.generation_evictions} (the other table's repeat warm); "
+          f"dropped; {smi}", flush=True)
+    del reg, cache, res, cold, full, deltas, other, probe
+    part_done("c")
+
+    # (d) the probe-only aggregate at 10 M x 10 M
+    torch.cuda.empty_cache()
+    probe = _serving_probe(SEED, NROWS, groups=AGG_GROUPS)
+    reg = ResidentTableRegistry(local, JoinProgramCache(local))
+    reg.register("dim", build)
+    aggs = [("count", None), ("sum", "build_payload"),
+            ("sum", "probe_payload")]
+    agg_counts = {}
+    for mode, group, k in (("key", "key", 1), ("probe", "grp", 2)):
+        spec = AggregateSpec.of(group, aggs)
+        (res, _), agg_counts[mode] = counted(lambda: _timed_s(
+            lambda: reg.join("dim", probe, aggregate=spec,
+                             over_decomposition=k)))
+        walls = [_timed_s(lambda: reg.join(
+            "dim", probe, aggregate=spec, over_decomposition=k))[1]
+            for _ in range(AGG_ITERS)]
+        got = groups_frame(res.table, spec, [group])
+        _check(not bool(res.overflow) and frames_equal(
+            got, aggregate_oracle(build, probe, ["key"], spec)),
+            f"probe-only aggregate, {mode} mode: groups differ from numpy")
+        _require_launched(agg_counts[mode], ("compact_groups",),
+                          f"the probe-only aggregate, {mode} mode")
+        print(f"[resident] probe-only aggregate, {mode} mode (group by "
+              f"{group}, k={k}): {len(got[group]):,} groups equal to the "
+              f"numpy oracle; ms a query (host clock, warm) "
+              f"{[round(w * 1e3, 4) for w in walls]}; launches "
+              f"{agg_counts[mode]}; {smi}", flush=True)
+        del res, got
+    paths["resident_agg"] = {s: sum(c[s] for c in agg_counts.values())
+                             for s in agg_counts["key"]}
+    del reg, probe
+    part_done("d")
+
+    # (e) micro-batching: K requests as one step
+    torch.cuda.empty_cache()
+
+    def requests(seed):
+        out = []
+        for i in range(BATCH_REQUESTS):
+            b, p = generate_build_probe_tables(
+                seed=seed + i, build_nrows=BATCH_ROWS,
+                probe_nrows=BATCH_ROWS, unique_build_keys=True,
+                device=DEVICE)
+            tag = i << 40     # the request, in the payloads' high bits
+            out.append((Table({"key": b.columns["key"], "build_payload":
+                               b.columns["build_payload"] + tag}, b.valid),
+                        Table({"key": p.columns["key"], "probe_payload":
+                               p.columns["probe_payload"] + tag}, p.valid)))
+        return out
+
+    cache = JoinProgramCache(local)
+    for batch_no, seed in enumerate((SEED + 200, SEED + 300)):
+        reqs = requests(seed)
+        mb = batching.combine(reqs)
+        hits0 = cache.hits
+        res, counts = counted(lambda: distributed_inner_join(
+            mb.build, mb.probe, local, key=list(mb.key), auto_retry=1,
+            program_cache=cache))
+        if batch_no == 0:
+            paths["batched"] = counts
+            _require_launched(counts, JOIN_KERNELS, "the batched join")
+        else:
+            _check(cache.hits == hits0 + 1,
+                   "the second batch in the same slots built a program")
+        parts = batching.split(res, mb, with_rows=True)
+        for i, ((b, p), part) in enumerate(zip(reqs, parts)):
+            own = distributed_inner_join(b, p, local)
+            want = own.table.to_host()
+            got = part["rows"]
+            _check(not part["overflow"] and part["matches"]
+                   == int(own.total) and all(
+                       np.array_equal(np.sort(got[c]), np.sort(want[c]))
+                       for c in want),
+                   f"batch {batch_no} request {i}: rows differ from its "
+                   "own join's")
+            _check(bool(((got["build_payload"] >> 40) == i).all()
+                        and ((got["probe_payload"] >> 40) == i).all()),
+                   f"batch {batch_no} request {i}: a match crosses requests")
+        print(f"[resident] batching: {BATCH_REQUESTS} requests of "
+              f"{BATCH_ROWS:,} x {BATCH_ROWS:,} in one step (batch "
+              f"{batch_no}): each request's rows equal its own join's, no "
+              f"match crosses requests; cache {json.dumps(cache.stats())}; "
+              f"launches {counts}", flush=True)
+        del res, parts, mb, reqs
+    part_done("e")
+
+    # (f) 4 emulated ranks at 1 M rows, held against one rank
+    torch.cuda.empty_cache()
+    eb, ep = generate_build_probe_tables(
+        seed=SEED, build_nrows=RESIDENT_EMU_ROWS,
+        probe_nrows=RESIDENT_EMU_ROWS, unique_build_keys=True,
+        device=DEVICE)
+    ep = Table({**ep.columns, "grp": ep.columns["probe_payload"] % 97},
+               ep.valid)
+    delta = Table.from_dense({
+        "key": torch.arange(RESIDENT_EMU_ROWS // 4, device=DEVICE) * 3,
+        "build_payload": torch.arange(RESIDENT_EMU_ROWS // 4,
+                                      device=DEVICE)})
+    spec = AggregateSpec.of("grp", aggs)
+    outs = []
+    for comm in (local, EmulatedCommunicator(EMU_RANKS)):
+        reg = ResidentTableRegistry(comm, JoinProgramCache(comm))
+        reg.register("dim", eb)
+        got = [row_digest(reg.join("dim", ep, over_decomposition=k))
+               for k in (1, 2)]
+        reg.append("dim", delta, maintain=True)
+        h = reg.get("dim")
+        got.append(row_digest(reg.join("dim", ep)))
+        got.append((h.rows, h.key_digest))
+        agg = reg.join("dim", ep, aggregate=spec, over_decomposition=2)
+        outs.append((got, groups_frame(agg.table, spec, ["grp"])))
+    _check(outs[0][0] == outs[1][0] and frames_equal(outs[1][1], outs[0][1]),
+           f"resident on {EMU_RANKS} emulated ranks differs from one rank")
+    print(f"[resident] {EMU_RANKS} emulated ranks at {RESIDENT_EMU_ROWS:,} "
+          "rows: probe-only joins at k=1 and 2, an append and the "
+          "probe-mode aggregate equal to one rank's", flush=True)
+    del eb, ep, build, outs
+    torch.cuda.empty_cache()
+    part_done("f")
+    return paths, rows
+
+
+def serving_kernel_entries(rows: list, paths: dict) -> list:
+    """The serving shapes' rows of the kernels line: their launches on
+    the path of the registry they were taken from (every warm request
+    launches each once)."""
+    sites = {name.format(label): site for label, _, _ in SERVING_SETTINGS
+             for name, site in SERVING_SITES.items()}
+    return [{**{k: r[k] for k in (
+        "name", "route", "source", "replaces")},
+        "launches": paths[r["path"]][sites[r["name"]]],
+        **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                             "bound_by", "library_ms", "device_ms",
+                             "merged_positions")},
+        "launches_by_path": {r["path"]: paths[r["path"]][
+            sites[r["name"]]]}} for r in rows]
+
+
 def groups_kernel_entry(row: dict, paths: dict) -> dict:
     """The groups site's entry of the kernels line: its launches on the
     main query paths (Q3 and Q10 at SF-10), by path (the paths counted in
@@ -2699,16 +3239,39 @@ def groups_kernel_entry(row: dict, paths: dict) -> dict:
                              for p, c in counts.items() if not c}}
 
 
+def phase_in_own_process(phase: int) -> dict:
+    """``python3 chip_smoke.py --phase N`` in a process of its own; its
+    output passes through, and its line before the last (the phase's
+    kernels, launches by path and rows) is returned. Late in one long
+    process the profiler's sessions drop launches and scale durations
+    (``device_ms``); a fresh process measures them right."""
+    import subprocess
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--phase", str(phase)], capture_output=True,
+                       text=True, timeout=900)
+    lines = r.stdout.splitlines()
+    for ln in lines[:-2]:
+        print(ln, flush=True)
+    if r.returncode != 0:
+        print(r.stdout[-3000:] + r.stderr[-6000:], file=sys.stderr,
+              flush=True)
+        _fail(f"phase {phase} in its own process exited with "
+              f"{r.returncode}")
+    print(f"[phase] phase {phase} in its own process: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return json.loads(lines[-2])
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
-    wires = (json.loads(argv[2]) if argv[:2] == ["--nccl-rank-worker",
-                                                 "--wires"]
-             and len(argv) == 3 else None)
-    if argv not in ([], ["--phase", "13"], ["--phase", "14"],
-                    ["--phase", "15"], ["--phase", "16"], ["--phase", "17"],
-                    ["--nccl-rank-worker"]) and wires is None:
-        print("usage: chip_smoke.py [--phase 13 | --phase 14 | --phase 15 | "
-              "--phase 16 | --phase 17]", file=sys.stderr)
+    job = (json.loads(argv[1]) if argv[:1] == ["--nccl-rank-worker"]
+           and len(argv) == 2 else None)
+    phases = [["--phase", str(p)] for p in range(13, 19)]
+    if argv not in ([], *phases) and job is None:
+        print("usage: chip_smoke.py [--phase 13 | 14 | 15 | 16 | 17 | 18]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2720,8 +3283,8 @@ def main(argv=None) -> int:
         print("chip_smoke: distributed_join_tpu_torch/ is not beside this "
               "script; run it from the root of a checkout", file=sys.stderr)
         return 3
-    if argv[:1] == ["--nccl-rank-worker"]:
-        return nccl_rank_worker(wires)
+    if job is not None:
+        return nccl_rank_worker(job)
     from distributed_join_tpu_torch.utils.generators import (
         generate_build_probe_tables,
     )
@@ -2763,7 +3326,8 @@ def main(argv=None) -> int:
         print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
               flush=True)
         print(json.dumps({"kernels": [dict(
-            r, launches=counts[TPCH_SITES[r["name"]]]) for r in rows]}),
+            r, launches=counts[TPCH_SITES[r["name"]]]) for r in rows],
+            "launches_by_path": {"tpch": counts}, "rows": rows}),
             flush=True)
         print(ok, flush=True)
         return 0
@@ -2782,7 +3346,19 @@ def main(argv=None) -> int:
         print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
               flush=True)
         print(json.dumps({"kernels": [groups_kernel_entry(
-            groups_row, query_paths)]}), flush=True)
+            groups_row, query_paths)], "launches_by_path": query_paths,
+            "rows": [groups_row]}), flush=True)
+        print(ok, flush=True)
+        return 0
+
+    if argv == ["--phase", "18"]:
+        resident_paths, serving_rows = resident_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps({"kernels": serving_kernel_entries(
+            serving_rows, resident_paths),
+            "launches_by_path": resident_paths, "rows": serving_rows}),
+            flush=True)
         print(ok, flush=True)
         return 0
 
@@ -2814,10 +3390,14 @@ def main(argv=None) -> int:
     paths["nccl"], bucket_rows, plain, flat_prof = timed(nccl_phase)
     paths.update({f"nccl_{mode}": c
                   for mode, c in timed(wire_phase, *plain).items()})
-    paths["tpch"], tpch_rows = timed(tpch_phase)
     paths.update(timed(segmented_phase, *plain, flat_profile=flat_prof))
-    query_paths, groups_row = timed(query_phase)
-    paths.update(query_paths)
+    # the phases that profile kernel rows late in the script, each in a
+    # process of its own (``phase_in_own_process``)
+    own15, own17, own18 = (phase_in_own_process(p) for p in (15, 17, 18))
+    for own_phase in (own15, own17, own18):
+        paths.update(own_phase["launches_by_path"])
+    tpch_rows, (groups_row,), serving_rows = (
+        own15["rows"], own17["rows"], own18["rows"])
 
     launches = {"join_scans": head["join_scans"],
                 "stream_compact[record]": head["compact_records"],
@@ -2862,7 +3442,8 @@ def main(argv=None) -> int:
                                      for p, c in paths.items()}
             r["no_launch_reason"] = {"segmented": SEG_REASON,
                                      "hierarchical_segmented": SEG_REASON,
-                                     "agg": GROUPS_REASON}
+                                     "agg": GROUPS_REASON,
+                                     "resident_agg": GROUPS_REASON}
         if name == "join_scans":
             r["c1_ms"], r["c1_bound_ms"] = c1["ms"], c1["bound_ms"]
         kernels.append({k: r[k] for k in (
@@ -2875,6 +3456,7 @@ def main(argv=None) -> int:
             *(["launches_by_path", "no_launch_reason"]
               if "launches_by_path" in r else []))})
     kernels.append(groups_kernel_entry(groups_row, paths))
+    kernels.extend(serving_kernel_entries(serving_rows, paths))
     print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(ok, flush=True)

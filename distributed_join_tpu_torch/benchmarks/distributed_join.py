@@ -10,7 +10,8 @@ Port of ``distributed_join_tpu/benchmarks/distributed_join.py``
 only the options the port has (the wires ``--shuffle padded|ppermute|
 ragged|hierarchical`` with ``--slices`` and ``--dcn-codec``,
 ``--compression``, the local sort ``--sort-mode flat|segmented|auto``
-with ``--sort-ab N``, and the aggregate pushdown's ``--agg-ab N``):
+with ``--sort-ab N``, the aggregate pushdown's ``--agg-ab N`` and the
+resident build table's ``--resident-ab N``):
 generate the tables from seed 42 (the
 Zipf probe side from seed 43; ``--key-type``/``--payload-type``, the
 composite and string tables of config 5, and ``--string-key-bytes`` as
@@ -90,6 +91,11 @@ from distributed_join_tpu_torch.parallel.distributed_join import (
     resolve_join_ladder,
 )
 from distributed_join_tpu_torch.parallel.skew import zipf_top_k_mass
+from distributed_join_tpu_torch.service.programs import JoinProgramCache
+from distributed_join_tpu_torch.service.resident import (
+    ResidentError,
+    ResidentTableRegistry,
+)
 from distributed_join_tpu_torch.table import Table
 from distributed_join_tpu_torch.utils.benchmarking import (
     profile_join,
@@ -122,7 +128,6 @@ _REFUSED = {
     "--expand-kernel": "the kernel knobs",
     "--compact-kernel": "the kernel knobs",
     "--kernel-block": "the kernel knobs",
-    "--resident-ab": "the resident build tables",
     "--platform": "platform selection (the driver runs on the GPU)",
     "--explain": "plan explain",
     "--stage-profile": "the stage profile",
@@ -233,6 +238,15 @@ def parse_args(argv=None):
                         "record under 'agg_ab'. Shapes the pushdown "
                         "refuses (string keys, the skew sidecar) skip "
                         "with the reason")
+    p.add_argument("--resident-ab", type=int, default=0, metavar="N",
+                   help="after the timed run: register the build table as "
+                        "a resident image (service/resident.py) and time N "
+                        "warm probe-only joins against N warm full joins of "
+                        "the same query (host clock around a synchronised "
+                        "call), graded by equal totals and row digests; the "
+                        "record under 'resident_ab' (the warm probe-only "
+                        "joins must build no program). Shapes the resident "
+                        "tables refuse skip with the reason")
     p.add_argument("--compression", action="store_true",
                    help="FoR + bit-pack the integer columns on the padded "
                         "or ppermute wire")
@@ -724,6 +738,96 @@ def agg_ab(comm, build, probe, join_key, n_joins: int, join_opts: dict,
     }
 
 
+def _digest_of(comm, table: Table) -> int:
+    """``row_digest`` of a result over every rank: a process group's
+    ranks each hold their own rows."""
+    d = row_digest(table)
+    if isinstance(comm, ProcessGroupCommunicator):
+        d = comm.psum(d)
+    return int(d)
+
+
+def resident_ab(comm, build, probe, join_key, n_joins: int,
+                join_opts: dict) -> dict:
+    """The resident build table against the full join (JAX
+    ``_resident_ab``, :706-786): register the build table once, then N
+    warm probe-only joins and N warm full joins of the same query at the
+    same sizing, each timed alone on the host clock around a
+    synchronised call (the slowest rank's); min per side. Graded by
+    equal totals and equal row digests; the warm probe-only joins must
+    build no program. Shapes the resident tables refuse skip with the
+    reason."""
+    if not isinstance(join_key, str):
+        return {"skipped": "composite keys not yet resident"}
+    if join_opts.get("shuffle") == "hierarchical":
+        return {"skipped": "the probe-only program does not route "
+                           "hierarchically yet — run --resident-ab on a "
+                           "flat mesh"}
+    dev = build.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    try:
+        cache = JoinProgramCache(comm)
+        registry = ResidentTableRegistry(comm, cache)
+        comm.barrier()
+        t0 = time.perf_counter()
+        registry.register("driver_build", build, key=join_key)
+        sync()
+        register_s = comm.host_max(time.perf_counter() - t0)
+    except ResidentError as exc:
+        return {"skipped": f"{exc}"}
+    sizing = {k: join_opts.get(k) for k in
+              ("shuffle", "over_decomposition", "shuffle_capacity_factor",
+               "out_capacity_factor", "out_rows_per_rank",
+               "compression_bits", "kernel_config")
+              if join_opts.get(k) is not None}
+    cold_fn = comm.spmd(make_join_step(comm, **join_opts),
+                        sharded_out=JOIN_SHARDED_OUT)
+
+    def run_cold():
+        return cold_fn(build, probe)
+
+    def run_probe_only():
+        return registry.join("driver_build", probe, **sizing)
+
+    cold, po = run_cold(), run_probe_only()      # warm both programs
+    digests = (_digest_of(comm, cold.table), _digest_of(comm, po.table))
+    overflow = bool(cold.overflow) or bool(po.overflow)
+    del cold, po
+    traces0 = cache.traces
+    walls = {"cold": [], "probe_only": []}
+    matches = {}
+    for side, fn in (("cold", run_cold), ("probe_only", run_probe_only)):
+        for _ in range(n_joins):
+            comm.barrier()
+            t0 = time.perf_counter()
+            res = fn()
+            sync()
+            walls[side].append(comm.host_max(time.perf_counter() - t0))
+            matches[side] = int(res.total)
+            del res
+    cold_min, po_min = min(walls["cold"]), min(walls["probe_only"])
+    return {
+        "n_joins": n_joins,
+        "register_s": register_s,
+        "cold_wall_min_s": cold_min,
+        "probe_only_wall_min_s": po_min,
+        "probe_only_speedup": cold_min / po_min if po_min else None,
+        "warm_probe_new_traces": cache.traces - traces0,
+        "matches_cold": matches["cold"],
+        "matches_probe_only": matches["probe_only"],
+        "matches_equal": matches["cold"] == matches["probe_only"],
+        "digest_equal": digests[0] == digests[1],
+        "overflow": overflow,
+        "cold_walls_s": walls["cold"],
+        "probe_only_walls_s": walls["probe_only"],
+        "resident": registry.stats()["tables"]["driver_build"],
+    }
+
+
 def run(args, device=None) -> dict:
     """The protocol; returns the record. ``device`` defaults to the
     rank's device (``rank_device``; ``"cpu"`` for rehearsals: its times
@@ -811,6 +915,10 @@ def run(args, device=None) -> dict:
         "sort_ab": (sort_ab(comm, build, probe, args.sort_ab,
                             dict(fixed, **ladder.sizing()), args)
                     if args.sort_ab > 0 else None),
+        "resident_ab": (resident_ab(comm, build, probe, fixed["key"],
+                                    args.resident_ab,
+                                    dict(fixed, **ladder.sizing()))
+                        if args.resident_ab > 0 else None),
         "device": str(dev),
     }
     if on_gpu:

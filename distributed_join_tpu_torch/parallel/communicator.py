@@ -169,7 +169,9 @@ class Communicator(abc.ABC):
         ``local_inputs``: the arguments hold only this process's rows,
         :meth:`local_rows` of the global capacity; one process holds
         every rank's rows, so only a process-group backend reads the
-        flag."""
+        flag. A tuple of flags, one a positional argument, marks some
+        arguments local and shards the others (a resident table's shard
+        beside a global probe)."""
 
     def local_rows(self, capacity: int) -> range:
         """The rows of a table of ``capacity`` global rows that this
@@ -478,10 +480,12 @@ _SUM_WIRE = {
 def _to_bytes(x: torch.Tensor) -> torch.Tensor:
     """``x`` (rows, ...) as a contiguous (rows, row bytes) uint8 tensor:
     every backend moves bytes, so every dtype and width crosses the wire
-    bit-exact."""
+    bit-exact. Viewed through one flat dimension: a contiguous tensor
+    may carry any stride on a dimension of size 1 (a (2, 1) block of a
+    2 x 1 slice mesh), which a byte view of the last dimension refuses."""
     x = x.contiguous()
-    row = math.prod(x.shape[1:])
-    return x.reshape(x.shape[0], row).view(torch.uint8)
+    row = math.prod(x.shape[1:]) * x.element_size()
+    return x.reshape(-1).view(torch.uint8).reshape(x.shape[0], row)
 
 
 def _from_bytes(b: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -637,11 +641,13 @@ class ProcessGroupCommunicator(Communicator):
 
     def spmd(self, fn, *, sharded_out=None, local_inputs=False):
         n, r = self.n_ranks, self.axis_index()
-        if local_inputs:
+        if local_inputs is True:
             return fn
 
         def run(*args):
-            return fn(*_map(lambda t: _shard(t, r, n), args))
+            local = local_inputs or (False,) * len(args)
+            return fn(*(a if mine else _map(lambda t: _shard(t, r, n), a)
+                        for a, mine in zip(args, local)))
 
         return run
 

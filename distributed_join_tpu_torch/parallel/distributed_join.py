@@ -7,10 +7,12 @@ materializing path of ``make_join_step`` (:517-801, including the skew
 sidecar :568-628, the single-bucket shortcut :640-655 and the segmented
 sort :656-715), the shuffle dispatch ``_batch_shuffle`` (:95-141) and
 ``_batch_shuffle_segmented`` (:144-171), ``resolve_join_ladder``
-(:1421) and ``distributed_inner_join`` (:1486). With n ranks and
-over-decomposition k, rows hash into ``bucket = h % (k*n)``; ``dest =
-bucket % n`` and ``batch = bucket // n``, so one partition sort serves
-all k batches and matching keys always share (dest, batch).
+(:1421), ``distributed_inner_join`` (:1486) and the probe-only steps
+of the resident build tables (``resolve_probe_capacities``,
+``make_probe_join_step``, ``_make_probe_agg_step``: :985-1380). With n
+ranks and over-decomposition k, rows hash into ``bucket = h % (k*n)``;
+``dest = bucket % n`` and ``batch = bucket // n``, so one partition sort
+serves all k batches and matching keys always share (dest, batch).
 
 Four wires (``shuffle``): ``padded`` (capacity-padded blocks, one
 all-to-all), ``ppermute`` (the same blocks over the communicator's
@@ -97,7 +99,6 @@ _UNPORTED = {
     "with_integrity": ("wire-integrity digests", False),
     "metrics_static": ("device metrics", None),
     "verify_integrity": ("wire-integrity digests", False),
-    "program_cache": ("the serving program cache", None),
     "explain": ("plan explain", False),
     "tuner": ("the autotuner", None),
 }
@@ -193,6 +194,25 @@ def _batch_shuffle(comm, pt, batch: int, n_ranks: int, capacity: int,
     return table, overflow
 
 
+def resolve_probe_capacities(p_local: int, n: int, k: int,
+                             shuffle_capacity_factor: float,
+                             out_capacity_factor: float,
+                             out_rows_per_rank: Optional[int]):
+    """``(p_cap, out_cap)``: a side's shuffle pad per (batch,
+    destination) bucket and the join output block per batch (JAX
+    :985-1004). The probe-only step resolves its probe side with it, and
+    ``_step_capacities`` both sides, so the two programs cannot size a
+    probe apart."""
+    p_cap = _round_up(
+        int(math.ceil(p_local / (k * n) * shuffle_capacity_factor)), 8)
+    if out_rows_per_rank is not None:
+        out_cap = _round_up(int(math.ceil(out_rows_per_rank / k)), 8)
+    else:
+        out_cap = _round_up(
+            int(math.ceil(p_local / k * out_capacity_factor)), 8)
+    return p_cap, out_cap
+
+
 def _step_capacities(b_rows: int, p_rows: int, n: int, k: int,
                      shuffle_capacity_factor: float,
                      out_capacity_factor: float,
@@ -201,24 +221,21 @@ def _step_capacities(b_rows: int, p_rows: int, n: int, k: int,
     fused aggregate step so that the ladder relieves one contract: each
     side's shuffle pad per (batch, destination) bucket, and the join
     output block per batch."""
-    nb = k * n
-    b_cap = _round_up(int(math.ceil(b_rows / nb * shuffle_capacity_factor)),
-                      8)
-    p_cap = _round_up(int(math.ceil(p_rows / nb * shuffle_capacity_factor)),
-                      8)
-    if out_rows_per_rank is not None:
-        out_cap = _round_up(int(math.ceil(out_rows_per_rank / k)), 8)
-    else:
-        out_cap = _round_up(int(math.ceil(p_rows / k * out_capacity_factor)),
-                            8)
+    b_cap, _ = resolve_probe_capacities(b_rows, n, k, shuffle_capacity_factor,
+                                        out_capacity_factor, None)
+    p_cap, out_cap = resolve_probe_capacities(
+        p_rows, n, k, shuffle_capacity_factor, out_capacity_factor,
+        out_rows_per_rank)
     return b_cap, p_cap, out_cap
 
 
 def _flat_batches(comm, sides, keys, k: int, shuffle: str,
                   compression_bits, dcn_on: bool, strings: bool):
-    """Partition both ``(table, bucket capacity)`` sides (build first)
-    into ``k * n_ranks`` buckets and yield each of the ``k`` batches as
-    ``(received build, received probe, overflow)``. With ``strings`` on
+    """Partition each ``(table, bucket capacity)`` side into ``k *
+    n_ranks`` buckets and yield each of the ``k`` batches as ``(*received
+    sides, overflow)``: both sides (build first) for a join of two
+    shuffled tables, the probe alone for the probe-only step, whose
+    build is resident. With ``strings`` on
     the ragged wire, each side's string payload columns ride the
     byte-exact wire, each bucket ordered by the first one's length,
     descending."""
@@ -241,7 +258,7 @@ def _flat_batches(comm, sides, keys, k: int, shuffle: str,
                 dcn_codec_on=dcn_on)
             recv.append(table)
             overflow = ovf if overflow is None else overflow | ovf
-        yield recv[0], recv[1], overflow
+        yield (*recv, overflow)
 
 
 def _batch_shuffle_segmented(comm, pt, batch: int, n_ranks: int,
@@ -259,6 +276,21 @@ def _batch_shuffle_segmented(comm, pt, batch: int, n_ranks: int,
     recv_cols, recv_counts = shuffle_segmented(
         comm, padded, counts, seg_cap, segments, via=via)
     return recv_cols, recv_counts, overflow
+
+
+def _concat(parts) -> Table:
+    """The batches' tables in one."""
+    return Table({name: torch.cat([t.columns[name] for t in parts])
+                  for name in parts[0].column_names},
+                 torch.cat([t.valid for t in parts]))
+
+
+def _settle(comm, out: Table, total, overflow) -> JoinResult:
+    """The step's result: its table, the match count summed and the
+    overflow flag OR-ed over the ranks."""
+    total = comm.psum(total)
+    overflow = comm.psum(overflow.to(torch.int32)) > 0
+    return JoinResult(out, total=total, overflow=overflow)
 
 
 def make_join_step(
@@ -581,23 +613,40 @@ def make_join_step(
                 parts.append(res.table)
                 total = total + res.total
                 overflow = overflow | res.overflow
-        out = Table(
-            {name: torch.cat([t.columns[name] for t in parts])
-             for name in parts[0].column_names},
-            torch.cat([t.valid for t in parts]))
-        if str_spec:
-            out = patch_string_lengths(
-                rebuild_string_keys(out, str_spec, keys), keys, join_type)
-        total = comm.psum(total)
-        overflow = comm.psum(overflow.to(torch.int32)) > 0
-        return JoinResult(out, total=total, overflow=overflow)
+        res = _settle(comm, _concat(parts), total, overflow)
+        if not str_spec:
+            return res
+        return JoinResult(patch_string_lengths(
+            rebuild_string_keys(res.table, str_spec, keys), keys, join_type),
+            total=res.total, overflow=res.overflow)
 
     return step
 
 
+def _check_scalar_columns(resident_local: Table, probe_local: Table,
+                          keys) -> None:
+    """The probe-only program's input checks (JAX :1139-1154): scalar
+    columns on both sides, and equal key dtypes (hash routing is
+    dtype-dependent)."""
+    for t, side in ((resident_local, "resident"), (probe_local, "probe")):
+        for name, c in t.columns.items():
+            if c.ndim != 1:
+                raise TypeError(
+                    f"{side} column {name!r} is {c.ndim}-D; the "
+                    "probe-only program covers scalar columns "
+                    "(register 2-D/string workloads through the full "
+                    "join)")
+    for kname in keys:
+        bdt = resident_local.columns[kname].dtype
+        pdt = probe_local.columns[kname].dtype
+        if bdt != pdt:
+            raise TypeError(f"key {kname!r} dtype mismatch: resident {bdt} "
+                            f"vs probe {pdt}")
+
+
 def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
                         out_capacity_factor, out_rows_per_rank, shuffle,
-                        compression_bits, dcn_on):
+                        compression_bits, dcn_on, resident: bool = False):
     """The fused join+aggregate step (JAX :804-983): partition and
     shuffle only the columns the reduction reads
     (``ops.aggregate.wire_columns``), with the materializing step's
@@ -609,13 +658,20 @@ def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
     send never overflows) and combine what arrives. Returns
     ``step(build, probe) -> JoinResult``: ``table`` the finalized groups,
     ``total`` the would-be join row count, ``overflow`` any shuffle
-    bucket or groups block that overflowed."""
+    bucket or groups block that overflowed.
+
+    ``resident``: the probe-only form (JAX ``_make_probe_agg_step``,
+    :1234-1380): the build is a resident shard, already on its rank, so
+    only the probe partitions and shuffles and every batch reduces
+    against the whole shard; build-mode group keys refuse."""
     n = comm.n_ranks
     nb = k * n
     partials_mode = "hierarchical" if shuffle == "hierarchical" \
         else "padded"
 
     def step(build_local: Table, probe_local: Table) -> JoinResult:
+        if resident:
+            _check_scalar_columns(build_local, probe_local, keys)
         for kname in keys:
             bc = build_local.columns[kname]
             pc = probe_local.columns[kname]
@@ -632,6 +688,12 @@ def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
         bschema = agg_ops.table_schema(build_local)
         pschema = agg_ops.table_schema(probe_local)
         mode = agg_ops.resolve_agg_mode(spec, keys, bschema, pschema)
+        if resident and mode == "build":
+            raise agg_ops.AggregatePushdownUnsupported(
+                "group keys live on the RESIDENT (build) side; the "
+                "probe-only program keeps the build shards pinned and "
+                "only exchanges probe rows, so build-keyed group-bys "
+                "ride make_join_step(aggregate=) instead")
         wire_b, wire_p = agg_ops.wire_columns(spec, mode, keys, bschema,
                                               pschema)
         build_w = build_local.select(wire_b)
@@ -648,22 +710,23 @@ def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
         dev = build_local.device
         total = torch.zeros((), dtype=torch.int64, device=dev)
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
-        parts = []
         if nb == 1:
-            partials, t, _, ovf = agg_ops.local_join_aggregate(
-                build_w, probe_w, keys, spec, mode, groups_cap)
+            batches = [(build_w, probe_w, overflow)]
+        elif resident:
+            batches = ((build_w, recv_p, ovf) for recv_p, ovf in _flat_batches(
+                comm, ((probe_w, p_cap),), keys, k, shuffle, compression_bits,
+                dcn_on, strings=False))
+        else:
+            batches = _flat_batches(
+                comm, ((build_w, b_cap), (probe_w, p_cap)), keys, k,
+                shuffle, compression_bits, dcn_on, strings=False)
+        parts = []
+        for recv_b, recv_p, ovf in batches:
+            partials, t, _, ovf_j = agg_ops.local_join_aggregate(
+                recv_b, recv_p, keys, spec, mode, groups_cap)
             parts.append(partials)
             total = total + t
-            overflow = overflow | ovf
-        else:
-            for recv_b, recv_p, ovf in _flat_batches(
-                    comm, ((build_w, b_cap), (probe_w, p_cap)), keys, k,
-                    shuffle, compression_bits, dcn_on, strings=False):
-                partials, t, _, ovf_j = agg_ops.local_join_aggregate(
-                    recv_b, recv_p, keys, spec, mode, groups_cap)
-                parts.append(partials)
-                total = total + t
-                overflow = overflow | ovf | ovf_j
+            overflow = overflow | ovf | ovf_j
         if mode in ("probe", "build"):
             # non-key groups recur across batches and ranks
             if len(parts) > 1:
@@ -681,13 +744,131 @@ def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
                 parts = [combined]
         finals = [agg_ops.finalize_groups(p, spec, group_names)
                   for p in parts]
-        out = finals[0] if len(finals) == 1 else Table(
-            {name: torch.cat([t.columns[name] for t in finals])
-             for name in finals[0].column_names},
-            torch.cat([t.valid for t in finals]))
-        total = comm.psum(total)
-        overflow = comm.psum(overflow.to(torch.int32)) > 0
-        return JoinResult(out, total=total, overflow=overflow)
+        return _settle(comm, finals[0] if len(finals) == 1
+                       else _concat(finals), total, overflow)
+
+    return step
+
+
+PROBE_SHUFFLE_MODES = ("padded", "ragged", "ppermute")
+
+
+def make_probe_join_step(
+    comm: Communicator,
+    key="key",
+    over_decomposition: int = 1,
+    shuffle_capacity_factor: float = DEFAULT_SHUFFLE_CAPACITY_FACTOR,
+    out_capacity_factor: float = DEFAULT_OUT_CAPACITY_FACTOR,
+    out_rows_per_rank: Optional[int] = None,
+    build_payload: Optional[Sequence[str]] = None,
+    probe_payload: Optional[Sequence[str]] = None,
+    shuffle: str = "padded",
+    compression_bits: Optional[int] = None,
+    sort_mode: str = "flat",
+    aggregate=None,
+    kernel_config=None,
+    **unported,
+):
+    """The probe-only join step against a resident build shard
+    (service/resident.py; JAX :1007-1231): ``step(resident_local,
+    probe_local) -> JoinResult``, to run under ``comm.spmd``.
+
+    ``resident_local`` is one rank's shard of a registered build table
+    that already went through the build side's partition, shuffle and
+    key sort (``service.resident.make_resident_prep_step``). Only the
+    probe partitions (``_flat_batches`` with the probe as its one side)
+    and shuffles; each batch joins against the whole resident shard.
+    Registration buckets rows by ``h % n`` and this step by ``h % (k *
+    n)``; ``(h % kn) % n == h % n``, so matching keys meet at every
+    over-decomposition, and each probe row rides one batch. The probe
+    side's capacities are the full join's
+    (:func:`resolve_probe_capacities`), so the same ladder relieves the
+    same overflow flag; the build side has none to size.
+
+    ``aggregate``: the fused join+aggregate on the probe-only dispatch
+    (:func:`_make_join_agg_step` with ``resident=True``); build-mode
+    group keys, explicit payload lists and ``kernel_config`` refuse as
+    in the JAX package. The segmented sort, a multi-slice communicator,
+    compression on the ragged wire, the skew sidecar and 2-D (string)
+    columns are not part of the probe-only program. Metrics and
+    integrity digests refuse by name.
+    """
+    _refuse_unported(unported)
+    n = comm.n_ranks
+    k = over_decomposition
+    if k < 1:
+        raise ValueError("over_decomposition must be >= 1")
+    if shuffle not in PROBE_SHUFFLE_MODES:
+        raise ValueError(f"unknown shuffle mode {shuffle!r}")
+    if sort_mode not in SORT_MODES:
+        raise ValueError(
+            f"unknown sort_mode {sort_mode!r}; pick one of {SORT_MODES}")
+    if sort_mode != "flat":
+        raise ValueError(
+            "sort_mode='segmented' is not part of the probe-only "
+            "program: the resident build image is one flat key-sorted "
+            "run registered before the probe's segment count is known, "
+            "and segments must be the SAME hash classes on both sides "
+            "— segment-aligned resident images are unimplemented; "
+            "serve resident joins with sort_mode='flat'")
+    if compression_bits is not None and shuffle == "ragged":
+        raise ValueError(
+            "compression applies to the padded/ppermute shuffles; the "
+            "ragged exchange already sends exact rows (combining the "
+            "two is unimplemented)")
+    if n > 1 and comm.n_slices > 1:
+        raise ValueError(
+            "probe-only joins route one GLOBAL collective over the "
+            "mesh; a multi-slice topology would drag intra-slice "
+            "traffic across DCN, and hierarchical probe-only serving "
+            "is not implemented yet — register resident tables on a "
+            "flat 1-D communicator")
+    nb = k * n
+    keys = [key] if isinstance(key, str) else list(key)
+
+    if aggregate is not None:
+        if not isinstance(aggregate, agg_ops.AggregateSpec):
+            raise TypeError(
+                "aggregate must be an ops.aggregate.AggregateSpec "
+                f"(got {type(aggregate).__name__})")
+        if build_payload is not None or probe_payload is not None:
+            raise agg_ops.AggregatePushdownUnsupported(
+                "aggregate pushdown unsupported: explicit payload "
+                "lists conflict with the pushdown's own wire-column "
+                "resolution")
+        if kernel_config is not None:
+            raise agg_ops.AggregatePushdownUnsupported(
+                "aggregate pushdown unsupported: kernel_config tunes "
+                "the materializing expand/compact gathers the fused "
+                "reduction never runs — drop the knob")
+        return _make_join_agg_step(
+            comm, aggregate, keys=keys, k=k,
+            shuffle_capacity_factor=shuffle_capacity_factor,
+            out_capacity_factor=out_capacity_factor,
+            out_rows_per_rank=out_rows_per_rank, shuffle=shuffle,
+            compression_bits=compression_bits, dcn_on=False, resident=True)
+
+    def step(resident_local: Table, probe_local: Table) -> JoinResult:
+        _check_scalar_columns(resident_local, probe_local, keys)
+        p_cap, out_cap = resolve_probe_capacities(
+            probe_local.capacity, n, k, shuffle_capacity_factor,
+            out_capacity_factor, out_rows_per_rank)
+        dev = probe_local.device
+        total = torch.zeros((), dtype=torch.int64, device=dev)
+        overflow = torch.zeros((), dtype=torch.bool, device=dev)
+        batches = ([(probe_local, overflow)] if nb == 1 else _flat_batches(
+            comm, ((probe_local, p_cap),), keys, k, shuffle,
+            compression_bits, False, strings=False))
+        parts = []
+        for recv_p, ovf in batches:
+            res = sort_merge_inner_join(
+                resident_local, recv_p, keys, out_cap,
+                build_payload=build_payload, probe_payload=probe_payload,
+                kernel_config=kernel_config)
+            parts.append(res.table)
+            total = total + res.total
+            overflow = overflow | ovf | res.overflow
+        return _settle(comm, _concat(parts), total, overflow)
 
     return step
 
@@ -744,7 +925,7 @@ def resolve_join_ladder(build: Table, probe: Table, n_ranks: int,
 
 def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
                            key="key", auto_retry: int = 0,
-                           **opts) -> JoinResult:
+                           program_cache=None, **opts) -> JoinResult:
     """One-shot join: pad to rank-divisible capacity, run the step on
     every rank, and on overflow re-run with the ladder's escalated
     capacities up to ``auto_retry`` times (every capacity doubles; the
@@ -753,8 +934,18 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
     escalation trail as ``res.retry_report`` (faults.RetryReport).
     With plan validation on (``faults.plan_validation_enabled``), a
     violation recorded by an attempt's ragged shuffles raises
-    ``faults.PlanValidationError`` after it, instead of a retry."""
+    ``faults.PlanValidationError`` after it, instead of a retry.
+
+    ``program_cache``: a ``service.programs.JoinProgramCache`` over
+    ``comm``. Every attempt then takes its program from the cache, keyed
+    by the tables' shapes, the options, the rung's sizing and the
+    attempt's index, so a repeat query, and a rung seen before, builds
+    no step (JAX :1575-1587)."""
     _refuse_unported({k: v for k, v in opts.items() if k in _UNPORTED})
+    if program_cache is not None and program_cache.comm is not comm:
+        # the cache's programs run over ITS communicator's ranks
+        raise ValueError(
+            "program_cache was built for a different communicator")
     n = comm.n_ranks
     build = build.pad_to(_round_up(build.capacity, n))
     probe = probe.pad_to(_round_up(probe.capacity, n))
@@ -762,7 +953,12 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
     ladder = resolve_join_ladder(build, probe, n, opts,
                                  n_slices=comm.n_slices)
     for attempt in range(auto_retry + 1):
-        fn = make_distributed_join(comm, key=key, **ladder.sizing(), **opts)
+        if program_cache is not None:
+            fn, _ = program_cache.get(build, probe, key=key, rung=attempt,
+                                      **ladder.sizing(), **opts)
+        else:
+            fn = make_distributed_join(comm, key=key, **ladder.sizing(),
+                                       **opts)
         validating = faults.plan_validation_enabled()
         if validating:
             faults.clear_plan_violations()

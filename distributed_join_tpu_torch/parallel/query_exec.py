@@ -12,10 +12,12 @@ partition and shuffle re-shards it by the next key.
 ``distributed_query`` pads the base tables to a rank-divisible capacity
 and, on overflow anywhere in the chain, doubles every operator's
 ``shuffle_capacity_factor`` and ``out_capacity_factor`` together, up to
-``auto_retry`` times (the JAX package's ladder for whole queries). The
-JAX package's program cache (``program_cache``, ``QuerySignature``) and
-per-operator metrics (``with_metrics``) are not part of the port and
-refuse by name.
+``auto_retry`` times (the JAX package's ladder for whole queries). With
+a ``program_cache`` (``service.programs.JoinProgramCache``) each rung's
+program is keyed by a ``QuerySignature`` (JAX :191-233): the plan's
+digest, the base tables' shapes, the rung's options and the mesh. The
+JAX package's per-operator metrics (``with_metrics``) are not part of
+the port and refuse by name.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from distributed_join_tpu_torch.table import Table
 
 __all__ = [
     "QueryResult",
+    "QuerySignature",
     "make_query_step",
     "make_distributed_query",
     "distributed_query",
@@ -123,6 +126,40 @@ def make_distributed_query(comm, plan, with_metrics=None, **defaults):
                      sharded_out=query_sharded_out(plan))
 
 
+@dataclasses.dataclass(frozen=True)
+class QuerySignature:
+    """The cache identity of one query program: the plan's digest, the
+    padded base tables' schemas and capacities (in plan order), the
+    name-sorted executor options (the rung among them) and the mesh."""
+
+    n_ranks: int
+    plan_digest: str
+    tables: tuple            # (name, schema triples, capacity) a table
+    options: tuple           # name-sorted (knob, value) pairs
+    n_slices: int = 1
+
+    @classmethod
+    def of(cls, comm, plan, tables, **options) -> "QuerySignature":
+        from distributed_join_tpu_torch.service.programs import _schema_of
+
+        return cls(
+            n_ranks=int(comm.n_ranks),
+            plan_digest=plan.digest(),
+            tables=tuple((name, _schema_of(tables[name]),
+                          int(tables[name].capacity))
+                         for name in plan.tables),
+            options=tuple(sorted(options.items())),
+            n_slices=int(comm.n_slices))
+
+    def canonical(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def digest(self) -> str:
+        from distributed_join_tpu_torch.service.programs import _digest
+
+        return _digest(self.canonical())
+
+
 def distributed_query(tables: Mapping[str, Table], plan, comm,
                       auto_retry: int = 0, program_cache=None,
                       with_metrics=None, **defaults) -> QueryResult:
@@ -130,11 +167,13 @@ def distributed_query(tables: Mapping[str, Table], plan, comm,
     capacity, run the one program, and on overflow anywhere in the
     chain double every operator's ``shuffle_capacity_factor`` and
     ``out_capacity_factor`` and run again, up to ``auto_retry`` times.
-    The result carries ``plan_digest`` and ``retry_attempts``."""
-    if program_cache is not None:
-        raise NotImplementedError(
-            "program_cache: the serving program cache is not part of the "
-            "port")
+    With ``program_cache`` each rung's program comes from the cache, so
+    a repeat query, or a rung seen before, builds none. The result
+    carries ``plan_digest``, ``cache_hit`` (the first attempt's) and
+    ``retry_attempts``."""
+    if program_cache is not None and program_cache.comm is not comm:
+        raise ValueError(
+            "program_cache was built for a different communicator")
     if with_metrics:
         raise NotImplementedError(
             "with_metrics=True: device metrics are not part of the port")
@@ -144,21 +183,33 @@ def distributed_query(tables: Mapping[str, Table], plan, comm,
         raise ValueError(
             f"plan references base tables {missing} not supplied "
             f"(have {sorted(tables)})")
-    args = tuple(tables[name].pad_to(_round_up(tables[name].capacity, n))
-                 for name in plan.tables)
+    padded = {name: tables[name].pad_to(
+        _round_up(tables[name].capacity, n)) for name in plan.tables}
+    args = tuple(padded[name] for name in plan.tables)
     defaults = dict(defaults)
     shuffle_f = float(defaults.pop("shuffle_capacity_factor",
                                    DEFAULT_SHUFFLE_CAPACITY_FACTOR))
     out_f = float(defaults.pop("out_capacity_factor",
                                DEFAULT_OUT_CAPACITY_FACTOR))
+    first_hit = None
     for attempt in range(auto_retry + 1):
         scale = 2 ** attempt
-        fn = make_distributed_query(
-            comm, plan, shuffle_capacity_factor=shuffle_f * scale,
-            out_capacity_factor=out_f * scale, **defaults)
+        sizing = dict(defaults, shuffle_capacity_factor=shuffle_f * scale,
+                      out_capacity_factor=out_f * scale)
+        if program_cache is not None:
+            sig = QuerySignature.of(comm, plan, padded, with_metrics=False,
+                                    rung=attempt, **sizing)
+            fn, hit = program_cache.get_keyed(
+                sig, lambda sizing=sizing: make_distributed_query(
+                    comm, plan, **sizing))
+        else:
+            fn, hit = make_distributed_query(comm, plan, **sizing), False
+        if first_hit is None:
+            first_hit = hit
         res = fn(*args)
         if not bool(res.overflow):
             break
     object.__setattr__(res, "plan_digest", plan.digest())
+    object.__setattr__(res, "cache_hit", bool(first_hit))
     object.__setattr__(res, "retry_attempts", attempt)
     return res

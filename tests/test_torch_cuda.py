@@ -1601,3 +1601,142 @@ def test_local_join_aggregate_on_card_equals_cpu(card, mode):
     for c in want:
         if want[c].dtype.kind != "f":
             np.testing.assert_array_equal(got[c], want[c])
+
+
+def _resident_tables(dev, seed=3):
+    rng = np.random.default_rng(seed)
+    nb, npr = 200_000, 300_000
+    build = Table.from_numpy({
+        "key": rng.permutation(400_000)[:nb].astype(np.int64),
+        "build_payload": rng.integers(0, 1 << 40, nb).astype(np.int64)},
+        np.ones(nb, bool), device=dev)
+    probe = Table.from_numpy({
+        "key": rng.integers(0, 400_000, npr).astype(np.int64),
+        "probe_payload": rng.integers(0, 1 << 40, npr).astype(np.int64),
+        "grp": rng.integers(0, 1024, npr).astype(np.int64)},
+        rng.random(npr) < 0.95, device=dev)
+    delta = Table.from_numpy({
+        "key": rng.integers(0, 400_000, 50_000).astype(np.int64),
+        "build_payload": rng.integers(0, 1 << 40, 50_000).astype(np.int64)},
+        np.ones(50_000, bool), device=dev)
+    return build, probe, delta
+
+
+def _host_multiset(table):
+    cols, valid = table.to_numpy()
+    names = sorted(cols)
+    a = np.stack([cols[n][valid].astype(np.int64) for n in names], 1)
+    return names, a[np.lexsort(a.T[::-1])]
+
+
+@pytest.mark.parametrize("ranks,k", [(1, 1), (1, 3), (4, 2)])
+def test_resident_registry_on_card_equals_cpu(card, ranks, k):
+    """Register, probe-only join, append, merge and re-probe on the card
+    (the join kernels on every probe batch, the run sorts and the int64
+    wrapping key-hash sums on CUDA) equal to the same calls on the CPU:
+    rows as multisets, totals, the conservation pairs and generations."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+    from distributed_join_tpu_torch.service.resident import (
+        ResidentTableRegistry,
+    )
+    out = []
+    for dev in (card, torch.device("cpu")):
+        build, probe, delta = _resident_tables(dev)
+        comm = LocalCommunicator() if ranks == 1 else \
+            EmulatedCommunicator(ranks)
+        reg = ResidentTableRegistry(comm, JoinProgramCache(comm))
+        reg.register("dim", build)
+        _kernels.reset_launch_counts(scan.join_scans, join_mod.compact_records,
+                                     expand.expand_gather)
+        first = reg.join("dim", probe, over_decomposition=k)
+        if dev.type == "cuda":
+            assert scan.join_scans.launches == ranks * k
+            assert join_mod.compact_records.launches == ranks * k
+            assert expand.expand_gather.launches == ranks * k
+        reg.append("dim", delta, maintain=True)
+        second = reg.join("dim", probe, over_decomposition=k)
+        h = reg.get("dim")
+        out.append([(int(r.total), bool(r.overflow), _host_multiset(r.table))
+                    for r in (first, second)]
+                   + [(h.rows, h.key_digest, h.generation, h.merges)])
+    (g1, g2, gs), (c1, c2, cs) = out
+    assert gs == cs
+    for g, c in ((g1, c1), (g2, c2)):
+        assert g[:2] == c[:2] and not g[1]
+        assert g[2][0] == c[2][0]
+        np.testing.assert_array_equal(g[2][1], c[2][1])
+
+
+@pytest.mark.parametrize("mode", ["key", "probe"])
+def test_probe_only_aggregate_on_card_equals_cpu(card, mode):
+    """The probe-only fused aggregate on the card (key mode; probe mode
+    with the cross-batch combine at k = 2) equal to the CPU's: integer
+    lanes exactly."""
+    from distributed_join_tpu_torch.ops import aggregate as A
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.service.resident import (
+        ResidentTableRegistry,
+    )
+    group = "key" if mode == "key" else "grp"
+    spec = A.AggregateSpec.of(group, [("count", None),
+                                      ("sum", "probe_payload"),
+                                      ("sum", "build_payload")])
+    frames = []
+    for dev in (card, torch.device("cpu")):
+        build, probe, _ = _resident_tables(dev, seed=4)
+        reg = ResidentTableRegistry(LocalCommunicator())
+        reg.register("dim", build)
+        res = reg.join("dim", probe, aggregate=spec,
+                       over_decomposition=1 if mode == "key" else 2)
+        assert not bool(res.overflow)
+        frames.append((int(res.total),
+                       A.groups_frame(res.table, spec, [group])))
+    (gt, got), (ct, want) = frames
+    assert gt == ct and len(want[group]) > 0
+    for c in want:
+        np.testing.assert_array_equal(got[c], want[c])
+
+
+def test_mixed_dtype_composite_key_on_card_equals_cpu(card):
+    """The micro-batch's key (int64 key, int32 ``#batch``) on the kernel
+    pipeline: K = 8 colliding requests combined, joined on the card and
+    on the CPU, split per request; each request's rows equal."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.service import batching
+    rng = np.random.default_rng(6)
+    reqs = []
+    for i in range(8):
+        b = {"key": rng.permutation(5000)[:4000].astype(np.int64),
+             "bv": np.arange(4000, dtype=np.int64) + 10_000 * i}
+        p = {"key": rng.integers(0, 5000, 6000).astype(np.int64),
+             "pv": np.arange(6000, dtype=np.int64) + 100_000 * i}
+        reqs.append((b, p))
+    outs = []
+    for dev in (card, torch.device("cpu")):
+        mb = batching.combine([
+            (Table.from_numpy(b, np.ones(4000, bool), device=dev),
+             Table.from_numpy(p, np.ones(6000, bool), device=dev))
+            for b, p in reqs])
+        _kernels.reset_launch_counts(scan.join_scans)
+        res = distributed_inner_join(mb.build, mb.probe, LocalCommunicator(),
+                                     key=list(mb.key), out_capacity_factor=1.5)
+        if dev.type == "cuda":
+            assert scan.join_scans.launches == 1
+        assert not bool(res.overflow)
+        outs.append(batching.split(res, mb, with_rows=True))
+    for g, c in zip(*outs):
+        assert g["matches"] == c["matches"] > 0
+        for name in c["rows"]:
+            np.testing.assert_array_equal(np.sort(g["rows"][name]),
+                                          np.sort(c["rows"][name]))

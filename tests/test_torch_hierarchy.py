@@ -477,3 +477,28 @@ def test_driver_slices_refusals():
                            "--dcn-codec", "off"], "does not divide")):
         with pytest.raises(SystemExit, match=match):
             tdriver.run(tdriver.parse_args(base + extra), device="cpu")
+
+
+def test_wire_bytes_of_a_block_with_a_strided_unit_dimension():
+    """A process group moves every tensor as (rows, row bytes): a
+    contiguous block may carry any stride on a dimension of size 1 (the
+    counts' (2, 1) block of a 2 x 1 slice mesh), and its bytes must
+    still cross bit-exact."""
+    import math
+
+    import torch
+
+    from distributed_join_tpu_torch.parallel.communicator import (
+        _from_bytes,
+        _to_bytes,
+    )
+    x = torch.arange(2, dtype=torch.int32).reshape(1, 2).transpose(0, 1)
+    assert x.is_contiguous() and x.stride() == (1, 2)
+    for t in (x, torch.zeros(0, 3, dtype=torch.int64),
+              torch.arange(12).reshape(3, 4), torch.ones(5, dtype=torch.bool),
+              torch.arange(24, dtype=torch.int16).reshape(2, 3, 4)):
+        b = _to_bytes(t)
+        assert b.dtype == torch.uint8
+        assert b.shape == (t.shape[0],
+                           math.prod(t.shape[1:]) * t.element_size())
+        assert torch.equal(_from_bytes(b, t), t)

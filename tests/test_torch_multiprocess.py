@@ -12,6 +12,7 @@ the launcher's failure semantics, the bootstrap deadline and the
 all-to-all benchmark. Every subprocess has a timeout.
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -94,6 +95,12 @@ HIER_CASES = {
 }
 SKEW_OPTS = dict(skew_threshold=0.05, hh_slots=32, auto_retry=1,
                  out_capacity_factor=2.0)
+# the resident table's probe-only joins over 2 gloo processes: k = 1,
+# k = 2 on the ragged wire, and a first rung that overflows
+RESIDENT_JOINS = [dict(out_capacity_factor=4.0),
+                  dict(over_decomposition=2, shuffle="ragged",
+                       out_capacity_factor=4.0),
+                  dict(out_capacity_factor=0.5, auto_retry=2)]
 SHUFFLE_CAP = 4096  # no bucket of the probe side overflows it
 RAGGED_LEN = 40
 DTYPE_ROWS = 8  # rows a rank: one block of 4 or 2 rows a peer
@@ -213,6 +220,28 @@ if "skew_tables" in spec:
     save_result("skew", distributed_inner_join(b, p, comm,
                                                **spec["skew_opts"]))
 
+if "resident" in spec:
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+    from distributed_join_tpu_torch.service.resident import (
+        ResidentTableRegistry)
+    cache = JoinProgramCache(comm)
+    reg = ResidentTableRegistry(comm, cache)
+    b = table(spec["shuffle_tables"], "build")
+    p = table(spec["shuffle_tables"], "probe")
+    reg.register("dim", b)
+    for i, opts in enumerate(spec["resident"]["joins"]):
+        save_result(f"resident{i}", reg.join("dim", p, **opts))
+    z = np.load(spec["resident"]["delta"])
+    reg.append("dim", Table.from_numpy({k: z[k] for k in z.files
+                                        if k != "valid"}, z["valid"],
+                                       device="cpu"), maintain=True)
+    save_result("resident_after", reg.join("dim", p,
+                                           **spec["resident"]["joins"][0]))
+    h = reg.get("dim")
+    out["resident/state"] = np.array(json.dumps(
+        [h.rows, h.key_digest, h.generation, h.capacity_per_rank,
+         h.merges, cache.stats()]))
+
 np.savez(f"{spec['out']}/rank{r}.npz", **out)
 bootstrap.shutdown()
 '''
@@ -245,6 +274,14 @@ def _save_tables(path, build_cols, build_valid, probe_cols, probe_valid):
     arrays.update({f"probe/{k}": np.asarray(v) for k, v in probe_cols.items()})
     np.savez(path, build_valid=np.asarray(build_valid),
              probe_valid=np.asarray(probe_valid), **arrays)
+
+
+def _resident_delta():
+    """A 1,024-row delta of the uniform tables' build side (seed 5)."""
+    rng = np.random.default_rng(5)
+    cols = {"key": rng.integers(0, 2048, 1024).astype(np.int64),
+            "build_payload": rng.integers(0, 1 << 40, 1024).astype(np.int64)}
+    return cols, np.ones(1024, bool)
 
 
 @functools.lru_cache(maxsize=None)
@@ -386,6 +423,10 @@ def worker_runs(tmp_path_factory):
             _save_tables(d / "zipf.npz", *_zipf_tables())
             spec["skew_tables"] = str(d / "zipf.npz")
             spec["skew_opts"] = SKEW_OPTS
+            cols, valid = _resident_delta()
+            np.savez(d / "delta.npz", valid=valid, **cols)
+            spec["resident"] = {"joins": RESIDENT_JOINS,
+                                "delta": str(d / "delta.npz")}
         (d / "spec.json").write_text(json.dumps(spec))
         (d / "worker.py").write_text(WORKER)
         t0 = time.monotonic()
@@ -607,6 +648,56 @@ def test_gloo_query_equals_jax(worker_runs, jcomms, q):
         assert not r[f"query_{q}/overflow"]
         assert list(r[f"query_{q}/op_totals"]) == [
             int(t) for t in want.op_totals]
+
+
+def test_gloo_resident_join_equals_jax(worker_runs, jcomms):
+    """The resident table over 2 gloo processes (each holds its rank's
+    shard): register, probe-only joins at k = 1, at k = 2 on the ragged
+    wire and through the ladder, an append merged, and a re-probe. Every
+    rank's rows together, the totals, retry trails, conservation pair,
+    generation and the program cache's counters equal the JAX package's
+    registry on its 2-device mesh."""
+    from distributed_join_tpu.service.programs import JoinProgramCache
+    from distributed_join_tpu.service.resident import ResidentTableRegistry
+    ranks, _ = worker_runs[2]
+    bcols, bvalid, pcols, pvalid = _uniform_tables()
+    cache = JoinProgramCache(jcomms[2])
+    reg = ResidentTableRegistry(jcomms[2], cache)
+    reg.register("dim", _jtable(bcols, bvalid))
+    jp = _jtable(pcols, pvalid)
+    want = [reg.join("dim", jp, with_metrics=False, **o)
+            for o in RESIDENT_JOINS]
+    dcols, dvalid = _resident_delta()
+    reg.append("dim", _jtable(dcols, dvalid), maintain=True)
+    want.append(reg.join("dim", jp, with_metrics=False, **RESIDENT_JOINS[0]))
+    prefixes = [f"resident{i}" for i in range(len(RESIDENT_JOINS))]
+    for prefix, w in zip(prefixes + ["resident_after"], want):
+        got = np.concatenate([_gloo_part(r, prefix, NAMES) for r in ranks])
+        got = got[np.lexsort(got.T[::-1])]
+        wcols = {k: np.asarray(v) for k, v in w.table.columns.items()}
+        np.testing.assert_array_equal(
+            got, _multiset(wcols, np.asarray(w.table.valid), NAMES))
+        for r in ranks:
+            assert int(r[f"{prefix}/total"]) == int(w.total)
+            assert not r[f"{prefix}/overflow"]
+            assert json.loads(str(r[f"{prefix}/attempts"])) == [
+                a.as_record() for a in tdist_attempts(w.retry_report)]
+    h = reg.get("dim")
+    for r in ranks:
+        rows, digest, gen, cap, merges, stats = json.loads(
+            str(r["resident/state"]))
+        assert (rows, digest, gen, cap, merges) == (
+            h.rows, h.key_digest, h.generation, h.capacity_per_rank,
+            h.merges)
+        assert stats == cache.stats()
+
+
+def tdist_attempts(report) -> list:
+    """JAX's retry trail in the port's record form (its fields)."""
+    from distributed_join_tpu_torch.parallel.faults import RetryAttempt
+    names = [f.name for f in dataclasses.fields(RetryAttempt)]
+    return [RetryAttempt(**{k: getattr(a, k) for k in names})
+            for a in report.attempts]
 
 
 def test_gloo_skew_join_gathers_uint64_hashes(worker_runs, jcomms):

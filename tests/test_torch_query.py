@@ -284,10 +284,16 @@ def test_declared_tables_and_schemas_equal_jax():
 def test_unported_query_options_refuse_by_name(queries):
     c = queries["q3"]
     plan = tplan.tpch_query_plan("q3")
-    for opts in ({"program_cache": object()}, {"with_metrics": True}):
-        with pytest.raises(NotImplementedError, match="not part of the port"):
-            tq.distributed_query(c["tables"], plan, LocalCommunicator(),
-                                 **opts)
+    with pytest.raises(NotImplementedError, match="not part of the port"):
+        tq.distributed_query(c["tables"], plan, LocalCommunicator(),
+                             with_metrics=True)
+    # the program cache is ported: a cache of another communicator
+    # refuses, as the JAX package's does
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+    with pytest.raises(ValueError, match="different communicator"):
+        tq.distributed_query(c["tables"], plan, LocalCommunicator(),
+                             program_cache=JoinProgramCache(
+                                 LocalCommunicator()))
     with pytest.raises(NotImplementedError, match="explain"):
         tplan.explain_query(plan, LocalCommunicator(), c["tables"])
     # the skew sidecar refuses on the fused operator, as in the JAX package

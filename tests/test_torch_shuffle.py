@@ -714,15 +714,16 @@ def test_driver_record_matches_jax_driver(flags):
 
 @pytest.mark.parametrize("argv,match", [
     (["--agg-ab", "2"], None),
-    (["--resident-ab", "2"], "--resident-ab"),
+    (["--resident-ab", "2"], None),
     (["--expand-kernel", "xla"], "--expand-kernel"),
     (["--explain"], "--explain"),
 ])
 def test_driver_refuses_what_the_port_lacks(argv, match, capsys):
     """The JAX driver's flags the port lacks refuse by name; ``--agg-ab``
-    (``match`` None) is ported: on 4 emulated ranks over the ragged wire
-    its record holds both sides of the aggregate A/B, each equal to the
-    numpy oracle."""
+    and ``--resident-ab`` (``match`` None) are ported: on 4 emulated
+    ranks over the ragged wire the record holds both sides of the
+    aggregate A/B, each equal to the numpy oracle, or of the resident
+    A/B, with equal matches and row digests."""
     from distributed_join_tpu_torch.benchmarks import (
         distributed_join as tdriver,
     )
@@ -731,6 +732,14 @@ def test_driver_refuses_what_the_port_lacks(argv, match, capsys):
             "--communicator", "emulated", "--n-ranks", "4", "--shuffle",
             "ragged", "--build-table-nrows", "4000", "--probe-table-nrows",
             "4000", "--iterations", "1"]), device="cpu")
+        if argv[0] == "--resident-ab":
+            ab = rec["resident_ab"]
+            assert ab["n_joins"] == 2 and ab["warm_probe_new_traces"] == 0
+            assert ab["matches_equal"] and ab["digest_equal"]
+            assert ab["matches_probe_only"] == rec["matches_per_join"] > 0
+            assert ab["resident"]["rows"] == 4000 and not ab["overflow"]
+            assert rec["agg_ab"] is None
+            return
         ab = rec["agg_ab"]
         assert ab["kind"] == "agg_ab" and ab["n_joins"] == 2
         assert ab["oracle_equal_pushdown"] and ab["oracle_equal_materialize"]
