@@ -201,9 +201,35 @@ Phases (any failure raises, and the script exits non-zero):
    phase 13's launch). ``python3 chip_smoke.py --phase 18`` runs this
    phase alone (after the build).
 
+19. The telemetry session, the watchdog and the fault plans, in a
+   process of its own. (a) The join driver at the headline's shape
+   (10 M x 10 M, seed 42) at over-decomposition 4 (so that it partitions
+   and shuffles) over NCCL as a world of 1, in one launch, through its
+   guarded run (``benchmarks.run_guarded``, as ``main``): off, with
+   ``--telemetry DIR --history FILE``, and with ``--telemetry DIR --trace
+   --history FILE``. Equal totals; the ``telemetry`` block only in the
+   session runs; every join site launched as often off as on; ms a join
+   off, with a session, and with the device trace; the event log's
+   ``generate``, ``partition``, ``shuffle``, ``join`` and ``timed_join``
+   spans; the Chrome traces load; in the ``torch.profiler`` device trace
+   every launch of ``join_scans``, ``stream_compact`` and
+   ``expand_gather`` inside a ``join`` span. Then one untimed join of the
+   same tables without and with a session: equal digests and launches.
+   (b) The two ``--history`` runs: two entries under one signature. (c)
+   ``FaultInjectingCommunicator`` on the card: ``fail_dispatches=1``
+   under ``retry_with_backoff`` recovers with the clean digest;
+   ``overflow_programs=2`` gives the ladder the JAX package gives on the
+   CPU, with the clean digest; the driver with a 60 s dispatch delay
+   under ``--guard-deadline-s 5`` (a process of its own, ``chip_smoke.py
+   --fault-driver JOB``) exits 1 with a ``HangError`` record; config 4 at
+   SF-10 with ``batch_deadline_s`` 2 and batch 2's device work 3 s late (a
+   spin enqueued before it) reports the partial total, batch 2 failed.
+   ``python3 chip_smoke.py --phase 19`` runs this phase alone (after the
+   build).
+
 The whole script runs phases 2 to 14 and 16 in one process, then 15,
-17 and 18 each in a process of its own (``--phase N``): late in one long
-process the profiler has dropped launches and scaled durations. A device
+17, 18 and 19 each in a process of its own (``--phase N``): late in one
+long process the profiler has dropped launches and scaled durations. A device
 time counts only when the profiler caught every launch the wrappers made
 and its clock agrees with the CUDA events' on a spin kernel in the same
 session; otherwise the row says "not measured".
@@ -219,8 +245,9 @@ paths launch none, and the fused aggregate none of the materializing
 join's, with the reason in ``no_launch_reason``; the groups site's
 launches are those of phase 17's Q3 and Q10 at SF-10; the serving
 rows' are those of phase 18(b)'s warm request, and the join sites also
-carry the paths ``resident``, ``resident_agg`` and ``batched``); the last
-line is
+carry the paths ``resident``, ``resident_agg`` and ``batched``, and
+``telemetry``: phase 19(a)'s driver run with the session and the device
+trace on); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
 prints a result.
@@ -1781,6 +1808,24 @@ def nccl_rank_worker(job: dict) -> int:
     comm = make_communicator("nccl")
     n = comm.n_ranks
     out = {"drivers": _worker_drivers(job.get("drivers", {}))}
+    if job.get("session_digest"):
+        # the session's cost first, before any profiler in this process
+        build, probe = generate_build_probe_tables(
+            seed=SEED, build_nrows=NROWS * n, probe_nrows=NROWS * n,
+            unique_build_keys=True, device=comm.device)
+        out["session_ab_ms"] = _worker_session_ab(
+            comm, build, probe, job["session_digest"])
+        del build, probe
+        torch.cuda.empty_cache()
+    if job.get("telemetry"):
+        out["telemetry"] = _worker_telemetry(job["telemetry"])
+    if job.get("session_digest"):
+        build, probe = generate_build_probe_tables(
+            seed=SEED, build_nrows=NROWS * n, probe_nrows=NROWS * n,
+            unique_build_keys=True, device=comm.device)
+        out["session_digest"] = _worker_session_digest(
+            comm, build, probe, job["session_digest"])
+        del build, probe
     if job.get("join") or job.get("wires"):
         build, probe = generate_build_probe_tables(
             seed=SEED, build_nrows=NROWS * n, probe_nrows=NROWS * n,
@@ -3204,6 +3249,455 @@ def resident_phase() -> tuple:
     return paths, rows
 
 
+# -- phase 19: the telemetry session, the watchdog and the fault plans -------
+
+
+TEL_K = 4                      # over-decomposition: partition and shuffle run
+TEL_ITERS = 4                  # the driver's timed joins (and as many warm)
+HANG_DEADLINE_S = 5.0          # (c): the driver's --guard-deadline-s ...
+HANG_DELAY_S = 60.0            # ... and the injected dispatch delay
+TEL_SF = 10.0                  # (c): config 4's SF-10 batch loop
+TEL_BATCHES = 4
+BATCH_DEADLINE_S = 2.0         # its batch_deadline_s ...
+STALL_S = 3.0                  # ... and the stalled batch's device stall
+STALLED_BATCH = 2
+# the kernels of each join-path source, by their __global__ names
+JOIN_SOURCE_KERNELS = {"join_scans": ("r_pass", "f_pass"),
+                       "stream_compact": ("compact_kernel",),
+                       "expand_gather": ("expand_kernel",)}
+
+
+def _worker_telemetry(drivers: dict) -> dict:
+    """Phase 19(a, b) on this rank: the join driver on each ``{label:
+    argv}`` through its guarded run (``benchmarks.run_guarded``, as its
+    ``main`` runs it, the record returned rather than printed), every
+    launch counted. Returns rank 0's records, counts and seconds."""
+    from distributed_join_tpu_torch.benchmarks import (
+        distributed_join as D,
+        run_guarded,
+        stamp_record,
+    )
+    from distributed_join_tpu_torch.parallel.bootstrap import process_id
+    out = {}
+    for label, argv in drivers.items():
+        args = D.parse_args(argv)
+        box = {}
+
+        def body(a):
+            box["record"] = stamp_record(D.run(a))
+            return box["record"]
+
+        t = time.perf_counter()
+        rc, counts = counted(lambda: run_guarded(body, args,
+                                                 "distributed_join"))
+        _check(rc == 0, f"phase 19 driver {label}: rc {rc}")
+        out[label] = {"record": box["record"], "launches": counts,
+                      "s": time.perf_counter() - t}
+        torch.cuda.empty_cache()
+    return out if process_id() == 0 else None
+
+
+def _worker_session_digest(comm, build, probe, tel_dir: str) -> dict:
+    """Phase 19(a) on this rank: one untimed join of the driver's global
+    tables at ``TEL_K`` without and with a telemetry session (its device
+    trace on), each counted: the digests, totals and launches, and the
+    session's device trace."""
+    from distributed_join_tpu_torch import telemetry
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    out = {}
+    for label in ("off", "on"):
+        def join():
+            return distributed_inner_join(build, probe, comm,
+                                          over_decomposition=TEL_K)
+
+        if label == "on":
+            with telemetry.session(tel_dir, trace=True):
+                telemetry.maybe_start_device_trace()
+                res, counts = counted(join)
+                path = telemetry.stop_device_trace()
+            out["device_trace"] = path
+        else:
+            res, counts = counted(join)
+        out[label] = {"digest": row_digest(res), "total": int(res.total),
+                      "overflow": bool(res.overflow), "launches": counts}
+        del res
+    return out
+
+
+TEL_AB_ORDER = (False, True, True, False, False, True, True, False)
+
+
+def _worker_session_ab(comm, build, probe, tel_dir: str) -> list:
+    """Phase 19(a) on this rank, before any profiler session of this
+    process (a CUPTI session slows every later launch of the process):
+    the step's ms a join at ``TEL_K`` (CUDA events over ``TEL_ITERS``
+    dependent joins after as many warm ones) without and with a
+    telemetry session (no device trace), in the turns of
+    ``TEL_AB_ORDER``."""
+    import contextlib
+
+    from distributed_join_tpu_torch import telemetry
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        make_join_step,
+    )
+    from distributed_join_tpu_torch.utils.benchmarking import (
+        timed_join_throughput,
+    )
+    step = make_join_step(comm, over_decomposition=TEL_K)
+    ms = []
+    for i, on in enumerate(TEL_AB_ORDER):
+        with (telemetry.session(f"{tel_dir}_ab{i}") if on
+              else contextlib.nullcontext()):
+            sec, _, _ = timed_join_throughput(comm, step, build, probe,
+                                              TEL_ITERS)
+        ms.append(sec * 1e3)
+    return ms
+
+
+def _device_trace_sources(path: str) -> dict:
+    """``{source: (launches, launches inside a join span)}`` of the
+    join-path kernels in a device trace."""
+    from distributed_join_tpu_torch.telemetry.export import (
+        device_trace_kernels,
+    )
+    kernels = device_trace_kernels(path, "join")
+    out = {}
+    for src, names in JOIN_SOURCE_KERNELS.items():
+        hits = [v for k, v in kernels.items()
+                if any(re.search(rf"\b{n}\b", k) for n in names)]
+        out[src] = (sum(h["launches"] for h in hits),
+                    sum(h["inside"] for h in hits))
+    return out
+
+
+def _device_stall(inner, at: int, cycles: int):
+    """``inner`` wrapped in a ``FaultInjectingCommunicator`` with an
+    empty plan whose ``at``-th program call first enqueues a spin of
+    ``cycles`` on the current stream: a batch whose device work ends
+    late, which a host-side ``dispatch_delay_s`` (a sleep before the
+    dispatch, as in the JAX package) cannot give, since the batch
+    deadline bounds the settle."""
+    from distributed_join_tpu_torch.parallel.faults import (
+        FaultInjectingCommunicator,
+        FaultPlan,
+    )
+
+    class Stall(FaultInjectingCommunicator):
+        calls = 0
+
+        def spmd(self, fn, *, sharded_out=None, local_inputs=False):
+            prog = super().spmd(fn, sharded_out=sharded_out,
+                                local_inputs=local_inputs)
+
+            def run(*a):
+                self.calls += 1
+                if self.calls == at:
+                    torch.cuda._sleep(cycles)
+                return prog(*a)
+
+            return run
+
+    return Stall(inner, FaultPlan())
+
+
+def _spin_cycles_per_s() -> float:
+    """``torch.cuda._sleep``'s cycles a second on this card (CUDA
+    events over 20 spins)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    for _ in range(20):
+        torch.cuda._sleep(SPIN_CYCLES)
+    end.record()
+    end.synchronize()
+    return 20 * SPIN_CYCLES / (start.elapsed_time(end) / 1e3)
+
+
+def fault_driver(job: dict) -> int:
+    """``chip_smoke.py --fault-driver JOB``: the join driver's ``main`` on
+    ``JOB["argv"]`` with its communicator wrapped in
+    ``FaultInjectingCommunicator(FaultPlan(**JOB["plan"]))`` (phase
+    19(c): a dispatch delay past ``--guard-deadline-s``)."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from distributed_join_tpu_torch.benchmarks import distributed_join as D
+    from distributed_join_tpu_torch.parallel.faults import (
+        FaultInjectingCommunicator,
+        plan_from_record,
+    )
+    real = D.make_communicator
+    D.make_communicator = lambda *a, **k: FaultInjectingCommunicator(
+        real(*a, **k), plan_from_record(job["plan"]))
+    return D.main(job["argv"])
+
+
+def telemetry_phase() -> dict:
+    """Phase 19: the telemetry session, the watchdog and the fault plans
+    on the card. Returns ``{"telemetry": launches}``: the session-on
+    driver run's, by wrapper or call site."""
+    import subprocess
+    import tempfile
+    import threading
+
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+        make_distributed_join,
+    )
+    from distributed_join_tpu_torch.parallel.faults import (
+        FaultInjectingCommunicator,
+        FaultPlan,
+        retry_with_backoff,
+    )
+    from distributed_join_tpu_torch.parallel.out_of_core import (
+        batched_join_host,
+    )
+    from distributed_join_tpu_torch.telemetry import history
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    from distributed_join_tpu_torch.utils.tpch_host import (
+        generate_tpch_host_batches,
+        rename_batches,
+    )
+    smi = gpu_line()
+    here = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="phase19_", dir=os.path.join(
+        here, "build") if os.path.isdir(os.path.join(here, "build"))
+        else None)
+    t_phase = time.perf_counter()
+
+    # (c) the guard, started first in a process of its own: the driver
+    # whose every dispatch sleeps HANG_DELAY_S under a HANG_DEADLINE_S
+    # guard
+    hang_argv = ["--communicator", "local", "--build-table-nrows",
+                 str(NROWS), "--probe-table-nrows", str(NROWS),
+                 "--guard-deadline-s", str(HANG_DEADLINE_S),
+                 "--json-output", os.path.join(work, "hang.json")]
+    t_hang = time.perf_counter()
+    hang = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fault-driver",
+         json.dumps({"argv": hang_argv,
+                     "plan": {"dispatch_delay_s": HANG_DELAY_S}})],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    hang_out: dict = {}
+
+    def reap():
+        try:
+            hang_out["io"] = hang.communicate(timeout=HANG_DELAY_S + 120)
+        except subprocess.TimeoutExpired:
+            hang.kill()
+            hang_out["io"] = hang.communicate()
+        hang_out["s"] = time.perf_counter() - t_hang
+
+    reaper = threading.Thread(target=reap, daemon=True)
+    reaper.start()
+
+    # (a, b) the driver over NCCL, a world of 1, in one launch: off, with
+    # a session (and --history), with a session and the device trace
+    # (and --history); then one join without and with a session
+    tel, trc, hist = (os.path.join(work, d) for d in
+                      ("tel", "trace", "history.jsonl"))
+    driver = _driver_argv(NROWS, "--over-decomposition-factor", str(TEL_K),
+                          "--iterations", str(TEL_ITERS))
+    launched: dict = {}
+
+    def launch():
+        try:
+            launched["worker"] = _worker_record("telemetry", 1, {
+                "telemetry": {
+                    "off": driver,
+                    "session": [*driver, "--telemetry", tel, "--history",
+                                hist],
+                    "trace": [*driver, "--telemetry", trc, "--trace",
+                              "--history", hist]},
+                "session_digest": os.path.join(work, "digest")})
+        except BaseException as exc:  # noqa: BLE001 — re-raised below
+            launched["error"] = exc
+
+    launcher = threading.Thread(target=launch)
+    launcher.start()
+    # (c)'s SF-10 host batches, generated on this host while the worker
+    # runs on the card
+    t = time.perf_counter()
+    ob, lb = generate_tpch_host_batches(seed=SEED, scale_factor=TEL_SF,
+                                        n_batches=TEL_BATCHES)
+    build_b = rename_batches(ob, {"o_orderkey": "key"})
+    probe_b = rename_batches(lb, {"l_orderkey": "key"})
+    del ob, lb
+    lines = [b["key"].shape[0] for b in probe_b]
+    gen_s = time.perf_counter() - t
+    launcher.join()
+    if "error" in launched:
+        raise launched["error"]
+    worker = launched["worker"]
+    runs = worker["telemetry"]
+    joins = 2 * TEL_ITERS      # the warm-up loop and the timed one
+    ms = {}
+    for label, run in runs.items():
+        rec = run["record"]
+        _check(not rec["overflow"] and rec["matches_per_join"] > 0,
+               f"phase 19 {label}: {json.dumps(rec)[:300]}")
+        _check(("telemetry" in rec) == (label != "off"),
+               f"phase 19 {label}: telemetry block "
+               f"{'missing' if label != 'off' else 'present'}")
+        ms[label] = rec["elapsed_per_join_s"] * 1e3
+        _require_launched(run["launches"], JOIN_KERNELS,
+                          f"the phase 19 {label} driver run")
+    totals = {run["record"]["matches_per_join"] for run in runs.values()}
+    _check(len(totals) == 1, f"phase 19: totals differ {totals}")
+    for site in NCCL_SITES:
+        got = {label: run["launches"][site] for label, run in runs.items()}
+        _check(len(set(got.values())) == 1,
+               f"phase 19: {site} launched {got} (off, session, trace)")
+    per_join = {site: runs["off"]["launches"][site] / joins
+                for site in JOIN_KERNELS}
+    print(f"[telemetry] driver at {NROWS:,} x {NROWS:,}, k={TEL_K}, over "
+          f"NCCL (a world of 1): ms a join off {ms['off']:.4f}, with a "
+          f"session {ms['session']:.4f} ({ms['session'] / ms['off']:.4f}x)"
+          f", with a session and the device trace {ms['trace']:.4f} "
+          f"({ms['trace'] / ms['off']:.4f}x); launches a join equal on and "
+          f"off {json.dumps(per_join)}; totals {totals.pop()}; {smi}",
+          flush=True)
+    # the session's files
+    events = [json.loads(ln) for ln in open(os.path.join(
+        tel, "events.rank0.jsonl"))]
+    spans = {e["name"] for e in events if e["kind"] == "span"}
+    _check({"partition", "shuffle", "join", "generate", "timed_join"}
+           <= spans, f"phase 19: spans {sorted(spans)}")
+    for d in (tel, trc):
+        doc = json.load(open(os.path.join(d, "trace.rank0.json")))
+        _check(isinstance(doc["traceEvents"], list) and doc["traceEvents"],
+               f"phase 19: the Chrome trace in {d} is empty")
+    device = os.path.join(trc, "device_trace", "trace.rank0.json")
+    nesting = _device_trace_sources(device)
+    for src, (n_all, n_in) in nesting.items():
+        _check(n_all > 0 and n_in == n_all,
+               f"phase 19: {src}: {n_in} of {n_all} launches inside a join "
+               "span in the device trace")
+    print(f"[telemetry] event log: {len(events)} records, spans "
+          f"{sorted(spans)}; device trace {os.path.getsize(device):,} "
+          f"bytes: every launch inside a join span "
+          f"{json.dumps({k: v[0] for k, v in nesting.items()})}",
+          flush=True)
+    dig = worker["session_digest"]
+    _check(dig["off"]["digest"] == dig["on"]["digest"]
+           and dig["off"]["total"] == dig["on"]["total"] > 0
+           and not dig["off"]["overflow"] and not dig["on"]["overflow"],
+           f"phase 19: a join with a session differs: {json.dumps(dig)}")
+    _check(all(dig["off"]["launches"][s] == dig["on"]["launches"][s]
+               for s in NCCL_SITES), "phase 19: a join's launches differ "
+           "with a session on")
+    print(f"[telemetry] one join at k={TEL_K} with a session (device trace "
+          f"on) and without: digest {tuple(dig['on']['digest'])} equal, "
+          "launches equal", flush=True)
+    ab = worker["session_ab_ms"]
+    on = [v for v, o in zip(ab, TEL_AB_ORDER) if o]
+    off = [v for v, o in zip(ab, TEL_AB_ORDER) if not o]
+    print(f"[telemetry] the step at k={TEL_K}, ms a join in turns "
+          f"{''.join('AB'[o] for o in TEL_AB_ORDER)} (A off, B a session "
+          f"without the device trace; CUDA events over {TEL_ITERS} joins, "
+          f"before any profiler in the process): "
+          f"{' '.join(f'{v:.4f}' for v in ab)}; mean on / off "
+          f"{sum(on) / sum(off):.4f}; {smi}", flush=True)
+    # (b) two --history runs, one signature
+    entries, bad = history.load_history(hist)
+    sigs = {e["signature"] for e in entries}
+    _check(len(entries) == 2 and bad == 0 and len(sigs) == 1
+           and all(e["outcome"] == "ok" for e in entries),
+           f"phase 19: history {json.dumps(entries)[:400]}")
+    print(f"[telemetry] --history: 2 entries under signature {sigs.pop()}, "
+          f"walls {[e['wall_s'] for e in entries]} s", flush=True)
+
+    # (c) the fault plans on the card, in this process
+    build, probe = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS, probe_nrows=NROWS,
+        unique_build_keys=True, device=DEVICE)
+    clean = distributed_inner_join(build, probe, LocalCommunicator(),
+                                   over_decomposition=TEL_K)
+    want = (row_digest(clean), int(clean.total))
+    del clean
+    fn = make_distributed_join(FaultInjectingCommunicator(
+        LocalCommunicator(), FaultPlan(fail_dispatches=1)),
+        over_decomposition=TEL_K)
+    res, attempts = retry_with_backoff(lambda: fn(build, probe),
+                                       max_attempts=2, backoff_s=0.01)
+    _check(len(attempts) == 2 and "FaultInjectedError" in (
+        attempts[0]["error"] or "") and attempts[1]["error"] is None
+           and (row_digest(res), int(res.total)) == want,
+           f"phase 19: fail_dispatches=1: {attempts}")
+    del res
+    res = distributed_inner_join(
+        build, probe, FaultInjectingCommunicator(
+            LocalCommunicator(), FaultPlan(overflow_programs=2)),
+        over_decomposition=TEL_K, auto_retry=3)
+    trail = [(a.action, a.overflow, a.shuffle_capacity_factor,
+              a.out_capacity_factor) for a in res.retry_report.attempts]
+    # the trail the JAX package gives this plan on the CPU
+    # (tests/test_torch_faults.py holds the port's to it)
+    _check(trail == [("initial", True, 1.6, 1.2),
+                     ("double_capacities", True, 3.2, 2.4),
+                     ("double_capacities", False, 6.4, 4.8)]
+           and (row_digest(res), int(res.total)) == want,
+           f"phase 19: overflow_programs=2: trail {trail}")
+    print(f"[faults] fail_dispatches=1 under retry_with_backoff: recovered "
+          f"on attempt 2, digest equal; overflow_programs=2: trail "
+          f"{trail}, digest equal", flush=True)
+    del res, build, probe, fn
+    torch.cuda.empty_cache()
+
+    # (c) config 4 at SF-10 with a batch deadline and a batch whose device
+    # work ends late: partial totals, the stalled batch failed
+    cycles = int(STALL_S * _spin_cycles_per_s())
+    stats = {}
+    # call 1 is the warm-up, 2 + b batch b's
+    total, overflow = batched_join_host(
+        build_b, probe_b, _device_stall(LocalCommunicator(),
+                                        2 + STALLED_BATCH, cycles),
+        device=DEVICE, batch_deadline_s=BATCH_DEADLINE_S,
+        on_batch_failure="continue", stats=stats)
+    want_partial = sum(lines) - lines[STALLED_BATCH]
+    _check(stats["failed_batches"] == [STALLED_BATCH] and not overflow
+           and total == want_partial,
+           f"phase 19: SF-{TEL_SF:g} stalled loop: total {total}, failed "
+           f"{stats['failed_batches']}, want {want_partial}")
+    print(f"[faults] SF-{TEL_SF:g}, {TEL_BATCHES} batches, batch_deadline_s "
+          f"{BATCH_DEADLINE_S} and batch {STALLED_BATCH}'s device work "
+          f"{STALL_S} s late: failed batches {stats['failed_batches']}, "
+          f"partial total {total} (= {sum(lines)} - {lines[STALLED_BATCH]}"
+          f"); generation {gen_s:.1f} s (beside the worker), loop "
+          f"{stats['elapsed_s']:.3f} s",
+          flush=True)
+    del build_b, probe_b
+
+    # (c) the guard's result
+    reaper.join(HANG_DELAY_S + 180)
+    _check(not reaper.is_alive() and hang.returncode is not None,
+           "phase 19: the guarded driver did not exit")
+    out, err = hang_out["io"]
+    hang_s = hang_out["s"]
+    lines_out = [ln for ln in out.splitlines() if ln.startswith("{")]
+    rec = json.loads(lines_out[-1]) if lines_out else {}
+    fail = rec.get("failure") or {}
+    _check(hang.returncode == 1 and fail.get("error") == "HangError"
+           and fail.get("deadline_s") == HANG_DEADLINE_S
+           and hang_s < HANG_DELAY_S,
+           f"phase 19: guarded driver rc {hang.returncode}, record "
+           f"{json.dumps(rec)[:300]}, {hang_s:.1f} s; {err[-2000:]}")
+    print(f"[faults] driver with a {HANG_DELAY_S:g} s dispatch delay under "
+          f"--guard-deadline-s {HANG_DEADLINE_S:g}: rc 1, record "
+          f"{json.dumps(fail)}, exited {hang_s:.1f} s after its start "
+          f"(process start, tables and the {HANG_DEADLINE_S:g} s guard)",
+          flush=True)
+    print(f"[phase] telemetry_phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"telemetry": runs["trace"]["launches"]}
+
+
 def serving_kernel_entries(rows: list, paths: dict) -> list:
     """The serving shapes' rows of the kernels line: their launches on
     the path of the registry they were taken from (every warm request
@@ -3268,10 +3762,12 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     job = (json.loads(argv[1]) if argv[:1] == ["--nccl-rank-worker"]
            and len(argv) == 2 else None)
-    phases = [["--phase", str(p)] for p in range(13, 19)]
-    if argv not in ([], *phases) and job is None:
-        print("usage: chip_smoke.py [--phase 13 | 14 | 15 | 16 | 17 | 18]",
-              file=sys.stderr)
+    fault_job = (json.loads(argv[1]) if argv[:1] == ["--fault-driver"]
+                 and len(argv) == 2 else None)
+    phases = [["--phase", str(p)] for p in range(13, 20)]
+    if argv not in ([], *phases) and job is None and fault_job is None:
+        print("usage: chip_smoke.py [--phase 13 | 14 | 15 | 16 | 17 | 18 "
+              "| 19]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3285,6 +3781,8 @@ def main(argv=None) -> int:
         return 3
     if job is not None:
         return nccl_rank_worker(job)
+    if fault_job is not None:
+        return fault_driver(fault_job)
     from distributed_join_tpu_torch.utils.generators import (
         generate_build_probe_tables,
     )
@@ -3351,6 +3849,14 @@ def main(argv=None) -> int:
         print(ok, flush=True)
         return 0
 
+    if argv == ["--phase", "19"]:
+        tel_paths = telemetry_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps({"launches_by_path": tel_paths}), flush=True)
+        print(ok, flush=True)
+        return 0
+
     if argv == ["--phase", "18"]:
         resident_paths, serving_rows = resident_phase()
         print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
@@ -3393,8 +3899,9 @@ def main(argv=None) -> int:
     paths.update(timed(segmented_phase, *plain, flat_profile=flat_prof))
     # the phases that profile kernel rows late in the script, each in a
     # process of its own (``phase_in_own_process``)
-    own15, own17, own18 = (phase_in_own_process(p) for p in (15, 17, 18))
-    for own_phase in (own15, own17, own18):
+    own15, own17, own18, own19 = (phase_in_own_process(p)
+                                  for p in (15, 17, 18, 19))
+    for own_phase in (own15, own17, own18, own19):
         paths.update(own_phase["launches_by_path"])
     tpch_rows, (groups_row,), serving_rows = (
         own15["rows"], own17["rows"], own18["rows"])

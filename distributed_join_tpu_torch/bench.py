@@ -21,7 +21,10 @@ no GPU baseline yet. ``--device cpu`` runs the same protocol on the CPU
 for rehearsals at small ``--nrows``; its times say nothing about a GPU.
 ``--sort-mode`` and ``--sort-segments`` pick the local sort as the JAX
 ``bench.py`` does (:354-382); the headline is one bucket, where both
-modes are the flat program.
+modes are the flat program. ``--telemetry``, ``--trace``, ``--history``
+and ``--guard-deadline-s`` run it through ``benchmarks.run_guarded``, as
+the drivers; with a session on, the line carries its summary under
+``telemetry``, and without one it is unchanged.
 """
 
 from __future__ import annotations
@@ -33,7 +36,15 @@ import sys
 
 import torch
 
-from distributed_join_tpu_torch.benchmarks import resolve_sort_mode
+from distributed_join_tpu_torch import telemetry
+from distributed_join_tpu_torch.benchmarks import (
+    add_guard_arg,
+    add_telemetry_args,
+    refuse_trace_with_profile,
+    resolve_sort_mode,
+    run_guarded,
+    stamp_record,
+)
 from distributed_join_tpu_torch.device import resolve_device
 from distributed_join_tpu_torch.parallel.communicator import (
     LocalCommunicator,
@@ -183,13 +194,23 @@ def main(argv=None) -> int:
                         "flat program in every mode)")
     p.add_argument("--sort-segments", type=int, default=None, metavar="N",
                    help="segments of --sort-mode segmented")
+    add_telemetry_args(p)
+    add_guard_arg(p)
     args = p.parse_args(argv)
+    refuse_trace_with_profile(p, args)
+    return run_guarded(_main, args, "bench")
+
+
+def _main(args) -> dict:
     if args.profile:
-        print(json.dumps(profile(args.nrows, args.profile)), flush=True)
-        return 0
-    print(json.dumps(run(args.nrows, args.iters, args.device,
-                         args.sort_mode, args.sort_segments)), flush=True)
-    return 0
+        record = profile(args.nrows, args.profile)
+    else:
+        record = run(args.nrows, args.iters, args.device, args.sort_mode,
+                     args.sort_segments)
+    if telemetry.enabled():
+        stamp_record(record)
+    print(json.dumps(record), flush=True)
+    return record
 
 
 if __name__ == "__main__":

@@ -1,37 +1,59 @@
 """Benchmark drivers of the port, and what they share: the record stamp,
-rank-0-only reporting and the refusal of the JAX drivers' flags the port
-does not have (port of ``distributed_join_tpu/benchmarks/__init__.py``
-``stamp_record`` :20 and ``report`` :59)."""
+rank-0-only reporting, the telemetry and guard flags with the guarded
+run, and the refusal of the JAX drivers' flags the port does not have
+(port of ``distributed_join_tpu/benchmarks/__init__.py``: ``stamp_record``
+:20, ``report`` :59, ``run_guarded`` :81-185, ``maybe_history``
+:360-419, ``add_telemetry_args`` :431-490 without ``--diagnose``, and
+``--guard-deadline-s`` of ``add_robustness_args`` :492-575).
+
+Every driver's ``main`` runs its body through :func:`run_guarded`:
+``--telemetry[=DIR]``, ``--trace`` and ``--history FILE`` open the
+telemetry session around the run (``--trace`` adds a ``torch.profiler``
+device trace under ``DIR/device_trace/``), and ``--guard-deadline-s``
+(or ``DJTPU_GUARD_DEADLINE_S``) bounds the whole run with the watchdog.
+A failure leaves a one-line JSON failure record; a hang exits hard with
+rc 1, a handshake outage with rc 0, as in the JAX package.
+"""
 
 from __future__ import annotations
 
 import json
+import os
+import sys
+import traceback
 
 import torch
 
+from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.device import resolve_device
 from distributed_join_tpu_torch.parallel.bootstrap import (
+    BootstrapError,
     is_coordinator,
+    maybe_initialize_from_env,
     process_id,
 )
 from distributed_join_tpu_torch.parallel.communicator import (
     ProcessGroupCommunicator,
 )
+from distributed_join_tpu_torch.parallel.watchdog import (
+    HangError,
+    call_with_deadline,
+    resolve_guard_deadline,
+)
 from distributed_join_tpu_torch.table import Table
 
-# The JAX package's record layout version (its optional telemetry block
-# is not part of the port).
+# The JAX package's record layout version, whose optional "telemetry"
+# block is the session summary.
 SCHEMA_VERSION = 2
 
-# Telemetry and robustness flags of every JAX driver and of its launcher.
+# Flags of every JAX driver and of its launcher that wait for other parts
+# of the port, each naming what it waits for.
 UNPORTED_FLAGS = {
-    "--telemetry": "telemetry",
-    "--trace": "telemetry",
-    "--history": "telemetry",
-    "--diagnose": "telemetry",
-    "--verify-integrity": "wire-integrity digests",
-    "--chaos-seed": "chaos injection",
-    "--guard-deadline-s": "the watchdog",
+    "--diagnose": "the run diagnosis (the JAX package's "
+                  "telemetry/analyze.py; ROADMAP A5)",
+    "--verify-integrity": "the wire-integrity digests (ROADMAP A5)",
+    "--chaos-seed": "chaos injection (parallel/chaos.py, whose plans "
+                    "draw the corruption modes; ROADMAP A7)",
 }
 
 
@@ -65,10 +87,17 @@ def global_table(comm, table: Table) -> Table:
 
 
 def stamp_record(record: dict) -> dict:
-    """``schema_version`` and ``rank`` on every record (mutated and
-    returned)."""
+    """``schema_version`` and ``rank`` on every record and, iff a
+    telemetry session is on, its summary under ``"telemetry"`` (key
+    presence is the signal) with ``"metrics"`` named under
+    ``not_ported`` (the device metrics tape). Mutated and returned."""
     record.setdefault("schema_version", SCHEMA_VERSION)
     record.setdefault("rank", process_id())
+    if telemetry.enabled():
+        record.setdefault("telemetry", telemetry.summary())
+        if "metrics" not in record.get("not_ported", ()):
+            record["not_ported"] = [*record.get("not_ported", ()),
+                                    "metrics"]
     return record
 
 
@@ -121,3 +150,172 @@ def resolve_sort_mode(args, n_ranks: int, k: int, b_local: int,
                                  max(b_local, p_local), n_ranks, k,
                                  shuffle_factor)
     return "segmented" if segs > 1 else "flat"
+
+
+def add_telemetry_args(parser) -> None:
+    """The shared telemetry flags (JAX :431-490, without ``--diagnose``);
+    :func:`run_guarded` consumes them."""
+    parser.add_argument(
+        "--telemetry", nargs="?", const="telemetry", default=None,
+        metavar="DIR",
+        help="activate the telemetry session: JSONL event log and "
+             "Perfetto-loadable Chrome trace per rank under DIR (default "
+             "./telemetry), the session summary in the JSON record. Off "
+             "changes nothing on the join's path")
+    parser.add_argument(
+        "--trace", action="store_true",
+        help="also record a torch.profiler device trace (CPU and CUDA "
+             "activity) of the run under DIR/device_trace/; the spans' "
+             "names line up with the kernels in it. Implies --telemetry; "
+             "not with --profile (two profiler sessions cannot nest)")
+    parser.add_argument(
+        "--history", default=None, metavar="FILE",
+        help="at the end of the run, append one workload-history entry "
+             "(telemetry/history.py: workload signature, outcome, "
+             "resolved retry knobs, wall time) to FILE. Implies "
+             "--telemetry; rank 0 only")
+
+
+def add_guard_arg(parser) -> None:
+    """``--guard-deadline-s`` (JAX ``add_robustness_args`` :492-575)."""
+    parser.add_argument(
+        "--guard-deadline-s", type=float, default=None, metavar="S",
+        help="run the whole benchmark under the hang watchdog "
+             "(parallel/watchdog.py): a run that does not return within S "
+             "seconds becomes a HangError record and exits with rc 1. "
+             "Default: DJTPU_GUARD_DEADLINE_S, else unguarded; 0 = "
+             "unguarded")
+
+
+def refuse_trace_with_profile(parser, args) -> None:
+    """``--trace`` and a driver's ``--profile`` both open a
+    ``torch.profiler`` session, and two sessions cannot nest."""
+    if getattr(args, "trace", False) and getattr(args, "profile", 0):
+        parser.error("--trace with --profile: both open a torch.profiler "
+                     "session, and two sessions cannot nest; pick one")
+
+
+# Launcher flags handed on to every process's command, as (flag, dest,
+# takes a value): the JAX launcher's FORWARDED_CHILD_FLAGS (JAX :559) that
+# the port has.
+FORWARDED_CHILD_FLAGS = (
+    ("--slices", "slices", True),
+    ("--telemetry", "telemetry", True),
+    ("--trace", "trace", False),
+    ("--history", "history", True),
+    ("--sort-mode", "sort_mode", True),
+    ("--sort-segments", "sort_segments", True),
+    ("--guard-deadline-s", "guard_deadline_s", True),
+)
+
+
+def run_guarded(body, args, benchmark: str) -> int:
+    """Run a driver's ``body(args)`` (which reports its own record and
+    returns it) under the contract every driver shares (JAX :81-185):
+
+    - the telemetry session of ``--telemetry``/``--trace``/``--history``
+      opens first; then, inside the guarded call, the handshake of a
+      launched process (``maybe_initialize_from_env``), the session's
+      rank, and the device trace, which starts and stops on the thread
+      that runs the body;
+    - ``--guard-deadline-s`` runs all of that under the watchdog;
+    - any failure prints a one-line JSON failure record (and writes it to
+      ``--json-output``). A ``BootstrapError`` (an outage, not a result)
+      exits 0 and a ``HangError`` exits 1, both hard (``os._exit``: the
+      wedged worker may hold locks), after the telemetry files and the
+      history entry are written; any other failure re-raises;
+    - the session is finalized and ``--history`` appended either way.
+
+    Returns 0."""
+    telemetry.configure_from_args(args)
+    guard_s = resolve_guard_deadline(args)
+    result = None
+    failure_record = None
+
+    def guarded():
+        maybe_initialize_from_env()
+        telemetry.refresh_rank()
+        telemetry.maybe_start_device_trace()
+        try:
+            return body(args)
+        finally:
+            telemetry.stop_device_trace()
+
+    try:
+        if guard_s is None:
+            result = guarded()
+        else:
+            result = call_with_deadline(guarded, guard_s,
+                                        what=f"{benchmark} run")
+        return 0
+    except Exception as exc:  # the failure record is the contract
+        is_bootstrap = isinstance(exc, BootstrapError)
+        is_hang = isinstance(exc, HangError)
+        record = stamp_record({
+            "benchmark": benchmark,
+            "error": f"{type(exc).__name__}: {exc}",
+            "failure": (exc.record() if (is_bootstrap or is_hang) else {
+                "error": type(exc).__name__,
+                "message": str(exc),
+                "traceback": traceback.format_exc().splitlines()[-3:],
+            }),
+        })
+        failure_record = record
+        print(json.dumps(record), flush=True)
+        json_output = getattr(args, "json_output", None)
+        if json_output:
+            try:
+                with open(json_output, "w") as f:
+                    json.dump(record, f, indent=2)
+            except OSError as io_exc:
+                print(f"note: could not write {json_output}: {io_exc}",
+                      file=sys.stderr)
+        if is_bootstrap or is_hang:
+            maybe_history(args, telemetry.finalize(), record=record)
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(0 if is_bootstrap else 1)
+        raise
+    finally:
+        # the traces and the summary even on failure: a run that died is
+        # the run whose trace is wanted
+        summary = telemetry.finalize()
+        maybe_history(args, summary,
+                      record=result if isinstance(result, dict)
+                      else failure_record)
+
+
+def maybe_history(args, summary, record=None) -> None:
+    """``--history FILE``: append one ``history.run_entry`` line for the
+    run (rank 0 only; best effort, as in the JAX package :360-419). A
+    failure record is filed under the workload its flags name, so a
+    failed run shares its healthy runs' signature."""
+    path = getattr(args, "history", None)
+    if not path or not isinstance(record, dict) or not is_coordinator():
+        return
+    from distributed_join_tpu_torch.telemetry import history
+
+    try:
+        record = dict(record)
+        for key in history.WORKLOAD_KEYS:
+            if record.get(key) is None:
+                val = getattr(args, key, None)
+                if val is not None:
+                    record[key] = val
+        if record.get("n_ranks") is None:
+            import torch.distributed as dist
+
+            record["n_ranks"] = (dist.get_world_size()
+                                 if dist.is_initialized() else 1)
+        device = str(record.get("device") or "")
+        platform = device.split(":")[0] or (
+            "cuda" if torch.cuda.is_available() else "cpu")
+        store = history.WorkloadHistory(path)
+        try:
+            store.append(history.run_entry(
+                record=record, summary=summary, platform=platform))
+        finally:
+            store.close()
+    except Exception as exc:  # noqa: BLE001 — history is best effort
+        print(f"note: --history failed: {type(exc).__name__}: {exc}",
+              file=sys.stderr)

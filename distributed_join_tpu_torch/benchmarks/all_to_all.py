@@ -23,6 +23,13 @@ Bandwidth: each rank sends ``(n - 1) / n`` of its buffer off its device
 an exchange (its own block stays), so ``aggregate_offchip_gb_per_sec`` =
 n x that egress / time; ``aggregate_gb_per_sec_incl_local`` counts the
 whole buffer, as the reference does.
+
+Flags as the JAX benchmark's: ``--n-ranks`` must equal the process
+group's size where given; ``--sort-mode flat`` and ``--sort-segments``
+are taken (the microbenchmark has no local sort), any other sort mode
+refuses with the JAX message; ``--telemetry``, ``--trace``,
+``--history`` and ``--guard-deadline-s`` run through
+``benchmarks.run_guarded``; the other JAX flags refuse by name.
 """
 
 from __future__ import annotations
@@ -36,14 +43,14 @@ import torch
 
 from distributed_join_tpu_torch.benchmarks import (
     UNPORTED_FLAGS,
+    add_guard_arg,
+    add_telemetry_args,
     rank_device,
     refuse_flags,
     report,
+    run_guarded,
 )
-from distributed_join_tpu_torch.parallel.bootstrap import (
-    maybe_initialize_from_env,
-    shutdown,
-)
+from distributed_join_tpu_torch.parallel.bootstrap import shutdown
 from distributed_join_tpu_torch.parallel.communicator import make_communicator
 
 _REFUSED = {
@@ -51,7 +58,6 @@ _REFUSED = {
     "--platform": "platform selection (the benchmark runs on the GPU)",
     "--auto-tune": "the tuner",
     "--stage-profile": "the stage profile",
-    "--sort-mode": "the segmented-sort pipeline",
     **UNPORTED_FLAGS,
 }
 
@@ -69,9 +75,21 @@ def parse_args(argv=None):
                         "peers), reference-style fixed-size exchange")
     p.add_argument("--communicator", default="nccl",
                    choices=["nccl", "gloo"])
+    p.add_argument("--n-ranks", type=int, default=None,
+                   help="ranks of the exchange; must equal the process "
+                        "group's size (default: the group's size)")
     p.add_argument("--iterations", type=int, default=20,
                    help="chained exchanges in a timed window")
     p.add_argument("--json-output", default=None)
+    p.add_argument("--sort-mode", choices=["flat", "segmented", "auto"],
+                   default=None,
+                   help="taken for the join drivers' command line's sake: "
+                        "flat only (the microbenchmark has no local sort)")
+    p.add_argument("--sort-segments", type=int, default=None, metavar="N",
+                   help="taken for the join drivers' command line's sake; "
+                        "never read")
+    add_telemetry_args(p)
+    add_guard_arg(p)
     return p.parse_args(argv)
 
 
@@ -120,7 +138,15 @@ def run(args, device=None) -> tuple[dict, list]:
     """The benchmark's record, and the ms an exchange of each window
     (for the headline only: the record keeps the JAX benchmark's
     keys)."""
-    comm = make_communicator(args.communicator)
+    if getattr(args, "sort_mode", None) not in (None, "flat"):
+        raise SystemExit(
+            "--sort-mode selects the join's LOCAL sort pipeline; "
+            "this microbenchmark has no local sort")
+    try:
+        comm = make_communicator(args.communicator, n_ranks=args.n_ranks)
+    except (ValueError, RuntimeError) as exc:
+        raise SystemExit(f"--communicator {args.communicator} "
+                         f"(--n-ranks {args.n_ranks}): {exc}") from exc
     n = comm.n_ranks
     if n < 2:
         raise SystemExit(
@@ -162,9 +188,7 @@ def run(args, device=None) -> tuple[dict, list]:
     return record, [w * 1e3 for w in window_s]
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
-    maybe_initialize_from_env()
+def _main(args) -> dict:
     record, window_ms = run(args)
     report(record, args.json_output, headline=(
         f"all-to-all: {record['n_ranks']} ranks x "
@@ -175,8 +199,14 @@ def main(argv=None) -> int:
         f"local block); median of {WINDOWS} windows of "
         f"{args.iterations} exchanges, ms an exchange: "
         + " ".join(f"{ms:.4f}" for ms in window_ms)))
+    return record
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    rc = run_guarded(_main, args, "all_to_all")
     shutdown()
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

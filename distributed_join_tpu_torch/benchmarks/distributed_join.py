@@ -18,7 +18,9 @@ composite and string tables of config 5, and ``--string-key-bytes`` as
 in the JAX driver), resolve the skew auto-policy, then time
 ``--iterations`` dependent joins per ladder rung (``utils/benchmarking``:
 a warm-up run, CUDA events, one synchronisation) and print one JSON
-record. Every other flag of the JAX driver refuses by name.
+record. ``--telemetry``, ``--trace``, ``--history`` and
+``--guard-deadline-s`` are the JAX driver's (``benchmarks.run_guarded``);
+every other flag of the JAX driver refuses by name.
 
 Skew auto-policy (JAX :359-405): with ``--zipf-alpha`` and no
 ``--skew-threshold``, the skew path runs at threshold 0.001 with the
@@ -51,14 +53,19 @@ import time
 import numpy as np
 import torch
 
+from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.bench import gpu_identity
 from distributed_join_tpu_torch.benchmarks import (
     UNPORTED_FLAGS,
+    add_guard_arg,
+    add_telemetry_args,
     global_table,
     rank_device,
     refuse_flags,
+    refuse_trace_with_profile,
     report,
     resolve_sort_mode,
+    run_guarded,
 )
 from distributed_join_tpu_torch.ops.aggregate import (
     AggregatePushdownUnsupported,
@@ -72,7 +79,6 @@ from distributed_join_tpu_torch.ops.hashing import hash_columns
 from distributed_join_tpu_torch.ops.segmented import resolve_sort_segments
 from distributed_join_tpu_torch.parallel.bootstrap import (
     is_coordinator,
-    maybe_initialize_from_env,
     shutdown,
 )
 from distributed_join_tpu_torch.parallel.communicator import (
@@ -272,7 +278,11 @@ def parse_args(argv=None):
                    help="instead of the record, print where JOINS joins at "
                         "the first rung's sizing spend their device time "
                         "(torch.profiler; GPU only)")
-    return p.parse_args(argv)
+    add_telemetry_args(p)
+    add_guard_arg(p)
+    args = p.parse_args(argv)
+    refuse_trace_with_profile(p, args)
+    return args
 
 
 def _communicator(args):
@@ -453,7 +463,11 @@ def _prepare(args, device):
     if args.shuffle == "ragged" and args.compression:
         raise SystemExit("--compression applies to the padded and ppermute "
                          "wires; the ragged wire already sends exact rows")
+    gen_t0 = time.perf_counter()
     build, probe, join_key = make_tables(args, dev)
+    telemetry.span_complete("generate", gen_t0,
+                            time.perf_counter() - gen_t0,
+                            build_nrows=b_rows, probe_nrows=p_rows)
     threshold, hh_probe, hh_out, policy = skew_policy(args, n)
     k = args.over_decomposition_factor
     sort_mode = resolve_sort_mode(
@@ -533,10 +547,11 @@ def sort_ab(comm, build, probe, n_joins: int, join_opts: dict, args):
     rank's), min and median; graded by equal totals and equal row
     digests (``row_digest``, summed over ranks), and on local and
     emulated ranks against the numpy oracle. Shapes the segmented path
-    refuses skip with the reason. The JAX record's ``warm_new_traces``,
-    counter signature and plan wire verdict ride the program cache,
-    telemetry and planning layers, which the port does not have yet
-    (``not_ported``)."""
+    refuses skip with the reason. Both modes' programs come from one
+    ``JoinProgramCache``, as in the JAX driver: the warm joins must build
+    none (``warm_new_traces``). The JAX record's counter signature and
+    plan wire verdict ride the telemetry metrics and the planning layer,
+    which the port does not have yet (``not_ported``)."""
     if join_opts.get("shuffle") == "ragged":
         return {"skipped": "ragged wire: the segmented path needs static "
                            "receive boundaries"}
@@ -565,16 +580,15 @@ def sort_ab(comm, build, probe, n_joins: int, join_opts: dict, args):
                            "segmentation"}
     opts = {kk: v for kk, v in join_opts.items()
             if kk not in ("sort_mode", "sort_segments")}
+    cache = JoinProgramCache(comm)
 
     def program(mode):
-        step = make_join_step(comm, sort_mode=mode, sort_segments=(
-            segs if mode == "segmented" else None), **opts)
+        def run_mode(b, p):
+            fn, _ = cache.get(b, p, sort_mode=mode, sort_segments=(
+                segs if mode == "segmented" else None), **opts)
+            return fn(b, p)
 
-        def graded(b, p):
-            res = step(b, p)
-            return res, comm.psum(row_digest(res.table))
-
-        return comm.spmd(graded, sharded_out=(JOIN_SHARDED_OUT, True))
+        return run_mode
 
     fns = {mode: program(mode) for mode in ("flat", "segmented")}
     dev = build.device
@@ -599,6 +613,8 @@ def sort_ab(comm, build, probe, n_joins: int, join_opts: dict, args):
         return out, comm.host_max(ms)
 
     warm = {mode: fn(build, probe) for mode, fn in fns.items()}
+    warm = {mode: (res, _digest_of(comm, res.table))
+            for mode, res in warm.items()}
     overflow = {mode: bool(res.overflow) for mode, (res, _) in warm.items()}
     if any(overflow.values()):
         return {"skipped": "overflow at this sizing: rerun with larger "
@@ -606,10 +622,12 @@ def sort_ab(comm, build, probe, n_joins: int, join_opts: dict, args):
                            "partial answers)",
                 "overflow_flat": overflow["flat"],
                 "overflow_segmented": overflow["segmented"]}
+    traces0 = cache.traces
     ms = {"flat": [], "segmented": []}
     for mode, fn in fns.items():
         for _ in range(n_joins):
             ms[mode].append(timed(fn)[1])
+    warm_new_traces = cache.traces - traces0
     (flat, fd), (seg, sd) = warm["flat"], warm["segmented"]
     rec = {
         "kind": "sort_ab",
@@ -619,7 +637,7 @@ def sort_ab(comm, build, probe, n_joins: int, join_opts: dict, args):
         "sort_segments": segs,
         "matches": int(seg.total),
         "matches_equal": int(seg.total) == int(flat.total),
-        "digest_equal": int(sd) == int(fd),
+        "digest_equal": sd == fd,
         "flat_ms_min": min(ms["flat"]),
         "flat_ms_median": statistics.median(ms["flat"]),
         "segmented_ms_min": min(ms["segmented"]),
@@ -627,10 +645,10 @@ def sort_ab(comm, build, probe, n_joins: int, join_opts: dict, args):
         "segmented_speedup": min(ms["flat"]) / min(ms["segmented"]),
         "flat_ms": ms["flat"],
         "segmented_ms": ms["segmented"],
+        "warm_new_traces": warm_new_traces,
         "oracle_equal_flat": None,
         "oracle_equal_segmented": None,
-        "not_ported": ["warm_new_traces", "counter_signature",
-                       "wire_exact"],
+        "not_ported": ["counter_signature", "wire_exact"],
     }
     if not isinstance(comm, ProcessGroupCommunicator):
         keys = ([join_opts["key"]] if isinstance(join_opts["key"], str)
@@ -653,9 +671,11 @@ def agg_ab(comm, build, probe, join_key, n_joins: int, join_opts: dict,
     host and grouped there (numpy). B: the warm fused pushdown, its
     groups fetched. N of each, each timed alone on the host clock (the
     fetch synchronises); both graded against the numpy oracle. Shapes
-    the pushdown refuses skip with the reason. The JAX record's
-    ``warm_pushdown_new_traces`` and counter signature ride the program
-    cache and telemetry (``not_ported``)."""
+    the pushdown refuses skip with the reason. The pushdown's program
+    comes from a ``JoinProgramCache``, as in the JAX driver: its warm
+    calls must build none (``warm_pushdown_new_traces``). The JAX
+    record's counter signature rides the telemetry metrics, which the
+    port does not have yet (``not_ported``)."""
     if args.string_key_bytes:
         return {"skipped": "string join keys: the fused pushdown covers "
                            "scalar keys"}
@@ -676,14 +696,17 @@ def agg_ab(comm, build, probe, join_key, n_joins: int, join_opts: dict,
     spec = AggregateSpec.of(keys, aggs)
     opts = {k: v for k, v in join_opts.items() if k != "key"}
 
+    cache = JoinProgramCache(comm)
     try:
         mat_fn = comm.spmd(make_join_step(comm, key=join_key, **opts),
                            sharded_out=JOIN_SHARDED_OUT)
-        push_fn = comm.spmd(make_join_step(comm, key=join_key,
-                                           aggregate=spec, **opts),
-                            sharded_out=JOIN_SHARDED_OUT)
+        cache.get(build, probe, key=join_key, aggregate=spec, **opts)
     except AggregatePushdownUnsupported as exc:
         return {"skipped": str(exc)}
+
+    def push_fn(b, p):
+        fn, _ = cache.get(b, p, key=join_key, aggregate=spec, **opts)
+        return fn(b, p)
 
     def run_materialize():
         # the workload consumes aggregates: side A's time includes
@@ -705,6 +728,7 @@ def agg_ab(comm, build, probe, join_key, n_joins: int, join_opts: dict,
         return {"skipped": "materializing join overflowed at this sizing; "
                            "A-side frame would be partial — rerun with "
                            "larger capacity factors"}
+    traces0 = cache.traces
     walls = {"materialize": [], "pushdown": []}
     for side, fn in (("materialize", run_materialize),
                      ("pushdown", run_pushdown)):
@@ -734,7 +758,8 @@ def agg_ab(comm, build, probe, join_key, n_joins: int, join_opts: dict,
         "pushdown_walls_s": walls["pushdown"],
         "oracle_equal_pushdown": frames_equal(push_frame, oracle),
         "oracle_equal_materialize": frames_equal(mat_frame, oracle),
-        "not_ported": ["warm_pushdown_new_traces", "counter_signature"],
+        "warm_pushdown_new_traces": cache.traces - traces0,
+        "not_ported": ["counter_signature"],
     }
 
 
@@ -953,16 +978,20 @@ def profile(args, device=None) -> dict | None:
             **prof, **gpu_identity()}
 
 
-def main(argv=None) -> int:
-    args = parse_args(argv)
-    # the handshake (and, under NCCL, the choice of this rank's card)
-    # comes before any tensor
-    maybe_initialize_from_env()
+def _main(args):
     record = profile(args) if args.profile else run(args)
     if record is not None:
         report(record, args.json_output)
+    return record
+
+
+def main(argv=None) -> int:
+    args = parse_args(argv)
+    # the handshake (and, under NCCL, the choice of this rank's card)
+    # comes first inside the guarded run, before any tensor
+    rc = run_guarded(_main, args, "distributed_join")
     shutdown()
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

@@ -20,7 +20,12 @@
 
 Port of ``distributed_join_tpu/benchmarks/launch.py``: the same flags and
 the same ``DJTPU_*`` environment (``parallel/bootstrap.py``); ``--slices``,
-``--sort-mode`` and ``--sort-segments`` are handed on to the command. With
+``--sort-mode``, ``--sort-segments``, ``--telemetry``, ``--trace``,
+``--history`` and ``--guard-deadline-s`` are handed on to the command
+(``benchmarks.FORWARDED_CHILD_FLAGS``), unless it carries the flag
+already: every process writes its own rank's telemetry files into the
+one session directory, and each process's run is guarded, not the
+launcher's reaping. With
 ``--process-id`` the launcher execs the command in place for that one
 process; without it, it starts every process here and reaps them with
 mpirun's semantics: the first process to exit non-zero ends the others
@@ -39,7 +44,11 @@ import subprocess
 import sys
 import time
 
-from distributed_join_tpu_torch.benchmarks import UNPORTED_FLAGS, refuse_flags
+from distributed_join_tpu_torch.benchmarks import (
+    FORWARDED_CHILD_FLAGS,
+    UNPORTED_FLAGS,
+    refuse_flags,
+)
 from distributed_join_tpu_torch.parallel.bootstrap import (
     ENV_COORDINATOR,
     ENV_CPU_DEVICES,
@@ -48,10 +57,6 @@ from distributed_join_tpu_torch.parallel.bootstrap import (
 )
 
 _REFUSED = dict(UNPORTED_FLAGS)
-# Launcher flags handed on to every process's command, as the JAX
-# launcher forwards them (JAX benchmarks/__init__.py:559): (flag, dest).
-FORWARDED = (("--slices", "slices"), ("--sort-mode", "sort_mode"),
-             ("--sort-segments", "sort_segments"))
 # How long the others get to exit after a terminate before they are
 # killed.
 TERMINATE_GRACE_S = 10.0
@@ -78,6 +83,16 @@ def parse_args(argv=None):
                    help="handed on to every process")
     p.add_argument("--sort-segments", type=int, default=None,
                    help="handed on to every process")
+    p.add_argument("--telemetry", nargs="?", const="telemetry",
+                   default=None, metavar="DIR",
+                   help="handed on to every process (one session "
+                        "directory, a file set a rank)")
+    p.add_argument("--trace", action="store_true",
+                   help="handed on to every process")
+    p.add_argument("--history", default=None, metavar="FILE",
+                   help="handed on to every process (rank 0 appends)")
+    p.add_argument("--guard-deadline-s", type=float, default=None,
+                   metavar="S", help="handed on to every process")
     p.add_argument("command", nargs=argparse.REMAINDER,
                    help="the command to launch (after --)")
     args = p.parse_args(argv)
@@ -85,11 +100,12 @@ def parse_args(argv=None):
         args.command = args.command[1:]
     if not args.command:
         p.error("no command given (append: -- <command> [args...])")
-    for flag, dest in FORWARDED:
+    for flag, dest, takes_value in FORWARDED_CHILD_FLAGS:
         value = getattr(args, dest)
-        if value is not None and not any(
+        if value is None or value is False or any(
                 c == flag or c.startswith(flag + "=") for c in args.command):
-            args.command += [flag, str(value)]
+            continue
+        args.command += [flag, str(value)] if takes_value else [flag]
     if args.num_processes < 1:
         p.error("--num-processes must be >= 1")
     if args.cpu_devices_per_process not in (None, 1):

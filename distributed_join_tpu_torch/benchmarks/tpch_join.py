@@ -34,11 +34,14 @@ JAX driver's record field names. Four paths:
   phase seconds and the peak host memory.
 
 A batched path's seconds are the batch loop's, host-to-device staging
-included. The telemetry, integrity, chaos, watchdog, tuner, plan and
-segmented-sort flags are not part of the port and refuse by name; the
-``--query`` record lists what the JAX record takes from the program
-cache, telemetry and the cost model under ``not_ported``. Communicators as in the config
-driver: ``local``, ``emulated`` (``--n-ranks``), and ``nccl`` or
+included. ``--telemetry``, ``--trace``, ``--history`` and
+``--guard-deadline-s`` are the JAX driver's (``benchmarks.run_guarded``);
+the diagnosis, integrity, chaos, tuner, plan and stage-profile flags
+refuse by name. The ``--query`` record's ``programs_traced``,
+``warm_new_traces`` and ``warm_cache_hit`` come from the
+``JoinProgramCache`` the plan runs through, as in the JAX driver; it
+lists what the JAX record takes from the metrics tape and the cost model
+under ``not_ported``. Communicators as in the config driver: ``local``, ``emulated`` (``--n-ranks``), and ``nccl`` or
 ``gloo`` under the launcher (``benchmarks/launch.py``), where every
 process generates the same tables and stages only its own rows.
 """
@@ -53,18 +56,19 @@ from typing import Optional
 
 import torch
 
+from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.bench import gpu_identity
 from distributed_join_tpu_torch.benchmarks import (
     UNPORTED_FLAGS,
+    add_guard_arg,
+    add_telemetry_args,
     global_table,
     rank_device,
     refuse_flags,
     report,
+    run_guarded,
 )
-from distributed_join_tpu_torch.parallel.bootstrap import (
-    maybe_initialize_from_env,
-    shutdown,
-)
+from distributed_join_tpu_torch.parallel.bootstrap import shutdown
 from distributed_join_tpu_torch.benchmarks.distributed_join import row_digest
 from distributed_join_tpu_torch.ops.aggregate import (
     AggregateSpec,
@@ -79,6 +83,7 @@ from distributed_join_tpu_torch.parallel.distributed_join import (
 )
 from distributed_join_tpu_torch.parallel.query_exec import distributed_query
 from distributed_join_tpu_torch.planning.query import tpch_query_plan
+from distributed_join_tpu_torch.service.programs import JoinProgramCache
 from distributed_join_tpu_torch.parallel.out_of_core import (
     batched_join_host,
     keyrange_batched_join,
@@ -177,6 +182,8 @@ def parse_args(argv=None):
     p.add_argument("--sort-segments", type=int, default=None, metavar="N",
                    help="taken for the JAX command line's sake; the flat "
                         "sort never reads it")
+    add_telemetry_args(p)
+    add_guard_arg(p)
     return p.parse_args(argv)
 
 
@@ -328,10 +335,11 @@ def run(args, device=None) -> dict:
                        orders_rows + lineitem_rows, total, overflow,
                        stats["elapsed_s"], extra)
 
-    orders, lineitem = generate_tpch_join_tables(
-        seed=SEED, scale_factor=args.scale_factor, device=dev)
-    if args.q3_filters:
-        orders, lineitem = q3_filter(orders, lineitem)
+    with telemetry.span("generate", scale_factor=args.scale_factor):
+        orders, lineitem = generate_tpch_join_tables(
+            seed=SEED, scale_factor=args.scale_factor, device=dev)
+        if args.q3_filters:
+            orders, lineitem = q3_filter(orders, lineitem)
     build = orders.rename({"o_orderkey": "key"})
     probe = lineitem.rename({"l_orderkey": "key"})
     # real rows (the filters mask rows in place), so the batched and
@@ -409,22 +417,26 @@ def _run_query(args, comm, dev) -> dict:
     others (program cache, telemetry, cost model) under
     ``not_ported``."""
     plan = tpch_query_plan(args.query)
-    tables = query_filters(generate_tpch_query_tables(
-        seed=SEED, scale_factor=args.scale_factor, device=dev), args.query)
+    with telemetry.span("generate", scale_factor=args.scale_factor):
+        tables = query_filters(generate_tpch_query_tables(
+            seed=SEED, scale_factor=args.scale_factor, device=dev),
+            args.query)
     rows = sum(int(t.num_valid()) for t in tables.values())
     factors = dict(over_decomposition=args.over_decomposition_factor,
                    shuffle_capacity_factor=args.shuffle_capacity_factor,
                    out_capacity_factor=args.out_capacity_factor)
+    cache = JoinProgramCache(comm)
 
     def run_once():
         return distributed_query(tables, plan, comm, auto_retry=4,
-                                 **factors)
+                                 program_cache=cache, **factors)
 
     res = run_once()
     if bool(res.overflow):
         raise SystemExit(
             "--query: the capacity ladder ran out — raise "
             "--out-capacity-factor/--shuffle-capacity-factor")
+    cold_traces = cache.traces
     query_s = []
     for _ in range(max(args.iterations, 1)):
         if dev.type == "cuda":
@@ -460,9 +472,11 @@ def _run_query(args, comm, dev) -> dict:
         "query_s": query_s,
         "query_ms_min": min(query_s) * 1e3,
         "aggregate": spec.as_record(),
-        "not_ported": ["programs_traced", "warm_new_traces",
-                       "warm_cache_hit", "counter_signature", "wire_exact",
-                       "wire", "cost_total_s", "order_candidates",
+        "programs_traced": cache.traces,
+        "warm_new_traces": cache.traces - cold_traces,
+        "warm_cache_hit": bool(res.cache_hit),
+        "not_ported": ["counter_signature", "wire_exact", "wire",
+                       "cost_total_s", "order_candidates",
                        "stage_profile"],
     }
     return _report(args, comm, dev, int(tables["orders"].num_valid()),
@@ -514,15 +528,19 @@ def headline(record: dict) -> str:
             + (" [OVERFLOW]" if record["overflow"] else ""))
 
 
+def _main(args) -> dict:
+    record = run(args)
+    report(record, args.json_output, headline(record))
+    return record
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     # the handshake (and, under NCCL, the choice of this rank's card)
-    # comes before any tensor
-    maybe_initialize_from_env()
-    record = run(args)
-    report(record, args.json_output, headline(record))
+    # comes first inside the guarded run, before any tensor
+    rc = run_guarded(_main, args, "tpch_join")
     shutdown()
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

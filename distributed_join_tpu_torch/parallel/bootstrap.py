@@ -28,14 +28,12 @@ from __future__ import annotations
 
 import datetime
 import os
-import threading
 import time
 from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
 
-from distributed_join_tpu_torch.parallel.faults import retry_with_backoff
 from distributed_join_tpu_torch.parallel.mesh import local_device
 
 ENV_COORDINATOR = "DJTPU_COORDINATOR"
@@ -78,35 +76,30 @@ class BootstrapError(RuntimeError):
 
 def call_with_deadline(fn: Callable, deadline_s: float,
                        what: str = "handshake"):
-    """Run ``fn()`` in a daemon thread and wait at most ``deadline_s``.
-    An exception or a hang becomes a :class:`BootstrapError`; a hung
-    thread is left behind (it is a daemon, and the handshake's own store
-    timeout ends it)."""
-    box: dict = {}
+    """Run ``fn()`` under the hang watchdog (``parallel/watchdog.py``)
+    and turn both ways a dead environment fails, an exception and a hang,
+    into a :class:`BootstrapError` (JAX :83-114). A hung worker thread is
+    left behind, detached from the exit-time join (the handshake's own
+    store timeout ends it)."""
+    from distributed_join_tpu_torch.parallel.watchdog import (
+        HangError,
+        call_with_deadline as guarded,
+    )
 
-    def body():
-        try:
-            box["result"] = fn()
-        except BaseException as exc:  # noqa: BLE001 — re-raised below
-            box["error"] = exc
-
-    t = threading.Thread(target=body, name=f"bootstrap-{what}", daemon=True)
-    t.start()
-    t.join(deadline_s)
-    if t.is_alive():
+    try:
+        return guarded(fn, deadline_s, what=what)
+    except HangError:
         raise BootstrapError(
             f"{what} did not complete within {deadline_s:g}s",
             phase=what, deadline_s=deadline_s,
             attempts=[{"attempt": 0, "elapsed_s": deadline_s,
-                       "error": f"timeout after {deadline_s:g}s"}])
-    exc = box.get("error")
-    if exc is not None:
+                       "error": f"timeout after {deadline_s:g}s"}]) from None
+    except Exception as exc:
         raise BootstrapError(
             f"{what} failed: {type(exc).__name__}: {exc}",
             phase=what, deadline_s=deadline_s,
             attempts=[{"attempt": 0, "elapsed_s": None,
                        "error": f"{type(exc).__name__}: {exc}"}]) from exc
-    return box.get("result")
 
 
 def _connect(coordinator_address: str, num_processes: int, process_id: int,
@@ -171,8 +164,20 @@ def initialize(
         torch.cuda.set_device(local_device(backend, process_id))
     os.environ[ENV_NUM_PROCESSES] = str(num_processes)
     os.environ[ENV_PROCESS_ID] = str(process_id)
+    # imported here: faults imports the communicator, which imports this
+    # module
+    from distributed_join_tpu_torch import telemetry
+    from distributed_join_tpu_torch.parallel.faults import retry_with_backoff
+
     do_connect = connect if connect is not None else _connect
     t0 = time.monotonic()
+
+    def on_retry(attempt, exc, delay):
+        # the handshake's backoff trail, as it happens (JAX :225)
+        telemetry.event(
+            "bootstrap_retry", attempt=attempt,
+            coordinator=coordinator_address, backoff_s=delay,
+            error=f"{type(exc).__name__}: {exc}")
 
     def bounded_connect():
         # A timed-out attempt burned the whole remainder, so the retry
@@ -185,13 +190,17 @@ def initialize(
             remaining, what="handshake")
 
     try:
-        retry_with_backoff(bounded_connect, max_attempts=max(1, max_retries),
-                           backoff_s=backoff_s, deadline_s=deadline_s,
-                           sleep=sleep)
+        _, attempts = retry_with_backoff(
+            bounded_connect, max_attempts=max(1, max_retries),
+            backoff_s=backoff_s, deadline_s=deadline_s, sleep=sleep,
+            on_retry=on_retry)
+        telemetry.event("bootstrap_ok", coordinator=coordinator_address,
+                        process_id=process_id, attempts=len(attempts))
     except BootstrapError as exc:
         exc.coordinator = exc.coordinator or coordinator_address
         exc.deadline_s = deadline_s
         exc.attempts = getattr(exc, "_retry_attempts", None) or exc.attempts
+        telemetry.event("bootstrap_failed", **exc.record())
         raise
 
 

@@ -45,6 +45,7 @@ from distributed_join_tpu_torch.parallel.mesh import (
     make_hierarchical_mesh,
     make_mesh,
 )
+from distributed_join_tpu_torch.telemetry import spans as _spans
 
 
 class Communicator(abc.ABC):
@@ -346,6 +347,10 @@ class EmulatedCommunicator(Communicator):
     barrier, so the others raise instead of waiting forever; ``spmd``
     re-raises the first rank's exception.
 
+    Telemetry: every rank thread takes over the caller's span stack, and
+    every rank but 0 is muted (``telemetry/spans.py``), so one call of a
+    step records its spans once, on rank 0, under the caller's path.
+
     ``n_slices`` > 1 nests the ranks as ``(slice, chip)``
     (``mesh.make_hierarchical_mesh``), as the JAX package's CPU mesh
     fakes a multi-slice topology: ``all_to_all_chip`` and
@@ -432,11 +437,14 @@ class EmulatedCommunicator(Communicator):
             outs: list = [None] * n
             errors: list = [None] * n
             self._barrier.reset()
+            caller = _spans.thread_context()
 
             def body(r):
                 self._local.rank = r
                 try:
-                    outs[r] = fn(*_map(lambda t: _shard(t, r, n), args))
+                    with _spans.adopted(caller, mute=r != 0):
+                        outs[r] = fn(*_map(lambda t: _shard(t, r, n),
+                                           args))
                 except BaseException as exc:  # noqa: BLE001 — re-raised below
                     errors[r] = exc
                     self._barrier.abort()

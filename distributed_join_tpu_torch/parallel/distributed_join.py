@@ -31,7 +31,17 @@ before hashing (JAX :536-552), and rebuilt on the way out (:783-790).
 Typed joins (``join_type``, ops/join.JOIN_TYPES) run each bucket's local
 join with the type: hash partitioning puts every key's rows of both
 sides in one bucket, so unmatched rows are local. The JAX step's other
-options (metrics and integrity digests) refuse by name.
+options (metrics and integrity digests) refuse by name; ``with_metrics``
+left at None, as the JAX driver leaves it, resolves to False with a
+telemetry session on too (the metrics tape is not part of the port).
+
+Telemetry (JAX :572-947, :1177-1348): with a session on, the steps
+record JAX's spans under JAX's names and payloads: ``skew``,
+``partition``, ``shuffle`` (``batch=``), ``join`` (``batch=`` where the
+step has batches), ``join_agg``, ``agg_combine`` and
+``partials_exchange``. They fire on every call (the JAX package's at
+trace time, once a compile); see ``telemetry/spans.py`` for which thread
+records them and what their durations mean.
 
 Aggregate pushdown (``aggregate=``, an ``ops.aggregate.AggregateSpec``;
 JAX :475-507 and ``_make_join_agg_step`` :804-983): each side partitions
@@ -50,6 +60,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.ops import aggregate as agg_ops
 from distributed_join_tpu_torch.ops.hashing import hash_columns
 from distributed_join_tpu_torch.ops.join import (
@@ -238,26 +249,32 @@ def _flat_batches(comm, sides, keys, k: int, shuffle: str,
     build is resident. With ``strings`` on
     the ragged wire, each side's string payload columns ride the
     byte-exact wire, each bucket ordered by the first one's length,
-    descending."""
+    descending. The partition runs in a ``partition`` span and each
+    batch's exchange in a ``shuffle`` span (``batch=b``; the ragged
+    wire's one plan read, both sides and every batch, in batch 0's)."""
     n = comm.n_ranks
     parted = []
-    for t, cap in sides:
-        vw = _varwidth_cols(t) if strings and shuffle == "ragged" else []
-        pt = radix_hash_partition(
-            t, keys, k * n, order_within=vw[0] + LEN_SUFFIX if vw else None)
-        parted.append((pt, cap, vw))
-    if shuffle == "ragged":
-        # both sides' plans in one read to the host
-        prefetch_ragged_plans(comm, [(pt, vw) for pt, _, vw in parted])
+    with telemetry.span("partition"):
+        for t, cap in sides:
+            vw = _varwidth_cols(t) if strings and shuffle == "ragged" else []
+            pt = radix_hash_partition(
+                t, keys, k * n,
+                order_within=vw[0] + LEN_SUFFIX if vw else None)
+            parted.append((pt, cap, vw))
     for b in range(k):
         recv, overflow = [], None
-        for pt, cap, vw in parted:
-            table, ovf = _batch_shuffle(
-                comm, pt, b, n, cap, mode=shuffle,
-                compression_bits=compression_bits, varwidth=vw,
-                dcn_codec_on=dcn_on)
-            recv.append(table)
-            overflow = ovf if overflow is None else overflow | ovf
+        with telemetry.span("shuffle", batch=b):
+            if shuffle == "ragged" and b == 0:
+                # both sides' plans in one read to the host
+                prefetch_ragged_plans(comm,
+                                      [(pt, vw) for pt, _, vw in parted])
+            for pt, cap, vw in parted:
+                table, ovf = _batch_shuffle(
+                    comm, pt, b, n, cap, mode=shuffle,
+                    compression_bits=compression_bits, varwidth=vw,
+                    dcn_codec_on=dcn_on)
+                recv.append(table)
+                overflow = ovf if overflow is None else overflow | ovf
         yield (*recv, overflow)
 
 
@@ -536,37 +553,42 @@ def make_join_step(
         overflow = torch.zeros((), dtype=torch.bool,
                                device=build_local.device)
         if skew_threshold is not None:
-            # Classify on the key-tuple hash: it only has to be
-            # consistent across sides and ranks (a collision merely
-            # makes a key heavy; the HH join matches on the real key).
-            bh = hash_columns([build_local.columns[c] for c in keys_eff])
-            ph = hash_columns([probe_local.columns[c] for c in keys_eff])
-            bh, ph = bh.view(torch.uint64), ph.view(torch.uint64)
-            hh = skew.global_heavy_hitters(
-                comm, ph, probe_local.valid, hh_slots,
-                threshold=int(skew_threshold * p_rows))
-            is_hh_b = skew.mark_heavy(bh, hh)
-            is_hh_p = skew.mark_heavy(ph, hh)
-            hh_build, ovf_hb = skew.broadcast_heavy_build(
-                comm, build_local, is_hh_b,
-                hh_build_capacity or hh_slots * HH_BUILD_SLOTS_PER_HH,
-                kernel_config=kernel_config)
-            # heavy probe rows stay local, compacted into a right-sized
-            # block first, so the HH join does not re-sort all p_rows
-            hh_probe_cap = _round_up(
-                hh_probe_capacity or max(p_rows // 8, 1024), 8)
-            hh_probe, _, ovf_hp = skew.extract_prefix(
-                probe_local, probe_local.valid & is_hh_p, hh_probe_cap,
-                kernel_config=kernel_config)
-            hh_res = local_join(hh_build, hh_probe,
-                                hh_out_capacity or max(p_rows // 4, 1024))
-            parts.append(hh_res.table)
-            total = total + hh_res.total
-            overflow = overflow | ovf_hb | ovf_hp | hh_res.overflow
-            build_local = Table(build_local.columns,
-                                build_local.valid & ~is_hh_b)
-            probe_local = Table(probe_local.columns,
-                                probe_local.valid & ~is_hh_p)
+            with telemetry.span("skew"):
+                # Classify on the key-tuple hash: it only has to be
+                # consistent across sides and ranks (a collision merely
+                # makes a key heavy; the HH join matches on the real key).
+                bh = hash_columns([build_local.columns[c]
+                                   for c in keys_eff])
+                ph = hash_columns([probe_local.columns[c]
+                                   for c in keys_eff])
+                bh, ph = bh.view(torch.uint64), ph.view(torch.uint64)
+                hh = skew.global_heavy_hitters(
+                    comm, ph, probe_local.valid, hh_slots,
+                    threshold=int(skew_threshold * p_rows))
+                is_hh_b = skew.mark_heavy(bh, hh)
+                is_hh_p = skew.mark_heavy(ph, hh)
+                hh_build, ovf_hb = skew.broadcast_heavy_build(
+                    comm, build_local, is_hh_b,
+                    hh_build_capacity or hh_slots * HH_BUILD_SLOTS_PER_HH,
+                    kernel_config=kernel_config)
+                # heavy probe rows stay local, compacted into a
+                # right-sized block first, so the HH join does not
+                # re-sort all p_rows
+                hh_probe_cap = _round_up(
+                    hh_probe_capacity or max(p_rows // 8, 1024), 8)
+                hh_probe, _, ovf_hp = skew.extract_prefix(
+                    probe_local, probe_local.valid & is_hh_p, hh_probe_cap,
+                    kernel_config=kernel_config)
+                hh_res = local_join(
+                    hh_build, hh_probe,
+                    hh_out_capacity or max(p_rows // 4, 1024))
+                parts.append(hh_res.table)
+                total = total + hh_res.total
+                overflow = overflow | ovf_hb | ovf_hp | hh_res.overflow
+                build_local = Table(build_local.columns,
+                                    build_local.valid & ~is_hh_b)
+                probe_local = Table(probe_local.columns,
+                                    probe_local.valid & ~is_hh_p)
 
         seg = 1
         if sort_mode == "segmented" and nb > 1:
@@ -576,7 +598,8 @@ def make_join_step(
                 sort_segments, max(b_rows, p_rows), n, k,
                 shuffle_capacity_factor)
         if nb == 1:
-            res = local_join(build_local, probe_local)
+            with telemetry.span("join"):
+                res = local_join(build_local, probe_local)
             parts.append(res.table)
             total = total + res.total
             overflow = overflow | res.overflow
@@ -588,28 +611,36 @@ def make_join_step(
                     for rows in (b_rows, p_rows)]
             out_cap_s = seg_ops.segmented_out_capacity(
                 p_rows, k, seg, out_capacity_factor, out_rows_per_rank)
-            pts = [radix_hash_partition(t, keys_eff, nb, sub_buckets=seg)
-                   for t in (build_local, probe_local)]
+            with telemetry.span("partition"):
+                pts = [radix_hash_partition(t, keys_eff, nb,
+                                            sub_buckets=seg)
+                       for t in (build_local, probe_local)]
             for b in range(k):
-                runs = []
-                for pt, cap in zip(pts, caps):
-                    cols, counts, ovf = _batch_shuffle_segmented(
-                        comm, pt, b, n, seg, cap, shuffle)
-                    runs.extend(seg_ops.runs_from_blocks(cols, counts))
-                    overflow = overflow | ovf
-                table, t_batch, ovf_j = seg_ops.batched_sort_merge_inner_join(
-                    *runs, keys_eff, out_cap_s, build_payload=bpay,
-                    probe_payload=ppay, _internal=sk_names)
+                blocks = []
+                with telemetry.span("shuffle", batch=b):
+                    for pt, cap in zip(pts, caps):
+                        cols, counts, ovf = _batch_shuffle_segmented(
+                            comm, pt, b, n, seg, cap, shuffle)
+                        blocks.append((cols, counts))
+                        overflow = overflow | ovf
+                with telemetry.span("join", batch=b):
+                    runs = [r for cols, counts in blocks
+                            for r in seg_ops.runs_from_blocks(cols, counts)]
+                    table, t_batch, ovf_j = \
+                        seg_ops.batched_sort_merge_inner_join(
+                            *runs, keys_eff, out_cap_s, build_payload=bpay,
+                            probe_payload=ppay, _internal=sk_names)
                 parts.append(table)
                 total = total + t_batch
                 overflow = overflow | ovf_j
         else:
-            for recv_b, recv_p, ovf in _flat_batches(
+            for b, (recv_b, recv_p, ovf) in enumerate(_flat_batches(
                     comm, ((build_local, b_cap), (probe_local, p_cap)),
                     keys_eff, k, shuffle, compression_bits, dcn_on,
-                    strings=True):
+                    strings=True)):
                 overflow = overflow | ovf
-                res = local_join(recv_b, recv_p)
+                with telemetry.span("join", batch=b):
+                    res = local_join(recv_b, recv_p)
                 parts.append(res.table)
                 total = total + res.total
                 overflow = overflow | res.overflow
@@ -721,25 +752,30 @@ def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
                 comm, ((build_w, b_cap), (probe_w, p_cap)), keys, k,
                 shuffle, compression_bits, dcn_on, strings=False)
         parts = []
-        for recv_b, recv_p, ovf in batches:
-            partials, t, _, ovf_j = agg_ops.local_join_aggregate(
-                recv_b, recv_p, keys, spec, mode, groups_cap)
+        for b, (recv_b, recv_p, ovf) in enumerate(batches):
+            with telemetry.span("join_agg",
+                                **({} if nb == 1 else {"batch": b})):
+                partials, t, _, ovf_j = agg_ops.local_join_aggregate(
+                    recv_b, recv_p, keys, spec, mode, groups_cap)
             parts.append(partials)
             total = total + t
             overflow = overflow | ovf | ovf_j
         if mode in ("probe", "build"):
             # non-key groups recur across batches and ranks
             if len(parts) > 1:
-                combined, _, ovf = agg_ops.combine_partials(
-                    parts, spec, group_names, lanes_schema, groups_cap)
+                with telemetry.span("agg_combine"):
+                    combined, _, ovf = agg_ops.combine_partials(
+                        parts, spec, group_names, lanes_schema, groups_cap)
                 overflow = overflow | ovf
                 parts = [combined]
             if n > 1:
-                ptg = radix_hash_partition(parts[0], group_names, n)
-                recv, ovf_x = _batch_shuffle(comm, ptg, 0, n, groups_cap,
-                                             mode=partials_mode)
-                combined, _, ovf_c = agg_ops.combine_partials(
-                    [recv], spec, group_names, lanes_schema, groups_cap)
+                with telemetry.span("partials_exchange"):
+                    ptg = radix_hash_partition(parts[0], group_names, n)
+                    recv, ovf_x = _batch_shuffle(
+                        comm, ptg, 0, n, groups_cap, mode=partials_mode)
+                    combined, _, ovf_c = agg_ops.combine_partials(
+                        [recv], spec, group_names, lanes_schema,
+                        groups_cap)
                 overflow = overflow | ovf_x | ovf_c
                 parts = [combined]
         finals = [agg_ops.finalize_groups(p, spec, group_names)
@@ -860,11 +896,13 @@ def make_probe_join_step(
             comm, ((probe_local, p_cap),), keys, k, shuffle,
             compression_bits, False, strings=False))
         parts = []
-        for recv_p, ovf in batches:
-            res = sort_merge_inner_join(
-                resident_local, recv_p, keys, out_cap,
-                build_payload=build_payload, probe_payload=probe_payload,
-                kernel_config=kernel_config)
+        for b, (recv_p, ovf) in enumerate(batches):
+            with telemetry.span("join", **({} if nb == 1 else {"batch": b})):
+                res = sort_merge_inner_join(
+                    resident_local, recv_p, keys, out_cap,
+                    build_payload=build_payload,
+                    probe_payload=probe_payload,
+                    kernel_config=kernel_config)
             parts.append(res.table)
             total = total + res.total
             overflow = overflow | ovf | res.overflow

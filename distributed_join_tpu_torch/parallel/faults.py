@@ -1,19 +1,37 @@
-"""The ``auto_retry`` capacity ladder and the ragged plan's validation.
+"""Failure semantics: fault injection, the ``auto_retry`` capacity
+ladder, the ragged plan's validation, retries with backoff and the
+out-of-core resume manifest.
 
-Port of ``distributed_join_tpu/parallel/faults.py`` ``RetryAttempt``,
-``RetryReport`` and ``CapacityLadder`` (:697-892) over the capacities the
-port has: the compressed wire's bits, the shuffle and output factors,
-``out_rows_per_rank``, and the skew sidecar's three heavy-hitter blocks.
-(The JAX ladder's tuner seeding and integrity rung belong to options the
-port refuses.) The same shapes give the same rungs.
+Port of ``distributed_join_tpu/parallel/faults.py``:
 
-Also the ragged plan's cross-rank validation (JAX :472-634, switched on
-by ``DJTPU_VALIDATE_PLANS`` or :func:`validate_plans`),
-``retry_with_backoff`` (JAX :636), which the bootstrap's handshake and
-the out-of-core batch loop retry through, and the out-of-core resume
-manifest: ``ManifestMismatchError`` (JAX :898), ``JoinManifest`` (:904)
-and ``batch_config_fingerprint`` (:990), whose JSON is the JAX
-package's, so a manifest one package writes the other reads.
+- ``FaultInjectedError``, ``FaultPlan`` with every field,
+  ``plan_from_record`` and ``FaultInjectingCommunicator`` (JAX :60-441):
+  a communicator wrapper that injects scheduled dispatch failures,
+  drops and delays, forced overflow flags and rank-inconsistent ragged
+  plans, so that every branch of the ladder and of the batch loop's
+  retry and degradation can be driven deterministically. The data
+  corruption modes (``corrupt_mode``, ``corrupt_collectives``) stay
+  fields of the plan, so that a plan round-trips through its record,
+  but the wrapper refuses a plan that sets them: their detector, the
+  wire-integrity digests, is not part of the port yet (ROADMAP A5).
+- ``RetryAttempt``, ``RetryReport`` and ``CapacityLadder`` (:697-892)
+  over the capacities the port has: the compressed wire's bits, the
+  shuffle and output factors, ``out_rows_per_rank``, and the skew
+  sidecar's three heavy-hitter blocks. (The JAX ladder's tuner seeding
+  and integrity rung belong to options the port refuses.) The same
+  shapes give the same rungs.
+- The ragged plan's cross-rank validation (JAX :472-634, switched on by
+  ``DJTPU_VALIDATE_PLANS`` or :func:`validate_plans`).
+- ``retry_with_backoff`` (JAX :636), which the bootstrap's handshake and
+  the out-of-core batch loop retry through.
+- The out-of-core resume manifest: ``ManifestMismatchError`` (JAX
+  :898), ``JoinManifest`` (:904) and ``batch_config_fingerprint``
+  (:990), whose JSON is the JAX package's, so a manifest one package
+  writes the other reads.
+
+With a telemetry session on, ladder attempts and manifest writes also
+stream into its event log (``retry_attempt``, ``manifest_batch``,
+``manifest_failure``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -21,12 +39,23 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
 import time
 import warnings
 from contextlib import contextmanager
 from typing import Callable, Optional, Sequence
 
 import torch
+
+from distributed_join_tpu_torch import telemetry
+from distributed_join_tpu_torch.ops.join import JoinResult
+from distributed_join_tpu_torch.parallel.communicator import Communicator
+
+
+class FaultInjectedError(RuntimeError):
+    """An injected (not organic) failure: raised by
+    :class:`FaultInjectingCommunicator` on a scheduled dispatch fault, so
+    that recovery paths can be driven deterministically."""
 
 
 class PlanValidationError(RuntimeError):
@@ -140,6 +169,7 @@ def retry_with_backoff(
     deadline_s: Optional[float] = None,
     sleep: Callable[[float], None] = time.sleep,
     clock: Callable[[], float] = time.monotonic,
+    on_retry: Optional[Callable] = None,
 ):
     """Call ``fn()`` on failure again after ``backoff_s``, doubling the
     wait after each failure.
@@ -149,7 +179,8 @@ def retry_with_backoff(
     success). When the attempts or the deadline run out, raises the last
     error with the trail attached as ``exc._retry_attempts``; the caller
     wraps it in its own error. No retry starts when its backoff would
-    end past ``deadline_s``. ``sleep`` and ``clock`` are for tests."""
+    end past ``deadline_s``. ``on_retry(attempt, exc, delay)`` runs
+    before each backoff. ``sleep`` and ``clock`` are for tests."""
     if max_attempts < 1:
         raise ValueError(f"max_attempts must be >= 1, got {max_attempts}")
     t0 = clock()
@@ -172,6 +203,8 @@ def retry_with_backoff(
                            and clock() - t0 + delay > deadline_s)
             if attempt == max_attempts - 1 or out_of_time:
                 break
+            if on_retry is not None:
+                on_retry(attempt, exc, delay)
             sleep(delay)
             delay *= 2.0
     last._retry_attempts = attempts
@@ -272,7 +305,7 @@ class CapacityLadder:
 
     def note(self, overflow: Optional[bool]) -> None:
         """Record the outcome of running the current rung."""
-        self._attempts.append(RetryAttempt(
+        att = RetryAttempt(
             attempt=len(self._attempts), action=self._action,
             overflow=overflow, shuffle_capacity_factor=self.shuffle_f,
             out_capacity_factor=self.out_f,
@@ -280,7 +313,9 @@ class CapacityLadder:
             compression_bits=self.bits,
             hh_build_capacity=self.hh_build,
             hh_probe_capacity=self.hh_probe,
-            hh_out_capacity=self.hh_out))
+            hh_out_capacity=self.hh_out)
+        self._attempts.append(att)
+        telemetry.event("retry_attempt", **att.as_record())
 
     def escalate(self) -> str:
         """Advance one rung; returns the action taken."""
@@ -327,8 +362,7 @@ class JoinManifest:
     (the last ``MAX_FAILURES`` failed attempts). A killed run resumes
     from the first incomplete batch; matching keys share a batch, so the
     batch totals are independent and the resumed sum is exact. The
-    format is the JAX package's (its telemetry events are not part of
-    the port)."""
+    format is the JAX package's, and so are its telemetry events."""
 
     VERSION = 1
     MAX_FAILURES = 50
@@ -369,6 +403,9 @@ class JoinManifest:
         self._data["batches"][str(batch)] = {
             "total": int(total), "overflow": bool(overflow)}
         self._write()
+        telemetry.event("manifest_batch", path=self.path,
+                        batch=int(batch), total=int(total),
+                        overflow=bool(overflow))
 
     def record_failure(self, batch: int, error: str, attempt: int) -> None:
         log = self._data["failures"]
@@ -376,6 +413,9 @@ class JoinManifest:
                     "error": error})
         del log[:-self.MAX_FAILURES]
         self._write()
+        telemetry.event("manifest_failure", path=self.path,
+                        batch=int(batch), attempt=int(attempt),
+                        error=error)
 
     def _write(self) -> None:
         tmp = self.path + ".tmp"
@@ -402,3 +442,246 @@ def batch_config_fingerprint(build_batches: Sequence, probe_batches:
         "probe_rows": [int(next(iter(b.values())).shape[0])
                        for b in probe_batches],
     }
+
+
+# -- fault injection -----------------------------------------------------
+
+
+@dataclasses.dataclass
+class FaultPlan:
+    """Deterministic failure schedule for
+    :class:`FaultInjectingCommunicator` (the JAX package's fields, every
+    one). Counters are cumulative over the wrapper's life, so one plan
+    scripts one outage.
+
+    - ``overflow_programs``: the first N programs built through ``spmd``
+      report ``JoinResult.overflow`` True whatever the data: to the
+      ``auto_retry`` ladder, a capacity squeeze (every rung builds a
+      program, so program index == ladder attempt).
+    - ``fail_dispatches``: the first N calls of any program raise
+      :class:`FaultInjectedError` (a transient launch failure).
+    - ``fail_after_dispatches``: every call after the first N raises (a
+      persistent outage: the killed-mid-run scenario).
+    - ``drop_dispatches``: exactly these 1-based call ordinals raise.
+    - ``dispatch_delay_s``: sleep this long before each call (a slow
+      interconnect: drives deadlines); ``delay_after_dispatches`` lets
+      the first N calls run at full speed first.
+    - ``corrupt_plan_gathers``: the first N ragged-plan count gathers
+      come back perturbed rank-dependently (each rank adds its rank
+      index to one row of its gathered view), so every rank plans from
+      a different count matrix: what :func:`validate_ragged_plan`
+      catches.
+    - ``corrupt_mode``, ``corrupt_collectives``, ``corrupt_rank``: data
+      corruption at the collectives, which only the wire-integrity
+      digests detect; the port keeps the fields and refuses a plan that
+      sets them (:class:`FaultInjectingCommunicator`).
+    """
+
+    seed: int = 0
+    overflow_programs: int = 0
+    fail_dispatches: int = 0
+    fail_after_dispatches: Optional[int] = None
+    drop_dispatches: tuple = ()
+    dispatch_delay_s: float = 0.0
+    delay_after_dispatches: Optional[int] = None
+    corrupt_plan_gathers: int = 0
+    corrupt_mode: Optional[str] = None
+    corrupt_collectives: int = 0
+    corrupt_rank: Optional[int] = None
+
+
+def plan_from_record(record: dict) -> FaultPlan:
+    """A :class:`FaultPlan` from its JSON-shaped record (the inverse of
+    ``dataclasses.asdict``); an unknown key refuses by name."""
+    known = {f.name for f in dataclasses.fields(FaultPlan)}
+    unknown = set(record) - known
+    if unknown:
+        raise ValueError(
+            f"unknown FaultPlan field(s) {sorted(unknown)}; "
+            f"known: {sorted(known)}")
+    record = dict(record)
+    if record.get("drop_dispatches") is not None:
+        record["drop_dispatches"] = tuple(record["drop_dispatches"])
+    return FaultPlan(**record)
+
+
+CORRUPTION_MODES = ("bit_flip", "row_truncate", "row_duplicate",
+                    "misroute")
+
+
+class FaultInjectingCommunicator(Communicator):
+    """A ``Communicator`` decorator that injects a :class:`FaultPlan`.
+
+    Collectives go to the wrapped backend unchanged; the faults enter at
+    the wrapper's own seams (building a program, calling it, the ragged
+    plan's count gather), so the join and shuffle code run as they are
+    and see what the real failure would show them. Every method of the
+    port's communicators is forwarded (the shuffles' counters, host
+    reads and staging included); any other attribute (``hier``,
+    ``device``, ``mesh``) is the wrapped one's. The wrapper is not a
+    ``ProcessGroupCommunicator``: where a driver would take a process
+    group's device from it, pass the device.
+
+    An injected overflow ORs a device ``True`` into the result's
+    ``overflow``: no value is read to the host.
+    """
+
+    def __init__(self, inner: Communicator, plan: FaultPlan):
+        if plan.corrupt_mode is not None or plan.corrupt_collectives:
+            if (plan.corrupt_mode is not None
+                    and plan.corrupt_mode not in CORRUPTION_MODES):
+                raise ValueError(
+                    f"unknown corrupt_mode {plan.corrupt_mode!r}; pick "
+                    f"one of {CORRUPTION_MODES}")
+            raise NotImplementedError(
+                f"FaultPlan(corrupt_mode={plan.corrupt_mode!r}, "
+                f"corrupt_collectives={plan.corrupt_collectives}): data "
+                "corruption is detected only by the wire-integrity "
+                "digests (the JAX package's parallel/integrity.py), which "
+                "are not part of the port yet (ROADMAP A5)")
+        self._inner = inner
+        self.plan = plan
+        self.name = f"faulty({inner.name})"
+        self._programs_built = 0
+        self._dispatches = 0
+        self._plan_gathers: dict = {}   # rank -> plan gathers seen
+        self._lock = threading.Lock()
+
+    # -- delegation ---------------------------------------------------
+
+    @property
+    def n_ranks(self) -> int:
+        return self._inner.n_ranks
+
+    @property
+    def n_slices(self) -> int:
+        return self._inner.n_slices
+
+    @property
+    def chips_per_slice(self) -> int:
+        return self._inner.chips_per_slice
+
+    def all_to_all(self, x):
+        return self._inner.all_to_all(x)
+
+    def ppermute_all_to_all(self, x):
+        return self._inner.ppermute_all_to_all(x)
+
+    def all_to_all_chip(self, x):
+        return self._inner.all_to_all_chip(x)
+
+    def all_to_all_slice(self, x):
+        return self._inner.all_to_all_slice(x)
+
+    def axis_index(self) -> int:
+        return self._inner.axis_index()
+
+    def psum(self, x):
+        return self._inner.psum(x)
+
+    def ragged_all_to_all(self, operand, output, input_offsets,
+                          send_sizes, output_offsets, recv_sizes,
+                          recv_offsets=None):
+        return self._inner.ragged_all_to_all(
+            operand, output, input_offsets, send_sizes, output_offsets,
+            recv_sizes, recv_offsets=recv_offsets)
+
+    def count_wire(self, rows: int, nbytes: int) -> None:
+        self._inner.count_wire(rows, nbytes)
+
+    def count_tiers(self, ici: int, dcn: int, saved: int = 0) -> None:
+        self._inner.count_tiers(ici, dcn, saved)
+
+    def counters(self) -> dict:
+        return self._inner.counters()
+
+    def host_ints(self, *vectors) -> list:
+        return self._inner.host_ints(*vectors)
+
+    def local_rows(self, capacity: int) -> range:
+        return self._inner.local_rows(capacity)
+
+    def barrier(self) -> None:
+        self._inner.barrier()
+
+    def host_max(self, value: float) -> float:
+        return self._inner.host_max(value)
+
+    def finalize(self) -> None:
+        self._inner.finalize()
+
+    def __getattr__(self, name):
+        # reached only for attributes the wrapper does not define
+        return getattr(self._inner, name)
+
+    # -- injection seams ----------------------------------------------
+
+    def all_gather(self, x):
+        g = self._inner.all_gather(x)
+        # The ragged plan's count exchange: an int64 (1, m) row a rank
+        # (shuffle.prefetch_ragged_plans, ragged_plan), gathered to (n,
+        # m). Each rank adds its own rank index to row seed % n of its
+        # view: rank 0 adds 0, so the ranks disagree rather than shift.
+        if (self.plan.corrupt_plan_gathers and x.dtype == torch.int64
+                and x.ndim == 2 and x.shape[0] == 1
+                and self._take_plan_gather()):
+            n = self.n_ranks
+            g = g.clone()
+            g[self.plan.seed % n] += self.axis_index()
+        return g
+
+    def _take_plan_gather(self) -> bool:
+        """Whether this rank's next plan gather is one of the first
+        ``corrupt_plan_gathers`` (counted a rank: the emulated ranks are
+        threads, each making the same gathers)."""
+        me = self.axis_index()
+        with self._lock:
+            seen = self._plan_gathers.get(me, 0)
+            self._plan_gathers[me] = seen + 1
+            return seen < self.plan.corrupt_plan_gathers
+
+    def spmd(self, fn: Callable, *, sharded_out=None,
+             local_inputs=False) -> Callable:
+        idx = self._programs_built
+        self._programs_built += 1
+        inject_overflow = idx < self.plan.overflow_programs
+
+        def wrapped(*args):
+            out = fn(*args)
+            if inject_overflow:
+                if isinstance(out, JoinResult):
+                    out = dataclasses.replace(out,
+                                              overflow=out.overflow | True)
+                elif (isinstance(out, tuple) and out
+                      and isinstance(out[0], JoinResult)):
+                    out = (dataclasses.replace(
+                        out[0], overflow=out[0].overflow | True),) + out[1:]
+            return out
+
+        compiled = self._inner.spmd(wrapped, sharded_out=sharded_out,
+                                    local_inputs=local_inputs)
+
+        def dispatch(*args, **kwargs):
+            with self._lock:
+                self._dispatches += 1
+                k = self._dispatches
+            plan = self.plan
+            if plan.dispatch_delay_s and k > (
+                    plan.delay_after_dispatches or 0):
+                time.sleep(plan.dispatch_delay_s)
+            if k <= plan.fail_dispatches:
+                raise FaultInjectedError(
+                    f"injected dispatch failure #{k} "
+                    f"(fail_dispatches={plan.fail_dispatches})")
+            if k in (plan.drop_dispatches or ()):
+                raise FaultInjectedError(
+                    f"injected dispatch drop #{k} "
+                    f"(drop_dispatches={plan.drop_dispatches})")
+            after = plan.fail_after_dispatches
+            if after is not None and k > after:
+                raise FaultInjectedError(
+                    f"injected persistent outage: dispatch #{k} > "
+                    f"fail_after_dispatches={after}")
+            return compiled(*args, **kwargs)
+
+        return dispatch

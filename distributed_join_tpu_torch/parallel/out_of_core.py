@@ -29,6 +29,20 @@ has no torch counterpart, so each hand-over is explicit):
   three batches of inputs and two output blocks.
 
 On the CPU the same loop runs with host tensors and no streams.
+
+Telemetry (JAX :305-513): the phase seconds also accumulate as
+``out_of_core.<phase>`` session counters (the ``stats`` keys unchanged),
+each batch's staging and fetch run in ``stage`` and ``fetch`` spans
+(``batch=``), and the loop records ``out_of_core_measured_window``,
+``batch_complete`` and ``batch_failed`` events.
+
+The watchdog (``batch_deadline_s``, JAX :418-490): each batch's settle
+(the wait on its pinned total, and the warm-up's fetch) runs under
+``watchdog.call_with_deadline``, which hands its worker the loop's
+current CUDA stream; a batch that does not settle in time is a
+``HangError`` batch failure under the loop's degradation contract. The
+two worker pools are torn down by ``watchdog.shutdown_bounded``, so a
+wedged worker cannot hang the interpreter's exit.
 """
 
 from __future__ import annotations
@@ -41,6 +55,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.device import resolve_device
 from distributed_join_tpu_torch.parallel.communicator import (
     Communicator,
@@ -53,6 +68,10 @@ from distributed_join_tpu_torch.parallel.faults import (
     JoinManifest,
     batch_config_fingerprint,
     retry_with_backoff,
+)
+from distributed_join_tpu_torch.parallel.watchdog import (
+    call_with_deadline,
+    shutdown_bounded,
 )
 from distributed_join_tpu_torch.table import Table
 
@@ -239,6 +258,7 @@ class _Stager:
             bt = self._pad(build_cols, self.caps[0], None, "b")
             pt = self._pad(probe_cols, self.caps[1], None, "p")
             self.phase_add("pad_s", time.perf_counter() - t0)
+            self.phase_add("put_s", 0.0)  # the padded buffers are the tables
             return _table(bt), _table(pt), None
         s = self.next_slot
         self.next_slot = (s + 1) % len(self.slots)
@@ -346,8 +366,11 @@ def batched_join_host(
       batch's last failure; ``"continue"`` records it in
       ``stats['failed_batches']`` and the manifest's failure log and
       returns the PARTIAL total of the batches that completed.
-    - ``verify_integrity`` (wire digests) and ``batch_deadline_s`` (the
-      watchdog) are not part of the port and refuse.
+    - ``batch_deadline_s``: each batch's settle (its total reaching the
+      host) is bounded by the watchdog; a batch that does not settle in
+      time fails with ``HangError`` under the same contract.
+    - ``verify_integrity`` (wire digests) is not part of the port yet
+      and refuses.
 
     ``stats`` receives ``elapsed_s`` (the loop after the warm-up,
     staging included), ``build_capacity``, ``probe_capacity``, the
@@ -366,9 +389,6 @@ def batched_join_host(
         raise NotImplementedError(
             "verify_integrity: wire-integrity digests are not part of the "
             "port")
-    if batch_deadline_s is not None:
-        raise NotImplementedError(
-            "batch_deadline_s: the watchdog is not part of the port")
     if len(build_batches) != len(probe_batches):
         raise ValueError("build/probe batch counts differ")
     if on_batch_failure not in ("raise", "continue"):
@@ -415,11 +435,19 @@ def batched_join_host(
 
     def _phase_add(k, dt):
         phase[k] += dt
+        telemetry.counter_add("out_of_core." + k, dt)
 
     stager = _Stager(comm, dev, (bcap, pcap), _phase_add)
 
     def stage(b):
-        return stager.stage(build_batches[b], probe_batches[b])
+        with telemetry.span("stage", batch=b):
+            return stager.stage(build_batches[b], probe_batches[b])
+
+    def bounded(fn, what):
+        """``fn()``, under the watchdog when a batch deadline is set."""
+        if batch_deadline_s is None:
+            return fn()
+        return call_with_deadline(fn, batch_deadline_s, what=what)
 
     fn = make_distributed_join(comm, key=key, local_inputs=True, **join_opts)
     pool = ThreadPoolExecutor(max_workers=1)
@@ -429,17 +457,18 @@ def batched_join_host(
     def _fetch(b, res, done):
         # on the fetch thread, in batch order; on a card its copies run on
         # the D2H stream, after the batch's join and nothing later
-        tf = time.perf_counter()
-        if d2h is None:
-            on_batch_result(b, res)
-        else:
-            with torch.cuda.stream(d2h):
-                d2h.wait_event(done)
-                for t in [*res.table.columns.values(), res.table.valid,
-                          res.total, res.overflow]:
-                    t.record_stream(d2h)
+        with telemetry.span("fetch", batch=b):
+            tf = time.perf_counter()
+            if d2h is None:
                 on_batch_result(b, res)
-        _phase_add("fetch_s", time.perf_counter() - tf)
+            else:
+                with torch.cuda.stream(d2h):
+                    d2h.wait_event(done)
+                    for t in [*res.table.columns.values(), res.table.valid,
+                              res.total, res.overflow]:
+                        t.record_stream(d2h)
+                    on_batch_result(b, res)
+            _phase_add("fetch_s", time.perf_counter() - tf)
 
     # the remaining budget of FAILED attempts a batch, shared by the
     # warm-up and the loop (a success is free)
@@ -484,7 +513,8 @@ def batched_join_host(
             return
         b = pending[i]
         try:
-            totals[i], overflows[i] = totals[i].get()
+            totals[i], overflows[i] = bounded(
+                totals[i].get, f"out-of-core batch {b} result fetch")
         except Exception as exc:  # noqa: BLE001 - the degradation seam
             if manifest is not None:
                 manifest.record_failure(
@@ -493,7 +523,11 @@ def batched_join_host(
                 raise
             totals[i], overflows[i] = None, None
             failed.add(b)
+            telemetry.event("batch_failed", batch=b,
+                            error=f"{type(exc).__name__}: {exc}")
             return
+        telemetry.event("batch_complete", batch=b, total=totals[i],
+                        overflow=overflows[i])
         if manifest is not None:
             manifest.record_batch(b, totals[i], overflows[i])
 
@@ -507,7 +541,8 @@ def batched_join_host(
             res = _dispatch(pending[0], *nxt)
             if res is not None:
                 try:
-                    int(res.total)
+                    bounded(lambda: int(res.total),
+                            "out-of-core warmup result fetch")
                 except Exception as exc:  # noqa: BLE001 - as _settle
                     if manifest is not None:
                         manifest.record_failure(
@@ -518,10 +553,15 @@ def batched_join_host(
                     failed.add(pending[0])
             del res
 
-        # the phases cover the measured window only
+        # the phases cover the measured window only (the session's
+        # counters cover the whole run; the event marks where the window
+        # starts)
         stager.close()
         for k_ in phase:
             phase[k_] = 0.0
+        telemetry.event("out_of_core_measured_window",
+                        n_batches=n_batches, pending=len(pending),
+                        resumed=sorted(completed))
         t0 = time.perf_counter()
         fut = None
         if pending:
@@ -569,8 +609,10 @@ def batched_join_host(
         _phase_add("fetch_wait_s", time.perf_counter() - tf)
         stager.close()
     finally:
-        pool.shutdown(wait=True, cancel_futures=True)
-        fetch_pool.shutdown(wait=True, cancel_futures=True)
+        # bounded: a worker wedged in a dead device call must not hang
+        # the interpreter's exit
+        shutdown_bounded(pool, "out_of_core.stage")
+        shutdown_bounded(fetch_pool, "out_of_core.fetch")
     # the batches a previous run completed (no overflow among them)
     total += sum(v["total"] for v in completed.values())
     if failed and stats is None:

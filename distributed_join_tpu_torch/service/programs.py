@@ -22,6 +22,11 @@ with them):
 The JAX package's disk tier (XLA executable serialisation,
 ``persist_dir``, and its chipless AOT helpers, :430-592) has no
 counterpart in the port: ``persist_dir`` refuses by name.
+
+With a telemetry session on, each build records a
+``program_cache_trace`` event and each LRU eviction a
+``program_cache_lru_evict`` event, under the JAX package's names and
+payloads (:303, :329, :410).
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ import json
 from collections import OrderedDict
 from typing import Callable, Optional
 
+from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.parallel.communicator import Communicator
 from distributed_join_tpu_torch.parallel.distributed_join import (
     JOIN_SHARDED_OUT,
@@ -236,11 +242,16 @@ class JoinProgramCache:
         self.misses += 1
         entry = CachedProgram(sig, builder())
         self.traces += 1
+        telemetry.event("program_cache_trace", digest=sig.digest()[:12],
+                        entries=len(self._entries) + 1)
         self._entries[sig] = entry
         if self.max_entries is not None \
                 and len(self._entries) > self.max_entries:
-            self._entries.popitem(last=False)
+            old_sig, _ = self._entries.popitem(last=False)
             self.lru_evictions += 1
+            telemetry.event("program_cache_lru_evict",
+                            digest=old_sig.digest()[:12],
+                            entries=len(self._entries))
         return entry, False
 
     def predict_hit(self, digest: str) -> dict:

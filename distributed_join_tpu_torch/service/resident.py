@@ -31,8 +31,16 @@ table: the programs take it as a local input (``Communicator.spmd``'s
 ``local_inputs``) beside the global probe.
 
 ``join``'s ``tuner``, ``explain``, ``verify_integrity`` and
-``with_metrics`` refuse by name: the tuner, the plans, the wire digests
-and the metrics are not part of the port.
+``with_metrics`` refuse by name (``with_metrics=None`` passes): the
+tuner, the plans, the wire digests and the metrics are not part of the
+port.
+
+Telemetry (JAX :240-279, :615-713, :869-873): the prep step's
+``partition``, ``shuffle`` and ``sort`` spans and the merge's
+``merge_sort``; the ``resident_register``, ``resident_append``,
+``resident_maintain`` and ``resident_drop`` events; and each served
+join in a ``resident_join`` span (``table``, ``generation``) that ends
+on a fetch of the total (``sync_on``, the one sync of a request).
 """
 
 from __future__ import annotations
@@ -47,6 +55,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.ops.hashing import hash_columns
 from distributed_join_tpu_torch.ops.join import _lexsort, _sentinel_max
 from distributed_join_tpu_torch.ops.partition import radix_hash_partition
@@ -193,13 +202,18 @@ def make_resident_prep_step(comm, key="key",
         else:
             b_cap = _round_up(int(math.ceil(
                 build_local.capacity / n * shuffle_capacity_factor)), 8)
-            pt = radix_hash_partition(build_local, keys, n)
-            recv, ovf = _batch_shuffle(comm, pt, 0, n, b_cap, mode=shuffle)
+            with telemetry.span("partition"):
+                pt = radix_hash_partition(build_local, keys, n)
+            with telemetry.span("shuffle"):
+                recv, ovf = _batch_shuffle(comm, pt, 0, n, b_cap,
+                                           mode=shuffle)
         if recv.capacity > resident_rows_per_rank:
             raise ValueError(
                 f"resident capacity {resident_rows_per_rank} below the "
                 f"shuffle receive block {recv.capacity}")
-        run = _key_sorted_prefix(recv.pad_to(resident_rows_per_rank), keys)
+        with telemetry.span("sort"):
+            run = _key_sorted_prefix(recv.pad_to(resident_rows_per_rank),
+                                     keys)
         rows, digest = _run_accounting(comm, run, keys)
         overflow = comm.psum(ovf.to(torch.int32)) > 0
         return run, rows, digest, in_rows, in_digest, overflow
@@ -221,7 +235,8 @@ def make_run_merge_step(comm, key="key"):
             {n: torch.cat([base_local.columns[n], run_local.columns[n]])
              for n in base_local.column_names},
             torch.cat([base_local.valid, run_local.valid]))
-        sorted_ = _key_sorted_prefix(merged, keys)
+        with telemetry.span("merge_sort"):
+            sorted_ = _key_sorted_prefix(merged, keys)
         ovf = sorted_.valid.sum(dtype=torch.int64) > base_cap
         out = Table({n: c[:base_cap] for n, c in sorted_.columns.items()},
                     sorted_.valid[:base_cap])
@@ -497,6 +512,9 @@ class ResidentTableRegistry:
         if old is not None:
             self._evict_generation(old)
         self.registered += 1
+        telemetry.event("resident_register", table=name, rows=rows,
+                        capacity_per_rank=cap,
+                        bytes=handle.bytes_resident)
         return handle
 
     def append(self, name: str, delta: Table, *,
@@ -520,6 +538,9 @@ class ResidentTableRegistry:
         handle.pending_runs.append((run, rows, digest, cap))
         handle.appends += 1
         self._bump_generation(handle)
+        telemetry.event("resident_append", table=name,
+                        delta_rows=rows, generation=handle.generation,
+                        pending_runs=len(handle.pending_runs))
         if maintain or (maintain is None
                         and len(handle.pending_runs) >= self.maintain_runs):
             self.maintain(name)
@@ -560,6 +581,10 @@ class ResidentTableRegistry:
             handle.pending_runs.pop(0)
             handle.merges += 1
             merged += 1
+        if merged:
+            telemetry.event("resident_maintain", table=name,
+                            runs_merged=merged, rows=handle.rows,
+                            generation=handle.generation)
         return merged
 
     def drop(self, name: str) -> None:
@@ -570,6 +595,7 @@ class ResidentTableRegistry:
             del self._tables[name]
         self._evict_generation(handle)
         self.dropped += 1
+        telemetry.event("resident_drop", table=name)
 
     def _bump_generation(self, handle: ResidentTable) -> None:
         self._evict_generation(handle)
@@ -650,7 +676,12 @@ class ResidentTableRegistry:
 
             fn, hit = self._program(sig, build)
             handle.cached_sigs.add(sig)
-            res = fn(handle.table, probe)
+            with telemetry.span("resident_join", table=name,
+                                generation=handle.generation) as sp:
+                res = fn(handle.table, probe)
+                if sp is not None:
+                    # the one sync of a served request (JAX :869-873)
+                    sp.sync_on(res.total)
             overflow = bool(res.overflow)
             ladder.note(overflow)
             if attempt == auto_retry or not overflow:

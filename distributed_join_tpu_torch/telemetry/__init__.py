@@ -1,0 +1,237 @@
+"""Telemetry: one host-side observability session for the port.
+
+Port of ``distributed_join_tpu/telemetry/__init__.py`` (:65-272): one
+process-global session with three parts:
+
+- :mod:`.spans` — hierarchical host-side spans, each also a
+  ``torch.profiler.record_function`` range (and an NVTX range on a card),
+  so span names line up with the kernels of a ``--trace`` device trace;
+- :mod:`.export` — the :class:`~.export.TelemetrySink`: the JSONL event
+  log, the Chrome trace with counter tracks, the rank-0 summary, and the
+  ``torch.profiler`` device trace of ``--trace``;
+- the readers that need no device: :mod:`.history` (the workload-history
+  store of ``--history``), :mod:`.timeline` (one trace from the per-rank
+  event logs) and the two signature helpers of :mod:`.baselines`.
+
+The device metrics tape (the JAX package's ``telemetry/metrics.py``),
+its reader ``emit_metrics`` and the stage profile are not part of the
+port yet: those two functions refuse a value by name, and a step's
+``with_metrics=None`` resolves to False with a session on.
+
+The contract: **telemetry off changes nothing**. Until :func:`configure`
+activates a session every function here is a no-op and :func:`span` the
+shared ``nullcontext``. So is every call on a muted thread (an emulated
+rank other than rank 0; :mod:`.spans`).
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Optional
+
+from distributed_join_tpu_torch.telemetry import spans as _spans
+from distributed_join_tpu_torch.telemetry.export import TelemetrySink
+
+__all__ = [
+    "TelemetrySink",
+    "configure", "configure_from_args", "counter_add",
+    "current_trace", "emit_metrics", "enabled", "event", "finalize",
+    "maybe_start_device_trace", "refresh_rank", "request_scope",
+    "session", "sink", "span", "span_complete", "stage_profile",
+    "stop_device_trace", "summary",
+]
+
+_active: Optional[TelemetrySink] = None
+_null = contextlib.nullcontext()
+
+
+def enabled() -> bool:
+    """Whether a telemetry session is active."""
+    return _active is not None
+
+
+def sink() -> Optional[TelemetrySink]:
+    return _active
+
+
+def _recording() -> Optional[TelemetrySink]:
+    """The sink, where this thread records (None when off or muted)."""
+    return None if _spans.muted() else _active
+
+
+def configure(out_dir: str, *, trace: bool = False,
+              rank: Optional[int] = None) -> TelemetrySink:
+    """Activate a session writing under ``out_dir``. ``trace`` arms the
+    device trace, started later by :func:`maybe_start_device_trace`:
+    under NCCL the profiler must not start before the handshake has
+    chosen this process's card. Reconfiguring finalizes the previous
+    session."""
+    global _active
+    if _active is not None:
+        finalize()
+    if rank is None:
+        from distributed_join_tpu_torch.parallel.bootstrap import process_id
+
+        rank = process_id()
+    _active = TelemetrySink(out_dir, rank=rank, device_trace=trace)
+    return _active
+
+
+def configure_from_args(args) -> bool:
+    """Driver seam: activate from ``--telemetry[=DIR]``, ``--trace`` or
+    ``--history`` (``benchmarks.add_telemetry_args``). Either of the
+    last two alone implies a session at the default directory. Returns
+    whether a session was configured."""
+    out_dir = getattr(args, "telemetry", None)
+    trace = bool(getattr(args, "trace", False))
+    if out_dir is None and (trace or getattr(args, "history", None)):
+        out_dir = "telemetry"
+    if out_dir is None:
+        return False
+    configure(out_dir, trace=trace)
+    return True
+
+
+def maybe_start_device_trace() -> None:
+    """Start the ``--trace`` device trace, once, after the handshake (the
+    drivers call it from ``benchmarks.run_guarded``'s body). No-op
+    without an armed session."""
+    if _active is not None:
+        _active.maybe_start_device_trace()
+
+
+def stop_device_trace() -> Optional[str]:
+    """Stop and export the device trace on the thread that started it;
+    :func:`finalize` does so too. Returns its path, or None."""
+    if _active is None:
+        return None
+    return _active.stop_device_trace()
+
+
+def refresh_rank() -> None:
+    """Rebind the sink's files to the process group's rank once the
+    handshake is done. No-op without a session or when unchanged."""
+    if _active is not None:
+        from distributed_join_tpu_torch.parallel.bootstrap import process_id
+
+        _active.rebind_rank(process_id())
+
+
+def finalize() -> Optional[dict]:
+    """Close the session: stop the device trace, write the Chrome trace
+    and rank 0's summary, close the log. Returns the final summary (None
+    when no session was active). Idempotent."""
+    global _active
+    if _active is None:
+        return None
+    s = _active
+    _active = None
+    return s.close()
+
+
+@contextlib.contextmanager
+def session(out_dir: str, *, trace: bool = False, rank: Optional[int] = None):
+    """``with telemetry.session(d) as sink: ...`` — configured on entry,
+    finalized on exit."""
+    s = configure(out_dir, trace=trace, rank=rank)
+    try:
+        yield s
+    finally:
+        if _active is s:
+            finalize()
+
+
+def span(name: str, **payload):
+    """Hierarchical span context manager (the shared nullcontext when off
+    or muted). The handle supports ``note(**kv)`` and ``sync_on(tensor)``
+    (:mod:`.spans`)."""
+    s = _recording()
+    if s is None:
+        return _null
+    return _spans.span_scope(s, name, payload or None)
+
+
+def span_complete(name: str, t0_perf: float, dur_s: float, **payload) -> None:
+    """Record an already-measured interval as a completed span
+    (``t0_perf`` a ``time.perf_counter()`` stamp)."""
+    s = _recording()
+    if s is not None:
+        s.span_event(name, t0_perf, dur_s, payload=payload or None)
+
+
+@contextlib.contextmanager
+def request_scope(request_id: Optional[str],
+                  trace: Optional[dict] = None):
+    """Tag every event and span recorded inside the scope with a request
+    id and, when ``trace`` carries a ``tracectx`` context, with its
+    ``(trace_id, span_id, parent_span_id)``. The tags are sink-global,
+    so the request's worker threads carry them too. No-op when off or
+    both tags are None; nests (the previous tags come back on exit)."""
+    s = _active
+    if s is None or (request_id is None and trace is None):
+        yield
+        return
+    prev = s.set_request_id(request_id) if request_id is not None \
+        else None
+    prev_trace = s.set_trace(trace) if trace is not None else None
+    try:
+        yield
+    finally:
+        if trace is not None:
+            s.set_trace(prev_trace)
+        if request_id is not None:
+            s.set_request_id(prev)
+
+
+def current_trace() -> Optional[dict]:
+    """The trace context of the innermost active :func:`request_scope`
+    (None when off or unset)."""
+    if _active is None:
+        return None
+    return _active.current_trace()
+
+
+def event(name: str, **payload) -> None:
+    """Record an instant event (retry attempts, manifest writes, batch
+    completion, watchdog timeouts...)."""
+    s = _recording()
+    if s is not None:
+        s.event(name, payload=payload or None)
+
+
+def counter_add(name: str, value) -> None:
+    """Accumulate a host-side counter (``counters`` in the summary, a
+    counter track in the Chrome trace)."""
+    s = _recording()
+    if s is not None:
+        s.counter_add(name, value)
+
+
+def emit_metrics(metrics) -> Optional[dict]:
+    """The JAX package's device-metrics fold. The metrics tape is not
+    part of the port yet: None passes (no metrics rode the program), a
+    value refuses by name."""
+    if metrics is None:
+        return None
+    raise NotImplementedError(
+        "telemetry.emit_metrics: the device metrics tape (the JAX "
+        "package's telemetry/metrics.py) is not part of the port yet "
+        "(ROADMAP A5)")
+
+
+def stage_profile(record) -> None:
+    """The JAX package's stage-profile track. Not part of the port yet:
+    None passes, a record refuses by name."""
+    if record is None:
+        return
+    raise NotImplementedError(
+        "telemetry.stage_profile: the stage profile (the JAX package's "
+        "telemetry/stageprof.py) is not part of the port yet (ROADMAP A5)")
+
+
+def summary() -> Optional[dict]:
+    """The session summary drivers embed in their records (counters,
+    span totals, file locations). None when off."""
+    if _active is None:
+        return None
+    return _active.summary()

@@ -23,6 +23,7 @@ from typing import Callable
 
 import torch
 
+from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.table import Table
 
 
@@ -89,6 +90,8 @@ def timed_join_throughput(comm, step: Callable, build: Table, probe: Table,
         sec = time.perf_counter() - t0
     total, overflow = int(total), bool(overflow)
     int(consumed)
+    telemetry.span_complete("timed_join", t0, sec, iters=iters,
+                            per_iter_s=sec / iters)
     return comm.host_max(sec) / iters, total // iters, overflow
 
 

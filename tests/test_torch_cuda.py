@@ -8,6 +8,7 @@ skips, decided in the ``card`` fixture. Run on a machine with a GPU:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 """
 
+import json
 import zlib
 
 import numpy as np
@@ -1740,3 +1741,63 @@ def test_mixed_dtype_composite_key_on_card_equals_cpu(card):
         for name in c["rows"]:
             np.testing.assert_array_equal(np.sort(g["rows"][name]),
                                           np.sort(c["rows"][name]))
+
+
+def test_trace_nests_the_join_kernels_in_the_join_span(card, tmp_path):
+    """A telemetry session with the device trace on around a join on the
+    card: the profiler's trace holds every launch of ``join_scans``,
+    ``stream_compact`` and ``expand_gather`` inside a ``join`` span, the
+    spans line up with the kernels; and the session changes neither the
+    launches nor the rows."""
+    import re
+
+    from distributed_join_tpu_torch import telemetry
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.telemetry.export import (
+        device_trace_kernels,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    build, probe = generate_build_probe_tables(
+        seed=3, build_nrows=1 << 20, probe_nrows=1 << 20, device=card)
+    wrappers = (scan.join_scans, join_mod.compact_records,
+                join_mod.pack_matched_builds, expand.expand_gather)
+
+    def counted_join():
+        _kernels.reset_launch_counts(*wrappers)
+        res = distributed_inner_join(build, probe, LocalCommunicator(),
+                                     over_decomposition=2,
+                                     out_capacity_factor=2.0)
+        torch.cuda.synchronize()
+        return res, [w.launches for w in wrappers]
+
+    off, off_counts = counted_join()
+    with telemetry.session(str(tmp_path / "tel"), trace=True) as sink:
+        telemetry.maybe_start_device_trace()
+        on, on_counts = counted_join()
+        path = telemetry.stop_device_trace()
+        events_path = sink.events_path
+    assert on_counts == off_counts and min(on_counts) > 0
+    assert int(on.total) == int(off.total) > 0
+    sums = [sum(int(torch.where(r.table.valid, c.to(torch.int64), 0).sum())
+                for c in r.table.columns.values()) for r in (off, on)]
+    assert sums[0] == sums[1]
+    kernels = device_trace_kernels(path, "join")
+    found = {}
+    for src, names in (("join_scans", ("r_pass", "f_pass")),
+                       ("stream_compact", ("compact_kernel",)),
+                       ("expand_gather", ("expand_kernel",))):
+        hits = [v for k, v in kernels.items()
+                if any(re.search(rf"\b{n}\b", k) for n in names)]
+        found[src] = (sum(h["launches"] for h in hits),
+                      sum(h["inside"] for h in hits))
+        assert found[src][0] > 0 and found[src][0] == found[src][1], found
+    with open(events_path) as f:
+        spans = [json.loads(line)["name"] for line in f]
+    assert {"partition", "shuffle", "join"} <= set(spans)

@@ -435,7 +435,16 @@ def test_port_imports_no_jax():
             "distributed_join_tpu_torch.benchmarks.launch",
             "distributed_join_tpu_torch.benchmarks.all_to_all",
             "distributed_join_tpu_torch.ops.compression",
-            "distributed_join_tpu_torch.ops.segmented"} <= set(mods)
+            "distributed_join_tpu_torch.ops.segmented",
+            "distributed_join_tpu_torch.telemetry",
+            "distributed_join_tpu_torch.telemetry.spans",
+            "distributed_join_tpu_torch.telemetry.export",
+            "distributed_join_tpu_torch.telemetry.tracectx",
+            "distributed_join_tpu_torch.telemetry.baselines",
+            "distributed_join_tpu_torch.telemetry.history",
+            "distributed_join_tpu_torch.telemetry.timeline",
+            "distributed_join_tpu_torch.parallel.watchdog",
+            "distributed_join_tpu_torch.parallel.faults"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['distributed_join_tpu'] = None\n"

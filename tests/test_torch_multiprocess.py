@@ -30,6 +30,7 @@ import jax.numpy as jnp
 from distributed_join_tpu.parallel import communicator as jcomm
 from distributed_join_tpu.parallel import distributed_join as jdist
 from distributed_join_tpu.parallel import faults as jfaults
+from distributed_join_tpu.parallel import out_of_core as jooc
 from distributed_join_tpu.ops import partition as jpart
 from distributed_join_tpu.parallel.shuffle import (
     shuffle_padded as jshuffle_padded,
@@ -101,6 +102,26 @@ RESIDENT_JOINS = [dict(out_capacity_factor=4.0),
                   dict(over_decomposition=2, shuffle="ragged",
                        out_capacity_factor=4.0),
                   dict(out_capacity_factor=0.5, auto_retry=2)]
+# fault plans over 2 gloo processes (parallel/faults.py), on the uniform
+# tables: the ladder from injected overflows, and the batch loop's retry
+# and degradation
+FAULT_JOINS = {
+    "fault_ladder": dict(plan={"overflow_programs": 2},
+                         opts=dict(auto_retry=3, out_capacity_factor=3.0)),
+    "fault_bits": dict(plan={"overflow_programs": 2},
+                       opts=dict(auto_retry=4, out_capacity_factor=3.0,
+                                 shuffle_capacity_factor=2.5,
+                                 compression_bits=8)),
+}
+FAULT_LOOP_OPTS = dict(n_batches=4, warmup=False, batch_retries=1,
+                       batch_retry_backoff_s=0.01, out_capacity_factor=3.0,
+                       shuffle_capacity_factor=3.0)
+FAULT_LOOPS = {
+    "loop_retry": dict(plan={"fail_dispatches": 1}, opts=FAULT_LOOP_OPTS),
+    "loop_degrade": dict(plan={"fail_dispatches": 2},
+                         opts=dict(FAULT_LOOP_OPTS,
+                                   on_batch_failure="continue")),
+}
 SHUFFLE_CAP = 4096  # no bucket of the probe side overflows it
 RAGGED_LEN = 40
 DTYPE_ROWS = 8  # rows a rank: one block of 4 or 2 rows a peer
@@ -241,6 +262,40 @@ if "resident" in spec:
     out["resident/state"] = np.array(json.dumps(
         [h.rows, h.key_digest, h.generation, h.capacity_per_rank,
          h.merges, cache.stats()]))
+
+if "faults" in spec:
+    # fault plans over the process group, inside a telemetry session (one
+    # event log a rank in one directory)
+    from distributed_join_tpu_torch import telemetry
+    from distributed_join_tpu_torch.parallel.faults import (
+        FaultInjectedError, FaultInjectingCommunicator, plan_from_record)
+    from distributed_join_tpu_torch.parallel.out_of_core import (
+        keyrange_batched_join)
+    f = spec["faults"]
+    b = table(spec["shuffle_tables"], "build")
+    p = table(spec["shuffle_tables"], "probe")
+    with telemetry.session(f["telemetry"]):
+        for name, case in f["joins"].items():
+            fc = FaultInjectingCommunicator(comm,
+                                            plan_from_record(case["plan"]))
+            save_result(name, distributed_inner_join(b, p, fc,
+                                                     **case["opts"]))
+        for name, case in f["loops"].items():
+            fc = FaultInjectingCommunicator(comm,
+                                            plan_from_record(case["plan"]))
+            stats = {}
+            total, ovf = keyrange_batched_join(b, p, fc, device="cpu",
+                                               stats=stats, **case["opts"])
+            out[f"{name}/total"] = np.int64(total)
+            out[f"{name}/overflow"] = np.bool_(ovf)
+            out[f"{name}/failed"] = np.array(stats["failed_batches"],
+                                             np.int64)
+        try:
+            distributed_inner_join(b, p, FaultInjectingCommunicator(
+                comm, plan_from_record({"fail_dispatches": 1})))
+            out["fault_error"] = np.array("")
+        except FaultInjectedError as exc:
+            out["fault_error"] = np.array(str(exc))
 
 np.savez(f"{spec['out']}/rank{r}.npz", **out)
 bootstrap.shutdown()
@@ -427,6 +482,8 @@ def worker_runs(tmp_path_factory):
             np.savez(d / "delta.npz", valid=valid, **cols)
             spec["resident"] = {"joins": RESIDENT_JOINS,
                                 "delta": str(d / "delta.npz")}
+            spec["faults"] = {"joins": FAULT_JOINS, "loops": FAULT_LOOPS,
+                              "telemetry": str(d / "telemetry")}
         (d / "spec.json").write_text(json.dumps(spec))
         (d / "worker.py").write_text(WORKER)
         t0 = time.monotonic()
@@ -435,7 +492,8 @@ def worker_runs(tmp_path_factory):
         assert r.returncode == 0, r.stderr[-4000:]
         assert time.monotonic() - t0 < TIMEOUT_S
         ranks = [dict(np.load(d / f"rank{i}.npz")) for i in range(n)]
-        runs[n] = (ranks, {"ragged": ragged, "dtypes": dtypes})
+        runs[n] = (ranks, {"ragged": ragged, "dtypes": dtypes,
+                           "dir": str(d)})
     return runs
 
 
@@ -825,7 +883,7 @@ def test_launcher_refusals():
             "--num-processes", "2"]
     for extra, match in ((["--chaos-seed", "2"], "--chaos-seed"),
                          (["--cpu-devices-per-process", "4"], "one rank"),
-                         (["--telemetry", "x"], "--telemetry")):
+                         (["--diagnose"], "--diagnose")):
         r = subprocess.run([*base, *extra, "--", "true"], env=_env(),
                            capture_output=True, text=True, timeout=60)
         assert r.returncode != 0 and match in r.stderr, r.stderr
@@ -1008,6 +1066,54 @@ def test_config_driver_over_gloo_equals_one_rank(tmp_path):
     assert not rec["overflow"] and rec["rank"] == 0
 
 
+DRIVER_TELEMETRY_CASES = {
+    "distributed_join": ["--communicator", "gloo", "--build-table-nrows",
+                         "4096", "--probe-table-nrows", "4096",
+                         "--iterations", "1"],
+    "tpch_join": ["--communicator", "gloo", "--scale-factor", "0.002",
+                  "--batches", "2", "--host-generator"],
+    "all_to_all": ["--communicator", "gloo", "--buffer-size", "16384",
+                   "--iterations", "2"],
+}
+
+
+@pytest.mark.parametrize("driver", sorted(DRIVER_TELEMETRY_CASES))
+def test_drivers_over_gloo_with_telemetry_trace_history_and_guard(
+        tmp_path, driver):
+    """``--telemetry DIR --trace --history FILE --guard-deadline-s S``
+    given to the launcher reach both gloo processes of each driver: one
+    record (rank 0's) with the session's summary, each rank's event log,
+    Chrome trace and device trace in DIR, and one history entry."""
+    tel, hist = tmp_path / "tel", tmp_path / "h.jsonl"
+    cmd = [sys.executable, "-m",
+           "distributed_join_tpu_torch.benchmarks.launch",
+           "--num-processes", "2", "--cpu-devices-per-process", "1",
+           "--coordinator", f"localhost:{_free_port()}",
+           "--telemetry", str(tel), "--trace", "--history", str(hist),
+           "--guard-deadline-s", "300", "--",
+           sys.executable, "-m",
+           f"distributed_join_tpu_torch.benchmarks.{driver}",
+           *DRIVER_TELEMETRY_CASES[driver]]
+    r = subprocess.run(cmd, env=_env(), capture_output=True, text=True,
+                       timeout=TIMEOUT_S, cwd=REPO)
+    assert r.returncode == 0, r.stderr[-3000:]
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    assert rec["telemetry"]["rank"] == 0 and "metrics" in rec["not_ported"]
+    for rank in (0, 1):
+        for f in (f"events.rank{rank}.jsonl", f"trace.rank{rank}.json",
+                  f"device_trace/trace.rank{rank}.json"):
+            assert (tel / f).exists(), f
+    with open(tel / "events.rank1.jsonl") as f:
+        names = [json.loads(line)["name"] for line in f]
+    assert "watchdog_armed" in names and "bootstrap_ok" in names
+    with open(hist) as f:
+        entries = [json.loads(line) for line in f]
+    assert len(entries) == 1 and entries[0]["outcome"] == "ok"
+    assert entries[0]["op"] == driver and entries[0]["platform"] == "cpu"
+
+
 TPCH_WORKER = r'''
 import json, sys
 import numpy as np
@@ -1111,3 +1217,80 @@ def test_tpch_driver_over_gloo_equals_one_rank(tmp_path):
     for k in ("orders_nrows", "lineitem_nrows", "matches_per_join"):
         assert rec[k] == one[k], k
     assert rec["matches_per_join"] > 0 and not rec["overflow"]
+
+
+# -- fault plans and telemetry over 2 gloo processes ------------------------
+
+
+def _fault_comm(jcomms, n, plan):
+    return jfaults.FaultInjectingCommunicator(
+        jcomms[n], jfaults.plan_from_record(plan))
+
+
+@pytest.mark.parametrize("case", sorted(FAULT_JOINS))
+def test_gloo_fault_ladders_equal_jax(worker_runs, jcomms, case):
+    """An injected overflow drives the ladder over the process group as
+    on emulated ranks and in the JAX package: the same trail, the clean
+    total."""
+    ranks, _ = worker_runs[2]
+    plan, opts = FAULT_JOINS[case]["plan"], FAULT_JOINS[case]["opts"]
+    bc, bv, pc, pv = _uniform_tables()
+    want = jdist.distributed_inner_join(_jtable(bc, bv), _jtable(pc, pv),
+                                        _fault_comm(jcomms, 2, plan), **opts)
+    emu = tdist.distributed_inner_join(
+        _ttable(bc, bv), _ttable(pc, pv), tfaults.FaultInjectingCommunicator(
+            EmulatedCommunicator(2), tfaults.plan_from_record(plan)), **opts)
+    assert {int(rk[f"{case}/total"]) for rk in ranks} == {
+        int(emu.total)} == {int(want.total)}
+    trails = {rk[f"{case}/attempts"].item() for rk in ranks}
+    assert len(trails) == 1
+    got = [{f: a[f] for f in LADDER_FIELDS} for a in json.loads(trails.pop())]
+    assert got == _attempts(emu.retry_report) == _attempts(want.retry_report)
+    assert [a["overflow"] for a in got] == [True, True, False]
+
+
+def test_gloo_fault_loops_equal_jax(worker_runs, jcomms):
+    """The batch loop over the process group recovers a transient
+    dispatch failure with a retry, and with ``continue`` degrades to the
+    partial total of the batches that ran, as the JAX package's loop."""
+    ranks, _ = worker_runs[2]
+    bc, bv, pc, pv = _uniform_tables()
+    for case, spec in FAULT_LOOPS.items():
+        stats = {}
+        want, _ = jooc.keyrange_batched_join(
+                            _jtable(bc, bv), _jtable(pc, pv),
+                            _fault_comm(jcomms, 2, spec["plan"]),
+                            stats=stats, **spec["opts"])
+        for rk in ranks:
+            assert int(rk[f"{case}/total"]) == int(want)
+            assert not bool(rk[f"{case}/overflow"])
+            assert rk[f"{case}/failed"].tolist() == stats["failed_batches"]
+    assert ranks[0]["loop_degrade/failed"].tolist() == [0]
+    assert all(str(rk["fault_error"]).startswith(
+        "injected dispatch failure #1") for rk in ranks)
+
+
+def test_gloo_telemetry_session_a_rank(worker_runs):
+    """Each process writes its own rank's files into the one session
+    directory; both packages' timeline readers assemble them, and each
+    rank's log holds the steps' spans and the ladder's and the loop's
+    events."""
+    from distributed_join_tpu.telemetry import timeline as jtimeline
+    from distributed_join_tpu.telemetry.analyze import check_file
+    from distributed_join_tpu_torch.telemetry import timeline as ttimeline
+    d = os.path.join(worker_runs[2][1]["dir"], "telemetry")
+    asm = ttimeline.assemble([d])
+    assert [p["label"].rsplit(":", 1)[1] for p in asm["procs"]] == ["r0",
+                                                                     "r1"]
+    assert ttimeline.as_record(asm) == jtimeline.as_record(
+        jtimeline.assemble([d]))
+    for rank in (0, 1):
+        with open(os.path.join(d, f"events.rank{rank}.jsonl")) as f:
+            events = [json.loads(line) for line in f]
+        spans = {e["name"] for e in events if e["kind"] == "span"}
+        assert {"partition", "shuffle", "join", "stage"} <= spans
+        names = [e["name"] for e in events]
+        assert "retry_attempt" in names and "batch_complete" in names
+        assert all(e["rank"] == rank for e in events)
+        assert check_file(os.path.join(d, f"trace.rank{rank}.json")) == []
+

@@ -786,3 +786,55 @@ def test_driver_refuses_compression_on_the_ragged_wire():
             ["--communicator", "emulated", "--n-ranks", "2", *DRIVER_BASE,
              "--shuffle", "ragged", "--string-payload-bytes", "10"]),
             device="cpu")
+
+
+@pytest.mark.parametrize("mode", [None, "flat", "segmented", "auto"])
+def test_all_to_all_driver_sort_mode_guard_matches_jax(mode, capsys):
+    """The all-to-all benchmark takes ``--sort-mode flat`` and
+    ``--sort-segments`` as the JAX benchmark does, refuses any other
+    sort mode with its message, and takes ``--n-ranks``."""
+    from distributed_join_tpu.benchmarks import all_to_all as ja2a
+    from distributed_join_tpu_torch.benchmarks import all_to_all as ta2a
+    argv = ["--sort-segments", "4", "--n-ranks", "2"] + (
+        ["--sort-mode", mode] if mode else [])
+    targs, jargs = ta2a.parse_args(argv), ja2a.parse_args(argv)
+    for f in ("sort_mode", "sort_segments", "n_ranks"):
+        assert getattr(targs, f) == getattr(jargs, f)
+    if mode in (None, "flat"):
+        # past the guard: a two-rank exchange needs the process group
+        with pytest.raises(SystemExit, match="--n-ranks 2"):
+            ta2a.run(targs, device="cpu")
+        return
+    with pytest.raises(SystemExit) as got:
+        ta2a.run(targs, device="cpu")
+    with pytest.raises(SystemExit) as want:
+        ja2a.run(jargs)
+    assert str(got.value) == str(want.value)
+    assert "no local sort" in str(got.value)
+
+
+@pytest.mark.parametrize("ranks", [1, 4])
+def test_driver_ab_passes_build_no_warm_program(ranks):
+    """``--agg-ab`` and ``--sort-ab`` take their programs from a program
+    cache, as the JAX driver's do (JAX ``benchmarks/distributed_join.py``
+    :844, :962): one build a program on the warm-up, none on the timed
+    passes, so ``warm_pushdown_new_traces`` and ``warm_new_traces`` are
+    the JAX driver's 0 (its own passes also run a metrics program, which
+    raises on the installed jax, so the count is held to that value)."""
+    from distributed_join_tpu_torch.benchmarks import (
+        distributed_join as tdriver,
+    )
+    comm = (["--communicator", "local"] if ranks == 1 else
+            ["--communicator", "emulated", "--n-ranks", str(ranks)])
+    rec = tdriver.run(tdriver.parse_args(
+        [*comm, "--build-table-nrows", "8000", "--probe-table-nrows",
+         "8000", "--iterations", "1", "--over-decomposition-factor", "2",
+         "--agg-ab", "2", "--sort-ab", "2", "--sort-segments", "2"]),
+        device="cpu")
+    agg, srt = rec["agg_ab"], rec["sort_ab"]
+    assert agg["warm_pushdown_new_traces"] == 0
+    assert "warm_pushdown_new_traces" not in agg["not_ported"]
+    assert agg["oracle_equal_pushdown"] and agg["matches"] > 0
+    assert srt["warm_new_traces"] == 0 and srt["digest_equal"]
+    assert "warm_new_traces" not in srt["not_ported"]
+

@@ -374,9 +374,11 @@ def test_batch_loop_refuses_what_the_port_lacks():
     with pytest.raises(NotImplementedError, match="integrity"):
         tooc.batched_join_host(bb, pb, comm, device="cpu",
                                verify_integrity=True)
-    with pytest.raises(NotImplementedError, match="watchdog"):
-        tooc.batched_join_host(bb, pb, comm, device="cpu",
-                               batch_deadline_s=5.0)
+    # the watchdog is ported: a batch deadline bounds each settle, and a
+    # run inside it is the plain run
+    assert tooc.batched_join_host(bb, pb, comm, device="cpu",
+                                  batch_deadline_s=30.0) == \
+        tooc.batched_join_host(bb, pb, comm, device="cpu")
     with pytest.raises(ValueError, match="on_batch_failure"):
         tooc.batched_join_host(bb, pb, comm, device="cpu",
                                on_batch_failure="skip")
@@ -773,6 +775,54 @@ JAX_QUERY_FIELDS = {
     "retry_attempts", "programs_traced", "warm_new_traces",
     "warm_cache_hit", "wire_exact", "wire", "cost_total_s",
     "order_candidates", "aggregate", "stage_profile"}
+
+
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("q", ["q3", "q10"])
+def test_driver_query_cache_fields_equal_jax(q, n):
+    """``--query``'s ``programs_traced``, ``warm_new_traces`` and
+    ``warm_cache_hit`` come from the program cache the plan runs
+    through (JAX :466-487, :574-576): one program a rung of the cold
+    run, none for a warm one, the warm run a hit. The JAX driver's
+    ``--query`` itself raises the shard_map ``out_specs`` replication
+    error on the installed jax (its cached rungs carry a
+    ``metrics_static`` tape), so its count is taken as it defines it, one
+    trace a rung of its ``distributed_query``, on the same tables as the
+    port's cache-backed run."""
+    from distributed_join_tpu.parallel import query_exec as jq
+    from distributed_join_tpu.planning.query import tpch_query_plan as jplan
+    from distributed_join_tpu_torch.parallel.query_exec import (
+        distributed_query,
+    )
+    from distributed_join_tpu_torch.planning.query import tpch_query_plan
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+
+    jtables = jtpch.query_filters(
+        jtpch.generate_tpch_query_tables(seed=7, scale_factor=0.004), q)
+    jres = jq.distributed_query(jtables, jplan(q), jcomm.make_communicator(
+        "tpu", n_ranks=n), auto_retry=4)
+    comm = LocalCommunicator() if n == 1 else EmulatedCommunicator(n)
+    cache = JoinProgramCache(comm)
+    tables = {k: Table.from_numpy(
+        {c: np.asarray(v) for c, v in t.columns.items()},
+        np.asarray(t.valid), device="cpu") for k, t in jtables.items()}
+    cold = distributed_query(tables, tpch_query_plan(q), comm, auto_retry=4,
+                             program_cache=cache)
+    traced = cache.traces
+    warm = distributed_query(tables, tpch_query_plan(q), comm, auto_retry=4,
+                             program_cache=cache)
+    assert cold.retry_attempts == jres.retry_attempts
+    assert traced == jres.retry_attempts + 1
+    assert cache.traces == traced and warm.cache_hit and not cold.cache_hit
+
+    base = ["--scale-factor", "0.004", "--iterations", "2", "--query", q]
+    rec = tdriver.run(tdriver.parse_args(
+        base + (["--communicator", "emulated", "--n-ranks", "4"] if n > 1
+                else [])), device="cpu")
+    for f in ("programs_traced", "warm_new_traces", "warm_cache_hit"):
+        assert f in rec and f not in rec["not_ported"], f
+    assert rec["programs_traced"] == rec["retry_attempts"] + 1
+    assert rec["warm_new_traces"] == 0 and rec["warm_cache_hit"] is True
 
 
 @pytest.mark.parametrize("q", ["q3", "q10"])
