@@ -226,9 +226,22 @@ Phases (any failure raises, and the script exits non-zero):
    spin enqueued before it) reports the partial total, batch 2 failed.
    ``python3 chip_smoke.py --phase 19`` runs this phase alone (after the
    build).
+20. The join service's daemon (``python -m
+   distributed_join_tpu_torch.service.server``) over TCP on localhost,
+   on this card, in a process of its own: (a) a 10 M-row build registered
+   over the wire and 32 resident joins of 2^18 probe rows, each equal to
+   an in-process registry join, the cache 1 miss and 31 hits, the
+   client's ms a request, the metrics op's ordered quantiles and the
+   Prometheus text; (b) a wire join at 10 M x 10 M, cold then run-only
+   warm, equal to the in-process join; (c) 16 small joins batched against
+   one by one, equal matches, both walls; (d) Q3 at SF-1 through the
+   query op, equal to the numpy oracle; (e) append, tables, drop, stats,
+   ping; (f) the poison drill; (g) drain; (h) ``--smoke`` as a
+   subprocess. ``python3 chip_smoke.py --phase 20`` runs this phase alone
+   (after the build).
 
 The whole script runs phases 2 to 14 and 16 in one process, then 15,
-17, 18 and 19 each in a process of its own (``--phase N``): late in one
+17, 18, 19 and 20 each in a process of its own (``--phase N``): late in one
 long process the profiler has dropped launches and scaled durations. A device
 time counts only when the profiler caught every launch the wrappers made
 and its clock agrees with the CUDA events' on a spin kernel in the same
@@ -247,7 +260,8 @@ launches are those of phase 17's Q3 and Q10 at SF-10; the serving
 rows' are those of phase 18(b)'s warm request, and the join sites also
 carry the paths ``resident``, ``resident_agg`` and ``batched``, and
 ``telemetry``: phase 19(a)'s driver run with the session and the device
-trace on); the last line is
+trace on, and ``service``: phase 20's wire requests (a)-(e), which the
+groups site's entry carries too); the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
 prints a result.
@@ -3698,6 +3712,364 @@ def telemetry_phase() -> dict:
     return {"telemetry": runs["trace"]["launches"]}
 
 
+SERVICE_BATCH = 16             # (c): small joins, batched and one by one
+SERVICE_BATCH_ROWS = 1 << 16   # rows a side of each small join
+SERVICE_QUERY_SF = 1.0         # (d): Q3 through the query op
+SERVICE_DRAIN_ROWS = 1_000_000  # (g): the in-flight join's rows a side
+# phase 18(b)'s in-process ms a request (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md, PR 15 run 8)
+SERVING_18B_MS = 4.22
+
+
+def service_phase() -> dict:
+    """Phase 20: the join service's daemon (``python -m
+    distributed_join_tpu_torch.service.server``) over TCP on localhost,
+    the ``local`` communicator on this card, at phase 18's shapes. (a) a
+    10 M-row build (seed 42, unique keys) registered over the wire, then
+    32 resident ``join`` requests of 2^18 probe rows, each from its own
+    seed, at the default capacity factor 1.5: each response's matches
+    equal an in-process ``ResidentTableRegistry.join`` of the same tables
+    (the probe drawn by the daemon's own ``_probe_from_spec``), the cache
+    1 miss and 31 hits, no build on a warm request; the client's ms a
+    request; the ``metrics`` op's p50 <= p95 <= p99 for the resident
+    joins and ``djtpu_requests_total`` in the Prometheus text. (b) a wire
+    ``join`` at 10 M x 10 M (seed 42), cold then warm: the warm request
+    builds nothing, and its matches equal ``distributed_inner_join`` on
+    the tables the same spec generates in process. (c) ``batch`` of 16
+    joins of 2^16 rows a side against the same 16 sent one by one, both
+    warm: equal per-request matches; both walls. (d) a ``query`` op, Q3
+    at SF-1: its groups equal the numpy oracle (the in-process repeat of
+    the same plan on the service, a cache hit, gives the frame). (e)
+    ``append`` of 1 M rows, ``tables``, ``drop``, ``stats`` (uptime,
+    pending high-water mark) and ``ping``. (f) the poison drill
+    (``server._poison_drill``: ``FaultPlan(dispatch_delay_s=3.0)`` under
+    a 0.75 s deadline): the request hangs, the next is refused,
+    ``flightrecorder.json`` lands, the detached worker is joined. (g) a
+    daemon over ``FaultPlan(dispatch_delay_s=1.0,
+    delay_after_dispatches=1)``: ``drain`` settles an in-flight join
+    before it answers, then a join refuses with ``DrainingError``. (h)
+    ``--smoke --history-dir DIR`` as a subprocess: rc 0, warm builds 0,
+    >= 2 history signatures, ``explain`` under ``not_ported``. Launches
+    are counted over (a)-(e)'s wire requests only (the in-process
+    references launch outside the counts). Returns ``{"service":
+    launches}``."""
+    import shutil
+    import subprocess
+    import tempfile
+    import threading
+    from types import SimpleNamespace
+
+    from distributed_join_tpu_torch.ops.aggregate import (
+        frames_equal,
+        groups_frame,
+    )
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.parallel.faults import (
+        FaultInjectingCommunicator,
+        FaultPlan,
+    )
+    from distributed_join_tpu_torch.service import server
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+    from distributed_join_tpu_torch.service.resident import (
+        ResidentTableRegistry,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    from distributed_join_tpu_torch.utils.tpch_host import query_oracle
+    smi = gpu_line()
+    t_phase = t_part = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="service_phase_")
+
+    def part_done(label):
+        nonlocal t_part
+        now = time.perf_counter()
+        print(f"[phase] 20{label}: {now - t_part:.1f} s", flush=True)
+        t_part = now
+
+    svc = server.JoinService(LocalCommunicator(), server.ServiceConfig(
+        history_dir=os.path.join(tmp, "hist")))
+    _check(svc.device == torch.device(DEVICE),
+           f"the service's device {svc.device}")
+    daemon, port = server.start_daemon(svc)
+    client = server.ServiceClient("127.0.0.1", port)
+    launches: dict = {}
+
+    def wire(payload: dict, what: str, ok: bool = True):
+        """One request through the daemon: (response, client seconds);
+        its launches add to the service path's."""
+        box = {}
+
+        def send():
+            t0 = time.perf_counter()
+            box["resp"] = client.send(dict(payload))
+            box["s"] = time.perf_counter() - t0
+
+        _, counts = counted(send)
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        resp = box["resp"]
+        if ok:
+            _check(resp.get("ok"), f"{what}: {json.dumps(resp)[:600]}")
+        return resp, box["s"]
+
+    try:
+        # (a) a resident table over the wire
+        torch.cuda.empty_cache()
+        reg_spec = {"op": "register", "name": "dim", "rows": NROWS,
+                    "seed": SEED, "unique_keys": True}
+        reg, reg_s = wire(reg_spec, "register")
+        handle = svc.resident.get("dim")
+        ref_build, _ = server._build_from_spec(reg_spec, DEVICE)
+        ref_comm = LocalCommunicator()
+        ref = ResidentTableRegistry(ref_comm, JoinProgramCache(ref_comm))
+        ref.register("dim", ref_build)
+        before = svc.cache.stats()
+        walls, traces, daemon_s = [], [], []
+        for i in range(SERVING_REQUESTS):
+            spec = {"op": "join", "table": "dim",
+                    "probe_nrows": SERVING_PROBE_ROWS, "seed": SEED + 1 + i}
+            resp, s = wire(spec, f"resident join {i}")
+            walls.append(s)
+            daemon_s.append(resp["elapsed_s"])
+            traces.append(resp["new_traces"])
+            probe = server._probe_from_spec(spec, handle, DEVICE)
+            want = ref.join("dim", probe)
+            _check(not resp["overflow"] and not bool(want.overflow)
+                   and resp["matches"] == int(want.total),
+                   f"resident join {i}: {resp['matches']} matches against "
+                   f"the in-process registry's {int(want.total)}")
+            del probe, want
+        after = svc.cache.stats()
+        delta = {k: after[k] - before[k] for k in ("hits", "misses",
+                                                   "traces")}
+        _check(delta == {"hits": SERVING_REQUESTS - 1, "misses": 1,
+                         "traces": 1}, f"service cache: {delta}")
+        _check(traces[0] == 1 and not any(traces[1:]),
+               f"builds a request: {traces}")
+        warm = sorted(walls[1:])
+        served = sorted(daemon_s[1:])
+        met, _ = wire({"op": "metrics"}, "metrics")
+        lat = met["metrics"]["ops"]["resident_join"]["latency"]
+        _check(lat["count"] == SERVING_REQUESTS and lat["p50_s"]
+               and lat["p50_s"] <= lat["p95_s"] <= lat["p99_s"],
+               f"resident_join latency {json.dumps(lat)}")
+        prom, _ = wire({"op": "metrics", "format": "prometheus"},
+                       "prometheus")
+        _check("djtpu_requests_total" in prom["prometheus"],
+               "the Prometheus text lacks djtpu_requests_total")
+        print(f"[service] (a) register {NROWS:,} rows over the wire "
+              f"{reg_s:.4f} s (client clock; {reg['capacity_per_rank']:,}-"
+              f"row shard); {SERVING_REQUESTS} resident joins of "
+              f"{SERVING_PROBE_ROWS:,} probe rows, each equal to the "
+              f"in-process registry's join; cache {json.dumps(delta)}; "
+              f"client ms a request (warm) min {warm[0] * 1e3:.4f} median "
+              f"{warm[len(warm) // 2] * 1e3:.4f}, first "
+              f"{walls[0] * 1e3:.4f} (in process, phase 18(b): "
+              f"{SERVING_18B_MS} ms); the daemon's resident_join call "
+              f"(the probe drawn before it) min {served[0] * 1e3:.4f} "
+              f"median {served[len(served) // 2] * 1e3:.4f}; the metrics "
+              f"op's latency p50/p95/p99 "
+              f"{lat['p50_s'] * 1e3:.3f}/{lat['p95_s'] * 1e3:.3f}/"
+              f"{lat['p99_s'] * 1e3:.3f} ms; {smi}", flush=True)
+        del ref, ref_build
+        part_done("a")
+
+        # (b) a wire join at 10 M x 10 M, cold then warm
+        torch.cuda.empty_cache()
+        spec = {"op": "join", "build_nrows": NROWS, "probe_nrows": NROWS,
+                "seed": SEED, "selectivity": 0.3}
+        cold, cold_s = wire(spec, "cold join")
+        warmj, warm_s = wire(spec, "warm join")
+        build, probe = generate_build_probe_tables(
+            seed=SEED, build_nrows=NROWS, probe_nrows=NROWS, device=DEVICE)
+        want = distributed_inner_join(build, probe, LocalCommunicator(),
+                                      auto_retry=2)
+        _check(warmj["new_traces"] == 0 and cold["new_traces"] >= 1
+               and warmj["matches"] == cold["matches"] == int(want.total)
+               and not warmj["overflow"],
+               f"wire join: cold {cold['matches']} ({cold['new_traces']} "
+               f"builds), warm {warmj['matches']} ({warmj['new_traces']}), "
+               f"in process {int(want.total)}")
+        print(f"[service] (b) wire join {NROWS:,} x {NROWS:,}: "
+              f"{warmj['matches']:,} matches, equal to the in-process join; "
+              f"cold {cold_s * 1e3:.4f} ms ({cold['new_traces']} build), warm "
+              f"{warm_s * 1e3:.4f} ms run-only (client clock, the daemon's "
+              f"generation of both tables included; daemon elapsed "
+              f"{warmj['elapsed_s'] * 1e3:.4f} ms); {smi}", flush=True)
+        del build, probe, want
+        part_done("b")
+
+        # (c) batched against sequential
+        torch.cuda.empty_cache()
+        small = [{"op": "join", "build_nrows": SERVICE_BATCH_ROWS,
+                  "probe_nrows": SERVICE_BATCH_ROWS, "seed": 100 + i,
+                  "selectivity": 0.5, "out_capacity_factor": 3.0}
+                 for i in range(SERVICE_BATCH)]
+        batch_req = {"op": "batch", "out_capacity_factor": 3.0,
+                     "requests": [{k: v for k, v in s.items() if k != "op"}
+                                  for s in small]}
+        for s in small:
+            wire(s, "sequential warm-up")
+        wire(batch_req, "batch warm-up")
+        t0 = time.perf_counter()
+        seq = [wire(s, "sequential")[0] for s in small]
+        seq_s = time.perf_counter() - t0
+        seq_daemon_s = sum(r["elapsed_s"] for r in seq)
+        batched, batched_s = wire(batch_req, "batch")
+        seq_m = [r["matches"] for r in seq]
+        bat_m = [r["matches"] for r in batched["requests"]]
+        _check(seq_m == bat_m and all(seq_m)
+               and not any(r["new_traces"] for r in seq)
+               and batched["new_traces"] == 0,
+               f"batched {bat_m} against sequential {seq_m}")
+        print(f"[service] (c) {SERVICE_BATCH} joins of "
+              f"{SERVICE_BATCH_ROWS:,} rows a side, warm: one by one "
+              f"{seq_s * 1e3:.4f} ms, batched {batched_s * 1e3:.4f} ms "
+              f"(client clock; speedup {seq_s / batched_s:.4f}); of which "
+              f"the daemon's join calls (the tables drawn before them) "
+              f"{seq_daemon_s * 1e3:.4f} and {batched['elapsed_s'] * 1e3:.4f}"
+              f" ms; equal per-request matches; {smi}", flush=True)
+        part_done("c")
+
+        # (d) a query op: Q3 at SF-1
+        torch.cuda.empty_cache()
+        qspec = {"op": "query", "query": "q3",
+                 "scale_factor": SERVICE_QUERY_SF, "seed": SEED}
+        q, q_s = wire(qspec, "query")
+        tables, plan = server._query_from_spec(qspec, DEVICE)
+        res = svc.query(tables, plan)
+        spec_agg = plan.aggregate
+        got = groups_frame(res.table, spec_agg, list(spec_agg.group_keys))
+        oracle = query_oracle(plan, {n: t.to_host()
+                                     for n, t in tables.items()})
+        _check(not q["overflow"] and res.new_traces == 0
+               and q["groups"] == res.groups > 0
+               and frames_equal(got, oracle),
+               f"query q3: {q['groups']} groups on the wire, {res.groups} "
+               "in process, against the numpy oracle")
+        print(f"[service] (d) query q3 SF-{SERVICE_QUERY_SF:g}: "
+              f"{q['groups']} groups equal to the numpy oracle, op_totals "
+              f"{q['op_totals']}; {q_s * 1e3:.4f} ms cold (client clock); "
+              f"{smi}", flush=True)
+        del tables, res
+        part_done("d")
+
+        # (e) table housekeeping
+        app, _ = wire({"op": "append", "name": "dim",
+                       "rows": LSM_DELTA_ROWS, "seed": SEED + 99},
+                      "append")
+        tabs, _ = wire({"op": "tables"}, "tables")
+        drop, _ = wire({"op": "drop", "name": "dim"}, "drop")
+        stats, _ = wire({"op": "stats"}, "stats")
+        ping, _ = wire({"op": "ping"}, "ping")
+        _check(app["generation"] == 2 and tabs["count"] == 1
+               and drop["dropped"] and stats["uptime_s"] > 0
+               and stats["pending_hwm"] >= 1 and stats["failed"] == 0
+               and not svc.resident.names(),
+               f"housekeeping: append {json.dumps(app)[:300]}, stats "
+               f"{json.dumps(stats)[:300]}")
+        print(f"[service] (e) append {LSM_DELTA_ROWS:,} rows (generation "
+              f"{app['generation']}, pending runs {app['pending_runs']}), "
+              f"tables, drop, ping; stats served {stats['served']}, uptime "
+              f"{stats['uptime_s']} s, pending high-water "
+              f"{stats['pending_hwm']}; launches on the service path "
+              f"{launches}", flush=True)
+        _require_launched(launches, JOIN_KERNELS + ("compact_groups",),
+                          "the service path")
+        client.send({"op": "shutdown"})
+    finally:
+        client.close()
+        daemon.server_close()
+    part_done("e")
+
+    # (f) the poison drill on the card
+    fr = os.path.join(tmp, "flightrecorder.json")
+    drill = server._poison_drill(SimpleNamespace(
+        communicator="local", n_ranks=None, flight_recorder_path=fr),
+        None)
+    _check(drill["flightrecorder"] == fr and os.path.exists(fr)
+           and drill["rejected_after_poison"] == 1
+           and not [t for t in threading.enumerate()
+                    if t.name.startswith("watchdog-request")],
+           f"poison drill: {json.dumps(drill)}")
+    print(f"[service] (f) poison drill: {json.dumps(drill)}", flush=True)
+    part_done("f")
+
+    # (g) drain
+    dsvc = server.JoinService(FaultInjectingCommunicator(
+        LocalCommunicator(), FaultPlan(dispatch_delay_s=1.0,
+                                       delay_after_dispatches=1)))
+    ddaemon, dport = server.start_daemon(dsvc)
+    clients = [server.ServiceClient("127.0.0.1", dport) for _ in range(3)]
+    dq = {"op": "join", "build_nrows": SERVICE_DRAIN_ROWS,
+          "probe_nrows": SERVICE_DRAIN_ROWS, "seed": SEED}
+    done = {}
+    try:
+        _check(clients[0].send(dict(dq))["ok"], "drain: the first join")
+
+        def slow():
+            done["resp"] = clients[0].send(dict(dq))
+            done["t"] = time.monotonic()
+
+        th = threading.Thread(target=slow)
+        th.start()
+        time.sleep(0.3)
+        drained = clients[1].send({"op": "drain", "reason": "phase 20",
+                                   "settle_timeout_s": 30.0})
+        t_drained = time.monotonic()
+        th.join(timeout=60.0)
+        late = clients[2].send(dict(dq))
+        _check(drained["ok"] and drained["drained"]
+               and drained["pending"] == 0 and done["resp"]["ok"]
+               and t_drained >= done["t"]
+               and late.get("error") == "DrainingError",
+               f"drain: {json.dumps(drained)}, in flight "
+               f"{json.dumps(done.get('resp'))[:200]}, late {late}")
+        print(f"[service] (g) drain settled the in-flight join "
+              f"({done['resp']['matches']:,} matches) before answering; "
+              f"then {late['error']}: {late['message']}", flush=True)
+    finally:
+        for c in clients:
+            c.close()
+        ddaemon.server_close()
+    part_done("g")
+
+    # (h) --smoke through the CLI
+    hist = os.path.join(tmp, "smoke_hist")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "distributed_join_tpu_torch.service.server",
+         "--smoke", "--history-dir", hist, "--flight-recorder-path",
+         os.path.join(tmp, "smoke_fr.json")],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    smoke_s = time.perf_counter() - t0
+    lines_out = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    rec = json.loads(lines_out[-1]) if lines_out else {}
+    _check(r.returncode == 0 and rec.get("warm_new_traces") == 0
+           and (rec.get("history") or {}).get("n_signatures", 0) >= 2
+           and "explain" in rec.get("not_ported", ()),
+           f"--smoke rc {r.returncode}: {r.stdout[-1500:]} "
+           f"{r.stderr[-3000:]}")
+    print(f"[service] (h) --smoke: rc 0 in {smoke_s:.1f} s; warm builds 0; "
+          f"history {json.dumps(rec['history'])}; batched "
+          f"{rec['batched_s'] * 1e3:.4f} ms against sequential "
+          f"{rec['sequential_s'] * 1e3:.4f} ms; resident drill speedup "
+          f"{rec['resident_drill']['probe_only_speedup']:.4f}; not_ported "
+          f"{rec['not_ported']}; {smi}", flush=True)
+    part_done("h")
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[phase] service_phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"service": launches}
+
+
 def serving_kernel_entries(rows: list, paths: dict) -> list:
     """The serving shapes' rows of the kernels line: their launches on
     the path of the registry they were taken from (every warm request
@@ -3764,10 +4136,10 @@ def main(argv=None) -> int:
            and len(argv) == 2 else None)
     fault_job = (json.loads(argv[1]) if argv[:1] == ["--fault-driver"]
                  and len(argv) == 2 else None)
-    phases = [["--phase", str(p)] for p in range(13, 20)]
+    phases = [["--phase", str(p)] for p in range(13, 21)]
     if argv not in ([], *phases) and job is None and fault_job is None:
         print("usage: chip_smoke.py [--phase 13 | 14 | 15 | 16 | 17 | 18 "
-              "| 19]", file=sys.stderr)
+              "| 19 | 20]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3857,6 +4229,14 @@ def main(argv=None) -> int:
         print(ok, flush=True)
         return 0
 
+    if argv == ["--phase", "20"]:
+        service_paths = service_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps({"launches_by_path": service_paths}), flush=True)
+        print(ok, flush=True)
+        return 0
+
     if argv == ["--phase", "18"]:
         resident_paths, serving_rows = resident_phase()
         print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
@@ -3899,9 +4279,9 @@ def main(argv=None) -> int:
     paths.update(timed(segmented_phase, *plain, flat_profile=flat_prof))
     # the phases that profile kernel rows late in the script, each in a
     # process of its own (``phase_in_own_process``)
-    own15, own17, own18, own19 = (phase_in_own_process(p)
-                                  for p in (15, 17, 18, 19))
-    for own_phase in (own15, own17, own18, own19):
+    own15, own17, own18, own19, own20 = (phase_in_own_process(p)
+                                         for p in (15, 17, 18, 19, 20))
+    for own_phase in (own15, own17, own18, own19, own20):
         paths.update(own_phase["launches_by_path"])
     tpch_rows, (groups_row,), serving_rows = (
         own15["rows"], own17["rows"], own18["rows"])

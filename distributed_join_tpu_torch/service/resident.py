@@ -4,8 +4,9 @@ Port of ``distributed_join_tpu/service/resident.py``: ``ResidentError``,
 ``StaleGenerationError``, ``ResidentSignature`` (:109-165),
 ``_key_sorted_prefix`` (:167-190), ``_run_accounting`` (:193-201),
 ``make_resident_prep_step`` (:204-256), ``make_run_merge_step``
-(:259-294), ``ResidentTable`` (:297-349) and ``ResidentTableRegistry``
-(:352-936).
+(:259-294), ``ResidentTable`` (:297-349, with the wire data plane's
+``wire_spec`` and ``wire_build_keys``, :326-327) and
+``ResidentTableRegistry`` (:352-936).
 
 Serving traffic joins many probes against a few large build tables that
 change slowly. Registration runs the build side's share of a join once:
@@ -281,6 +282,14 @@ class ResidentTable:
         # probe-only signatures of the current generation, evicted on
         # a bump
         self.cached_sigs: set = set()
+        # the wire data plane's (service/server.py): the register
+        # request's generator spec, the base key column the probe of a
+        # resident wire join is drawn against, and the generator's state
+        # after the build was drawn (a probe drawn from it at the
+        # registration seed is generate_build_probe_tables' probe)
+        self.wire_spec: Optional[dict] = None
+        self.wire_build_keys: Optional[torch.Tensor] = None
+        self.wire_probe_state: Optional[torch.Tensor] = None
 
     @property
     def bytes_resident(self) -> int:

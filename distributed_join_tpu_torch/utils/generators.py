@@ -1,7 +1,8 @@
 """Synthetic build/probe tables, generated on the device from a seed.
 
 Port of ``distributed_join_tpu/utils/generators.py``
-``generate_build_table`` (:41), ``generate_build_probe_tables`` (:95),
+``generate_build_table`` (:41), ``generate_probe_table`` (:71),
+``generate_build_probe_tables`` (:95),
 ``expand_composite_key`` (:119), ``generate_composite_build_probe_tables``
 (:134), ``zipf_keys`` (:210) and ``generate_zipf_probe_table`` (:224).
 
@@ -74,6 +75,32 @@ def generate_build_table(generator: torch.Generator, nrows: int,
     })
 
 
+def generate_probe_table(generator: torch.Generator, nrows: int,
+                         rand_max: int, selectivity: float,
+                         build_keys: torch.Tensor,
+                         key_dtype: torch.dtype = torch.int64,
+                         payload_dtype: torch.dtype = torch.int64) -> Table:
+    """Probe side on ``generator``'s device: with probability
+    ``selectivity`` a random build key (a match guaranteed), else a key
+    in [rand_max, 2*rand_max) (a miss guaranteed); payload = row id.
+    Drawn from ``generator`` where ``generate_build_probe_tables`` leaves
+    it after the build, so a generator in that state gives that call's
+    probe bit for bit."""
+    dev = generator.device
+    check_float_key_range(key_dtype, 2 * rand_max)
+    pick = torch.randint(0, build_keys.shape[0], (nrows,),
+                         generator=generator, dtype=torch.int64, device=dev)
+    miss = torch.randint(rand_max, 2 * rand_max, (nrows,),
+                         generator=generator, dtype=torch.int64, device=dev)
+    is_hit = torch.rand(nrows, generator=generator, device=dev) < selectivity
+    return Table.from_dense({
+        "key": torch.where(is_hit, build_keys[pick],
+                           miss.to(key_dtype)).to(key_dtype),
+        "probe_payload": torch.arange(nrows, dtype=payload_dtype,
+                                      device=dev),
+    })
+
+
 def generate_build_probe_tables(
     seed: int,
     build_nrows: int,
@@ -94,18 +121,9 @@ def generate_build_probe_tables(
     g.manual_seed(seed)
     build = generate_build_table(g, build_nrows, rand_max, key_dtype,
                                  payload_dtype, unique_build_keys)
-    bkeys = build.columns["key"]
-    pick = torch.randint(0, build_nrows, (probe_nrows,), generator=g,
-                         dtype=torch.int64, device=dev)
-    miss = torch.randint(rand_max, 2 * rand_max, (probe_nrows,),
-                         generator=g, dtype=torch.int64, device=dev)
-    is_hit = torch.rand(probe_nrows, generator=g, device=dev) < selectivity
-    probe = Table.from_dense({
-        "key": torch.where(is_hit, bkeys[pick],
-                           miss.to(key_dtype)).to(key_dtype),
-        "probe_payload": torch.arange(probe_nrows, dtype=payload_dtype,
-                                      device=dev),
-    })
+    probe = generate_probe_table(g, probe_nrows, rand_max, selectivity,
+                                 build.columns["key"], key_dtype,
+                                 payload_dtype)
     return build, probe
 
 

@@ -1801,3 +1801,87 @@ def test_trace_nests_the_join_kernels_in_the_join_span(card, tmp_path):
     with open(events_path) as f:
         spans = [json.loads(line)["name"] for line in f]
     assert {"partition", "shuffle", "join"} <= set(spans)
+
+
+def test_daemon_warm_request_run_only_equals_in_process_join(card):
+    """The join service's daemon on the card, over TCP on localhost: the
+    warm repeat of a wire join builds no program and launches the join
+    kernels, and its matches equal an in-process join of the tables the
+    same spec generates."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.service import server
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+
+    svc = server.JoinService(LocalCommunicator())
+    assert svc.device.type == "cuda"
+    daemon, port = server.start_daemon(svc)
+    client = server.ServiceClient("127.0.0.1", port)
+    spec = {"op": "join", "build_nrows": 300_000, "probe_nrows": 200_000,
+            "seed": 5, "selectivity": 0.3, "out_capacity_factor": 2.0}
+    try:
+        cold = client.send(dict(spec))
+        torch.cuda.synchronize()
+        _kernels.reset_launch_counts(scan.join_scans,
+                                     join_mod.compact_records,
+                                     expand.expand_gather)
+        warm = client.send(dict(spec))
+        torch.cuda.synchronize()
+        assert cold["ok"] and warm["ok"], (cold, warm)
+        assert cold["new_traces"] == 1 and warm["new_traces"] == 0
+        assert scan.join_scans.launches >= 1
+        assert join_mod.compact_records.launches >= 1
+        assert expand.expand_gather.launches >= 1
+        build, probe = generate_build_probe_tables(
+            seed=5, build_nrows=300_000, probe_nrows=200_000)
+        want = int(distributed_inner_join(build, probe, LocalCommunicator(),
+                                          out_capacity_factor=2.0).total)
+        assert warm["matches"] == cold["matches"] == want > 0
+        assert client.send({"op": "shutdown"})["ok"]
+    finally:
+        client.close()
+        daemon.server_close()
+
+
+def test_resident_wire_probe_at_registration_seed_is_the_generators(card):
+    """A resident wire join whose seed is the registration seed draws,
+    on the card, the probe ``generate_build_probe_tables(seed)`` draws,
+    and its matches equal the full join of that pair."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.service import server
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+
+    svc = server.JoinService(LocalCommunicator())
+    daemon, port = server.start_daemon(svc)
+    client = server.ServiceClient("127.0.0.1", port)
+    try:
+        assert client.send({"op": "register", "name": "dim",
+                            "rows": 1_000_000, "seed": 42})["ok"]
+        spec = {"op": "join", "table": "dim", "probe_nrows": 1 << 18,
+                "seed": 42}
+        drawn = server._probe_from_spec(spec, svc.resident.get("dim"), None)
+        build, probe = generate_build_probe_tables(
+            seed=42, build_nrows=1_000_000, probe_nrows=1 << 18)
+        for c in probe.columns:
+            assert torch.equal(drawn.columns[c], probe.columns[c])
+        resp = client.send(spec)
+        want = int(distributed_inner_join(build, probe,
+                                          LocalCommunicator()).total)
+        assert resp["ok"] and resp["matches"] == want > 0
+        assert client.send({"op": "shutdown"})["ok"]
+    finally:
+        client.close()
+        daemon.server_close()

@@ -444,7 +444,10 @@ def test_port_imports_no_jax():
             "distributed_join_tpu_torch.telemetry.history",
             "distributed_join_tpu_torch.telemetry.timeline",
             "distributed_join_tpu_torch.parallel.watchdog",
-            "distributed_join_tpu_torch.parallel.faults"} <= set(mods)
+            "distributed_join_tpu_torch.parallel.faults",
+            "distributed_join_tpu_torch.telemetry.live",
+            "distributed_join_tpu_torch.planning.tuner",
+            "distributed_join_tpu_torch.service.server"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['distributed_join_tpu'] = None\n"
