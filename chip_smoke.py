@@ -208,7 +208,8 @@ Phases (any failure raises, and the script exits non-zero):
    guarded run (``benchmarks.run_guarded``, as ``main``): off, with
    ``--telemetry DIR --history FILE``, and with ``--telemetry DIR --trace
    --history FILE``. Equal totals; the ``telemetry`` block only in the
-   session runs; every join site launched as often off as on; ms a join
+   session runs; every join site launched as often off as on, less the
+   session runs' one untimed metrics join; ms a join
    off, with a session, and with the device trace; the event log's
    ``generate``, ``partition``, ``shuffle``, ``join`` and ``timed_join``
    spans; the Chrome traces load; in the ``torch.profiler`` device trace
@@ -233,15 +234,32 @@ Phases (any failure raises, and the script exits non-zero):
    an in-process registry join, the cache 1 miss and 31 hits, the
    client's ms a request, the metrics op's ordered quantiles and the
    Prometheus text; (b) a wire join at 10 M x 10 M, cold then run-only
-   warm, equal to the in-process join; (c) 16 small joins batched against
+   warm, equal to the in-process join, and between them an ``explain`` op
+   whose digest equals the key the warm join runs under; (c) 16 small
+   joins batched against
    one by one, equal matches, both walls; (d) Q3 at SF-1 through the
    query op, equal to the numpy oracle; (e) append, tables, drop, stats,
    ping; (f) the poison drill; (g) drain; (h) ``--smoke`` as a
    subprocess. ``python3 chip_smoke.py --phase 20`` runs this phase alone
    (after the build).
+21. The cost model (``planning/cost.py``) and the device metrics tape,
+   in a process of its own: (a) each primitive the model prices timed
+   at the headline's shape (the merged sort, the segmented batched sort,
+   one more value lane, join_scans, stream_compact, expand_gather, a
+   random gather, the 16-byte row gather, a device copy, the codec's
+   encode and decode, NCCL all_to_all_single over a world of 1) and
+   printed as the model's fields beside the card's name and power limit;
+   (b) predicted against measured walls of the headline, a k = 4 join
+   over 4 emulated ranks, a serving request and Q3 at SF-10; (c) the
+   tape over 4 emulated ranks at 10 M x 10 M: counted wire bytes equal
+   to the plan's on the padded, ppermute, 16-bit compressed and 2 x 2
+   hierarchical wires (both tiers), within its estimate on the ragged
+   wire, matches equal to the totals, an anti join, launches equal with
+   the tape off and on, the CUDA kernels and ms the tape adds.
+   ``python3 chip_smoke.py --phase 21`` runs this phase alone.
 
 The whole script runs phases 2 to 14 and 16 in one process, then 15,
-17, 18, 19 and 20 each in a process of its own (``--phase N``): late in one
+17, 18, 19, 20 and 21 each in a process of its own (``--phase N``): late in one
 long process the profiler has dropped launches and scaled durations. A device
 time counts only when the profiler caught every launch the wrappers made
 and its clock agrees with the CUDA events' on a spin kernel in the same
@@ -260,8 +278,9 @@ launches are those of phase 17's Q3 and Q10 at SF-10; the serving
 rows' are those of phase 18(b)'s warm request, and the join sites also
 carry the paths ``resident``, ``resident_agg`` and ``batched``, and
 ``telemetry``: phase 19(a)'s driver run with the session and the device
-trace on, and ``service``: phase 20's wire requests (a)-(e), which the
-groups site's entry carries too); the last line is
+trace on, ``service``: phase 20's wire requests (a)-(e), which the
+groups site's entry carries too, and phase 21(c)'s ``tape_*`` paths);
+the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
 prints a result.
@@ -3564,10 +3583,15 @@ def telemetry_phase() -> dict:
                           f"the phase 19 {label} driver run")
     totals = {run["record"]["matches_per_join"] for run in runs.values()}
     _check(len(totals) == 1, f"phase 19: totals differ {totals}")
+    # a session adds the driver's one untimed metrics join
+    # (benchmarks.collect_join_metrics) to its timed ones
     for site in NCCL_SITES:
-        got = {label: run["launches"][site] for label, run in runs.items()}
+        one = runs["off"]["launches"][site] // joins
+        got = {label: run["launches"][site] - (label != "off") * one
+               for label, run in runs.items()}
         _check(len(set(got.values())) == 1,
-               f"phase 19: {site} launched {got} (off, session, trace)")
+               f"phase 19: {site} launched {got} (off, session, trace; "
+               "the session runs less their metrics join)")
     per_join = {site: runs["off"]["launches"][site] / joins
                 for site in JOIN_KERNELS}
     print(f"[telemetry] driver at {NROWS:,} x {NROWS:,}, k={TEL_K}, over "
@@ -3716,6 +3740,7 @@ SERVICE_BATCH = 16             # (c): small joins, batched and one by one
 SERVICE_BATCH_ROWS = 1 << 16   # rows a side of each small join
 SERVICE_QUERY_SF = 1.0         # (d): Q3 through the query op
 SERVICE_DRAIN_ROWS = 1_000_000  # (g): the in-flight join's rows a side
+SMOKE_DRILL_JOINS = 50         # (h): the smoke's resident drill, joins a side
 # phase 18(b)'s in-process ms a request (NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md, PR 15 run 8)
 SERVING_18B_MS = 4.22
@@ -3739,7 +3764,9 @@ def service_phase() -> dict:
     joins of 2^16 rows a side against the same 16 sent one by one, both
     warm: equal per-request matches; both walls. (d) a ``query`` op, Q3
     at SF-1: its groups equal the numpy oracle (the in-process repeat of
-    the same plan on the service, a cache hit, gives the frame). (e)
+    the same plan on the service, a cache hit, gives the frame); between
+    (b)'s cold and warm joins an ``explain`` op of the same spec, whose
+    digest must equal the cache key the warm join then runs under. (e)
     ``append`` of 1 M rows, ``tables``, ``drop``, ``stats`` (uptime,
     pending high-water mark) and ``ping``. (f) the poison drill
     (``server._poison_drill``: ``FaultPlan(dispatch_delay_s=3.0)`` under
@@ -3748,8 +3775,11 @@ def service_phase() -> dict:
     daemon over ``FaultPlan(dispatch_delay_s=1.0,
     delay_after_dispatches=1)``: ``drain`` settles an in-flight join
     before it answers, then a join refuses with ``DrainingError``. (h)
-    ``--smoke --history-dir DIR`` as a subprocess: rc 0, warm builds 0,
-    >= 2 history signatures, ``explain`` under ``not_ported``. Launches
+    ``--smoke --history-dir DIR --smoke-resident-joins 50`` as a
+    subprocess, its wall gates on (the batch beats one by one; the warm
+    probe-only join beats the warm full join on the median of 50 joins a
+    side, taken in turns): rc 0, warm builds 0, >= 2 history signatures, its explain step's program resident, only
+    ``baseline_gate`` under ``not_ported``. Launches
     are counted over (a)-(e)'s wire requests only (the in-process
     references launch outside the counts). Returns ``{"service":
     launches}``."""
@@ -3885,7 +3915,17 @@ def service_phase() -> dict:
         spec = {"op": "join", "build_nrows": NROWS, "probe_nrows": NROWS,
                 "seed": SEED, "selectivity": 0.3}
         cold, cold_s = wire(spec, "cold join")
+        exp, exp_s = wire({**{k: v for k, v in spec.items() if k != "op"},
+                           "op": "explain"}, "explain")
+        traces0 = svc.cache.traces
         warmj, warm_s = wire(spec, "warm join")
+        # the warm join hit the program the explain named: its key is the
+        # cache's most recently used one
+        key = next(reversed(svc.cache._entries)).digest()
+        _check(exp["plan"]["signature_digest"] == key
+               and exp["cache"]["resident"] and svc.cache.traces == traces0,
+               f"explain: digest {exp['plan']['signature_digest'][:16]} "
+               f"against the join's key {key[:16]}, cache {exp['cache']}")
         build, probe = generate_build_probe_tables(
             seed=SEED, build_nrows=NROWS, probe_nrows=NROWS, device=DEVICE)
         want = distributed_inner_join(build, probe, LocalCommunicator(),
@@ -3901,7 +3941,11 @@ def service_phase() -> dict:
               f"cold {cold_s * 1e3:.4f} ms ({cold['new_traces']} build), warm "
               f"{warm_s * 1e3:.4f} ms run-only (client clock, the daemon's "
               f"generation of both tables included; daemon elapsed "
-              f"{warmj['elapsed_s'] * 1e3:.4f} ms); {smi}", flush=True)
+              f"{warmj['elapsed_s'] * 1e3:.4f} ms); the explain op before "
+              f"the warm join: digest {key[:16]} equal to the key it ran "
+              f"under, resident, predicted "
+              f"{exp['cost']['total_s'] * 1e3:.4f} ms ({exp_s * 1e3:.4f} ms "
+              f"to answer, client clock); {smi}", flush=True)
         del build, probe, want
         part_done("b")
 
@@ -4045,8 +4089,9 @@ def service_phase() -> dict:
     t0 = time.perf_counter()
     r = subprocess.run(
         [sys.executable, "-m", "distributed_join_tpu_torch.service.server",
-         "--smoke", "--history-dir", hist, "--flight-recorder-path",
-         os.path.join(tmp, "smoke_fr.json")],
+         "--smoke", "--history-dir", hist,
+         "--flight-recorder-path", os.path.join(tmp, "smoke_fr.json"),
+         "--smoke-resident-joins", str(SMOKE_DRILL_JOINS)],
         capture_output=True, text=True, timeout=600,
         cwd=os.path.dirname(os.path.abspath(__file__)))
     smoke_s = time.perf_counter() - t0
@@ -4054,7 +4099,8 @@ def service_phase() -> dict:
     rec = json.loads(lines_out[-1]) if lines_out else {}
     _check(r.returncode == 0 and rec.get("warm_new_traces") == 0
            and (rec.get("history") or {}).get("n_signatures", 0) >= 2
-           and "explain" in rec.get("not_ported", ()),
+           and (rec.get("explain") or {}).get("cache", {}).get("resident")
+           and rec.get("not_ported") == ["baseline_gate"],
            f"--smoke rc {r.returncode}: {r.stdout[-1500:]} "
            f"{r.stderr[-3000:]}")
     print(f"[service] (h) --smoke: rc 0 in {smoke_s:.1f} s; warm builds 0; "
@@ -4068,6 +4114,413 @@ def service_phase() -> dict:
     print(f"[phase] service_phase: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return {"service": launches}
+
+
+# -- phase 21: the cost model fitted on the card, graded, and the tape -----
+
+COST_RANKS = 4                 # (b), (c): emulated ranks on this card
+COST_K = 4                     # (b): the k = 4 join's over-decomposition
+COST_SERVING_REQUESTS = 8      # (b): warm requests timed
+NCCL_LATENCY_ELEMS = 1024      # (a): 8 KiB of int64 a call
+NCCL_LATENCY_REPS = 200
+HBM_COPY_BYTES = 2 << 30       # (a): the device copy
+COST_WIRES = (                 # (c): (label, slices, join options)
+    ("tape_padded", 1, {}),
+    ("tape_ppermute", 1, {"shuffle": "ppermute"}),
+    ("tape_compressed16", 1, {"compression_bits": 16}),
+    ("tape_hier2x2", 2, {"shuffle": "hierarchical", "dcn_codec": "on"}),
+    ("tape_ragged", 1, {"shuffle": "ragged"}),
+)
+
+
+def clustered(t):
+    """``t`` stored in key order, each payload the row id again (the
+    generator's payload): a clustered table, the layout the codec is
+    for. A 256-row codec block of a bucket then spans about a thousand
+    keys and row ids, which 16 bits hold; on the generator's order the
+    row ids span the whole table and the 16-bit rung overflows."""
+    from distributed_join_tpu_torch.table import Table
+    order = torch.argsort(t.columns["key"], stable=True)
+    cols = {name: (torch.arange(order.numel(), dtype=col.dtype,
+                                device=col.device)
+                   if name.endswith("payload") else col[order])
+            for name, col in t.columns.items()}
+    return Table(cols, t.valid[order])
+
+
+def cuda_kernels(fn) -> int:
+    """The CUDA kernels ``fn`` launches (every one, torch's included),
+    counted by torch.profiler over one call after a warm-up call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.device_type == cuda)
+
+
+def _nccl_latency_s() -> float:
+    """One NCCL ``all_to_all_single`` of ``NCCL_LATENCY_ELEMS`` int64
+    over a process group of this process alone, per call."""
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0,
+                            device_id=torch.device(DEVICE, 0))
+    try:
+        x = torch.arange(NCCL_LATENCY_ELEMS, dtype=torch.int64, device=DEVICE)
+        out = torch.empty_like(x)
+        ms = time_ms(lambda: dist.all_to_all_single(out, x),
+                     reps=NCCL_LATENCY_REPS)
+        _check(torch.equal(out, x), "NCCL all_to_all over a world of 1")
+    finally:
+        dist.destroy_process_group()
+    return ms / 1e3
+
+
+def fit_constants(build, probe) -> tuple:
+    """Phase 21(a): each primitive the cost model prices, timed with CUDA
+    events on the port's own code at the headline's shape (20 M merged
+    positions), as the ``CostModel`` field it fits. Returns (fields,
+    rows: what each was timed on)."""
+    import math
+
+    from distributed_join_tpu_torch.ops import compact, compression, expand
+    from distributed_join_tpu_torch.ops import join as J
+    from distributed_join_tpu_torch.ops import scan
+    from distributed_join_tpu_torch.ops import segmented as seg_ops
+    from distributed_join_tpu_torch.ops.partition import (
+        radix_hash_partition,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        DEFAULT_SHUFFLE_CAPACITY_FACTOR,
+        _round_up,
+    )
+    from distributed_join_tpu_torch.table import Table
+    out_cap = int(0.6 * NROWS * 1.25)
+    x = stage_inputs(build, probe, out_cap)
+    n = x["tag"].shape[0]
+    keys, b1d, p1d = ["key"], ["build_payload"], ["probe_payload"]
+    fields, rows = {}, {}
+
+    def per(name, ms, elems, what):
+        fields[name] = ms * 1e6 / elems
+        rows[name] = {"ms": ms, "elements": elems, "on": what}
+
+    per("sort_ns_per_elem", time_ms(lambda: J._merged_sort(
+        build, probe, keys, b1d, p1d)), n,
+        "ops/join._merged_sort (int64 key + int8 tag, the payload lane)")
+    wide = Table({**probe.columns, "probe_x": probe.columns["probe_payload"]
+                  + 1}, probe.valid)
+    lane_ms = time_ms(lambda: J._merged_sort(build, wide, keys, b1d,
+                                             p1d + ["probe_x"]))
+    per("sort_lane_ns_per_elem", max(lane_ms - rows["sort_ns_per_elem"]["ms"],
+                                     0.0), n,
+        "one more int64 value lane on the merged sort")
+    seg = seg_ops.resolve_sort_segments(None, NROWS, 1, COST_K,
+                                        DEFAULT_SHUFFLE_CAPACITY_FACTOR)
+    run = 2 * seg_ops.segment_capacity(NROWS, 1, COST_K, seg,
+                                       DEFAULT_SHUFFLE_CAPACITY_FACTOR)
+    n_runs = max(n // run, 1)
+    used = n_runs * run
+    k2 = x["sort_ops"][0][:used].reshape(n_runs, run)
+    t2 = x["sort_ops"][1][:used].reshape(n_runs, run)
+    v2 = x["sort_ops"][2][:used].reshape(n_runs, run)
+
+    def batched_sort():
+        perm = seg_ops._lexsort_rows([k2, t2])
+        return torch.take_along_dim(v2, perm, 1)
+
+    per("sort_run_ns_per_elem", time_ms(batched_sort), used,
+        f"ops/segmented._lexsort_rows on ({n_runs}, {run}) runs, the value "
+        "lane gathered")
+    per("scan_ns_per_elem", time_ms(lambda: scan.join_scans(
+        x["tag"], x["first"])), n, "join_scans")
+    per("compact_ns_per_elem", time_ms(lambda: compact.stream_compact(
+        x["is_rec"], x["rec_pos"], x["rec_lanes"], out_cap)), n,
+        "stream_compact, the run-record site")
+    S, lo, rc, pk = x["S"], x["lo"], x["rec_cols"], x["pack"]
+    per("expand_ns_per_out_row", time_ms(lambda: expand.expand_gather(
+        S, rc, out_cap, lo=lo, build_cols=pk)), out_cap,
+        "expand_gather, build mode")
+    del x
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(SEED)
+    vals = torch.randint(0, 2**62, (n,), generator=g, device=DEVICE)
+    idx = torch.randperm(n, generator=g, device=DEVICE)
+    per("gather_ns_per_elem", time_ms(lambda: vals[idx]), n,
+        "a random int64 gather")
+    col2d = torch.randint(0, 256, (n, 16), generator=g, device=DEVICE,
+                          dtype=torch.uint8)
+    per("row_gather_ns_per_row", time_ms(lambda: J._row_gather(
+        col2d, idx, n)), n, "ops/join._row_gather of 16-byte rows")
+    del vals, idx, col2d
+    blob = torch.empty(HBM_COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+    ms = time_ms(lambda: blob.clone(), reps=5)
+    fields["hbm_bytes_per_s"] = 2 * HBM_COPY_BYTES / (ms / 1e3)
+    rows["hbm_bytes_per_s"] = {"ms": ms, "bytes": 2 * HBM_COPY_BYTES,
+                               "on": "a device copy (read + write)"}
+    del blob
+    cap = _round_up(int(math.ceil(
+        NROWS / COST_K * DEFAULT_SHUFFLE_CAPACITY_FACTOR)), 8)
+    pt = radix_hash_partition(build, ["key"], COST_K)
+    padded, counts, _, row_valid = pt.to_padded(cap, 0, 1)
+    block = torch.where(row_valid, padded["key"],
+                        padded["key"][0, counts[0] - 1])
+    enc = compression.encode_rows(block, 16, 256, required_bits=False)
+    e_ms = time_ms(lambda: compression.encode_rows(block, 16, 256,
+                                                   required_bits=False))
+    d_ms = time_ms(lambda: compression.decode_rows(enc[0], enc[1], cap, 16,
+                                                   256, block.dtype))
+    fields["codec_bytes_per_s"] = 2 * block.nbytes / ((e_ms + d_ms) / 1e3)
+    rows["codec_bytes_per_s"] = {"encode_ms": e_ms, "decode_ms": d_ms,
+                                 "raw_bytes": block.nbytes,
+                                 "on": "a k = 4 batch's int64 key block, "
+                                       "16 bits"}
+    del pt, padded, block, enc
+    fields["collective_latency_s"] = _nccl_latency_s()
+    rows["collective_latency_s"] = {
+        "bytes": 8 * NCCL_LATENCY_ELEMS, "reps": NCCL_LATENCY_REPS,
+        "on": "NCCL all_to_all_single over a world of 1"}
+    fields["hbm_capacity_bytes"] = torch.cuda.get_device_properties(
+        0).total_memory
+    return fields, rows
+
+
+def cost_phase() -> dict:
+    """Phase 21: the cost model of ``planning/cost.py`` on the card. (a)
+    fits its constants (``fit_constants``) at the headline's shape and
+    prints them beside the card's name and power limit (the defaults
+    of ``CostModel`` are these numbers). (b) grades the shipped model:
+    predicted against measured walls, without a gate, of the headline
+    (``build_plan``), a k = 4 join over 4 emulated ranks at 10 M x 10 M,
+    one serving request of phase 18(b)'s shape (``build_probe_plan``,
+    through ``ResidentTableRegistry.join(explain=True)``) and Q3 at
+    SF-10 (``explain_query``). (c) the metrics tape at full width, 4
+    emulated ranks at 10 M x 10 M, the tables stored in key order
+    (``clustered``, so that the 16-bit codec holds): no wire overflows;
+    on the padded, ppermute, 16-bit compressed and 2 x 2 hierarchical
+    wires the counted bytes equal the plan's prediction exactly (both
+    tiers of the hierarchy), on the ragged wire they stay within the
+    plan's estimate; ``matches`` equals the join's total, the same on
+    every wire and equal to the tape-off join's; an anti join runs
+    the record-mode expand with the tape; with the tape off a join
+    launches each kernel exactly as with it on, n_ranks x k times; the
+    CUDA kernels the tape adds are counted (torch.profiler), and its ms
+    on the headline join. Returns the launch counts by path."""
+    from distributed_join_tpu_torch import bench
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+        make_distributed_join,
+        make_join_step,
+    )
+    from distributed_join_tpu_torch.parallel.query_exec import (
+        distributed_query,
+    )
+    from distributed_join_tpu_torch.planning import cost
+    from distributed_join_tpu_torch.planning.plan import build_plan
+    from distributed_join_tpu_torch.planning.query import (
+        explain_query,
+        tpch_query_plan,
+    )
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+    from distributed_join_tpu_torch.service.resident import (
+        ResidentTableRegistry,
+    )
+    from distributed_join_tpu_torch.utils.benchmarking import (
+        timed_join_throughput,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    from distributed_join_tpu_torch.utils.tpch import (
+        generate_tpch_query_tables,
+        query_filters,
+    )
+    smi = gpu_line()
+    t_part = time.perf_counter()
+    paths = {}
+
+    def part_done(label):
+        nonlocal t_part
+        now = time.perf_counter()
+        print(f"[phase] 21{label}: {now - t_part:.1f} s", flush=True)
+        t_part = now
+
+    build, probe = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS, probe_nrows=NROWS,
+        selectivity=bench.SELECTIVITY, device=DEVICE)
+
+    # (a) the constants
+    fields, fit_rows = fit_constants(build, probe)
+    shipped = cost.CostModel()
+    print(f"[cost] (a) fitted constants {json.dumps(fields)}; {smi}",
+          flush=True)
+    print(f"[cost] (a) timed on {json.dumps(fit_rows)}", flush=True)
+    print("[cost] (a) fitted / shipped default: " + json.dumps(
+        {k: v / getattr(shipped, k) for k, v in fields.items()}),
+        flush=True)
+    part_done("a")
+
+    # (b) the shipped model graded
+    graded = {}
+    local = LocalCommunicator()
+    match_out = int(bench.MATCHES_PER_ROW * NROWS * bench.OUT_SLACK)
+    step = make_join_step(local, key="key", out_rows_per_rank=match_out)
+    sec, total, ovf = timed_join_throughput(local, step, build, probe,
+                                            bench.ITERS)
+    _check(not ovf and total > 0, "phase 21 headline join")
+    plan = build_plan(local, build, probe, with_metrics=False,
+                      out_rows_per_rank=match_out)
+    graded["headline"] = (plan.cost["total_s"], sec)
+    emu = EmulatedCommunicator(COST_RANKS)
+    fn = make_distributed_join(emu, over_decomposition=COST_K,
+                               with_metrics=False)
+    res = fn(build, probe)
+    _check(not bool(res.overflow), "phase 21 k = 4 join overflowed")
+    del res
+    ms = time_ms(lambda: fn(build, probe), reps=3)
+    plan = build_plan(emu, build, probe, with_metrics=False,
+                      over_decomposition=COST_K)
+    graded[f"k{COST_K}_{COST_RANKS}_emulated_ranks"] = (plan.cost["total_s"],
+                                                       ms / 1e3)
+    reg_build, _ = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS, probe_nrows=SERVING_PROBE_ROWS,
+        unique_build_keys=True, device=DEVICE)
+    registry = ResidentTableRegistry(local, JoinProgramCache(local))
+    registry.register("dim", reg_build)
+    del reg_build
+    sprobe = _serving_probe(SEED + 1, SERVING_PROBE_ROWS)
+    first = registry.join("dim", sprobe, explain=True, with_metrics=False)
+    walls = sorted(_timed_s(lambda: registry.join(
+        "dim", sprobe, with_metrics=False))[1]
+        for _ in range(COST_SERVING_REQUESTS))
+    graded["serving_request"] = (first.plan.cost["total_s"],
+                                 walls[len(walls) // 2])
+    _check(first.plan.probe_only
+           and first.plan.digest in {s.digest()
+                                     for s in registry.cache._entries},
+           "phase 21: the serving plan's digest is not the cache key")
+    del registry, sprobe, first
+    torch.cuda.empty_cache()
+    tables = query_filters(generate_tpch_query_tables(
+        seed=SEED, scale_factor=QUERY_SF, device=DEVICE), "q3")
+    qplan = tpch_query_plan("q3")
+    cache = JoinProgramCache(local)
+    factors = dict(over_decomposition=1, shuffle_capacity_factor=1.6,
+                   out_capacity_factor=1.5)
+    qres = distributed_query(tables, qplan, local, auto_retry=4,
+                             program_cache=cache, with_metrics=False,
+                             **factors)
+    _check(not bool(qres.overflow), "phase 21 Q3 overflowed")
+    scale = 2 ** qres.retry_attempts
+    walls = sorted(_timed_s(lambda: distributed_query(
+        tables, qplan, local, auto_retry=4, program_cache=cache,
+        with_metrics=False, **factors))[1] for _ in range(QUERY_ITERS))
+    doc = explain_query(qplan, local, tables, defaults=dict(
+        factors, shuffle_capacity_factor=1.6 * scale,
+        out_capacity_factor=1.5 * scale))
+    graded["q3_sf10"] = (doc["total_s"], walls[len(walls) // 2])
+    del tables, qres, cache
+    torch.cuda.empty_cache()
+    for name, (pred, meas) in graded.items():
+        print(f"[cost] (b) {name}: predicted {pred * 1e3:.4f} ms, measured "
+              f"{meas * 1e3:.4f} ms (measured / predicted "
+              f"{meas / pred:.4f}); {smi}", flush=True)
+    part_done("b")
+
+    # (c) the tape at full width, on the tables stored in key order
+    totals = {}
+    cbuild, cprobe = clustered(build), clustered(probe)
+    for label, slices, opts in COST_WIRES:
+        comm = EmulatedCommunicator(COST_RANKS, n_slices=slices)
+        res, counts = counted(lambda: distributed_inner_join(
+            cbuild, cprobe, comm, with_metrics=True, explain=True, **opts))
+        red = res.telemetry.to_dict()["reduced"]
+        plan = res.plan
+        _check(not bool(res.overflow), f"phase 21 {label} join overflowed")
+        _check(red["matches"] == int(res.total),
+               f"{label}: matches {red['matches']} != total {int(res.total)}")
+        totals[label] = int(res.total)
+        for side in ("build", "probe"):
+            w, got = plan.wire[side], red[f"{side}.wire_bytes"]
+            if plan.wire["exact"]:
+                _check(got == w["bytes_total"],
+                       f"{label} {side}: wire bytes {got} != plan "
+                       f"{w['bytes_total']}")
+                for tier in ("ici", "dcn"):
+                    if f"{tier}_bytes_per_rank" in w:
+                        _check(red[f"{side}.wire_bytes_{tier}"]
+                               == w[f"{tier}_bytes_per_rank"] * COST_RANKS,
+                               f"{label} {side} {tier} bytes")
+            else:
+                _check(got <= w["bytes_total"],
+                       f"{label} {side}: {got} bytes above the estimate")
+        _require_launched(counts, JOIN_KERNELS, f"the phase 21 {label} path")
+        paths[label] = counts
+        print(f"[cost] (c) {label}: wire bytes build "
+              f"{red['build.wire_bytes']:,} probe {red['probe.wire_bytes']:,}"
+              + (f" (ici {red['build.wire_bytes_ici']:,}, dcn "
+                 f"{red['build.wire_bytes_dcn']:,} a side of build)"
+                 if "build.wire_bytes_dcn" in red else "")
+              + (" equal to the plan" if plan.wire["exact"] else
+                 f" within the plan's estimate "
+                 f"{plan.wire['build']['bytes_total']:,}/"
+                 f"{plan.wire['probe']['bytes_total']:,}")
+              + f"; matches {red['matches']:,}; launches {counts}",
+              flush=True)
+        del res
+    del cbuild, cprobe
+    _check(len(set(totals.values())) == 1,
+           f"phase 21: totals differ across wires {totals}")
+    comm = EmulatedCommunicator(COST_RANKS)
+    off, off_counts = counted(lambda: distributed_inner_join(
+        build, probe, comm, with_metrics=False))
+    _check(not hasattr(off, "telemetry")
+           and int(off.total) == totals["tape_padded"],
+           "phase 21: the tape-off join")
+    on_counts = paths["tape_padded"]
+    _check(off_counts == on_counts
+           and all(off_counts[s] == COST_RANKS for s in JOIN_KERNELS),
+           f"phase 21: launches tape off {off_counts}, on {on_counts}")
+    paths["tape_off"] = off_counts
+    del off
+    res, counts = counted(lambda: distributed_inner_join(
+        build, probe, comm, with_metrics=True, join_type="anti"))
+    red = res.telemetry.to_dict()["reduced"]
+    _check(red["matches"] == int(res.total) > 0
+           and counts["expand_gather"] == COST_RANKS,
+           f"phase 21 anti join: {red}, launches {counts}")
+    paths["tape_anti"] = counts
+    del res
+    fn_off = make_distributed_join(comm, with_metrics=False)
+    fn_on = make_distributed_join(comm, with_metrics=True)
+    k_off, k_on = cuda_kernels(lambda: fn_off(build, probe)), cuda_kernels(
+        lambda: fn_on(build, probe))
+    h_off = make_distributed_join(local, with_metrics=False,
+                                  out_rows_per_rank=match_out)
+    h_on = make_distributed_join(local, with_metrics=True,
+                                 out_rows_per_rank=match_out)
+    ms_off, ms_on = (time_ms(lambda f=f: f(build, probe))
+                     for f in (h_off, h_on))
+    print(f"[cost] (c) tape off: launches equal to tape on, {COST_RANKS} a "
+          f"kernel ({off_counts}); CUDA kernels a {COST_RANKS}-rank join "
+          f"off {k_off}, on {k_on} (+{k_on - k_off}); the headline join "
+          f"{ms_off:.4f} ms off, {ms_on:.4f} ms on ({ms_on / ms_off:.4f}x); "
+          f"anti join with the tape: {red['matches']:,} rows, launches "
+          f"{counts}; {smi}", flush=True)
+    part_done("c")
+    return paths
 
 
 def serving_kernel_entries(rows: list, paths: dict) -> list:
@@ -4136,10 +4589,10 @@ def main(argv=None) -> int:
            and len(argv) == 2 else None)
     fault_job = (json.loads(argv[1]) if argv[:1] == ["--fault-driver"]
                  and len(argv) == 2 else None)
-    phases = [["--phase", str(p)] for p in range(13, 21)]
+    phases = [["--phase", str(p)] for p in range(13, 22)]
     if argv not in ([], *phases) and job is None and fault_job is None:
         print("usage: chip_smoke.py [--phase 13 | 14 | 15 | 16 | 17 | 18 "
-              "| 19 | 20]", file=sys.stderr)
+              "| 19 | 20 | 21]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4237,6 +4690,14 @@ def main(argv=None) -> int:
         print(ok, flush=True)
         return 0
 
+    if argv == ["--phase", "21"]:
+        cost_paths = cost_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps({"launches_by_path": cost_paths}), flush=True)
+        print(ok, flush=True)
+        return 0
+
     if argv == ["--phase", "18"]:
         resident_paths, serving_rows = resident_phase()
         print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
@@ -4279,9 +4740,9 @@ def main(argv=None) -> int:
     paths.update(timed(segmented_phase, *plain, flat_profile=flat_prof))
     # the phases that profile kernel rows late in the script, each in a
     # process of its own (``phase_in_own_process``)
-    own15, own17, own18, own19, own20 = (phase_in_own_process(p)
-                                         for p in (15, 17, 18, 19, 20))
-    for own_phase in (own15, own17, own18, own19, own20):
+    own15, own17, own18, own19, own20, own21 = (
+        phase_in_own_process(p) for p in (15, 17, 18, 19, 20, 21))
+    for own_phase in (own15, own17, own18, own19, own20, own21):
         paths.update(own_phase["launches_by_path"])
     tpch_rows, (groups_row,), serving_rows = (
         own15["rows"], own17["rows"], own18["rows"])

@@ -3,8 +3,10 @@ rank-0-only reporting, the telemetry and guard flags with the guarded
 run, and the refusal of the JAX drivers' flags the port does not have
 (port of ``distributed_join_tpu/benchmarks/__init__.py``: ``stamp_record``
 :20, ``report`` :59, ``run_guarded`` :81-185, ``maybe_history``
-:360-419, ``add_telemetry_args`` :431-490 without ``--diagnose``, and
-``--guard-deadline-s`` of ``add_robustness_args`` :492-575).
+:360-419, ``write_explain`` and ``explain_summary`` :219-274,
+``collect_join_metrics`` :745, ``add_telemetry_args`` :431-490 without
+``--diagnose``, and ``--guard-deadline-s`` of ``add_robustness_args``
+:492-575).
 
 Every driver's ``main`` runs its body through :func:`run_guarded`:
 ``--telemetry[=DIR]``, ``--trace`` and ``--history FILE`` open the
@@ -12,7 +14,12 @@ telemetry session around the run (``--trace`` adds a ``torch.profiler``
 device trace under ``DIR/device_trace/``), and ``--guard-deadline-s``
 (or ``DJTPU_GUARD_DEADLINE_S``) bounds the whole run with the watchdog.
 A failure leaves a one-line JSON failure record; a hang exits hard with
-rc 1, a handshake outage with rc 0, as in the JAX package.
+rc 1, a handshake outage with rc 0, as in the JAX package. With a
+session on, a driver runs one untimed metrics join after its timed loop
+(:func:`collect_join_metrics`), so the record's ``telemetry.metrics``
+holds the device counters of one join on the unshifted tables;
+``--explain`` writes the plan of the timed program (:func:`write_explain`)
+and puts its summary in the record.
 """
 
 from __future__ import annotations
@@ -50,8 +57,12 @@ SCHEMA_VERSION = 2
 # of the port, each naming what it waits for.
 UNPORTED_FLAGS = {
     "--diagnose": "the run diagnosis (the JAX package's "
-                  "telemetry/analyze.py; ROADMAP A5)",
-    "--verify-integrity": "the wire-integrity digests (ROADMAP A5)",
+                  "telemetry/analyze.py; ROADMAP A5b)",
+    "--stage-profile": "the stage profile (the JAX package's "
+                       "telemetry/stageprof.py; ROADMAP A5b)",
+    "--auto-tune": "the autotuner (the JAX package's planning/tuner.py; "
+                   "ROADMAP A5c)",
+    "--verify-integrity": "the wire-integrity digests (ROADMAP A5d)",
     "--chaos-seed": "chaos injection (parallel/chaos.py, whose plans "
                     "draw the corruption modes; ROADMAP A7)",
 }
@@ -89,16 +100,92 @@ def global_table(comm, table: Table) -> Table:
 def stamp_record(record: dict) -> dict:
     """``schema_version`` and ``rank`` on every record and, iff a
     telemetry session is on, its summary under ``"telemetry"`` (key
-    presence is the signal) with ``"metrics"`` named under
-    ``not_ported`` (the device metrics tape). Mutated and returned."""
+    presence is the signal; its ``metrics`` the device counters folded
+    in by :func:`collect_join_metrics`). Mutated and returned."""
     record.setdefault("schema_version", SCHEMA_VERSION)
     record.setdefault("rank", process_id())
     if telemetry.enabled():
         record.setdefault("telemetry", telemetry.summary())
-        if "metrics" not in record.get("not_ported", ()):
-            record["not_ported"] = [*record.get("not_ported", ()),
-                                    "metrics"]
     return record
+
+
+def collect_join_metrics(comm, build, probe, join_opts: dict,
+                         attempt: int = 0):
+    """One untimed join with the metrics tape on, on the unshifted
+    tables, after the timed loop (JAX :745): its counters folded into the
+    session (``telemetry.emit_metrics``) and returned. The timed loop
+    stays the tape-off program. None, and no join, without a session."""
+    if not telemetry.enabled():
+        return None
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        make_distributed_join,
+    )
+
+    with telemetry.span("collect_metrics") as sp:
+        res = make_distributed_join(
+            comm, with_metrics=True,
+            metrics_static={"retry_attempt_max": attempt},
+            **join_opts)(build, probe)
+        d = telemetry.emit_metrics(res.telemetry)
+        if sp is not None:
+            sp.sync_on(res.total)
+    return d
+
+
+def write_explain(args, explain_record, label: str = ""):
+    """The drivers' ``--explain`` sink: write the explain record (a
+    ``JoinPlan.explain_record()``, an ``explain_query`` record or a
+    ``build_exchange_plan`` dict) as ``explain[.label].json`` in the
+    telemetry session's directory (the working directory without one),
+    keys sorted, no timestamps: the same query spec writes the same
+    bytes. Rank 0 only; returns the path (None elsewhere)."""
+    if not is_coordinator():
+        return None
+    s = telemetry.sink()
+    out_dir = s.dir if s is not None else "."
+    path = os.path.join(out_dir, f"explain.{label}.json" if label
+                        else "explain.json")
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(explain_record, f, indent=1, sort_keys=True)
+        f.write("\n")
+    os.replace(tmp, path)
+    plan = explain_record.get("plan", {})
+    digest = plan.get("signature_digest") or explain_record.get(
+        "digest") or "?"
+    print(f"explain: plan {digest[:16]} -> {path}", file=sys.stderr)
+    return path
+
+
+def explain_summary(explain_record) -> dict:
+    """The compact prediction block a record carries under ``explain``:
+    the plan digest, the predicted wall, whether the wire bytes are
+    exact, and the predicted bytes a side (what ``telemetry.history``
+    grades a measured wall against)."""
+    plan = explain_record.get("plan", {})
+    cost = explain_record.get("cost", {})
+    wire = plan.get("wire", {})
+    predicted = {side: wire.get(side, {}).get("bytes_total")
+                 for side in ("build", "probe") if side in wire}
+    if not predicted and "bytes_total" in wire:
+        predicted = {"total": wire["bytes_total"]}   # exchange plan
+    return {
+        "plan_digest": plan.get("signature_digest"),
+        "predicted_wall_s": cost.get("total_s"),
+        "wire_exact": wire.get("exact"),
+        "predicted_wire_bytes": predicted,
+    }
+
+
+def add_explain_arg(parser) -> None:
+    """``--explain`` (JAX ``add_telemetry_args``)."""
+    parser.add_argument(
+        "--explain", action="store_true",
+        help="write the resolved plan of the timed program (capacities, "
+             "wire bytes, memory, the cost model's prediction, the "
+             "program-cache digest) to explain.json in the telemetry "
+             "directory (else the working directory) and its summary "
+             "into the record; host arithmetic, no extra join")
 
 
 def report(record: dict, json_output: str | None,
@@ -133,9 +220,7 @@ def resolve_sort_mode(args, n_ranks: int, k: int, b_local: int,
     from distributed_join_tpu_torch.ops.segmented import (
         resolve_sort_segments,
     )
-    from distributed_join_tpu_torch.parallel.distributed_join import (
-        resolve_dcn_codec,
-    )
+    from distributed_join_tpu_torch.planning.cost import resolve_dcn_codec
 
     mode = getattr(args, "sort_mode", None) or "flat"
     if mode != "auto":
@@ -144,7 +229,7 @@ def resolve_sort_mode(args, n_ranks: int, k: int, b_local: int,
             or compression_bits is not None or kernel_config is not None):
         return "flat"
     if (shuffle == "hierarchical" and n_slices > 1
-            and resolve_dcn_codec(dcn_codec or "auto", n_slices)):
+            and resolve_dcn_codec(dcn_codec or "auto")):
         return "flat"
     segs = resolve_sort_segments(getattr(args, "sort_segments", None),
                                  max(b_local, p_local), n_ranks, k,
@@ -203,6 +288,7 @@ FORWARDED_CHILD_FLAGS = (
     ("--telemetry", "telemetry", True),
     ("--trace", "trace", False),
     ("--history", "history", True),
+    ("--explain", "explain", False),
     ("--sort-mode", "sort_mode", True),
     ("--sort-segments", "sort_segments", True),
     ("--guard-deadline-s", "guard_deadline_s", True),

@@ -29,7 +29,9 @@ group's size where given; ``--sort-mode flat`` and ``--sort-segments``
 are taken (the microbenchmark has no local sort), any other sort mode
 refuses with the JAX message; ``--telemetry``, ``--trace``,
 ``--history`` and ``--guard-deadline-s`` run through
-``benchmarks.run_guarded``; the other JAX flags refuse by name.
+``benchmarks.run_guarded``; ``--explain`` writes the exchange's plan and
+the cost model's prediction (``planning.build_exchange_plan``); the
+other JAX flags refuse by name.
 """
 
 from __future__ import annotations
@@ -43,8 +45,11 @@ import torch
 
 from distributed_join_tpu_torch.benchmarks import (
     UNPORTED_FLAGS,
+    add_explain_arg,
     add_guard_arg,
     add_telemetry_args,
+    explain_summary,
+    write_explain,
     rank_device,
     refuse_flags,
     report,
@@ -54,10 +59,7 @@ from distributed_join_tpu_torch.parallel.bootstrap import shutdown
 from distributed_join_tpu_torch.parallel.communicator import make_communicator
 
 _REFUSED = {
-    "--explain": "plan explain",
     "--platform": "platform selection (the benchmark runs on the GPU)",
-    "--auto-tune": "the tuner",
-    "--stage-profile": "the stage profile",
     **UNPORTED_FLAGS,
 }
 
@@ -89,6 +91,7 @@ def parse_args(argv=None):
                    help="taken for the join drivers' command line's sake; "
                         "never read")
     add_telemetry_args(p)
+    add_explain_arg(p)
     add_guard_arg(p)
     return p.parse_args(argv)
 
@@ -173,13 +176,22 @@ def run(args, device=None) -> tuple[dict, list]:
 
     bytes_per_rank = elems * 4
     egress = bytes_per_rank * (n - 1) / n
+    explain_rec = None
+    if args.explain:
+        from distributed_join_tpu_torch.planning.plan import (
+            build_exchange_plan,
+        )
+
+        doc = build_exchange_plan(n, bytes_per_rank)
+        write_explain(args, doc)
+        explain_rec = explain_summary(doc)
     record = {
         "benchmark": "all_to_all",
         "communicator": comm.name,
         "n_ranks": n,
         "buffer_bytes_per_rank": bytes_per_rank,
         "integrity": None,
-        "explain": None,
+        "explain": explain_rec,
         "chaos_seed": None,
         "elapsed_per_exchange_s": sec,
         "aggregate_offchip_gb_per_sec": n * egress / sec / 1e9,

@@ -20,7 +20,12 @@ in the JAX driver), resolve the skew auto-policy, then time
 a warm-up run, CUDA events, one synchronisation) and print one JSON
 record. ``--telemetry``, ``--trace``, ``--history`` and
 ``--guard-deadline-s`` are the JAX driver's (``benchmarks.run_guarded``);
-every other flag of the JAX driver refuses by name.
+with a session on, one untimed join with the metrics tape follows the
+timed loop (``benchmarks.collect_join_metrics``) and the ``--sort-ab``
+and ``--agg-ab`` records carry their counter signatures (and the
+segmented plan's ``wire_exact``); ``--explain`` writes the timed
+program's plan (``planning.build_plan``) to ``explain.json``. Every
+other flag of the JAX driver refuses by name.
 
 Skew auto-policy (JAX :359-405): with ``--zipf-alpha`` and no
 ``--skew-threshold``, the skew path runs at threshold 0.001 with the
@@ -57,8 +62,12 @@ from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.bench import gpu_identity
 from distributed_join_tpu_torch.benchmarks import (
     UNPORTED_FLAGS,
+    add_explain_arg,
     add_guard_arg,
     add_telemetry_args,
+    collect_join_metrics,
+    explain_summary,
+    write_explain,
     global_table,
     rank_device,
     refuse_flags,
@@ -92,10 +101,13 @@ from distributed_join_tpu_torch.parallel.distributed_join import (
     JOIN_SHARDED_OUT,
     SHUFFLE_MODES,
     _varwidth_cols,
+    make_distributed_join,
     make_join_step,
-    resolve_dcn_bits,
     resolve_join_ladder,
 )
+from distributed_join_tpu_torch.planning.cost import resolve_dcn_bits
+from distributed_join_tpu_torch.planning.plan import build_plan
+from distributed_join_tpu_torch.telemetry.baselines import counter_signature
 from distributed_join_tpu_torch.parallel.skew import zipf_top_k_mass
 from distributed_join_tpu_torch.service.programs import JoinProgramCache
 from distributed_join_tpu_torch.service.resident import (
@@ -135,9 +147,6 @@ _REFUSED = {
     "--compact-kernel": "the kernel knobs",
     "--kernel-block": "the kernel knobs",
     "--platform": "platform selection (the driver runs on the GPU)",
-    "--explain": "plan explain",
-    "--stage-profile": "the stage profile",
-    "--auto-tune": "the tuner",
     **UNPORTED_FLAGS,
 }
 
@@ -279,6 +288,7 @@ def parse_args(argv=None):
                         "the first rung's sizing spend their device time "
                         "(torch.profiler; GPU only)")
     add_telemetry_args(p)
+    add_explain_arg(p)
     add_guard_arg(p)
     args = p.parse_args(argv)
     refuse_trace_with_profile(p, args)
@@ -549,9 +559,9 @@ def sort_ab(comm, build, probe, n_joins: int, join_opts: dict, args):
     emulated ranks against the numpy oracle. Shapes the segmented path
     refuses skip with the reason. Both modes' programs come from one
     ``JoinProgramCache``, as in the JAX driver: the warm joins must build
-    none (``warm_new_traces``). The JAX record's counter signature and
-    plan wire verdict ride the telemetry metrics and the planning layer,
-    which the port does not have yet (``not_ported``)."""
+    none (``warm_new_traces``). One untimed segmented join with the
+    metrics tape gives the record's ``counter_signature``, and its wire
+    bytes against the segmented plan's ``wire_exact`` (JAX :1010-1047)."""
     if join_opts.get("shuffle") == "ragged":
         return {"skipped": "ragged wire: the segmented path needs static "
                            "receive boundaries"}
@@ -629,6 +639,12 @@ def sort_ab(comm, build, probe, n_joins: int, join_opts: dict, args):
             ms[mode].append(timed(fn)[1])
     warm_new_traces = cache.traces - traces0
     (flat, fd), (seg, sd) = warm["flat"], warm["segmented"]
+    metrics = make_distributed_join(
+        comm, with_metrics=True, sort_mode="segmented", sort_segments=segs,
+        **opts)(build, probe).telemetry
+    red = metrics.to_dict()["reduced"]
+    plan = build_plan(comm, build, probe, with_metrics=True,
+                      sort_mode="segmented", sort_segments=segs, **opts)
     rec = {
         "kind": "sort_ab",
         "n_joins": n_joins,
@@ -648,7 +664,11 @@ def sort_ab(comm, build, probe, n_joins: int, join_opts: dict, args):
         "warm_new_traces": warm_new_traces,
         "oracle_equal_flat": None,
         "oracle_equal_segmented": None,
-        "not_ported": ["counter_signature", "wire_exact"],
+        "wire_exact": all(plan.wire[side]["bytes_per_rank"] * n
+                          == red.get(f"{side}.wire_bytes")
+                          for side in ("build", "probe")),
+        "plan_digest": plan.digest,
+        "counter_signature": counter_signature(metrics),
     }
     if not isinstance(comm, ProcessGroupCommunicator):
         keys = ([join_opts["key"]] if isinstance(join_opts["key"], str)
@@ -673,9 +693,9 @@ def agg_ab(comm, build, probe, join_key, n_joins: int, join_opts: dict,
     fetch synchronises); both graded against the numpy oracle. Shapes
     the pushdown refuses skip with the reason. The pushdown's program
     comes from a ``JoinProgramCache``, as in the JAX driver: its warm
-    calls must build none (``warm_pushdown_new_traces``). The JAX
-    record's counter signature rides the telemetry metrics, which the
-    port does not have yet (``not_ported``)."""
+    calls must build none (``warm_pushdown_new_traces``). One untimed
+    pushdown with the metrics tape gives the record's
+    ``counter_signature`` (JAX :872-897)."""
     if args.string_key_bytes:
         return {"skipped": "string join keys: the fused pushdown covers "
                            "scalar keys"}
@@ -742,6 +762,9 @@ def agg_ab(comm, build, probe, join_key, n_joins: int, join_opts: dict,
             else:
                 push_res, push_frame = res, frame
     oracle = aggregate_oracle(build, probe, keys, spec)
+    metrics = make_distributed_join(
+        comm, key=join_key, with_metrics=True, aggregate=spec,
+        **opts)(build, probe).telemetry
     mat_min, push_min = min(walls["materialize"]), min(walls["pushdown"])
     return {
         "kind": "agg_ab",
@@ -759,7 +782,7 @@ def agg_ab(comm, build, probe, join_key, n_joins: int, join_opts: dict,
         "oracle_equal_pushdown": frames_equal(push_frame, oracle),
         "oracle_equal_materialize": frames_equal(mat_frame, oracle),
         "warm_pushdown_new_traces": cache.traces - traces0,
-        "not_ported": ["counter_signature"],
+        "counter_signature": counter_signature(metrics),
     }
 
 
@@ -878,6 +901,17 @@ def run(args, device=None) -> dict:
         1 if isinstance(comm, ProcessGroupCommunicator) else n)
     per_join = {k: (v - before[k]) / joins
                 for k, v in comm.counters().items()}
+    # --telemetry: the device counters of one untimed join on the
+    # unshifted tables, after the timed loop (which stays tape-off)
+    collect_join_metrics(comm, build, probe, dict(fixed, **ladder.sizing()),
+                         attempt=attempt)
+    explain_rec = None
+    if args.explain:
+        # the plan of the timed program (the final rung, tape off)
+        doc = build_plan(comm, build, probe, with_metrics=False,
+                         **fixed, **ladder.sizing()).explain_record()
+        write_explain(args, doc)
+        explain_rec = explain_summary(doc)
 
     rows_per_sec = (b_rows + p_rows) / sec
     record = {
@@ -934,6 +968,7 @@ def run(args, device=None) -> dict:
         "wire_bytes_ici_per_join": per_join["wire_bytes_ici"],
         "wire_bytes_dcn_per_join": per_join["wire_bytes_dcn"],
         "wire_bytes_saved_per_join": per_join["wire_bytes_saved"],
+        "explain": explain_rec,
         "agg_ab": (agg_ab(comm, build, probe, fixed["key"], args.agg_ab,
                           dict(fixed, **ladder.sizing()), args)
                    if args.agg_ab > 0 else None),

@@ -91,6 +91,8 @@ def parse_args(argv=None):
                    help="handed on to every process")
     p.add_argument("--history", default=None, metavar="FILE",
                    help="handed on to every process (rank 0 appends)")
+    p.add_argument("--explain", action="store_true",
+                   help="forwarded to every process's driver")
     p.add_argument("--guard-deadline-s", type=float, default=None,
                    metavar="S", help="handed on to every process")
     p.add_argument("command", nargs=argparse.REMAINDER,

@@ -36,13 +36,20 @@ JAX driver's record field names. Four paths:
 A batched path's seconds are the batch loop's, host-to-device staging
 included. ``--telemetry``, ``--trace``, ``--history`` and
 ``--guard-deadline-s`` are the JAX driver's (``benchmarks.run_guarded``);
-the diagnosis, integrity, chaos, tuner, plan and stage-profile flags
-refuse by name. The ``--query`` record's ``programs_traced``,
-``warm_new_traces`` and ``warm_cache_hit`` come from the
-``JoinProgramCache`` the plan runs through, as in the JAX driver; it
-lists what the JAX record takes from the metrics tape and the cost model
-under ``not_ported``. Communicators as in the config driver: ``local``, ``emulated`` (``--n-ranks``), and ``nccl`` or
-``gloo`` under the launcher (``benchmarks/launch.py``), where every
+``--explain`` writes the single-shot program's plan
+(``planning.build_plan``) or, with ``--query``, the query's per-operator
+plan (``planning.explain_query``); with a session on, the single shot
+runs one untimed metrics join after its timed loop
+(``benchmarks.collect_join_metrics``). The diagnosis, integrity, chaos,
+tuner and stage-profile flags refuse by name. The ``--query`` record's
+``programs_traced``, ``warm_new_traces`` and ``warm_cache_hit`` come
+from the ``JoinProgramCache`` the plan runs through, and its
+``counter_signature``, ``wire`` and ``wire_exact`` from one untimed
+query with the metrics tape, graded against ``explain_query`` at the
+rung the run resolved to, as in the JAX driver; the stage profile is
+listed under ``not_ported``. Communicators as in the config driver:
+``local``, ``emulated`` (``--n-ranks``), and ``nccl`` or ``gloo`` under
+the launcher (``benchmarks/launch.py``), where every
 process generates the same tables and stages only its own rows.
 """
 
@@ -60,8 +67,12 @@ from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.bench import gpu_identity
 from distributed_join_tpu_torch.benchmarks import (
     UNPORTED_FLAGS,
+    add_explain_arg,
     add_guard_arg,
     add_telemetry_args,
+    collect_join_metrics,
+    explain_summary,
+    write_explain,
     global_table,
     rank_device,
     refuse_flags,
@@ -82,7 +93,14 @@ from distributed_join_tpu_torch.parallel.distributed_join import (
     make_join_step,
 )
 from distributed_join_tpu_torch.parallel.query_exec import distributed_query
-from distributed_join_tpu_torch.planning.query import tpch_query_plan
+from distributed_join_tpu_torch.planning.plan import build_plan
+from distributed_join_tpu_torch.planning.query import (
+    explain_query,
+    tpch_query_plan,
+)
+from distributed_join_tpu_torch.telemetry.baselines import (
+    SIGNATURE_SCHEMA_VERSION,
+)
 from distributed_join_tpu_torch.service.programs import JoinProgramCache
 from distributed_join_tpu_torch.parallel.out_of_core import (
     batched_join_host,
@@ -108,9 +126,6 @@ SEED = 42
 # Flags of the JAX driver that the port does not have.
 _REFUSED = {
     "--platform": "platform selection (the driver runs on the GPU)",
-    "--explain": "plan explain",
-    "--stage-profile": "the stage profile",
-    "--auto-tune": "the tuner",
     **UNPORTED_FLAGS,
 }
 
@@ -183,6 +198,7 @@ def parse_args(argv=None):
                    help="taken for the JAX command line's sake; the flat "
                         "sort never reads it")
     add_telemetry_args(p)
+    add_explain_arg(p)
     add_guard_arg(p)
     return p.parse_args(argv)
 
@@ -227,6 +243,9 @@ def _guards(args) -> None:
             "tpch driver runs the flat pipeline: A/B the segmented sort on "
             "the generator workload (distributed_join --sort-ab)")
     batched = args.batches > 1 or args.host_generator
+    if args.explain and batched:
+        print("note: --explain covers the single-shot path; the batched "
+              "paths write no plan", file=sys.stderr)
     if args.query is not None:
         bad = [flag for flag, on in (
             ("--agg", args.agg),
@@ -378,16 +397,23 @@ def run(args, device=None) -> dict:
                     ("count", None, "n_lines"),
                     ("max", "l_shipdate", "last_ship")],
             carry=("o_orderdate",)) if args.agg else None
-        step = make_join_step(
-            comm, key="key",
-            over_decomposition=args.over_decomposition_factor,
+        join_opts = dict(
+            key="key", over_decomposition=args.over_decomposition_factor,
             shuffle_capacity_factor=args.shuffle_capacity_factor,
             out_capacity_factor=args.out_capacity_factor, aggregate=spec)
+        step = make_join_step(comm, **join_opts)
         sec, matches, overflow = timed_join_throughput(
             comm, step, build, probe, args.iterations)
+        # --telemetry: one untimed metrics join after the timed loop
+        collect_join_metrics(comm, build, probe, join_opts)
         extra = {} if spec is None else {
             "agg": True, "aggregate": _grade_agg(comm, step, build, probe,
                                                  spec)}
+        if args.explain:
+            doc = build_plan(comm, build, probe, with_metrics=False,
+                             **join_opts).explain_record()
+            write_explain(args, doc)
+            extra["explain"] = explain_summary(doc)
     return _report(args, comm, dev, orders_rows, lineitem_rows, rows,
                    matches, overflow, sec, extra)
 
@@ -412,10 +438,12 @@ def _run_query(args, comm, dev) -> dict:
     the card with the query's filters, run the plan cold through the
     ladder, then ``--iterations`` warm runs timed one by one (host
     clock around the query and a synchronisation, the slowest rank's),
-    and grade the groups against the numpy whole-query oracle. The
-    record has the JAX record's fields the port computes, and names the
-    others (program cache, telemetry, cost model) under
-    ``not_ported``."""
+    and grade the groups against the numpy whole-query oracle. Then the
+    plan is priced at the rung the run resolved to (``explain_query``)
+    and one untimed query with the metrics tape grades its padded wire
+    bytes exactly, operator by operator (``wire_exact``); its counters,
+    under op-id prefixes, are the record's ``counter_signature``. The
+    stage profile is listed under ``not_ported``."""
     plan = tpch_query_plan(args.query)
     with telemetry.span("generate", scale_factor=args.scale_factor):
         tables = query_filters(generate_tpch_query_tables(
@@ -429,7 +457,8 @@ def _run_query(args, comm, dev) -> dict:
 
     def run_once():
         return distributed_query(tables, plan, comm, auto_retry=4,
-                                 program_cache=cache, **factors)
+                                 program_cache=cache, with_metrics=False,
+                                 **factors)
 
     res = run_once()
     if bool(res.overflow):
@@ -458,9 +487,41 @@ def _run_query(args, comm, dev) -> dict:
             f"--query {args.query}: the composed program diverged from "
             "the whole-query numpy oracle — refusing to report wrong "
             "groups")
+    # the plan at the rung the run resolved to, graded against one
+    # untimed query with the metrics tape
+    scale = 2 ** res.retry_attempts
+    rung_factors = dict(
+        factors,
+        shuffle_capacity_factor=args.shuffle_capacity_factor * scale,
+        out_capacity_factor=args.out_capacity_factor * scale)
+    doc = explain_query(plan, comm, tables, defaults=rung_factors)
+    res_m = distributed_query(tables, plan, comm, auto_retry=0,
+                              with_metrics=True, **rung_factors)
+    wire_exact = True
+    wire_ops = []
+    qcounters = {}
+    for orec, m in zip(doc["operators"], res_m.telemetry):
+        red = m.to_dict()["reduced"]
+        entry = {"id": orec["id"]}
+        for side in ("build", "probe"):
+            pred = int(orec["wire"][side]["bytes_total"])
+            # a single rank ships nothing: no counter, zero predicted
+            meas = int(red.get(f"{side}.wire_bytes", 0))
+            entry[side] = {"predicted_bytes": pred, "measured_bytes": meas}
+            wire_exact &= pred == meas
+        wire_ops.append(entry)
+        for k, v in sorted(red.items()):
+            qcounters[f"{orec['id']}.{k}"] = int(v)
+    if args.explain:
+        write_explain(args, doc)
     extra = {
         "kind": "query_smoke",
         "query": args.query,
+        "counter_signature": {
+            "signature_version": SIGNATURE_SCHEMA_VERSION,
+            "n_ranks": comm.n_ranks,
+            "counters": qcounters,
+        },
         "plan_digest": res.plan_digest,
         "n_operators": plan.n_operators(),
         "customer_nrows": int(tables["customer"].num_valid()),
@@ -475,9 +536,11 @@ def _run_query(args, comm, dev) -> dict:
         "programs_traced": cache.traces,
         "warm_new_traces": cache.traces - cold_traces,
         "warm_cache_hit": bool(res.cache_hit),
-        "not_ported": ["counter_signature", "wire_exact", "wire",
-                       "cost_total_s", "order_candidates",
-                       "stage_profile"],
+        "wire_exact": wire_exact,
+        "wire": wire_ops,
+        "cost_total_s": doc["total_s"],
+        "order_candidates": doc["orders"],
+        "not_ported": ["stage_profile"],
     }
     return _report(args, comm, dev, int(tables["orders"].num_valid()),
                    int(tables["lineitem"].num_valid()), rows,

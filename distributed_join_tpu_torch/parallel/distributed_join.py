@@ -9,7 +9,8 @@ sort :656-715), the shuffle dispatch ``_batch_shuffle`` (:95-141) and
 ``_batch_shuffle_segmented`` (:144-171), ``resolve_join_ladder``
 (:1421), ``distributed_inner_join`` (:1486) and the probe-only steps
 of the resident build tables (``resolve_probe_capacities``,
-``make_probe_join_step``, ``_make_probe_agg_step``: :985-1380). With n
+``make_probe_join_step``, ``_make_probe_agg_step``: :985-1380) and
+``make_distributed_join`` (:1383). With n
 ranks and over-decomposition k, rows hash into ``bucket = h % (k*n)``;
 ``dest = bucket % n`` and ``batch = bucket // n``, so one partition sort
 serves all k batches and matching keys always share (dest, batch).
@@ -30,10 +31,20 @@ whole rows, and string keys are packed into 64-bit word columns once,
 before hashing (JAX :536-552), and rebuilt on the way out (:783-790).
 Typed joins (``join_type``, ops/join.JOIN_TYPES) run each bucket's local
 join with the type: hash partitioning puts every key's rows of both
-sides in one bucket, so unmatched rows are local. The JAX step's other
-options (metrics and integrity digests) refuse by name; ``with_metrics``
-left at None, as the JAX driver leaves it, resolves to False with a
-telemetry session on too (the metrics tape is not part of the port).
+sides in one bucket, so unmatched rows are local. The integrity digests
+(``with_integrity``, ``verify_integrity``) and the autotuner (``tuner``)
+refuse by name.
+
+Device metrics (``with_metrics``; JAX :517-1372): every step takes the
+JAX package's ``MetricsTape`` (``telemetry/metrics.py``) and then returns
+``(JoinResult, Metrics)``: the shuffles' wire accounting under
+``build.``/``probe.``/``partials.``, ``rows_partitioned`` and
+``overflow_margin_min`` a side, ``matches``, ``skew.hh_matches``,
+``sort_segments``, ``agg.groups``, ``resident.rows`` and the constants of
+``metrics_static`` (``retry_attempt_max``). ``make_distributed_join``
+resolves ``with_metrics=None`` from the telemetry session, as the JAX
+package does, and hangs the block on the result as ``res.telemetry``.
+With the tape off a step launches exactly what it launched before.
 
 Telemetry (JAX :572-947, :1177-1348): with a session on, the steps
 record JAX's spans under JAX's names and payloads: ``skew``,
@@ -75,6 +86,11 @@ from distributed_join_tpu_torch.parallel import skew
 from distributed_join_tpu_torch.parallel.communicator import Communicator
 from distributed_join_tpu_torch.parallel import faults
 from distributed_join_tpu_torch.parallel.faults import CapacityLadder
+from distributed_join_tpu_torch.planning.cost import (
+    DEFAULT_DCN_CODEC_BITS,
+    resolve_dcn_bits,
+    resolve_dcn_codec,
+)
 from distributed_join_tpu_torch.parallel.shuffle import (
     prefetch_ragged_plans,
     shuffle_hierarchical,
@@ -84,6 +100,7 @@ from distributed_join_tpu_torch.parallel.shuffle import (
     shuffle_segmented,
 )
 from distributed_join_tpu_torch.table import Table
+from distributed_join_tpu_torch.telemetry.metrics import MetricsTape
 from distributed_join_tpu_torch.utils.strings import (
     LEN_SUFFIX,
     prepare_string_key_join,
@@ -96,22 +113,18 @@ DEFAULT_HH_SLOTS = 64
 HH_BUILD_SLOTS_PER_HH = 32  # default hh_build_capacity = slots * this
 SHUFFLE_MODES = ("padded", "ragged", "ppermute", "hierarchical")
 SORT_MODES = ("flat", "segmented")
-DCN_CODEC_KNOBS = ("off", "auto", "on")
-# The hierarchical codec's residual width when the caller set the codec
-# on but no compression_bits; the ladder widens it on overflow.
-DEFAULT_DCN_CODEC_BITS = 16
 # The table row-sharded; the summed total and overflow replicated.
 JOIN_SHARDED_OUT = JoinResult(table=False, total=True, overflow=True)
+# A metrics step returns (JoinResult, Metrics); the block is replicated
+# (one all-gather in the step).
+JOIN_METRICS_SHARDED_OUT = (JOIN_SHARDED_OUT, True)
 
 # Options of the JAX package's join step and driver that the port does
 # not have, with the default each may still be passed as.
 _UNPORTED = {
-    "with_metrics": ("device metrics", False),
-    "with_integrity": ("wire-integrity digests", False),
-    "metrics_static": ("device metrics", None),
-    "verify_integrity": ("wire-integrity digests", False),
-    "explain": ("plan explain", False),
-    "tuner": ("the autotuner", None),
+    "with_integrity": ("wire-integrity digests (ROADMAP A5d)", False),
+    "verify_integrity": ("wire-integrity digests (ROADMAP A5d)", False),
+    "tuner": ("the autotuner (ROADMAP A5c)", None),
 }
 
 
@@ -129,38 +142,6 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def resolve_dcn_codec(knob: str, n_slices: int = 1) -> bool:
-    """The hierarchical shuffle's ``dcn_codec`` knob as on or off.
-    ``off`` and ``on`` resolve as in the JAX package. ``auto`` is the
-    JAX package's cost-model verdict (``planning/cost.py``, whose
-    bandwidths are TPU constants), which the port does not have: on a
-    multi-slice mesh it refuses by name; on one slice there is no
-    cross-slice tier, and it resolves off. Every value is validated."""
-    if knob not in DCN_CODEC_KNOBS:
-        raise ValueError(f"unknown dcn_codec {knob!r}; pick one of "
-                         f"{DCN_CODEC_KNOBS}")
-    if knob == "auto":
-        if n_slices > 1:
-            raise NotImplementedError(
-                "dcn_codec='auto': the cost model that resolves it (the "
-                "JAX package's planning/cost.py) is not part of the port; "
-                "pass dcn_codec='on' or 'off'")
-        return False
-    return knob == "on"
-
-
-def resolve_dcn_bits(knob: str, compression_bits: Optional[int] = None,
-                     n_slices: int = 1) -> Optional[int]:
-    """The cross-slice residual width (JAX ``planning/cost.py:179``):
-    the caller's bits, by default ``DEFAULT_DCN_CODEC_BITS``, when the
-    codec resolves on and there is more than one slice; else None (one
-    slice routes the flat padded wire, with no codec)."""
-    on = resolve_dcn_codec(knob, n_slices)
-    if n_slices <= 1 or not on:
-        return None
-    return compression_bits or DEFAULT_DCN_CODEC_BITS
-
-
 def _varwidth_cols(table: Table) -> list:
     """The 2-D uint8 columns with a ``<name>#len`` companion and a width
     divisible by 4: the columns the ragged wire ships byte-exactly (JAX
@@ -173,7 +154,7 @@ def _varwidth_cols(table: Table) -> list:
 def _batch_shuffle(comm, pt, batch: int, n_ranks: int, capacity: int,
                    mode: str = "padded",
                    compression_bits: Optional[int] = None, varwidth=None,
-                   dcn_codec_on: bool = False):
+                   dcn_codec_on: bool = False, tape=None):
     """One batch's shuffle of one side (JAX :95): the received table and
     the overflow flag. The ragged wire's receive buffer holds what the
     padded layout would flatten to (``n_ranks * capacity`` rows), and
@@ -186,22 +167,24 @@ def _batch_shuffle(comm, pt, batch: int, n_ranks: int, capacity: int,
         dcn_bits = ((compression_bits or DEFAULT_DCN_CODEC_BITS)
                     if dcn_codec_on else None)
         table, _, c_ovf = shuffle_hierarchical(
-            comm, padded, counts, capacity, dcn_bits=dcn_bits)
+            comm, padded, counts, capacity, dcn_bits=dcn_bits, tape=tape)
         return table, overflow | c_ovf
     if mode == "hierarchical":
         mode, compression_bits = "padded", None
     if mode == "ragged":
         return shuffle_ragged(
             comm, pt, n_ranks * capacity, bucket_start=batch * n_ranks,
-            capacity_per_bucket=capacity, varwidth=varwidth)
+            capacity_per_bucket=capacity, varwidth=varwidth, tape=tape)
     padded, counts, overflow, _ = pt.to_padded(
         capacity, bucket_start=batch * n_ranks, n_buckets=n_ranks)
     via = "ppermute" if mode == "ppermute" else "all_to_all"
     if compression_bits is not None:
         table, _, c_ovf = shuffle_padded_compressed(
-            comm, padded, counts, capacity, bits=compression_bits, via=via)
+            comm, padded, counts, capacity, bits=compression_bits, via=via,
+            tape=tape)
         return table, overflow | c_ovf
-    table, _ = shuffle_padded(comm, padded, counts, capacity, via=via)
+    table, _ = shuffle_padded(comm, padded, counts, capacity, via=via,
+                              tape=tape)
     return table, overflow
 
 
@@ -240,8 +223,34 @@ def _step_capacities(b_rows: int, p_rows: int, n: int, k: int,
     return b_cap, p_cap, out_cap
 
 
+def _new_tape(with_metrics: bool, metrics_static) -> Optional[MetricsTape]:
+    """The step's tape (None with metrics off), holding the caller's
+    constants (``metrics_static``, e.g. ``retry_attempt_max``)."""
+    if not with_metrics:
+        return None
+    tape = MetricsTape()
+    for name, value in (metrics_static or {}).items():
+        tape.add(name, int(value))
+    return tape
+
+
+def _bill_partition(tape, pt, cap: int) -> None:
+    """A side's partitioned rows and its tightest bucket's headroom under
+    the shuffle capacity (device scalars)."""
+    tape.add("rows_partitioned", pt.counts.sum(dtype=torch.int64))
+    tape.record_min("overflow_margin_min",
+                    cap - pt.counts.max().to(torch.int64))
+
+
+def _scopes(tape, n: int) -> list:
+    """The side scopes of a tape (None without one)."""
+    names = ("build", "probe") if n == 2 else ("probe",)
+    return [None if tape is None else tape.scoped(s) for s in names]
+
+
 def _flat_batches(comm, sides, keys, k: int, shuffle: str,
-                  compression_bits, dcn_on: bool, strings: bool):
+                  compression_bits, dcn_on: bool, strings: bool,
+                  tape=None):
     """Partition each ``(table, bucket capacity)`` side into ``k *
     n_ranks`` buckets and yield each of the ``k`` batches as ``(*received
     sides, overflow)``: both sides (build first) for a join of two
@@ -251,35 +260,41 @@ def _flat_batches(comm, sides, keys, k: int, shuffle: str,
     byte-exact wire, each bucket ordered by the first one's length,
     descending. The partition runs in a ``partition`` span and each
     batch's exchange in a ``shuffle`` span (``batch=b``; the ragged
-    wire's one plan read, both sides and every batch, in batch 0's)."""
+    wire's one plan read, both sides and every batch, in batch 0's).
+    ``tape``: the step's metrics tape, each side billed under its own
+    scope (``build``/``probe``, or ``probe`` alone)."""
     n = comm.n_ranks
     parted = []
+    scoped = _scopes(tape, len(sides))
     with telemetry.span("partition"):
-        for t, cap in sides:
+        for (t, cap), st in zip(sides, scoped):
             vw = _varwidth_cols(t) if strings and shuffle == "ragged" else []
             pt = radix_hash_partition(
                 t, keys, k * n,
                 order_within=vw[0] + LEN_SUFFIX if vw else None)
-            parted.append((pt, cap, vw))
+            parted.append((pt, cap, vw, st))
+            if st is not None:
+                _bill_partition(st, pt, cap)
     for b in range(k):
         recv, overflow = [], None
         with telemetry.span("shuffle", batch=b):
             if shuffle == "ragged" and b == 0:
                 # both sides' plans in one read to the host
                 prefetch_ragged_plans(comm,
-                                      [(pt, vw) for pt, _, vw in parted])
-            for pt, cap, vw in parted:
+                                      [(pt, vw) for pt, _, vw, _ in parted])
+            for pt, cap, vw, st in parted:
                 table, ovf = _batch_shuffle(
                     comm, pt, b, n, cap, mode=shuffle,
                     compression_bits=compression_bits, varwidth=vw,
-                    dcn_codec_on=dcn_on)
+                    dcn_codec_on=dcn_on, tape=st)
                 recv.append(table)
                 overflow = ovf if overflow is None else overflow | ovf
         yield (*recv, overflow)
 
 
 def _batch_shuffle_segmented(comm, pt, batch: int, n_ranks: int,
-                             segments: int, seg_cap: int, mode: str):
+                             segments: int, seg_cap: int, mode: str,
+                             tape=None):
     """One batch of the segmented exchange (JAX :144-171): the fine
     buckets pad to ``seg_cap`` and ride one block a destination
     (``shuffle_segmented``). Returns ``(recv_cols (n, s, seg_cap, ...),
@@ -291,7 +306,7 @@ def _batch_shuffle_segmented(comm, pt, batch: int, n_ranks: int,
     via = {"padded": "all_to_all", "ppermute": "ppermute",
            "hierarchical": "hierarchical"}[mode]
     recv_cols, recv_counts = shuffle_segmented(
-        comm, padded, counts, seg_cap, segments, via=via)
+        comm, padded, counts, seg_cap, segments, via=via, tape=tape)
     return recv_cols, recv_counts, overflow
 
 
@@ -302,12 +317,18 @@ def _concat(parts) -> Table:
                  torch.cat([t.valid for t in parts]))
 
 
-def _settle(comm, out: Table, total, overflow) -> JoinResult:
+def _settle(comm, out: Table, total, overflow, tape=None):
     """The step's result: its table, the match count summed and the
-    overflow flag OR-ed over the ranks."""
+    overflow flag OR-ed over the ranks; with a tape, ``(result,
+    Metrics)``, the rank's own (pre-sum) ``matches`` on the tape."""
+    metrics = None
+    if tape is not None:
+        tape.add("matches", total)
+        metrics = tape.gathered(comm, total.device)
     total = comm.psum(total)
     overflow = comm.psum(overflow.to(torch.int32)) > 0
-    return JoinResult(out, total=total, overflow=overflow)
+    res = JoinResult(out, total=total, overflow=overflow)
+    return res if tape is None else (res, metrics)
 
 
 def make_join_step(
@@ -332,10 +353,13 @@ def make_join_step(
     sort_mode: str = "flat",
     sort_segments: Optional[int] = None,
     aggregate=None,
+    with_metrics: bool = False,
+    metrics_static: Optional[dict] = None,
     **unported,
 ):
     """The per-rank join step ``step(build_local, probe_local) ->
-    JoinResult``, to run under ``comm.spmd``.
+    JoinResult``, to run under ``comm.spmd``; with ``with_metrics``,
+    ``(JoinResult, Metrics)`` (run it with ``JOIN_METRICS_SHARDED_OUT``).
 
     Static capacities, as in the JAX package:
     - shuffle pad per (batch, destination) bucket =
@@ -393,6 +417,10 @@ def make_join_step(
     materializing one. The segmented sort, the skew sidecar, explicit
     payload lists, ``kernel_config`` and typed joins refuse, as in the
     JAX package.
+
+    ``with_metrics``: the step keeps a ``MetricsTape`` (module
+    docstring) and returns its gathered block beside the result;
+    ``metrics_static`` adds constants to it.
     """
     _refuse_unported(unported)
     if join_type not in JOIN_TYPES:
@@ -433,7 +461,7 @@ def make_join_step(
                 "dcn_codec='off' contradicts compression_bits="
                 f"{compression_bits}: the hierarchical mode's codec rides "
                 "only the cross-slice tier; drop the bits or the knob")
-        dcn_on = resolve_dcn_codec(dcn_codec, comm.n_slices)
+        dcn_on = resolve_dcn_codec(dcn_codec)
     else:
         resolve_dcn_codec(dcn_codec)
         dcn_on = False
@@ -519,9 +547,11 @@ def make_join_step(
             shuffle_capacity_factor=shuffle_capacity_factor,
             out_capacity_factor=out_capacity_factor,
             out_rows_per_rank=out_rows_per_rank, shuffle=shuffle,
-            compression_bits=compression_bits, dcn_on=dcn_on)
+            compression_bits=compression_bits, dcn_on=dcn_on,
+            with_metrics=with_metrics, metrics_static=metrics_static)
 
-    def step(build_local: Table, probe_local: Table) -> JoinResult:
+    def step(build_local: Table, probe_local: Table):
+        tape = _new_tape(with_metrics, metrics_static)
         for kname in keys:
             bdt = build_local.columns[kname].dtype
             pdt = probe_local.columns[kname].dtype
@@ -567,24 +597,24 @@ def make_join_step(
                     threshold=int(skew_threshold * p_rows))
                 is_hh_b = skew.mark_heavy(bh, hh)
                 is_hh_p = skew.mark_heavy(ph, hh)
+                hh_build_cap, hh_probe_cap, hh_out_cap = skew_capacities(
+                    p_rows, hh_slots, hh_build_capacity, hh_probe_capacity,
+                    hh_out_capacity)
                 hh_build, ovf_hb = skew.broadcast_heavy_build(
-                    comm, build_local, is_hh_b,
-                    hh_build_capacity or hh_slots * HH_BUILD_SLOTS_PER_HH,
+                    comm, build_local, is_hh_b, hh_build_cap,
                     kernel_config=kernel_config)
                 # heavy probe rows stay local, compacted into a
                 # right-sized block first, so the HH join does not
                 # re-sort all p_rows
-                hh_probe_cap = _round_up(
-                    hh_probe_capacity or max(p_rows // 8, 1024), 8)
                 hh_probe, _, ovf_hp = skew.extract_prefix(
-                    probe_local, probe_local.valid & is_hh_p, hh_probe_cap,
-                    kernel_config=kernel_config)
-                hh_res = local_join(
-                    hh_build, hh_probe,
-                    hh_out_capacity or max(p_rows // 4, 1024))
+                    probe_local, probe_local.valid & is_hh_p,
+                    _round_up(hh_probe_cap, 8), kernel_config=kernel_config)
+                hh_res = local_join(hh_build, hh_probe, hh_out_cap)
                 parts.append(hh_res.table)
                 total = total + hh_res.total
                 overflow = overflow | ovf_hb | ovf_hp | hh_res.overflow
+                if tape is not None:
+                    tape.add("skew.hh_matches", hh_res.total)
                 build_local = Table(build_local.columns,
                                     build_local.valid & ~is_hh_b)
                 probe_local = Table(probe_local.columns,
@@ -615,12 +645,17 @@ def make_join_step(
                 pts = [radix_hash_partition(t, keys_eff, nb,
                                             sub_buckets=seg)
                        for t in (build_local, probe_local)]
+            scoped = _scopes(tape, 2)
+            if tape is not None:
+                tape.add("sort_segments", seg)
+                for st, pt, cap in zip(scoped, pts, caps):
+                    _bill_partition(st, pt, cap)
             for b in range(k):
                 blocks = []
                 with telemetry.span("shuffle", batch=b):
-                    for pt, cap in zip(pts, caps):
+                    for pt, cap, st in zip(pts, caps, scoped):
                         cols, counts, ovf = _batch_shuffle_segmented(
-                            comm, pt, b, n, seg, cap, shuffle)
+                            comm, pt, b, n, seg, cap, shuffle, tape=st)
                         blocks.append((cols, counts))
                         overflow = overflow | ovf
                 with telemetry.span("join", batch=b):
@@ -637,19 +672,18 @@ def make_join_step(
             for b, (recv_b, recv_p, ovf) in enumerate(_flat_batches(
                     comm, ((build_local, b_cap), (probe_local, p_cap)),
                     keys_eff, k, shuffle, compression_bits, dcn_on,
-                    strings=True)):
+                    strings=True, tape=tape)):
                 overflow = overflow | ovf
                 with telemetry.span("join", batch=b):
                     res = local_join(recv_b, recv_p)
                 parts.append(res.table)
                 total = total + res.total
                 overflow = overflow | res.overflow
-        res = _settle(comm, _concat(parts), total, overflow)
-        if not str_spec:
-            return res
-        return JoinResult(patch_string_lengths(
-            rebuild_string_keys(res.table, str_spec, keys), keys, join_type),
-            total=res.total, overflow=res.overflow)
+        out = _concat(parts)
+        if str_spec:
+            out = patch_string_lengths(
+                rebuild_string_keys(out, str_spec, keys), keys, join_type)
+        return _settle(comm, out, total, overflow, tape)
 
     return step
 
@@ -677,7 +711,8 @@ def _check_scalar_columns(resident_local: Table, probe_local: Table,
 
 def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
                         out_capacity_factor, out_rows_per_rank, shuffle,
-                        compression_bits, dcn_on, resident: bool = False):
+                        compression_bits, dcn_on, resident: bool = False,
+                        with_metrics: bool = False, metrics_static=None):
     """The fused join+aggregate step (JAX :804-983): partition and
     shuffle only the columns the reduction reads
     (``ops.aggregate.wire_columns``), with the materializing step's
@@ -694,13 +729,18 @@ def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
     ``resident``: the probe-only form (JAX ``_make_probe_agg_step``,
     :1234-1380): the build is a resident shard, already on its rank, so
     only the probe partitions and shuffles and every batch reduces
-    against the whole shard; build-mode group keys refuse."""
+    against the whole shard; build-mode group keys refuse.
+
+    With ``with_metrics`` the tape adds ``agg.groups`` (the rank's final
+    groups) and, resident, ``resident.rows``; the partials exchange
+    bills under ``partials.``."""
     n = comm.n_ranks
     nb = k * n
     partials_mode = "hierarchical" if shuffle == "hierarchical" \
         else "padded"
 
-    def step(build_local: Table, probe_local: Table) -> JoinResult:
+    def step(build_local: Table, probe_local: Table):
+        tape = _new_tape(with_metrics, metrics_static)
         if resident:
             _check_scalar_columns(build_local, probe_local, keys)
         for kname in keys:
@@ -737,6 +777,8 @@ def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
             build_w.capacity, probe_w.capacity, n, k,
             shuffle_capacity_factor, out_capacity_factor, out_rows_per_rank)
         groups_cap = agg_ops.resolve_groups_capacity(spec, out_cap)
+        if tape is not None and resident:
+            tape.add("resident.rows", build_local.num_valid())
 
         dev = build_local.device
         total = torch.zeros((), dtype=torch.int64, device=dev)
@@ -746,11 +788,11 @@ def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
         elif resident:
             batches = ((build_w, recv_p, ovf) for recv_p, ovf in _flat_batches(
                 comm, ((probe_w, p_cap),), keys, k, shuffle, compression_bits,
-                dcn_on, strings=False))
+                dcn_on, strings=False, tape=tape))
         else:
             batches = _flat_batches(
                 comm, ((build_w, b_cap), (probe_w, p_cap)), keys, k,
-                shuffle, compression_bits, dcn_on, strings=False)
+                shuffle, compression_bits, dcn_on, strings=False, tape=tape)
         parts = []
         for b, (recv_b, recv_p, ovf) in enumerate(batches):
             with telemetry.span("join_agg",
@@ -772,7 +814,9 @@ def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
                 with telemetry.span("partials_exchange"):
                     ptg = radix_hash_partition(parts[0], group_names, n)
                     recv, ovf_x = _batch_shuffle(
-                        comm, ptg, 0, n, groups_cap, mode=partials_mode)
+                        comm, ptg, 0, n, groups_cap, mode=partials_mode,
+                        tape=None if tape is None else tape.scoped(
+                            "partials"))
                     combined, _, ovf_c = agg_ops.combine_partials(
                         [recv], spec, group_names, lanes_schema,
                         groups_cap)
@@ -780,8 +824,11 @@ def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
                 parts = [combined]
         finals = [agg_ops.finalize_groups(p, spec, group_names)
                   for p in parts]
-        return _settle(comm, finals[0] if len(finals) == 1
-                       else _concat(finals), total, overflow)
+        out = finals[0] if len(finals) == 1 else _concat(finals)
+        if tape is not None:
+            # the rank's final groups: every group lives on one rank
+            tape.add("agg.groups", out.num_valid())
+        return _settle(comm, out, total, overflow, tape)
 
     return step
 
@@ -803,6 +850,8 @@ def make_probe_join_step(
     sort_mode: str = "flat",
     aggregate=None,
     kernel_config=None,
+    with_metrics: bool = False,
+    metrics_static: Optional[dict] = None,
     **unported,
 ):
     """The probe-only join step against a resident build shard
@@ -826,8 +875,9 @@ def make_probe_join_step(
     group keys, explicit payload lists and ``kernel_config`` refuse as
     in the JAX package. The segmented sort, a multi-slice communicator,
     compression on the ragged wire, the skew sidecar and 2-D (string)
-    columns are not part of the probe-only program. Metrics and
-    integrity digests refuse by name.
+    columns are not part of the probe-only program. ``with_metrics``
+    keeps the tape as :func:`make_join_step` does, with ``resident.rows``
+    and the probe side's counters; integrity digests refuse by name.
     """
     _refuse_unported(unported)
     n = comm.n_ranks
@@ -882,19 +932,23 @@ def make_probe_join_step(
             shuffle_capacity_factor=shuffle_capacity_factor,
             out_capacity_factor=out_capacity_factor,
             out_rows_per_rank=out_rows_per_rank, shuffle=shuffle,
-            compression_bits=compression_bits, dcn_on=False, resident=True)
+            compression_bits=compression_bits, dcn_on=False, resident=True,
+            with_metrics=with_metrics, metrics_static=metrics_static)
 
-    def step(resident_local: Table, probe_local: Table) -> JoinResult:
+    def step(resident_local: Table, probe_local: Table):
+        tape = _new_tape(with_metrics, metrics_static)
         _check_scalar_columns(resident_local, probe_local, keys)
         p_cap, out_cap = resolve_probe_capacities(
             probe_local.capacity, n, k, shuffle_capacity_factor,
             out_capacity_factor, out_rows_per_rank)
+        if tape is not None:
+            tape.add("resident.rows", resident_local.num_valid())
         dev = probe_local.device
         total = torch.zeros((), dtype=torch.int64, device=dev)
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
         batches = ([(probe_local, overflow)] if nb == 1 else _flat_batches(
             comm, ((probe_local, p_cap),), keys, k, shuffle,
-            compression_bits, False, strings=False))
+            compression_bits, False, strings=False, tape=tape))
         parts = []
         for b, (recv_p, ovf) in enumerate(batches):
             with telemetry.span("join", **({} if nb == 1 else {"batch": b})):
@@ -906,20 +960,68 @@ def make_probe_join_step(
             parts.append(res.table)
             total = total + res.total
             overflow = overflow | ovf | res.overflow
-        return _settle(comm, _concat(parts), total, overflow)
+        return _settle(comm, _concat(parts), total, overflow, tape)
 
     return step
 
 
+def with_telemetry(program):
+    """``program`` (a ``comm.spmd`` of a metrics step) as ``fn(build,
+    probe) -> JoinResult`` with the block hung on the result as
+    ``res.telemetry`` (host-side, as ``retry_report``)."""
+    def fn(*args):
+        res, metrics = program(*args)
+        object.__setattr__(res, "telemetry", metrics)
+        return res
+
+    return fn
+
+
+def spmd_join(comm: Communicator, step, with_metrics: bool,
+              local_inputs=False):
+    """A join step (``make_join_step``, ``make_probe_join_step``, the
+    aggregate steps; its tape on iff ``with_metrics``) as
+    ``comm.spmd``'s ``fn(build, probe) -> JoinResult``: with metrics on,
+    the step's block hangs on the result as ``res.telemetry``. The one
+    place the tape on/off choice picks the program's sharding."""
+    if not with_metrics:
+        return comm.spmd(step, sharded_out=JOIN_SHARDED_OUT,
+                         local_inputs=local_inputs)
+    return with_telemetry(comm.spmd(step,
+                                    sharded_out=JOIN_METRICS_SHARDED_OUT,
+                                    local_inputs=local_inputs))
+
+
 def make_distributed_join(comm: Communicator, local_inputs: bool = False,
-                          **opts):
+                          with_metrics=None, **opts):
     """``fn(build, probe) -> JoinResult`` over row-sharded global tables
     (capacity divisible by n_ranks): the result table row-sharded, the
     global match count and overflow flag replicated. ``local_inputs``:
     the tables hold this process's rows only (``Communicator.local_rows``;
-    see ``Communicator.spmd``)."""
-    return comm.spmd(make_join_step(comm, **opts),
-                     sharded_out=JOIN_SHARDED_OUT, local_inputs=local_inputs)
+    see ``Communicator.spmd``). ``with_metrics=None`` resolves from the
+    telemetry session (JAX :1383-1418); with metrics on, the result
+    carries the step's ``Metrics`` as ``res.telemetry``."""
+    if with_metrics is None:
+        with_metrics = telemetry.enabled()
+    return spmd_join(comm, make_join_step(comm, with_metrics=with_metrics,
+                                          **opts),
+                     with_metrics, local_inputs=local_inputs)
+
+
+def skew_capacities(p_rows: int, hh_slots: Optional[int] = None,
+                    hh_build_capacity: Optional[int] = None,
+                    hh_probe_capacity: Optional[int] = None,
+                    hh_out_capacity: Optional[int] = None) -> tuple:
+    """The skew sidecar's blocks on a rank of ``p_rows`` probe rows, as
+    ``(hh_build, hh_probe, hh_out)``: each given capacity as it is, else
+    its default (``hh_slots * HH_BUILD_SLOTS_PER_HH`` broadcast build
+    slots, 1/8 and 1/4 of the local probe rows, at least 1024). The
+    step rounds the probe block up to 8 rows. The one copy of these
+    defaults: the step, the ladder and the plans read them here."""
+    slots = DEFAULT_HH_SLOTS if hh_slots is None else hh_slots
+    return (int(hh_build_capacity or slots * HH_BUILD_SLOTS_PER_HH),
+            int(hh_probe_capacity or max(p_rows // 8, 1024)),
+            int(hh_out_capacity or max(p_rows // 4, 1024)))
 
 
 def resolve_join_ladder(build: Table, probe: Table, n_ranks: int,
@@ -938,16 +1040,13 @@ def resolve_join_ladder(build: Table, probe: Table, n_ranks: int,
     if opts.get("shuffle") == "hierarchical" and comp_bits is None:
         comp_bits = resolve_dcn_bits(opts.get("dcn_codec", "auto"),
                                      n_slices=n_slices)
-    hh_build_cap = opts.pop("hh_build_capacity", None)
-    hh_probe_cap = opts.pop("hh_probe_capacity", None)
-    hh_out_cap = opts.pop("hh_out_capacity", None)
+    hh_caps = (opts.pop("hh_build_capacity", None),
+               opts.pop("hh_probe_capacity", None),
+               opts.pop("hh_out_capacity", None))
     if skew_on:
-        hh_build_cap = hh_build_cap or (
-            opts.get("hh_slots", DEFAULT_HH_SLOTS) * HH_BUILD_SLOTS_PER_HH)
-        hh_probe_cap = hh_probe_cap or max(
-            probe.capacity // (8 * n_ranks), 1024)
-        hh_out_cap = hh_out_cap or max(
-            probe.capacity // (4 * n_ranks), 1024)
+        hh_caps = skew_capacities(probe.capacity // n_ranks,
+                                  opts.get("hh_slots"), *hh_caps)
+    hh_build_cap, hh_probe_cap, hh_out_cap = hh_caps
     return CapacityLadder(
         shuffle_capacity_factor=shuffle_f,
         out_capacity_factor=out_f,
@@ -963,7 +1062,8 @@ def resolve_join_ladder(build: Table, probe: Table, n_ranks: int,
 
 def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
                            key="key", auto_retry: int = 0,
-                           program_cache=None, **opts) -> JoinResult:
+                           program_cache=None, explain: bool = False,
+                           with_metrics=None, **opts) -> JoinResult:
     """One-shot join: pad to rank-divisible capacity, run the step on
     every rank, and on overflow re-run with the ladder's escalated
     capacities up to ``auto_retry`` times (every capacity doubles; the
@@ -978,8 +1078,18 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
     ``comm``. Every attempt then takes its program from the cache, keyed
     by the tables' shapes, the options, the rung's sizing and the
     attempt's index, so a repeat query, and a rung seen before, builds
-    no step (JAX :1575-1587)."""
+    no step (JAX :1575-1587).
+
+    ``with_metrics`` (None: the telemetry session's state): the result
+    carries the final attempt's ``Metrics`` as ``res.telemetry``, folded
+    into the session by ``telemetry.emit_metrics`` after the loop (one
+    read to the host). ``explain``: the result carries the plan of the
+    attempt that produced it (``planning.build_plan`` at the final
+    rung) as ``res.plan``; its digest is the program cache's key for
+    the same call. Building it is host arithmetic."""
     _refuse_unported({k: v for k, v in opts.items() if k in _UNPORTED})
+    if with_metrics is None:
+        with_metrics = telemetry.enabled()
     if program_cache is not None and program_cache.comm is not comm:
         # the cache's programs run over ITS communicator's ranks
         raise ValueError(
@@ -991,12 +1101,17 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
     ladder = resolve_join_ladder(build, probe, n, opts,
                                  n_slices=comm.n_slices)
     for attempt in range(auto_retry + 1):
+        # the rung as the tape's retry_attempt_max (JAX :1601); a step
+        # with the tape off ignores it
+        static = {"metrics_static": {"retry_attempt_max": attempt}}
         if program_cache is not None:
             fn, _ = program_cache.get(build, probe, key=key, rung=attempt,
+                                      with_metrics=with_metrics, **static,
                                       **ladder.sizing(), **opts)
         else:
-            fn = make_distributed_join(comm, key=key, **ladder.sizing(),
-                                       **opts)
+            fn = make_distributed_join(comm, key=key,
+                                       with_metrics=with_metrics, **static,
+                                       **ladder.sizing(), **opts)
         validating = faults.plan_validation_enabled()
         if validating:
             faults.clear_plan_violations()
@@ -1007,6 +1122,16 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
         ladder.note(overflow)
         if attempt == auto_retry or not overflow:
             object.__setattr__(res, "retry_report", ladder.report())
+            if explain:
+                from distributed_join_tpu_torch.planning.plan import (
+                    build_plan,
+                )
+
+                object.__setattr__(res, "plan", build_plan(
+                    comm, build, probe, key=key, rung=attempt,
+                    with_metrics=with_metrics, **static,
+                    **ladder.sizing(), **opts))
+            telemetry.emit_metrics(getattr(res, "telemetry", None))
             return res
         ladder.escalate()
     raise AssertionError("unreachable")

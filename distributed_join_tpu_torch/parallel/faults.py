@@ -13,7 +13,7 @@ Port of ``distributed_join_tpu/parallel/faults.py``:
   corruption modes (``corrupt_mode``, ``corrupt_collectives``) stay
   fields of the plan, so that a plan round-trips through its record,
   but the wrapper refuses a plan that sets them: their detector, the
-  wire-integrity digests, is not part of the port yet (ROADMAP A5).
+  wire-integrity digests, is not part of the port yet (ROADMAP A5d).
 - ``RetryAttempt``, ``RetryReport`` and ``CapacityLadder`` (:697-892)
   over the capacities the port has: the compressed wire's bits, the
   shuffle and output factors, ``out_rows_per_rank``, and the skew
@@ -538,7 +538,7 @@ class FaultInjectingCommunicator(Communicator):
                 f"corrupt_collectives={plan.corrupt_collectives}): data "
                 "corruption is detected only by the wire-integrity "
                 "digests (the JAX package's parallel/integrity.py), which "
-                "are not part of the port yet (ROADMAP A5)")
+                "are not part of the port yet (ROADMAP A5d)")
         self._inner = inner
         self.plan = plan
         self.name = f"faulty({inner.name})"

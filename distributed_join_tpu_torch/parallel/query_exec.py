@@ -15,9 +15,12 @@ and, on overflow anywhere in the chain, doubles every operator's
 ``auto_retry`` times (the JAX package's ladder for whole queries). With
 a ``program_cache`` (``service.programs.JoinProgramCache``) each rung's
 program is keyed by a ``QuerySignature`` (JAX :191-233): the plan's
-digest, the base tables' shapes, the rung's options and the mesh. The
-JAX package's per-operator metrics (``with_metrics``) are not part of
-the port and refuse by name.
+digest, the base tables' shapes, the rung's options and the mesh.
+
+``with_metrics`` (JAX :77-181): every operator's step keeps the metrics
+tape, and the program returns one ``Metrics`` block an operator, in plan
+order, hung on the result as ``res.telemetry``; ``None`` resolves from
+the telemetry session, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -27,10 +30,12 @@ from typing import Mapping, Optional
 
 import torch
 
+from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.parallel.distributed_join import (
     DEFAULT_OUT_CAPACITY_FACTOR,
     DEFAULT_SHUFFLE_CAPACITY_FACTOR,
     make_join_step,
+    with_telemetry,
 )
 from distributed_join_tpu_torch.table import Table
 
@@ -63,7 +68,7 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def _op_steps(comm, plan, defaults):
+def _op_steps(comm, plan, defaults, with_metrics=False, metrics_static=None):
     from distributed_join_tpu_torch.ops import aggregate as agg_ops
 
     steps = []
@@ -74,16 +79,22 @@ def _op_steps(comm, plan, defaults):
             opts["aggregate"] = agg_ops.AggregateSpec.from_wire(op.aggregate)
         key = list(op.keys) if len(op.keys) > 1 else op.keys[0]
         steps.append(make_join_step(comm, key=key, join_type=op.join_type,
-                                    **opts))
+                                    with_metrics=with_metrics,
+                                    metrics_static=metrics_static, **opts))
     return steps
 
 
-def make_query_step(comm, plan, *, defaults: Optional[dict] = None):
+def make_query_step(comm, plan, *, defaults: Optional[dict] = None,
+                    with_metrics: bool = False,
+                    metrics_static: Optional[dict] = None):
     """The per-rank step of the whole plan, ``step(*tables) ->
     QueryResult``, the tables in ``plan.tables`` order; run it under
     ``comm.spmd`` with :func:`query_sharded_out`. ``defaults`` are join
-    options of every operator (an operator's own plan options win)."""
-    op_steps = _op_steps(comm, plan, dict(defaults or {}))
+    options of every operator (an operator's own plan options win).
+    With ``with_metrics`` the step returns ``(QueryResult, (Metrics,
+    ...))``, one block an operator."""
+    op_steps = _op_steps(comm, plan, dict(defaults or {}), with_metrics,
+                         metrics_static)
     names = tuple(plan.tables)
     ops = plan.ops
 
@@ -93,37 +104,51 @@ def make_query_step(comm, plan, *, defaults: Optional[dict] = None):
                             f"{list(names)}, got {len(tables)}")
         env = dict(zip(names, tables))
         op_totals = []
+        metrics = []
         overflow = None
         res = None
         for op, op_step in zip(ops, op_steps):
             res = op_step(env[op.build], env[op.probe])
+            if with_metrics:
+                res, m = res
+                metrics.append(m)
             env[op.op_id] = res.table
             op_totals.append(res.total)
             overflow = res.overflow if overflow is None \
                 else overflow | res.overflow
-        return QueryResult(table=res.table, total=res.total,
-                           overflow=overflow, op_totals=tuple(op_totals))
+        result = QueryResult(table=res.table, total=res.total,
+                             overflow=overflow, op_totals=tuple(op_totals))
+        return (result, tuple(metrics)) if with_metrics else result
 
     return step
 
 
-def query_sharded_out(plan) -> QueryResult:
+def query_sharded_out(plan, with_metrics: bool = False):
     """The ``comm.spmd`` out-spec of :func:`make_query_step`: the table
-    row-sharded, every summed count and the flag replicated."""
-    return QueryResult(table=False, total=True, overflow=True,
-                       op_totals=(True,) * len(plan.ops))
+    row-sharded, every summed count and the flag replicated (and the
+    metrics blocks, gathered in the step)."""
+    res = QueryResult(table=False, total=True, overflow=True,
+                      op_totals=(True,) * len(plan.ops))
+    return (res, (True,) * len(plan.ops)) if with_metrics else res
 
 
-def make_distributed_query(comm, plan, with_metrics=None, **defaults):
+def make_distributed_query(comm, plan, with_metrics=None,
+                           metrics_static: Optional[dict] = None,
+                           **defaults):
     """``fn(*tables) -> QueryResult`` over row-sharded global tables
     (capacities divisible by the rank count) in ``plan.tables`` order:
     the whole chain as one per-rank program. ``defaults`` are join
-    options of every operator."""
-    if with_metrics:
-        raise NotImplementedError(
-            "with_metrics=True: device metrics are not part of the port")
-    return comm.spmd(make_query_step(comm, plan, defaults=defaults),
-                     sharded_out=query_sharded_out(plan))
+    options of every operator. ``with_metrics=None`` resolves from the
+    telemetry session; with metrics on the result carries the
+    operators' blocks as ``res.telemetry``."""
+    if with_metrics is None:
+        with_metrics = telemetry.enabled()
+    program = comm.spmd(
+        make_query_step(comm, plan, defaults=defaults,
+                        with_metrics=with_metrics,
+                        metrics_static=metrics_static),
+        sharded_out=query_sharded_out(plan, with_metrics))
+    return with_telemetry(program) if with_metrics else program
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,13 +195,13 @@ def distributed_query(tables: Mapping[str, Table], plan, comm,
     With ``program_cache`` each rung's program comes from the cache, so
     a repeat query, or a rung seen before, builds none. The result
     carries ``plan_digest``, ``cache_hit`` (the first attempt's) and
-    ``retry_attempts``."""
+    ``retry_attempts``; with metrics on (``None``: the telemetry
+    session's state) also ``telemetry``, the final attempt's blocks."""
     if program_cache is not None and program_cache.comm is not comm:
         raise ValueError(
             "program_cache was built for a different communicator")
-    if with_metrics:
-        raise NotImplementedError(
-            "with_metrics=True: device metrics are not part of the port")
+    if with_metrics is None:
+        with_metrics = telemetry.enabled()
     n = comm.n_ranks
     missing = [name for name in plan.tables if name not in tables]
     if missing:
@@ -196,14 +221,19 @@ def distributed_query(tables: Mapping[str, Table], plan, comm,
         scale = 2 ** attempt
         sizing = dict(defaults, shuffle_capacity_factor=shuffle_f * scale,
                       out_capacity_factor=out_f * scale)
+        static = {"retry_attempt_max": attempt}
         if program_cache is not None:
-            sig = QuerySignature.of(comm, plan, padded, with_metrics=False,
+            sig = QuerySignature.of(comm, plan, padded,
+                                    with_metrics=bool(with_metrics),
                                     rung=attempt, **sizing)
             fn, hit = program_cache.get_keyed(
-                sig, lambda sizing=sizing: make_distributed_query(
-                    comm, plan, **sizing))
+                sig, lambda sizing=sizing, static=static:
+                make_distributed_query(comm, plan, with_metrics=with_metrics,
+                                       metrics_static=static, **sizing))
         else:
-            fn, hit = make_distributed_query(comm, plan, **sizing), False
+            fn, hit = make_distributed_query(
+                comm, plan, with_metrics=with_metrics, metrics_static=static,
+                **sizing), False
         if first_hit is None:
             first_hit = hit
         res = fn(*args)

@@ -34,7 +34,16 @@ package's emulation.
   ``(slice, chip)`` communicator, intra-slice then cross-slice
   (:func:`_hier_route`), with the codec on the cross-slice tier alone.
 
-The metrics and integrity tapes are not part of the port.
+Every shuffle takes a ``tape`` (a ``telemetry.metrics.MetricsTape``
+view, or None), which receives the JAX package's wire accounting:
+``rows_shuffled`` and ``rows_received`` (the actual rows, from the count
+vectors, or from the host plans on the ragged wire), ``wire_bytes`` (the
+data-plane bytes handed to the exchange, the padded block whole, pad
+included; the count exchange is not billed), ``wire_bytes_saved`` where
+the codec or the byte-exact string wire saved bytes, and the
+hierarchical wire's ``wire_bytes_ici`` and ``wire_bytes_dcn``. The
+counts stay on the device; nothing is read to the host for the tape.
+The integrity digests are not part of the port.
 """
 
 from __future__ import annotations
@@ -65,8 +74,14 @@ def _mover(comm: Communicator, via: str):
     return comm.ppermute_all_to_all if via == "ppermute" else comm.all_to_all
 
 
+def _bill_rows(tape, counts: torch.Tensor, recv_counts: torch.Tensor) -> None:
+    """The actual rows a shuffle sent and received, as device scalars."""
+    tape.add("rows_shuffled", counts.sum(dtype=torch.int64))
+    tape.add("rows_received", recv_counts.sum(dtype=torch.int64))
+
+
 def shuffle_padded(comm: Communicator, padded_columns, counts: torch.Tensor,
-                   capacity: int, via: str = "all_to_all"
+                   capacity: int, via: str = "all_to_all", tape=None
                    ) -> tuple[Table, torch.Tensor]:
     """Shuffle a pre-padded (n_ranks, capacity) block; returns the
     received rows as a masked Table plus the received counts.
@@ -75,8 +90,11 @@ def shuffle_padded(comm: Communicator, padded_columns, counts: torch.Tensor,
     a2a = _mover(comm, via)
     recv_counts = comm.all_to_all(counts)
     recv_cols = {n: a2a(c) for n, c in padded_columns.items()}
-    comm.count_wire(counts.shape[0] * capacity,
-                    sum(c.nbytes for c in padded_columns.values()))
+    nbytes = sum(c.nbytes for c in padded_columns.values())
+    comm.count_wire(counts.shape[0] * capacity, nbytes)
+    if tape is not None:
+        _bill_rows(tape, counts, recv_counts)
+        tape.add("wire_bytes", nbytes)
     return unpad(recv_cols, recv_counts, capacity), recv_counts
 
 
@@ -92,7 +110,7 @@ def _codec_eligible(name: str, col: torch.Tensor) -> bool:
 def shuffle_padded_compressed(comm: Communicator, padded_columns,
                               counts: torch.Tensor, capacity: int,
                               bits: int, block: int = 256,
-                              via: str = "all_to_all"):
+                              via: str = "all_to_all", tape=None):
     """The padded shuffle with the FoR + bit-pack codec on the wire:
     each eligible column's destination block is encoded as one row
     (its own frames, so no codec block straddles two destinations), the
@@ -135,6 +153,11 @@ def shuffle_padded_compressed(comm: Communicator, padded_columns,
         for name, col in zip(names, got.reshape(n, g, capacity).unbind(1)):
             recv_cols[name] = col
     comm.count_wire(n * capacity, sent)
+    if tape is not None:
+        _bill_rows(tape, counts, recv_counts)
+        tape.add("wire_bytes", sent)
+        tape.add("wire_bytes_saved",
+                 sum(c.nbytes for c in padded_columns.values()) - sent)
     recv_cols = {name: recv_cols[name] for name in padded_columns}
     return unpad(recv_cols, recv_counts, capacity), recv_counts, c_ovf
 
@@ -156,7 +179,7 @@ def _pad_fill(cols: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
 
 def shuffle_segmented(comm: Communicator, padded_fine, fine_counts:
                       torch.Tensor, seg_cap: int, segments: int,
-                      via: str = "all_to_all"):
+                      via: str = "all_to_all", tape=None):
     """The padded shuffle of a fine-partitioned block for the segmented
     sort (JAX :203-290): ``padded_fine`` holds ``(n_ranks * segments,
     seg_cap, ...)`` blocks, destination-major and segment-minor (the
@@ -190,6 +213,12 @@ def shuffle_segmented(comm: Communicator, padded_fine, fine_counts:
     comm.count_wire(n * s * seg_cap, 2 * block_bytes if hier else block_bytes)
     if hier:
         comm.count_tiers(block_bytes, block_bytes)
+    if tape is not None:
+        _bill_rows(tape, fine_counts, recv_counts)
+        tape.add("wire_bytes", 2 * block_bytes if hier else block_bytes)
+        if hier:
+            tape.add("wire_bytes_ici", block_bytes)
+            tape.add("wire_bytes_dcn", block_bytes)
     return recv_cols, recv_counts
 
 
@@ -218,7 +247,8 @@ def _hier_phase1(comm: Communicator, x: torch.Tensor) -> torch.Tensor:
 
 def shuffle_hierarchical(comm: Communicator, padded_columns,
                          counts: torch.Tensor, capacity: int,
-                         dcn_bits: int | None = None, block: int = 256):
+                         dcn_bits: int | None = None, block: int = 256,
+                         tape=None):
     """The two-level shuffle of a pre-padded ``(n_ranks, capacity)``
     block over a ``(slice, chip)`` communicator (JAX :326-443): every
     block rides the intra-slice exchange raw, then the cross-slice one,
@@ -272,6 +302,13 @@ def shuffle_hierarchical(comm: Communicator, padded_columns,
     comm.count_wire(n * capacity, ici + dcn_sent)
     comm.count_tiers(ici, dcn_sent,
                      dcn_raw - dcn_sent if dcn_bits is not None else 0)
+    if tape is not None:
+        _bill_rows(tape, counts, recv_counts)
+        tape.add("wire_bytes", ici + dcn_sent)
+        tape.add("wire_bytes_ici", ici)
+        tape.add("wire_bytes_dcn", dcn_sent)
+        if dcn_bits is not None:
+            tape.add("wire_bytes_saved", dcn_raw - dcn_sent)
     recv_cols = {name: recv_cols[name] for name in padded_columns}
     return unpad(recv_cols, recv_counts, capacity), recv_counts, c_ovf
 
@@ -448,7 +485,7 @@ def _exchange(comm: Communicator, operand: torch.Tensor, out_capacity: int,
 def shuffle_ragged(comm: Communicator, pt: PartitionedTable,
                    out_capacity: int, bucket_start: int = 0,
                    capacity_per_bucket: int | None = None,
-                   varwidth=None) -> tuple[Table, torch.Tensor]:
+                   varwidth=None, tape=None) -> tuple[Table, torch.Tensor]:
     """Exact-size shuffle of the ``n_ranks`` buckets from
     ``bucket_start``: the wire carries the rows, not padded blocks.
 
@@ -474,6 +511,9 @@ def shuffle_ragged(comm: Communicator, pt: PartitionedTable,
 
     With plan validation on (``faults.plan_validation_enabled``) the
     plan is checked across ranks first, and a violation trips the flag.
+    The tape's counters come from the host plan: the rows planned, and
+    the bytes of those rows at their fixed widths plus each string
+    column's live planes.
     """
     n, me = comm.n_ranks, comm.axis_index()
     nb = pt.n_buckets
@@ -506,19 +546,24 @@ def shuffle_ragged(comm: Communicator, pt: PartitionedTable,
     out_cols = {}
     sent = sum(plan.send_sizes)
     comm.count_wire(sent, 0)
+    if tape is not None:
+        tape.add("rows_shuffled", sent)
+        tape.add("rows_received", plan.total_recv)
     for name, col in pt.source.columns.items():
         if name not in vw:
             out_cols[name] = _exchange(comm, col[rows], out_capacity, rel,
                                        plan.send_sizes, plan,
                                        plan.recv_sizes)
-            comm.count_wire(0, sent * col.element_size()
-                            * math.prod(col.shape[1:]))
+            nbytes = sent * col.element_size() * math.prod(col.shape[1:])
+            comm.count_wire(0, nbytes)
+            if tape is not None:
+                tape.add("wire_bytes", nbytes)
     for i, name in enumerate(vw):
         order, _ = _sorted_lens(pt, vw, i)
         k = _host_cache(pt)[("planes", name)]
         raw = _varwidth_exchange(
             comm, pt.source.columns[name][order[lo:hi].to(torch.int64)],
-            [row[batch] for row in k], rel, plan, out_capacity)
+            [row[batch] for row in k], rel, plan, out_capacity, tape=tape)
         if i == 0:
             out_cols[name] = raw
             continue
@@ -600,20 +645,27 @@ def _receiver_unsort(raw: torch.Tensor, recv_lens: torch.Tensor,
 
 def _varwidth_exchange(comm: Communicator, col: torch.Tensor, k: list,
                        in_offsets, plan: RaggedPlan,
-                       out_capacity: int) -> torch.Tensor:
+                       out_capacity: int, tape=None) -> torch.Tensor:
     """Byte-exact exchange of one batch's bucket-sorted (rows, L) uint8
     column whose buckets are ordered by length descending. Plane ``w``
     of the u32 view is alive for the first ``k[j][i][w]`` rows of rank
     j's bucket for rank i (:func:`_plane_counts`). A clamp drops each
     bucket's tail, its shortest rows, so ``min(k, allowed)`` keeps every
-    plane consistent with the row exchange."""
+    plane consistent with the row exchange. The tape takes the exact
+    plane bytes and what they save against the same rows at full
+    width."""
     n, me = comm.n_ranks, plan.me
     rows, width = col.shape
     planes = width // 4
     w32 = col.contiguous().view(torch.int32)            # (rows, W)
     kw = [[[min(k[j][i][w], plan.allowed[j][i]) for w in range(planes)]
            for i in range(n)] for j in range(n)]
-    comm.count_wire(0, 4 * sum(map(sum, kw[me])))
+    exact = 4 * sum(map(sum, kw[me]))
+    comm.count_wire(0, exact)
+    if tape is not None:
+        tape.add("wire_bytes", exact)
+        tape.add("varwidth_bytes", exact)
+        tape.add("wire_bytes_saved", sum(plan.allowed[me]) * width - exact)
     out = [_exchange(comm, w32[:, w], out_capacity, in_offsets,
                      [kw[me][i][w] for i in range(n)], plan,
                      [kw[j][me][w] for j in range(n)])

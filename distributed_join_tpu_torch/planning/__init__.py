@@ -1,1 +1,72 @@
-"""planning of the PyTorch port (see the package docstring)."""
+"""Plan explain and the cost model of the port (port of
+``distributed_join_tpu/planning/__init__.py``).
+
+- :mod:`.plan` — :class:`JoinPlan`, :func:`build_plan`,
+  :func:`explain_join`, :func:`build_probe_plan`,
+  :func:`build_exchange_plan`: the resolved program (capacities, wire
+  bytes, memory, the cache-key digest) from table shapes alone;
+- :mod:`.cost` — :class:`CostModel`, :func:`predict`: per-stage wall
+  seconds from per-primitive constants measured on an H100, refit by
+  :func:`calibrate_from_history` and :func:`calibrate_from_stage_profile`;
+- :mod:`.query` — the multi-operator query plans and
+  :func:`explain_query`;
+- :mod:`.tuner` — :func:`workload_signature`. The autotuner itself
+  (``JoinTuner``, ``TunedConfig``) is not part of the port yet
+  (ROADMAP A5c).
+"""
+
+from distributed_join_tpu_torch.planning.cost import (
+    COST_MODEL_VERSION,
+    DEFAULT_COST_MODEL,
+    DEFAULT_PREDICTION_BAND,
+    STAGE_CONSTANTS,
+    CostModel,
+    calibrate_from_history,
+    calibrate_from_stage_profile,
+    predict,
+    predict_exchange,
+)
+from distributed_join_tpu_torch.planning.plan import (
+    EXPLAIN_SCHEMA_VERSION,
+    JoinPlan,
+    SidePlan,
+    abstract_tables,
+    build_exchange_plan,
+    build_plan,
+    build_probe_plan,
+    explain_join,
+)
+from distributed_join_tpu_torch.planning.query import (
+    QUERY_SCHEMA_VERSION,
+    QueryOp,
+    QueryPlan,
+    explain_query,
+    tpch_query_plan,
+)
+from distributed_join_tpu_torch.planning.tuner import workload_signature
+
+__all__ = [
+    "COST_MODEL_VERSION",
+    "DEFAULT_COST_MODEL",
+    "DEFAULT_PREDICTION_BAND",
+    "EXPLAIN_SCHEMA_VERSION",
+    "QUERY_SCHEMA_VERSION",
+    "STAGE_CONSTANTS",
+    "CostModel",
+    "JoinPlan",
+    "QueryOp",
+    "QueryPlan",
+    "SidePlan",
+    "abstract_tables",
+    "build_exchange_plan",
+    "build_plan",
+    "build_probe_plan",
+    "calibrate_from_history",
+    "calibrate_from_stage_profile",
+    "explain_join",
+    "explain_query",
+    "predict",
+    "predict_exchange",
+    "tpch_query_plan",
+    "workload_signature",
+]

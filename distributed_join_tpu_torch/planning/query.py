@@ -14,9 +14,13 @@ construction; any other wiring refuses at plan time with
 
 ``digest()`` is ``service.programs.spec_digest`` of the canonical
 record, the port's own copy of the reference's canonicalizer, so a
-plan's digest equals the JAX package's. ``explain_query`` (the cost
-model's per-operator pricing) is not part of the port and refuses by
-name.
+plan's digest equals the JAX package's. ``explain_query`` (JAX :469-620)
+prices a plan per operator without running it: each operator's
+``planning.plan.explain_join`` plan over its inputs (an intermediate
+sized as the upstream step materializes it, padding included, so the
+downstream wire bytes stay exact), the cost model's verdict, the summed
+critical path, and every other left-deep order of an all-inner chain,
+priced by the same model.
 """
 
 from __future__ import annotations
@@ -359,13 +363,204 @@ def _agg_out_schema(spec, bcols, pcols) -> dict:
     return out
 
 
-def explain_query(plan: QueryPlan, comm, tables: dict, **_):
-    """The reference prices a plan per operator with its cost model
-    (``planning/plan.py``, ``planning/cost.py``), which the port does
-    not have."""
-    raise NotImplementedError(
-        "explain_query: plan explain (the JAX package's planning/plan.py "
-        "and planning/cost.py) is not part of the port")
+def _est_out_rows(op: QueryOp, b_rows: int, p_rows: int) -> int:
+    """The chain's FK-join cardinality estimate of an intermediate (the
+    preserved probe bounds inner, left, semi and anti; right and full
+    outer add the unmatched builds). Shown only: operator plans size
+    their inputs by :func:`_materialized_capacity`."""
+    if op.join_type in ("right", "full_outer"):
+        return p_rows + b_rows
+    return p_rows
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _materialized_capacity(op: QueryOp, p_global: int, n: int,
+                           defaults: dict) -> int:
+    """The global capacity of this operator's output table: k blocks of
+    ``out_cap`` rows a rank (plus the skew sidecar's block), the step's
+    arithmetic. The next operator partitions this block, padding
+    included, so its wire bytes predict exactly."""
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        DEFAULT_OUT_CAPACITY_FACTOR,
+        resolve_probe_capacities,
+        skew_capacities,
+    )
+
+    opts = dict(defaults)
+    opts.update(op.opts())
+    k = int(opts.get("over_decomposition") or 1)
+    out_f = float(opts.get("out_capacity_factor")
+                  or DEFAULT_OUT_CAPACITY_FACTOR)
+    p_local = _round_up(p_global, n) // n
+    _, out_cap = resolve_probe_capacities(p_local, n, k, 1.0, out_f,
+                                          opts.get("out_rows_per_rank"))
+    per_rank = k * out_cap
+    if opts.get("skew_threshold") is not None:
+        per_rank += skew_capacities(
+            p_local, hh_out_capacity=opts.get("hh_out_capacity"))[2]
+    return n * per_rank
+
+
+def explain_query(plan: QueryPlan, comm, tables: dict, cost_model=None,
+                  defaults: Optional[dict] = None,
+                  orders: bool = True) -> dict:
+    """Price ``plan`` per operator without running anything. ``tables``
+    maps a base table's name to a Table (real or ``meta`` tensors).
+    Returns the ``kind: "queryplan"`` record: each operator's
+    ``explain_join`` plan digest, wire and ``cost.predict`` verdict, the
+    summed critical path, and (``orders``, all-inner chains only) every
+    left-deep join order priced by the same model, the cheapest
+    flagged."""
+    from distributed_join_tpu_torch.planning import cost as cost_mod
+    from distributed_join_tpu_torch.planning.plan import (
+        abstract_table,
+        column_schema,
+        explain_join,
+    )
+
+    defaults = dict(defaults or {})
+    schemas = {name: column_schema(t) for name, t in tables.items()}
+    inferred = plan.infer_schemas(schemas)
+    rows = {name: int(t.capacity) for name, t in tables.items()}
+
+    op_records = []
+    total_s = 0.0
+    for op in plan.ops:
+        b_rows, p_rows = rows[op.build], rows[op.probe]
+        b_tbl = (tables[op.build] if op.build in tables
+                 else abstract_table(inferred[op.build], b_rows))
+        p_tbl = (tables[op.probe] if op.probe in tables
+                 else abstract_table(inferred[op.probe], p_rows))
+        opts = dict(defaults)
+        opts.update(op.opts())
+        if op.aggregate is not None:
+            from distributed_join_tpu_torch.ops import aggregate as agg_ops
+
+            opts["aggregate"] = agg_ops.AggregateSpec.from_wire(op.aggregate)
+        opts["join_type"] = op.join_type
+        key = list(op.keys) if len(op.keys) > 1 else op.keys[0]
+        jplan = explain_join(b_tbl, p_tbl, comm, key=key,
+                             cost_model=cost_model, **opts)
+        verdict = cost_mod.predict(jplan, cost_model)
+        total_s += float(verdict.get("total_s") or 0.0)
+        rows[op.op_id] = _materialized_capacity(op, p_rows,
+                                                int(comm.n_ranks), defaults)
+        op_records.append({
+            "id": op.op_id,
+            "build": op.build,
+            "probe": op.probe,
+            "key": list(op.keys),
+            "join_type": op.join_type,
+            "aggregate": (dict(op.aggregate)
+                          if op.aggregate is not None else None),
+            "build_rows": b_rows,
+            "probe_rows": p_rows,
+            "est_out_rows": _est_out_rows(op, b_rows, p_rows),
+            "out_capacity": rows[op.op_id],
+            "digest": jplan.digest,
+            "wire": jplan.wire,
+            "cost": verdict,
+        })
+
+    record = {
+        "schema_version": QUERY_SCHEMA_VERSION,
+        "kind": "queryplan",
+        "digest": plan.digest(),
+        "n_ranks": int(comm.n_ranks),
+        "plan": plan.canonical(),
+        "operators": op_records,
+        "n_operators": plan.n_operators(),
+        "total_s": total_s,
+    }
+    if orders:
+        record["orders"] = _priced_orders(plan, comm, tables, cost_model,
+                                          defaults, total_s)
+    return record
+
+
+def _priced_orders(plan, comm, tables, cost_model, defaults,
+                   own_total) -> list:
+    """Every left-deep order of an all-inner chain, priced (outer, semi
+    and anti joins do not commute: they pin the submitted order)."""
+    if any(op.join_type != "inner" for op in plan.ops):
+        return [{"tables": list(_chain_order(plan)),
+                 "total_s": own_total, "chosen": True,
+                 "note": "non-inner joins pin the submitted order"}]
+    base = list(plan.tables)
+    if len(base) != len(plan.ops) + 1 or len(base) > 6:
+        return [{"tables": list(_chain_order(plan)),
+                 "total_s": own_total, "chosen": True,
+                 "note": "order enumeration covers simple chains of "
+                         "up to 6 tables"}]
+    import itertools
+
+    from distributed_join_tpu_torch.planning.plan import column_schema
+
+    schemas = {name: column_schema(t) for name, t in tables.items()}
+    key_universe = sorted({k for op in plan.ops for k in op.keys})
+    own = tuple(_chain_order(plan))
+    priced = []
+    for perm in itertools.permutations(base):
+        chain = _chain_plan(plan, perm, key_universe, schemas)
+        if chain is None:
+            continue
+        if perm == own:
+            priced.append({"tables": list(perm), "total_s": own_total,
+                           "chosen": True})
+            continue
+        try:
+            rec = explain_query(chain, comm, tables, cost_model=cost_model,
+                                defaults=defaults, orders=False)
+            priced.append({"tables": list(perm),
+                           "total_s": rec["total_s"], "chosen": False})
+        except ValueError as exc:
+            priced.append({"tables": list(perm), "total_s": None,
+                           "chosen": False, "note": str(exc)})
+    viable = [o for o in priced if o["total_s"] is not None]
+    viable.sort(key=lambda o: o["total_s"])
+    if viable:
+        viable[0]["cheapest"] = True
+    return priced
+
+
+def _chain_order(plan: QueryPlan) -> list:
+    """Base tables in the order the submitted chain takes them in."""
+    seen: list = []
+    op_ids = {op.op_id for op in plan.ops}
+    for op in plan.ops:
+        for ref in (op.build, op.probe):
+            if ref not in op_ids and ref not in seen:
+                seen.append(ref)
+    return seen
+
+
+def _chain_plan(plan, order, key_universe, schemas):
+    """``plan`` as the left-deep chain taking ``order``'s tables in
+    turn, the first as build; None where a step shares no join key with
+    what came before."""
+    avail = dict(schemas[order[0]])
+    ops = []
+    prev = order[0]
+    for i, name in enumerate(order[1:]):
+        keys = [k for k in key_universe if k in avail and k in schemas[name]]
+        if not keys:
+            return None
+        ops.append({"op": "join", "id": f"o{i}", "build": prev,
+                    "probe": name, "key": keys, "join_type": "inner"})
+        for col, sig in schemas[name].items():
+            avail.setdefault(col, sig)
+        prev = f"o{i}"
+    if plan.ops[-1].aggregate is not None:
+        ops.append({"op": "aggregate", "id": "__agg",
+                    "input": ops[-1]["id"],
+                    "spec": dict(plan.ops[-1].aggregate)})
+    try:
+        return QueryPlan.of(ops)
+    except ValueError:
+        return None
 
 
 # -- the TPC-H plans -------------------------------------------------------

@@ -3,7 +3,7 @@
 Port of the part of ``distributed_join_tpu/planning/tuner.py`` that the
 join service reads: ``workload_signature`` (:95-127). The autotuner
 itself (``JoinTuner``, ``TunedConfig`` and the history-driven policies)
-is not part of the port yet (ROADMAP A5).
+is not part of the port yet (ROADMAP A5c).
 """
 
 from __future__ import annotations
@@ -21,15 +21,16 @@ def workload_signature(comm, build, probe, key="key",
     one identity across rungs. The service's live metrics, flight records
     and history lines key on it.
 
-    ``with_metrics=None`` resolves to False: the device metrics are not
-    part of the port, so a telemetry session does not change a step (the
-    JAX package resolves it to the session's state). An option set that
+    ``with_metrics=None`` resolves from the telemetry session, as the
+    program cache resolves it (JAX :95-127). An option set that
     does not resolve to a signature (an unknown option, a refused one, a
     malformed table) still gets an identity, the JAX package's sha256 of
     the key, the column names and the options, so the join's own refusal
     is what the caller sees."""
     if with_metrics is None:
-        with_metrics = False
+        from distributed_join_tpu_torch import telemetry
+
+        with_metrics = telemetry.enabled()
     try:
         from distributed_join_tpu_torch.service.programs import (
             JoinSignature,

@@ -12,12 +12,17 @@ gives both packages the same hits, misses, traces and evictions.
 
 Where the signatures differ from the JAX package's (the digests differ
 with them):
-- the options are the port's ``make_join_step`` keywords, so the
-  metrics, integrity and ``metrics_static`` switches, which the port
-  refuses by name, are not among them;
+- the options are the port's ``make_join_step`` keywords: the metrics
+  switches (``with_metrics``, ``metrics_static``) are among them, the
+  integrity switch, which the port refuses by name, is not;
 - the ladder rung is a field of its own (``rung``), where the JAX
-  package keys it through ``metrics_static``;
+  package keys it through ``metrics_static`` alone;
 - a schema names numpy dtypes (``int64``), as the JAX package's does.
+
+``with_metrics=None`` resolves from the telemetry session (JAX :266-281),
+so a session keys the metrics programs apart from the plain ones, and
+``planning.build_plan``'s digest equals :meth:`JoinProgramCache.signature`'s
+for the same call.
 
 The JAX package's disk tier (XLA executable serialisation,
 ``persist_dir``, and its chipless AOT helpers, :430-592) has no
@@ -41,10 +46,10 @@ from typing import Callable, Optional
 from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.parallel.communicator import Communicator
 from distributed_join_tpu_torch.parallel.distributed_join import (
-    JOIN_SHARDED_OUT,
     _UNPORTED,
     _refuse_unported,
     make_join_step,
+    spmd_join,
 )
 
 # Every make_join_step option takes part in the signature, at its
@@ -213,19 +218,28 @@ class JoinProgramCache:
             "generation_evictions": self.generation_evictions,
         }
 
-    def signature(self, build, probe, **opts) -> JoinSignature:
-        """The signature :meth:`get` keys this call under."""
-        return JoinSignature.of(self.comm, build, probe, **opts)
+    def signature(self, build, probe, with_metrics=None,
+                  **opts) -> JoinSignature:
+        """The signature :meth:`get` keys this call under (the
+        ``with_metrics=None`` session resolution applied)."""
+        if with_metrics is None:
+            with_metrics = telemetry.enabled()
+        return JoinSignature.of(self.comm, build, probe,
+                                with_metrics=with_metrics, **opts)
 
-    def get(self, build, probe, **opts):
+    def get(self, build, probe, with_metrics=None, **opts):
         """``(program, hit)`` for this shape and option set: a step is
-        built only on a miss."""
-        sig = self.signature(build, probe, **opts)
+        built only on a miss. A metrics program hangs its block on the
+        result as ``res.telemetry``, as ``make_distributed_join``'s
+        does."""
+        if with_metrics is None:
+            with_metrics = telemetry.enabled()
+        sig = self.signature(build, probe, with_metrics=with_metrics, **opts)
         opts.pop("rung", None)
 
         def builder():
-            return self.comm.spmd(make_join_step(self.comm, **opts),
-                                  sharded_out=JOIN_SHARDED_OUT)
+            return spmd_join(self.comm, make_join_step(
+                self.comm, with_metrics=with_metrics, **opts), with_metrics)
 
         return self.get_keyed(sig, builder)
 

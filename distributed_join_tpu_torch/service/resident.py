@@ -31,10 +31,13 @@ Under a process group each process holds its rank's shard of a resident
 table: the programs take it as a local input (``Communicator.spmd``'s
 ``local_inputs``) beside the global probe.
 
-``join``'s ``tuner``, ``explain``, ``verify_integrity`` and
-``with_metrics`` refuse by name (``with_metrics=None`` passes): the
-tuner, the plans, the wire digests and the metrics are not part of the
-port.
+``join`` takes the JAX package's ``with_metrics`` (the probe-only
+step's metrics tape, ``None`` resolving from the telemetry session,
+folded into it by ``telemetry.emit_metrics``) and ``explain`` (the
+result's ``plan``, ``planning.build_probe_plan`` with the cached
+program's ``ResidentSignature`` digest). ``tuner`` and
+``verify_integrity`` refuse by name: the autotuner and the wire digests
+are not part of the port (ROADMAP A5c, A5d).
 
 Telemetry (JAX :240-279, :615-713, :869-873): the prep step's
 ``partition``, ``shuffle`` and ``sort`` spans and the merge's
@@ -62,12 +65,12 @@ from distributed_join_tpu_torch.ops.join import _lexsort, _sentinel_max
 from distributed_join_tpu_torch.ops.partition import radix_hash_partition
 from distributed_join_tpu_torch.parallel.distributed_join import (
     DEFAULT_SHUFFLE_CAPACITY_FACTOR,
-    JOIN_SHARDED_OUT,
     _UNPORTED,
     _batch_shuffle,
     _refuse_unported,
     make_probe_join_step,
     resolve_join_ladder,
+    spmd_join,
 )
 from distributed_join_tpu_torch.service.programs import (
     JoinProgramCache,
@@ -646,12 +649,15 @@ class ResidentTableRegistry:
         return "res-" + hashlib.sha256(basis.encode()).hexdigest()[:13]
 
     def join(self, name: str, probe: Table, *, auto_retry: int = 2,
-             **opts):
+             with_metrics=None, explain: bool = False, **opts):
         """One probe-only join against resident table ``name``: merge
         any pending runs first (every join sees every append), then
         partition, shuffle and sort the probe only, through the program
         cache, with the probe side's ladder (``auto_retry`` rungs). The
-        result carries ``retry_report`` and a ``resident`` record."""
+        result carries ``retry_report`` and a ``resident`` record; with
+        metrics on (``None``: the session's state) ``telemetry``, the
+        step's block, and with ``explain`` the ``plan`` of the program
+        that produced it (its digest the cache key)."""
         _refuse_unported({k: opts.pop(k) for k in list(opts)
                           if k in _UNPORTED})
         handle = self.get(name)
@@ -665,6 +671,8 @@ class ResidentTableRegistry:
         opts.pop("hh_slots", None)
         if self.maintain(name):
             handle = self.get(name)
+        if with_metrics is None:
+            with_metrics = telemetry.enabled()
         n = self.comm.n_ranks
         probe = probe.pad_to(_round_up(probe.capacity, n))
         ladder = resolve_join_ladder(handle.table, probe, n, opts,
@@ -674,14 +682,16 @@ class ResidentTableRegistry:
         for attempt in range(auto_retry + 1):
             sizing = {k: v for k, v in ladder.sizing().items()
                       if k in _PROBE_SIZING_KEYS}
-            step_opts = dict(opts, key=key_opt, **sizing)
+            step_opts = dict(opts, key=key_opt, with_metrics=with_metrics,
+                             metrics_static={"retry_attempt_max": attempt},
+                             **sizing)
             sig = self.probe_signature(handle, probe, step_opts, rung=attempt)
 
             def build(step_opts=step_opts):
                 # the resident shard is local, the probe global
-                return self.comm.spmd(
-                    make_probe_join_step(self.comm, **step_opts),
-                    sharded_out=JOIN_SHARDED_OUT, local_inputs=(True, False))
+                return spmd_join(
+                    self.comm, make_probe_join_step(self.comm, **step_opts),
+                    with_metrics, local_inputs=(True, False))
 
             fn, hit = self._program(sig, build)
             handle.cached_sigs.add(sig)
@@ -701,6 +711,21 @@ class ResidentTableRegistry:
                 object.__setattr__(res, "resident", {
                     "table": name, "generation": handle.generation,
                     "rows": handle.rows, "warm": bool(hit)})
+                if explain:
+                    from distributed_join_tpu_torch.planning.plan import (
+                        abstract_table,
+                        build_probe_plan,
+                        column_schema,
+                    )
+
+                    image = abstract_table(
+                        column_schema(handle.table),
+                        handle.capacity_per_rank * n)
+                    object.__setattr__(res, "plan", build_probe_plan(
+                        self.comm, image, probe, key=key_opt,
+                        digest=sig.digest(), with_metrics=with_metrics,
+                        **dict(opts, **sizing)))
+                telemetry.emit_metrics(getattr(res, "telemetry", None))
                 return res
             ladder.escalate()
         raise AssertionError("unreachable")

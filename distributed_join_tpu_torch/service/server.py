@@ -38,11 +38,15 @@ Where the port differs:
   A ``register`` keeps the generator's state after the build, so a
   resident ``join`` whose probe seed equals the registration seed draws
   exactly the probe of ``generate_build_probe_tables(seed)``.
-- Refused by name, each naming the ROADMAP item it waits for: the
-  ``explain`` op and :meth:`JoinService.explain` (the plans and the cost
-  model, A5; so a request's predicted wall is ``(None, None)``, as the
-  JAX package's is for a plan it cannot build); ``auto_tune``,
-  ``verify_integrity`` and the smoke's baseline gate (A5);
+- The ``explain`` op and :meth:`JoinService.explain` (JAX :911-975) dry-
+  run a join spec through ``planning.explain_join`` over ``meta``
+  tables: the plan, the cost model's prediction and the program cache's
+  verdict, no admission, no device. Every join request's history line
+  carries the plan's predicted wall (``_predicted_wall``, JAX :977) and
+  its ``prediction`` grade, and the flight record the plan's digest.
+- Refused by name, each naming the ROADMAP item it waits for:
+  ``auto_tune`` (A5c), ``verify_integrity`` (A5d) and the smoke's
+  baseline gate (A5b);
   ``persist_dir`` (the cache's disk tier, A6); ``--chaos-seed`` (A7);
   ``--platform``; and a daemon over a process group of more than one
   rank (A6): the JAX daemon is one controller, and a port daemon over N
@@ -61,6 +65,7 @@ import json
 import os
 import socket
 import socketserver
+import statistics
 import sys
 import threading
 import time
@@ -76,14 +81,12 @@ from distributed_join_tpu_torch.telemetry import live as tel_live
 from distributed_join_tpu_torch.telemetry import tracectx
 
 # What each refused option waits for (ROADMAP Queue A).
-EXPLAIN_REFUSAL = ("the explain op: the plans and the cost model (the JAX "
-                   "package's planning/plan.py and planning/cost.py) are "
-                   "not part of the port yet (ROADMAP A5)")
 _REFUSED_CONFIG = {
-    "auto_tune": "the autotuner (planning/tuner.py's JoinTuner; ROADMAP A5)",
+    "auto_tune": "the autotuner (planning/tuner.py's JoinTuner; "
+                 "ROADMAP A5c)",
     "tuner_history": "the autotuner (planning/tuner.py's JoinTuner; "
-                     "ROADMAP A5)",
-    "verify_integrity": "the wire-integrity digests (ROADMAP A5)",
+                     "ROADMAP A5c)",
+    "verify_integrity": "the wire-integrity digests (ROADMAP A5d)",
     "persist_dir": "the program cache's disk tier (ROADMAP A6)",
 }
 MULTI_RANK_REFUSAL = (
@@ -173,6 +176,7 @@ class _Request:
         self.cache_hits = 0
         self.matches: Optional[int] = None
         self.overflow: Optional[bool] = None
+        self.predicted_wall_s: Optional[float] = None
         self.t_start = time.perf_counter()
 
 
@@ -212,6 +216,8 @@ class JoinService:
                         if self.device.type == "cuda" else None)
         self.cache = JoinProgramCache(comm,
                                       max_entries=self.config.max_programs)
+        # (predicted wall, plan digest) a workload signature
+        self._pred_cache: dict = {}
         self._exec_lock = threading.Lock()
         self._admit_lock = threading.Lock()
         self._pending = 0
@@ -417,10 +423,13 @@ class JoinService:
         req = _Request(self._admit(op, request_id), op)
         agg_spec = opts.get("aggregate")
         agg_rec = agg_spec.as_record() if agg_spec is not None else None
+        plan_digest = None
         try:
             # inside the try: anything raising after admission still
             # releases the slot
             req.sig = self._workload_signature(build, probe, key, opts)
+            req.predicted_wall_s, plan_digest = self._predicted_wall(
+                req.sig, build, probe, key, opts)
 
             def run_once():
                 return distributed_inner_join(
@@ -438,7 +447,7 @@ class JoinService:
         finally:
             # the slot goes back before the bookkeeping's file I/O
             self._release()
-            self._observe(req, aggregate=agg_rec)
+            self._observe(req, plan_digest=plan_digest, aggregate=agg_rec)
 
     def join_batched(self, requests, key="key", *, slot_build_rows=None,
                      slot_probe_rows=None, with_rows: bool = False,
@@ -639,11 +648,53 @@ class JoinService:
         return self._table_op("drop", name, doit, request_id=request_id)
 
     def explain(self, build, probe, key="key", **opts) -> dict:
-        """The JAX package's admission-free dry run: refused by name
-        (ROADMAP A5). The refusal shows in the live metrics, as a
-        failing dry run does in the JAX package."""
-        self.live.record_request("explain", "failed")
-        raise NotImplementedError(EXPLAIN_REFUSAL)
+        """The admission-free dry run (the ``explain`` op): the plan and
+        the cost model's prediction of exactly the program a ``join``
+        with these tables and options would dispatch at its first rung,
+        and the program cache's verdict for it (resident, or a build).
+        Host arithmetic over shapes (the tables may be ``meta``): no
+        admission slot, no exec lock, no device. The plan's digest is
+        the cache key of that join. Served and failed dry runs show in
+        the live metrics, never in the flight recorder."""
+        t0 = time.perf_counter()
+        try:
+            plan = self._plan_for(build, probe, key, opts)
+            out = {"plan": plan.as_record(), "cost": plan.cost,
+                   "cache": self.cache.predict_hit(plan.digest)}
+        except BaseException:
+            self.live.record_request("explain", "failed")
+            raise
+        self.live.record_request("explain", "served",
+                                 latency_s=time.perf_counter() - t0)
+        return out
+
+    def _plan_for(self, build, probe, key, opts):
+        """The one plan construction of the explain op and of a join's
+        prediction: the options as :meth:`join` dispatches them
+        (``with_metrics`` passed on, session-resolved when None), so the
+        digest equals the cache key the join dispatches under."""
+        from distributed_join_tpu_torch.planning.plan import explain_join
+
+        o = dict(opts)
+        wi = o.pop("with_integrity", False)
+        return explain_join(build, probe, self.comm, key=key,
+                            verify_integrity=wi, **o)
+
+    def _predicted_wall(self, sig, build, probe, key, opts):
+        """``(predicted wall s, plan digest[:16])`` of a request,
+        memoized a workload signature. Never fails a request: an option
+        set with no plan predicts ``(None, None)``."""
+        if sig in self._pred_cache:
+            return self._pred_cache[sig]
+        try:
+            plan = self._plan_for(build, probe, key, opts)
+            val = (plan.cost.get("total_s"), plan.digest[:16])
+        except Exception:
+            val = (None, None)
+        if len(self._pred_cache) >= 512:
+            self._pred_cache.clear()
+        self._pred_cache[sig] = val
+        return val
 
     # -- live observability -------------------------------------------
 
@@ -701,11 +752,17 @@ class JoinService:
                 resident=resident, aggregate=aggregate, error=error,
                 trace=trace)
             if self.history is not None:
+                tel = (getattr(req.res, "telemetry", None)
+                       if served and req.res is not None else None)
+                metrics = (tel.to_dict() if hasattr(tel, "to_dict")
+                           else None)
                 self.history.append(tel_history.request_entry(
                     request_id=req.rid, op=req.op, signature=req.sig,
                     outcome=req.outcome, wall_s=elapsed_s,
                     new_traces=new_traces, cache_hits=cache_hits,
                     matches=matches, retry_record=retry_rec,
+                    metrics=metrics,
+                    predicted_wall_s=req.predicted_wall_s,
                     platform=self.device.type, resident=resident,
                     aggregate=aggregate, error=error, trace=trace,
                     tenant=tenant))
@@ -1057,9 +1114,15 @@ class _Handler(socketserver.StreamRequestHandler):
                              daemon=True).start()
             return {"ok": True, "op": "drain", **rec}
         if op == "explain":
-            # refused by name (ROADMAP A5): the handler's boundary answers
-            # {"ok": false, "error": "NotImplementedError", ...}
-            service.explain(None, None)
+            # the spec's shapes as meta tables: no data, no device
+            from distributed_join_tpu_torch.planning.plan import (
+                abstract_tables,
+            )
+
+            build, probe = abstract_tables(int(req["build_nrows"]),
+                                           int(req["probe_nrows"]))
+            out = service.explain(build, probe, **_join_opts_from_spec(req))
+            return {"ok": True, "op": "explain", **out}
         if op == "register":
             build, state = _build_from_spec(req, dev)
             rec = service.register_table(
@@ -1631,11 +1694,13 @@ def _poison_drill(args, device) -> dict:
 
 def _resident_drill(service: JoinService, args, violations) -> dict:
     """The smoke's resident A/B, in process: register a build once, then
-    N probe-only joins against N cold full joins of the same query (the
-    warm probe-only joins build no program and, unless
-    ``--smoke-no-wall-gate``, beat the warm full joins on the minimum
-    wall); after two LSM delta merges the probe-only answer equals the
-    numpy oracle over the combined build."""
+    N probe-only joins and N cold full joins of the same query, taking
+    turns so that a drift of the host's speed falls on both (the warm
+    probe-only joins build no program and, unless
+    ``--smoke-no-wall-gate``, beat the warm full joins on the median
+    wall: at the drill's ~2 ms a join the minimum of either side orders
+    by noise); after two LSM delta merges the probe-only answer equals
+    the numpy oracle over the combined build."""
     from distributed_join_tpu_torch.utils.generators import (
         generate_build_probe_tables,
         generate_build_table,
@@ -1658,23 +1723,27 @@ def _resident_drill(service: JoinService, args, violations) -> dict:
 
     reg = service.register_table(name, build)
 
-    def timed(fn):
-        walls, matches, traces = [], [], 0
-        for _ in range(n_joins):
+    sides = {"cold": lambda: service.join(build, probe, **opts),
+             "probe_only": lambda: service.resident_join(name, probe,
+                                                         **opts)}
+    walls = {side: [] for side in sides}
+    matches = {side: [] for side in sides}
+    traces = dict.fromkeys(sides, 0)
+    # both programs built outside the timing
+    for fn in sides.values():
+        fn()
+    for _ in range(n_joins):
+        for side, fn in sides.items():
             t0 = time.perf_counter()
             res = fn()
-            walls.append(time.perf_counter() - t0)
-            matches.append(res.matches)
-            traces += res.new_traces
-        return walls, matches, traces
-
-    # both programs built outside the timing
-    service.join(build, probe, **opts)
-    service.resident_join(name, probe, **opts)
-    cold_walls, cold_matches, cold_traces = timed(
-        lambda: service.join(build, probe, **opts))
-    po_walls, po_matches, po_traces = timed(
-        lambda: service.resident_join(name, probe, **opts))
+            walls[side].append(time.perf_counter() - t0)
+            matches[side].append(res.matches)
+            traces[side] += res.new_traces
+    cold_walls, po_walls = walls["cold"], walls["probe_only"]
+    cold_matches, po_matches = matches["cold"], matches["probe_only"]
+    cold_traces, po_traces = traces["cold"], traces["probe_only"]
+    cold_med = statistics.median(cold_walls)
+    po_med = statistics.median(po_walls)
     if po_traces or cold_traces:
         violations.append(
             f"resident drill: timed warm passes traced programs "
@@ -1683,11 +1752,11 @@ def _resident_drill(service: JoinService, args, violations) -> dict:
         violations.append(
             f"resident drill: probe-only matches {po_matches} != cold "
             f"full-join matches {cold_matches}")
-    if min(po_walls) >= min(cold_walls) and not args.smoke_no_wall_gate:
+    if po_med >= cold_med and not args.smoke_no_wall_gate:
         violations.append(
-            f"resident drill: warm probe-only ({min(po_walls):.4f}s min) "
+            f"resident drill: warm probe-only ({po_med:.4f}s median) "
             "did not beat the warm cold full join "
-            f"({min(cold_walls):.4f}s min)")
+            f"({cold_med:.4f}s median)")
 
     for d in deltas:
         service.append_rows(name, d, maintain=True)
@@ -1721,8 +1790,10 @@ def _resident_drill(service: JoinService, args, violations) -> dict:
         "joins_per_side": n_joins,
         "cold_wall_min_s": min(cold_walls),
         "probe_only_wall_min_s": min(po_walls),
-        "probe_only_speedup": (min(cold_walls) / min(po_walls)
-                               if min(po_walls) else None),
+        "cold_wall_median_s": cold_med,
+        "probe_only_wall_median_s": po_med,
+        # the gated ratio: medians
+        "probe_only_speedup": cold_med / po_med if po_med else None,
         "matches_cold": cold_matches[0],
         "matches_probe_only": po_matches[0],
         "matches_after_appends": res_after.matches,
@@ -1734,7 +1805,9 @@ def run_smoke(service: JoinService, args) -> dict:
     """The acceptance protocol, end to end through the daemon's TCP loop:
 
     1. a cold query builds its program; the identical warm repeat builds
-       none, and the two responses carry distinct request ids;
+       none, and the two responses carry distinct request ids; an
+       ``explain`` of the same query builds none and predicts its
+       program as resident;
     2. N small joins, warmed, timed sequentially against micro-batched
        (one dispatch): equal per-request matches, and the batch must win
        the wall clock (unless ``--smoke-no-wall-gate``);
@@ -1744,9 +1817,9 @@ def run_smoke(service: JoinService, args) -> dict:
     4. the resident drill, then the poison drill on a throwaway service;
        with ``--history-dir``, the history holds >= 2 signatures.
 
-    The JAX package's explain step (and the counter-signature baseline
-    gate of its CI lane) is listed under ``not_ported`` (ROADMAP A5).
-    Raises RuntimeError on any violation."""
+    The counter-signature baseline gate of the JAX package's CI lane is
+    listed under ``not_ported`` (ROADMAP A5b). Raises RuntimeError on
+    any violation."""
     server, port = start_daemon(service, "127.0.0.1", 0)
     client = ServiceClient("127.0.0.1", port, retries=2)
     violations = []
@@ -1775,6 +1848,23 @@ def run_smoke(service: JoinService, args) -> dict:
             violations.append("join responses did not echo a request_id")
         elif warm["request_id"] == cold["request_id"]:
             violations.append("request ids are not unique per request")
+
+        # the explain dry run of the query just served: no build, and
+        # its program predicted resident
+        traces_before = client.send({"op": "stats"})["cache"]["traces"]
+        exp = send_ok({**{kk: v for kk, v in q.items() if kk != "op"},
+                       "op": "explain"}, "explain dry-run")
+        traces_after = client.send({"op": "stats"})["cache"]["traces"]
+        if traces_after != traces_before:
+            violations.append(
+                f"explain op built {traces_after - traces_before} "
+                "program(s); the dry run must build none")
+        if not exp.get("plan", {}).get("signature_digest"):
+            violations.append("explain response carries no plan digest")
+        if not exp.get("cache", {}).get("resident"):
+            violations.append(
+                "explain did not predict the warm query's program as "
+                f"resident: {exp.get('cache')}")
 
         rows = args.smoke_small_rows
         small = [
@@ -1859,6 +1949,11 @@ def run_smoke(service: JoinService, args) -> dict:
         "device": str(service.device),
         "warm_new_traces": warm["new_traces"],
         "matches_per_join": cold["matches"],
+        "explain": {
+            "plan_digest": exp.get("plan", {}).get("signature_digest"),
+            "predicted_wall_s": exp.get("cost", {}).get("total_s"),
+            "cache": exp.get("cache"),
+        },
         "small_rows": args.smoke_small_rows,
         "batch_requests": args.smoke_batch,
         "sequential_s": seq_s,
@@ -1876,7 +1971,7 @@ def run_smoke(service: JoinService, args) -> dict:
         "poison_drill": drill,
         "violations": violations,
         "warmup_sequential_matches": [r["matches"] for r in seq_warm],
-        "not_ported": ["explain", "baseline_gate"],
+        "not_ported": ["baseline_gate"],
     }
     if violations:
         from distributed_join_tpu_torch.benchmarks import report

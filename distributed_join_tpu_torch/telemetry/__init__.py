@@ -13,10 +13,15 @@ process-global session with three parts:
   store of ``--history``), :mod:`.timeline` (one trace from the per-rank
   event logs) and the two signature helpers of :mod:`.baselines`.
 
-The device metrics tape (the JAX package's ``telemetry/metrics.py``),
-its reader ``emit_metrics`` and the stage profile are not part of the
-port yet: those two functions refuse a value by name, and a step's
-``with_metrics=None`` resolves to False with a session on.
+- :mod:`.metrics` — the device metrics tape (``MetricsTape``,
+  ``Metrics``): counters a join step keeps on the device and gathers
+  once; :func:`emit_metrics` reads a block to the host after the timed
+  region and folds it into the session. A join's ``with_metrics=None``
+  resolves to the session's state.
+
+The stage profile (the JAX package's ``telemetry/stageprof.py``) is not
+part of the port yet: :func:`stage_profile` refuses a record by name
+(ROADMAP A5b).
 
 The contract: **telemetry off changes nothing**. Until :func:`configure`
 activates a session every function here is a no-op and :func:`span` the
@@ -31,9 +36,10 @@ from typing import Optional
 
 from distributed_join_tpu_torch.telemetry import spans as _spans
 from distributed_join_tpu_torch.telemetry.export import TelemetrySink
+from distributed_join_tpu_torch.telemetry.metrics import Metrics, MetricsTape
 
 __all__ = [
-    "TelemetrySink",
+    "Metrics", "MetricsTape", "TelemetrySink",
     "configure", "configure_from_args", "counter_add",
     "current_trace", "emit_metrics", "enabled", "event", "finalize",
     "maybe_start_device_trace", "refresh_rank", "request_scope",
@@ -207,16 +213,18 @@ def counter_add(name: str, value) -> None:
         s.counter_add(name, value)
 
 
-def emit_metrics(metrics) -> Optional[dict]:
-    """The JAX package's device-metrics fold. The metrics tape is not
-    part of the port yet: None passes (no metrics rode the program), a
-    value refuses by name."""
+def emit_metrics(metrics: Optional[Metrics]) -> Optional[dict]:
+    """Read a device :class:`~.metrics.Metrics` block to the host (one
+    read, after the timed region) and fold it into the session's summary
+    and event log (a ``metrics`` event with the reduced values). Returns
+    the host dict (``Metrics.to_dict``); None passes."""
     if metrics is None:
         return None
-    raise NotImplementedError(
-        "telemetry.emit_metrics: the device metrics tape (the JAX "
-        "package's telemetry/metrics.py) is not part of the port yet "
-        "(ROADMAP A5)")
+    d = metrics.to_dict()
+    if _active is not None:
+        _active.set_metrics(d)
+        _active.event("metrics", payload={"reduced": d["reduced"]})
+    return d
 
 
 def stage_profile(record) -> None:
@@ -226,7 +234,7 @@ def stage_profile(record) -> None:
         return
     raise NotImplementedError(
         "telemetry.stage_profile: the stage profile (the JAX package's "
-        "telemetry/stageprof.py) is not part of the port yet (ROADMAP A5)")
+        "telemetry/stageprof.py) is not part of the port yet (ROADMAP A5b)")
 
 
 def summary() -> Optional[dict]:

@@ -2,10 +2,11 @@
 
 Port of the part of ``distributed_join_tpu/telemetry/baselines.py``
 (:46-101) that :mod:`.history` reads: ``counter_signature``,
-``_find_metrics`` and ``wall_time_of``. The baseline registry and the
-``compare`` gate are not part of the port yet (ROADMAP A5); neither is
-the device metrics tape, so a port record carries no counters and its
-signature is None, as a telemetry-off JAX record's is.
+``_find_metrics`` and ``wall_time_of``. A record of a run with the
+device metrics tape (``telemetry/metrics.py``) carries counters, and its
+signature is theirs; a record without them has None, as a telemetry-off
+JAX record does. The baseline registry (``write_baseline``) and the
+``compare`` gate are not part of the port yet (ROADMAP A5b).
 """
 
 from __future__ import annotations

@@ -20,9 +20,9 @@ directory, each under the JAX package's name and in its format:
   (:mod:`.spans`) carry the span names in it, beside the kernels.
 
 The summary and the event records keep every key the JAX package
-writes; ``metrics`` stays None (the device metrics tape is not part of
-the port yet), and a summary of a session with a device trace also names
-its file (``device_trace_path``).
+writes; ``metrics`` is the last device metrics block folded in by
+``telemetry.emit_metrics`` (None until one is), and a summary of a
+session with a device trace also names its file (``device_trace_path``).
 
 Timestamps are microseconds since the sink's origin (a ``perf_counter``
 stamp taken at construction). Thread-safe: the out-of-core staging and
@@ -70,6 +70,7 @@ class TelemetrySink:
         self._request_id: Optional[str] = None
         self._trace: Optional[dict] = None
         self._counters: dict = {}
+        self._metrics: Optional[dict] = None
         self._span_stats: dict = {}
         self._trace_events: list = []
         self._dropped_trace_events = 0
@@ -199,6 +200,12 @@ class TelemetrySink:
             st["count"] += 1
             st["total_s"] += dur_s
 
+    def set_metrics(self, metrics_dict: dict) -> None:
+        """Install the host-read device metrics block (``Metrics.to_dict``,
+        already gathered over the ranks)."""
+        with self._lock:
+            self._metrics = metrics_dict
+
     def counter_add(self, name: str, value) -> None:
         with self._lock:
             if self._closed:
@@ -301,7 +308,7 @@ class TelemetrySink:
                 "counters": dict(self._counters),
                 "spans": {k: dict(v)
                           for k, v in self._span_stats.items()},
-                "metrics": None,
+                "metrics": self._metrics,
             }
             if self._device_trace_armed:
                 out["device_trace_path"] = self.device_trace_path

@@ -19,13 +19,11 @@ the other reads and summarizes alike.
 - :func:`tenant_key` and :class:`tenant_scope` — the tenant namespace of
   the trend keys.
 
-What waits for other parts of the port: the cost-model grading of the
-trends (``prediction`` of :meth:`SignatureTrend.as_dict`, which reads
-the JAX package's ``planning/cost.py``) stays None until the planning
-layer is ported (ROADMAP A5); an entry's own ``prediction`` block, which
-is arithmetic on a predicted wall the caller passes, is kept. The
-counter signature and indicators of an entry are None in the port: no
-device metrics ride its programs yet.
+A trend's ``prediction`` (:meth:`SignatureTrend.as_dict`) grades the
+measured/predicted wall ratios of its entries against the port's cost
+model's band (``planning/cost.DEFAULT_PREDICTION_BAND``); an entry's
+``counter_signature`` and ``indicators`` come from the device metrics
+block of the request when the metrics tape rode it.
 
 Device-free: the store is files, and the summarizer runs anywhere.
 """
@@ -601,11 +599,24 @@ def _wall_stats(walls) -> Optional[dict]:
 
 
 def _prediction_stats(ratios) -> Optional[dict]:
-    """Per-signature cost-model grading: in the JAX package the
-    measured/predicted wall ratios against the cost model's prediction
-    band (``planning/cost.py``). The port has no cost model yet (ROADMAP
-    A5), so a trend's ``prediction`` is None."""
-    return None
+    """Per-signature cost-model grading (JAX :590): the measured/
+    predicted wall ratios across runs, flagged ``drift`` when any run
+    lands outside the cost model's band."""
+    if not ratios:
+        return None
+    from distributed_join_tpu_torch.planning.cost import (
+        DEFAULT_PREDICTION_BAND,
+    )
+
+    band = DEFAULT_PREDICTION_BAND
+    return {
+        "n": len(ratios),
+        "wall_ratio_min": round(min(ratios), 4),
+        "wall_ratio_max": round(max(ratios), 4),
+        "wall_ratio_last": round(ratios[-1], 4),
+        "band": band,
+        "drift": any(r > band or r < 1.0 / band for r in ratios),
+    }
 
 
 class SignatureTrend:

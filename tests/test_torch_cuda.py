@@ -1885,3 +1885,73 @@ def test_resident_wire_probe_at_registration_seed_is_the_generators(card):
     finally:
         client.close()
         daemon.server_close()
+
+
+@pytest.mark.parametrize("opts", [
+    dict(n=4), dict(n=4, shuffle="ragged", over_decomposition=2),
+    dict(n=4, compression_bits=32), dict(n=4, slices=2,
+                                         shuffle="hierarchical",
+                                         dcn_codec="on"),
+    dict(n=4, join_type="anti"), dict(n=4, sort_mode="segmented",
+                                      sort_segments=2),
+], ids=str)
+def test_tape_on_card_equals_cpu(card, opts):
+    """A join with the metrics tape on the card gives the CPU's counters,
+    rank by rank (the hand kernels on the card, their twins on the CPU),
+    and each side's wire bytes equal its plan's; the explain record of
+    the run is the same on both devices."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    opts = dict(opts)
+    n, slices = opts.pop("n"), opts.pop("slices", 1)
+    b, p = generate_build_probe_tables(seed=5, build_nrows=60_000,
+                                       probe_nrows=80_000, rand_max=30_000,
+                                       device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tb, tp = (Table({k: c.to(dev) for k, c in t.columns.items()},
+                        t.valid.to(dev)) for t in (b, p))
+        res = distributed_inner_join(
+            tb, tp, EmulatedCommunicator(n, n_slices=slices),
+            with_metrics=True, explain=True, out_capacity_factor=3.0, **opts)
+        assert not bool(res.overflow)
+        out[dev] = (res.telemetry.to_dict(),
+                    json.dumps(res.plan.explain_record(), sort_keys=True),
+                    int(res.total))
+    assert out["cuda"] == out["cpu"]
+    red, doc, _ = out["cuda"]
+    plan = json.loads(doc)["plan"]
+    if plan["wire"]["exact"]:
+        for side in ("build", "probe"):
+            assert red["reduced"][f"{side}.wire_bytes"] == \
+                plan["wire"][side]["bytes_total"]
+
+
+def test_explain_on_card_equals_cpu_and_touches_no_device(card):
+    """``explain_join`` of tables on the card and on the CPU gives the
+    same record and allocates nothing on the card."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+    )
+    from distributed_join_tpu_torch.planning.plan import explain_join
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    b, p = generate_build_probe_tables(seed=5, build_nrows=60_000,
+                                       probe_nrows=80_000, device="cuda")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    got = explain_join(b, p, EmulatedCommunicator(4), over_decomposition=2)
+    assert torch.cuda.memory_allocated() == before
+    cpu = [Table({k: c.cpu() for k, c in t.columns.items()}, t.valid.cpu())
+           for t in (b, p)]
+    want = explain_join(*cpu, EmulatedCommunicator(4), over_decomposition=2)
+    assert json.dumps(got.explain_record(), sort_keys=True) == \
+        json.dumps(want.explain_record(), sort_keys=True)

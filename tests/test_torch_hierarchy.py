@@ -354,15 +354,20 @@ def test_refusals_match_jax(jh):
         with pytest.raises(ValueError, match="contradicts"):
             mod.make_join_step(comm, shuffle="hierarchical",
                                dcn_codec="off", compression_bits=16)
-    # auto resolves from the JAX package's cost model, which the port
-    # does not have: refused on more than one slice, by name
-    with pytest.raises(NotImplementedError, match="auto"):
-        tdist.make_join_step(emu, shuffle="hierarchical")
-    with pytest.raises(NotImplementedError, match="auto"):
-        tdist.distributed_inner_join(
-            _ttable({"key": np.arange(8)}, np.ones(8, bool)),
-            _ttable({"key": np.arange(8)}, np.ones(8, bool)), emu,
-            shuffle="hierarchical")
+    # auto resolves by the port's cost model (planning/cost.py): the
+    # H100's tier across nodes sits below the codec's break-even, so the
+    # codec goes on, as the JAX package's model puts it on for the TPU
+    tdist.make_join_step(emu, shuffle="hierarchical")
+    res = tdist.distributed_inner_join(
+        _ttable({"key": np.arange(8)}, np.ones(8, bool)),
+        _ttable({"key": np.arange(8)}, np.ones(8, bool)), emu,
+        shuffle="hierarchical", with_metrics=True, explain=True)
+    assert int(res.total) == 8 and res.plan.capacities is not None
+    assert res.retry_report.attempts[0].compression_bits == \
+        tdist.DEFAULT_DCN_CODEC_BITS
+    red = res.telemetry.to_dict()["reduced"]
+    assert red["build.wire_bytes_dcn"] == \
+        res.plan.wire["build"]["dcn_bytes_per_rank"] * N
     # on other shuffles, and on one slice, the knob is validated and
     # ignored
     tdist.make_join_step(EmulatedCommunicator(N), dcn_codec="auto")
@@ -471,12 +476,16 @@ def test_driver_slices_refusals():
             "--build-table-nrows", "4000", "--probe-table-nrows", "4000",
             "--iterations", "1"]
     for extra, match in ((["--slices", "2"], "--shuffle hierarchical"),
-                         (["--shuffle", "hierarchical", "--slices", "2"],
-                          "auto"),
                          (["--shuffle", "hierarchical", "--slices", "3",
                            "--dcn-codec", "off"], "does not divide")):
         with pytest.raises(SystemExit, match=match):
             tdriver.run(tdriver.parse_args(base + extra), device="cpu")
+    # --dcn-codec auto (the default) resolves by the port's cost model:
+    # the codec on the tier across slices, saving bytes there
+    rec = tdriver.run(tdriver.parse_args(
+        base + ["--shuffle", "hierarchical", "--slices", "2"]), device="cpu")
+    assert rec["dcn_codec"] == "auto" and not rec["overflow"]
+    assert rec["wire_bytes_saved_per_join"] > 0
 
 
 def test_wire_bytes_of_a_block_with_a_strided_unit_dimension():

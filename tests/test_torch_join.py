@@ -362,11 +362,16 @@ def test_distributed_join_retry_ladder_matches_jax(jcomm8):
 def test_distributed_join_refuses_unported_options():
     t = _ttable({"key": np.arange(8), "a": np.arange(8)}, np.ones(8, bool))
     u = _ttable({"key": np.arange(8), "b": np.arange(8)}, np.ones(8, bool))
-    for name, value in (("with_integrity", True), ("with_metrics", True),
-                        ("explain", True), ("tuner", object())):
+    for name, value in (("with_integrity", True), ("tuner", object())):
         with pytest.raises(NotImplementedError, match=name):
             tdist.distributed_inner_join(t, u, LocalCommunicator(),
                                          **{name: value})
+    # the metrics tape and the plan are ported
+    res = tdist.distributed_inner_join(t, u, LocalCommunicator(),
+                                       with_metrics=True, explain=True)
+    assert res.telemetry.to_dict()["reduced"] == {
+        "matches": 8, "retry_attempt_max": 0}
+    assert res.plan.with_metrics and res.plan.n_ranks == 1
     # aggregate pushdown is ported: a value that is no AggregateSpec is a
     # TypeError, in the JAX package's words
     cols = ({"key": np.arange(8), "a": np.arange(8)},
@@ -447,6 +452,9 @@ def test_port_imports_no_jax():
             "distributed_join_tpu_torch.parallel.faults",
             "distributed_join_tpu_torch.telemetry.live",
             "distributed_join_tpu_torch.planning.tuner",
+            "distributed_join_tpu_torch.planning.plan",
+            "distributed_join_tpu_torch.planning.cost",
+            "distributed_join_tpu_torch.telemetry.metrics",
             "distributed_join_tpu_torch.service.server"} <= set(mods)
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -1028,9 +1028,11 @@ def test_all_to_all_benchmark_refuses_one_rank_and_unported_flags():
                     "distributed_join_tpu_torch.benchmarks.all_to_all",
                     "--communicator", "gloo", "--buffer-size", "4096"])
     assert r.returncode != 0 and "needs >= 2 ranks" in r.stderr
-    for flag in ("--verify-integrity", "--explain", "--chaos-seed"):
+    for flag in ("--verify-integrity", "--stage-profile", "--chaos-seed"):
         with pytest.raises(SystemExit):
             ta2a.parse_args([flag])
+    # --explain is ported: the exchange's plan
+    assert ta2a.parse_args(["--explain"]).explain
 
 
 @pytest.mark.parametrize("n", [2, 3])
@@ -1083,7 +1085,9 @@ def test_drivers_over_gloo_with_telemetry_trace_history_and_guard(
     """``--telemetry DIR --trace --history FILE --guard-deadline-s S``
     given to the launcher reach both gloo processes of each driver: one
     record (rank 0's) with the session's summary, each rank's event log,
-    Chrome trace and device trace in DIR, and one history entry."""
+    Chrome trace and device trace in DIR, and one history entry. The
+    join driver's session also holds the counters of its untimed metrics
+    join (the batched tpch path and the exchange benchmark run none)."""
     tel, hist = tmp_path / "tel", tmp_path / "h.jsonl"
     cmd = [sys.executable, "-m",
            "distributed_join_tpu_torch.benchmarks.launch",
@@ -1100,7 +1104,13 @@ def test_drivers_over_gloo_with_telemetry_trace_history_and_guard(
     lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
     assert len(lines) == 1
     rec = json.loads(lines[0])
-    assert rec["telemetry"]["rank"] == 0 and "metrics" in rec["not_ported"]
+    assert rec["telemetry"]["rank"] == 0 and "not_ported" not in rec
+    metrics = rec["telemetry"]["metrics"]
+    if driver == "distributed_join":
+        assert metrics["n_ranks"] == 2
+        assert metrics["reduced"]["matches"] == rec["matches_per_join"] > 0
+    else:
+        assert metrics is None
     for rank in (0, 1):
         for f in (f"events.rank{rank}.jsonl", f"trace.rank{rank}.json",
                   f"device_trace/trace.rank{rank}.json"):

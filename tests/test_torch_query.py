@@ -282,11 +282,16 @@ def test_declared_tables_and_schemas_equal_jax():
 
 
 def test_unported_query_options_refuse_by_name(queries):
+    """The metrics and explain surfaces are ported (one block an operator,
+    and the queryplan record); what the query layer refuses, it refuses
+    as the JAX package does."""
     c = queries["q3"]
     plan = tplan.tpch_query_plan("q3")
-    with pytest.raises(NotImplementedError, match="not part of the port"):
-        tq.distributed_query(c["tables"], plan, LocalCommunicator(),
-                             with_metrics=True)
+    res = tq.distributed_query(c["tables"], plan, LocalCommunicator(),
+                               with_metrics=True)
+    assert len(res.telemetry) == len(plan.ops)
+    for op_total, m in zip(res.op_totals, res.telemetry):
+        assert m.to_dict()["reduced"]["matches"] == int(op_total)
     # the program cache is ported: a cache of another communicator
     # refuses, as the JAX package's does
     from distributed_join_tpu_torch.service.programs import JoinProgramCache
@@ -294,8 +299,10 @@ def test_unported_query_options_refuse_by_name(queries):
         tq.distributed_query(c["tables"], plan, LocalCommunicator(),
                              program_cache=JoinProgramCache(
                                  LocalCommunicator()))
-    with pytest.raises(NotImplementedError, match="explain"):
-        tplan.explain_query(plan, LocalCommunicator(), c["tables"])
+    doc = tplan.explain_query(plan, LocalCommunicator(), c["tables"])
+    assert doc["kind"] == "queryplan" and doc["digest"] == plan.digest()
+    assert [o["id"] for o in doc["operators"]] == [op.op_id
+                                                   for op in plan.ops]
     # the skew sidecar refuses on the fused operator, as in the JAX package
     with pytest.raises(ValueError):
         tq.distributed_query(c["tables"], plan, LocalCommunicator(),

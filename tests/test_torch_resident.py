@@ -438,11 +438,14 @@ def test_refusals_never_wrong_rows(n):
     # the skew sidecar is not a probe-only knob
     _raises_same(lambda: jreg.join("dim", jp, skew_threshold=0.001),
                  lambda: treg.join("dim", tp, skew_threshold=0.001))
-    # what the port does not have refuses by name
-    for opt, value in (("verify_integrity", True), ("with_metrics", True),
-                       ("explain", True), ("tuner", object())):
+    # what the port does not have refuses by name; the metrics tape and
+    # the plan are ported
+    for opt, value in (("verify_integrity", True), ("tuner", object())):
         with pytest.raises(NotImplementedError, match=opt):
             treg.join("dim", tp, **{opt: value})
+    res = treg.join("dim", tp, with_metrics=True, explain=True)
+    assert res.telemetry.to_dict()["reduced"]["matches"] == int(res.total)
+    assert res.plan.probe_only and res.plan.pipeline == "probe_join"
     with pytest.raises(NotImplementedError, match="persist_dir"):
         tprog.JoinProgramCache(LocalCommunicator(), persist_dir="x")
     jreg.drop("dim")
@@ -542,7 +545,8 @@ def test_overflowing_merge_poisons_handle(n):
 
 def test_probe_only_step_refusals_match_jax():
     """The probe-only step refuses what JAX's refuses, with its exception
-    types and messages; metrics and integrity refuse by name."""
+    types and messages; integrity refuses by name, the metrics tape is
+    taken."""
     jc, tc = jcomm.make_communicator("tpu", n_ranks=4), EmulatedCommunicator(4)
     for opts, exc in (({"sort_mode": "segmented"}, ValueError),
                       ({"shuffle": "hierarchical"}, ValueError),
@@ -560,9 +564,9 @@ def test_probe_only_step_refusals_match_jax():
             tdist.make_probe_join_step(
                 tc, aggregate=ta.AggregateSpec.of(*spec), **opts)
         assert str(te.value) == str(je.value)
-    for opt in ("with_metrics", "with_integrity"):
-        with pytest.raises(NotImplementedError, match=opt):
-            tdist.make_probe_join_step(tc, **{opt: True})
+    with pytest.raises(NotImplementedError, match="with_integrity"):
+        tdist.make_probe_join_step(tc, with_integrity=True)
+    tdist.make_probe_join_step(tc, with_metrics=True)
     # the multi-slice mesh
     with pytest.raises(ValueError, match="multi-slice"):
         tdist.make_probe_join_step(EmulatedCommunicator(4, n_slices=2))

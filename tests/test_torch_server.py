@@ -520,20 +520,24 @@ def test_hung_request_poisons_as_jax(tmp_path):
 
 def test_port_refusals_by_name():
     """What waits for later slices refuses by name, naming the ROADMAP
-    item: the autotuner, the integrity digests, the disk tier, explain,
-    a multi-rank process group; and the daemon's flags."""
+    item: the autotuner, the integrity digests, the disk tier, a
+    multi-rank process group; and the daemon's flags. ``explain`` is
+    ported: a dry run is served, a malformed one fails, each counted."""
     tc = LocalCommunicator()
-    for field, item in (("auto_tune", "A5"), ("verify_integrity", "A5"),
-                        ("tuner_history", "A5"), ("persist_dir", "A6")):
+    for field, item in (("auto_tune", "A5c"), ("verify_integrity", "A5d"),
+                        ("tuner_history", "A5c"), ("persist_dir", "A6")):
         value = "x" if field in ("persist_dir", "tuner_history") else True
         with pytest.raises(NotImplementedError, match=f"{field}.*{item}"):
             ts.JoinService(tc, ts.ServiceConfig(**{field: value}),
                            device="cpu")
     svc = ts.JoinService(tc, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    from distributed_join_tpu_torch.planning.plan import abstract_tables
+    out = svc.explain(*abstract_tables(256, 512))
+    assert out["cache"]["would_trace"] and out["plan"]["signature_digest"]
+    with pytest.raises(AttributeError):
         svc.explain(None, None)
     assert svc.live.snapshot()["ops"]["explain"]["outcomes"] == {
-        "failed": 1}
+        "served": 1, "failed": 1}
     pg = ProcessGroupCommunicator(Mesh("gloo", 2, 0, torch.device("cpu")))
     for comm in (pg, TFaulty(pg, TFaultPlan())):
         with pytest.raises(NotImplementedError, match="ROADMAP A6"):
@@ -541,9 +545,9 @@ def test_port_refusals_by_name():
     one = ProcessGroupCommunicator(Mesh("gloo", 1, 0, torch.device("cpu")))
     assert ts.JoinService(one).device == torch.device("cpu")
     for flag, item in (("--platform", "--device"),
-                       ("--persist-dir", "A6"), ("--auto-tune", "A5"),
-                       ("--verify-integrity", "A5"),
-                       ("--chaos-seed", "A7"), ("--diagnose", "A5")):
+                       ("--persist-dir", "A6"), ("--auto-tune", "A5c"),
+                       ("--verify-integrity", "A5d"),
+                       ("--chaos-seed", "A7"), ("--diagnose", "A5b")):
         err = io.StringIO()
         with pytest.raises(SystemExit), contextlib.redirect_stderr(err):
             ts.parse_args([flag, "1"])
@@ -625,10 +629,11 @@ def test_history_store_records_requests(tmp_path):
     """``tests/test_service.py::test_history_store_records_requests``'s
     expectations: one line a request, the same signature for a warm
     repeat, two signatures in the summary, no drift, a file the JAX
-    package's schema check passes. The counter signature is None: the
-    device metrics tape is ROADMAP A5. The entries' keys are those of
-    the JAX service's entries (written without a session, where its
-    path runs)."""
+    package's schema check passes. With the session on the joins run the
+    metrics tape, so each entry's counter signature holds its matches,
+    and each carries the cost model's prediction. The entries' keys are
+    those of the JAX service's entries (written without a session, where
+    its path runs)."""
     from distributed_join_tpu.telemetry import history as jhist
     from distributed_join_tpu.telemetry.analyze import check_file
 
@@ -647,13 +652,17 @@ def test_history_store_records_requests(tmp_path):
                and e["wall_s"] > 0 for e in entries)
     assert entries[0]["signature"] == entries[1]["signature"]
     assert entries[1]["new_traces"] == 0
-    assert entries[0]["counter_signature"] is None
+    for e in entries:
+        assert e["counter_signature"]["counters"]["matches"] == e["matches"]
+        assert e["prediction"]["predicted_wall_s"] > 0
+        assert e["prediction"]["wall_ratio"] > 0
     assert entries[0]["platform"] == "cpu"
     summary = thist.summarize(entries)
     assert summary["n_signatures"] == 2
     sig0 = summary["signatures"][entries[0]["signature"]]
     assert sig0["entries"] == 2 and sig0["outcomes"] == {"served": 2}
     assert not sig0["counter_drift"]
+    assert sig0["prediction"]["n"] == 2
     assert check_file(tsvc.history.path) == []
     jsvc = js.JoinService(jcomm.make_communicator("local"), js.ServiceConfig(
         auto_retry=1, history_dir=str(tmp_path / "jhist")))
@@ -703,9 +712,10 @@ def _answers(service, payloads):
 @pytest.mark.parametrize("n", RANKS)
 def test_daemon_answers_every_wire_op_with_jax_keys(n, tmp_path):
     """Every ``daemon_ops`` op over TCP: the port's daemon answers with
-    the JAX daemon's response keys (``explain`` refuses naming ROADMAP
-    A5, where the JAX daemon answers a plan), and an unknown op answers the client with JAX's error. The builds and hits
-    are JAX's; the matches are not compared (the generators differ)."""
+    the JAX daemon's response keys (``explain`` with the JAX plan's
+    record fields), and an unknown op answers the client with JAX's
+    error. The builds and hits are JAX's; the matches are not compared
+    (the generators differ)."""
     jsvc, tsvc = _services(n, auto_retry=1)
     payloads = _wire_ops()
     assert {p["op"] for p in payloads} | {"drain"} == set(
@@ -714,12 +724,12 @@ def test_daemon_answers_every_wire_op_with_jax_keys(n, tmp_path):
     tresp = _answers(tsvc, payloads)
     for p, j, t in zip(payloads, jresp, tresp):
         op = p["op"]
-        if op == "explain":
-            assert j["ok"] and not t["ok"]
-            assert t["error"] == "NotImplementedError"
-            assert "ROADMAP A5" in t["message"]
-            continue
         assert t["ok"] and j["ok"], (op, t, j)
+        if op == "explain":
+            assert set(t["plan"]) == set(j["plan"])
+            assert set(t["cache"]) == set(j["cache"])
+            assert t["plan"]["capacities"] == j["plan"]["capacities"]
+            assert t["plan"]["wire"] == j["plan"]["wire"]
         assert set(t) == set(j), (op, set(t) ^ set(j))
         if op == "metrics" and "metrics" in t:
             assert set(t["metrics"]) == set(j["metrics"])
@@ -1063,7 +1073,8 @@ def test_sigterm_drains_daemon_and_exits_zero(tmp_path):
 def test_smoke_cli_exits_zero(tmp_path):
     """``--smoke`` through the real TCP loop on the CPU: rc 0, a run-only
     warm repeat, two or more history signatures, the drills, and the
-    explain step under ``not_ported``."""
+    explain step (the warm query's program predicted resident); the
+    baseline gate under ``not_ported``."""
     out = subprocess.run(
         [sys.executable, "-m", "distributed_join_tpu_torch.service.server",
          "--smoke", "--device", "cpu", "--smoke-no-wall-gate",
@@ -1076,7 +1087,9 @@ def test_smoke_cli_exits_zero(tmp_path):
     assert rec["benchmark"] == "service_smoke"
     assert rec["warm_new_traces"] == 0 and not rec["violations"]
     assert rec["history"]["n_signatures"] >= 2
-    assert "explain" in rec["not_ported"]
+    assert rec["not_ported"] == ["baseline_gate"]
+    assert rec["explain"]["cache"]["resident"]
+    assert rec["explain"]["predicted_wall_s"] > 0
     assert rec["poison_drill"]["rejected_after_poison"] == 1
     assert (rec["resident_drill"]["matches_after_appends"]
             > rec["resident_drill"]["matches_probe_only"])

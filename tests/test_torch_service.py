@@ -153,8 +153,9 @@ def test_distinct_signatures_distinct_entries(n):
     same builds, and a repeat of every variant is a pure hit. The ladder
     rung keys an entry (``rung``; JAX keys it through
     ``metrics_static``), a schema does, and table contents do not. An
-    unknown option is a TypeError; the metrics and integrity switches
-    refuse by name."""
+    unknown option is a TypeError; the integrity switch refuses by name,
+    and the metrics switches key entries of their own, as in the JAX
+    package."""
     (jb, tb), (jp, tp), _ = _tables()
     jc, _, tc = _comms(n)
     jcache, tcache = jprog.JoinProgramCache(jc), tprog.JoinProgramCache(tc)
@@ -182,12 +183,12 @@ def test_distinct_signatures_distinct_entries(n):
         tprog.JoinSignature.of(tc, tb, tp, not_a_join_option=1)
     with pytest.raises(TypeError):
         jprog.JoinSignature.of(jc, jb, jp, not_a_join_option=1)
-    for opts in (dict(with_integrity=True),
-                 dict(metrics_static={"retry_attempt_max": 1})):
-        with pytest.raises(NotImplementedError, match=next(iter(opts))):
-            tcache.get(tb, tp, **BASE, **opts)
-    with pytest.raises(NotImplementedError, match="with_metrics"):
-        tcache.get(tb, tp, with_metrics=True, **BASE)
+    with pytest.raises(NotImplementedError, match="with_integrity"):
+        tcache.get(tb, tp, with_integrity=True, **BASE)
+    metered = {tcache.signature(tb, tp, with_metrics=True, **BASE),
+               tcache.signature(tb, tp, **BASE,
+                                metrics_static={"retry_attempt_max": 1})}
+    assert len(metered) == 2 and not metered & set(sigs)
     built = tc.programs_built
     for opts in VARIANTS:
         assert tcache.get(tb, tp, **opts)[1]

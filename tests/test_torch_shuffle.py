@@ -12,6 +12,7 @@ plans and codec words are compared exactly, position by position; join
 rows as sorted multisets (row order within a key run is free in both).
 """
 
+import json
 import warnings
 
 import numpy as np
@@ -716,22 +717,31 @@ def test_driver_record_matches_jax_driver(flags):
     (["--agg-ab", "2"], None),
     (["--resident-ab", "2"], None),
     (["--expand-kernel", "xla"], "--expand-kernel"),
-    (["--explain"], "--explain"),
+    (["--explain"], None),
 ])
-def test_driver_refuses_what_the_port_lacks(argv, match, capsys):
-    """The JAX driver's flags the port lacks refuse by name; ``--agg-ab``
-    and ``--resident-ab`` (``match`` None) are ported: on 4 emulated
-    ranks over the ragged wire the record holds both sides of the
-    aggregate A/B, each equal to the numpy oracle, or of the resident
-    A/B, with equal matches and row digests."""
+def test_driver_refuses_what_the_port_lacks(argv, match, capsys, tmp_path,
+                                            monkeypatch):
+    """The JAX driver's flags the port lacks refuse by name; ``--agg-ab``,
+    ``--resident-ab`` and ``--explain`` (``match`` None) are ported: on 4
+    emulated ranks over the ragged wire the record holds both sides of
+    the aggregate A/B, each equal to the numpy oracle, or of the resident
+    A/B, with equal matches and row digests, or the plan's summary (the
+    ragged wire's bytes an estimate) beside its ``explain.json``."""
     from distributed_join_tpu_torch.benchmarks import (
         distributed_join as tdriver,
     )
+    monkeypatch.chdir(tmp_path)
     if match is None:
         rec = tdriver.run(tdriver.parse_args(argv + [
             "--communicator", "emulated", "--n-ranks", "4", "--shuffle",
             "ragged", "--build-table-nrows", "4000", "--probe-table-nrows",
             "4000", "--iterations", "1"]), device="cpu")
+        if argv[0] == "--explain":
+            exp = rec["explain"]
+            assert exp["wire_exact"] is False and exp["predicted_wall_s"] > 0
+            doc = json.load(open(tmp_path / "explain.json"))
+            assert doc["plan"]["signature_digest"] == exp["plan_digest"]
+            return
         if argv[0] == "--resident-ab":
             ab = rec["resident_ab"]
             assert ab["n_joins"] == 2 and ab["warm_probe_new_traces"] == 0
@@ -820,7 +830,9 @@ def test_driver_ab_passes_build_no_warm_program(ranks):
     :844, :962): one build a program on the warm-up, none on the timed
     passes, so ``warm_pushdown_new_traces`` and ``warm_new_traces`` are
     the JAX driver's 0 (its own passes also run a metrics program, which
-    raises on the installed jax, so the count is held to that value)."""
+    raises on the installed jax, so the count is held to that value).
+    The records' counter signatures come from the port's own untimed
+    metrics pass."""
     from distributed_join_tpu_torch.benchmarks import (
         distributed_join as tdriver,
     )
@@ -833,8 +845,9 @@ def test_driver_ab_passes_build_no_warm_program(ranks):
         device="cpu")
     agg, srt = rec["agg_ab"], rec["sort_ab"]
     assert agg["warm_pushdown_new_traces"] == 0
-    assert "warm_pushdown_new_traces" not in agg["not_ported"]
+    assert agg["counter_signature"]["counters"]["matches"] == agg["matches"]
     assert agg["oracle_equal_pushdown"] and agg["matches"] > 0
     assert srt["warm_new_traces"] == 0 and srt["digest_equal"]
-    assert "warm_new_traces" not in srt["not_ported"]
+    assert srt["counter_signature"]["counters"]["matches"] == srt["matches"]
+    assert srt["wire_exact"] is True
 

@@ -192,11 +192,27 @@ def test_summary_keys_are_jax(tmp_path):
         assert ttel.summary()["device_trace_path"] is None
 
 
-def test_metrics_and_stage_profile_refuse_by_name():
+def test_metrics_and_stage_profile_refuse_by_name(tmp_path):
+    """``emit_metrics`` folds a device metrics block into the session
+    (the tape is ported); the stage profile still refuses by name."""
+    import torch
+
+    from distributed_join_tpu_torch.telemetry.metrics import Metrics
+
     assert ttel.emit_metrics(None) is None
     ttel.stage_profile(None)
-    with pytest.raises(NotImplementedError, match="metrics tape"):
-        ttel.emit_metrics({"reduced": {}})
+    block = Metrics(names=("matches", "probe.overflow_margin_min"),
+                    values=torch.tensor([[3, 7], [4, 5]]))
+    want = {"n_ranks": 2,
+            "per_rank": {"matches": [3, 4],
+                         "probe.overflow_margin_min": [7, 5]},
+            "reduced": {"matches": 7, "probe.overflow_margin_min": 5}}
+    assert ttel.emit_metrics(block) == want
+    with ttel.session(str(tmp_path)) as sink:
+        ttel.emit_metrics(block)
+        assert ttel.summary()["metrics"] == want
+    assert [e["payload"] for e in _events(sink.events_path)
+            if e["name"] == "metrics"] == [{"reduced": want["reduced"]}]
     with pytest.raises(NotImplementedError, match="stage profile"):
         ttel.stage_profile({"stages": {}})
 
@@ -329,18 +345,24 @@ def test_resident_spans_and_events_equal_jax(tmp_path, jcomms, n):
 
 def test_with_metrics_none_runs_the_step_with_a_session(tmp_path):
     """With a session on, ``with_metrics=None`` (what the JAX drivers
-    leave it at) resolves to False; True still refuses by name."""
+    leave it at) resolves to the session's state, as in the JAX package:
+    the join runs with the tape, and its counters reach the summary.
+    Without a session it resolves to False."""
     b, bv, p, pv = _tables()
+    res = tdist.distributed_inner_join(_tt(b, bv), _tt(p, pv),
+                                       LocalCommunicator(),
+                                       with_metrics=None,
+                                       out_capacity_factor=4.0)
+    assert not hasattr(res, "telemetry")
     with ttel.session(str(tmp_path)):
         res = tdist.distributed_inner_join(_tt(b, bv), _tt(p, pv),
                                            LocalCommunicator(),
                                            with_metrics=None,
                                            out_capacity_factor=4.0)
-        assert int(res.total) > 0 and not hasattr(res, "telemetry")
-        with pytest.raises(NotImplementedError, match="device metrics"):
-            tdist.distributed_inner_join(_tt(b, bv), _tt(p, pv),
-                                         LocalCommunicator(),
-                                         with_metrics=True)
+        assert int(res.total) > 0
+        red = res.telemetry.to_dict()["reduced"]
+        assert red == {"matches": int(res.total), "retry_attempt_max": 0}
+        assert ttel.summary()["metrics"]["reduced"] == red
 
 
 def test_retry_attempt_events_as_jax(tmp_path, jcomms):
@@ -541,7 +563,8 @@ def test_driver_record_off_mode_unchanged():
 def test_driver_telemetry_acceptance(tmp_path, capsys):
     """One ``--telemetry DIR --history FILE`` run of the port's driver
     through ``run_guarded``: the record carries the session's summary
-    (and ``metrics`` under ``not_ported``), the event log has the stage
+    (its ``metrics`` the counters of the untimed metrics join, which
+    equal the record's matches), the event log has the stage
     spans under the driver's ``generate`` and ``timed_join``, the Chrome
     trace passes the JAX package's check, and the history has one entry
     under the signature the JAX package gives the same record."""
@@ -562,7 +585,14 @@ def test_driver_telemetry_acceptance(tmp_path, capsys):
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert printed["telemetry"]["events_path"] == \
         record["telemetry"]["events_path"]
-    assert "metrics" in record["not_ported"]
+    assert "not_ported" not in record
+    red = record["telemetry"]["metrics"]["reduced"]
+    assert red["matches"] == record["matches_per_join"]
+    assert red["build.rows_shuffled"] == red["build.rows_received"] == \
+        record["build_table_nrows"]
+    assert {"collect_metrics", "timed_join"} <= {
+        e["name"] for e in _events(record["telemetry"]["events_path"])
+        if e["kind"] == "span"}
     events = _events(record["telemetry"]["events_path"])
     names = {e["name"] for e in events if e["kind"] == "span"}
     assert {"generate", "partition", "shuffle", "join",
@@ -573,11 +603,12 @@ def test_driver_telemetry_acceptance(tmp_path, capsys):
         e["name"] for e in trace["traceEvents"]}
     entries, _ = thist.load_history(hist)
     assert len(entries) == 1 and entries[0]["outcome"] == "ok"
-    # the JAX package's hook on the same args and record files the same
-    # line (its workload back-filled from the args alike)
+    # the JAX package's hook on the same args, record and session
+    # summary files the same line (its workload back-filled from the args
+    # alike; its indicators read from the summary's metrics)
     from distributed_join_tpu import benchmarks as jbench
     args.history = str(tmp_path / "jh.jsonl")
-    jbench.maybe_history(args, None, record=record)
+    jbench.maybe_history(args, record["telemetry"], record=record)
     assert entries == jhist.load_history(args.history)[0]
 
 
