@@ -257,9 +257,23 @@ Phases (any failure raises, and the script exits non-zero):
    wire, matches equal to the totals, an anti join, launches equal with
    the tape off and on, the CUDA kernels and ms the tape adds.
    ``python3 chip_smoke.py --phase 21`` runs this phase alone.
+22. The stage profiler, the run diagnosis and the baseline gate, in a
+   process of its own: (a) config 2's join at 10 M x 10 M profiled stage
+   by stage on one rank at k = 1 (the join alone) and k = 4 (all three
+   stages), each stage's counters equal to the tape-on join's, the
+   padded wire bytes to the plan's, the stages' least walls summing to
+   at least 0.95 x the monolithic step's; (b) Q3 at SF-10 operator by
+   operator, each operator's counters equal to the tape-on query's; (c)
+   the constants refitted from those stages (not the world-of-1
+   shuffle) against the shipped ones, and phase 21(b)'s workloads priced
+   by both; (d) ``--diagnose`` on the join driver over 4 emulated ranks,
+   a Zipf alpha 1.5 probe (the key-skew indicator warns, naming the skew
+   knobs) and a uniform one (clean); (e) the daemon's smoke twice, the
+   second gated against baselines written from the first.
+   ``python3 chip_smoke.py --phase 22`` runs this phase alone.
 
 The whole script runs phases 2 to 14 and 16 in one process, then 15,
-17, 18, 19, 20 and 21 each in a process of its own (``--phase N``): late in one
+17, 18, 19, 20, 21 and 22 each in a process of its own (``--phase N``): late in one
 long process the profiler has dropped launches and scaled durations. A device
 time counts only when the profiler caught every launch the wrappers made
 and its clock agrees with the CUDA events' on a spin kernel in the same
@@ -279,7 +293,8 @@ rows' are those of phase 18(b)'s warm request, and the join sites also
 carry the paths ``resident``, ``resident_agg`` and ``batched``, and
 ``telemetry``: phase 19(a)'s driver run with the session and the device
 trace on, ``service``: phase 20's wire requests (a)-(e), which the
-groups site's entry carries too, and phase 21(c)'s ``tape_*`` paths);
+groups site's entry carries too, phase 21(c)'s ``tape_*`` paths, and
+phase 22's ``stageprof_join`` (the k = 4 profile) and ``stageprof_q3``);
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
@@ -3778,8 +3793,10 @@ def service_phase() -> dict:
     ``--smoke --history-dir DIR --smoke-resident-joins 50`` as a
     subprocess, its wall gates on (the batch beats one by one; the warm
     probe-only join beats the warm full join on the median of 50 joins a
-    side, taken in turns): rc 0, warm builds 0, >= 2 history signatures, its explain step's program resident, only
-    ``baseline_gate`` under ``not_ported``. Launches
+    side, taken in turns): rc 0, warm builds 0, >= 2 history signatures, its explain step's program resident, nothing
+    ``not_ported``, and its baseline gate skipping the committed CPU
+    baselines (drawn over 8 emulated ranks; phase 22(e) gates on the
+    card). Launches
     are counted over (a)-(e)'s wire requests only (the in-process
     references launch outside the counts). Returns ``{"service":
     launches}``."""
@@ -4100,15 +4117,17 @@ def service_phase() -> dict:
     _check(r.returncode == 0 and rec.get("warm_new_traces") == 0
            and (rec.get("history") or {}).get("n_signatures", 0) >= 2
            and (rec.get("explain") or {}).get("cache", {}).get("resident")
-           and rec.get("not_ported") == ["baseline_gate"],
+           and "not_ported" not in rec
+           and all("drawn at" in v.get("skipped", "")
+                   for v in rec.get("baseline_gate", {"-": {}}).values()),
            f"--smoke rc {r.returncode}: {r.stdout[-1500:]} "
            f"{r.stderr[-3000:]}")
     print(f"[service] (h) --smoke: rc 0 in {smoke_s:.1f} s; warm builds 0; "
           f"history {json.dumps(rec['history'])}; batched "
           f"{rec['batched_s'] * 1e3:.4f} ms against sequential "
           f"{rec['sequential_s'] * 1e3:.4f} ms; resident drill speedup "
-          f"{rec['resident_drill']['probe_only_speedup']:.4f}; not_ported "
-          f"{rec['not_ported']}; {smi}", flush=True)
+          f"{rec['resident_drill']['probe_only_speedup']:.4f}; baseline "
+          f"gate {json.dumps(rec['baseline_gate'])}; {smi}", flush=True)
     part_done("h")
     shutil.rmtree(tmp, ignore_errors=True)
     print(f"[phase] service_phase: {time.perf_counter() - t_phase:.1f} s",
@@ -4523,6 +4542,387 @@ def cost_phase() -> dict:
     return paths
 
 
+# -- phase 22: stage profiles, the refit, the diagnosis, the gate ---------
+
+STAGE_REPEATS = 5              # (a), (b): timed repeats a profile
+STAGE_K = 4                    # (a): the over-decomposition of the 3-stage run
+DIAG_RANKS = 4                 # (d): emulated ranks of the diagnosed runs
+DIAG_ROWS = 4_000_000          # (d): rows a side of the diagnosed runs
+GATE_RESIDENT_JOINS = 3        # (e): the smoke's resident drill, a side
+REFIT_MOVE = 0.10              # (c): a default changes past this move
+
+
+def _join_stage_record(op: dict, query_rec: dict) -> dict:
+    """One operator of a one-rank, k = 1 query profile as a join-only
+    ``stageprofile`` record for ``calibrate_from_stage_profile``: the
+    step joins one bucket directly (no partition, no shuffle, and
+    ``cost.predict`` prices neither), so the operator's wall is its join
+    stage's and its predicted total that stage's price."""
+    return {"kind": "stageprofile", "platform": query_rec["platform"],
+            "overflow": query_rec["overflow"], "sort_segments": 1,
+            "stages": {"join": {"ran": True, "wall_s": op["wall_s"],
+                                "predicted_s": op["predicted_s"],
+                                "counters": op["counters"]}}}
+
+
+def _print_profile(tag: str, rec: dict) -> None:
+    for name in ("partition", "shuffle", "join", "skew"):
+        st = rec["stages"][name]
+        if st["ran"]:
+            print(f"[stageprof] {tag} {name}: measured {st['wall_s'] * 1e3:.4f}"
+                  f" ms (min {st['wall_min_s'] * 1e3:.4f}), predicted "
+                  f"{st['predicted_s'] * 1e3:.4f} ms, ratio "
+                  f"{st['ratio']:.4f}", flush=True)
+    ov = rec["overlap"]
+    print(f"[stageprof] {tag}: sum of stages {rec['sum_of_stages_s'] * 1e3:.4f}"
+          f" ms (min {rec['sum_of_stages_min_s'] * 1e3:.4f}), monolithic "
+          f"{rec['monolithic']['wall_s'] * 1e3:.4f} ms (min "
+          f"{rec['monolithic']['wall_min_s'] * 1e3:.4f}); overlap credit "
+          f"{ov['credit_s'] * 1e3:.4f} ms (fraction {ov['fraction']})",
+          flush=True)
+
+
+def stageprof_phase() -> dict:
+    """Phase 22: the stage profiler, the run diagnosis and the baseline
+    gate on the card. (a) profiles config 2's join at the headline's
+    shape (10 M x 10 M, the join driver's tables), ``STAGE_REPEATS``
+    repeats: one rank at k = 1 is the join alone; one rank at k = 4 runs
+    all three stages (the shuffle a world of 1). The stage set is
+    ``STAGE_KEYS`` with ``skew`` not run; every stage's counters equal
+    the tape-on monolithic join's; the padded wire bytes equal
+    ``build_plan``'s; the sum of the stages' least walls is at least
+    0.95 x the monolithic least wall. (b) profiles Q3 at SF-10 operator
+    by operator at the rung the query resolves to: each operator's
+    ``matches`` (and the aggregate's groups) equal the tape-on
+    monolithic query's. (c) refits the constants with
+    ``calibrate_from_stage_profile(platform="cuda")`` over the stages
+    that measured the work they price: (a)'s joins and partition, and
+    (b)'s operators, each a one-bucket join (not the world-of-1 shuffle,
+    a local copy), and prints the refit against the shipped model and
+    the predictions of phase 21(b)'s workloads (the headline, the k = 4
+    join over 4 emulated ranks, the serving request, Q3 at SF-10) and
+    of (a)'s under both. (d) runs the
+    join driver with ``--diagnose`` over 4 emulated ranks, a Zipf alpha
+    1.5 probe with the skew sidecar off and a uniform one: the first's
+    key-skew indicator warns and names the skew knobs, the second is
+    clean, both ``diagnosis.json`` pass ``analyze check``. (e) runs the
+    daemon's smoke twice in process: the first's signatures written as
+    baselines (``analyze compare --write``), the second gated against
+    them. Returns the launch counts of (a)'s k = 4 profile and (b)'s
+    (paths ``stageprof_join`` and ``stageprof_q3``)."""
+    import shutil
+    import tempfile
+
+    from distributed_join_tpu_torch import bench
+    from distributed_join_tpu_torch.benchmarks import (
+        distributed_join as jdriver,
+    )
+    from distributed_join_tpu_torch.benchmarks import run_guarded
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.parallel.query_exec import (
+        distributed_query,
+    )
+    from distributed_join_tpu_torch.planning import cost
+    from distributed_join_tpu_torch.planning.plan import (
+        abstract_tables,
+        build_plan,
+    )
+    from distributed_join_tpu_torch.planning.query import (
+        explain_query,
+        tpch_query_plan,
+    )
+    from distributed_join_tpu_torch.service import server as srv
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+    from distributed_join_tpu_torch.service.resident import (
+        ResidentTableRegistry,
+    )
+    from distributed_join_tpu_torch.telemetry import analyze, stageprof
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    from distributed_join_tpu_torch.utils.tpch import (
+        generate_tpch_query_tables,
+        query_filters,
+    )
+    smi = gpu_line()
+    t_part = time.perf_counter()
+    paths = {}
+
+    def part_done(label):
+        nonlocal t_part
+        now = time.perf_counter()
+        print(f"[phase] 22{label}: {now - t_part:.1f} s", flush=True)
+        t_part = now
+
+    # (a) config 2's join at the headline's shape
+    local = LocalCommunicator()
+    build, probe = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS, probe_nrows=NROWS,
+        unique_build_keys=True, device=DEVICE)
+    profiles = {}
+    for k in (1, STAGE_K):
+        prof, counts = counted(lambda k=k: stageprof.profile_join_stages(
+            local, build, probe, repeats=STAGE_REPEATS, over_decomposition=k))
+        rec = prof.as_record()
+        profiles[k] = rec
+        mono = distributed_inner_join(build, probe, local, with_metrics=True,
+                                      over_decomposition=k)
+        red = mono.telemetry.to_dict()["reduced"]
+        _check(set(rec["stages"]) == set(stageprof.STAGE_KEYS)
+               and not rec["stages"]["skew"]["ran"] and not rec["overflow"]
+               and rec["platform"] == torch.device(DEVICE).type,
+               f"phase 22 k = {k}: stages {json.dumps(rec['stages'])[:400]}")
+        ran = [s for s in ("partition", "shuffle", "join")
+               if rec["stages"][s]["ran"]]
+        _check(ran == (["join"] if k == 1 else
+                       ["partition", "shuffle", "join"]),
+               f"phase 22 k = {k}: the stages that ran {ran}")
+        for st in ran:
+            for name, v in rec["stages"][st]["counters"].items():
+                _check(red.get(name) == v,
+                       f"phase 22 k = {k} {st} {name}: {v} against the "
+                       f"monolithic tape's {red.get(name)}")
+        _check(rec["stages"]["join"]["counters"]["matches"] == int(mono.total)
+               > 0, f"phase 22 k = {k}: matches")
+        if k > 1:
+            plan = build_plan(local, build, probe, with_metrics=False,
+                              over_decomposition=k)
+            sh = rec["stages"]["shuffle"]["counters"]
+            for side in ("build", "probe"):
+                _check(sh[f"{side}.wire_bytes"]
+                       == plan.wire[side]["bytes_total"],
+                       f"phase 22: {side} wire bytes {sh[side + '.wire_bytes']}"
+                       f" != plan {plan.wire[side]['bytes_total']}")
+            for side in ("build", "probe"):
+                _check(rec["stages"]["partition"]["counters"][
+                    f"{side}.rows_partitioned"] == NROWS,
+                    f"phase 22: {side} rows partitioned")
+            _require_launched(counts, JOIN_KERNELS, "the stage profile")
+            paths["stageprof_join"] = counts
+        del mono
+        _check(rec["sum_of_stages_min_s"]
+               >= 0.95 * rec["monolithic"]["wall_min_s"],
+               f"phase 22 k = {k}: sum of stage minima "
+               f"{rec['sum_of_stages_min_s']} < 0.95 x monolithic "
+               f"{rec['monolithic']['wall_min_s']}")
+        _print_profile(f"(a) k={k}", rec)
+        print(f"[stageprof] (a) k={k} launches {counts}; {smi}", flush=True)
+        print("[stageprof] (a) record " + json.dumps(rec), flush=True)
+    del build, probe
+    torch.cuda.empty_cache()
+    part_done("a")
+
+    # (b) Q3 at SF-10, an operator at a time
+    tables = query_filters(generate_tpch_query_tables(
+        seed=SEED, scale_factor=QUERY_SF, device=DEVICE), "q3")
+    qplan = tpch_query_plan("q3")
+    factors = dict(over_decomposition=1, shuffle_capacity_factor=1.6,
+                   out_capacity_factor=1.5)
+    qres = distributed_query(tables, qplan, local, auto_retry=4,
+                             with_metrics=False, **factors)
+    _check(not bool(qres.overflow), "phase 22 Q3 overflowed")
+    scale = 2 ** qres.retry_attempts
+    rung = dict(factors, shuffle_capacity_factor=1.6 * scale,
+                out_capacity_factor=1.5 * scale)
+    del qres
+    qprof, qcounts = counted(lambda: stageprof.profile_query_stages(
+        local, qplan, tables, repeats=STAGE_REPEATS, **rung))
+    qrec = qprof.as_record()
+    mono = distributed_query(tables, qplan, local, with_metrics=True, **rung)
+    _check(not qrec["overflow"]
+           and qrec["platform"] == torch.device(DEVICE).type,
+           "phase 22 Q3 profile")
+    for op, m, total in zip(qplan.ops, mono.telemetry, mono.op_totals):
+        got = qrec["operators"][op.op_id]["counters"]
+        red = m.to_dict()["reduced"]
+        _check(got["matches"] == red["matches"] == int(total),
+               f"phase 22 Q3 {op.op_id}: matches {got} against {red}")
+        if op.aggregate is not None:
+            _check(got["agg.groups"] == red["agg.groups"]
+                   == int(mono.table.valid.sum()) > 0,
+                   f"phase 22 Q3 {op.op_id}: groups {got} against {red}")
+    _require_launched(qcounts, QUERY_SITES, "the Q3 profile")
+    paths["stageprof_q3"] = qcounts
+    gaps = {}
+    for oid in qrec["order"]:
+        op = qrec["operators"][oid]
+        gaps[oid] = op["wall_s"] - op["predicted_s"]
+        print(f"[stageprof] (b) Q3 {oid}: measured {op['wall_s'] * 1e3:.4f} ms"
+              f" (min {op['wall_min_s'] * 1e3:.4f}), predicted "
+              f"{op['predicted_s'] * 1e3:.4f} ms, ratio {op['ratio']:.4f}, "
+              f"counters {op['counters']}", flush=True)
+    worst = max(gaps, key=gaps.get)
+    print(f"[stageprof] (b) Q3: sum of operators "
+          f"{qrec['sum_of_operators_s'] * 1e3:.4f} ms, monolithic "
+          f"{qrec['monolithic']['wall_s'] * 1e3:.4f} ms (min "
+          f"{qrec['monolithic']['wall_min_s'] * 1e3:.4f}), predicted "
+          f"{qrec['predicted_total_s'] * 1e3:.4f} ms; the gap's largest "
+          f"part: {worst} (+{gaps[worst] * 1e3:.4f} ms of "
+          f"{sum(gaps.values()) * 1e3:.4f}); launches {qcounts}; {smi}",
+          flush=True)
+    print("[stageprof] (b) record " + json.dumps(qrec), flush=True)
+    del mono
+    part_done("b")
+
+    # (c) the refit, from the stages that measured the work they price
+    fed = [profiles[1]]
+    four = json.loads(json.dumps(profiles[STAGE_K]))
+    four["stages"]["shuffle"]["ran"] = False      # a world of 1: a copy
+    fed.append(four)
+    fed.extend(_join_stage_record(qrec["operators"][oid], qrec)
+               for oid in qrec["order"])
+    model, report = cost.calibrate_from_stage_profile(
+        fed, platform=torch.device(DEVICE).type)
+    _check(report["calibrated"] and "shuffle" not in report["stage_scales"],
+           f"phase 22 refit: {report}")
+    shipped = cost.CostModel()
+    owned = [c for m in cost.STAGE_CONSTANTS.values()
+             for c in m["time"] + m["bandwidth"]]
+    refit = {c: {"shipped": getattr(shipped, c), "refit": getattr(model, c),
+                 "move": getattr(model, c) / getattr(shipped, c)}
+             for c in owned}
+    print(f"[stageprof] (c) report {json.dumps(report)}", flush=True)
+    print(f"[stageprof] (c) refit constants {json.dumps(refit)}; {smi}",
+          flush=True)
+    print("[stageprof] (c) defaults a refit moves past "
+          f"{REFIT_MOVE:.0%}: " + json.dumps(
+              {c: v["refit"] for c, v in refit.items()
+               if abs(v["move"] - 1) > REFIT_MOVE}), flush=True)
+    # phase 21(b)'s workloads priced by both models (host arithmetic on
+    # abstract tables)
+    ab, ap = abstract_tables(NROWS, NROWS)
+    match_out = int(bench.MATCHES_PER_ROW * NROWS * bench.OUT_SLACK)
+    grade = {}
+    for name, comm, opts in (
+            ("headline", local, dict(out_rows_per_rank=match_out)),
+            (f"k{COST_K}_{COST_RANKS}_emulated_ranks",
+             EmulatedCommunicator(COST_RANKS),
+             dict(over_decomposition=COST_K)),
+            ("profile_k1", local, {}),
+            (f"profile_k{STAGE_K}", local,
+             dict(over_decomposition=STAGE_K))):
+        plan = build_plan(comm, ab, ap, with_metrics=False, **opts)
+        grade[name] = (plan.cost["total_s"],
+                       cost.predict(plan, model)["total_s"])
+    grade["q3_sf10"] = tuple(
+        explain_query(qplan, local, tables, cost_model=mdl,
+                      defaults=rung, orders=False)["total_s"]
+        for mdl in (None, model))
+    del tables
+    # phase 21(b)'s serving request: its probe-only plan from the
+    # registry's explain
+    reg_build, _ = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS, probe_nrows=SERVING_PROBE_ROWS,
+        unique_build_keys=True, device=DEVICE)
+    registry = ResidentTableRegistry(local, JoinProgramCache(local))
+    registry.register("dim", reg_build)
+    del reg_build
+    splan = registry.join("dim", _serving_probe(SEED + 1, SERVING_PROBE_ROWS),
+                          explain=True, with_metrics=False).plan
+    grade["serving_request"] = (splan.cost["total_s"],
+                                cost.predict(splan, model)["total_s"])
+    del registry
+    measured = {"profile_k1": profiles[1]["monolithic"]["wall_s"],
+                f"profile_k{STAGE_K}":
+                    profiles[STAGE_K]["monolithic"]["wall_s"],
+                "q3_sf10": qrec["monolithic"]["wall_s"]}
+    for name, (before, after) in grade.items():
+        meas = measured.get(name)
+        print(f"[stageprof] (c) {name}: predicted shipped "
+              f"{before * 1e3:.4f} ms, refit {after * 1e3:.4f} ms"
+              + ("" if meas is None else
+                 f"; measured {meas * 1e3:.4f} ms (measured / predicted "
+                 f"{meas / before:.4f} shipped, {meas / after:.4f} refit)")
+              + f"; {smi}", flush=True)
+    torch.cuda.empty_cache()
+    part_done("c")
+
+    # (d) --diagnose over emulated ranks: a Zipf probe, then a uniform one
+    tmp = tempfile.mkdtemp(prefix="stageprof_")
+    diags = {}
+    for label, extra in (("zipf", ["--zipf-alpha", "1.5",
+                                   "--skew-threshold", "0"]),
+                         ("uniform", [])):
+        d = os.path.join(tmp, label)
+        args = jdriver.parse_args([
+            "--communicator", "emulated", "--n-ranks", str(DIAG_RANKS),
+            "--build-table-nrows", str(DIAG_ROWS), "--probe-table-nrows",
+            str(DIAG_ROWS), "--iterations", "1", "--auto-retry", "2",
+            "--diagnose", "--telemetry", d, *extra])
+        out = {}
+
+        def body(a, out=out):
+            out["record"] = jdriver.run(a)
+            return out["record"]
+
+        _check(run_guarded(body, args, "distributed_join") == 0,
+               f"phase 22 (d) {label} driver run")
+        path = os.path.join(d, "diagnosis.json")
+        _check(os.path.exists(path) and analyze.check_file(path) == [],
+               f"phase 22 (d) {label}: diagnosis.json "
+               f"{analyze.check_file(path) if os.path.exists(path) else None}")
+        diags[label] = json.load(open(path))
+        ks = diags[label]["indicators"]["key_skew"]
+        print(f"[stageprof] (d) {label}: status {diags[label]['status']}, "
+              f"key skew {json.dumps(ks.get('counters'))}, recommendations "
+              f"{[r['id'] for r in diags[label]['recommendations']]}; "
+              f"matches {out['record']['matches_per_join']:,}; {smi}",
+              flush=True)
+    zr = {r["id"]: r for r in diags["zipf"]["recommendations"]}
+    _check(diags["zipf"]["indicators"]["key_skew"]["status"] == "warn"
+           and "skew_enable_prpd" in zr
+           and any("--skew-threshold" in f
+                   for f in zr["skew_enable_prpd"]["flags"]),
+           f"phase 22 (d) the Zipf run's diagnosis: {zr}")
+    _check(diags["uniform"]["status"] == "ok"
+           and not diags["uniform"]["recommendations"],
+           f"phase 22 (d) the uniform run is not clean: "
+           f"{json.dumps(diags['uniform']['indicators'])[:600]}")
+    part_done("d")
+
+    # (e) the daemon smoke's gate: run 1 writes the baselines, run 2 gates
+    gate_dir = os.path.join(tmp, "baselines")
+    recs = []
+    for i in (1, 2):
+        args = srv.parse_args([
+            "--smoke", "--smoke-no-wall-gate", "--smoke-resident-joins",
+            str(GATE_RESIDENT_JOINS), "--smoke-baseline-dir", gate_dir,
+            "--flight-recorder-path", os.path.join(tmp, f"fr{i}.json")])
+        args.request_deadline_s = None
+        rec = srv.run_smoke(srv._service_from_args(args), args)
+        _check(not rec["violations"], f"phase 22 (e) smoke {i}: "
+               f"{rec['violations']}")
+        recs.append(rec)
+        if i == 1:
+            _check(all("skipped" in v for v in rec["baseline_gate"].values()),
+                   f"phase 22 (e) smoke 1 gate {rec['baseline_gate']}")
+            rpath = os.path.join(tmp, "smoke1.json")
+            dpath = os.path.join(tmp, "resident_drill1.json")
+            json.dump(rec, open(rpath, "w"))
+            json.dump(rec["resident_drill"], open(dpath, "w"))
+            for name, src in (("service_smoke", rpath),
+                              ("resident_smoke", dpath)):
+                _check(analyze.main(["compare", src, "--baseline", name,
+                                     "--baseline-dir", gate_dir,
+                                     "--write"]) == 0,
+                       f"phase 22 (e) compare --write {name}")
+    gate = recs[1]["baseline_gate"]
+    _check(all(v.get("ok") is True for v in gate.values()),
+           f"phase 22 (e) the card's gate: {gate}")
+    print(f"[stageprof] (e) smoke 2 gated against smoke 1's baselines: "
+          f"{json.dumps(gate)}; signature {json.dumps(recs[1]['counter_signature'])}"
+          f"; {smi}", flush=True)
+    part_done("e")
+    shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
 def serving_kernel_entries(rows: list, paths: dict) -> list:
     """The serving shapes' rows of the kernels line: their launches on
     the path of the registry they were taken from (every warm request
@@ -4589,10 +4989,10 @@ def main(argv=None) -> int:
            and len(argv) == 2 else None)
     fault_job = (json.loads(argv[1]) if argv[:1] == ["--fault-driver"]
                  and len(argv) == 2 else None)
-    phases = [["--phase", str(p)] for p in range(13, 22)]
+    phases = [["--phase", str(p)] for p in range(13, 23)]
     if argv not in ([], *phases) and job is None and fault_job is None:
         print("usage: chip_smoke.py [--phase 13 | 14 | 15 | 16 | 17 | 18 "
-              "| 19 | 20 | 21]", file=sys.stderr)
+              "| 19 | 20 | 21 | 22]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4698,6 +5098,14 @@ def main(argv=None) -> int:
         print(ok, flush=True)
         return 0
 
+    if argv == ["--phase", "22"]:
+        stage_paths = stageprof_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps({"launches_by_path": stage_paths}), flush=True)
+        print(ok, flush=True)
+        return 0
+
     if argv == ["--phase", "18"]:
         resident_paths, serving_rows = resident_phase()
         print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
@@ -4740,9 +5148,9 @@ def main(argv=None) -> int:
     paths.update(timed(segmented_phase, *plain, flat_profile=flat_prof))
     # the phases that profile kernel rows late in the script, each in a
     # process of its own (``phase_in_own_process``)
-    own15, own17, own18, own19, own20, own21 = (
-        phase_in_own_process(p) for p in (15, 17, 18, 19, 20, 21))
-    for own_phase in (own15, own17, own18, own19, own20, own21):
+    own15, own17, own18, own19, own20, own21, own22 = (
+        phase_in_own_process(p) for p in (15, 17, 18, 19, 20, 21, 22))
+    for own_phase in (own15, own17, own18, own19, own20, own21, own22):
         paths.update(own_phase["launches_by_path"])
     tpch_rows, (groups_row,), serving_rows = (
         own15["rows"], own17["rows"], own18["rows"])

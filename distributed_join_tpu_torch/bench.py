@@ -21,10 +21,13 @@ no GPU baseline yet. ``--device cpu`` runs the same protocol on the CPU
 for rehearsals at small ``--nrows``; its times say nothing about a GPU.
 ``--sort-mode`` and ``--sort-segments`` pick the local sort as the JAX
 ``bench.py`` does (:354-382); the headline is one bucket, where both
-modes are the flat program. ``--telemetry``, ``--trace``, ``--history``
-and ``--guard-deadline-s`` run it through ``benchmarks.run_guarded``, as
-the drivers; with a session on, the line carries its summary under
-``telemetry``, and without one it is unchanged.
+modes are the flat program. ``--telemetry``, ``--trace``, ``--diagnose``,
+``--history`` and ``--guard-deadline-s`` run it through
+``benchmarks.run_guarded``, as the drivers; with a session on, the line
+carries its summary under ``telemetry``, and without one it is
+unchanged. ``--stage-profile N`` profiles the match-sized program stage
+by stage after both timed loops (``benchmarks.maybe_stage_profile``;
+the line's ``stage_profile``).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.benchmarks import (
     add_guard_arg,
     add_telemetry_args,
+    maybe_stage_profile,
     refuse_trace_with_profile,
     resolve_sort_mode,
     run_guarded,
@@ -96,9 +100,9 @@ def _sort_opts(sort_mode, sort_segments, nrows: int, n_ranks: int) -> dict:
 
 
 def run(nrows: int = NROWS, iters: int = ITERS, device=None,
-        sort_mode=None, sort_segments=None) -> dict:
+        sort_mode=None, sort_segments=None, args=None) -> dict:
     """The headline protocol; returns the record (also what main
-    prints)."""
+    prints). ``args``: the parsed flags, for ``--stage-profile``."""
     dev = resolve_device(device)
     comm = LocalCommunicator()
     n_ranks = comm.n_ranks
@@ -129,11 +133,18 @@ def run(nrows: int = NROWS, iters: int = ITERS, device=None,
                  else "join produced zero matches") + ": " + json.dumps(
                     {"total": total, "retry": ladder.report().as_record()}))
         rate = 2 * nrows / per_join / 1e6 / n_ranks
-        return rate, per_join, total, ladder.report().as_record()
+        return (rate, per_join, total, ladder.report().as_record(),
+                ladder.sizing())
 
     match_out = int(expected * OUT_SLACK / n_ranks)
-    value, sec_match, matches, retry_match = measure(match_out)
-    contract, sec_contract, _, retry_contract = measure()
+    value, sec_match, matches, retry_match, sizing_match = measure(
+        match_out)
+    contract, sec_contract, _, retry_contract, _ = measure()
+    # the match-sized program at its settled rung, stage by stage (an
+    # untimed side pass after both timed loops)
+    stage_rec = maybe_stage_profile(args, comm, build, probe,
+                                    dict(key="key", **sort_opts,
+                                         **sizing_match))
     record = {
         "metric": "join throughput",
         "value": value,
@@ -154,6 +165,7 @@ def run(nrows: int = NROWS, iters: int = ITERS, device=None,
                      "contract": "out_capacity_factor=1.2 x probe rows"},
         "retry": {"match_sized": retry_match,
                   "capacity_contract": retry_contract},
+        "stage_profile": stage_rec,
         "device": str(dev),
     }
     if dev.type == "cuda":
@@ -206,7 +218,7 @@ def _main(args) -> dict:
         record = profile(args.nrows, args.profile)
     else:
         record = run(args.nrows, args.iters, args.device, args.sort_mode,
-                     args.sort_segments)
+                     args.sort_segments, args=args)
     if telemetry.enabled():
         stamp_record(record)
     print(json.dumps(record), flush=True)

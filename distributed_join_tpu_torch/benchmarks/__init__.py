@@ -1,25 +1,31 @@
 """Benchmark drivers of the port, and what they share: the record stamp,
 rank-0-only reporting, the telemetry and guard flags with the guarded
 run, and the refusal of the JAX drivers' flags the port does not have
-(port of ``distributed_join_tpu/benchmarks/__init__.py``: ``stamp_record``
-:20, ``report`` :59, ``run_guarded`` :81-185, ``maybe_history``
-:360-419, ``write_explain`` and ``explain_summary`` :219-274,
-``collect_join_metrics`` :745, ``add_telemetry_args`` :431-490 without
-``--diagnose``, and ``--guard-deadline-s`` of ``add_robustness_args``
-:492-575).
+(port of ``distributed_join_tpu/benchmarks/__init__.py``: ``load_record``
+:37, ``stamp_record`` :20, ``report`` :59, ``run_guarded`` :81-185,
+``maybe_diagnose`` :187-216, ``maybe_stage_profile`` and
+``maybe_query_stage_profile`` :275-345, ``maybe_history`` :360-419,
+``write_explain`` and ``explain_summary`` :219-274,
+``collect_join_metrics`` :745, ``add_telemetry_args`` :431-490, and
+``--guard-deadline-s`` of ``add_robustness_args`` :492-575).
 
 Every driver's ``main`` runs its body through :func:`run_guarded`:
-``--telemetry[=DIR]``, ``--trace`` and ``--history FILE`` open the
-telemetry session around the run (``--trace`` adds a ``torch.profiler``
-device trace under ``DIR/device_trace/``), and ``--guard-deadline-s``
-(or ``DJTPU_GUARD_DEADLINE_S``) bounds the whole run with the watchdog.
+``--telemetry[=DIR]``, ``--trace``, ``--diagnose``, ``--history FILE``
+and ``--stage-profile`` open the telemetry session around the run
+(``--trace`` adds a ``torch.profiler`` device trace under
+``DIR/device_trace/``; ``--diagnose`` leaves ``DIR/diagnosis.json`` and a
+printed report after it, :func:`maybe_diagnose`), and
+``--guard-deadline-s`` (or ``DJTPU_GUARD_DEADLINE_S``) bounds the whole
+run with the watchdog.
 A failure leaves a one-line JSON failure record; a hang exits hard with
 rc 1, a handshake outage with rc 0, as in the JAX package. With a
 session on, a driver runs one untimed metrics join after its timed loop
 (:func:`collect_join_metrics`), so the record's ``telemetry.metrics``
 holds the device counters of one join on the unshifted tables;
 ``--explain`` writes the plan of the timed program (:func:`write_explain`)
-and puts its summary in the record.
+and puts its summary in the record, and ``--stage-profile [N]`` profiles
+the timed program stage by stage (:func:`maybe_stage_profile`, an
+operator at a time on the query path) into ``DIR/stageprofile.json``.
 """
 
 from __future__ import annotations
@@ -56,16 +62,29 @@ SCHEMA_VERSION = 2
 # Flags of every JAX driver and of its launcher that wait for other parts
 # of the port, each naming what it waits for.
 UNPORTED_FLAGS = {
-    "--diagnose": "the run diagnosis (the JAX package's "
-                  "telemetry/analyze.py; ROADMAP A5b)",
-    "--stage-profile": "the stage profile (the JAX package's "
-                       "telemetry/stageprof.py; ROADMAP A5b)",
     "--auto-tune": "the autotuner (the JAX package's planning/tuner.py; "
                    "ROADMAP A5c)",
     "--verify-integrity": "the wire-integrity digests (ROADMAP A5d)",
     "--chaos-seed": "chaos injection (parallel/chaos.py, whose plans "
                     "draw the corruption modes; ROADMAP A7)",
 }
+
+
+def load_record(source) -> dict:
+    """A driver or bench JSON record read back (``stamp_record``'s
+    inverse; JAX :37): ``source`` a path or a parsed dict. A record
+    without ``schema_version`` is stamped version 1 with rank 0, as the
+    JAX package stamps its early records."""
+    if isinstance(source, dict):
+        record = dict(source)
+    else:
+        with open(source) as f:
+            record = json.load(f)
+        if not isinstance(record, dict):
+            raise ValueError(f"{source}: not a JSON record object")
+    record.setdefault("schema_version", 1)
+    record.setdefault("rank", 0)
+    return record
 
 
 def refuse_flags(parser, argv, refused: dict) -> None:
@@ -238,8 +257,8 @@ def resolve_sort_mode(args, n_ranks: int, k: int, b_local: int,
 
 
 def add_telemetry_args(parser) -> None:
-    """The shared telemetry flags (JAX :431-490, without ``--diagnose``);
-    :func:`run_guarded` consumes them."""
+    """The shared telemetry flags (JAX :431-490); :func:`run_guarded`
+    consumes them, and a driver's ``run`` ``--stage-profile``."""
     parser.add_argument(
         "--telemetry", nargs="?", const="telemetry", default=None,
         metavar="DIR",
@@ -254,11 +273,29 @@ def add_telemetry_args(parser) -> None:
              "names line up with the kernels in it. Implies --telemetry; "
              "not with --profile (two profiler sessions cannot nest)")
     parser.add_argument(
+        "--diagnose", action="store_true",
+        help="at the end of the run, read the telemetry directory back "
+             "(telemetry/analyze.py): straggler, key-skew, headroom and "
+             "wire indicators with the knobs that relieve them, written "
+             "to DIR/diagnosis.json and printed on rank 0. Implies "
+             "--telemetry")
+    parser.add_argument(
         "--history", default=None, metavar="FILE",
         help="at the end of the run, append one workload-history entry "
              "(telemetry/history.py: workload signature, outcome, "
              "resolved retry knobs, wall time) to FILE. Implies "
              "--telemetry; rank 0 only")
+    parser.add_argument(
+        "--stage-profile", nargs="?", const=3, type=int, default=None,
+        metavar="N",
+        help="after the timed region, profile the timed program stage by "
+             "stage (telemetry/stageprof.py): partition, shuffle and join "
+             "each its own program at the plan's capacities, timed with "
+             "a barrier, N repeats (default 3), the median, beside the "
+             "monolithic step; the difference is the measured overlap "
+             "credit. Writes DIR/stageprofile.json (graded by "
+             "`telemetry.analyze stages`) and the summary into the "
+             "record. The timed loop is unchanged. Implies --telemetry")
 
 
 def add_guard_arg(parser) -> None:
@@ -287,7 +324,9 @@ FORWARDED_CHILD_FLAGS = (
     ("--slices", "slices", True),
     ("--telemetry", "telemetry", True),
     ("--trace", "trace", False),
+    ("--diagnose", "diagnose", False),
     ("--history", "history", True),
+    ("--stage-profile", "stage_profile", True),
     ("--explain", "explain", False),
     ("--sort-mode", "sort_mode", True),
     ("--sort-segments", "sort_segments", True),
@@ -310,7 +349,10 @@ def run_guarded(body, args, benchmark: str) -> int:
       exits 0 and a ``HangError`` exits 1, both hard (``os._exit``: the
       wedged worker may hold locks), after the telemetry files and the
       history entry are written; any other failure re-raises;
-    - the session is finalized and ``--history`` appended either way.
+    - the session is finalized, then ``--diagnose`` reads it back
+      (:func:`maybe_diagnose`; not after an outage or a hang, which
+      leave no settled join to read), and ``--history`` is appended
+      either way.
 
     Returns 0."""
     telemetry.configure_from_args(args)
@@ -366,9 +408,105 @@ def run_guarded(body, args, benchmark: str) -> int:
         # the traces and the summary even on failure: a run that died is
         # the run whose trace is wanted
         summary = telemetry.finalize()
+        maybe_diagnose(args, summary, record=result)
         maybe_history(args, summary,
                       record=result if isinstance(result, dict)
                       else failure_record)
+
+
+def maybe_diagnose(args, summary, record=None) -> None:
+    """``--diagnose`` (JAX :187-216): read the finalized session's
+    directory back through ``telemetry.analyze`` and leave
+    ``diagnosis.json`` and the report, printed to stderr (the record
+    stays the last line of stdout). ``record``, the run's own
+    record where it produced one, gives the workload's dtypes and wire
+    to the wire-efficiency indicator. Rank 0 only; a peer still closing
+    its files may miss its last events (``analyze diagnose DIR`` later
+    gives the settled view). An analysis failure never masks the run's
+    own outcome."""
+    if not getattr(args, "diagnose", False) or summary is None:
+        return
+    if not is_coordinator():
+        return
+    try:
+        from distributed_join_tpu_torch.telemetry.analyze import (
+            diagnose_run,
+            format_report,
+        )
+
+        diag = diagnose_run(summary["dir"],
+                            record=record if isinstance(record, dict)
+                            else None)
+        print(format_report(diag), file=sys.stderr)
+    except Exception as exc:  # noqa: BLE001 — the diagnosis is best effort
+        print(f"note: --diagnose failed: {type(exc).__name__}: {exc}",
+              file=sys.stderr)
+
+
+def _write_stage_record(rec: dict, name: str) -> str:
+    """``rec`` as ``name`` in the session's directory (the working
+    directory without one), keys sorted."""
+    s = telemetry.sink()
+    path = os.path.join(s.dir if s is not None else ".", name)
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(rec, f, indent=1, sort_keys=True)
+        f.write("\n")
+    os.replace(tmp, path)
+    return path
+
+
+def maybe_stage_profile(args, comm, build, probe, join_opts: dict):
+    """``--stage-profile N`` (JAX :275-310): profile the timed program
+    stage by stage (``telemetry.stageprof.profile_join_stages``) on the
+    run's own tables, after the timed region, as
+    :func:`collect_join_metrics` runs; draw its tracks into the trace
+    (``telemetry.stage_profile``), write ``stageprofile.json`` and print
+    the table (rank 0), and return the summary the record carries under
+    ``stage_profile`` (``history.run_entry`` keeps it as the entry's
+    ``stages``). None with the flag off. Every rank runs the
+    programs."""
+    repeats = getattr(args, "stage_profile", None)
+    if not repeats:
+        return None
+    from distributed_join_tpu_torch.telemetry import stageprof
+
+    opts = dict(join_opts)
+    key = opts.pop("key", "key")
+    prof = stageprof.profile_join_stages(
+        comm, build, probe, key=key, repeats=int(repeats), **opts)
+    rec = prof.as_record()
+    telemetry.stage_profile(rec)
+    if is_coordinator():
+        path = _write_stage_record(rec, "stageprofile.json")
+        print(prof.format(), file=sys.stderr)
+        print(f"stage profile: plan {rec['plan_digest'][:16]} -> {path}",
+              file=sys.stderr)
+    return prof.summary()
+
+
+def maybe_query_stage_profile(args, comm, plan, tables, defaults: dict):
+    """``--stage-profile N`` on the query path (JAX :312-345): each
+    operator its own program against the one query program
+    (``telemetry.stageprof.profile_query_stages``), after the timed
+    region; ``query_stageprofile.json`` in the session's directory, the
+    trace's tracks, and the summary (op ids as the stage keys) for the
+    record. None with the flag off."""
+    repeats = getattr(args, "stage_profile", None)
+    if not repeats:
+        return None
+    from distributed_join_tpu_torch.telemetry import stageprof
+
+    prof = stageprof.profile_query_stages(
+        comm, plan, tables, repeats=int(repeats), **dict(defaults))
+    rec = prof.as_record()
+    telemetry.stage_profile(rec)
+    if is_coordinator():
+        path = _write_stage_record(rec, "query_stageprofile.json")
+        print(prof.format(), file=sys.stderr)
+        print(f"query stage profile: plan {rec['plan_digest'][:16]} "
+              f"-> {path}", file=sys.stderr)
+    return prof.summary()
 
 
 def maybe_history(args, summary, record=None) -> None:

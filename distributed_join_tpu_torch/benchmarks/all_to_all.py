@@ -27,7 +27,8 @@ whole buffer, as the reference does.
 Flags as the JAX benchmark's: ``--n-ranks`` must equal the process
 group's size where given; ``--sort-mode flat`` and ``--sort-segments``
 are taken (the microbenchmark has no local sort), any other sort mode
-refuses with the JAX message; ``--telemetry``, ``--trace``,
+refuses with the JAX message, as does ``--stage-profile`` (the exchange
+is one stage); ``--telemetry``, ``--trace``, ``--diagnose``,
 ``--history`` and ``--guard-deadline-s`` run through
 ``benchmarks.run_guarded``; ``--explain`` writes the exchange's plan and
 the cost model's prediction (``planning.build_exchange_plan``); the
@@ -141,6 +142,11 @@ def run(args, device=None) -> tuple[dict, list]:
     """The benchmark's record, and the ms an exchange of each window
     (for the headline only: the record keeps the JAX benchmark's
     keys)."""
+    if getattr(args, "stage_profile", None):
+        raise SystemExit(
+            "--stage-profile needs the multi-stage join pipeline; "
+            "this microbenchmark IS one shuffle stage — its timed "
+            "wall already answers per-stage timing")
     if getattr(args, "sort_mode", None) not in (None, "flat"):
         raise SystemExit(
             "--sort-mode selects the join's LOCAL sort pipeline; "

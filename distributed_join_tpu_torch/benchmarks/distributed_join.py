@@ -24,8 +24,13 @@ with a session on, one untimed join with the metrics tape follows the
 timed loop (``benchmarks.collect_join_metrics``) and the ``--sort-ab``
 and ``--agg-ab`` records carry their counter signatures (and the
 segmented plan's ``wire_exact``); ``--explain`` writes the timed
-program's plan (``planning.build_plan``) to ``explain.json``. Every
-other flag of the JAX driver refuses by name.
+program's plan (``planning.build_plan``) to ``explain.json``;
+``--stage-profile N`` profiles the timed program stage by stage after
+the timed loop (``benchmarks.maybe_stage_profile``: the record's
+``stage_profile``, and ``stageprofile.json``), refusing up front the
+skew sidecar, string keys and the ragged wire's string columns, which
+do not segment; ``--diagnose`` reads the session back after the run.
+Every other flag of the JAX driver refuses by name.
 
 Skew auto-policy (JAX :359-405): with ``--zipf-alpha`` and no
 ``--skew-threshold``, the skew path runs at threshold 0.001 with the
@@ -67,6 +72,7 @@ from distributed_join_tpu_torch.benchmarks import (
     add_telemetry_args,
     collect_join_metrics,
     explain_summary,
+    maybe_stage_profile,
     write_explain,
     global_table,
     rank_device,
@@ -881,6 +887,17 @@ def run(args, device=None) -> dict:
     rank's device (``rank_device``; ``"cpu"`` for rehearsals: its times
     say nothing of a GPU). The peak device memory covers the whole run,
     tables included."""
+    if getattr(args, "stage_profile", None) and (
+            args.string_key_bytes or args.zipf_alpha is not None
+            or (args.skew_threshold or 0) > 0
+            or (args.shuffle == "ragged" and args.string_payload_bytes)):
+        # the stage profile's scope (telemetry/stageprof.py): refused
+        # before the timed region runs, not after it (JAX :251-262)
+        raise SystemExit(
+            "--stage-profile supports the scalar-key, non-skew "
+            "pipeline (any shuffle mode; ragged without string "
+            "payload columns) — drop --zipf-alpha/--skew-threshold/"
+            "--string-key-bytes, or profile the padded form")
     comm, dev, build, probe, ladder, fixed, policy = _prepare(args, device)
     on_gpu = dev.type == "cuda"
     n = comm.n_ranks
@@ -912,6 +929,10 @@ def run(args, device=None) -> dict:
                          **fixed, **ladder.sizing()).explain_record()
         write_explain(args, doc)
         explain_rec = explain_summary(doc)
+    # --stage-profile: the timed program at its final rung, stage by
+    # stage (an untimed side pass)
+    stage_rec = maybe_stage_profile(args, comm, build, probe,
+                                    dict(fixed, **ladder.sizing()))
 
     rows_per_sec = (b_rows + p_rows) / sec
     record = {
@@ -969,6 +990,7 @@ def run(args, device=None) -> dict:
         "wire_bytes_dcn_per_join": per_join["wire_bytes_dcn"],
         "wire_bytes_saved_per_join": per_join["wire_bytes_saved"],
         "explain": explain_rec,
+        "stage_profile": stage_rec,
         "agg_ab": (agg_ab(comm, build, probe, fixed["key"], args.agg_ab,
                           dict(fixed, **ladder.sizing()), args)
                    if args.agg_ab > 0 else None),

@@ -21,7 +21,8 @@
 Port of ``distributed_join_tpu/benchmarks/launch.py``: the same flags and
 the same ``DJTPU_*`` environment (``parallel/bootstrap.py``); ``--slices``,
 ``--sort-mode``, ``--sort-segments``, ``--telemetry``, ``--trace``,
-``--history`` and ``--guard-deadline-s`` are handed on to the command
+``--diagnose``, ``--history``, ``--stage-profile`` and
+``--guard-deadline-s`` are handed on to the command
 (``benchmarks.FORWARDED_CHILD_FLAGS``), unless it carries the flag
 already: every process writes its own rank's telemetry files into the
 one session directory, and each process's run is guarded, not the
@@ -89,8 +90,15 @@ def parse_args(argv=None):
                         "directory, a file set a rank)")
     p.add_argument("--trace", action="store_true",
                    help="handed on to every process")
+    p.add_argument("--diagnose", action="store_true",
+                   help="handed on to every process (rank 0 writes the "
+                        "diagnosis)")
     p.add_argument("--history", default=None, metavar="FILE",
                    help="handed on to every process (rank 0 appends)")
+    p.add_argument("--stage-profile", nargs="?", const=3, type=int,
+                   default=None, metavar="N",
+                   help="handed on to every process (every rank runs the "
+                        "profile's programs)")
     p.add_argument("--explain", action="store_true",
                    help="forwarded to every process's driver")
     p.add_argument("--guard-deadline-s", type=float, default=None,

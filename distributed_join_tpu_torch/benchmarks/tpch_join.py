@@ -40,14 +40,18 @@ included. ``--telemetry``, ``--trace``, ``--history`` and
 (``planning.build_plan``) or, with ``--query``, the query's per-operator
 plan (``planning.explain_query``); with a session on, the single shot
 runs one untimed metrics join after its timed loop
-(``benchmarks.collect_join_metrics``). The diagnosis, integrity, chaos,
-tuner and stage-profile flags refuse by name. The ``--query`` record's
+(``benchmarks.collect_join_metrics``); ``--diagnose`` reads the session
+back after the run, and ``--stage-profile N`` profiles the ``--query``
+plan operator by operator after the timed loop
+(``benchmarks.maybe_query_stage_profile``; the single-shot and batched
+paths refuse it, as the JAX driver's do). The integrity, chaos and tuner
+flags refuse by name. The ``--query`` record's
 ``programs_traced``, ``warm_new_traces`` and ``warm_cache_hit`` come
 from the ``JoinProgramCache`` the plan runs through, and its
 ``counter_signature``, ``wire`` and ``wire_exact`` from one untimed
 query with the metrics tape, graded against ``explain_query`` at the
-rung the run resolved to, as in the JAX driver; the stage profile is
-listed under ``not_ported``. Communicators as in the config driver:
+rung the run resolved to, as in the JAX driver, and its
+``stage_profile`` the per-operator summary. Communicators as in the config driver:
 ``local``, ``emulated`` (``--n-ranks``), and ``nccl`` or ``gloo`` under
 the launcher (``benchmarks/launch.py``), where every
 process generates the same tables and stages only its own rows.
@@ -74,6 +78,7 @@ from distributed_join_tpu_torch.benchmarks import (
     explain_summary,
     write_explain,
     global_table,
+    maybe_query_stage_profile,
     rank_device,
     refuse_flags,
     report,
@@ -234,7 +239,16 @@ def _batched_opts(args, consumer, stats):
 
 def _guards(args) -> None:
     """The JAX driver's refusals of flags that do not apply (JAX
-    :160-199; those of the flags the port refuses by name are moot)."""
+    :139-199; those of the flags the port refuses by name are moot)."""
+    if getattr(args, "stage_profile", None) and args.query is None:
+        # the single-join paths stage fixed real-schema tables (and the
+        # batched ones re-plan a key-range batch); the --query path is
+        # segmentable at the operator boundary
+        raise SystemExit(
+            "--stage-profile is wired for tpu-distributed-join, "
+            "bench.py, and the tpch --query path; profile the "
+            "equivalent generator workload "
+            "(tpu-distributed-join --stage-profile) instead")
     if args.sort_mode not in (None, "flat"):
         # the TPC-H joins carry string payloads end to end; refusing
         # beats timing the flat path under a segmented label
@@ -443,7 +457,8 @@ def _run_query(args, comm, dev) -> dict:
     and one untimed query with the metrics tape grades its padded wire
     bytes exactly, operator by operator (``wire_exact``); its counters,
     under op-id prefixes, are the record's ``counter_signature``. The
-    stage profile is listed under ``not_ported``."""
+    ``--stage-profile N`` then profiles the plan an operator at a time
+    at that rung (``benchmarks.maybe_query_stage_profile``)."""
     plan = tpch_query_plan(args.query)
     with telemetry.span("generate", scale_factor=args.scale_factor):
         tables = query_filters(generate_tpch_query_tables(
@@ -514,6 +529,9 @@ def _run_query(args, comm, dev) -> dict:
             qcounters[f"{orec['id']}.{k}"] = int(v)
     if args.explain:
         write_explain(args, doc)
+    # the untimed per-operator profile at the resolved rung
+    sp_summary = maybe_query_stage_profile(args, comm, plan, tables,
+                                           rung_factors)
     extra = {
         "kind": "query_smoke",
         "query": args.query,
@@ -540,8 +558,9 @@ def _run_query(args, comm, dev) -> dict:
         "wire": wire_ops,
         "cost_total_s": doc["total_s"],
         "order_candidates": doc["orders"],
-        "not_ported": ["stage_profile"],
     }
+    if sp_summary is not None:
+        extra["stage_profile"] = sp_summary
     return _report(args, comm, dev, int(tables["orders"].num_valid()),
                    int(tables["lineitem"].num_valid()), rows,
                    int(res.total), bool(res.overflow),

@@ -151,6 +151,36 @@ def _varwidth_cols(table: Table) -> list:
             and name + LEN_SUFFIX in table.columns]
 
 
+def _padded_wire(comm, padded, counts, capacity: int, mode: str = "padded",
+                 compression_bits: Optional[int] = None,
+                 dcn_codec_on: bool = False, tape=None):
+    """One batch's exchange of one side's padded blocks on the wire of
+    ``mode`` (padded, ppermute or hierarchical; with the codec where
+    ``compression_bits`` or the cross-slice codec puts it): the
+    received table and the codec's overflow flag (None where the wire
+    has no codec). The step and the stage profiler's shuffle segment
+    (``telemetry/stageprof.py``) dispatch through this one function. On
+    one slice the hierarchical wire is the padded one, byte for
+    byte."""
+    if mode == "hierarchical" and comm.n_slices > 1:
+        dcn_bits = ((compression_bits or DEFAULT_DCN_CODEC_BITS)
+                    if dcn_codec_on else None)
+        table, _, c_ovf = shuffle_hierarchical(
+            comm, padded, counts, capacity, dcn_bits=dcn_bits, tape=tape)
+        return table, c_ovf
+    if mode == "hierarchical":
+        mode, compression_bits = "padded", None
+    via = "ppermute" if mode == "ppermute" else "all_to_all"
+    if compression_bits is not None:
+        table, _, c_ovf = shuffle_padded_compressed(
+            comm, padded, counts, capacity, bits=compression_bits, via=via,
+            tape=tape)
+        return table, c_ovf
+    table, _ = shuffle_padded(comm, padded, counts, capacity, via=via,
+                              tape=tape)
+    return table, None
+
+
 def _batch_shuffle(comm, pt, batch: int, n_ranks: int, capacity: int,
                    mode: str = "padded",
                    compression_bits: Optional[int] = None, varwidth=None,
@@ -159,33 +189,17 @@ def _batch_shuffle(comm, pt, batch: int, n_ranks: int, capacity: int,
     the overflow flag. The ragged wire's receive buffer holds what the
     padded layout would flatten to (``n_ranks * capacity`` rows), and
     ``capacity_per_bucket`` gives it the padded wire's overflow
-    contract, so ``auto_retry`` fires under the same conditions. On one
-    slice the hierarchical wire is the padded one, byte for byte."""
-    if mode == "hierarchical" and comm.n_slices > 1:
-        padded, counts, overflow, _ = pt.to_padded(
-            capacity, bucket_start=batch * n_ranks, n_buckets=n_ranks)
-        dcn_bits = ((compression_bits or DEFAULT_DCN_CODEC_BITS)
-                    if dcn_codec_on else None)
-        table, _, c_ovf = shuffle_hierarchical(
-            comm, padded, counts, capacity, dcn_bits=dcn_bits, tape=tape)
-        return table, overflow | c_ovf
-    if mode == "hierarchical":
-        mode, compression_bits = "padded", None
+    contract, so ``auto_retry`` fires under the same conditions; the
+    other wires take the batch's padded blocks (:func:`_padded_wire`)."""
     if mode == "ragged":
         return shuffle_ragged(
             comm, pt, n_ranks * capacity, bucket_start=batch * n_ranks,
             capacity_per_bucket=capacity, varwidth=varwidth, tape=tape)
     padded, counts, overflow, _ = pt.to_padded(
         capacity, bucket_start=batch * n_ranks, n_buckets=n_ranks)
-    via = "ppermute" if mode == "ppermute" else "all_to_all"
-    if compression_bits is not None:
-        table, _, c_ovf = shuffle_padded_compressed(
-            comm, padded, counts, capacity, bits=compression_bits, via=via,
-            tape=tape)
-        return table, overflow | c_ovf
-    table, _ = shuffle_padded(comm, padded, counts, capacity, via=via,
-                              tape=tape)
-    return table, overflow
+    table, c_ovf = _padded_wire(comm, padded, counts, capacity, mode,
+                                compression_bits, dcn_codec_on, tape)
+    return table, overflow if c_ovf is None else overflow | c_ovf
 
 
 def resolve_probe_capacities(p_local: int, n: int, k: int,

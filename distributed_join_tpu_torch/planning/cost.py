@@ -47,8 +47,13 @@ class CostModel:
     phase 21(a), its ``[cost] (a) fitted constants`` line, on an H100
     80GB HBM3 at a 700.00 W power limit, timed with CUDA events at the
     headline's shape (10 M x 10 M rows, 20 M merged positions); each
-    comment names what the phase timed for the field. Replace any field
-    and re-run ``predict``: the explain record embeds the constants used.
+    comment names what the phase timed for the field. The fields of
+    :data:`STAGE_REFITTED` are those times rescaled by
+    ``calibrate_from_stage_profile`` over phase 22's stage profiles
+    (the partition stage's ratio for the fields it owns, the join
+    stage's for its own), each comment giving the time and the scale.
+    Replace any field and re-run ``predict``: the explain record embeds
+    the constants used.
 
     The two bandwidths stand for the H100's links: ``ici_bytes_per_s``
     is a card's NCCL all-to-all egress inside one node (NVLink), and
@@ -57,24 +62,38 @@ class CostModel:
     """
 
     # the join's stable merged sort (ops/join._merged_sort: int64 key and
-    # int8 tag as keys, the int64 payload lane as values), 20 M positions
-    sort_ns_per_elem: float = 0.2682
+    # int8 tag as keys, the int64 payload lane as values), 20 M positions:
+    # 0.2682 by phase 21(a), refitted x0.876629 from stage profiles (the
+    # partition stage's measured/predicted of phase 22(a)'s k = 4
+    # profile, chip_smoke.py phase 22(c)'s refit line, on an H100 80GB
+    # HBM3 at 700.00 W; PERF.md, the stage-profile refit)
+    sort_ns_per_elem: float = 0.2351
     # the segmented path's batched sort (ops/segmented._lexsort_rows on
     # (319, 62512) runs, the value lane gathered)
     sort_run_ns_per_elem: float = 0.2951
-    # one more int64 value lane on the merged sort, a merged position
-    sort_lane_ns_per_elem: float = 0.03823
-    # join_scans (csrc/join_scans.cu), 20 M positions
-    scan_ns_per_elem: float = 0.01491
-    # a random int64 gather, 20 M elements
-    gather_ns_per_elem: float = 0.03306
-    # ops/join._row_gather of 16-byte rows, 20 M rows
-    row_gather_ns_per_row: float = 0.06511
+    # one more int64 value lane on the merged sort, a merged position:
+    # 0.03823 by phase 21(a), refitted x1.426223 from stage profiles (the
+    # median join-stage measured/predicted of phase 22(a)'s profiles and
+    # 22(b)'s Q3 operators, phase 22(c)'s refit line, H100 80GB HBM3,
+    # 700.00 W; as the three join fields below)
+    sort_lane_ns_per_elem: float = 0.05452
+    # join_scans (csrc/join_scans.cu), 20 M positions: 0.01491 by phase
+    # 21(a), refitted x1.426223 (phase 22(c), the join stage)
+    scan_ns_per_elem: float = 0.02126
+    # a random int64 gather, 20 M elements: 0.03306 by phase 21(a),
+    # refitted x0.876629 (phase 22(c), the partition stage)
+    gather_ns_per_elem: float = 0.02898
+    # ops/join._row_gather of 16-byte rows, 20 M rows: 0.06511 by phase
+    # 21(a), refitted x0.876629 (phase 22(c), the partition stage)
+    row_gather_ns_per_row: float = 0.05708
     # stream_compact (csrc/stream_compact.cu) at the run-record site, a
-    # merged position
-    compact_ns_per_elem: float = 0.009378
-    # expand_gather in build mode (csrc/expand_gather.cu), an output slot
-    expand_ns_per_out_row: float = 0.01754
+    # merged position: 0.009378 by phase 21(a), refitted x1.426223
+    # (phase 22(c), the join stage)
+    compact_ns_per_elem: float = 0.01338
+    # expand_gather in build mode (csrc/expand_gather.cu), an output
+    # slot: 0.01754 by phase 21(a), refitted x1.426223 (phase 22(c), the
+    # join stage)
+    expand_ns_per_out_row: float = 0.02502
     # a device copy of 2 GiB: bytes read and written over its time
     hbm_bytes_per_s: float = 3.0377e12
     # ops/compression.py's encode and decode at 16 bits of a k = 4
@@ -112,8 +131,13 @@ class CostModel:
                 "collective_latency_s", "hbm_capacity_bytes",
             ],
             "spec_derived": ["dcn_bytes_per_s"],
+            # measured fields whose defaults are phase 21's times scaled
+            # by a stage's measured/predicted ratio
+            "stage_refitted": list(STAGE_REFITTED),
             "source": "chip_smoke.py phase 21 (H100 80GB HBM3, 700.00 W); "
-                      "benchmarks/all_to_all.py on four cards; "
+                      "the stage_refitted fields rescaled from stage "
+                      "profiles by chip_smoke.py phase 22(c) (the same "
+                      "card); benchmarks/all_to_all.py on four cards; "
                       "dcn: 400 Gb/s NDR InfiniBand a GPU"
                       + ("" if self.calibrated_scale is None else
                          f"; calibrated x{self.calibrated_scale:g} "
@@ -131,6 +155,14 @@ class CostModel:
         rec["provenance"] = self.provenance
         return rec
 
+
+# The defaults refitted from stage profiles (chip_smoke.py phase 22(c):
+# each moved more than 10 % from phase 21(a)'s time).
+STAGE_REFITTED = (
+    "sort_ns_per_elem", "gather_ns_per_elem", "row_gather_ns_per_row",
+    "sort_lane_ns_per_elem", "scan_ns_per_elem", "compact_ns_per_elem",
+    "expand_ns_per_out_row",
+)
 
 DEFAULT_COST_MODEL = CostModel()
 

@@ -44,9 +44,15 @@ Where the port differs:
   verdict, no admission, no device. Every join request's history line
   carries the plan's predicted wall (``_predicted_wall``, JAX :977) and
   its ``prediction`` grade, and the flight record the plan's digest.
+- ``--smoke`` gates its counter signatures (the micro-batched join's
+  device counters, and the resident drill's integer counters) against
+  ``results/baselines_torch/service_smoke.json`` and
+  ``resident_smoke.json`` (``--smoke-baseline-dir``), the port's own
+  files: its generators draw other bits than the JAX package's, and
+  other bits on a card than on the CPU, so a baseline gates only a run
+  at its own rank count and device type.
 - Refused by name, each naming the ROADMAP item it waits for:
-  ``auto_tune`` (A5c), ``verify_integrity`` (A5d) and the smoke's
-  baseline gate (A5b);
+  ``auto_tune`` (A5c), ``verify_integrity`` (A5d);
   ``persist_dir`` (the cache's disk tier, A6); ``--chaos-seed`` (A7);
   ``--platform``; and a daemon over a process group of more than one
   rank (A6): the JAX daemon is one controller, and a port daemon over N
@@ -76,9 +82,15 @@ import torch
 from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.service import batching
 from distributed_join_tpu_torch.service.programs import JoinProgramCache
+from distributed_join_tpu_torch.telemetry import baselines
 from distributed_join_tpu_torch.telemetry import history as tel_history
 from distributed_join_tpu_torch.telemetry import live as tel_live
 from distributed_join_tpu_torch.telemetry import tracectx
+
+# The smoke's baselines: the repository's results/baselines_torch.
+SMOKE_BASELINE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))), baselines.DEFAULT_BASELINE_DIR)
 
 # What each refused option waits for (ROADMAP Queue A).
 _REFUSED_CONFIG = {
@@ -1539,6 +1551,14 @@ def parse_args(argv=None):
     p.add_argument("--smoke-no-wall-gate", action="store_true",
                    help="report the smoke's wall clocks but do not fail on "
                         "them")
+    p.add_argument("--smoke-baseline-dir", default=SMOKE_BASELINE_DIR,
+                   metavar="DIR",
+                   help="where the smoke's counter-signature baselines "
+                        "(service_smoke.json, resident_smoke.json) live; "
+                        "a baseline gates a run at its own rank count and "
+                        "device type, and a missing one is reported as "
+                        "skipped (default: the repository's "
+                        "results/baselines_torch)")
     p.add_argument("--fault-plan", default=None, metavar="JSON",
                    help="wrap the communicator in a scripted FaultPlan "
                         "(parallel/faults.py fields as one JSON object, "
@@ -1798,7 +1818,63 @@ def _resident_drill(service: JoinService, args, violations) -> dict:
         "matches_probe_only": po_matches[0],
         "matches_after_appends": res_after.matches,
         "resident": stats["tables"][name],
+        "platform": dev.type,
+        # the gate's body: integer counters only, never walls (JAX
+        # :2322-2338)
+        "counter_signature": {
+            "signature_version": baselines.SIGNATURE_SCHEMA_VERSION,
+            "n_ranks": service.comm.n_ranks,
+            "counters": {
+                "base_rows": reg["rows"],
+                "delta_rows_appended": sum(d.capacity for d in deltas),
+                "generation": handle.generation,
+                "lsm_merges": stats["tables"][name]["merges"],
+                "matches_cold": cold_matches[0],
+                "matches_probe_only": po_matches[0],
+                "matches_after_appends": res_after.matches,
+                "warm_probe_new_traces": po_traces,
+                "resident_bytes": stats["tables"][name]["bytes_resident"],
+            },
+        },
     }
+
+
+def _batched_signature(service: JoinService, small: list) -> dict:
+    """The counter signature of the smoke's micro-batched join: the same
+    requests combined as the ``batch`` op combines them, joined once
+    with the metrics tape, outside the service's accounting (the JAX
+    lane's session block of that join)."""
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+
+    with service.on_device():
+        pairs = [_tables_from_spec(s, service.device) for s in small]
+        mb = batching.combine(pairs, key="key")
+        res = distributed_inner_join(
+            mb.build, mb.probe, service.comm, key=list(mb.key),
+            auto_retry=service.config.auto_retry, with_metrics=True,
+            out_capacity_factor=3.0)
+    return baselines.counter_signature(res.telemetry)
+
+
+def _baseline_gate(name: str, sig: dict, platform: str,
+                   baseline_dir: str) -> dict:
+    """``sig`` against ``<baseline_dir>/<name>.json``: the comparison's
+    record, or ``{"skipped": why}`` when there is no baseline or it was
+    drawn at another rank count or device type (its counters come from
+    other tables)."""
+    path = baselines.baseline_path(name, baseline_dir)
+    if not os.path.exists(path):
+        return {"skipped": f"no baseline at {path}"}
+    base = baselines.load_baseline(name, baseline_dir)
+    cfg = base.get("config") or {}
+    want = (base["signature"].get("n_ranks"), cfg.get("platform"))
+    got = (sig.get("n_ranks"), platform)
+    if want != got:
+        return {"skipped": f"{path} was drawn at (n_ranks, platform) "
+                           f"{want}, this run is {got}"}
+    return baselines.compare(base, sig).as_record()
 
 
 def run_smoke(service: JoinService, args) -> dict:
@@ -1815,11 +1891,14 @@ def run_smoke(service: JoinService, args) -> dict:
        quantiles and a Prometheus text with ``djtpu_requests_total``;
        ``stats`` carries the uptime and the pending high-water mark;
     4. the resident drill, then the poison drill on a throwaway service;
-       with ``--history-dir``, the history holds >= 2 signatures.
+       with ``--history-dir``, the history holds >= 2 signatures;
+    5. the baseline gate: the micro-batched join's counter signature
+       (one more join of the batch, with the metrics tape) and the
+       resident drill's against ``--smoke-baseline-dir``'s
+       ``service_smoke`` and ``resident_smoke`` (:func:`_baseline_gate`);
+       a drift is a violation.
 
-    The counter-signature baseline gate of the JAX package's CI lane is
-    listed under ``not_ported`` (ROADMAP A5b). Raises RuntimeError on
-    any violation."""
+    Raises RuntimeError on any violation."""
     server, port = start_daemon(service, "127.0.0.1", 0)
     client = ServiceClient("127.0.0.1", port, retries=2)
     violations = []
@@ -1941,12 +2020,28 @@ def run_smoke(service: JoinService, args) -> dict:
     with service._admit_lock:
         service.draining = None
     resident_drill = _resident_drill(service, args, violations)
+    service_sig = _batched_signature(service, small)
+    platform = service.device.type
+    baseline_dir = getattr(args, "smoke_baseline_dir", None) \
+        or SMOKE_BASELINE_DIR
+    gate = {name: _baseline_gate(name, sig, platform, baseline_dir)
+            for name, sig in (
+                ("service_smoke", service_sig),
+                ("resident_smoke", resident_drill["counter_signature"]))}
+    for name, verdict in gate.items():
+        if verdict.get("ok") is False:
+            violations.append(
+                f"baseline gate {name}: drifted {verdict['drifted']}, "
+                f"missing {verdict['missing']}")
     drill = _poison_drill(args, service.device)
 
     record = {
         "benchmark": "service_smoke",
         "n_ranks": service.comm.n_ranks,
         "device": str(service.device),
+        "platform": platform,
+        "counter_signature": service_sig,
+        "baseline_gate": gate,
         "warm_new_traces": warm["new_traces"],
         "matches_per_join": cold["matches"],
         "explain": {
@@ -1971,7 +2066,6 @@ def run_smoke(service: JoinService, args) -> dict:
         "poison_drill": drill,
         "violations": violations,
         "warmup_sequential_matches": [r["matches"] for r in seq_warm],
-        "not_ported": ["baseline_gate"],
     }
     if violations:
         from distributed_join_tpu_torch.benchmarks import report

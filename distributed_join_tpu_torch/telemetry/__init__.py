@@ -19,9 +19,10 @@ process-global session with three parts:
   region and folds it into the session. A join's ``with_metrics=None``
   resolves to the session's state.
 
-The stage profile (the JAX package's ``telemetry/stageprof.py``) is not
-part of the port yet: :func:`stage_profile` refuses a record by name
-(ROADMAP A5b).
+- the stage profile (:mod:`.stageprof`): :func:`stage_profile` draws a
+  ``stageprofile`` record into the session's Chrome trace as two tracks
+  (the stages' measured walls, and their device counters) linked by
+  flow events; the read side is :mod:`.analyze`.
 
 The contract: **telemetry off changes nothing**. Until :func:`configure`
 activates a session every function here is a no-op and :func:`span` the
@@ -84,13 +85,18 @@ def configure(out_dir: str, *, trace: bool = False,
 
 
 def configure_from_args(args) -> bool:
-    """Driver seam: activate from ``--telemetry[=DIR]``, ``--trace`` or
-    ``--history`` (``benchmarks.add_telemetry_args``). Either of the
-    last two alone implies a session at the default directory. Returns
-    whether a session was configured."""
+    """Driver seam: activate from ``--telemetry[=DIR]``, ``--trace``,
+    ``--diagnose``, ``--history`` or ``--stage-profile``
+    (``benchmarks.add_telemetry_args``). Any of the last four alone
+    implies a session at the default directory: the diagnosis reads the
+    session's files, a history entry wants its counter signature, and
+    ``stageprofile.json`` lands in it. Returns whether a session was
+    configured."""
     out_dir = getattr(args, "telemetry", None)
     trace = bool(getattr(args, "trace", False))
-    if out_dir is None and (trace or getattr(args, "history", None)):
+    if out_dir is None and (trace or getattr(args, "diagnose", False)
+                            or getattr(args, "history", None)
+                            or getattr(args, "stage_profile", None)):
         out_dir = "telemetry"
     if out_dir is None:
         return False
@@ -227,14 +233,13 @@ def emit_metrics(metrics: Optional[Metrics]) -> Optional[dict]:
     return d
 
 
-def stage_profile(record) -> None:
-    """The JAX package's stage-profile track. Not part of the port yet:
-    None passes, a record refuses by name."""
-    if record is None:
-        return
-    raise NotImplementedError(
-        "telemetry.stage_profile: the stage profile (the JAX package's "
-        "telemetry/stageprof.py) is not part of the port yet (ROADMAP A5b)")
+def stage_profile(record: Optional[dict]) -> None:
+    """Draw a stage-profile record (``stageprof.StageProfile.as_record``
+    or ``QueryStageProfile.as_record``) into the session's Chrome trace:
+    a track of the measured stages, a track of their device counters,
+    and a flow from each stage to its counters (no-op when off)."""
+    if _active is not None and record is not None:
+        _active.add_stage_profile(record)
 
 
 def summary() -> Optional[dict]:

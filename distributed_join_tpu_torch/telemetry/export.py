@@ -12,6 +12,9 @@ directory, each under the JAX package's name and in its format:
   events as ``"ph": "i"``, counters as ``"ph": "C"`` tracks of their
   running totals. Written at close.
 - ``summary.json`` — rank 0 only: the session summary.
+- the stage profile's two tracks in the Chrome trace
+  (:meth:`TelemetrySink.add_stage_profile`): the measured stages and
+  their device counters, linked by flow events.
 - ``device_trace/trace.rank<r>.json`` — the device seam: where the JAX
   package writes an XLA profile under ``xla/``, ``--trace`` here runs a
   ``torch.profiler`` session (CPU and, on a card, CUDA activity) from
@@ -199,6 +202,85 @@ class TelemetrySink:
                 path or name, {"count": 0, "total_s": 0.0})
             st["count"] += 1
             st["total_s"] += dur_s
+
+    # the stage-profile tracks' thread ids: far from any real thread's
+    _STAGEPROF_TID = 990001
+    _STAGEPROF_COUNTER_TID = 990002
+
+    def add_stage_profile(self, record: dict) -> None:
+        """Draw a stage profile (``telemetry/stageprof.py``
+        ``as_record()``; JAX :229-310) as two named tracks: the measured
+        stages as back-to-back ``"X"`` slices of their median walls (the
+        stages ran one after the other, barriered, so laid end to end
+        they are the measured timeline), then the monolithic wall; and
+        each stage's device-counter totals as a slice of a second track,
+        linked from its stage by a flow (``"ph": "s"``/``"f"``). A query
+        profile's operators draw in plan order."""
+        from distributed_join_tpu_torch.telemetry.stageprof import (
+            STAGE_KEYS,
+        )
+
+        stages = record.get("stages") or {}
+        ordered = [s for s in STAGE_KEYS if s in stages]
+        if not stages:
+            stages = record.get("operators") or {}
+            ordered = [o for o in (record.get("order") or [])
+                       if o in stages]
+        with self._lock:
+            if self._closed:
+                return
+            base = self._us()
+            tid, ctid = self._STAGEPROF_TID, self._STAGEPROF_COUNTER_TID
+            for t, label in ((tid, "stage profile (measured)"),
+                             (ctid, "stage profile (device counters)")):
+                self._push_trace({
+                    "name": "thread_name", "ph": "M", "ts": 0,
+                    "pid": self.rank, "tid": t,
+                    "args": {"name": label},
+                })
+            t_us = base
+            for name in ordered:
+                info = stages.get(name)
+                if not isinstance(info, dict) or not info.get("ran"):
+                    continue
+                dur = max(float(info.get("wall_s") or 0.0), 0.0) * 1e6
+                counters = info.get("counters") or {}
+                args = {"predicted_s": info.get("predicted_s"),
+                        "ratio": info.get("ratio"), **counters}
+                self._push_trace({
+                    "name": name, "cat": "stageprof", "ph": "X",
+                    "ts": t_us, "dur": dur, "pid": self.rank,
+                    "tid": tid, "args": args,
+                })
+                if counters:
+                    fid = f"stageprof-{self.rank}-{name}"
+                    mid = t_us + dur / 2
+                    self._push_trace({
+                        "name": "stage_counters", "cat": "stageprof",
+                        "ph": "s", "id": fid, "ts": mid,
+                        "pid": self.rank, "tid": tid,
+                    })
+                    self._push_trace({
+                        "name": f"{name} counters",
+                        "cat": "stageprof", "ph": "X", "ts": mid,
+                        "dur": max(dur / 4, 1.0), "pid": self.rank,
+                        "tid": ctid, "args": dict(counters),
+                    })
+                    self._push_trace({
+                        "name": "stage_counters", "cat": "stageprof",
+                        "ph": "f", "bp": "e", "id": fid, "ts": mid,
+                        "pid": self.rank, "tid": ctid,
+                    })
+                t_us += dur
+            mono = (record.get("monolithic") or {}).get("wall_s")
+            if mono:
+                self._push_trace({
+                    "name": "monolithic", "cat": "stageprof",
+                    "ph": "X", "ts": t_us,
+                    "dur": float(mono) * 1e6, "pid": self.rank,
+                    "tid": tid,
+                    "args": {"overlap": record.get("overlap")},
+                })
 
     def set_metrics(self, metrics_dict: dict) -> None:
         """Install the host-read device metrics block (``Metrics.to_dict``,

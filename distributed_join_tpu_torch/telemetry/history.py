@@ -37,6 +37,12 @@ import threading
 from typing import Optional
 
 from distributed_join_tpu_torch.telemetry import baselines
+# the one definition of the skew statistics, as in the JAX package
+# (its history imports them from analyze too)
+from distributed_join_tpu_torch.telemetry.analyze import (  # noqa: F401
+    gini,
+    imbalance,
+)
 
 HISTORY_SCHEMA_VERSION = 1
 HISTORY_FILENAME = "history.jsonl"
@@ -314,31 +320,6 @@ def tuned_summary(tuned: Optional[dict]) -> Optional[dict]:
         return None
     return {k: tuned[k] for k in ("source", "rung", "applied")
             if tuned.get(k) is not None}
-
-
-def gini(values) -> Optional[float]:
-    """Gini coefficient over non-negative per-rank totals: 0 = perfectly
-    balanced, towards 1 = one rank holds everything (the JAX package's
-    ``telemetry/analyze.py`` :156)."""
-    vals = sorted(float(v) for v in values)
-    n = len(vals)
-    total = sum(vals)
-    if n < 2 or total <= 0:
-        return None
-    cum = 0.0
-    for i, v in enumerate(vals, start=1):
-        cum += i * v
-    return (2.0 * cum) / (n * total) - (n + 1.0) / n
-
-
-def imbalance(values) -> Optional[float]:
-    """max / mean of per-rank totals (the JAX package's
-    ``telemetry/analyze.py`` :172)."""
-    vals = [float(v) for v in values]
-    if not vals or sum(vals) <= 0:
-        return None
-    mean = sum(vals) / len(vals)
-    return max(vals) / mean if mean > 0 else None
 
 
 def quick_indicators(metrics: Optional[dict]) -> Optional[dict]:

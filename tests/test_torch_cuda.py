@@ -1955,3 +1955,48 @@ def test_explain_on_card_equals_cpu_and_touches_no_device(card):
     want = explain_join(*cpu, EmulatedCommunicator(4), over_decomposition=2)
     assert json.dumps(got.explain_record(), sort_keys=True) == \
         json.dumps(want.explain_record(), sort_keys=True)
+
+
+def test_stage_profile_on_card_launches_the_join_kernels(card):
+    """A stage profile at 1 M x 1 M, one rank at k = 4, on the card: the
+    join segment launches the scans, both compactions and the expand
+    once a batch a call; each stage's counters equal the tape-on
+    monolithic join's and the CPU profile's; the record names the
+    device type."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.telemetry import stageprof
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    b, p = generate_build_probe_tables(seed=5, build_nrows=1_000_000,
+                                       probe_nrows=1_000_000, device="cpu")
+    comm, k, repeats = LocalCommunicator(), 4, 2
+    recs = {}
+    for dev in ("cpu", "cuda"):
+        tb, tp = (Table({n: c.to(dev) for n, c in t.columns.items()},
+                        t.valid.to(dev)) for t in (b, p))
+        wrappers = (scan.join_scans, join_mod.compact_records,
+                    join_mod.pack_matched_builds, expand.expand_gather)
+        _kernels.reset_launch_counts(*wrappers)
+        rec = stageprof.profile_join_stages(
+            comm, tb, tp, repeats=repeats, over_decomposition=k).as_record()
+        if dev == "cuda":
+            # the join segment and the monolithic step, warm-up and
+            # repeats: k batches a call
+            for w in wrappers:
+                assert w.launches == 2 * (repeats + 1) * k, w.__name__
+        mono = distributed_inner_join(tb, tp, comm, with_metrics=True,
+                                      over_decomposition=k)
+        red = mono.telemetry.to_dict()["reduced"]
+        for st in ("partition", "shuffle", "join"):
+            assert rec["stages"][st]["ran"]
+            for name, v in rec["stages"][st]["counters"].items():
+                assert red[name] == v, (st, name)
+        assert rec["platform"] == dev and not rec["overflow"]
+        recs[dev] = {s: v["counters"] for s, v in rec["stages"].items()}
+    assert recs["cuda"] == recs["cpu"]

@@ -883,7 +883,7 @@ def test_launcher_refusals():
             "--num-processes", "2"]
     for extra, match in ((["--chaos-seed", "2"], "--chaos-seed"),
                          (["--cpu-devices-per-process", "4"], "one rank"),
-                         (["--diagnose"], "--diagnose")):
+                         (["--auto-tune"], "--auto-tune")):
         r = subprocess.run([*base, *extra, "--", "true"], env=_env(),
                            capture_output=True, text=True, timeout=60)
         assert r.returncode != 0 and match in r.stderr, r.stderr
@@ -1028,9 +1028,13 @@ def test_all_to_all_benchmark_refuses_one_rank_and_unported_flags():
                     "distributed_join_tpu_torch.benchmarks.all_to_all",
                     "--communicator", "gloo", "--buffer-size", "4096"])
     assert r.returncode != 0 and "needs >= 2 ranks" in r.stderr
-    for flag in ("--verify-integrity", "--stage-profile", "--chaos-seed"):
+    for flag in ("--verify-integrity", "--auto-tune", "--chaos-seed"):
         with pytest.raises(SystemExit):
             ta2a.parse_args([flag])
+    # the exchange is one stage: --stage-profile parses (a telemetry flag
+    # of every driver) and the run refuses it with the JAX message
+    with pytest.raises(SystemExit, match="IS one shuffle stage"):
+        ta2a.run(ta2a.parse_args(["--stage-profile"]))
     # --explain is ported: the exchange's plan
     assert ta2a.parse_args(["--explain"]).explain
 

@@ -547,11 +547,14 @@ def test_port_refusals_by_name():
     for flag, item in (("--platform", "--device"),
                        ("--persist-dir", "A6"), ("--auto-tune", "A5c"),
                        ("--verify-integrity", "A5d"),
-                       ("--chaos-seed", "A7"), ("--diagnose", "A5b")):
+                       ("--chaos-seed", "A7")):
         err = io.StringIO()
         with pytest.raises(SystemExit), contextlib.redirect_stderr(err):
             ts.parse_args([flag, "1"])
         assert flag in err.getvalue() and item in err.getvalue()
+    # the run diagnosis is ported: the daemon takes --diagnose, as the JAX
+    # daemon does
+    assert ts.parse_args(["--diagnose"]).diagnose
 
 
 def test_concurrent_requests_keep_every_count():
@@ -1074,7 +1077,8 @@ def test_smoke_cli_exits_zero(tmp_path):
     """``--smoke`` through the real TCP loop on the CPU: rc 0, a run-only
     warm repeat, two or more history signatures, the drills, and the
     explain step (the warm query's program predicted resident); the
-    baseline gate under ``not_ported``."""
+    baseline gate reports the committed 8-rank baselines as drawn
+    elsewhere (this run is one rank), and nothing is ``not_ported``."""
     out = subprocess.run(
         [sys.executable, "-m", "distributed_join_tpu_torch.service.server",
          "--smoke", "--device", "cpu", "--smoke-no-wall-gate",
@@ -1087,7 +1091,10 @@ def test_smoke_cli_exits_zero(tmp_path):
     assert rec["benchmark"] == "service_smoke"
     assert rec["warm_new_traces"] == 0 and not rec["violations"]
     assert rec["history"]["n_signatures"] >= 2
-    assert rec["not_ported"] == ["baseline_gate"]
+    assert "not_ported" not in rec
+    for name in ("service_smoke", "resident_smoke"):
+        assert "drawn at" in rec["baseline_gate"][name]["skipped"]
+    assert rec["counter_signature"]["n_ranks"] == 1
     assert rec["explain"]["cache"]["resident"]
     assert rec["explain"]["predicted_wall_s"] > 0
     assert rec["poison_drill"]["rejected_after_poison"] == 1

@@ -466,7 +466,7 @@ def test_config_driver_emulated_ranks_and_refusals(capsys):
     assert rec["n_ranks"] == 4 and rec["communicator"] == "emulated"
     assert rec["skew_threshold"] is None and rec["matches_per_join"] > 0
     for argv in (["--auto-tune"], ["--expand-kernel=xla"],
-                 ["--platform", "cpu"], ["--stage-profile", "3"]):
+                 ["--platform", "cpu"], ["--chaos-seed", "3"]):
         with pytest.raises(SystemExit):
             tdriver.parse_args(argv)
         assert argv[0].split("=")[0] in capsys.readouterr().err

@@ -194,7 +194,8 @@ def test_summary_keys_are_jax(tmp_path):
 
 def test_metrics_and_stage_profile_refuse_by_name(tmp_path):
     """``emit_metrics`` folds a device metrics block into the session
-    (the tape is ported); the stage profile still refuses by name."""
+    (the tape is ported); ``stage_profile`` draws a record into the
+    session's trace (ported too) and is a no-op without a session."""
     import torch
 
     from distributed_join_tpu_torch.telemetry.metrics import Metrics
@@ -213,8 +214,16 @@ def test_metrics_and_stage_profile_refuse_by_name(tmp_path):
         assert ttel.summary()["metrics"] == want
     assert [e["payload"] for e in _events(sink.events_path)
             if e["name"] == "metrics"] == [{"reduced": want["reduced"]}]
-    with pytest.raises(NotImplementedError, match="stage profile"):
-        ttel.stage_profile({"stages": {}})
+    ttel.stage_profile({"stages": {}})      # no session: nothing drawn
+    rec = {"stages": {"join": {"ran": True, "wall_s": 0.002,
+                               "counters": {"matches": 7}}},
+           "monolithic": {"wall_s": 0.001}}
+    with ttel.session(str(tmp_path / "sp"), rank=0):
+        ttel.stage_profile(rec)
+    trace = json.load(open(tmp_path / "sp" / "trace.rank0.json"))
+    names = {e["name"] for e in trace["traceEvents"]
+             if e.get("cat") == "stageprof" and e["ph"] == "X"}
+    assert names == {"join", "join counters", "monolithic"}
 
 
 # -- the steps' spans ---------------------------------------------------------

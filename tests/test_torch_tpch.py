@@ -820,26 +820,37 @@ def test_driver_query_cache_fields_equal_jax(q, n):
         base + (["--communicator", "emulated", "--n-ranks", "4"] if n > 1
                 else [])), device="cpu")
     for f in ("programs_traced", "warm_new_traces", "warm_cache_hit"):
-        assert f in rec and f not in rec["not_ported"], f
+        assert f in rec and f not in rec.get("not_ported", ()), f
     assert rec["programs_traced"] == rec["retry_attempts"] + 1
     assert rec["warm_new_traces"] == 0 and rec["warm_cache_hit"] is True
 
 
 @pytest.mark.parametrize("q", ["q3", "q10"])
-def test_driver_query_record(q):
+def test_driver_query_record(q, tmp_path, monkeypatch):
     """``--query`` on the CPU, one rank and 4 emulated ranks: every
-    field of the JAX record present or named under ``not_ported``, the
-    plan's digest and aggregate equal to JAX's, the groups equal to the
-    numpy oracle, and the same groups on both rank counts."""
+    field of the JAX record present (``stage_profile`` where
+    ``--stage-profile`` ran, as in the JAX driver) and nothing
+    ``not_ported``, the plan's digest and aggregate equal to JAX's, the
+    groups equal to the numpy oracle, and the same groups on both rank
+    counts."""
     from distributed_join_tpu.planning.query import tpch_query_plan
+    # without a session the profile's file lands in the working directory
+    monkeypatch.chdir(tmp_path)
     base = ["--scale-factor", "0.004", "--iterations", "2", "--query", q]
     one = tdriver.run(tdriver.parse_args(base), device="cpu")
     four = tdriver.run(tdriver.parse_args(
-        base + ["--communicator", "emulated", "--n-ranks", "4"]),
+        base + ["--communicator", "emulated", "--n-ranks", "4",
+                "--stage-profile", "1"]),
         device="cpu")
     plan = tpch_query_plan(q)
+    assert "stage_profile" not in one
+    assert set(four["stage_profile"]["wall_s"]) == {
+        op.op_id for op in plan.ops}
+    assert json.load(open(tmp_path / "query_stageprofile.json"))[
+        "kind"] == "query_stageprofile"
     for rec in (one, four):
-        assert JAX_QUERY_FIELDS <= set(rec) | set(rec["not_ported"])
+        assert JAX_QUERY_FIELDS - {"stage_profile"} <= set(rec)
+        assert "not_ported" not in rec
         assert rec["plan_digest"] == plan.digest()
         assert rec["aggregate"] == plan.aggregate.as_record()
         assert rec["kind"] == "query_smoke" and rec["n_operators"] == 3

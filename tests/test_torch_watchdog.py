@@ -284,7 +284,7 @@ def test_guarded_run_returns_0_and_finalizes(tmp_path):
 
 DRIVERS = {"distributed_join": (tdriver, jdriver),
            "tpch_join": (ttpch, jtpch), "all_to_all": (ta2a, ja2a)}
-STILL_REFUSED = {"--diagnose": ([], "A5"),
+STILL_REFUSED = {"--auto-tune": ([], "A5c"),
                  "--verify-integrity": ([], "A5"),
                  "--chaos-seed": (["3"], "A7")}
 
@@ -313,7 +313,8 @@ def test_launcher_refuses_what_waits_by_name(flag, capsys):
 
 TELEMETRY_ARGV = [["--telemetry"], ["--telemetry", "d"], ["--trace"],
                   ["--history", "h.jsonl"], ["--guard-deadline-s", "7.5"],
-                  ["--guard-deadline-s", "0"]]
+                  ["--guard-deadline-s", "0"], ["--diagnose"],
+                  ["--stage-profile"], ["--stage-profile", "5"]]
 
 
 @pytest.mark.parametrize("argv", TELEMETRY_ARGV)
@@ -321,7 +322,8 @@ TELEMETRY_ARGV = [["--telemetry"], ["--telemetry", "d"], ["--trace"],
 def test_drivers_take_the_telemetry_flags_as_jax(driver, argv):
     tmod, jmod = DRIVERS[driver]
     t, j = tmod.parse_args(argv), jmod.parse_args(argv)
-    for dest in ("telemetry", "trace", "history", "guard_deadline_s"):
+    for dest in ("telemetry", "trace", "history", "guard_deadline_s",
+                 "diagnose", "stage_profile"):
         assert getattr(t, dest) == getattr(j, dest), dest
 
 
