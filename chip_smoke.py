@@ -271,9 +271,29 @@ Phases (any failure raises, and the script exits non-zero):
    knobs) and a uniform one (clean); (e) the daemon's smoke twice, the
    second gated against baselines written from the first.
    ``python3 chip_smoke.py --phase 22`` runs this phase alone.
+23. The autotuner (``planning/tuner.py``), in a process of its own: (a)
+   the warm contract at config 2's 10 M x 10 M on one rank: a cold join
+   at ``out_capacity_factor`` 0.1 escalates at least twice; fed its
+   history line, the repeat runs one ``tuned_presize`` attempt at the
+   cold run's final rung, builds no program and returns the same rows;
+   the cold, warm tuned and static default sizing's walls. (b)
+   ``JoinService(auto_tune=True)`` at the serving request's shape (a
+   10 M-row build, a 2^18-row probe): the second request builds nothing
+   and runs one attempt from history; the daemon's ``explain`` op
+   carries ``tuned``; the join driver twice with ``--history F
+   --auto-tune`` (the second starts at the first's final rung); ``analyze
+   tune F --json`` passes ``analyze check``. (c) the fill rules over 4
+   emulated ranks, each fed a history this phase wrote, filled against
+   static at their settled rungs (median of 5, equal row digests): the
+   skew fill on config 3's Zipf alpha 1.5 tables (B5 launches), the
+   ragged wire fill (a padded run at shuffle factor 2) and the segmented
+   sort fill (a stage-profiled history); a resident join with ``tuner=``
+   on the Zipf probe drops the structural fills. (d) the card's name and
+   power limit beside the numbers. ``python3 chip_smoke.py --phase 23``
+   runs this phase alone.
 
 The whole script runs phases 2 to 14 and 16 in one process, then 15,
-17, 18, 19, 20, 21 and 22 each in a process of its own (``--phase N``): late in one
+17, 18, 19, 20, 21, 22 and 23 each in a process of its own (``--phase N``): late in one
 long process the profiler has dropped launches and scaled durations. A device
 time counts only when the profiler caught every launch the wrappers made
 and its clock agrees with the CUDA events' on a spin kernel in the same
@@ -294,7 +314,11 @@ carry the paths ``resident``, ``resident_agg`` and ``batched``, and
 ``telemetry``: phase 19(a)'s driver run with the session and the device
 trace on, ``service``: phase 20's wire requests (a)-(e), which the
 groups site's entry carries too, phase 21(c)'s ``tape_*`` paths, and
-phase 22's ``stageprof_join`` (the k = 4 profile) and ``stageprof_q3``);
+phase 22's ``stageprof_join`` (the k = 4 profile) and ``stageprof_q3``,
+and phase 23's ``tuner_warm``, ``tuner_service``, ``tuner_skew_fill``,
+``tuner_wire_fill`` and ``tuner_sort_fill``, the last launching none: the
+segmented path; the skew site's entry carries its launches on the paths
+that run the sidecar, phase 23's ``tuner_skew_fill`` among them);
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
@@ -3755,7 +3779,7 @@ SERVICE_BATCH = 16             # (c): small joins, batched and one by one
 SERVICE_BATCH_ROWS = 1 << 16   # rows a side of each small join
 SERVICE_QUERY_SF = 1.0         # (d): Q3 through the query op
 SERVICE_DRAIN_ROWS = 1_000_000  # (g): the in-flight join's rows a side
-SMOKE_DRILL_JOINS = 50         # (h): the smoke's resident drill, joins a side
+SMOKE_DRILL_JOINS = 200        # (h): the smoke's resident drill, joins a side
 # phase 18(b)'s in-process ms a request (NVIDIA H100 80GB HBM3, 700.00 W;
 # PERF.md, PR 15 run 8)
 SERVING_18B_MS = 4.22
@@ -3790,10 +3814,10 @@ def service_phase() -> dict:
     daemon over ``FaultPlan(dispatch_delay_s=1.0,
     delay_after_dispatches=1)``: ``drain`` settles an in-flight join
     before it answers, then a join refuses with ``DrainingError``. (h)
-    ``--smoke --history-dir DIR --smoke-resident-joins 50`` as a
+    ``--smoke --history-dir DIR --smoke-resident-joins 200`` as a
     subprocess, its wall gates on (the batch beats one by one; the warm
-    probe-only join beats the warm full join on the median of 50 joins a
-    side, taken in turns): rc 0, warm builds 0, >= 2 history signatures, its explain step's program resident, nothing
+    probe-only join beats the warm full join on the median over 200
+    back-to-back pairs of their wall ratio): rc 0, warm builds 0, >= 2 history signatures, its explain step's program resident, nothing
     ``not_ported``, and its baseline gate skipping the committed CPU
     baselines (drawn over 8 emulated ranks; phase 22(e) gates on the
     card). Launches
@@ -4126,7 +4150,13 @@ def service_phase() -> dict:
           f"history {json.dumps(rec['history'])}; batched "
           f"{rec['batched_s'] * 1e3:.4f} ms against sequential "
           f"{rec['sequential_s'] * 1e3:.4f} ms; resident drill speedup "
-          f"{rec['resident_drill']['probe_only_speedup']:.4f}; baseline "
+          f"{rec['resident_drill']['probe_only_speedup']:.4f} (median "
+          f"over pairs; probe-only won "
+          f"{rec['resident_drill']['probe_only_pair_wins']} of "
+          f"{SMOKE_DRILL_JOINS}; medians "
+          f"{rec['resident_drill']['cold_wall_median_s'] * 1e3:.4f} ms full, "
+          f"{rec['resident_drill']['probe_only_wall_median_s'] * 1e3:.4f} ms "
+          f"probe-only); baseline "
           f"gate {json.dumps(rec['baseline_gate'])}; {smi}", flush=True)
     part_done("h")
     shutil.rmtree(tmp, ignore_errors=True)
@@ -4923,6 +4953,457 @@ def stageprof_phase() -> dict:
     return paths
 
 
+# -- phase 23: the autotuner ------------------------------------------------
+
+TUNE_RETRY = 6                 # the ladder's budget on every tuned path
+TUNE_COLD_OUT = 0.1            # (a), (b): the output factor that escalates
+TUNE_REPS = 5                  # timed calls a median
+TUNE_RANKS = 4                 # (c): emulated ranks of the fill rules
+TUNE_FILL_ROWS = 4_000_000     # (c): rows a side of the fill rules' tables
+TUNE_WIRE_FACTOR = 2.0         # (c): the padded run's shuffle factor
+TUNE_STAGE_REPEATS = 3         # (c): the sort rule's stage profile
+TUNE_SORT_K = 4                # (c): the one-rank sort rule's over-decomposition
+TUNE_SITES = JOIN_KERNELS
+
+
+def _median_ms(fn, reps: int = TUNE_REPS) -> float:
+    """Median wall of ``fn`` over ``reps`` calls after one warm-up, each
+    call from a synchronised device to its own synchronisation (host
+    clock: a tuned call's host resolution is part of what it costs)."""
+    import statistics
+    fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(walls)
+
+
+def _settled(opts: dict, res) -> dict:
+    """``opts`` at the rung ``res``'s ladder settled at."""
+    last = res.retry_report.attempts[-1]
+    out = dict(opts, shuffle_capacity_factor=last.shuffle_capacity_factor,
+               out_capacity_factor=last.out_capacity_factor)
+    for k in ("out_rows_per_rank", "compression_bits", "hh_build_capacity",
+              "hh_probe_capacity", "hh_out_capacity"):
+        if getattr(last, k) is not None:
+            out[k] = getattr(last, k)
+    return out
+
+
+def fill_rule(label: str, comm, build, probe, opts: dict, knob: str,
+              want, store: str, stage_profile: bool = False,
+              must_fire: bool = True) -> tuple:
+    """One fill rule on the card: a static join (tape on) filed in a
+    history store under the workload signature of the tape-off call (with
+    the stage profile of the settled static program when asked), the
+    tuner's verdict on that store (``knob`` must be filled with
+    ``want``), then the static and the filled programs, each at the rung
+    its ladder settles at, timed on the same communicator and tables
+    (median of ``TUNE_REPS``), with equal row digests. Returns the
+    numbers, the verdict and the filled program's launch counts; with
+    ``must_fire`` off, a verdict that fills nothing returns its evidence
+    and no counts instead of failing."""
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.planning.tuner import (
+        JoinTuner,
+        workload_signature,
+    )
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+    from distributed_join_tpu_torch.telemetry import history, stageprof
+
+    cache = JoinProgramCache(comm)
+
+    def join(**kw):
+        return distributed_inner_join(build, probe, comm, program_cache=cache,
+                                      auto_retry=TUNE_RETRY, **kw)
+
+    t = time.perf_counter()
+    static = join(with_metrics=True, **opts)
+    wall = time.perf_counter() - t
+    _check(static.retry_report.resolved and not bool(static.overflow),
+           f"phase 23 (c) {label}: the static join did not settle")
+    static_opts = _settled(opts, static)
+    summary = None
+    if stage_profile:
+        prof = stageprof.profile_join_stages(
+            comm, build, probe, repeats=TUNE_STAGE_REPEATS, **static_opts)
+        summary = prof.summary()
+        print(f"[tuner] (c) {label}: stage walls {json.dumps(summary['wall_s'])}",
+              flush=True)
+    sig = workload_signature(comm, build, probe, with_metrics=False, **opts)
+    hist = history.WorkloadHistory(store)
+    hist.append(history.request_entry(
+        request_id=f"static-{label}", op="join", signature=sig,
+        outcome="served", wall_s=wall, matches=int(static.total),
+        retry_record=static.retry_report.as_record(),
+        metrics=static.telemetry.to_dict(), stage_profile=summary,
+        platform=torch.device(DEVICE).type))
+    hist.close()
+    tuner = JoinTuner(store)
+    cfg = tuner.resolve(comm, build, probe,
+                        opts=dict(opts, with_metrics=False))
+    print(f"[tuner] (c) {label}: verdict {json.dumps(cfg.as_record())}",
+          flush=True)
+    if not must_fire and cfg.structural.get(knob) != want:
+        walls = (summary or {}).get("wall_s") or {}
+        total = sum(v for v in walls.values() if v)
+        return {"rule": label, "fired": False, "basis": cfg.basis,
+                "join_stage_share": (walls.get("join") or 0) / total
+                if total else None}, None
+    _check(cfg.structural.get(knob) == want,
+           f"phase 23 (c) {label}: {knob} not filled with {want!r} "
+           f"({json.dumps(cfg.as_record())})")
+    filled = join(with_metrics=False, tuner=tuner, **opts)
+    _check(filled.retry_report.resolved and filled.tuned["applied"].get(knob)
+           == want, f"phase 23 (c) {label}: the filled join "
+           f"{json.dumps(filled.tuned)}")
+    filled_opts = _settled(cfg.apply(opts), filled)
+    want_digest = row_digest(join(with_metrics=False, **static_opts))
+    got, counts = counted(lambda: join(with_metrics=False, **filled_opts))
+    _check(got.retry_report.n_attempts == 1
+           and row_digest(got) == want_digest,
+           f"phase 23 (c) {label}: the filled program's rows differ from "
+           "the static program's")
+    static_ms = _median_ms(lambda: join(with_metrics=False, **static_opts))
+    filled_ms = _median_ms(lambda: join(with_metrics=False, **filled_opts))
+    out = {"rule": label, "fired": True, "knob": knob, "filled": want,
+           "static_ms": static_ms, "filled_ms": filled_ms,
+           "ratio": filled_ms / static_ms, "basis": cfg.basis,
+           "static_rung": static.retry_report.attempts[-1].attempt,
+           "filled_rung": filled.retry_report.attempts[-1].attempt,
+           "rows": want_digest[0]}
+    return out, counts
+
+
+def tuner_phase() -> dict:
+    """Phase 23: the autotuner on the card. (a) the warm contract at the
+    headline's shape (10 M x 10 M, config 2's tables, one rank): a cold
+    join at ``out_capacity_factor`` 0.1 escalates at least twice; fed its
+    history line, the repeat runs one ``tuned_presize`` attempt at the
+    cold run's final rung label, builds no program and returns the cold
+    total and rows; the cold wall (its escalations included), the warm
+    tuned and the static default sizing's medians. (b) the service with
+    ``auto_tune`` at the serving request's shape (a 10 M-row build, a
+    2^18-row probe): the second identical request builds nothing, runs
+    one attempt from history; the daemon's ``explain`` op carries the
+    ``tuned`` block; the join driver twice with ``--history F
+    --auto-tune``: the second record starts at the first's final rung and
+    climbs none; ``analyze tune F --json`` passes ``analyze check``. (c)
+    the fill rules over 4 emulated ranks, each from a history this phase
+    wrote, filled against static at the settled rungs: the skew fill
+    (config 3's Zipf alpha 1.5, skew off: B5 launches), the wire fill (a
+    padded run at shuffle factor 2, wire efficiency ~0.5) and the
+    sort-mode fill (a stage-profiled history); then a resident join with
+    ``tuner=`` on the Zipf probe drops the structural fills. Returns the
+    launch counts of paths ``tuner_warm``, ``tuner_service``,
+    ``tuner_skew_fill``, ``tuner_wire_fill`` and ``tuner_sort_fill``."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from distributed_join_tpu_torch.benchmarks import (
+        distributed_join as D,
+    )
+    from distributed_join_tpu_torch.benchmarks import run_guarded
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.planning.tuner import (
+        SORT_STAGE_SHARE_WARN,
+        JoinTuner,
+    )
+    from distributed_join_tpu_torch.service import server as srv
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+    from distributed_join_tpu_torch.service.resident import (
+        ResidentTableRegistry,
+    )
+    from distributed_join_tpu_torch.telemetry import analyze, history
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    smi = gpu_line()
+    t_part = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tuner_")
+    platform = torch.device(DEVICE).type
+    paths = {}
+
+    def part_done(label):
+        nonlocal t_part
+        now = time.perf_counter()
+        print(f"[phase] 23{label}: {now - t_part:.1f} s", flush=True)
+        t_part = now
+
+    # (a) the warm contract at the headline's shape
+    local = LocalCommunicator()
+    build, probe = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS, probe_nrows=NROWS,
+        unique_build_keys=True, device=DEVICE)
+    cache = JoinProgramCache(local)
+    store = history.WorkloadHistory(os.path.join(tmp, "warm.jsonl"))
+    tuner = JoinTuner(store.path)
+
+    def join(**kw):
+        return distributed_inner_join(build, probe, local, program_cache=cache,
+                                      auto_retry=TUNE_RETRY,
+                                      with_metrics=False, **kw)
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    cold = join(tuner=tuner, out_capacity_factor=TUNE_COLD_OUT)
+    torch.cuda.synchronize()
+    cold_ms = (time.perf_counter() - t) * 1e3
+    rr = cold.retry_report
+    _check(rr.n_attempts >= 3 and rr.resolved
+           and cold.tuned["source"] == "static",
+           f"phase 23 (a) the cold join: {rr.as_record()} {cold.tuned}")
+    store.append(history.request_entry(
+        request_id="cold", op="join", signature=cold.tuned["signature"],
+        outcome="served", wall_s=cold_ms / 1e3, new_traces=cache.traces,
+        matches=int(cold.total), retry_record=rr.as_record(),
+        tuned=cold.tuned, platform=platform))
+    tuner.load(store.path)
+    cold_digest = row_digest(cold)
+    final = rr.attempts[-1].attempt
+    del cold
+    traces = cache.traces
+    warm, counts = counted(lambda: join(tuner=tuner,
+                                        out_capacity_factor=TUNE_COLD_OUT))
+    att = [(a.attempt, a.action) for a in warm.retry_report.attempts]
+    _check(att == [(final, "tuned_presize")] and cache.traces == traces
+           and row_digest(warm) == cold_digest
+           and warm.tuned["source"] == "history"
+           and warm.tuned["rung"] == final,
+           f"phase 23 (a) the warm join: attempts {att}, programs built "
+           f"{cache.traces - traces}, tuned {warm.tuned}")
+    _require_launched(counts, TUNE_SITES, "the tuned warm join")
+    paths["tuner_warm"] = counts
+    del warm
+    warm_ms = _median_ms(lambda: join(tuner=tuner,
+                                      out_capacity_factor=TUNE_COLD_OUT))
+    _check(cache.traces == traces, "phase 23 (a) a timed warm join built")
+    static_res = join()
+    _check(row_digest(static_res) == cold_digest
+           and static_res.retry_report.n_attempts == 1,
+           "phase 23 (a) the static default sizing's rows")
+    del static_res
+    static_ms = _median_ms(join)
+    sizing = {k: v for k, v in rr.attempts[-1].as_record().items()
+              if k.endswith("_factor")}
+    print(f"[tuner] (a) {NROWS:,} x {NROWS:,}, one rank: cold {cold_ms:.4f} ms"
+          f" ({rr.n_attempts} attempts, {rr.n_attempts - 1} escalations, "
+          f"settled at rung {final} {json.dumps(sizing)}); warm tuned "
+          f"{warm_ms:.4f} ms (median of {TUNE_REPS}; 1 attempt, "
+          f"tuned_presize, 0 programs built); static default sizing "
+          f"{static_ms:.4f} ms (median of {TUNE_REPS}); warm / static "
+          f"{warm_ms / static_ms:.4f}; launches {counts}; {smi}", flush=True)
+    del build, probe
+    torch.cuda.empty_cache()
+    part_done("a")
+
+    # (b) the service, the daemon's explain, the driver, analyze tune
+    sdir = os.path.join(tmp, "service")
+    service = srv.JoinService(local, srv.ServiceConfig(
+        auto_retry=TUNE_RETRY, auto_tune=True, history_dir=sdir),
+        device=DEVICE)
+    sb, sp = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS, probe_nrows=SERVING_PROBE_ROWS,
+        unique_build_keys=True, device=DEVICE)
+    r1 = service.join(sb, sp, out_capacity_factor=TUNE_COLD_OUT)
+    _check(r1.retry_report.n_attempts > 1 and r1.retry_report.resolved,
+           f"phase 23 (b) the first request: {r1.retry_report.as_record()}")
+    r2, counts = counted(lambda: service.join(
+        sb, sp, out_capacity_factor=TUNE_COLD_OUT))
+    rung = r1.retry_report.attempts[-1].attempt
+    _check(r2.new_traces == 0 and r2.retry_report.n_attempts == 1
+           and r2.retry_report.attempts[0].action == "tuned_presize"
+           and r2.tuned["source"] == "history" and r2.tuned["rung"] == rung
+           and r2.matches == r1.matches,
+           f"phase 23 (b) the second request: new_traces {r2.new_traces}, "
+           f"{r2.retry_report.as_record()}, {r2.tuned}")
+    _require_launched(counts, TUNE_SITES, "the service's tuned request")
+    paths["tuner_service"] = counts
+    entries, _ = history.load_history(sdir)
+    rec = service.recorder.snapshot()["records"][-1]
+    _check(entries[-1]["tuned"]["source"] == "history"
+           and entries[-1]["rung"] == rung
+           and rec["tuned"]["source"] == "history"
+           and service.stats()["tuner"]["history_hits"] >= 1,
+           f"phase 23 (b) the request's records: {entries[-1]} {rec}")
+    server, port = srv.start_daemon(service)
+    client = srv.ServiceClient("127.0.0.1", port)
+    try:
+        resp = client.send({"op": "explain", "build_nrows": NROWS,
+                            "probe_nrows": SERVING_PROBE_ROWS,
+                            "out_capacity_factor": TUNE_COLD_OUT})
+    finally:
+        client.close()
+        server.shutdown()
+        server.server_close()
+    _check(resp.get("ok") and resp["tuned"]["source"] == "history"
+           and resp["tuned"]["rung"] == rung,
+           f"phase 23 (b) the daemon's explain: {json.dumps(resp)[:600]}")
+    print(f"[tuner] (b) service at {NROWS:,} x {SERVING_PROBE_ROWS:,}: first "
+          f"request {r1.retry_report.n_attempts} attempts, second "
+          f"new_traces {r2.new_traces}, 1 attempt at rung {rung} from "
+          f"history; explain op tuned {json.dumps(resp['tuned'])}; "
+          f"stats {json.dumps(service.stats()['tuner'])}; launches {counts}"
+          f"; {smi}", flush=True)
+    del service, sb, sp, r1, r2
+    torch.cuda.empty_cache()
+    hist_path = os.path.join(tmp, "driver_history.jsonl")
+    drv = []
+    for i in (1, 2):
+        args = D.parse_args([
+            "--communicator", "local", "--build-table-nrows", str(NROWS),
+            "--probe-table-nrows", str(NROWS), "--iterations", "1",
+            "--auto-retry", str(TUNE_RETRY), "--out-capacity-factor",
+            str(TUNE_COLD_OUT), "--telemetry", os.path.join(tmp, f"drv{i}"),
+            "--history", hist_path, "--auto-tune"])
+        out = {}
+
+        def body(a, out=out):
+            out["record"] = D.run(a)
+            return out["record"]
+
+        _check(run_guarded(body, args, "distributed_join") == 0,
+               f"phase 23 (b) driver run {i}")
+        drv.append(out["record"])
+    first, second = drv
+    f_att = first["retry"]["attempts"]
+    s_att = second["retry"]["attempts"]
+    _check(first["tuned"]["source"] == "static" and len(f_att) > 1
+           and second["tuned"]["source"] == "history"
+           and len(s_att) == 1 and s_att[0]["action"] == "tuned_presize"
+           and s_att[0]["attempt"] == f_att[-1]["attempt"]
+           and not s_att[0]["overflow"]
+           and second["matches_per_join"] == first["matches_per_join"],
+           f"phase 23 (b) the driver's records: {first['retry']} "
+           f"{second['retry']} {second['tuned']}")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = analyze.main(["tune", hist_path, "--json"])
+    tune_path = os.path.join(tmp, "tune.json")
+    with open(tune_path, "w") as f:
+        f.write(buf.getvalue())
+    _check(rc == 0 and analyze.check_file(tune_path) == [],
+           f"phase 23 (b) analyze tune: rc {rc}, "
+           f"{analyze.check_file(tune_path)}")
+    tune = json.loads(buf.getvalue())
+    print(f"[tuner] (b) driver --auto-tune: run 1 {len(f_att)} attempts, "
+          f"{first['elapsed_per_join_s'] * 1e3:.4f} ms a join at its final "
+          f"rung; run 2 1 attempt at rung {s_att[0]['attempt']}, "
+          f"{second['elapsed_per_join_s'] * 1e3:.4f} ms a join; analyze tune "
+          f"{json.dumps(tune['signatures'])}; {smi}", flush=True)
+    part_done("b")
+
+    # (c) the fill rules over emulated ranks
+    emu = EmulatedCommunicator(TUNE_RANKS)
+    zb, zp, _ = D.make_tables(_config3_args(False, TUNE_FILL_ROWS),
+                              torch.device(DEVICE))
+    rules = []
+    res, counts = fill_rule("skew", emu, zb, zp, {"shuffle": "padded"},
+                            "skew_threshold", 0.001,
+                            os.path.join(tmp, "skew.jsonl"))
+    _require_launched(counts, TUNE_SITES + ("extract_prefix",),
+                      "the skew fill")
+    paths["tuner_skew_fill"] = counts
+    rules.append(res)
+    # the resident join on the same Zipf probe: its probe-only verdict
+    # drops the structural fills the evidence makes
+    registry = ResidentTableRegistry(emu, JoinProgramCache(emu))
+    registry.register("dim", zb)
+    rstore = history.WorkloadHistory(os.path.join(tmp, "resident.jsonl"))
+    rtuner = JoinTuner(rstore.path)
+    rcold = registry.join("dim", zp, auto_retry=TUNE_RETRY, tuner=rtuner,
+                          with_metrics=True)
+    rstore.append(history.request_entry(
+        request_id="resident", op="resident_join",
+        signature=rcold.tuned["signature"], outcome="served", wall_s=0.0,
+        matches=int(rcold.total),
+        retry_record=rcold.retry_report.as_record(),
+        metrics=rcold.telemetry.to_dict(), tuned=rcold.tuned,
+        platform=platform))
+    rtuner.load(rstore.path)
+    rwarm = registry.join("dim", zp, auto_retry=TUNE_RETRY, tuner=rtuner)
+    dropped = rwarm.tuned["basis"].get("structural_dropped") or {}
+    _check(rwarm.tuned["structural"] == {} and "skew_threshold" in dropped
+           and rwarm.retry_report.attempts[0].attempt
+           == rcold.retry_report.attempts[-1].attempt
+           and int(rwarm.total) == int(rcold.total),
+           f"phase 23 (c) the resident join's verdict {rwarm.tuned}")
+    print(f"[tuner] (c) resident join on the Zipf probe: dropped "
+          f"{json.dumps(dropped)}, sizing {json.dumps(rwarm.tuned['sizing'])}"
+          f", first attempt {rwarm.retry_report.attempts[0].as_record()}",
+          flush=True)
+    del registry, rcold, rwarm, zb, zp
+    torch.cuda.empty_cache()
+    ub, up = generate_build_probe_tables(
+        seed=SEED, build_nrows=TUNE_FILL_ROWS, probe_nrows=TUNE_FILL_ROWS,
+        unique_build_keys=True, device=DEVICE)
+    res, counts = fill_rule("wire", emu, ub, up,
+                            {"shuffle_capacity_factor": TUNE_WIRE_FACTOR},
+                            "shuffle", "ragged",
+                            os.path.join(tmp, "wire.jsonl"))
+    _require_launched(counts, TUNE_SITES, "the wire fill")
+    paths["tuner_wire_fill"] = counts
+    rules.append(res)
+    # the sort rule over the emulated ranks (their partition and shuffle
+    # stages may outweigh the join there), then on one rank at k = 4 at
+    # config 2's shape, whose join stage phase 22(a) measured over half
+    res, _ = fill_rule("sort_mode", emu, ub, up, {"shuffle": "padded"},
+                       "sort_mode", "segmented",
+                       os.path.join(tmp, "sort.jsonl"), stage_profile=True,
+                       must_fire=False)
+    rules.append(res)
+    del ub, up
+    torch.cuda.empty_cache()
+    cb, cp = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS, probe_nrows=NROWS,
+        unique_build_keys=True, device=DEVICE)
+    res, counts = fill_rule("sort_mode_k4", local, cb, cp,
+                            {"shuffle": "padded",
+                             "over_decomposition": TUNE_SORT_K},
+                            "sort_mode", "segmented",
+                            os.path.join(tmp, "sort_k4.jsonl"),
+                            stage_profile=True)
+    paths["tuner_sort_fill"] = counts
+    rules.append(res)
+    del cb, cp
+    for r in rules:
+        where = (f"one rank, k = {TUNE_SORT_K}" if r["rule"] == "sort_mode_k4"
+                 else f"{TUNE_RANKS} emulated ranks")
+        if not r["fired"]:
+            print(f"[tuner] (c) {r['rule']} rule, {where}: did not "
+                  f"fire, join stage share "
+                  f"{r['join_stage_share']:.4f} (bar "
+                  f"{SORT_STAGE_SHARE_WARN}); {smi}", flush=True)
+            continue
+        print(f"[tuner] (c) {r['rule']} fill, {where}, "
+              f"{r['rows']:,} rows out: {r['knob']}={r['filled']!r} filled "
+              f"{r['filled_ms']:.4f} ms (rung {r['filled_rung']}) against "
+              f"static {r['static_ms']:.4f} ms (rung {r['static_rung']}), "
+              f"filled / static {r['ratio']:.4f}; evidence "
+              f"{json.dumps(r['basis'])}; {smi}", flush=True)
+    print("[tuner] (c) ratios " + json.dumps(
+        {r["rule"]: r["ratio"] for r in rules if r["fired"]}), flush=True)
+    torch.cuda.empty_cache()
+    part_done("c")
+    print(f"[tuner] (d) {smi}", flush=True)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
 def serving_kernel_entries(rows: list, paths: dict) -> list:
     """The serving shapes' rows of the kernels line: their launches on
     the path of the registry they were taken from (every warm request
@@ -4989,10 +5470,10 @@ def main(argv=None) -> int:
            and len(argv) == 2 else None)
     fault_job = (json.loads(argv[1]) if argv[:1] == ["--fault-driver"]
                  and len(argv) == 2 else None)
-    phases = [["--phase", str(p)] for p in range(13, 23)]
+    phases = [["--phase", str(p)] for p in range(13, 24)]
     if argv not in ([], *phases) and job is None and fault_job is None:
         print("usage: chip_smoke.py [--phase 13 | 14 | 15 | 16 | 17 | 18 "
-              "| 19 | 20 | 21 | 22]", file=sys.stderr)
+              "| 19 | 20 | 21 | 22 | 23]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5106,6 +5587,14 @@ def main(argv=None) -> int:
         print(ok, flush=True)
         return 0
 
+    if argv == ["--phase", "23"]:
+        tuner_paths = tuner_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps({"launches_by_path": tuner_paths}), flush=True)
+        print(ok, flush=True)
+        return 0
+
     if argv == ["--phase", "18"]:
         resident_paths, serving_rows = resident_phase()
         print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
@@ -5148,9 +5637,10 @@ def main(argv=None) -> int:
     paths.update(timed(segmented_phase, *plain, flat_profile=flat_prof))
     # the phases that profile kernel rows late in the script, each in a
     # process of its own (``phase_in_own_process``)
-    own15, own17, own18, own19, own20, own21, own22 = (
-        phase_in_own_process(p) for p in (15, 17, 18, 19, 20, 21, 22))
-    for own_phase in (own15, own17, own18, own19, own20, own21, own22):
+    own15, own17, own18, own19, own20, own21, own22, own23 = (
+        phase_in_own_process(p) for p in (15, 17, 18, 19, 20, 21, 22, 23))
+    for own_phase in (own15, own17, own18, own19, own20, own21, own22,
+                      own23):
         paths.update(own_phase["launches_by_path"])
     tpch_rows, (groups_row,), serving_rows = (
         own15["rows"], own17["rows"], own18["rows"])
@@ -5198,8 +5688,16 @@ def main(argv=None) -> int:
                                      for p, c in paths.items()}
             r["no_launch_reason"] = {"segmented": SEG_REASON,
                                      "hierarchical_segmented": SEG_REASON,
+                                     "tuner_sort_fill": SEG_REASON,
                                      "agg": GROUPS_REASON,
                                      "resident_agg": GROUPS_REASON}
+        if name == "stream_compact[skew]":
+            # the skew site's launches on the paths that run the sidecar
+            # (phase 23(c)'s filled program)
+            r["launches_by_path"] = {p: c["extract_prefix"]
+                                     for p, c in paths.items()
+                                     if c.get("extract_prefix")}
+            r["no_launch_reason"] = {}
         if name == "join_scans":
             r["c1_ms"], r["c1_bound_ms"] = c1["ms"], c1["bound_ms"]
         kernels.append({k: r[k] for k in (

@@ -27,7 +27,10 @@ modes are the flat program. ``--telemetry``, ``--trace``, ``--diagnose``,
 carries its summary under ``telemetry``, and without one it is
 unchanged. ``--stage-profile N`` profiles the match-sized program stage
 by stage after both timed loops (``benchmarks.maybe_stage_profile``;
-the line's ``stage_profile``).
+the line's ``stage_profile``). ``--auto-tune[=HISTORY]`` pre-sizes both
+ladders from the protocol's own history (JAX ``bench.py`` :349-435:
+capacities and the rung label only, ``benchmarks.tuned_driver_record``);
+the line carries its workload identity and ``tuned``.
 """
 
 from __future__ import annotations
@@ -41,13 +44,16 @@ import torch
 
 from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.benchmarks import (
+    add_auto_tune_arg,
     add_guard_arg,
     add_telemetry_args,
     maybe_stage_profile,
     refuse_trace_with_profile,
     resolve_sort_mode,
+    resolve_tuner,
     run_guarded,
     stamp_record,
+    tuned_driver_record,
 )
 from distributed_join_tpu_torch.device import resolve_device
 from distributed_join_tpu_torch.parallel.communicator import (
@@ -102,21 +108,46 @@ def _sort_opts(sort_mode, sort_segments, nrows: int, n_ranks: int) -> dict:
 def run(nrows: int = NROWS, iters: int = ITERS, device=None,
         sort_mode=None, sort_segments=None, args=None) -> dict:
     """The headline protocol; returns the record (also what main
-    prints). ``args``: the parsed flags, for ``--stage-profile``."""
+    prints). ``args``: the parsed flags, for ``--stage-profile`` and
+    ``--auto-tune``."""
     dev = resolve_device(device)
     comm = LocalCommunicator()
     n_ranks = comm.n_ranks
     sort_opts = _sort_opts(sort_mode, sort_segments, nrows, n_ranks)
+    # the workload identity (history.WORKLOAD_KEYS) the line carries, so
+    # that a --history entry and the --auto-tune lookup key alike
+    workload = {k: v for k, v in {
+        "benchmark": "bench",
+        "n_ranks": n_ranks,
+        "build_table_nrows": nrows,
+        "probe_table_nrows": nrows,
+        "selectivity": SELECTIVITY,
+        "sort_mode": sort_opts.get("sort_mode"),
+        "sort_segments": sort_opts.get("sort_segments"),
+    }.items() if v is not None}
+    tuned_sizing, tuned_rung, tuned_rec = {}, 0, None
+    tuner = resolve_tuner(args) if args is not None else None
+    if tuner is not None:
+        tuned_sizing, tuned_rung, tuned_rec = tuned_driver_record(
+            tuner, workload)
     build, probe = generate_build_probe_tables(
         seed=SEED, build_nrows=nrows, probe_nrows=nrows,
         selectivity=SELECTIVITY, device=dev)
     expected = int(MATCHES_PER_ROW * nrows)
 
     def measure(out_rows_per_rank=None):
+        # the match-sized variant keeps its own output size over a tuned
+        # one
         ladder = CapacityLadder(
-            shuffle_capacity_factor=DEFAULT_SHUFFLE_CAPACITY_FACTOR,
-            out_capacity_factor=DEFAULT_OUT_CAPACITY_FACTOR,
-            out_rows_per_rank=out_rows_per_rank)
+            shuffle_capacity_factor=tuned_sizing.get(
+                "shuffle_capacity_factor", DEFAULT_SHUFFLE_CAPACITY_FACTOR),
+            out_capacity_factor=tuned_sizing.get(
+                "out_capacity_factor", DEFAULT_OUT_CAPACITY_FACTOR),
+            out_rows_per_rank=(
+                out_rows_per_rank if out_rows_per_rank is not None
+                else tuned_sizing.get("out_rows_per_rank")),
+            compression_bits=tuned_sizing.get("compression_bits"),
+            base_rung=tuned_rung)
         for attempt in range(AUTO_RETRY + 1):
             step = make_join_step(comm, key="key", **sort_opts,
                                   **ladder.sizing())
@@ -146,6 +177,7 @@ def run(nrows: int = NROWS, iters: int = ITERS, device=None,
                                     dict(key="key", **sort_opts,
                                          **sizing_match))
     record = {
+        **workload,
         "metric": "join throughput",
         "value": value,
         "value_capacity_contract": contract,
@@ -161,6 +193,7 @@ def run(nrows: int = NROWS, iters: int = ITERS, device=None,
         "sort_mode": sort_opts.get("sort_mode"),
         "sort_segments": sort_opts.get("sort_segments"),
         "iterations": iters,
+        "tuned": tuned_rec,
         "out_rows": {"match_sized": match_out * n_ranks,
                      "contract": "out_capacity_factor=1.2 x probe rows"},
         "retry": {"match_sized": retry_match,
@@ -208,6 +241,7 @@ def main(argv=None) -> int:
                    help="segments of --sort-mode segmented")
     add_telemetry_args(p)
     add_guard_arg(p)
+    add_auto_tune_arg(p)
     args = p.parse_args(argv)
     refuse_trace_with_profile(p, args)
     return run_guarded(_main, args, "bench")

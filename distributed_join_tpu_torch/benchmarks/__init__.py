@@ -6,8 +6,10 @@ run, and the refusal of the JAX drivers' flags the port does not have
 ``maybe_diagnose`` :187-216, ``maybe_stage_profile`` and
 ``maybe_query_stage_profile`` :275-345, ``maybe_history`` :360-419,
 ``write_explain`` and ``explain_summary`` :219-274,
-``collect_join_metrics`` :745, ``add_telemetry_args`` :431-490, and
-``--guard-deadline-s`` of ``add_robustness_args`` :492-575).
+``collect_join_metrics`` :745, ``add_telemetry_args`` :431-490,
+``--guard-deadline-s`` and ``--auto-tune`` of ``add_robustness_args``
+:492-575, and the autotuner's driver seam ``resolve_tuner`` and
+``tuned_driver_record`` :608-652).
 
 Every driver's ``main`` runs its body through :func:`run_guarded`:
 ``--telemetry[=DIR]``, ``--trace``, ``--diagnose``, ``--history FILE``
@@ -62,8 +64,6 @@ SCHEMA_VERSION = 2
 # Flags of every JAX driver and of its launcher that wait for other parts
 # of the port, each naming what it waits for.
 UNPORTED_FLAGS = {
-    "--auto-tune": "the autotuner (the JAX package's planning/tuner.py; "
-                   "ROADMAP A5c)",
     "--verify-integrity": "the wire-integrity digests (ROADMAP A5d)",
     "--chaos-seed": "chaos injection (parallel/chaos.py, whose plans "
                     "draw the corruption modes; ROADMAP A7)",
@@ -309,6 +309,61 @@ def add_guard_arg(parser) -> None:
              "unguarded")
 
 
+def add_auto_tune_arg(parser) -> None:
+    """``--auto-tune[=HISTORY]`` (JAX ``add_robustness_args``)."""
+    parser.add_argument(
+        "--auto-tune", nargs="?", const="", default=None,
+        metavar="HISTORY",
+        help="consult the history-driven autotuner (planning/tuner.py) "
+             "before sizing: a repeat workload whose retry ladder "
+             "escalated before starts at the final rung it resolved to, "
+             "with no overflow rebuilds. HISTORY is the workload-history "
+             "store to read (bare flag: --history FILE on the drivers, "
+             "the service's own store on the daemon). A workload's first "
+             "run stays the static resolution")
+
+
+def resolve_tuner(args):
+    """The drivers' ``--auto-tune[=HISTORY]`` (JAX :608-625): a
+    ``planning.tuner.JoinTuner`` over the named store (bare flag: the
+    run's ``--history FILE``), or None with the flag off. A missing
+    store file is an empty tuner; no path at all is a usage error."""
+    val = getattr(args, "auto_tune", None)
+    if val is None:
+        return None
+    path = val or getattr(args, "history", None)
+    if not path:
+        raise SystemExit(
+            "--auto-tune needs a workload-history store: pass "
+            "--auto-tune HISTORY or pair the bare flag with "
+            "--history FILE")
+    from distributed_join_tpu_torch.planning.tuner import JoinTuner
+
+    return JoinTuner(path)
+
+
+def tuned_driver_record(tuner, workload: dict):
+    """Capacity pre-sizing on the driver path (JAX :627-652): the
+    workload identity looked up in the tuner, returning ``(sizing
+    overrides, rung, record)``: the knobs for the driver's ladder, the
+    absolute rung label to seed it with, and the block the record
+    carries under ``tuned``, which holds the pre-tuned ``workload`` so
+    that ``history.run_entry`` hashes the run to the signature the
+    lookup used. Structural knobs are not applied here: the driver store
+    keys a run by its flags (``history.WORKLOAD_KEYS``, ``shuffle`` and
+    ``skew_threshold`` among them), where a mode switch would fork the
+    signature away from its own history."""
+    from distributed_join_tpu_torch.telemetry.history import run_signature
+
+    sig = run_signature(workload)
+    cfg = tuner.recommend(sig)
+    rec = cfg.as_record()
+    rec["workload"] = workload
+    rec["applied"] = dict(cfg.sizing)
+    rec.pop("structural", None)
+    return dict(cfg.sizing), cfg.rung, rec
+
+
 def refuse_trace_with_profile(parser, args) -> None:
     """``--trace`` and a driver's ``--profile`` both open a
     ``torch.profiler`` session, and two sessions cannot nest."""
@@ -330,6 +385,7 @@ FORWARDED_CHILD_FLAGS = (
     ("--explain", "explain", False),
     ("--sort-mode", "sort_mode", True),
     ("--sort-segments", "sort_segments", True),
+    ("--auto-tune", "auto_tune", True),
     ("--guard-deadline-s", "guard_deadline_s", True),
 )
 

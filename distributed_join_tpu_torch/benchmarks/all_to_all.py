@@ -27,8 +27,8 @@ whole buffer, as the reference does.
 Flags as the JAX benchmark's: ``--n-ranks`` must equal the process
 group's size where given; ``--sort-mode flat`` and ``--sort-segments``
 are taken (the microbenchmark has no local sort), any other sort mode
-refuses with the JAX message, as does ``--stage-profile`` (the exchange
-is one stage); ``--telemetry``, ``--trace``, ``--diagnose``,
+refuses with the JAX message, as do ``--stage-profile`` (the exchange
+is one stage) and ``--auto-tune`` (no capacity to pre-size); ``--telemetry``, ``--trace``, ``--diagnose``,
 ``--history`` and ``--guard-deadline-s`` run through
 ``benchmarks.run_guarded``; ``--explain`` writes the exchange's plan and
 the cost model's prediction (``planning.build_exchange_plan``); the
@@ -46,6 +46,7 @@ import torch
 
 from distributed_join_tpu_torch.benchmarks import (
     UNPORTED_FLAGS,
+    add_auto_tune_arg,
     add_explain_arg,
     add_guard_arg,
     add_telemetry_args,
@@ -94,6 +95,7 @@ def parse_args(argv=None):
     add_telemetry_args(p)
     add_explain_arg(p)
     add_guard_arg(p)
+    add_auto_tune_arg(p)
     return p.parse_args(argv)
 
 
@@ -142,6 +144,11 @@ def run(args, device=None) -> tuple[dict, list]:
     """The benchmark's record, and the ms an exchange of each window
     (for the headline only: the record keeps the JAX benchmark's
     keys)."""
+    if getattr(args, "auto_tune", None) is not None:
+        # one fixed-size exchange has no join knobs to tune (JAX :93-97)
+        raise SystemExit(
+            "--auto-tune applies to the join drivers; the all_to_all "
+            "microbenchmark has no capacity contract to pre-size")
     if getattr(args, "stage_profile", None):
         raise SystemExit(
             "--stage-profile needs the multi-stage join pipeline; "

@@ -30,6 +30,9 @@ the timed loop (``benchmarks.maybe_stage_profile``: the record's
 ``stage_profile``, and ``stageprofile.json``), refusing up front the
 skew sidecar, string keys and the ragged wire's string columns, which
 do not segment; ``--diagnose`` reads the session back after the run.
+``--auto-tune[=HISTORY]`` (JAX :432-480) pre-sizes the ladder from the
+workload's history (``benchmarks.tuned_driver_record``: capacities and
+the rung label only) and the record carries ``tuned``.
 Every other flag of the JAX driver refuses by name.
 
 Skew auto-policy (JAX :359-405): with ``--zipf-alpha`` and no
@@ -67,6 +70,7 @@ from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.bench import gpu_identity
 from distributed_join_tpu_torch.benchmarks import (
     UNPORTED_FLAGS,
+    add_auto_tune_arg,
     add_explain_arg,
     add_guard_arg,
     add_telemetry_args,
@@ -80,7 +84,9 @@ from distributed_join_tpu_torch.benchmarks import (
     refuse_trace_with_profile,
     report,
     resolve_sort_mode,
+    resolve_tuner,
     run_guarded,
+    tuned_driver_record,
 )
 from distributed_join_tpu_torch.ops.aggregate import (
     AggregatePushdownUnsupported,
@@ -296,6 +302,7 @@ def parse_args(argv=None):
     add_telemetry_args(p)
     add_explain_arg(p)
     add_guard_arg(p)
+    add_auto_tune_arg(p)
     args = p.parse_args(argv)
     refuse_trace_with_profile(p, args)
     return args
@@ -455,11 +462,40 @@ def compression_bits(args, n_slices: int = 1):
     return args.compression_bits if args.compression or dcn else None
 
 
+def workload_identity(args, n_ranks: int, n_slices: int, threshold,
+                      sort_mode: str) -> dict:
+    """The run's workload identity (``history.WORKLOAD_KEYS``, non-None
+    only) with the record's own values: what ``--auto-tune`` looks up and
+    what ``history.run_entry`` hashes for the record."""
+    segmented = sort_mode != "flat"
+    return {k: v for k, v in {
+        "benchmark": "distributed_join",
+        "n_ranks": n_ranks,
+        "build_table_nrows": args.build_table_nrows,
+        "probe_table_nrows": args.probe_table_nrows,
+        "selectivity": args.selectivity,
+        "shuffle": args.shuffle,
+        "key_type": args.key_type,
+        "payload_type": args.payload_type,
+        "key_columns": args.key_columns,
+        "over_decomposition_factor": args.over_decomposition_factor,
+        "slices": n_slices if n_slices > 1 else None,
+        "dcn_codec": (args.dcn_codec if args.shuffle == "hierarchical"
+                      else None),
+        "zipf_alpha": args.zipf_alpha,
+        "skew_threshold": threshold,
+        "string_payload_bytes": args.string_payload_bytes,
+        "string_key_bytes": args.string_key_bytes,
+        "sort_mode": sort_mode if segmented else None,
+        "sort_segments": args.sort_segments if segmented else None,
+    }.items() if v is not None}
+
+
 def _prepare(args, device):
     """The communicator, the device (``rank_device``), the tables, the
-    ladder at its first rung, the join options it leaves fixed, and the
-    skew policy. The peak device memory is counted from here, before
-    the tables."""
+    ladder at its first rung, the join options it leaves fixed, the
+    skew policy and the ``--auto-tune`` record (None without the flag).
+    The peak device memory is counted from here, before the tables."""
     comm = _communicator(args)
     dev = rank_device(comm, device)
     if dev.type == "cuda":
@@ -496,8 +532,30 @@ def _prepare(args, device):
                 skew_threshold=threshold, hh_slots=args.hh_slots,
                 hh_build_capacity=args.hh_build_capacity,
                 hh_probe_capacity=hh_probe, hh_out_capacity=hh_out)
+    # --auto-tune: the ladder pre-sized from this workload's history,
+    # looked up under its pre-tuned identity (JAX :432-528). Tuned bits
+    # only widen a codec the run asked for, and the heavy-hitter blocks
+    # apply only with the skew path on.
+    tuned_rung, tuned_rec = 0, None
+    tuner = resolve_tuner(args)
+    if tuner is not None:
+        tuned_sizing, tuned_rung, tuned_rec = tuned_driver_record(
+            tuner, workload_identity(args, n, comm.n_slices, threshold,
+                                     sort_mode))
+        if tuned_sizing:
+            print(f"auto-tune: pre-sizing from history rung "
+                  f"{tuned_rung}: " + " ".join(
+                      f"{k}={v}" for k, v in sorted(tuned_sizing.items())),
+                  file=sys.stderr)
+        for knob, value in tuned_sizing.items():
+            if value is None or (knob == "compression_bits" and bits is None
+                                 ) or (knob.startswith("hh_")
+                                       and threshold is None):
+                continue
+            opts[knob] = value
     ladder = resolve_join_ladder(build, probe, n, opts,
                                  n_slices=comm.n_slices)
+    ladder.seed_rung(tuned_rung)
     # --sort-segments alone (armed for a --sort-ab side pass) leaves the
     # timed flat join as it is
     fixed = dict(key=join_key, shuffle=args.shuffle,
@@ -506,7 +564,7 @@ def _prepare(args, device):
                  sort_segments=(args.sort_segments
                                 if sort_mode == "segmented" else None),
                  **opts)
-    return comm, dev, build, probe, ladder, fixed, policy
+    return comm, dev, build, probe, ladder, fixed, policy, tuned_rec
 
 
 def row_digest(table: Table) -> torch.Tensor:
@@ -898,7 +956,8 @@ def run(args, device=None) -> dict:
             "pipeline (any shuffle mode; ragged without string "
             "payload columns) — drop --zipf-alpha/--skew-threshold/"
             "--string-key-bytes, or profile the padded form")
-    comm, dev, build, probe, ladder, fixed, policy = _prepare(args, device)
+    (comm, dev, build, probe, ladder, fixed, policy,
+     tuned_rec) = _prepare(args, device)
     on_gpu = dev.type == "cuda"
     n = comm.n_ranks
     b_rows, p_rows = args.build_table_nrows, args.probe_table_nrows
@@ -920,8 +979,10 @@ def run(args, device=None) -> dict:
                 for k, v in comm.counters().items()}
     # --telemetry: the device counters of one untimed join on the
     # unshifted tables, after the timed loop (which stays tape-off)
+    # (the absolute rung label: a pre-sized run's counters carry the rung
+    # it ran at)
     collect_join_metrics(comm, build, probe, dict(fixed, **ladder.sizing()),
-                         attempt=attempt)
+                         attempt=ladder.base_rung + attempt)
     explain_rec = None
     if args.explain:
         # the plan of the timed program (the final rung, tape off)
@@ -976,6 +1037,7 @@ def run(args, device=None) -> dict:
         "matches_per_join": matches,
         "overflow": overflow,
         "retry": ladder.report().as_record(),
+        "tuned": tuned_rec,
         "elapsed_per_join_s": sec,
         "rows_per_sec": rows_per_sec,
         "m_rows_per_sec_per_rank": rows_per_sec / 1e6 / n,
@@ -1014,7 +1076,7 @@ def profile(args, device=None) -> dict | None:
     their device time (``utils.benchmarking.profile_join``), on rank 0;
     the other ranks of a process group join unprofiled and return
     None."""
-    comm, _, build, probe, ladder, fixed, policy = _prepare(args, device)
+    comm, _, build, probe, ladder, fixed, policy, _ = _prepare(args, device)
     fn = comm.spmd(make_join_step(comm, **fixed, **ladder.sizing()),
                    sharded_out=JOIN_SHARDED_OUT)
     prof = profile_join(fn, build, probe, args.profile,

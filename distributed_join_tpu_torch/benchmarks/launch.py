@@ -21,7 +21,7 @@
 Port of ``distributed_join_tpu/benchmarks/launch.py``: the same flags and
 the same ``DJTPU_*`` environment (``parallel/bootstrap.py``); ``--slices``,
 ``--sort-mode``, ``--sort-segments``, ``--telemetry``, ``--trace``,
-``--diagnose``, ``--history``, ``--stage-profile`` and
+``--diagnose``, ``--history``, ``--stage-profile``, ``--auto-tune`` and
 ``--guard-deadline-s`` are handed on to the command
 (``benchmarks.FORWARDED_CHILD_FLAGS``), unless it carries the flag
 already: every process writes its own rank's telemetry files into the
@@ -101,6 +101,10 @@ def parse_args(argv=None):
                         "profile's programs)")
     p.add_argument("--explain", action="store_true",
                    help="forwarded to every process's driver")
+    p.add_argument("--auto-tune", nargs="?", const="", default=None,
+                   metavar="HISTORY",
+                   help="handed on to every process (the driver's "
+                        "history-driven pre-sizing)")
     p.add_argument("--guard-deadline-s", type=float, default=None,
                    metavar="S", help="handed on to every process")
     p.add_argument("command", nargs=argparse.REMAINDER,

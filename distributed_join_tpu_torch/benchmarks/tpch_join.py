@@ -44,8 +44,9 @@ runs one untimed metrics join after its timed loop
 back after the run, and ``--stage-profile N`` profiles the ``--query``
 plan operator by operator after the timed loop
 (``benchmarks.maybe_query_stage_profile``; the single-shot and batched
-paths refuse it, as the JAX driver's do). The integrity, chaos and tuner
-flags refuse by name. The ``--query`` record's
+paths refuse it, as the JAX driver's do). ``--auto-tune`` parses and the
+run refuses it with the JAX driver's message (JAX :131-137); the
+integrity and chaos flags refuse by name. The ``--query`` record's
 ``programs_traced``, ``warm_new_traces`` and ``warm_cache_hit`` come
 from the ``JoinProgramCache`` the plan runs through, and its
 ``counter_signature``, ``wire`` and ``wire_exact`` from one untimed
@@ -71,6 +72,7 @@ from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.bench import gpu_identity
 from distributed_join_tpu_torch.benchmarks import (
     UNPORTED_FLAGS,
+    add_auto_tune_arg,
     add_explain_arg,
     add_guard_arg,
     add_telemetry_args,
@@ -205,6 +207,7 @@ def parse_args(argv=None):
     add_telemetry_args(p)
     add_explain_arg(p)
     add_guard_arg(p)
+    add_auto_tune_arg(p)
     return p.parse_args(argv)
 
 
@@ -239,7 +242,14 @@ def _batched_opts(args, consumer, stats):
 
 def _guards(args) -> None:
     """The JAX driver's refusals of flags that do not apply (JAX
-    :139-199; those of the flags the port refuses by name are moot)."""
+    :131-199; those of the flags the port refuses by name are moot)."""
+    if getattr(args, "auto_tune", None) is not None:
+        # the batched paths re-plan a key-range batch, and the single
+        # shot is a fixed TPC-H shape: nothing here reads the store
+        raise SystemExit(
+            "--auto-tune is wired for tpu-distributed-join, bench.py "
+            "and the join service; the tpch driver does not consult "
+            "the history store yet")
     if getattr(args, "stage_profile", None) and args.query is None:
         # the single-join paths stage fixed real-schema tables (and the
         # batched ones re-plan a key-range batch); the --query path is

@@ -32,8 +32,9 @@ before hashing (JAX :536-552), and rebuilt on the way out (:783-790).
 Typed joins (``join_type``, ops/join.JOIN_TYPES) run each bucket's local
 join with the type: hash partitioning puts every key's rows of both
 sides in one bucket, so unmatched rows are local. The integrity digests
-(``with_integrity``, ``verify_integrity``) and the autotuner (``tuner``)
-refuse by name.
+(``with_integrity``, ``verify_integrity``) refuse by name (ROADMAP A5d).
+``distributed_inner_join(tuner=)`` consults the autotuner
+(``planning/tuner.py``) before the ladder resolves (JAX :1571-1597).
 
 Device metrics (``with_metrics``; JAX :517-1372): every step takes the
 JAX package's ``MetricsTape`` (``telemetry/metrics.py``) and then returns
@@ -124,7 +125,6 @@ JOIN_METRICS_SHARDED_OUT = (JOIN_SHARDED_OUT, True)
 _UNPORTED = {
     "with_integrity": ("wire-integrity digests (ROADMAP A5d)", False),
     "verify_integrity": ("wire-integrity digests (ROADMAP A5d)", False),
-    "tuner": ("the autotuner (ROADMAP A5c)", None),
 }
 
 
@@ -1077,7 +1077,8 @@ def resolve_join_ladder(build: Table, probe: Table, n_ranks: int,
 def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
                            key="key", auto_retry: int = 0,
                            program_cache=None, explain: bool = False,
-                           with_metrics=None, **opts) -> JoinResult:
+                           with_metrics=None, tuner=None,
+                           **opts) -> JoinResult:
     """One-shot join: pad to rank-divisible capacity, run the step on
     every rank, and on overflow re-run with the ladder's escalated
     capacities up to ``auto_retry`` times (every capacity doubles; the
@@ -1100,7 +1101,17 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
     read to the host). ``explain``: the result carries the plan of the
     attempt that produced it (``planning.build_plan`` at the final
     rung) as ``res.plan``; its digest is the program cache's key for
-    the same call. Building it is host arithmetic."""
+    the same call. Building it is host arithmetic.
+
+    ``tuner``: a ``planning.tuner.JoinTuner``, consulted on the unpadded
+    tables and the caller's options (the basis the service keys its
+    history on) before the ladder resolves. A workload whose ladder
+    escalated before starts at the rung it resolved to: its sizing and
+    its absolute rung label, so through ``program_cache`` it runs the
+    program the cold run built, with no rung climbed; structural knobs
+    the caller left unset may be filled from evidence. No history is the
+    static resolution. The verdict rides as ``res.tuned``
+    (``TunedConfig.as_record()``); the ladder still guards every run."""
     _refuse_unported({k: v for k, v in opts.items() if k in _UNPORTED})
     if with_metrics is None:
         with_metrics = telemetry.enabled()
@@ -1109,17 +1120,29 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
         raise ValueError(
             "program_cache was built for a different communicator")
     n = comm.n_ranks
+    opts = dict(opts)
+    tuned = None
+    if tuner is not None:
+        # before pad_to, on the caller's options: the signature the
+        # service's history lines were written under
+        tuned = tuner.resolve(comm, build, probe, key=key,
+                              opts=dict(opts, with_metrics=with_metrics))
+        opts = tuned.apply(opts)
     build = build.pad_to(_round_up(build.capacity, n))
     probe = probe.pad_to(_round_up(probe.capacity, n))
-    opts = dict(opts)
     ladder = resolve_join_ladder(build, probe, n, opts,
                                  n_slices=comm.n_slices)
+    if tuned is not None:
+        ladder.seed_rung(tuned.rung)
     for attempt in range(auto_retry + 1):
-        # the rung as the tape's retry_attempt_max (JAX :1601); a step
-        # with the tape off ignores it
-        static = {"metrics_static": {"retry_attempt_max": attempt}}
+        # the absolute rung label: a pre-sized first attempt carries the
+        # label, and so the program signature, of the cold run's rung;
+        # also the tape's retry_attempt_max (JAX :1601), which a step
+        # with the tape off ignores
+        rung = ladder.base_rung + attempt
+        static = {"metrics_static": {"retry_attempt_max": rung}}
         if program_cache is not None:
-            fn, _ = program_cache.get(build, probe, key=key, rung=attempt,
+            fn, _ = program_cache.get(build, probe, key=key, rung=rung,
                                       with_metrics=with_metrics, **static,
                                       **ladder.sizing(), **opts)
         else:
@@ -1136,13 +1159,15 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
         ladder.note(overflow)
         if attempt == auto_retry or not overflow:
             object.__setattr__(res, "retry_report", ladder.report())
+            if tuned is not None:
+                object.__setattr__(res, "tuned", tuned.as_record())
             if explain:
                 from distributed_join_tpu_torch.planning.plan import (
                     build_plan,
                 )
 
                 object.__setattr__(res, "plan", build_plan(
-                    comm, build, probe, key=key, rung=attempt,
+                    comm, build, probe, key=key, rung=rung,
                     with_metrics=with_metrics, **static,
                     **ladder.sizing(), **opts))
             telemetry.emit_metrics(getattr(res, "telemetry", None))

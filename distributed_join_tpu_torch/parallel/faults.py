@@ -17,9 +17,12 @@ Port of ``distributed_join_tpu/parallel/faults.py``:
 - ``RetryAttempt``, ``RetryReport`` and ``CapacityLadder`` (:697-892)
   over the capacities the port has: the compressed wire's bits, the
   shuffle and output factors, ``out_rows_per_rank``, and the skew
-  sidecar's three heavy-hitter blocks. (The JAX ladder's tuner seeding
-  and integrity rung belong to options the port refuses.) The same
-  shapes give the same rungs.
+  sidecar's three heavy-hitter blocks, and the autotuner's seeding
+  (``base_rung``, ``next_rung``, ``seed_rung``: a pre-sized ladder labels
+  its attempts with absolute rungs and its first with
+  ``tuned_presize``). (The JAX ladder's integrity rung belongs to the
+  wire-integrity digests, ROADMAP A5d.) The same shapes give the same
+  rungs.
 - The ragged plan's cross-rank validation (JAX :472-634, switched on by
   ``DJTPU_VALIDATE_PLANS`` or :func:`validate_plans`).
 - ``retry_with_backoff`` (JAX :636), which the bootstrap's handshake and
@@ -214,8 +217,10 @@ def retry_with_backoff(
 @dataclasses.dataclass(frozen=True)
 class RetryAttempt:
     """One rung: the sizing that ran and whether it overflowed.
-    ``action`` is what produced the sizing ("initial",
-    "widen_compression_bits" or "double_capacities")."""
+    ``attempt`` is the absolute rung label (``base_rung`` + the attempt's
+    index); ``action`` is what produced the sizing ("initial",
+    "tuned_presize", "widen_compression_bits" or
+    "double_capacities")."""
 
     attempt: int
     action: str
@@ -252,8 +257,12 @@ class RetryReport:
         return None if last is None else not last
 
     def as_record(self) -> Optional[dict]:
-        """JSON-shaped record; None when the join ran once, clean."""
-        if self.n_attempts <= 1 and self.resolved:
+        """JSON-shaped record; None when the join ran once, clean, from
+        rung 0. A tuner-seeded ladder keeps its record for one clean
+        attempt: the rung label and its sizing are what the history
+        store keeps for the next pre-size."""
+        if self.n_attempts <= 1 and self.resolved and (
+                not self.attempts or self.attempts[0].attempt == 0):
             return None
         return {
             "n_attempts": self.n_attempts,
@@ -270,7 +279,12 @@ class CapacityLadder:
     ``out_rows_per_rank`` when set (it supersedes the output factor),
     and, with the skew path on, the heavy-hitter blocks. The HH probe
     and output blocks jump straight to at least the rank's full probe
-    rows (``local_probe_rows``): one retry must cover any skew."""
+    rows (``local_probe_rows``): one retry must cover any skew.
+
+    ``base_rung`` (or :meth:`seed_rung`) starts the ladder at an
+    absolute rung label: the autotuner pre-sized the knobs to a rung an
+    earlier run escalated to, so the first attempt carries that run's
+    label, and with it the program signature the cache already holds."""
 
     def __init__(self, *, shuffle_capacity_factor: float,
                  out_capacity_factor: float,
@@ -280,7 +294,8 @@ class CapacityLadder:
                  hh_build_capacity: Optional[int] = None,
                  hh_probe_capacity: Optional[int] = None,
                  hh_out_capacity: Optional[int] = None,
-                 local_probe_rows: Optional[int] = None):
+                 local_probe_rows: Optional[int] = None,
+                 base_rung: int = 0):
         self.shuffle_f = shuffle_capacity_factor
         self.out_f = out_capacity_factor
         self.out_rows = out_rows_per_rank
@@ -290,8 +305,21 @@ class CapacityLadder:
         self.hh_probe = hh_probe_capacity
         self.hh_out = hh_out_capacity
         self.p_local = local_probe_rows
-        self._action = "initial"
+        self.base_rung = base_rung
+        self._action = "initial" if base_rung == 0 else "tuned_presize"
         self._attempts: list = []
+
+    @property
+    def next_rung(self) -> int:
+        """The absolute rung label of the attempt about to run."""
+        return self.base_rung + len(self._attempts)
+
+    def seed_rung(self, rung: int) -> None:
+        """Start at absolute rung ``rung`` (the sizing was applied to
+        the construction's knobs already); no-op for rung 0."""
+        if rung:
+            self.base_rung = int(rung)
+            self._action = "tuned_presize"
 
     def sizing(self) -> dict:
         """Keyword arguments for ``make_join_step`` at this rung."""
@@ -306,7 +334,8 @@ class CapacityLadder:
     def note(self, overflow: Optional[bool]) -> None:
         """Record the outcome of running the current rung."""
         att = RetryAttempt(
-            attempt=len(self._attempts), action=self._action,
+            attempt=self.base_rung + len(self._attempts),
+            action=self._action,
             overflow=overflow, shuffle_capacity_factor=self.shuffle_f,
             out_capacity_factor=self.out_f,
             out_rows_per_rank=self.out_rows,

@@ -10,9 +10,10 @@
   :func:`calibrate_from_history` and :func:`calibrate_from_stage_profile`;
 - :mod:`.query` — the multi-operator query plans and
   :func:`explain_query`;
-- :mod:`.tuner` — :func:`workload_signature`. The autotuner itself
-  (``JoinTuner``, ``TunedConfig``) is not part of the port yet
-  (ROADMAP A5c).
+- :mod:`.tuner` — :class:`JoinTuner`, :class:`TunedConfig`,
+  :func:`format_tune` and :func:`workload_signature`: the history-driven
+  autotuner, which starts a repeat workload at the rung its ladder
+  escalated to and fills structural knobs from evidence.
 """
 
 from distributed_join_tpu_torch.planning.cost import (
@@ -43,7 +44,13 @@ from distributed_join_tpu_torch.planning.query import (
     explain_query,
     tpch_query_plan,
 )
-from distributed_join_tpu_torch.planning.tuner import workload_signature
+from distributed_join_tpu_torch.planning.tuner import (
+    TUNER_SCHEMA_VERSION,
+    JoinTuner,
+    TunedConfig,
+    format_tune,
+    workload_signature,
+)
 
 __all__ = [
     "COST_MODEL_VERSION",
@@ -52,11 +59,14 @@ __all__ = [
     "EXPLAIN_SCHEMA_VERSION",
     "QUERY_SCHEMA_VERSION",
     "STAGE_CONSTANTS",
+    "TUNER_SCHEMA_VERSION",
     "CostModel",
     "JoinPlan",
+    "JoinTuner",
     "QueryOp",
     "QueryPlan",
     "SidePlan",
+    "TunedConfig",
     "abstract_tables",
     "build_exchange_plan",
     "build_plan",
@@ -65,6 +75,7 @@ __all__ = [
     "calibrate_from_stage_profile",
     "explain_join",
     "explain_query",
+    "format_tune",
     "predict",
     "predict_exchange",
     "tpch_query_plan",

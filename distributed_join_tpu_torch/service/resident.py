@@ -35,9 +35,12 @@ table: the programs take it as a local input (``Communicator.spmd``'s
 step's metrics tape, ``None`` resolving from the telemetry session,
 folded into it by ``telemetry.emit_metrics``) and ``explain`` (the
 result's ``plan``, ``planning.build_probe_plan`` with the cached
-program's ``ResidentSignature`` digest). ``tuner`` and
-``verify_integrity`` refuse by name: the autotuner and the wire digests
-are not part of the port (ROADMAP A5c, A5d).
+program's ``ResidentSignature`` digest) and ``tuner`` (JAX :784-911: the
+autotuner's probe-only verdict, ``JoinTuner.resolve_resident``, keyed by
+the registry's generation-free workload signature; it pre-sizes the
+probe ladder and labels its rungs absolutely, and drops structural
+fills). ``verify_integrity`` refuses by name: the wire digests are not
+part of the port (ROADMAP A5d).
 
 Telemetry (JAX :240-279, :615-713, :869-873): the prep step's
 ``partition``, ``shuffle`` and ``sort`` spans and the merge's
@@ -649,7 +652,8 @@ class ResidentTableRegistry:
         return "res-" + hashlib.sha256(basis.encode()).hexdigest()[:13]
 
     def join(self, name: str, probe: Table, *, auto_retry: int = 2,
-             with_metrics=None, explain: bool = False, **opts):
+             tuner=None, with_metrics=None, explain: bool = False,
+             **opts):
         """One probe-only join against resident table ``name``: merge
         any pending runs first (every join sees every append), then
         partition, shuffle and sort the probe only, through the program
@@ -657,10 +661,18 @@ class ResidentTableRegistry:
         result carries ``retry_report`` and a ``resident`` record; with
         metrics on (``None``: the session's state) ``telemetry``, the
         step's block, and with ``explain`` the ``plan`` of the program
-        that produced it (its digest the cache key)."""
+        that produced it (its digest the cache key). With ``tuner`` (a
+        ``planning.tuner.JoinTuner``) the probe ladder starts at the
+        sizing and the absolute rung label the workload's history
+        resolved to, and the result carries ``tuned``."""
         _refuse_unported({k: opts.pop(k) for k in list(opts)
                           if k in _UNPORTED})
         handle = self.get(name)
+        # hashed first, on the unpadded probe and the caller's options:
+        # the basis the service keys its history lines on; only the
+        # tuner reads it, so a join without one skips the hash
+        wsig = (self.workload_signature(name, probe, opts)
+                if tuner is not None else None)
         if opts.pop("skew_threshold", None) is not None or any(
                 opts.get(k) is not None for k in
                 ("hh_build_capacity", "hh_probe_capacity",
@@ -675,17 +687,27 @@ class ResidentTableRegistry:
             with_metrics = telemetry.enabled()
         n = self.comm.n_ranks
         probe = probe.pad_to(_round_up(probe.capacity, n))
+        tuned = None
+        if tuner is not None:
+            tuned = tuner.resolve_resident(
+                self.comm, handle.capacity_per_rank, probe,
+                signature=wsig, opts=opts)
+            opts = tuned.apply(opts)
         ladder = resolve_join_ladder(handle.table, probe, n, opts,
                                      n_slices=self.comm.n_slices)
+        if tuned is not None:
+            ladder.seed_rung(tuned.rung)
         key_opt = (list(handle.keys) if len(handle.keys) > 1
                    else handle.keys[0])
         for attempt in range(auto_retry + 1):
+            # the absolute rung label (a seeded ladder starts above 0)
+            rung = ladder.base_rung + attempt
             sizing = {k: v for k, v in ladder.sizing().items()
                       if k in _PROBE_SIZING_KEYS}
             step_opts = dict(opts, key=key_opt, with_metrics=with_metrics,
-                             metrics_static={"retry_attempt_max": attempt},
+                             metrics_static={"retry_attempt_max": rung},
                              **sizing)
-            sig = self.probe_signature(handle, probe, step_opts, rung=attempt)
+            sig = self.probe_signature(handle, probe, step_opts, rung=rung)
 
             def build(step_opts=step_opts):
                 # the resident shard is local, the probe global
@@ -711,6 +733,8 @@ class ResidentTableRegistry:
                 object.__setattr__(res, "resident", {
                     "table": name, "generation": handle.generation,
                     "rows": handle.rows, "warm": bool(hit)})
+                if tuned is not None:
+                    object.__setattr__(res, "tuned", tuned.as_record())
                 if explain:
                     from distributed_join_tpu_torch.planning.plan import (
                         abstract_table,

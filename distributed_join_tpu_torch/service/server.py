@@ -51,8 +51,17 @@ Where the port differs:
   files: its generators draw other bits than the JAX package's, and
   other bits on a card than on the CPU, so a baseline gates only a run
   at its own rank count and device type.
+- ``auto_tune`` and ``tuner_history`` (JAX :134-154, :220-231) arm the
+  history-driven autotuner (``planning/tuner.py``'s ``JoinTuner``),
+  preloaded from ``tuner_history`` or the service's own history file and
+  fed every request's history entry after it is written; wire and
+  resident joins pass it as ``tuner=``, so a repeat of an escalated
+  workload runs pre-sized at its final rung. The history entry and the
+  flight record carry ``tuned``, ``explain`` its ``tuned`` block and
+  ``stats()`` a ``tuner`` block. The daemon's ``--auto-tune[=HISTORY]``
+  sets them.
 - Refused by name, each naming the ROADMAP item it waits for:
-  ``auto_tune`` (A5c), ``verify_integrity`` (A5d);
+  ``verify_integrity`` (A5d);
   ``persist_dir`` (the cache's disk tier, A6); ``--chaos-seed`` (A7);
   ``--platform``; and a daemon over a process group of more than one
   rank (A6): the JAX daemon is one controller, and a port daemon over N
@@ -94,10 +103,6 @@ SMOKE_BASELINE_DIR = os.path.join(
 
 # What each refused option waits for (ROADMAP Queue A).
 _REFUSED_CONFIG = {
-    "auto_tune": "the autotuner (planning/tuner.py's JoinTuner; "
-                 "ROADMAP A5c)",
-    "tuner_history": "the autotuner (planning/tuner.py's JoinTuner; "
-                     "ROADMAP A5c)",
     "verify_integrity": "the wire-integrity digests (ROADMAP A5d)",
     "persist_dir": "the program cache's disk tier (ROADMAP A6)",
 }
@@ -151,9 +156,11 @@ class ServiceConfig:
     ``flight_recorder_path`` pins where a poison or drain dump lands
     (default: the telemetry session's directory, else the history
     directory, else the working directory). The resident knobs size the
-    registry (``service/resident.py``). ``verify_integrity``,
-    ``persist_dir``, ``auto_tune`` and ``tuner_history`` keep the JAX
-    package's fields and refuse any value but their default."""
+    registry (``service/resident.py``). ``auto_tune`` arms the
+    autotuner, preloaded from ``tuner_history`` (default: the history
+    store's file, so a restarted service keeps its tuning).
+    ``verify_integrity`` and ``persist_dir`` keep the JAX package's
+    fields and refuse any value but their default."""
 
     auto_retry: int = 2
     verify_integrity: bool = False
@@ -255,6 +262,15 @@ class JoinService:
             os.path.join(hist_dir, tel_history.HISTORY_FILENAME),
             max_entries_per_signature=self.config.history_max_entries)
             if hist_dir else None)
+        # the autotuner: preloaded from the persisted history, fed each
+        # request's entry by _observe (JAX :220-231)
+        self.tuner = None
+        if self.config.auto_tune:
+            from distributed_join_tpu_torch.planning.tuner import JoinTuner
+
+            preload = self.config.tuner_history or (
+                self.history.path if self.history is not None else None)
+            self.tuner = JoinTuner(preload)
         self.resident = ResidentTableRegistry(
             comm, self.cache,
             max_tables=self.config.max_resident_tables,
@@ -354,6 +370,11 @@ class JoinService:
                     telemetry.event("request_rejected", reason="poisoned",
                                     request_id=req.rid)
                     raise self._poisoned_error()
+            if self.tuner is not None:
+                # the tuner's read namespace for this request, pinned while
+                # the exec lock serialises dispatch: the watchdog's worker
+                # thread cannot see this thread's tenant scope
+                self.tuner.active_tenant = tel_history.current_tenant()
             deadline = self.config.request_deadline_s
             traces0, hits0 = self.cache.traces, self.cache.hits
             try:
@@ -447,7 +468,7 @@ class JoinService:
                 return distributed_inner_join(
                     build, probe, self.comm, key=key,
                     auto_retry=self.config.auto_retry,
-                    program_cache=self.cache, **opts)
+                    program_cache=self.cache, tuner=self.tuner, **opts)
 
             res = self._execute(req, run_once, signature=req.sig)
             agg_rec = self._note_aggregate(res, req, agg_rec)
@@ -525,7 +546,7 @@ class JoinService:
             def run_once():
                 return self.resident.join(
                     table, probe, auto_retry=self.config.auto_retry,
-                    **opts)
+                    tuner=self.tuner, **opts)
 
             res = self._execute(req, run_once, signature=req.sig,
                                 table=table)
@@ -663,7 +684,8 @@ class JoinService:
         """The admission-free dry run (the ``explain`` op): the plan and
         the cost model's prediction of exactly the program a ``join``
         with these tables and options would dispatch at its first rung,
-        and the program cache's verdict for it (resident, or a build).
+        and the program cache's verdict for it (resident, or a build);
+        with the autotuner on, its verdict for the workload (``tuned``).
         Host arithmetic over shapes (the tables may be ``meta``): no
         admission slot, no exec lock, no device. The plan's digest is
         the cache key of that join. Served and failed dry runs show in
@@ -673,6 +695,13 @@ class JoinService:
             plan = self._plan_for(build, probe, key, opts)
             out = {"plan": plan.as_record(), "cost": plan.cost,
                    "cache": self.cache.predict_hit(plan.digest)}
+            if self.tuner is not None:
+                # the verdict a join with these tables and options would
+                # dispatch under, resolved as the join resolves it (the
+                # plan above is the static resolution's)
+                out["tuned"] = self.tuner.resolve(
+                    self.comm, build, probe, key=key,
+                    opts=opts).as_record()
         except BaseException:
             self.live.record_request("explain", "failed")
             raise
@@ -741,6 +770,8 @@ class JoinService:
                     rung_path = [a.action for a in rr.attempts]
             matches = req.matches if served else None
             overflow = req.overflow if served else None
+            tuned = (getattr(req.res, "tuned", None)
+                     if req.res is not None else None)
             counts = tel_history.retry_counts(retry_rec)
             error = (f"{type(req.err).__name__}: {req.err}"
                      if req.err is not None else None)
@@ -760,24 +791,31 @@ class JoinService:
                 plan_digest=plan_digest, outcome=req.outcome,
                 elapsed_s=round(elapsed_s, 6), matches=matches,
                 overflow=overflow, new_traces=new_traces,
-                cache_hits=cache_hits, rung_path=rung_path, tuned=None,
+                cache_hits=cache_hits, rung_path=rung_path,
+                tuned=tel_history.tuned_summary(tuned),
                 resident=resident, aggregate=aggregate, error=error,
                 trace=trace)
-            if self.history is not None:
+            if self.history is not None or self.tuner is not None:
                 tel = (getattr(req.res, "telemetry", None)
                        if served and req.res is not None else None)
                 metrics = (tel.to_dict() if hasattr(tel, "to_dict")
                            else None)
-                self.history.append(tel_history.request_entry(
+                entry = tel_history.request_entry(
                     request_id=req.rid, op=req.op, signature=req.sig,
                     outcome=req.outcome, wall_s=elapsed_s,
                     new_traces=new_traces, cache_hits=cache_hits,
                     matches=matches, retry_record=retry_rec,
                     metrics=metrics,
-                    predicted_wall_s=req.predicted_wall_s,
+                    predicted_wall_s=req.predicted_wall_s, tuned=tuned,
                     platform=self.device.type, resident=resident,
                     aggregate=aggregate, error=error, trace=trace,
-                    tenant=tenant))
+                    tenant=tenant)
+                if self.history is not None:
+                    self.history.append(entry)
+                if self.tuner is not None:
+                    # the next request of this signature sees this
+                    # outcome, a corrected rung after a mis-sized pre-size
+                    self.tuner.observe_entry(entry)
             if req.outcome == "hang":
                 self.dump_flight_recorder(
                     f"poisoned: request {req.rid} blew its deadline")
@@ -882,7 +920,8 @@ class JoinService:
                 "warm_hits": self.query_warm_hits,
                 "operators_max": self.query_operators_max,
             },
-            "tuner": None,
+            "tuner": (self.tuner.stats() if self.tuner is not None
+                      else None),
             "tenants": self.live.tenants_summary(),
         }
 
@@ -1463,13 +1502,13 @@ def _refused_flags() -> dict:
         "--platform": "platform selection (the JAX package's backend "
                       "choice; the daemon serves on --device)",
         "--persist-dir": _REFUSED_CONFIG["persist_dir"],
-        "--auto-tune": _REFUSED_CONFIG["auto_tune"],
         **UNPORTED_FLAGS,
     }
 
 
 def parse_args(argv=None):
     from distributed_join_tpu_torch.benchmarks import (
+        add_auto_tune_arg,
         add_guard_arg,
         add_telemetry_args,
         refuse_flags,
@@ -1566,6 +1605,7 @@ def parse_args(argv=None):
     p.add_argument("--json-output", default=None)
     add_telemetry_args(p)
     add_guard_arg(p)
+    add_auto_tune_arg(p)
     return p.parse_args(argv)
 
 
@@ -1592,6 +1632,10 @@ def _service_from_args(args) -> JoinService:
         max_programs=args.max_programs,
         history_dir=args.history_dir,
         history_max_entries=args.history_max_entries,
+        # bare --auto-tune learns from the service's own history store; a
+        # PATH also preloads that file's trends (JAX :2096-2100)
+        auto_tune=args.auto_tune is not None,
+        tuner_history=(args.auto_tune or None),
         flight_records=args.flight_records,
         flight_recorder_path=args.flight_recorder_path,
         max_resident_tables=args.max_resident_tables,
@@ -1714,13 +1758,17 @@ def _poison_drill(args, device) -> dict:
 
 def _resident_drill(service: JoinService, args, violations) -> dict:
     """The smoke's resident A/B, in process: register a build once, then
-    N probe-only joins and N cold full joins of the same query, taking
-    turns so that a drift of the host's speed falls on both (the warm
-    probe-only joins build no program and, unless
-    ``--smoke-no-wall-gate``, beat the warm full joins on the median
-    wall: at the drill's ~2 ms a join the minimum of either side orders
-    by noise); after two LSM delta merges the probe-only answer equals
-    the numpy oracle over the combined build."""
+    N pairs of one cold full join and one probe-only join of the same
+    query, run back to back, the side that goes first alternating from
+    pair to pair. The warm probe-only joins build no program and, unless
+    ``--smoke-no-wall-gate``, beat the warm full joins pair by pair: the
+    median over the pairs of the full join's wall over the probe-only
+    join's must exceed 1. A pair's two joins share the host's speed of
+    the moment, so its ratio cancels a drift that the two sides'
+    separate medians do not (at the drill's ~2 ms a join the host's
+    speed wanders by more than the two sides differ). After two LSM
+    delta merges the probe-only answer equals the numpy oracle over the
+    combined build."""
     from distributed_join_tpu_torch.utils.generators import (
         generate_build_probe_tables,
         generate_build_table,
@@ -1752,10 +1800,12 @@ def _resident_drill(service: JoinService, args, violations) -> dict:
     # both programs built outside the timing
     for fn in sides.values():
         fn()
-    for _ in range(n_joins):
-        for side, fn in sides.items():
+    order = list(sides)
+    for i in range(n_joins):
+        # neither side always runs right after the other
+        for side in (order if i % 2 == 0 else order[::-1]):
             t0 = time.perf_counter()
-            res = fn()
+            res = sides[side]()
             walls[side].append(time.perf_counter() - t0)
             matches[side].append(res.matches)
             traces[side] += res.new_traces
@@ -1764,6 +1814,9 @@ def _resident_drill(service: JoinService, args, violations) -> dict:
     cold_traces, po_traces = traces["cold"], traces["probe_only"]
     cold_med = statistics.median(cold_walls)
     po_med = statistics.median(po_walls)
+    pair_ratios = [c / p for c, p in zip(cold_walls, po_walls)]
+    pair_ratio = statistics.median(pair_ratios)
+    pair_wins = sum(r > 1 for r in pair_ratios)
     if po_traces or cold_traces:
         violations.append(
             f"resident drill: timed warm passes traced programs "
@@ -1772,11 +1825,12 @@ def _resident_drill(service: JoinService, args, violations) -> dict:
         violations.append(
             f"resident drill: probe-only matches {po_matches} != cold "
             f"full-join matches {cold_matches}")
-    if po_med >= cold_med and not args.smoke_no_wall_gate:
+    if pair_ratio <= 1 and not args.smoke_no_wall_gate:
         violations.append(
-            f"resident drill: warm probe-only ({po_med:.4f}s median) "
-            "did not beat the warm cold full join "
-            f"({cold_med:.4f}s median)")
+            f"resident drill: warm probe-only won {pair_wins} of "
+            f"{len(pair_ratios)} pairs against the warm cold full join "
+            f"(median full / probe-only wall {pair_ratio:.4f}; medians "
+            f"{cold_med:.4f}s full, {po_med:.4f}s probe-only)")
 
     for d in deltas:
         service.append_rows(name, d, maintain=True)
@@ -1812,8 +1866,9 @@ def _resident_drill(service: JoinService, args, violations) -> dict:
         "probe_only_wall_min_s": min(po_walls),
         "cold_wall_median_s": cold_med,
         "probe_only_wall_median_s": po_med,
-        # the gated ratio: medians
-        "probe_only_speedup": cold_med / po_med if po_med else None,
+        # the gated ratio: the median over the pairs of full / probe-only
+        "probe_only_speedup": pair_ratio,
+        "probe_only_pair_wins": pair_wins,
         "matches_cold": cold_matches[0],
         "matches_probe_only": po_matches[0],
         "matches_after_appends": res_after.matches,

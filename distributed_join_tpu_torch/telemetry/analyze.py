@@ -32,8 +32,9 @@ baseline of :mod:`.baselines`: exit 2 on counter drift or a banded
 wall-time regression), ``explain`` (``--gate-wire-bytes`` makes the
 exact wire-byte prediction a gate), ``stages``, ``history`` (a
 workload-history store's per-signature trends, :mod:`.history`),
-``timeline`` (:mod:`.timeline`) and ``check``. ``tune`` refuses: the
-autotuner is not part of the port (ROADMAP A5c).
+``timeline`` (:mod:`.timeline`), ``tune`` (the autotuner's dry run over
+a history store, :mod:`..planning.tuner`: per signature the knobs a
+tuned run would dispatch with against the static plan) and ``check``.
 
 Device-free: analysis reads the artifacts, never the card, so it runs
 anywhere the files are.
@@ -1630,8 +1631,9 @@ def main(argv=None) -> int:
 
     tn = sub.add_parser(
         "tune",
-        help="the autotuner's dry run: not part of the port (ROADMAP "
-             "A5c); refuses with exit 1")
+        help="dry-run the autotuner (planning/tuner.py) against a "
+             "history store: per signature, the knobs a tuned run "
+             "would dispatch with against the static plan, and why")
     tn.add_argument("path",
                     help="history.jsonl, or a directory containing it")
     tn.add_argument("--signature", default=None,
@@ -1771,10 +1773,18 @@ def main(argv=None) -> int:
                     summary, path=history.history_path(args.path)))
             return 0
         if args.cmd == "tune":
-            print("error: tune: the autotuner (planning/tuner.py's "
-                  "JoinTuner) is not part of the port (ROADMAP A5c)",
-                  file=sys.stderr)
-            return 1
+            from distributed_join_tpu_torch.planning.tuner import (
+                JoinTuner,
+                format_tune,
+            )
+
+            tuner = JoinTuner(args.path, min_entries=args.min_entries)
+            record = tuner.dry_run(signature=args.signature)
+            if args.json:
+                print(json.dumps(record, indent=1))
+            else:
+                print(format_tune(record))
+            return 0
         if args.cmd == "explain":
             with open(args.explain) as f:
                 explain_doc = json.load(f)

@@ -10,10 +10,12 @@ the drill's build table (``service.server._resident_drill``'s shapes:
 seed 7, 16,384 build rows, 2,048 probe rows, keys below 8,192,
 selectivity 0.5, out capacity factor 3) with a ``JoinService`` over one
 rank, builds both programs outside the timing, then runs R rounds of N
-warm joins a side, the full join and the probe-only join taking turns,
-so that a drift of the host's speed falls on both. Prints one JSON
+warm joins a side in back-to-back pairs, the side that goes first
+alternating from pair to pair, as the drill takes them. Prints one JSON
 line: each round's minimum and median wall a side and the ratios full
-/ probe-only (above 1: the probe-only join is the faster), with
+/ probe-only (above 1: the probe-only join is the faster), the median
+over the pairs of a pair's ratio (the drill's gate) and the pairs the
+probe-only join won, with
 ``--walls`` every join's wall too, and the Python function calls a warm
 request of each side makes (``cProfile`` over 10 requests after the
 rounds): the host work a request, free of the host's speed.
@@ -62,19 +64,23 @@ def main(argv=None) -> int:
                                                          **opts)}
     for fn in sides.values():
         fn()
+    order = list(sides)
     rounds = []
     for _ in range(args.rounds):
         walls = {side: [] for side in sides}
-        for _ in range(args.joins):
-            for side, fn in sides.items():
+        for i in range(args.joins):
+            for side in (order if i % 2 == 0 else order[::-1]):
                 t0 = time.perf_counter()
-                fn()
+                sides[side]()
                 walls[side].append(time.perf_counter() - t0)
         row = {}
         for stat, f in (("min", min), ("median", statistics.median)):
             full, po = f(walls["full"]), f(walls["probe_only"])
             row.update({f"full_{stat}_s": full, f"probe_only_{stat}_s": po,
                         f"speedup_{stat}": full / po})
+        ratios = [a / b for a, b in zip(walls["full"], walls["probe_only"])]
+        row["speedup_pairs"] = statistics.median(ratios)
+        row["probe_only_pair_wins"] = sum(r > 1 for r in ratios)
         if args.walls:
             row["walls_s"] = walls
         rounds.append(row)
@@ -93,6 +99,8 @@ def main(argv=None) -> int:
         "torch": torch.__version__, "gpu": smi or None,
         "speedup_min": [r["speedup_min"] for r in rounds],
         "speedup_median": [r["speedup_median"] for r in rounds],
+        "speedup_pairs": [r["speedup_pairs"] for r in rounds],
+        "probe_only_pair_wins": [r["probe_only_pair_wins"] for r in rounds],
         "python_calls_a_request": calls,
         "rounds": rounds}))
     return 0

@@ -2000,3 +2000,48 @@ def test_stage_profile_on_card_launches_the_join_kernels(card):
         assert rec["platform"] == dev and not rec["overflow"]
         recs[dev] = {s: v["counters"] for s, v in rec["stages"].items()}
     assert recs["cuda"] == recs["cpu"]
+
+
+def test_tuned_warm_repeat_on_card_builds_no_program(card, tmp_path):
+    """The autotuner's warm contract at 1 M x 1 M on the card: the cold
+    join escalates (out_capacity_factor 0.1), and fed its history line,
+    the repeat builds no program, runs one ``tuned_presize`` attempt at
+    the cold run's final rung and launches the join kernels with the cold
+    run's total."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.planning.tuner import JoinTuner
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+    from distributed_join_tpu_torch.telemetry import history
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    b, p = generate_build_probe_tables(seed=5, build_nrows=1_000_000,
+                                       probe_nrows=1_000_000, device=card)
+    comm = LocalCommunicator()
+    cache, tuner = JoinProgramCache(comm), JoinTuner()
+    store = history.WorkloadHistory(str(tmp_path / "h.jsonl"))
+    cold = distributed_inner_join(b, p, comm, auto_retry=6,
+                                  program_cache=cache, tuner=tuner,
+                                  out_capacity_factor=0.1)
+    assert cold.retry_report.n_attempts >= 3 and cold.retry_report.resolved
+    store.append(history.request_entry(
+        request_id="cold", op="join", signature=cold.tuned["signature"],
+        outcome="served", wall_s=0.0,
+        retry_record=cold.retry_report.as_record(), tuned=cold.tuned))
+    tuner.load(store.path)
+    traces = cache.traces
+    _kernels.reset_launch_counts(scan.join_scans, expand.expand_gather)
+    warm = distributed_inner_join(b, p, comm, auto_retry=6,
+                                  program_cache=cache, tuner=tuner,
+                                  out_capacity_factor=0.1)
+    assert cache.traces == traces
+    final = cold.retry_report.attempts[-1].attempt
+    assert [(a.attempt, a.action) for a in warm.retry_report.attempts] == [
+        (final, "tuned_presize")]
+    assert int(warm.total) == int(cold.total)
+    assert scan.join_scans.launches == expand.expand_gather.launches == 1

@@ -362,10 +362,16 @@ def test_distributed_join_retry_ladder_matches_jax(jcomm8):
 def test_distributed_join_refuses_unported_options():
     t = _ttable({"key": np.arange(8), "a": np.arange(8)}, np.ones(8, bool))
     u = _ttable({"key": np.arange(8), "b": np.arange(8)}, np.ones(8, bool))
-    for name, value in (("with_integrity", True), ("tuner", object())):
+    for name, value in (("with_integrity", True),
+                        ("verify_integrity", True)):
         with pytest.raises(NotImplementedError, match=name):
             tdist.distributed_inner_join(t, u, LocalCommunicator(),
                                          **{name: value})
+    # the autotuner is ported: a tuner with no history is the static plan
+    from distributed_join_tpu_torch.planning.tuner import JoinTuner
+    res = tdist.distributed_inner_join(t, u, LocalCommunicator(),
+                                       tuner=JoinTuner())
+    assert res.tuned["source"] == "static" and int(res.total) == 8
     # the metrics tape and the plan are ported
     res = tdist.distributed_inner_join(t, u, LocalCommunicator(),
                                        with_metrics=True, explain=True)

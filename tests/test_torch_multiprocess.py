@@ -882,11 +882,18 @@ def test_launcher_refusals():
             "distributed_join_tpu_torch.benchmarks.launch",
             "--num-processes", "2"]
     for extra, match in ((["--chaos-seed", "2"], "--chaos-seed"),
-                         (["--cpu-devices-per-process", "4"], "one rank"),
-                         (["--auto-tune"], "--auto-tune")):
+                         (["--cpu-devices-per-process", "4"], "one rank")):
         r = subprocess.run([*base, *extra, "--", "true"], env=_env(),
                            capture_output=True, text=True, timeout=60)
         assert r.returncode != 0 and match in r.stderr, r.stderr
+    # --auto-tune is ported: the launcher hands it on to the command
+    r = subprocess.run([*base, "--cpu-devices-per-process", "1",
+                        "--auto-tune", "h.jsonl", "--", sys.executable,
+                        "-c", "import sys; assert sys.argv[1:] == "
+                        "['--auto-tune', 'h.jsonl'], sys.argv"],
+                       env=_env(), capture_output=True, text=True,
+                       timeout=60)
+    assert r.returncode == 0, r.stderr
     if not torch.cuda.is_available():
         r = subprocess.run([*base, "--", "true"], env=_env(),
                            capture_output=True, text=True, timeout=60)
@@ -1028,9 +1035,13 @@ def test_all_to_all_benchmark_refuses_one_rank_and_unported_flags():
                     "distributed_join_tpu_torch.benchmarks.all_to_all",
                     "--communicator", "gloo", "--buffer-size", "4096"])
     assert r.returncode != 0 and "needs >= 2 ranks" in r.stderr
-    for flag in ("--verify-integrity", "--auto-tune", "--chaos-seed"):
+    for flag in ("--verify-integrity", "--chaos-seed"):
         with pytest.raises(SystemExit):
             ta2a.parse_args([flag])
+    # --auto-tune parses (a flag of every driver) and the run refuses it
+    # with the JAX message: one exchange has no capacity to pre-size
+    with pytest.raises(SystemExit, match="no capacity contract"):
+        ta2a.run(ta2a.parse_args(["--auto-tune"]))
     # the exchange is one stage: --stage-profile parses (a telemetry flag
     # of every driver) and the run refuses it with the JAX message
     with pytest.raises(SystemExit, match="IS one shuffle stage"):

@@ -438,11 +438,15 @@ def test_refusals_never_wrong_rows(n):
     # the skew sidecar is not a probe-only knob
     _raises_same(lambda: jreg.join("dim", jp, skew_threshold=0.001),
                  lambda: treg.join("dim", tp, skew_threshold=0.001))
-    # what the port does not have refuses by name; the metrics tape and
-    # the plan are ported
-    for opt, value in (("verify_integrity", True), ("tuner", object())):
+    # what the port does not have refuses by name; the metrics tape, the
+    # plan and the autotuner are ported
+    for opt, value in (("verify_integrity", True),
+                       ("with_integrity", True)):
         with pytest.raises(NotImplementedError, match=opt):
             treg.join("dim", tp, **{opt: value})
+    from distributed_join_tpu_torch.planning.tuner import JoinTuner
+    assert treg.join("dim", tp, tuner=JoinTuner()).tuned["source"] == \
+        "static"
     res = treg.join("dim", tp, with_metrics=True, explain=True)
     assert res.telemetry.to_dict()["reduced"]["matches"] == int(res.total)
     assert res.plan.probe_only and res.plan.pipeline == "probe_join"

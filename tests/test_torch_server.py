@@ -520,16 +520,20 @@ def test_hung_request_poisons_as_jax(tmp_path):
 
 def test_port_refusals_by_name():
     """What waits for later slices refuses by name, naming the ROADMAP
-    item: the autotuner, the integrity digests, the disk tier, a
-    multi-rank process group; and the daemon's flags. ``explain`` is
-    ported: a dry run is served, a malformed one fails, each counted."""
+    item: the integrity digests, the disk tier, a multi-rank process
+    group; and the daemon's flags. ``explain`` and the autotuner
+    (``auto_tune``, ``tuner_history``, ``--auto-tune``) are ported: a dry
+    run is served, a malformed one fails, each counted."""
     tc = LocalCommunicator()
-    for field, item in (("auto_tune", "A5c"), ("verify_integrity", "A5d"),
-                        ("tuner_history", "A5c"), ("persist_dir", "A6")):
-        value = "x" if field in ("persist_dir", "tuner_history") else True
+    for field, item in (("verify_integrity", "A5d"), ("persist_dir", "A6")):
+        value = "x" if field == "persist_dir" else True
         with pytest.raises(NotImplementedError, match=f"{field}.*{item}"):
             ts.JoinService(tc, ts.ServiceConfig(**{field: value}),
                            device="cpu")
+    for cfg in ({"auto_tune": True}, {"auto_tune": True,
+                                      "tuner_history": "missing.jsonl"}):
+        tuned = ts.JoinService(tc, ts.ServiceConfig(**cfg), device="cpu")
+        assert tuned.stats()["tuner"]["signatures"] == 0
     svc = ts.JoinService(tc, device="cpu")
     from distributed_join_tpu_torch.planning.plan import abstract_tables
     out = svc.explain(*abstract_tables(256, 512))
@@ -544,8 +548,9 @@ def test_port_refusals_by_name():
             ts.JoinService(comm, device="cpu")
     one = ProcessGroupCommunicator(Mesh("gloo", 1, 0, torch.device("cpu")))
     assert ts.JoinService(one).device == torch.device("cpu")
+    assert ts.parse_args(["--auto-tune", "1"]).auto_tune == "1"
     for flag, item in (("--platform", "--device"),
-                       ("--persist-dir", "A6"), ("--auto-tune", "A5c"),
+                       ("--persist-dir", "A6"),
                        ("--verify-integrity", "A5d"),
                        ("--chaos-seed", "A7")):
         err = io.StringIO()

@@ -465,11 +465,13 @@ def test_config_driver_emulated_ranks_and_refusals(capsys):
         "--iterations", "1"]), device="cpu")
     assert rec["n_ranks"] == 4 and rec["communicator"] == "emulated"
     assert rec["skew_threshold"] is None and rec["matches_per_join"] > 0
-    for argv in (["--auto-tune"], ["--expand-kernel=xla"],
-                 ["--platform", "cpu"], ["--chaos-seed", "3"]):
+    for argv in (["--expand-kernel=xla"], ["--platform", "cpu"],
+                 ["--chaos-seed", "3"]):
         with pytest.raises(SystemExit):
             tdriver.parse_args(argv)
         assert argv[0].split("=")[0] in capsys.readouterr().err
+    # --auto-tune is ported: the driver takes it as the JAX driver does
+    assert tdriver.parse_args(["--auto-tune"]).auto_tune == ""
     # --agg-ab is ported: with the skew sidecar on it records the JAX
     # driver's skip reason (the pushdown refuses the heavy-hitter path)
     import argparse

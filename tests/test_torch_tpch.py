@@ -684,11 +684,22 @@ def test_driver_flags_cover_the_jax_driver():
     assert set(targs) <= set(jargs)
 
 
+# flags the driver takes and its run refuses, in the JAX driver's words
+RUN_REFUSED = {"--auto-tune": "does not consult the history store"}
+
+
 @pytest.mark.parametrize("flag", [f for f in JAX_FLAGS
-                                  if f in tdriver._REFUSED])
+                                  if f in tdriver._REFUSED
+                                  or f in RUN_REFUSED])
 def test_driver_refuses_what_the_port_lacks(flag, capsys):
     argv = [flag] + ([JAX_FLAGS[flag]] if JAX_FLAGS[flag] else [])
-    jdriver.parse_args(argv)  # the JAX driver takes it
+    jargs = jdriver.parse_args(argv)  # the JAX driver takes it
+    if flag in RUN_REFUSED:
+        targs = tdriver.parse_args(argv)
+        for run, args in ((jdriver.run, jargs), (tdriver.run, targs)):
+            with pytest.raises(SystemExit, match=RUN_REFUSED[flag]):
+                run(args)
+        return
     with pytest.raises(SystemExit):
         tdriver.parse_args(argv)
     err = capsys.readouterr().err

@@ -284,9 +284,14 @@ def test_guarded_run_returns_0_and_finalizes(tmp_path):
 
 DRIVERS = {"distributed_join": (tdriver, jdriver),
            "tpch_join": (ttpch, jtpch), "all_to_all": (ta2a, ja2a)}
-STILL_REFUSED = {"--auto-tune": ([], "A5c"),
+STILL_REFUSED = {"--auto-tune": ([], None),
                  "--verify-integrity": ([], "A5"),
                  "--chaos-seed": (["3"], "A7")}
+# --auto-tune is ported: the join driver takes it; the tpch and all_to_all
+# drivers take it and their runs refuse it in the JAX drivers' words
+AUTO_TUNE_RUN_REFUSAL = {"distributed_join": None,
+                         "tpch_join": "does not consult the history store",
+                         "all_to_all": "no capacity contract to pre-size"}
 
 
 @pytest.mark.parametrize("flag", sorted(STILL_REFUSED))
@@ -294,7 +299,16 @@ STILL_REFUSED = {"--auto-tune": ([], "A5c"),
 def test_drivers_refuse_what_waits_by_name(driver, flag, capsys):
     tmod, jmod = DRIVERS[driver]
     extra, queue = STILL_REFUSED[flag]
-    jmod.parse_args([flag, *extra])   # the JAX driver takes it
+    jargs = jmod.parse_args([flag, *extra])   # the JAX driver takes it
+    if queue is None:
+        targs = tmod.parse_args([flag, *extra])
+        assert targs.auto_tune == jargs.auto_tune == ""
+        match = AUTO_TUNE_RUN_REFUSAL[driver]
+        if match is not None:
+            for mod, args in ((jmod, jargs), (tmod, targs)):
+                with pytest.raises(SystemExit, match=match):
+                    mod.run(args)
+        return
     with pytest.raises(SystemExit):
         tmod.parse_args([flag, *extra])
     err = capsys.readouterr().err
@@ -304,6 +318,12 @@ def test_drivers_refuse_what_waits_by_name(driver, flag, capsys):
 @pytest.mark.parametrize("flag", sorted(STILL_REFUSED))
 def test_launcher_refuses_what_waits_by_name(flag, capsys):
     extra, queue = STILL_REFUSED[flag]
+    if queue is None:
+        # ported: handed on to every process's command
+        args = tlaunch.parse_args(["--num-processes", "2", flag, *extra,
+                                   "--", "drv"])
+        assert args.command == ["drv", flag, ""]
+        return
     with pytest.raises(SystemExit):
         tlaunch.parse_args(["--num-processes", "2", flag, *extra, "--",
                             "drv"])
