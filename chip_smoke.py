@@ -291,9 +291,25 @@ Phases (any failure raises, and the script exits non-zero):
    on the Zipf probe drops the structural fills. (d) the card's name and
    power limit beside the numbers. ``python3 chip_smoke.py --phase 23``
    runs this phase alone.
+24. Wire integrity (``parallel/integrity.py``), in a process of its own,
+   over 4 emulated ranks at 4 M x 4 M rows stored in key order: (a)
+   ``verify_integrity=True`` on the padded, ppermute, 16-bit compressed,
+   ragged (with a variable-length string payload), 2 x 2 hierarchical
+   (cross-slice codec on) and segmented wires, each clean with 2 n^2
+   pairs checked and the unverified join's row digest, the verified and
+   unverified ms a join (medians of 5), and the join kernels launched on
+   the verified joins (path ``integrity``); (b) every corruption mode on
+   the padded and ragged wires, ``bit_flip`` and ``misroute`` on the
+   cross-slice hop: a budget of 1 recovers through ``retry_integrity``
+   to the clean digest with the program evicted, an unbounded budget
+   raises ``IntegrityError``; (c) the join and all-to-all drivers'
+   ``--verify-integrity`` records; (d) the headline with integrity off,
+   its launches and row digest equal to the headline phase's. ``python3
+   chip_smoke.py --phase 24`` runs this phase alone.
 
 The whole script runs phases 2 to 14 and 16 in one process, then 15,
-17, 18, 19, 20, 21, 22 and 23 each in a process of its own (``--phase N``): late in one
+17, 18, 19, 20, 21, 22, 23 and 24 each in a process of its own
+(``--phase N``): late in one
 long process the profiler has dropped launches and scaled durations. A device
 time counts only when the profiler caught every launch the wrappers made
 and its clock agrees with the CUDA events' on a spin kernel in the same
@@ -317,7 +333,7 @@ groups site's entry carries too, phase 21(c)'s ``tape_*`` paths, and
 phase 22's ``stageprof_join`` (the k = 4 profile) and ``stageprof_q3``,
 and phase 23's ``tuner_warm``, ``tuner_service``, ``tuner_skew_fill``,
 ``tuner_wire_fill`` and ``tuner_sort_fill``, the last launching none: the
-segmented path; the skew site's entry carries its launches on the paths
+segmented path, and phase 24's ``integrity``; the skew site's entry carries its launches on the paths
 that run the sidecar, phase 23's ``tuner_skew_fill`` among them);
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -859,6 +875,7 @@ def headline_phase():
         selectivity=bench.SELECTIVITY, device=DEVICE)
     match_out = int(bench.MATCHES_PER_ROW * NROWS * bench.OUT_SLACK)
     contract_out = int(NROWS * 1.2)
+    digests = {}
     for label, out_cap in (("match_sized", match_out),
                            ("contract", contract_out)):
         k = sort_merge_inner_join(build, probe, "key", out_cap)
@@ -872,6 +889,7 @@ def headline_phase():
               f"digest kernel={dk} plain={dp}", flush=True)
         _check(dk == dp, f"headline {label} digest differs from the plain "
                          "path")
+        digests[label] = dk
         del k, p
 
     # a small join on the card against the CPU path (held against the
@@ -887,7 +905,7 @@ def headline_phase():
            > 0, "small join on the card differs from the CPU path")
     print(f"[headline] small join vs CPU path: total={int(g.total)} equal",
           flush=True)
-    return record, counts
+    return record, counts, digests
 
 
 def record_mode_phase():
@@ -5404,6 +5422,242 @@ def tuner_phase() -> dict:
     return paths
 
 
+INTEGRITY_RANKS = 4            # (a), (b): emulated ranks on this card
+INTEGRITY_ROWS = 4_000_000     # (a), (b): rows a side (int64 key, payload)
+INTEGRITY_REPS = 5             # (a): timed joins a median, each way
+INTEGRITY_SEED = 5             # (b): the fault plans' seed
+INTEGRITY_WIRES = (            # (a): (label, slices, join options)
+    ("padded", 1, {}),
+    ("ppermute", 1, {"shuffle": "ppermute"}),
+    ("compressed16", 1, {"compression_bits": 16}),
+    ("ragged_strings", 1, {"shuffle": "ragged"}),
+    ("hier2x2_codec", 2, {"shuffle": "hierarchical", "dcn_codec": "on"}),
+    ("segmented", 1, {"sort_mode": "segmented", "sort_segments": 4}),
+)
+INTEGRITY_SEAMS = {            # (b): wire -> the modes run on it
+    "padded": ("bit_flip", "row_truncate", "row_duplicate", "misroute"),
+    "ragged_strings": ("bit_flip", "row_truncate", "row_duplicate",
+                       "misroute"),
+    "hier2x2_codec": ("bit_flip", "misroute"),
+}
+A2A_INTEGRITY_MIB = 64         # (c): the all-to-all driver's buffer a rank
+
+
+def integrity_phase() -> dict:
+    """Phase 24: wire integrity (``parallel/integrity.py``) on the card,
+    over 4 emulated ranks at 4 M x 4 M rows (int64 key and payload, the
+    tables stored in key order, ``clustered``, so the 16-bit codec packs
+    them). (a) ``verify_integrity=True`` on every wire (padded, ppermute,
+    compressed at 16 bits, ragged with a variable-length 16-byte string
+    payload, the 2 x 2 hierarchy with the cross-slice codec, segmented):
+    each report ok with 2 n^2 checked pairs, each result's row digest the
+    unverified join's; the verified and unverified ms a join (medians of
+    5, host clock from a synchronised card to a synchronised card,
+    through a program cache), and the launches of the join kernels on the
+    verified joins (path ``integrity``). (b) each corruption mode on the
+    padded and ragged wires, and ``bit_flip`` and ``misroute`` on the
+    hierarchy's cross-slice hop: with ``auto_retry=2`` and a budget of 1
+    the trail is ``initial``, ``retry_integrity`` and the digest the clean
+    join's; with an unbounded budget ``IntegrityError`` and no rows. (c)
+    the join driver's and the all-to-all driver's ``--verify-integrity``
+    records over the emulated ranks: ``integrity.ok``. (d) integrity off:
+    the headline's launches and match-sized row digest, which ``main``
+    holds against the headline phase's. Returns ``{"launches_by_path":
+    {"integrity": counts}, "headline_launches": ...,
+    "headline_digest": ...}``."""
+    import functools
+    import statistics
+
+    from distributed_join_tpu_torch import bench
+    from distributed_join_tpu_torch.benchmarks import all_to_all as A
+    from distributed_join_tpu_torch.benchmarks import (
+        distributed_join as D,
+    )
+    from distributed_join_tpu_torch.ops.join import sort_merge_inner_join
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+        make_distributed_join,
+    )
+    from distributed_join_tpu_torch.parallel.faults import (
+        FaultInjectingCommunicator,
+        FaultPlan,
+    )
+    from distributed_join_tpu_torch.parallel.integrity import IntegrityError
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+    from distributed_join_tpu_torch.table import Table
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    from distributed_join_tpu_torch.utils.strings import (
+        LEN_SUFFIX,
+        encode_int_strings,
+    )
+
+    smi = gpu_line()
+    n = INTEGRITY_RANKS
+    build, probe = (clustered(t) for t in generate_build_probe_tables(
+        seed=SEED, build_nrows=INTEGRITY_ROWS, probe_nrows=INTEGRITY_ROWS,
+        device=DEVICE))
+    tag, tag_len = encode_int_strings(build.columns["build_payload"],
+                                      prefix="itm-", digits=12,
+                                      pad_digits=False)
+    stringed = Table(dict(build.columns, build_tag=tag,
+                          **{"build_tag" + LEN_SUFFIX: tag_len}),
+                     build.valid)
+
+    def comm_of(slices, plan=None):
+        inner = EmulatedCommunicator(n, n_slices=slices)
+        return inner if plan is None else FaultInjectingCommunicator(
+            inner, plan)
+
+    def tables_of(label):
+        return (stringed if label == "ragged_strings" else build), probe
+
+    # (a) clean verification on every wire
+    clean = {}
+    verified_calls = []
+    for label, slices, opts in INTEGRITY_WIRES:
+        comm = comm_of(slices)
+        cache = JoinProgramCache(comm)
+        b, p = tables_of(label)
+        opts = dict(opts, auto_retry=2)
+
+        def plain(comm=comm, cache=cache, b=b, p=p, opts=opts):
+            return distributed_inner_join(b, p, comm, program_cache=cache,
+                                          **opts)
+
+        def verified(comm=comm, cache=cache, b=b, p=p, opts=opts):
+            return distributed_inner_join(b, p, comm, program_cache=cache,
+                                          verify_integrity=True, **opts)
+
+        res_p, res_v = plain(), verified()
+        attempts = res_v.retry_report.n_attempts
+        if attempts > 1:
+            # the timed joins run the settled rung alone
+            opts = _settled(opts, res_v)
+            res_p, res_v = plain(opts=opts), verified(opts=opts)
+        rep = res_v.integrity_report
+        _check(rep.ok and rep.checked_pairs == 2 * n * n,
+               f"integrity (a) {label}: report {rep.as_record()}")
+        _check(not bool(res_v.overflow) and not bool(res_p.overflow),
+               f"integrity (a) {label} overflowed")
+        clean[label] = row_digest(res_p)
+        _check(row_digest(res_v) == clean[label],
+               f"integrity (a) {label}: the verified rows differ from the "
+               "unverified join's")
+        ms = {}
+        for way, fn in (("unverified", plain), ("verified", verified)):
+            walls = []
+            for _ in range(INTEGRITY_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(opts=opts)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            ms[way] = statistics.median(walls)
+        print(f"[integrity] (a) {label}: ok, {rep.checked_pairs} pairs, "
+              f"total={int(res_v.total)} digest={clean[label]}, "
+              f"{attempts} ladder attempt(s); ms a join at the settled rung "
+              f"(median of {INTEGRITY_REPS}) unverified "
+              f"{ms['unverified']:.3f} verified {ms['verified']:.3f} "
+              f"ratio {ms['verified'] / ms['unverified']:.4f}; {smi}",
+              flush=True)
+        verified_calls.append(functools.partial(verified, opts=opts))
+        del res_p, res_v
+    _, counts = counted(lambda: [fn() for fn in verified_calls])
+    print(f"[integrity] (a) launches on the verified joins of the "
+          f"{len(INTEGRITY_WIRES)} wires {counts}", flush=True)
+    _require_launched(counts, JOIN_KERNELS, "the integrity path")
+    # what the digests add on the padded wire: CUDA kernels of one join
+    # off, with the tape alone, and with the tape and the digests
+    comm = comm_of(1)
+    kernels = {way: cuda_kernels(lambda f=make_distributed_join(
+        comm, **kw): f(build, probe)) for way, kw in (
+            ("off", {}), ("tape", {"with_metrics": True}),
+            ("digests", {"with_integrity": True}))}
+    print(f"[integrity] (a) CUDA kernels of one padded join over {n} "
+          f"ranks: off {kernels['off']}, the tape alone "
+          f"{kernels['tape']}, the tape and the digests "
+          f"{kernels['digests']} (+{kernels['digests'] - kernels['tape']} "
+          f"for the digests)", flush=True)
+
+    # (b) every mode on the padded and ragged seams and the cross-slice hop
+    wires = {label: (slices, opts) for label, slices, opts in INTEGRITY_WIRES}
+    for label, modes in INTEGRITY_SEAMS.items():
+        slices, opts = wires[label]
+        b, p = tables_of(label)
+        for mode in modes:
+            comm = comm_of(slices, FaultPlan(seed=INTEGRITY_SEED,
+                                             corrupt_mode=mode,
+                                             corrupt_collectives=1))
+            cache = JoinProgramCache(comm)
+            res = distributed_inner_join(b, p, comm, program_cache=cache,
+                                         verify_integrity=True,
+                                         auto_retry=2, **opts)
+            trail = [a.action for a in res.retry_report.attempts]
+            _check(trail == ["initial", "retry_integrity"]
+                   and res.integrity_report.ok
+                   and row_digest(res) == clean[label]
+                   and cache.integrity_evictions == 1,
+                   f"integrity (b) {label} {mode}: trail {trail}, digest "
+                   f"{row_digest(res)} against {clean[label]}")
+            del res
+            comm = comm_of(slices, FaultPlan(seed=INTEGRITY_SEED,
+                                             corrupt_mode=mode,
+                                             corrupt_collectives=1 << 30))
+            try:
+                res = distributed_inner_join(b, p, comm,
+                                             verify_integrity=True,
+                                             auto_retry=1, **opts)
+                _fail(f"integrity (b) {label} {mode}: an unbounded budget "
+                      f"returned {int(res.total)} rows")
+            except IntegrityError as exc:
+                pairs = len(exc.report.mismatches)
+            print(f"[integrity] (b) {label} {mode}: budget 1 -> {trail}, "
+                  f"digest equal; unbounded -> IntegrityError on {pairs} "
+                  "pairs", flush=True)
+
+    # (c) the drivers' --verify-integrity over the emulated ranks
+    rec = D.run(D.parse_args(
+        ["--communicator", "emulated", "--n-ranks", str(n),
+         "--build-table-nrows", str(INTEGRITY_ROWS),
+         "--probe-table-nrows", str(INTEGRITY_ROWS), "--iterations", "2",
+         "--verify-integrity"]))
+    _check(rec["integrity"]["ok"] and not rec["overflow"],
+           f"integrity (c) join driver record {rec['integrity']}")
+    a2a, _ = A.run(A.parse_args(
+        ["--communicator", "emulated", "--n-ranks", str(n),
+         "--buffer-size", str(A2A_INTEGRITY_MIB << 20), "--iterations", "5",
+         "--verify-integrity"]))
+    _check(a2a["integrity"]["ok"]
+           and a2a["integrity"]["checked_pairs"] == n * n,
+           f"integrity (c) all-to-all driver record {a2a['integrity']}")
+    print(f"[integrity] (c) join driver: integrity {rec['integrity']}, "
+          f"{rec['elapsed_per_join_s'] * 1e3:.3f} ms a join; all-to-all "
+          f"driver: integrity {a2a['integrity']}, "
+          f"{a2a['elapsed_per_exchange_s'] * 1e3:.3f} ms an exchange; "
+          f"{smi}", flush=True)
+    del build, probe, stringed
+    torch.cuda.empty_cache()
+
+    # (d) integrity off: the headline's launches and row digest
+    record, head_counts = counted(
+        lambda: bench.run(NROWS, bench.ITERS, device=DEVICE))
+    hb, hp = generate_build_probe_tables(
+        seed=SEED, build_nrows=NROWS, probe_nrows=NROWS,
+        selectivity=bench.SELECTIVITY, device=DEVICE)
+    match_out = int(bench.MATCHES_PER_ROW * NROWS * bench.OUT_SLACK)
+    digest = row_digest(sort_merge_inner_join(hb, hp, "key", match_out))
+    print(f"[integrity] (d) integrity off: headline launches {head_counts}, "
+          f"match-sized digest {digest}, {record['matches_per_join']} "
+          "matches", flush=True)
+    return {"launches_by_path": {"integrity": counts},
+            "headline_launches": head_counts, "headline_digest": digest}
+
+
 def serving_kernel_entries(rows: list, paths: dict) -> list:
     """The serving shapes' rows of the kernels line: their launches on
     the path of the registry they were taken from (every warm request
@@ -5470,10 +5724,10 @@ def main(argv=None) -> int:
            and len(argv) == 2 else None)
     fault_job = (json.loads(argv[1]) if argv[:1] == ["--fault-driver"]
                  and len(argv) == 2 else None)
-    phases = [["--phase", str(p)] for p in range(13, 24)]
+    phases = [["--phase", str(p)] for p in range(13, 25)]
     if argv not in ([], *phases) and job is None and fault_job is None:
         print("usage: chip_smoke.py [--phase 13 | 14 | 15 | 16 | 17 | 18 "
-              "| 19 | 20 | 21 | 22 | 23]", file=sys.stderr)
+              "| 19 | 20 | 21 | 22 | 23 | 24]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5595,6 +5849,14 @@ def main(argv=None) -> int:
         print(ok, flush=True)
         return 0
 
+    if argv == ["--phase", "24"]:
+        integ = integrity_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps(integ), flush=True)
+        print(ok, flush=True)
+        return 0
+
     if argv == ["--phase", "18"]:
         resident_paths, serving_rows = resident_phase()
         print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
@@ -5620,7 +5882,7 @@ def main(argv=None) -> int:
     del build, probe
     torch.cuda.empty_cache()
 
-    _, head = timed(headline_phase)
+    _, head, head_digests = timed(headline_phase)
     rec = timed(record_mode_phase)
     timed(emulated_phase)
     skew_row, c3 = timed(config3_phase)
@@ -5637,11 +5899,23 @@ def main(argv=None) -> int:
     paths.update(timed(segmented_phase, *plain, flat_profile=flat_prof))
     # the phases that profile kernel rows late in the script, each in a
     # process of its own (``phase_in_own_process``)
-    own15, own17, own18, own19, own20, own21, own22, own23 = (
-        phase_in_own_process(p) for p in (15, 17, 18, 19, 20, 21, 22, 23))
+    own15, own17, own18, own19, own20, own21, own22, own23, own24 = (
+        phase_in_own_process(p)
+        for p in (15, 17, 18, 19, 20, 21, 22, 23, 24))
     for own_phase in (own15, own17, own18, own19, own20, own21, own22,
-                      own23):
+                      own23, own24):
         paths.update(own_phase["launches_by_path"])
+    # phase 24(d): integrity off leaves the headline as it was
+    _check(own24["headline_launches"] == head
+           and tuple(own24["headline_digest"])
+           == head_digests["match_sized"],
+           f"integrity off: the headline's launches "
+           f"{own24['headline_launches']} and digest "
+           f"{own24['headline_digest']} differ from the headline phase's "
+           f"{head} {head_digests['match_sized']}")
+    print(f"[integrity] (d) the headline with integrity off equals the "
+          f"headline phase's: launches {head}, digest "
+          f"{head_digests['match_sized']}", flush=True)
     tpch_rows, (groups_row,), serving_rows = (
         own15["rows"], own17["rows"], own18["rows"])
 

@@ -6,7 +6,8 @@ run, and the refusal of the JAX drivers' flags the port does not have
 ``maybe_diagnose`` :187-216, ``maybe_stage_profile`` and
 ``maybe_query_stage_profile`` :275-345, ``maybe_history`` :360-419,
 ``write_explain`` and ``explain_summary`` :219-274,
-``collect_join_metrics`` :745, ``add_telemetry_args`` :431-490,
+``collect_join_metrics`` :745, ``collect_integrity`` :705-741,
+``add_telemetry_args`` :431-490, ``--verify-integrity``,
 ``--guard-deadline-s`` and ``--auto-tune`` of ``add_robustness_args``
 :492-575, and the autotuner's driver seam ``resolve_tuner`` and
 ``tuned_driver_record`` :608-652).
@@ -28,6 +29,10 @@ holds the device counters of one join on the unshifted tables;
 and puts its summary in the record, and ``--stage-profile [N]`` profiles
 the timed program stage by stage (:func:`maybe_stage_profile`, an
 operator at a time on the query path) into ``DIR/stageprofile.json``.
+``--verify-integrity`` runs one untimed join with the wire digests after
+the timed loop (:func:`collect_integrity`): the record's ``"integrity"``
+is its report, and a mismatch fails the run rather than report a number
+computed from corrupt rows.
 """
 
 from __future__ import annotations
@@ -64,7 +69,6 @@ SCHEMA_VERSION = 2
 # Flags of every JAX driver and of its launcher that wait for other parts
 # of the port, each naming what it waits for.
 UNPORTED_FLAGS = {
-    "--verify-integrity": "the wire-integrity digests (ROADMAP A5d)",
     "--chaos-seed": "chaos injection (parallel/chaos.py, whose plans "
                     "draw the corruption modes; ROADMAP A7)",
 }
@@ -149,6 +153,50 @@ def collect_join_metrics(comm, build, probe, join_opts: dict,
         if sp is not None:
             sp.sync_on(res.total)
     return d
+
+
+def add_integrity_arg(parser) -> None:
+    """``--verify-integrity`` (JAX ``add_robustness_args`` :496-503)."""
+    parser.add_argument(
+        "--verify-integrity", action="store_true",
+        help="verify the shuffle wire with the per-(src, dst) digests "
+             "(parallel/integrity.py): one extra untimed verified join "
+             "after the timed loop (which stays the plain program); a "
+             "mismatch raises IntegrityError instead of reporting a "
+             "number computed from corrupt rows. The verdict lands in "
+             "the JSON record under 'integrity'")
+
+
+def collect_integrity(comm, build, probe, join_opts: dict,
+                      raise_on_mismatch: bool = True):
+    """The drivers' ``--verify-integrity`` (JAX :705-741): ONE join with
+    the wire digests on the unshifted tables, untimed, after the timed
+    loop, and its report's record. A mismatch raises
+    ``integrity.IntegrityError`` unless ``raise_on_mismatch`` is off; an
+    overflowed join is not checked, and the record says so. A
+    fault-injecting communicator's corruption budget is rearmed first:
+    the timed program spent it, and a clean verification would bless
+    numbers the corruption touched."""
+    from distributed_join_tpu_torch.parallel import integrity
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        make_distributed_join,
+    )
+
+    rearm = getattr(comm, "rearm_corruption", None)
+    if rearm is not None:
+        rearm()
+    with telemetry.span("verify_integrity") as sp:
+        res = make_distributed_join(comm, with_metrics=False,
+                                    with_integrity=True,
+                                    **join_opts)(build, probe)
+        if sp is not None:
+            sp.sync_on(res.total)
+    if bool(res.overflow):
+        return {"ok": None, "skipped": "overflow", "checked_pairs": 0}
+    report = integrity.verify_join_result(res)
+    if not report.ok and raise_on_mismatch:
+        raise integrity.IntegrityError(report)
+    return report.as_record()
 
 
 def write_explain(args, explain_record, label: str = ""):
@@ -386,6 +434,7 @@ FORWARDED_CHILD_FLAGS = (
     ("--sort-mode", "sort_mode", True),
     ("--sort-segments", "sort_segments", True),
     ("--auto-tune", "auto_tune", True),
+    ("--verify-integrity", "verify_integrity", False),
     ("--guard-deadline-s", "guard_deadline_s", True),
 )
 

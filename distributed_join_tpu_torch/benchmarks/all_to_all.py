@@ -24,8 +24,16 @@ an exchange (its own block stays), so ``aggregate_offchip_gb_per_sec`` =
 n x that egress / time; ``aggregate_gb_per_sec_incl_local`` counts the
 whole buffer, as the reference does.
 
+``--verify-integrity`` (JAX :59-88, :147-176) runs one untimed exchange
+of the same buffer with the wire digests after the timed windows: each
+rank's per-(source, destination) digests of the blocks it sent and
+received ride one step-end all-gather on a metrics tape, under
+``wire.integrity``, and the record's ``integrity`` is the report (a
+mismatch raises ``IntegrityError``).
+
 Flags as the JAX benchmark's: ``--n-ranks`` must equal the process
-group's size where given; ``--sort-mode flat`` and ``--sort-segments``
+group's size where given (with ``--communicator emulated``, the ranks of
+one process, one thread each, on one device); ``--sort-mode flat`` and ``--sort-segments``
 are taken (the microbenchmark has no local sort), any other sort mode
 refuses with the JAX message, as do ``--stage-profile`` (the exchange
 is one stage) and ``--auto-tune`` (no capacity to pre-size); ``--telemetry``, ``--trace``, ``--diagnose``,
@@ -49,6 +57,7 @@ from distributed_join_tpu_torch.benchmarks import (
     add_auto_tune_arg,
     add_explain_arg,
     add_guard_arg,
+    add_integrity_arg,
     add_telemetry_args,
     explain_summary,
     write_explain,
@@ -78,10 +87,14 @@ def parse_args(argv=None):
                    help="bytes in each rank's send buffer (split across "
                         "peers), reference-style fixed-size exchange")
     p.add_argument("--communicator", default="nccl",
-                   choices=["nccl", "gloo"])
+                   choices=["nccl", "gloo", "emulated"],
+                   help="nccl / gloo: one process a rank under the "
+                        "launcher; emulated: --n-ranks ranks in one "
+                        "process, one thread each, on one device")
     p.add_argument("--n-ranks", type=int, default=None,
                    help="ranks of the exchange; must equal the process "
-                        "group's size (default: the group's size)")
+                        "group's size (default: the group's size); "
+                        "required with emulated")
     p.add_argument("--iterations", type=int, default=20,
                    help="chained exchanges in a timed window")
     p.add_argument("--json-output", default=None)
@@ -96,6 +109,7 @@ def parse_args(argv=None):
     add_explain_arg(p)
     add_guard_arg(p)
     add_auto_tune_arg(p)
+    add_integrity_arg(p)
     return p.parse_args(argv)
 
 
@@ -117,6 +131,43 @@ def expected_checksum(x: torch.Tensor, iters: int) -> int:
     for i in range(iters):
         y = (y + 1) + i
     return int(y.to(torch.int64).sum())
+
+
+def verified_exchange(comm, x: torch.Tensor) -> dict:
+    """One exchange of the benchmark buffer with the wire digests
+    (untimed, after the timed windows): each rank digests the blocks it
+    sends and the blocks it receives (``integrity.padded_block_digests``,
+    every block full), and the pairs ride one step-end all-gather on a
+    metrics tape under ``wire.integrity``: the join shuffles' integrity
+    channel on the raw wire. Returns the report's record; a mismatch
+    raises ``integrity.IntegrityError``. A fault-injecting
+    communicator's corruption budget is rearmed first, as
+    ``benchmarks.collect_integrity`` does."""
+    from distributed_join_tpu_torch.parallel import integrity
+    from distributed_join_tpu_torch.telemetry.metrics import MetricsTape
+
+    n = comm.n_ranks
+    rearm = getattr(comm, "rearm_corruption", None)
+    if rearm is not None:
+        rearm()
+
+    def exchange(xr):
+        buf = xr.reshape(n, -1)
+        full = torch.full((n,), buf.shape[1], dtype=torch.int32,
+                          device=buf.device)
+        sent = integrity.padded_block_digests({"buf": buf}, full)
+        recv = integrity.padded_block_digests({"buf": comm.all_to_all(buf)},
+                                              full)
+        tape = MetricsTape()
+        integrity.record_pair_digests(tape.scoped("wire.integrity"), sent,
+                                      recv)
+        return tape.gathered(comm, buf.device)
+
+    report = integrity.verify_digests(
+        comm.spmd(exchange, sharded_out=True)(x))
+    if not report.ok:
+        raise integrity.IntegrityError(report)
+    return report.as_record()
 
 
 def timed_window(comm, fn, x: torch.Tensor) -> tuple[float, int]:
@@ -186,6 +237,9 @@ def run(args, device=None) -> tuple[dict, list]:
         if w:
             window_s.append(sec / iters)
     sec = statistics.median(window_s)
+    # --verify-integrity: one untimed exchange of the same buffer with
+    # the digests; the timed windows stay the plain program
+    integ = verified_exchange(comm, x) if args.verify_integrity else None
 
     bytes_per_rank = elems * 4
     egress = bytes_per_rank * (n - 1) / n
@@ -203,7 +257,7 @@ def run(args, device=None) -> tuple[dict, list]:
         "communicator": comm.name,
         "n_ranks": n,
         "buffer_bytes_per_rank": bytes_per_rank,
-        "integrity": None,
+        "integrity": integ,
         "explain": explain_rec,
         "chaos_seed": None,
         "elapsed_per_exchange_s": sec,

@@ -33,6 +33,10 @@ do not segment; ``--diagnose`` reads the session back after the run.
 ``--auto-tune[=HISTORY]`` (JAX :432-480) pre-sizes the ladder from the
 workload's history (``benchmarks.tuned_driver_record``: capacities and
 the rung label only) and the record carries ``tuned``.
+``--verify-integrity`` (JAX :572-687) runs one untimed join with the wire
+digests at the final rung after the timed loop
+(``benchmarks.collect_integrity``): the record's ``integrity``, and a
+mismatch fails the run.
 Every other flag of the JAX driver refuses by name.
 
 Skew auto-policy (JAX :359-405): with ``--zipf-alpha`` and no
@@ -73,7 +77,9 @@ from distributed_join_tpu_torch.benchmarks import (
     add_auto_tune_arg,
     add_explain_arg,
     add_guard_arg,
+    add_integrity_arg,
     add_telemetry_args,
+    collect_integrity,
     collect_join_metrics,
     explain_summary,
     maybe_stage_profile,
@@ -303,6 +309,7 @@ def parse_args(argv=None):
     add_explain_arg(p)
     add_guard_arg(p)
     add_auto_tune_arg(p)
+    add_integrity_arg(p)
     args = p.parse_args(argv)
     refuse_trace_with_profile(p, args)
     return args
@@ -983,6 +990,12 @@ def run(args, device=None) -> dict:
     # it ran at)
     collect_join_metrics(comm, build, probe, dict(fixed, **ladder.sizing()),
                          attempt=ladder.base_rung + attempt)
+    # --verify-integrity: one untimed join with the wire digests at the
+    # final rung; a mismatch raises rather than report a throughput
+    # computed from corrupt rows
+    integ = (collect_integrity(comm, build, probe,
+                               dict(fixed, **ladder.sizing()))
+             if args.verify_integrity else None)
     explain_rec = None
     if args.explain:
         # the plan of the timed program (the final rung, tape off)
@@ -1038,6 +1051,7 @@ def run(args, device=None) -> dict:
         "overflow": overflow,
         "retry": ladder.report().as_record(),
         "tuned": tuned_rec,
+        "integrity": integ,
         "elapsed_per_join_s": sec,
         "rows_per_sec": rows_per_sec,
         "m_rows_per_sec_per_rank": rows_per_sec / 1e6 / n,

@@ -105,6 +105,9 @@ def parse_args(argv=None):
                    metavar="HISTORY",
                    help="handed on to every process (the driver's "
                         "history-driven pre-sizing)")
+    p.add_argument("--verify-integrity", action="store_true",
+                   help="handed on to every process (the drivers' one "
+                        "verified join after the timed loop)")
     p.add_argument("--guard-deadline-s", type=float, default=None,
                    metavar="S", help="handed on to every process")
     p.add_argument("command", nargs=argparse.REMAINDER,

@@ -45,8 +45,13 @@ back after the run, and ``--stage-profile N`` profiles the ``--query``
 plan operator by operator after the timed loop
 (``benchmarks.maybe_query_stage_profile``; the single-shot and batched
 paths refuse it, as the JAX driver's do). ``--auto-tune`` parses and the
-run refuses it with the JAX driver's message (JAX :131-137); the
-integrity and chaos flags refuse by name. The ``--query`` record's
+run refuses it with the JAX driver's message (JAX :131-137).
+``--verify-integrity`` (JAX :176, :257-402) checks the wire digests: the
+batched paths verify every batch (``batched_join_host``'s contract), the
+single shot runs one verified join after its timed loop
+(``benchmarks.collect_integrity``, the record's ``integrity``), and the
+``--query`` path refuses it, as the JAX driver's does. ``--chaos-seed``
+refuses by name. The ``--query`` record's
 ``programs_traced``, ``warm_new_traces`` and ``warm_cache_hit`` come
 from the ``JoinProgramCache`` the plan runs through, and its
 ``counter_signature``, ``wire`` and ``wire_exact`` from one untimed
@@ -75,7 +80,9 @@ from distributed_join_tpu_torch.benchmarks import (
     add_auto_tune_arg,
     add_explain_arg,
     add_guard_arg,
+    add_integrity_arg,
     add_telemetry_args,
+    collect_integrity,
     collect_join_metrics,
     explain_summary,
     write_explain,
@@ -208,6 +215,7 @@ def parse_args(argv=None):
     add_explain_arg(p)
     add_guard_arg(p)
     add_auto_tune_arg(p)
+    add_integrity_arg(p)
     return p.parse_args(argv)
 
 
@@ -237,7 +245,8 @@ def _batched_opts(args, consumer, stats):
         manifest_path=args.manifest,
         batch_retries=args.batch_retries,
         on_batch_failure=("continue" if args.continue_on_batch_failure
-                          else "raise"))
+                          else "raise"),
+        verify_integrity=args.verify_integrity)
 
 
 def _guards(args) -> None:
@@ -278,6 +287,7 @@ def _guards(args) -> None:
             ("--q3-filters", args.q3_filters),
             ("--fetch-results", args.fetch_results),
             ("--manifest", bool(args.manifest)),
+            ("--verify-integrity", args.verify_integrity),
         ) if on]
         if bad:
             # the query path is a single-shot program family of its own
@@ -356,7 +366,7 @@ def run(args, device=None) -> dict:
         rss["after_loop"] = _host_rss()
         extra = {
             "host_generator": True,
-            "verify_integrity": False,
+            "verify_integrity": args.verify_integrity,
             "narrow_wire": not args.wide_wire,
             "generate_s": gen_s,
             "batch_build_capacity": stats["build_capacity"],
@@ -401,7 +411,7 @@ def run(args, device=None) -> dict:
             **_batched_opts(args, consumer, stats))
         sec = stats["elapsed_s"]
         extra = {
-            "verify_integrity": False,
+            "verify_integrity": args.verify_integrity,
             "manifest": args.manifest,
             "resumed_batches": stats["resumed_batches"],
             "failed_batches": stats["failed_batches"],
@@ -433,6 +443,11 @@ def run(args, device=None) -> dict:
         extra = {} if spec is None else {
             "agg": True, "aggregate": _grade_agg(comm, step, build, probe,
                                                  spec)}
+        if args.verify_integrity:
+            # one untimed join with the wire digests, as the config
+            # driver's
+            extra["integrity"] = collect_integrity(comm, build, probe,
+                                                   join_opts)
         if args.explain:
             doc = build_plan(comm, build, probe, with_metrics=False,
                              **join_opts).explain_record()

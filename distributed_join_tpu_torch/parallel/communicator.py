@@ -68,6 +68,13 @@ class Communicator(abc.ABC):
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every rank's ``x`` concatenated along dim 0, in rank order."""
 
+    def all_gather_counts(self, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`all_gather` of the ragged plan's count rows
+        (``shuffle.prefetch_ragged_plans``, ``shuffle.ragged_plan``): a
+        seam of its own, where ``faults.FaultInjectingCommunicator`` can
+        tell every rank the same lie about the count matrix."""
+        return self.all_gather(x)
+
     @abc.abstractmethod
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Elementwise sum over ranks, replicated."""
@@ -485,6 +492,17 @@ _SUM_WIRE = {
 }
 
 
+def _window(rows: torch.Tensor, start: int, size: int) -> torch.Tensor:
+    """``rows[start:start + size]``, zero-filled where it passes the end:
+    only a corrupted plan asks for such a window (the emulation's clamped
+    reads send some row there too), and the exchange keeps its sizes."""
+    got = rows[start:start + size]
+    if got.shape[0] == size:
+        return got
+    return torch.cat([got, got.new_zeros((size - got.shape[0],)
+                                         + tuple(got.shape[1:]))])
+
+
 def _to_bytes(x: torch.Tensor) -> torch.Tensor:
     """``x`` (rows, ...) as a contiguous (rows, row bytes) uint8 tensor:
     every backend moves bytes, so every dtype and width crosses the wire
@@ -626,9 +644,10 @@ class ProcessGroupCommunicator(Communicator):
             input_offsets, send_sizes, recv_sizes, recv_offsets)
         src = _to_bytes(operand)
         if all(ins[i + 1] == ins[i] + sends[i] for i in range(len(ins) - 1)):
-            packed = src[ins[0]:ins[0] + sum(sends)]
+            packed = _window(src, ins[0], sum(sends))
         else:
-            packed = torch.cat([src[o:o + s] for o, s in zip(ins, sends)])
+            packed = torch.cat([_window(src, o, s)
+                                for o, s in zip(ins, sends)])
         out = _to_bytes(output).clone()
         total = sum(recvs)
         if all(dsts[j] == sum(recvs[:j]) for j in range(len(dsts))):

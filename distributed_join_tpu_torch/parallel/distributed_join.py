@@ -31,8 +31,7 @@ whole rows, and string keys are packed into 64-bit word columns once,
 before hashing (JAX :536-552), and rebuilt on the way out (:783-790).
 Typed joins (``join_type``, ops/join.JOIN_TYPES) run each bucket's local
 join with the type: hash partitioning puts every key's rows of both
-sides in one bucket, so unmatched rows are local. The integrity digests
-(``with_integrity``, ``verify_integrity``) refuse by name (ROADMAP A5d).
+sides in one bucket, so unmatched rows are local.
 ``distributed_inner_join(tuner=)`` consults the autotuner
 (``planning/tuner.py``) before the ladder resolves (JAX :1571-1597).
 
@@ -46,6 +45,20 @@ JAX package's ``MetricsTape`` (``telemetry/metrics.py``) and then returns
 resolves ``with_metrics=None`` from the telemetry session, as the JAX
 package does, and hangs the block on the result as ``res.telemetry``.
 With the tape off a step launches exactly what it launched before.
+
+Wire integrity (``with_integrity``; JAX :196, :514-521, :678-763,
+:807-914, :952-956, :1022-1357): every shuffle of the step digests what
+it sends and what it believes it received (``parallel/integrity.py``),
+under ``build.integrity``, ``probe.integrity`` and
+``partials.integrity``, on the same tape, so a step with integrity on
+returns ``(JoinResult, Metrics)`` as a metrics step does and adds no
+collective. ``distributed_inner_join(verify_integrity=True)`` checks
+every (source, destination) pair on the host after each attempt: a
+mismatch on an attempt that did not overflow is the ladder's
+``retry_integrity`` rung (the same sizing, the attempt's cached program
+evicted), and the last attempt raises ``integrity.IntegrityError``
+rather than return its rows. With both switches off a step launches
+exactly what it launched before.
 
 Telemetry (JAX :572-947, :1177-1348): with a session on, the steps
 record JAX's spans under JAX's names and payloads: ``skew``,
@@ -85,7 +98,7 @@ from distributed_join_tpu_torch.ops import segmented as seg_ops
 from distributed_join_tpu_torch.ops.partition import radix_hash_partition
 from distributed_join_tpu_torch.parallel import skew
 from distributed_join_tpu_torch.parallel.communicator import Communicator
-from distributed_join_tpu_torch.parallel import faults
+from distributed_join_tpu_torch.parallel import faults, integrity
 from distributed_join_tpu_torch.parallel.faults import CapacityLadder
 from distributed_join_tpu_torch.planning.cost import (
     DEFAULT_DCN_CODEC_BITS,
@@ -120,24 +133,6 @@ JOIN_SHARDED_OUT = JoinResult(table=False, total=True, overflow=True)
 # (one all-gather in the step).
 JOIN_METRICS_SHARDED_OUT = (JOIN_SHARDED_OUT, True)
 
-# Options of the JAX package's join step and driver that the port does
-# not have, with the default each may still be passed as.
-_UNPORTED = {
-    "with_integrity": ("wire-integrity digests (ROADMAP A5d)", False),
-    "verify_integrity": ("wire-integrity digests (ROADMAP A5d)", False),
-}
-
-
-def _refuse_unported(opts: dict) -> None:
-    for name, value in opts.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"unexpected join option {name!r}")
-        what, default = _UNPORTED[name]
-        if value is not None and value != default:
-            raise NotImplementedError(
-                f"{name}={value!r}: {what} is not part of the port")
-
-
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -153,7 +148,7 @@ def _varwidth_cols(table: Table) -> list:
 
 def _padded_wire(comm, padded, counts, capacity: int, mode: str = "padded",
                  compression_bits: Optional[int] = None,
-                 dcn_codec_on: bool = False, tape=None):
+                 dcn_codec_on: bool = False, tape=None, digest_tape=None):
     """One batch's exchange of one side's padded blocks on the wire of
     ``mode`` (padded, ppermute or hierarchical; with the codec where
     ``compression_bits`` or the cross-slice codec puts it): the
@@ -166,7 +161,8 @@ def _padded_wire(comm, padded, counts, capacity: int, mode: str = "padded",
         dcn_bits = ((compression_bits or DEFAULT_DCN_CODEC_BITS)
                     if dcn_codec_on else None)
         table, _, c_ovf = shuffle_hierarchical(
-            comm, padded, counts, capacity, dcn_bits=dcn_bits, tape=tape)
+            comm, padded, counts, capacity, dcn_bits=dcn_bits, tape=tape,
+            digest_tape=digest_tape)
         return table, c_ovf
     if mode == "hierarchical":
         mode, compression_bits = "padded", None
@@ -174,17 +170,17 @@ def _padded_wire(comm, padded, counts, capacity: int, mode: str = "padded",
     if compression_bits is not None:
         table, _, c_ovf = shuffle_padded_compressed(
             comm, padded, counts, capacity, bits=compression_bits, via=via,
-            tape=tape)
+            tape=tape, digest_tape=digest_tape)
         return table, c_ovf
     table, _ = shuffle_padded(comm, padded, counts, capacity, via=via,
-                              tape=tape)
+                              tape=tape, digest_tape=digest_tape)
     return table, None
 
 
 def _batch_shuffle(comm, pt, batch: int, n_ranks: int, capacity: int,
                    mode: str = "padded",
                    compression_bits: Optional[int] = None, varwidth=None,
-                   dcn_codec_on: bool = False, tape=None):
+                   dcn_codec_on: bool = False, tape=None, digest_tape=None):
     """One batch's shuffle of one side (JAX :95): the received table and
     the overflow flag. The ragged wire's receive buffer holds what the
     padded layout would flatten to (``n_ranks * capacity`` rows), and
@@ -194,11 +190,13 @@ def _batch_shuffle(comm, pt, batch: int, n_ranks: int, capacity: int,
     if mode == "ragged":
         return shuffle_ragged(
             comm, pt, n_ranks * capacity, bucket_start=batch * n_ranks,
-            capacity_per_bucket=capacity, varwidth=varwidth, tape=tape)
+            capacity_per_bucket=capacity, varwidth=varwidth, tape=tape,
+            digest_tape=digest_tape)
     padded, counts, overflow, _ = pt.to_padded(
         capacity, bucket_start=batch * n_ranks, n_buckets=n_ranks)
     table, c_ovf = _padded_wire(comm, padded, counts, capacity, mode,
-                                compression_bits, dcn_codec_on, tape)
+                                compression_bits, dcn_codec_on, tape,
+                                digest_tape)
     return table, overflow if c_ovf is None else overflow | c_ovf
 
 
@@ -237,10 +235,11 @@ def _step_capacities(b_rows: int, p_rows: int, n: int, k: int,
     return b_cap, p_cap, out_cap
 
 
-def _new_tape(with_metrics: bool, metrics_static) -> Optional[MetricsTape]:
-    """The step's tape (None with metrics off), holding the caller's
+def _new_tape(with_aux: bool, metrics_static) -> Optional[MetricsTape]:
+    """The step's tape (None with metrics and integrity off: the digests
+    ride the same tape, so either switch makes it), holding the caller's
     constants (``metrics_static``, e.g. ``retry_attempt_max``)."""
-    if not with_metrics:
+    if not with_aux:
         return None
     tape = MetricsTape()
     for name, value in (metrics_static or {}).items():
@@ -256,15 +255,23 @@ def _bill_partition(tape, pt, cap: int) -> None:
                     cap - pt.counts.max().to(torch.int64))
 
 
-def _scopes(tape, n: int) -> list:
-    """The side scopes of a tape (None without one)."""
+def _scopes(tape, n: int, suffix: str = "") -> list:
+    """The side scopes of a tape (None without one), ``suffix`` after
+    the side's name (``.integrity``: the digest scopes)."""
     names = ("build", "probe") if n == 2 else ("probe",)
-    return [None if tape is None else tape.scoped(s) for s in names]
+    return [None if tape is None else tape.scoped(s + suffix)
+            for s in names]
+
+
+def _digest_scopes(tape, with_integrity: bool, n: int) -> list:
+    """The sides' digest tapes (``build.integrity``,
+    ``probe.integrity``), None each with integrity off."""
+    return _scopes(tape if with_integrity else None, n, ".integrity")
 
 
 def _flat_batches(comm, sides, keys, k: int, shuffle: str,
                   compression_bits, dcn_on: bool, strings: bool,
-                  tape=None):
+                  tape=None, with_integrity: bool = False):
     """Partition each ``(table, bucket capacity)`` side into ``k *
     n_ranks`` buckets and yield each of the ``k`` batches as ``(*received
     sides, overflow)``: both sides (build first) for a join of two
@@ -276,17 +283,20 @@ def _flat_batches(comm, sides, keys, k: int, shuffle: str,
     batch's exchange in a ``shuffle`` span (``batch=b``; the ragged
     wire's one plan read, both sides and every batch, in batch 0's).
     ``tape``: the step's metrics tape, each side billed under its own
-    scope (``build``/``probe``, or ``probe`` alone)."""
+    scope (``build``/``probe``, or ``probe`` alone); with
+    ``with_integrity`` each side's shuffles also digest under
+    ``<side>.integrity``."""
     n = comm.n_ranks
     parted = []
     scoped = _scopes(tape, len(sides))
+    digests = _digest_scopes(tape, with_integrity, len(sides))
     with telemetry.span("partition"):
-        for (t, cap), st in zip(sides, scoped):
+        for (t, cap), st, dt in zip(sides, scoped, digests):
             vw = _varwidth_cols(t) if strings and shuffle == "ragged" else []
             pt = radix_hash_partition(
                 t, keys, k * n,
                 order_within=vw[0] + LEN_SUFFIX if vw else None)
-            parted.append((pt, cap, vw, st))
+            parted.append((pt, cap, vw, st, dt))
             if st is not None:
                 _bill_partition(st, pt, cap)
     for b in range(k):
@@ -294,13 +304,13 @@ def _flat_batches(comm, sides, keys, k: int, shuffle: str,
         with telemetry.span("shuffle", batch=b):
             if shuffle == "ragged" and b == 0:
                 # both sides' plans in one read to the host
-                prefetch_ragged_plans(comm,
-                                      [(pt, vw) for pt, _, vw, _ in parted])
-            for pt, cap, vw, st in parted:
+                prefetch_ragged_plans(
+                    comm, [(pt, vw) for pt, _, vw, _, _ in parted])
+            for pt, cap, vw, st, dt in parted:
                 table, ovf = _batch_shuffle(
                     comm, pt, b, n, cap, mode=shuffle,
                     compression_bits=compression_bits, varwidth=vw,
-                    dcn_codec_on=dcn_on, tape=st)
+                    dcn_codec_on=dcn_on, tape=st, digest_tape=dt)
                 recv.append(table)
                 overflow = ovf if overflow is None else overflow | ovf
         yield (*recv, overflow)
@@ -308,7 +318,7 @@ def _flat_batches(comm, sides, keys, k: int, shuffle: str,
 
 def _batch_shuffle_segmented(comm, pt, batch: int, n_ranks: int,
                              segments: int, seg_cap: int, mode: str,
-                             tape=None):
+                             tape=None, digest_tape=None):
     """One batch of the segmented exchange (JAX :144-171): the fine
     buckets pad to ``seg_cap`` and ride one block a destination
     (``shuffle_segmented``). Returns ``(recv_cols (n, s, seg_cap, ...),
@@ -320,7 +330,8 @@ def _batch_shuffle_segmented(comm, pt, batch: int, n_ranks: int,
     via = {"padded": "all_to_all", "ppermute": "ppermute",
            "hierarchical": "hierarchical"}[mode]
     recv_cols, recv_counts = shuffle_segmented(
-        comm, padded, counts, seg_cap, segments, via=via, tape=tape)
+        comm, padded, counts, seg_cap, segments, via=via, tape=tape,
+        digest_tape=digest_tape)
     return recv_cols, recv_counts, overflow
 
 
@@ -368,12 +379,13 @@ def make_join_step(
     sort_segments: Optional[int] = None,
     aggregate=None,
     with_metrics: bool = False,
+    with_integrity: bool = False,
     metrics_static: Optional[dict] = None,
-    **unported,
 ):
     """The per-rank join step ``step(build_local, probe_local) ->
-    JoinResult``, to run under ``comm.spmd``; with ``with_metrics``,
-    ``(JoinResult, Metrics)`` (run it with ``JOIN_METRICS_SHARDED_OUT``).
+    JoinResult``, to run under ``comm.spmd``; with ``with_metrics`` or
+    ``with_integrity``, ``(JoinResult, Metrics)`` (run it with
+    ``JOIN_METRICS_SHARDED_OUT``).
 
     Static capacities, as in the JAX package:
     - shuffle pad per (batch, destination) bucket =
@@ -434,9 +446,12 @@ def make_join_step(
 
     ``with_metrics``: the step keeps a ``MetricsTape`` (module
     docstring) and returns its gathered block beside the result;
-    ``metrics_static`` adds constants to it.
+    ``metrics_static`` adds constants to it. ``with_integrity``: the
+    same tape, with every shuffle's digest pairs under
+    ``build.integrity`` and ``probe.integrity`` (checked on the host by
+    ``integrity.verify_digests``); the single-bucket shortcut has no
+    wire and carries none.
     """
-    _refuse_unported(unported)
     if join_type not in JOIN_TYPES:
         raise ValueError(f"unknown join_type {join_type!r}; expected one "
                          f"of {JOIN_TYPES}")
@@ -562,10 +577,11 @@ def make_join_step(
             out_capacity_factor=out_capacity_factor,
             out_rows_per_rank=out_rows_per_rank, shuffle=shuffle,
             compression_bits=compression_bits, dcn_on=dcn_on,
-            with_metrics=with_metrics, metrics_static=metrics_static)
+            with_metrics=with_metrics, with_integrity=with_integrity,
+            metrics_static=metrics_static)
 
     def step(build_local: Table, probe_local: Table):
-        tape = _new_tape(with_metrics, metrics_static)
+        tape = _new_tape(with_metrics or with_integrity, metrics_static)
         for kname in keys:
             bdt = build_local.columns[kname].dtype
             pdt = probe_local.columns[kname].dtype
@@ -660,6 +676,7 @@ def make_join_step(
                                             sub_buckets=seg)
                        for t in (build_local, probe_local)]
             scoped = _scopes(tape, 2)
+            digests = _digest_scopes(tape, with_integrity, 2)
             if tape is not None:
                 tape.add("sort_segments", seg)
                 for st, pt, cap in zip(scoped, pts, caps):
@@ -667,9 +684,10 @@ def make_join_step(
             for b in range(k):
                 blocks = []
                 with telemetry.span("shuffle", batch=b):
-                    for pt, cap, st in zip(pts, caps, scoped):
+                    for pt, cap, st, dt in zip(pts, caps, scoped, digests):
                         cols, counts, ovf = _batch_shuffle_segmented(
-                            comm, pt, b, n, seg, cap, shuffle, tape=st)
+                            comm, pt, b, n, seg, cap, shuffle, tape=st,
+                            digest_tape=dt)
                         blocks.append((cols, counts))
                         overflow = overflow | ovf
                 with telemetry.span("join", batch=b):
@@ -686,7 +704,8 @@ def make_join_step(
             for b, (recv_b, recv_p, ovf) in enumerate(_flat_batches(
                     comm, ((build_local, b_cap), (probe_local, p_cap)),
                     keys_eff, k, shuffle, compression_bits, dcn_on,
-                    strings=True, tape=tape)):
+                    strings=True, tape=tape,
+                    with_integrity=with_integrity)):
                 overflow = overflow | ovf
                 with telemetry.span("join", batch=b):
                     res = local_join(recv_b, recv_p)
@@ -726,7 +745,8 @@ def _check_scalar_columns(resident_local: Table, probe_local: Table,
 def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
                         out_capacity_factor, out_rows_per_rank, shuffle,
                         compression_bits, dcn_on, resident: bool = False,
-                        with_metrics: bool = False, metrics_static=None):
+                        with_metrics: bool = False,
+                        with_integrity: bool = False, metrics_static=None):
     """The fused join+aggregate step (JAX :804-983): partition and
     shuffle only the columns the reduction reads
     (``ops.aggregate.wire_columns``), with the materializing step's
@@ -747,14 +767,16 @@ def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
 
     With ``with_metrics`` the tape adds ``agg.groups`` (the rank's final
     groups) and, resident, ``resident.rows``; the partials exchange
-    bills under ``partials.``."""
+    bills under ``partials.``. With ``with_integrity`` each side's
+    shuffles digest under ``<side>.integrity`` and the partials exchange
+    under ``partials.integrity`` (JAX :952-956)."""
     n = comm.n_ranks
     nb = k * n
     partials_mode = "hierarchical" if shuffle == "hierarchical" \
         else "padded"
 
     def step(build_local: Table, probe_local: Table):
-        tape = _new_tape(with_metrics, metrics_static)
+        tape = _new_tape(with_metrics or with_integrity, metrics_static)
         if resident:
             _check_scalar_columns(build_local, probe_local, keys)
         for kname in keys:
@@ -802,11 +824,13 @@ def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
         elif resident:
             batches = ((build_w, recv_p, ovf) for recv_p, ovf in _flat_batches(
                 comm, ((probe_w, p_cap),), keys, k, shuffle, compression_bits,
-                dcn_on, strings=False, tape=tape))
+                dcn_on, strings=False, tape=tape,
+                with_integrity=with_integrity))
         else:
             batches = _flat_batches(
                 comm, ((build_w, b_cap), (probe_w, p_cap)), keys, k,
-                shuffle, compression_bits, dcn_on, strings=False, tape=tape)
+                shuffle, compression_bits, dcn_on, strings=False, tape=tape,
+                with_integrity=with_integrity)
         parts = []
         for b, (recv_b, recv_p, ovf) in enumerate(batches):
             with telemetry.span("join_agg",
@@ -830,7 +854,9 @@ def _make_join_agg_step(comm, spec, *, keys, k, shuffle_capacity_factor,
                     recv, ovf_x = _batch_shuffle(
                         comm, ptg, 0, n, groups_cap, mode=partials_mode,
                         tape=None if tape is None else tape.scoped(
-                            "partials"))
+                            "partials"),
+                        digest_tape=tape.scoped("partials.integrity")
+                        if with_integrity else None)
                     combined, _, ovf_c = agg_ops.combine_partials(
                         [recv], spec, group_names, lanes_schema,
                         groups_cap)
@@ -865,8 +891,8 @@ def make_probe_join_step(
     aggregate=None,
     kernel_config=None,
     with_metrics: bool = False,
+    with_integrity: bool = False,
     metrics_static: Optional[dict] = None,
-    **unported,
 ):
     """The probe-only join step against a resident build shard
     (service/resident.py; JAX :1007-1231): ``step(resident_local,
@@ -891,9 +917,10 @@ def make_probe_join_step(
     compression on the ragged wire, the skew sidecar and 2-D (string)
     columns are not part of the probe-only program. ``with_metrics``
     keeps the tape as :func:`make_join_step` does, with ``resident.rows``
-    and the probe side's counters; integrity digests refuse by name.
+    and the probe side's counters; ``with_integrity`` digests the probe
+    side's shuffle under ``probe.integrity`` (JAX :1045-1205). The build
+    side has no wire to digest: its image moved at registration.
     """
-    _refuse_unported(unported)
     n = comm.n_ranks
     k = over_decomposition
     if k < 1:
@@ -947,10 +974,11 @@ def make_probe_join_step(
             out_capacity_factor=out_capacity_factor,
             out_rows_per_rank=out_rows_per_rank, shuffle=shuffle,
             compression_bits=compression_bits, dcn_on=False, resident=True,
-            with_metrics=with_metrics, metrics_static=metrics_static)
+            with_metrics=with_metrics, with_integrity=with_integrity,
+            metrics_static=metrics_static)
 
     def step(resident_local: Table, probe_local: Table):
-        tape = _new_tape(with_metrics, metrics_static)
+        tape = _new_tape(with_metrics or with_integrity, metrics_static)
         _check_scalar_columns(resident_local, probe_local, keys)
         p_cap, out_cap = resolve_probe_capacities(
             probe_local.capacity, n, k, shuffle_capacity_factor,
@@ -962,7 +990,8 @@ def make_probe_join_step(
         overflow = torch.zeros((), dtype=torch.bool, device=dev)
         batches = ([(probe_local, overflow)] if nb == 1 else _flat_batches(
             comm, ((probe_local, p_cap),), keys, k, shuffle,
-            compression_bits, False, strings=False, tape=tape))
+            compression_bits, False, strings=False, tape=tape,
+            with_integrity=with_integrity))
         parts = []
         for b, (recv_p, ovf) in enumerate(batches):
             with telemetry.span("join", **({} if nb == 1 else {"batch": b})):
@@ -991,14 +1020,15 @@ def with_telemetry(program):
     return fn
 
 
-def spmd_join(comm: Communicator, step, with_metrics: bool,
+def spmd_join(comm: Communicator, step, with_aux: bool,
               local_inputs=False):
     """A join step (``make_join_step``, ``make_probe_join_step``, the
-    aggregate steps; its tape on iff ``with_metrics``) as
-    ``comm.spmd``'s ``fn(build, probe) -> JoinResult``: with metrics on,
-    the step's block hangs on the result as ``res.telemetry``. The one
-    place the tape on/off choice picks the program's sharding."""
-    if not with_metrics:
+    aggregate steps; its tape on iff ``with_aux``, the step's
+    ``with_metrics or with_integrity``) as ``comm.spmd``'s ``fn(build,
+    probe) -> JoinResult``: with the tape on, the step's block hangs on
+    the result as ``res.telemetry``. The one place the tape on/off
+    choice picks the program's sharding."""
+    if not with_aux:
         return comm.spmd(step, sharded_out=JOIN_SHARDED_OUT,
                          local_inputs=local_inputs)
     return with_telemetry(comm.spmd(step,
@@ -1007,19 +1037,25 @@ def spmd_join(comm: Communicator, step, with_metrics: bool,
 
 
 def make_distributed_join(comm: Communicator, local_inputs: bool = False,
-                          with_metrics=None, **opts):
+                          with_metrics=None, with_integrity: bool = False,
+                          **opts):
     """``fn(build, probe) -> JoinResult`` over row-sharded global tables
     (capacity divisible by n_ranks): the result table row-sharded, the
     global match count and overflow flag replicated. ``local_inputs``:
     the tables hold this process's rows only (``Communicator.local_rows``;
     see ``Communicator.spmd``). ``with_metrics=None`` resolves from the
     telemetry session (JAX :1383-1418); with metrics on, the result
-    carries the step's ``Metrics`` as ``res.telemetry``."""
+    carries the step's ``Metrics`` as ``res.telemetry``. With
+    ``with_integrity`` it always carries it, digests included: check it
+    with ``integrity.verify_join_result``, or let
+    :func:`distributed_inner_join`'s ``verify_integrity`` do it."""
     if with_metrics is None:
         with_metrics = telemetry.enabled()
     return spmd_join(comm, make_join_step(comm, with_metrics=with_metrics,
+                                          with_integrity=with_integrity,
                                           **opts),
-                     with_metrics, local_inputs=local_inputs)
+                     with_metrics or with_integrity,
+                     local_inputs=local_inputs)
 
 
 def skew_capacities(p_rows: int, hh_slots: Optional[int] = None,
@@ -1076,6 +1112,7 @@ def resolve_join_ladder(build: Table, probe: Table, n_ranks: int,
 
 def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
                            key="key", auto_retry: int = 0,
+                           verify_integrity: bool = False,
                            program_cache=None, explain: bool = False,
                            with_metrics=None, tuner=None,
                            **opts) -> JoinResult:
@@ -1088,6 +1125,20 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
     With plan validation on (``faults.plan_validation_enabled``), a
     violation recorded by an attempt's ragged shuffles raises
     ``faults.PlanValidationError`` after it, instead of a retry.
+
+    ``verify_integrity``: every attempt's shuffles carry the wire digests
+    (``with_integrity``), checked on the host after it. A mismatch on an
+    attempt that did not overflow is a retry rung of its own,
+    ``retry_integrity``: the SAME sizing again (the data was wrong, not
+    too big), within the ``auto_retry`` budget; the last attempt raises
+    ``integrity.IntegrityError`` instead of returning its rows. A clean
+    verified result carries the report as ``res.integrity_report``. An
+    overflowed attempt is not verified (a clamp drops rows by design;
+    the overflow rung handles it). Through ``program_cache`` a
+    mismatching attempt's program is evicted first: the corruption a
+    fault plan injects is part of a program, so only a new one meets a
+    new schedule, and a program that delivered corrupt rows must not
+    serve again.
 
     ``program_cache``: a ``service.programs.JoinProgramCache`` over
     ``comm``. Every attempt then takes its program from the cache, keyed
@@ -1112,7 +1163,6 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
     the caller left unset may be filled from evidence. No history is the
     static resolution. The verdict rides as ``res.tuned``
     (``TunedConfig.as_record()``); the ladder still guards every run."""
-    _refuse_unported({k: v for k, v in opts.items() if k in _UNPORTED})
     if with_metrics is None:
         with_metrics = telemetry.enabled()
     if program_cache is not None and program_cache.comm is not comm:
@@ -1126,6 +1176,7 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
         # before pad_to, on the caller's options: the signature the
         # service's history lines were written under
         tuned = tuner.resolve(comm, build, probe, key=key,
+                              with_integrity=verify_integrity,
                               opts=dict(opts, with_metrics=with_metrics))
         opts = tuned.apply(opts)
     build = build.pad_to(_round_up(build.capacity, n))
@@ -1140,11 +1191,14 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
         # also the tape's retry_attempt_max (JAX :1601), which a step
         # with the tape off ignores
         rung = ladder.base_rung + attempt
-        static = {"metrics_static": {"retry_attempt_max": rung}}
+        static = {"metrics_static": {"retry_attempt_max": rung},
+                  "with_integrity": verify_integrity}
+        sig = None
         if program_cache is not None:
             fn, _ = program_cache.get(build, probe, key=key, rung=rung,
                                       with_metrics=with_metrics, **static,
                                       **ladder.sizing(), **opts)
+            sig = fn.signature
         else:
             fn = make_distributed_join(comm, key=key,
                                        with_metrics=with_metrics, **static,
@@ -1156,8 +1210,16 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
         overflow = bool(res.overflow)
         if validating:
             faults.check_plan_violations()
-        ladder.note(overflow)
-        if attempt == auto_retry or not overflow:
+        report = None
+        if verify_integrity and not overflow:
+            report = integrity.verify_join_result(res)
+        ladder.note(overflow,
+                    integrity_ok=None if report is None else report.ok)
+        corrupt = report is not None and not report.ok
+        if corrupt and sig is not None:
+            # a program that delivered corrupt rows serves no more
+            program_cache.evict(sig)
+        if attempt == auto_retry or not (overflow or corrupt):
             object.__setattr__(res, "retry_report", ladder.report())
             if tuned is not None:
                 object.__setattr__(res, "tuned", tuned.as_record())
@@ -1170,7 +1232,14 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
                     comm, build, probe, key=key, rung=rung,
                     with_metrics=with_metrics, **static,
                     **ladder.sizing(), **opts))
+            if report is not None:
+                object.__setattr__(res, "integrity_report", report)
             telemetry.emit_metrics(getattr(res, "telemetry", None))
+            if corrupt:
+                raise integrity.IntegrityError(report)
             return res
-        ladder.escalate()
+        if overflow:
+            ladder.escalate()
+        else:
+            ladder.hold("retry_integrity")
     raise AssertionError("unreachable")

@@ -5,24 +5,23 @@ out-of-core resume manifest.
 Port of ``distributed_join_tpu/parallel/faults.py``:
 
 - ``FaultInjectedError``, ``FaultPlan`` with every field,
-  ``plan_from_record`` and ``FaultInjectingCommunicator`` (JAX :60-441):
+  ``plan_from_record`` and ``FaultInjectingCommunicator`` (JAX :60-469):
   a communicator wrapper that injects scheduled dispatch failures,
-  drops and delays, forced overflow flags and rank-inconsistent ragged
-  plans, so that every branch of the ladder and of the batch loop's
-  retry and degradation can be driven deterministically. The data
-  corruption modes (``corrupt_mode``, ``corrupt_collectives``) stay
-  fields of the plan, so that a plan round-trips through its record,
-  but the wrapper refuses a plan that sets them: their detector, the
-  wire-integrity digests, is not part of the port yet (ROADMAP A5d).
+  drops and delays, forced overflow flags, rank-inconsistent ragged
+  plans, and the four data corruption modes (``bit_flip``,
+  ``row_truncate``, ``row_duplicate``, ``misroute``) that only the
+  wire-integrity digests (``parallel/integrity.py``) detect, so that
+  every branch of the ladder and of the batch loop's retry and
+  degradation can be driven deterministically.
 - ``RetryAttempt``, ``RetryReport`` and ``CapacityLadder`` (:697-892)
   over the capacities the port has: the compressed wire's bits, the
   shuffle and output factors, ``out_rows_per_rank``, and the skew
-  sidecar's three heavy-hitter blocks, and the autotuner's seeding
+  sidecar's three heavy-hitter blocks, the autotuner's seeding
   (``base_rung``, ``next_rung``, ``seed_rung``: a pre-sized ladder labels
   its attempts with absolute rungs and its first with
-  ``tuned_presize``). (The JAX ladder's integrity rung belongs to the
-  wire-integrity digests, ROADMAP A5d.) The same shapes give the same
-  rungs.
+  ``tuned_presize``), and the integrity rung (``note(integrity_ok=)``,
+  ``hold("retry_integrity")``: a mismatch reruns the same sizing). The
+  same shapes give the same rungs.
 - The ragged plan's cross-rank validation (JAX :472-634, switched on by
   ``DJTPU_VALIDATE_PLANS`` or :func:`validate_plans`).
 - ``retry_with_backoff`` (JAX :636), which the bootstrap's handshake and
@@ -219,8 +218,11 @@ class RetryAttempt:
     """One rung: the sizing that ran and whether it overflowed.
     ``attempt`` is the absolute rung label (``base_rung`` + the attempt's
     index); ``action`` is what produced the sizing ("initial",
-    "tuned_presize", "widen_compression_bits" or
-    "double_capacities")."""
+    "tuned_presize", "widen_compression_bits", "double_capacities", or
+    "retry_integrity": the same sizing again after a wire-integrity
+    mismatch). ``integrity_ok`` is the digests' verdict where the
+    attempt was verified (None: verification off, or skipped on an
+    overflow)."""
 
     attempt: int
     action: str
@@ -232,6 +234,7 @@ class RetryAttempt:
     hh_build_capacity: Optional[int]
     hh_probe_capacity: Optional[int]
     hh_out_capacity: Optional[int]
+    integrity_ok: Optional[bool] = None
 
     def as_record(self) -> dict:
         return dataclasses.asdict(self)
@@ -331,8 +334,10 @@ class CapacityLadder:
                     hh_probe_capacity=self.hh_probe,
                     hh_out_capacity=self.hh_out)
 
-    def note(self, overflow: Optional[bool]) -> None:
-        """Record the outcome of running the current rung."""
+    def note(self, overflow: Optional[bool],
+             integrity_ok: Optional[bool] = None) -> None:
+        """Record the outcome of running the current rung (and the
+        digests' verdict, where the attempt was verified)."""
         att = RetryAttempt(
             attempt=self.base_rung + len(self._attempts),
             action=self._action,
@@ -342,7 +347,8 @@ class CapacityLadder:
             compression_bits=self.bits,
             hh_build_capacity=self.hh_build,
             hh_probe_capacity=self.hh_probe,
-            hh_out_capacity=self.hh_out)
+            hh_out_capacity=self.hh_out,
+            integrity_ok=integrity_ok)
         self._attempts.append(att)
         telemetry.event("retry_attempt", **att.as_record())
 
@@ -366,6 +372,15 @@ class CapacityLadder:
                 self.hh_out = (max(self.hh_out * 2, self.p_local)
                                if self.p_local else self.hh_out * 2)
         self._action = "double_capacities"
+        return self._action
+
+    def hold(self, action: str = "retry_integrity") -> str:
+        """Advance to a rung of the SAME sizing: the answer to a
+        wire-integrity mismatch (corruption is transient, the capacities
+        were right). The rerun builds its program again, so a finite
+        injected budget (``FaultPlan.corrupt_collectives``) runs out
+        across holds."""
+        self._action = action
         return self._action
 
     def report(self) -> RetryReport:
@@ -500,10 +515,29 @@ class FaultPlan:
       index to one row of its gathered view), so every rank plans from
       a different count matrix: what :func:`validate_ragged_plan`
       catches.
-    - ``corrupt_mode``, ``corrupt_collectives``, ``corrupt_rank``: data
-      corruption at the collectives, which only the wire-integrity
-      digests detect; the port keeps the fields and refuses a plan that
-      sets them (:class:`FaultInjectingCommunicator`).
+    - ``corrupt_mode`` + ``corrupt_collectives``: DATA corruption at
+      the collectives, the adversary of the wire-integrity digests
+      (``parallel/integrity.py``). The first N eligible collectives over
+      the wrapper's life are perturbed on rank ``corrupt_rank`` (default
+      ``seed % n_ranks``). Which collectives of a program are corrupted
+      is decided once, on the program's first call (the JAX package
+      decides at trace time), and the program corrupts the same ones on
+      every later call: a cached program never heals by itself, and a
+      rung that builds its program again draws from what is left.
+
+      * ``"bit_flip"``: one seed-addressed bit of one element of a
+        received data block flips (padded blocks through ``all_to_all``
+        and the cross-slice exchange, ragged buffers through
+        ``ragged_all_to_all``);
+      * ``"row_truncate"`` / ``"row_duplicate"``: a received row count
+        drops or gains 1, so the receiver loses a real row or adopts a
+        garbage one. On the padded wires the target rank's received
+        count vector slips; on the ragged wire one entry of the gathered
+        count matrix changes identically on every rank, a consistent lie
+        that :func:`validate_ragged_plan` cannot see;
+      * ``"misroute"``: rows land at the wrong rank: on the target rank
+        the received block axis rolls by one (padded), or the target
+        sender's offsets for two destinations swap (ragged).
     """
 
     seed: int = 0
@@ -543,38 +577,39 @@ class FaultInjectingCommunicator(Communicator):
 
     Collectives go to the wrapped backend unchanged; the faults enter at
     the wrapper's own seams (building a program, calling it, the ragged
-    plan's count gather), so the join and shuffle code run as they are
-    and see what the real failure would show them. Every method of the
-    port's communicators is forwarded (the shuffles' counters, host
-    reads and staging included); any other attribute (``hier``,
-    ``device``, ``mesh``) is the wrapped one's. The wrapper is not a
-    ``ProcessGroupCommunicator``: where a driver would take a process
-    group's device from it, pass the device.
+    plan's count gather, the exchanges' results), so the join and
+    shuffle code run as they are and see what the real failure would
+    show them. Every method of the port's communicators is forwarded
+    (the shuffles' counters, host reads and staging included); any other
+    attribute (``hier``, ``device``, ``mesh``) is the wrapped one's. The
+    wrapper is not a ``ProcessGroupCommunicator``: where a driver would
+    take a process group's device from it, pass the device.
 
     An injected overflow ORs a device ``True`` into the result's
-    ``overflow``: no value is read to the host.
+    ``overflow``, and a corruption edits the received tensor on the
+    device (by indices known on the host): no value is read to the host.
+    The intra-slice exchange (``all_to_all_chip``) is delivered clean,
+    as in the JAX package: the corruption modes aim at the cross-slice
+    hop and the flat exchanges.
     """
 
     def __init__(self, inner: Communicator, plan: FaultPlan):
-        if plan.corrupt_mode is not None or plan.corrupt_collectives:
-            if (plan.corrupt_mode is not None
-                    and plan.corrupt_mode not in CORRUPTION_MODES):
-                raise ValueError(
-                    f"unknown corrupt_mode {plan.corrupt_mode!r}; pick "
-                    f"one of {CORRUPTION_MODES}")
-            raise NotImplementedError(
-                f"FaultPlan(corrupt_mode={plan.corrupt_mode!r}, "
-                f"corrupt_collectives={plan.corrupt_collectives}): data "
-                "corruption is detected only by the wire-integrity "
-                "digests (the JAX package's parallel/integrity.py), which "
-                "are not part of the port yet (ROADMAP A5d)")
+        if (plan.corrupt_mode is not None
+                and plan.corrupt_mode not in CORRUPTION_MODES):
+            raise ValueError(
+                f"unknown corrupt_mode {plan.corrupt_mode!r}; pick one of "
+                f"{CORRUPTION_MODES}")
         self._inner = inner
         self.plan = plan
         self.name = f"faulty({inner.name})"
         self._programs_built = 0
         self._dispatches = 0
         self._plan_gathers: dict = {}   # rank -> plan gathers seen
+        self._corruptions = 0           # the corruption budget spent
         self._lock = threading.Lock()
+        # the program a rank thread is running, and its position in the
+        # program's eligible collectives (see _corrupt_budget)
+        self._tls = threading.local()
 
     # -- delegation ---------------------------------------------------
 
@@ -591,16 +626,19 @@ class FaultInjectingCommunicator(Communicator):
         return self._inner.chips_per_slice
 
     def all_to_all(self, x):
-        return self._inner.all_to_all(x)
+        return self._corrupt_exchanged(self._inner.all_to_all(x))
 
     def ppermute_all_to_all(self, x):
-        return self._inner.ppermute_all_to_all(x)
+        return self._corrupt_exchanged(self._inner.ppermute_all_to_all(x))
 
     def all_to_all_chip(self, x):
         return self._inner.all_to_all_chip(x)
 
     def all_to_all_slice(self, x):
-        return self._inner.all_to_all_slice(x)
+        """The cross-slice exchange: the flat exchanges' corruption modes
+        on what it delivers. Its leading axis is the source slice, so a
+        misroute attributes whole slices to the wrong source."""
+        return self._corrupt_exchanged(self._inner.all_to_all_slice(x))
 
     def axis_index(self) -> int:
         return self._inner.axis_index()
@@ -611,9 +649,25 @@ class FaultInjectingCommunicator(Communicator):
     def ragged_all_to_all(self, operand, output, input_offsets,
                           send_sizes, output_offsets, recv_sizes,
                           recv_offsets=None):
-        return self._inner.ragged_all_to_all(
+        mode = self.plan.corrupt_mode
+        n = self.n_ranks
+        if mode == "misroute" and n > 1 and self._corrupt_budget() \
+                and self._active():
+            # the target sender reads two destinations' rows from each
+            # other's offsets: its rows land at the wrong ranks
+            d1 = self.plan.seed % n
+            d2 = (d1 + 1 + (self.plan.seed // n) % (n - 1)) % n
+            offs = (input_offsets.clone()
+                    if isinstance(input_offsets, torch.Tensor)
+                    else list(input_offsets))
+            offs[d1], offs[d2] = input_offsets[d2], input_offsets[d1]
+            input_offsets = offs
+        out = self._inner.ragged_all_to_all(
             operand, output, input_offsets, send_sizes, output_offsets,
             recv_sizes, recv_offsets=recv_offsets)
+        if mode == "bit_flip" and self._corrupt_budget() and self._active():
+            out = _flip_one_bit(out, self.plan.seed)
+        return out
 
     def count_wire(self, rows: int, nbytes: int) -> None:
         self._inner.count_wire(rows, nbytes)
@@ -659,6 +713,24 @@ class FaultInjectingCommunicator(Communicator):
             g[self.plan.seed % n] += self.axis_index()
         return g
 
+    def all_gather_counts(self, x):
+        g = self.all_gather(x)
+        if (self.plan.corrupt_mode in ("row_truncate", "row_duplicate")
+                and self._corrupt_budget()):
+            # A consistent lie, the same on every rank, about how many
+            # rows the target sender routes to one destination (the
+            # first n columns are the first batch's counts): the
+            # senders' digests commit to their true local counts before
+            # this gather, so only the digests can tell.
+            n = self.n_ranks
+            col = (self.plan.seed // n) % n
+            g = g.clone()
+            cell = g[self._corrupt_rank(), col]
+            g[self._corrupt_rank(), col] = (
+                cell + (-1 if self.plan.corrupt_mode == "row_truncate"
+                        else 1)).clamp(min=0)
+        return g
+
     def _take_plan_gather(self) -> bool:
         """Whether this rank's next plan gather is one of the first
         ``corrupt_plan_gathers`` (counted a rank: the emulated ranks are
@@ -669,14 +741,89 @@ class FaultInjectingCommunicator(Communicator):
             self._plan_gathers[me] = seen + 1
             return seen < self.plan.corrupt_plan_gathers
 
+    def _corrupt_rank(self) -> int:
+        """The rank whose traffic the corruption modes hit."""
+        t = self.plan.corrupt_rank
+        return (self.plan.seed if t is None else t) % self.n_ranks
+
+    def _active(self) -> bool:
+        return self.axis_index() == self._corrupt_rank()
+
+    def _corrupt_budget(self) -> bool:
+        """Whether this eligible collective is corrupted. Inside a
+        program (``spmd``) the decision for its k-th eligible collective
+        is made once, by the first rank to reach it on the program's
+        first call, from the budget left (``corrupt_collectives`` over
+        the wrapper's life), and holds for every rank and every later
+        call: the JAX package's trace-time budget. Outside a program
+        each call decides."""
+        prog = getattr(self._tls, "program", None)
+        with self._lock:
+            if prog is not None:
+                k = self._tls.ordinal
+                self._tls.ordinal += 1
+                if k in prog:
+                    return prog[k]
+            take = (self.plan.corrupt_mode is not None
+                    and self._corruptions < self.plan.corrupt_collectives)
+            self._corruptions += take
+            if prog is not None:
+                prog[k] = take
+            return take
+
+    def rearm_corruption(self) -> None:
+        """Reset the budget, so that the NEXT program built carries the
+        schedule again (the drivers' ``benchmarks.collect_integrity``
+        calls this before its verified step: the timed program spent the
+        budget, and a clean verification would bless numbers the
+        corruption touched). Programs already called keep their
+        decisions."""
+        with self._lock:
+            self._corruptions = 0
+
+    def _corrupt_exchanged(self, y):
+        """An ``all_to_all`` result as the target rank receives it. An
+        int32 block of exactly ``n_ranks`` entries, 1-D or nested (slice,
+        chip), is a count exchange (the truncate and duplicate seam: the
+        count from one sender slips by 1); any block of 2 or more
+        dimensions is data (the bit-flip and misroute seam)."""
+        mode = self.plan.corrupt_mode
+        if mode is None:
+            return y
+        n = self.n_ranks
+        is_counts = (y.dtype == torch.int32 and y.numel() == n
+                     and y.ndim in (1, 2))
+        if (mode in ("row_truncate", "row_duplicate") and is_counts
+                and self._corrupt_budget() and self._active()):
+            j = (self.plan.seed // n) % n
+            flat = y.reshape(-1).clone()
+            flat[j] += -1 if mode == "row_truncate" else 1
+            return flat.clamp(min=0).reshape(y.shape)
+        if (mode == "bit_flip" and y.ndim >= 2 and self._corrupt_budget()
+                and self._active()):
+            return _flip_one_bit(y, self.plan.seed)
+        if (mode == "misroute" and y.ndim >= 2 and n > 1
+                and self._corrupt_budget() and self._active()):
+            # every received block attributed to the wrong source
+            return torch.roll(y, 1, dims=0)
+        return y
+
     def spmd(self, fn: Callable, *, sharded_out=None,
              local_inputs=False) -> Callable:
         idx = self._programs_built
         self._programs_built += 1
         inject_overflow = idx < self.plan.overflow_programs
 
+        decided: dict = {}   # eligible collective -> corrupted?
+
         def wrapped(*args):
-            out = fn(*args)
+            tls = self._tls
+            prev = getattr(tls, "program", None), getattr(tls, "ordinal", 0)
+            tls.program, tls.ordinal = decided, 0
+            try:
+                out = fn(*args)
+            finally:
+                tls.program, tls.ordinal = prev
             if inject_overflow:
                 if isinstance(out, JoinResult):
                     out = dataclasses.replace(out,
@@ -714,3 +861,23 @@ class FaultInjectingCommunicator(Communicator):
             return compiled(*args, **kwargs)
 
         return dispatch
+
+
+def _flip_one_bit(block: torch.Tensor, seed: int) -> torch.Tensor:
+    """``block`` with one seed-addressed bit of one seed-addressed
+    element flipped: the least payload corruption. Every dtype flips a
+    real bit, floats through a same-width integer view (where the TPU
+    cannot view a float64, the JAX package nudges it by 1.0 instead)."""
+    if block.numel() == 0 or block.dtype == torch.bool:
+        return block
+    ints = {8: torch.int64, 4: torch.int32, 2: torch.int16, 1: torch.uint8}
+    flat = block.reshape(-1).clone()
+    bits = flat.view(ints[flat.element_size()]) \
+        if block.dtype.is_floating_point else flat
+    idx = seed % flat.numel()
+    nbits = flat.element_size() * 8
+    bit = (seed // flat.numel()) % nbits
+    signed = bits.dtype != torch.uint8
+    bits[idx] ^= (torch.iinfo(bits.dtype).min if signed and bit == nbits - 1
+                  else 1 << bit)
+    return flat.reshape(block.shape)

@@ -43,10 +43,20 @@ current CUDA stream; a batch that does not settle in time is a
 ``HangError`` batch failure under the loop's degradation contract. The
 two worker pools are torn down by ``watchdog.shutdown_bounded``, so a
 wedged worker cannot hang the interpreter's exit.
+
+Wire integrity (``verify_integrity``, JAX :150-185, :324-450): the batch
+program carries the shuffles' digests (``parallel/integrity.py``); its
+metrics block is copied to pinned host memory beside the batch's total,
+behind the same event, and checked on the fetch thread before the
+consumer sees a row, and at the batch's settle. A mismatch is a batch
+failure under the loop's contract: ``"raise"`` propagates the
+``IntegrityError``, ``"continue"`` abandons the batch (its total is
+never counted) and records it.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -64,6 +74,7 @@ from distributed_join_tpu_torch.parallel.communicator import (
 from distributed_join_tpu_torch.parallel.distributed_join import (
     make_distributed_join,
 )
+from distributed_join_tpu_torch.parallel import integrity
 from distributed_join_tpu_torch.parallel.faults import (
     JoinManifest,
     batch_config_fingerprint,
@@ -298,14 +309,17 @@ class _Stager:
 
 
 class _Scalars:
-    """A batch's ``(total, overflow)`` on its way to the host. On a card
-    they are copied into pinned host scalars right after the dispatch,
-    behind an event on the join's stream (``done``), and ``get`` waits on
-    that event alone: not on the batches dispatched after it, as reading
-    the device scalars would. On the CPU they are read at once."""
+    """A batch's ``(total, overflow)`` on its way to the host, and with
+    ``metrics`` (the integrity program's block) that block too. On a card
+    they are copied into pinned host memory right after the dispatch,
+    behind an event on the join's stream (``done``), and ``get`` and
+    :meth:`metrics` wait on that event alone: not on the batches
+    dispatched after it, as reading the device tensors would. On the CPU
+    they are read at once."""
 
-    def __init__(self, res, device: torch.device):
+    def __init__(self, res, device: torch.device, metrics=None):
         self.done = None
+        self._metrics = metrics
         if device.type != "cuda":
             self.host = (int(res.total), bool(res.overflow))
             return
@@ -313,6 +327,11 @@ class _Scalars:
         self.host.copy_(torch.stack([res.total.to(torch.int64),
                                      res.overflow.to(torch.int64)]),
                         non_blocking=True)
+        if metrics is not None:
+            block = torch.empty(metrics.values.shape, dtype=torch.int64,
+                                pin_memory=True)
+            block.copy_(metrics.values, non_blocking=True)
+            self._metrics = dataclasses.replace(metrics, values=block)
         self.done = torch.cuda.Event()
         self.done.record(torch.cuda.current_stream(device))
 
@@ -321,6 +340,12 @@ class _Scalars:
             return self.host
         self.done.synchronize()
         return int(self.host[0]), bool(self.host[1])
+
+    def metrics(self):
+        """The batch's metrics block, on the host once settled."""
+        if self.done is not None:
+            self.done.synchronize()
+        return self._metrics
 
 
 def _table(cols: dict) -> Table:
@@ -369,8 +394,12 @@ def batched_join_host(
     - ``batch_deadline_s``: each batch's settle (its total reaching the
       host) is bounded by the watchdog; a batch that does not settle in
       time fails with ``HangError`` under the same contract.
-    - ``verify_integrity`` (wire digests) is not part of the port yet
-      and refuses.
+    - ``verify_integrity``: each batch's join carries the wire digests
+      and is checked before the consumer sees its rows and at its
+      settle (an overflowed batch is not checked). A mismatch is a batch
+      failure under the same contract: ``"raise"`` propagates the
+      ``integrity.IntegrityError``, ``"continue"`` abandons the batch (its
+      total is NOT counted) and records it.
 
     ``stats`` receives ``elapsed_s`` (the loop after the warm-up,
     staging included), ``build_capacity``, ``probe_capacity``, the
@@ -385,10 +414,6 @@ def batched_join_host(
     by the loop, whose phases start after it. ``device``: where the
     batches go (default: the rank's card under a process group, else
     the GPU)."""
-    if verify_integrity:
-        raise NotImplementedError(
-            "verify_integrity: wire-integrity digests are not part of the "
-            "port")
     if len(build_batches) != len(probe_batches):
         raise ValueError("build/probe batch counts differ")
     if on_batch_failure not in ("raise", "continue"):
@@ -449,14 +474,34 @@ def batched_join_host(
             return fn()
         return call_with_deadline(fn, batch_deadline_s, what=what)
 
-    fn = make_distributed_join(comm, key=key, local_inputs=True, **join_opts)
+    fn = make_distributed_join(comm, key=key, local_inputs=True,
+                               with_integrity=verify_integrity, **join_opts)
     pool = ThreadPoolExecutor(max_workers=1)
     fetch_pool = ThreadPoolExecutor(max_workers=1)
     d2h = torch.cuda.Stream(dev) if stager.cuda else None
+    # {pending index: IntegrityReport}, checked on the fetch thread and
+    # reused by the settle, so each batch's digests are checked once
+    reports: dict = {}
 
-    def _fetch(b, res, done):
+    def _verified(i) -> bool:
+        """Whether pending[i]'s digests agree (an overflowed batch is not
+        checked: a clamp drops rows by design)."""
+        if i not in reports:
+            sc = totals[i]
+            if sc.get()[1]:
+                return True
+            reports[i] = integrity.verify_digests(sc.metrics())
+        return reports[i].ok
+
+    def _fetch(i, b, res, done):
         # on the fetch thread, in batch order; on a card its copies run on
         # the D2H stream, after the batch's join and nothing later
+        if verify_integrity and not _verified(i):
+            # a corrupt batch's rows never reach the consumer; its settle
+            # fails it under the loop's contract
+            telemetry.event("batch_integrity_mismatch", batch=b,
+                            mismatches=len(reports[i].mismatches))
+            return
         with telemetry.span("fetch", batch=b):
             tf = time.perf_counter()
             if d2h is None:
@@ -513,8 +558,13 @@ def batched_join_host(
             return
         b = pending[i]
         try:
-            totals[i], overflows[i] = bounded(
-                totals[i].get, f"out-of-core batch {b} result fetch")
+            sc = totals[i]
+            total, overflow = bounded(
+                sc.get, f"out-of-core batch {b} result fetch")
+            if verify_integrity and not _verified(i):
+                # a corrupt batch's total never folds into the sum
+                raise integrity.IntegrityError(reports[i])
+            totals[i], overflows[i] = total, overflow
         except Exception as exc:  # noqa: BLE001 - the degradation seam
             if manifest is not None:
                 manifest.record_failure(
@@ -578,12 +628,13 @@ def batched_join_host(
                 # a batch failed at the warm-up's fetch that this
                 # dispatch recovered is counted
                 failed.discard(b)
-            sc = None if res is None else _Scalars(res, dev)
+            sc = None if res is None else _Scalars(
+                res, dev, res.telemetry if verify_integrity else None)
             _phase_add("dispatch_s", time.perf_counter() - td)
             totals.append(sc)
             overflows.append(None)
             fetch_futs.append(
-                fetch_pool.submit(_fetch, b, res, sc.done)
+                fetch_pool.submit(_fetch, i, b, res, sc.done)
                 if (on_batch_result is not None and res is not None)
                 else None)
             del bt, pt, res

@@ -43,7 +43,21 @@ included; the count exchange is not billed), ``wire_bytes_saved`` where
 the codec or the byte-exact string wire saved bytes, and the
 hierarchical wire's ``wire_bytes_ici`` and ``wire_bytes_dcn``. The
 counts stay on the device; nothing is read to the host for the tape.
-The integrity digests are not part of the port.
+
+Every shuffle also takes a ``digest_tape`` (a tape view, or None): the
+wire-integrity digests of ``parallel/integrity.py`` (JAX :48-682). The
+sender digests, per destination, the rows it routes there, from its
+true local counts; the receiver digests, per source, the rows it
+believes it received, under its own received counts or plan; the pairs
+land on the tape as ``sent_to_j`` and ``recv_from_j``, and
+``integrity.verify_digests`` checks them on the host after the step.
+The padded, ppermute and compressed wires digest the padded blocks (the
+compressed wire's sender before the codec, its receiver after it), the
+segmented wire its fine blocks under their validity masks, the
+hierarchical wire end to end over both hops, and the ragged wire its
+bucket-sorted rows by the sender's device offsets and counts against the
+receiver's planned windows, string planes included. With
+``digest_tape`` None a shuffle runs exactly what it ran without it.
 """
 
 from __future__ import annotations
@@ -59,7 +73,7 @@ from distributed_join_tpu_torch.ops.compression import (
     encode_rows,
 )
 from distributed_join_tpu_torch.ops.partition import PartitionedTable, unpad
-from distributed_join_tpu_torch.parallel import faults
+from distributed_join_tpu_torch.parallel import faults, integrity
 from distributed_join_tpu_torch.parallel.communicator import Communicator
 from distributed_join_tpu_torch.table import Table
 from distributed_join_tpu_torch.utils.strings import LEN_SUFFIX, _WORD_PREFIX
@@ -80,9 +94,19 @@ def _bill_rows(tape, counts: torch.Tensor, recv_counts: torch.Tensor) -> None:
     tape.add("rows_received", recv_counts.sum(dtype=torch.int64))
 
 
+def _pad_digests(digest_tape, sent_cols, counts, recv_cols,
+                 recv_counts) -> None:
+    """The padded wires' digest pairs: the sender's blocks under its
+    counts, the receiver's under the counts it received."""
+    if digest_tape is not None:
+        integrity.record_pair_digests(
+            digest_tape, integrity.padded_block_digests(sent_cols, counts),
+            integrity.padded_block_digests(recv_cols, recv_counts))
+
+
 def shuffle_padded(comm: Communicator, padded_columns, counts: torch.Tensor,
-                   capacity: int, via: str = "all_to_all", tape=None
-                   ) -> tuple[Table, torch.Tensor]:
+                   capacity: int, via: str = "all_to_all", tape=None,
+                   digest_tape=None) -> tuple[Table, torch.Tensor]:
     """Shuffle a pre-padded (n_ranks, capacity) block; returns the
     received rows as a masked Table plus the received counts.
     ``via='ppermute'`` moves the data blocks by the communicator's
@@ -90,6 +114,7 @@ def shuffle_padded(comm: Communicator, padded_columns, counts: torch.Tensor,
     a2a = _mover(comm, via)
     recv_counts = comm.all_to_all(counts)
     recv_cols = {n: a2a(c) for n, c in padded_columns.items()}
+    _pad_digests(digest_tape, padded_columns, counts, recv_cols, recv_counts)
     nbytes = sum(c.nbytes for c in padded_columns.values())
     comm.count_wire(counts.shape[0] * capacity, nbytes)
     if tape is not None:
@@ -110,7 +135,8 @@ def _codec_eligible(name: str, col: torch.Tensor) -> bool:
 def shuffle_padded_compressed(comm: Communicator, padded_columns,
                               counts: torch.Tensor, capacity: int,
                               bits: int, block: int = 256,
-                              via: str = "all_to_all", tape=None):
+                              via: str = "all_to_all", tape=None,
+                              digest_tape=None):
     """The padded shuffle with the FoR + bit-pack codec on the wire:
     each eligible column's destination block is encoded as one row
     (its own frames, so no codec block straddles two destinations), the
@@ -124,7 +150,10 @@ def shuffle_padded_compressed(comm: Communicator, padded_columns,
     (residual 0 against a real frame). Returns ``(received table,
     received counts, compression overflow)``: the flag fires when a
     block's residuals need more than ``bits``; rows are then wrong, and
-    the caller retries wider."""
+    the caller retries wider. The digests: the sender's on the block
+    before the codec, the receiver's on the decoded one (a lossy encode
+    would disagree too, but it raises the flag, and an overflowed result
+    is not verified)."""
     a2a = _mover(comm, via)
     recv_counts = comm.all_to_all(counts)
     n = counts.shape[0]
@@ -153,6 +182,7 @@ def shuffle_padded_compressed(comm: Communicator, padded_columns,
         for name, col in zip(names, got.reshape(n, g, capacity).unbind(1)):
             recv_cols[name] = col
     comm.count_wire(n * capacity, sent)
+    _pad_digests(digest_tape, padded_columns, counts, recv_cols, recv_counts)
     if tape is not None:
         _bill_rows(tape, counts, recv_counts)
         tape.add("wire_bytes", sent)
@@ -179,7 +209,7 @@ def _pad_fill(cols: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
 
 def shuffle_segmented(comm: Communicator, padded_fine, fine_counts:
                       torch.Tensor, seg_cap: int, segments: int,
-                      via: str = "all_to_all", tape=None):
+                      via: str = "all_to_all", tape=None, digest_tape=None):
     """The padded shuffle of a fine-partitioned block for the segmented
     sort (JAX :203-290): ``padded_fine`` holds ``(n_ranks * segments,
     seg_cap, ...)`` blocks, destination-major and segment-minor (the
@@ -193,7 +223,8 @@ def shuffle_segmented(comm: Communicator, padded_fine, fine_counts:
     Returns ``(recv_cols, recv_counts)``: columns ``(n_src, segments,
     seg_cap, ...)`` and counts ``(n_src, segments)``. The wire counters
     bill the full block, on both tiers of a multi-slice hierarchical
-    route."""
+    route. The digests are the flat wires' pairs, each block taken under
+    its fine counts' mask (``integrity.masked_block_digests``)."""
     n, s = comm.n_ranks, segments
     hier = via == "hierarchical" and comm.n_slices > 1
     if hier:
@@ -211,6 +242,21 @@ def shuffle_segmented(comm: Communicator, padded_fine, fine_counts:
         recv_cols[name] = route(block).reshape(
             (n, s, seg_cap) + tuple(col.shape[2:]))
     comm.count_wire(n * s * seg_cap, 2 * block_bytes if hier else block_bytes)
+    if digest_tape is not None:
+        lane = torch.arange(seg_cap, dtype=torch.int32,
+                            device=fine_counts.device)
+        sent_mask = (lane[None, :] < fine_counts[:, None]).reshape(
+            n, s * seg_cap)
+        recv_mask = (lane[None, None, :] < recv_counts[:, :, None]).reshape(
+            n, s * seg_cap)
+        integrity.record_pair_digests(
+            digest_tape,
+            integrity.masked_block_digests(
+                {nm: c.reshape((n, s * seg_cap) + tuple(c.shape[2:]))
+                 for nm, c in padded_fine.items()}, sent_mask),
+            integrity.masked_block_digests(
+                {nm: c.reshape((n, s * seg_cap) + tuple(c.shape[3:]))
+                 for nm, c in recv_cols.items()}, recv_mask))
     if hier:
         comm.count_tiers(block_bytes, block_bytes)
     if tape is not None:
@@ -248,7 +294,7 @@ def _hier_phase1(comm: Communicator, x: torch.Tensor) -> torch.Tensor:
 def shuffle_hierarchical(comm: Communicator, padded_columns,
                          counts: torch.Tensor, capacity: int,
                          dcn_bits: int | None = None, block: int = 256,
-                         tape=None):
+                         tape=None, digest_tape=None):
     """The two-level shuffle of a pre-padded ``(n_ranks, capacity)``
     block over a ``(slice, chip)`` communicator (JAX :326-443): every
     block rides the intra-slice exchange raw, then the cross-slice one,
@@ -263,7 +309,9 @@ def shuffle_hierarchical(comm: Communicator, padded_columns,
     fires when a cross-slice residual needs more than ``dcn_bits``. The
     counters take both tiers: the full block on the intra-slice one,
     the codec's planes (or the full block) on the cross-slice one, and
-    what the codec saved."""
+    what the codec saved. The digests run end to end over both hops (the
+    sender's block before the routing, the receiver's assembled one), so
+    a corruption on either tier disagrees."""
     s, c = comm.n_slices, comm.chips_per_slice
     n = s * c
     if counts.shape[0] != n:
@@ -302,6 +350,7 @@ def shuffle_hierarchical(comm: Communicator, padded_columns,
     comm.count_wire(n * capacity, ici + dcn_sent)
     comm.count_tiers(ici, dcn_sent,
                      dcn_raw - dcn_sent if dcn_bits is not None else 0)
+    _pad_digests(digest_tape, padded_columns, counts, recv_cols, recv_counts)
     if tape is not None:
         _bill_rows(tape, counts, recv_counts)
         tape.add("wire_bytes", ici + dcn_sent)
@@ -445,7 +494,10 @@ def prefetch_ragged_plans(comm: Communicator, parts) -> None:
                 wanted.append((cache, ("planes", name),
                                _plane_counts(pt, lens, planes)[None]))
     if wanted:
-        got = comm.host_ints(*(comm.all_gather(t) for _, _, t in wanted))
+        # the count rows through the count seam, the plane counts plain
+        got = comm.host_ints(*(
+            (comm.all_gather_counts if key == "buckets" else comm.all_gather)
+            (t) for _, key, t in wanted))
         for (cache, key, _), value in zip(wanted, got):
             cache[key] = value
 
@@ -463,7 +515,8 @@ def ragged_plan(comm: Communicator, counts: torch.Tensor, out_capacity: int,
     ``out_capacity``; a clamp raises the flag on the receiver it
     affects, and so, with ``capacity_per_bucket``, does any bucket above
     it."""
-    (m,) = comm.host_ints(comm.all_gather(counts.to(torch.int64)[None]))
+    (m,) = comm.host_ints(
+        comm.all_gather_counts(counts.to(torch.int64)[None]))
     plan = _plan(comm.axis_index(), m, [0] * comm.n_ranks, out_capacity,
                  capacity_per_bucket)
     dev = counts.device
@@ -485,7 +538,8 @@ def _exchange(comm: Communicator, operand: torch.Tensor, out_capacity: int,
 def shuffle_ragged(comm: Communicator, pt: PartitionedTable,
                    out_capacity: int, bucket_start: int = 0,
                    capacity_per_bucket: int | None = None,
-                   varwidth=None, tape=None) -> tuple[Table, torch.Tensor]:
+                   varwidth=None, tape=None,
+                   digest_tape=None) -> tuple[Table, torch.Tensor]:
     """Exact-size shuffle of the ``n_ranks`` buckets from
     ``bucket_start``: the wire carries the rows, not padded blocks.
 
@@ -514,6 +568,16 @@ def shuffle_ragged(comm: Communicator, pt: PartitionedTable,
     The tape's counters come from the host plan: the rows planned, and
     the bytes of those rows at their fixed widths plus each string
     column's live planes.
+
+    ``digest_tape``: the sender digests its batch's bucket-sorted rows
+    (every column, strings in bucket order) by its TRUE device offsets
+    and counts, committed before any count exchange could lie; the
+    receiver digests its buffer by the windows it planned
+    (``plan.recv_offsets``, ``plan.recv_sizes``), so a lie in the
+    gathered count matrix, which plan validation cannot see, still
+    disagrees. An actual clamp misaligns the extra string columns by
+    design, but it raises the flag, and an overflowed result is not
+    verified.
     """
     n, me = comm.n_ranks, comm.axis_index()
     nb = pt.n_buckets
@@ -549,10 +613,12 @@ def shuffle_ragged(comm: Communicator, pt: PartitionedTable,
     if tape is not None:
         tape.add("rows_shuffled", sent)
         tape.add("rows_received", plan.total_recv)
+    sent_cols = {}
     for name, col in pt.source.columns.items():
         if name not in vw:
-            out_cols[name] = _exchange(comm, col[rows], out_capacity, rel,
-                                       plan.send_sizes, plan,
+            sent_cols[name] = col[rows]
+            out_cols[name] = _exchange(comm, sent_cols[name], out_capacity,
+                                       rel, plan.send_sizes, plan,
                                        plan.recv_sizes)
             nbytes = sent * col.element_size() * math.prod(col.shape[1:])
             comm.count_wire(0, nbytes)
@@ -573,6 +639,17 @@ def shuffle_ragged(comm: Communicator, pt: PartitionedTable,
             out_cols[name] = _receiver_unsort(
                 raw, out_cols[name + LEN_SUFFIX], plan.recv_offsets,
                 plan.total_recv)
+    if digest_tape is not None:
+        for name in vw:
+            sent_cols[name] = pt.source.columns[name][rows]
+        batch_offsets = pt.offsets[batch]
+        integrity.record_pair_digests(
+            digest_tape,
+            integrity.segment_digests(integrity.row_digests(sent_cols),
+                                      batch_offsets - batch_offsets[0],
+                                      pt.counts[batch]),
+            integrity.segment_digests(integrity.row_digests(out_cols),
+                                      plan.recv_offsets, plan.recv_sizes))
     valid = torch.arange(out_capacity, device=dev) < plan.total_recv
     return (Table({name: out_cols[name] for name in pt.source.columns},
                   valid), overflow)
@@ -675,12 +752,15 @@ def _varwidth_exchange(comm: Communicator, col: torch.Tensor, k: list,
 
 
 def shuffle_partitioned(comm: Communicator, pt: PartitionedTable,
-                        capacity: int) -> tuple[Table, torch.Tensor]:
+                        capacity: int, tape=None, digest_tape=None
+                        ) -> tuple[Table, torch.Tensor]:
     """Shuffle a table partitioned into exactly n_ranks buckets (JAX
-    :843); returns (received table, overflow flag)."""
+    :843); returns (received table, overflow flag). ``tape`` and
+    ``digest_tape`` are :func:`shuffle_padded`'s."""
     if pt.n_buckets != comm.n_ranks:
         raise ValueError(f"partitioned into {pt.n_buckets} buckets but "
                          f"{comm.n_ranks} ranks")
     padded, counts, overflow, _ = pt.to_padded(capacity)
-    table, _ = shuffle_padded(comm, padded, counts, capacity)
+    table, _ = shuffle_padded(comm, padded, counts, capacity, tape=tape,
+                              digest_tape=digest_tape)
     return table, overflow

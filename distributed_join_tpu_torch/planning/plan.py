@@ -443,8 +443,6 @@ def build_plan(comm, build, probe, key="key", with_metrics=None,
     sig = JoinSignature.of(comm, build, probe, key=key,
                            with_metrics=with_metrics, rung=rung, **opts)
     resolved = dict(sig.options)
-    # the integrity switch is no step option of the port: always off
-    resolved["with_integrity"] = False
 
     n = sig.n_ranks
     n_slices = sig.n_slices
@@ -649,7 +647,7 @@ def build_plan(comm, build, probe, key="key", with_metrics=None,
         shuffle=shuffle,
         compression_bits=comp_bits,
         with_metrics=bool(with_metrics),
-        with_integrity=False,
+        with_integrity=bool(resolved.get("with_integrity")),
         build=side_b,
         probe=side_p,
         capacities=capacities,
@@ -749,16 +747,13 @@ def explain_join(build, probe, comm, key="key",
         resolve_join_ladder,
     )
 
-    if verify_integrity:
-        raise NotImplementedError(
-            "verify_integrity=True: the wire-integrity digests are not "
-            "part of the port yet (ROADMAP A5d)")
     n = comm.n_ranks
     build, probe = _abstract_padded(build, n), _abstract_padded(probe, n)
     opts = dict(opts)
     ladder = resolve_join_ladder(build, probe, n, opts,
                                  n_slices=comm.n_slices)
     return build_plan(comm, build, probe, key=key,
+                      with_integrity=verify_integrity,
                       metrics_static={"retry_attempt_max": 0},
                       cost_model=cost_model, **ladder.sizing(), **opts)
 

@@ -12,9 +12,11 @@ gives both packages the same hits, misses, traces and evictions.
 
 Where the signatures differ from the JAX package's (the digests differ
 with them):
-- the options are the port's ``make_join_step`` keywords: the metrics
-  switches (``with_metrics``, ``metrics_static``) are among them, the
-  integrity switch, which the port refuses by name, is not;
+- the options are the port's ``make_join_step`` keywords, the metrics
+  and integrity switches (``with_metrics``, ``with_integrity``,
+  ``metrics_static``) among them: a program with either switch on is
+  one of the ``(JoinResult, Metrics)`` programs (JAX :185, :404, :517),
+  keyed apart from the plain one;
 - the ladder rung is a field of its own (``rung``), where the JAX
   package keys it through ``metrics_static`` alone;
 - a schema names numpy dtypes (``int64``), as the JAX package's does.
@@ -46,8 +48,6 @@ from typing import Callable, Optional
 from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.parallel.communicator import Communicator
 from distributed_join_tpu_torch.parallel.distributed_join import (
-    _UNPORTED,
-    _refuse_unported,
     make_join_step,
     spmd_join,
 )
@@ -102,12 +102,8 @@ def _digest(doc: dict) -> str:
 
 
 def step_options(opts: dict, defaults: dict, what: str) -> dict:
-    """``opts`` over ``defaults``: an option the port refuses by name
-    raises ``NotImplementedError`` (at its default it is dropped), one
-    that ``defaults`` does not know raises ``TypeError``."""
-    unported = {k: opts[k] for k in opts if k in _UNPORTED}
-    _refuse_unported(unported)
-    opts = {k: v for k, v in opts.items() if k not in unported}
+    """``opts`` over ``defaults``; an option that ``defaults`` does not
+    know raises ``TypeError``."""
     unknown = set(opts) - set(defaults)
     if unknown:
         raise TypeError(f"unknown join option(s) {sorted(unknown)}; the "
@@ -229,17 +225,18 @@ class JoinProgramCache:
 
     def get(self, build, probe, with_metrics=None, **opts):
         """``(program, hit)`` for this shape and option set: a step is
-        built only on a miss. A metrics program hangs its block on the
-        result as ``res.telemetry``, as ``make_distributed_join``'s
-        does."""
+        built only on a miss. A metrics or integrity program hangs its
+        block on the result as ``res.telemetry``, as
+        ``make_distributed_join``'s does."""
         if with_metrics is None:
             with_metrics = telemetry.enabled()
         sig = self.signature(build, probe, with_metrics=with_metrics, **opts)
         opts.pop("rung", None)
+        with_aux = bool(with_metrics or opts.get("with_integrity"))
 
         def builder():
             return spmd_join(self.comm, make_join_step(
-                self.comm, with_metrics=with_metrics, **opts), with_metrics)
+                self.comm, with_metrics=with_metrics, **opts), with_aux)
 
         return self.get_keyed(sig, builder)
 

@@ -39,8 +39,10 @@ program's ``ResidentSignature`` digest) and ``tuner`` (JAX :784-911: the
 autotuner's probe-only verdict, ``JoinTuner.resolve_resident``, keyed by
 the registry's generation-free workload signature; it pre-sizes the
 probe ladder and labels its rungs absolutely, and drops structural
-fills). ``verify_integrity`` refuses by name: the wire digests are not
-part of the port (ROADMAP A5d).
+fills) and ``verify_integrity`` (JAX :786-935: the probe side's wire
+digests, checked after each attempt; a mismatch evicts the probe-only
+program and reruns the same sizing as the ``retry_integrity`` rung, and
+the last attempt evicts and raises ``integrity.IntegrityError``).
 
 Telemetry (JAX :240-279, :615-713, :869-873): the prep step's
 ``partition``, ``shuffle`` and ``sort`` spans and the merge's
@@ -66,11 +68,10 @@ from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.ops.hashing import hash_columns
 from distributed_join_tpu_torch.ops.join import _lexsort, _sentinel_max
 from distributed_join_tpu_torch.ops.partition import radix_hash_partition
+from distributed_join_tpu_torch.parallel import integrity
 from distributed_join_tpu_torch.parallel.distributed_join import (
     DEFAULT_SHUFFLE_CAPACITY_FACTOR,
-    _UNPORTED,
     _batch_shuffle,
-    _refuse_unported,
     make_probe_join_step,
     resolve_join_ladder,
     spmd_join,
@@ -402,8 +403,8 @@ class ResidentTableRegistry:
         return self.cache.get_keyed(sig, builder)
 
     def _evict_program(self, sig: ResidentSignature) -> None:
-        """Drop a program whose run failed a conservation check: a clean
-        re-run builds it again."""
+        """Drop a program whose run failed a conservation or a
+        wire-integrity check: a clean re-run builds it again."""
         self.cache.evict(sig, reason="integrity")
 
     def _prep_program(self, schema: tuple, capacity: int, keys: tuple,
@@ -653,7 +654,7 @@ class ResidentTableRegistry:
 
     def join(self, name: str, probe: Table, *, auto_retry: int = 2,
              tuner=None, with_metrics=None, explain: bool = False,
-             **opts):
+             verify_integrity: bool = False, **opts):
         """One probe-only join against resident table ``name``: merge
         any pending runs first (every join sees every append), then
         partition, shuffle and sort the probe only, through the program
@@ -664,9 +665,21 @@ class ResidentTableRegistry:
         that produced it (its digest the cache key). With ``tuner`` (a
         ``planning.tuner.JoinTuner``) the probe ladder starts at the
         sizing and the absolute rung label the workload's history
-        resolved to, and the result carries ``tuned``."""
-        _refuse_unported({k: opts.pop(k) for k in list(opts)
-                          if k in _UNPORTED})
+        resolved to, and the result carries ``tuned``.
+
+        ``verify_integrity``: the probe shuffle's wire digests
+        (``make_probe_join_step(with_integrity=True)``), checked on the
+        host after each attempt that did not overflow, as
+        ``distributed_inner_join`` checks them: a mismatch evicts the
+        probe-only program and reruns the same sizing
+        (``retry_integrity``); the last attempt evicts and raises
+        ``integrity.IntegrityError``. A clean result carries
+        ``integrity_report``."""
+        if "with_integrity" in opts:
+            # the step's switch follows verify_integrity; taking both
+            # would let one silently override the other
+            raise TypeError("join() got an unexpected keyword argument "
+                            "'with_integrity' (pass verify_integrity)")
         handle = self.get(name)
         # hashed first, on the unpadded probe and the caller's options:
         # the basis the service keys its history lines on; only the
@@ -699,12 +712,14 @@ class ResidentTableRegistry:
             ladder.seed_rung(tuned.rung)
         key_opt = (list(handle.keys) if len(handle.keys) > 1
                    else handle.keys[0])
+        with_aux = bool(with_metrics or verify_integrity)
         for attempt in range(auto_retry + 1):
             # the absolute rung label (a seeded ladder starts above 0)
             rung = ladder.base_rung + attempt
             sizing = {k: v for k, v in ladder.sizing().items()
                       if k in _PROBE_SIZING_KEYS}
             step_opts = dict(opts, key=key_opt, with_metrics=with_metrics,
+                             with_integrity=verify_integrity,
                              metrics_static={"retry_attempt_max": rung},
                              **sizing)
             sig = self.probe_signature(handle, probe, step_opts, rung=rung)
@@ -713,7 +728,7 @@ class ResidentTableRegistry:
                 # the resident shard is local, the probe global
                 return spmd_join(
                     self.comm, make_probe_join_step(self.comm, **step_opts),
-                    with_metrics, local_inputs=(True, False))
+                    with_aux, local_inputs=(True, False))
 
             fn, hit = self._program(sig, build)
             handle.cached_sigs.add(sig)
@@ -724,12 +739,25 @@ class ResidentTableRegistry:
                     # the one sync of a served request (JAX :869-873)
                     sp.sync_on(res.total)
             overflow = bool(res.overflow)
-            ladder.note(overflow)
-            if attempt == auto_retry or not overflow:
+            report = None
+            if verify_integrity and not overflow:
+                report = integrity.verify_join_result(res)
+            ladder.note(overflow,
+                        integrity_ok=None if report is None else report.ok)
+            corrupt = report is not None and not report.ok
+            if corrupt:
+                # a program that delivered corrupt rows serves no more
+                self._evict_program(sig)
+                handle.cached_sigs.discard(sig)
+            if attempt == auto_retry or not (overflow or corrupt):
+                if corrupt:
+                    raise integrity.IntegrityError(report)
                 handle.joins_served += 1
                 if hit:
                     handle.warm_joins += 1
                 object.__setattr__(res, "retry_report", ladder.report())
+                if report is not None:
+                    object.__setattr__(res, "integrity_report", report)
                 object.__setattr__(res, "resident", {
                     "table": name, "generation": handle.generation,
                     "rows": handle.rows, "warm": bool(hit)})
@@ -751,5 +779,8 @@ class ResidentTableRegistry:
                         **dict(opts, **sizing)))
                 telemetry.emit_metrics(getattr(res, "telemetry", None))
                 return res
-            ladder.escalate()
+            if overflow:
+                ladder.escalate()
+            else:
+                ladder.hold("retry_integrity")
         raise AssertionError("unreachable")

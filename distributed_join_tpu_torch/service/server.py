@@ -60,8 +60,14 @@ Where the port differs:
   flight record carry ``tuned``, ``explain`` its ``tuned`` block and
   ``stats()`` a ``tuner`` block. The daemon's ``--auto-tune[=HISTORY]``
   sets them.
+- ``ServiceConfig.verify_integrity`` and the daemon's
+  ``--verify-integrity`` (JAX :418, :596-604, :945-1015, :2088): every
+  wire and resident join runs ``verify_integrity`` (the wire digests,
+  checked after each attempt; a mismatch evicts the program and reruns
+  the same sizing, counted in the cache's ``integrity_evictions`` and
+  the live metrics' ``integrity_retries``), and ``explain`` plans the
+  verified program, so its digest is the key the join runs under.
 - Refused by name, each naming the ROADMAP item it waits for:
-  ``verify_integrity`` (A5d);
   ``persist_dir`` (the cache's disk tier, A6); ``--chaos-seed`` (A7);
   ``--platform``; and a daemon over a process group of more than one
   rank (A6): the JAX daemon is one controller, and a port daemon over N
@@ -103,7 +109,6 @@ SMOKE_BASELINE_DIR = os.path.join(
 
 # What each refused option waits for (ROADMAP Queue A).
 _REFUSED_CONFIG = {
-    "verify_integrity": "the wire-integrity digests (ROADMAP A5d)",
     "persist_dir": "the program cache's disk tier (ROADMAP A6)",
 }
 MULTI_RANK_REFUSAL = (
@@ -159,8 +164,10 @@ class ServiceConfig:
     registry (``service/resident.py``). ``auto_tune`` arms the
     autotuner, preloaded from ``tuner_history`` (default: the history
     store's file, so a restarted service keeps its tuning).
-    ``verify_integrity`` and ``persist_dir`` keep the JAX package's
-    fields and refuse any value but their default."""
+    ``verify_integrity`` applies ``distributed_inner_join``'s
+    wire-integrity contract to every wire and resident join.
+    ``persist_dir`` keeps the JAX package's field and refuses any value
+    but its default."""
 
     auto_retry: int = 2
     verify_integrity: bool = False
@@ -468,6 +475,7 @@ class JoinService:
                 return distributed_inner_join(
                     build, probe, self.comm, key=key,
                     auto_retry=self.config.auto_retry,
+                    verify_integrity=self.config.verify_integrity,
                     program_cache=self.cache, tuner=self.tuner, **opts)
 
             res = self._execute(req, run_once, signature=req.sig)
@@ -544,8 +552,11 @@ class JoinService:
                                                        dict(opts))
 
             def run_once():
+                # the probe-only program's digests: the full join's
+                # contract on the resident path
                 return self.resident.join(
                     table, probe, auto_retry=self.config.auto_retry,
+                    verify_integrity=self.config.verify_integrity,
                     tuner=self.tuner, **opts)
 
             res = self._execute(req, run_once, signature=req.sig,
@@ -701,6 +712,7 @@ class JoinService:
                 # plan above is the static resolution's)
                 out["tuned"] = self.tuner.resolve(
                     self.comm, build, probe, key=key,
+                    with_integrity=self.config.verify_integrity,
                     opts=opts).as_record()
         except BaseException:
             self.live.record_request("explain", "failed")
@@ -712,12 +724,13 @@ class JoinService:
     def _plan_for(self, build, probe, key, opts):
         """The one plan construction of the explain op and of a join's
         prediction: the options as :meth:`join` dispatches them
-        (``with_metrics`` passed on, session-resolved when None), so the
+        (``with_metrics`` passed on, session-resolved when None;
+        ``with_integrity`` the service's policy unless given), so the
         digest equals the cache key the join dispatches under."""
         from distributed_join_tpu_torch.planning.plan import explain_join
 
         o = dict(opts)
-        wi = o.pop("with_integrity", False)
+        wi = o.pop("with_integrity", self.config.verify_integrity)
         return explain_join(build, probe, self.comm, key=key,
                             verify_integrity=wi, **o)
 
@@ -748,7 +761,7 @@ class JoinService:
 
         o = dict(opts)
         wm = o.pop("with_metrics", None)
-        wi = o.pop("with_integrity", False)
+        wi = o.pop("with_integrity", self.config.verify_integrity)
         return workload_signature(self.comm, build, probe, key=key,
                                   with_metrics=wm, with_integrity=wi, **o)
 
@@ -1538,6 +1551,13 @@ def parse_args(argv=None):
     p.add_argument("--auto-retry", type=int, default=2,
                    help="capacity-ladder budget applied to every request "
                         "(rungs reuse cached programs)")
+    p.add_argument("--verify-integrity", action="store_true",
+                   help="verify every request's shuffle wire with the "
+                        "per-(src, dst) digests (parallel/integrity.py): a "
+                        "mismatch evicts the program and reruns the same "
+                        "sizing within --auto-retry, then fails the "
+                        "request with IntegrityError instead of returning "
+                        "corrupt rows")
     p.add_argument("--max-pending", type=int, default=8,
                    help="admission bound: requests beyond this many "
                         "pending are refused, not queued")
@@ -1626,6 +1646,7 @@ def _service_from_args(args) -> JoinService:
             comm, plan_from_record(json.loads(args.fault_plan)))
     cfg = ServiceConfig(
         auto_retry=args.auto_retry,
+        verify_integrity=args.verify_integrity,
         request_deadline_s=args.request_deadline_s,
         max_pending=args.max_pending,
         max_batch_requests=args.max_batch_requests,

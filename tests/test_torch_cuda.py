@@ -2045,3 +2045,131 @@ def test_tuned_warm_repeat_on_card_builds_no_program(card, tmp_path):
         (final, "tuned_presize")]
     assert int(warm.total) == int(cold.total)
     assert scan.join_scans.launches == expand.expand_gather.launches == 1
+
+
+def _on(t, dev):
+    return Table({k: c.to(dev) for k, c in t.columns.items()},
+                 t.valid.to(dev))
+
+
+def test_integrity_digests_on_card_equal_cpu(card):
+    """The digest functions on the card give the CPU's bits: every dtype
+    the shuffles carry, the block sums and the segment sums (int64
+    wrapping sums and cumsums on both)."""
+    from distributed_join_tpu_torch.parallel import integrity
+    rng = np.random.default_rng(11)
+    rows = 1 << 16
+    cols = {"k64": rng.integers(-2**63, 2**63 - 1, rows, dtype=np.int64),
+            "k32": rng.integers(-2**31, 2**31 - 1, rows, dtype=np.int32),
+            "f32": rng.standard_normal(rows).astype(np.float32),
+            "f64": rng.standard_normal(rows),
+            "s": rng.integers(0, 256, (rows, 16), dtype=np.uint8),
+            "odd": rng.integers(0, 256, (rows, 3), dtype=np.uint8)}
+    host = {k: torch.from_numpy(v) for k, v in cols.items()}
+    dev = {k: v.to(card) for k, v in host.items()}
+    assert torch.equal(integrity.row_digests(dev).cpu(),
+                       integrity.row_digests(host))
+    blk = {k: v.reshape((8, rows // 8) + tuple(v.shape[1:]))
+           for k, v in host.items()}
+    counts = torch.tensor([0, 1, 8191, 8192, 5000, 17, 4096, 3],
+                          dtype=torch.int32)
+    want = integrity.padded_block_digests(blk, counts)
+    got = integrity.padded_block_digests(
+        {k: v.to(card) for k, v in blk.items()}, counts.to(card))
+    assert torch.equal(got.cpu(), want)
+    rd = integrity.row_digests(host)
+    starts, sizes = [0, 7, 60_000, 65_000], [7, 59_993, 5_000, 1_000]
+    assert torch.equal(
+        integrity.segment_digests(rd.to(card), starts, sizes).cpu(),
+        integrity.segment_digests(rd, starts, sizes))
+
+
+@pytest.mark.parametrize("wire", [
+    dict(), dict(shuffle="ragged", over_decomposition=2),
+    dict(compression_bits=32), dict(shuffle="ppermute"),
+    dict(slices=2, shuffle="hierarchical", dcn_codec="on"),
+    dict(sort_mode="segmented", sort_segments=2),
+], ids=str)
+def test_integrity_verified_join_on_card_equals_cpu(card, wire):
+    """A verified join over 4 emulated ranks on the card: a clean report
+    of 2 n^2 pairs, every digest lane the CPU's, the join kernels
+    launched; a one-unit bit flip recovers through ``retry_integrity``."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.parallel.faults import (
+        FaultInjectingCommunicator,
+        FaultPlan,
+    )
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    opts = dict(wire)
+    slices = opts.pop("slices", 1)
+    b, p = generate_build_probe_tables(seed=5, build_nrows=60_000,
+                                       probe_nrows=80_000, rand_max=30_000,
+                                       device="cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tb, tp = _on(b, dev), _on(p, dev)
+        _kernels.reset_launch_counts(scan.join_scans)
+        res = distributed_inner_join(
+            tb, tp, EmulatedCommunicator(4, n_slices=slices),
+            verify_integrity=True, out_capacity_factor=3.0, **opts)
+        rep = res.integrity_report
+        assert rep.ok and rep.checked_pairs == 2 * 4 * 4
+        per_rank = res.telemetry.to_dict()["per_rank"]
+        out[dev] = ({k: v for k, v in per_rank.items()
+                     if ".integrity." in k}, int(res.total))
+        if dev == "cuda" and wire.get("sort_mode") != "segmented":
+            assert scan.join_scans.launches > 0
+    assert out["cuda"] == out["cpu"]
+    comm = FaultInjectingCommunicator(
+        EmulatedCommunicator(4, n_slices=slices),
+        FaultPlan(seed=5, corrupt_mode="bit_flip", corrupt_collectives=1))
+    res = distributed_inner_join(_on(b, card), _on(p, card), comm,
+                                 verify_integrity=True, auto_retry=2,
+                                 out_capacity_factor=3.0, **opts)
+    assert [a.action for a in res.retry_report.attempts] == [
+        "initial", "retry_integrity"]
+    assert int(res.total) == out["cpu"][1]
+
+
+def test_integrity_batch_loop_on_card(card):
+    """The batch loop's verified path on the card (the metrics block
+    copied to pinned memory beside the total): a clean run is the plain
+    run; a corrupted batch program fails every batch under ``raise`` and
+    ``continue`` alike, and no corrupt total is counted."""
+    from distributed_join_tpu_torch.parallel import out_of_core as ooc
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.faults import (
+        FaultInjectingCommunicator,
+        FaultPlan,
+    )
+    from distributed_join_tpu_torch.parallel.integrity import IntegrityError
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+    b, p = generate_build_probe_tables(seed=9, build_nrows=200_000,
+                                       probe_nrows=200_000, device=card)
+    opts = dict(n_batches=4, warmup=False, out_capacity_factor=3.0,
+                shuffle_capacity_factor=3.0)
+    want = ooc.keyrange_batched_join(b, p, EmulatedCommunicator(4), **opts)
+    assert ooc.keyrange_batched_join(b, p, EmulatedCommunicator(4),
+                                     verify_integrity=True, **opts) == want
+    plan = FaultPlan(seed=5, corrupt_mode="bit_flip", corrupt_collectives=1)
+    with pytest.raises(IntegrityError):
+        ooc.keyrange_batched_join(
+            b, p, FaultInjectingCommunicator(EmulatedCommunicator(4), plan),
+            verify_integrity=True, **opts)
+    stats = {}
+    total, _ = ooc.keyrange_batched_join(
+        b, p, FaultInjectingCommunicator(EmulatedCommunicator(4), plan),
+        verify_integrity=True, on_batch_failure="continue", stats=stats,
+        **opts)
+    assert total == 0 and stats["failed_batches"] == [0, 1, 2, 3]

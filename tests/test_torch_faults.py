@@ -7,8 +7,9 @@ JAX package's wrapper on its 8 virtual CPU devices (tests/conftest.py):
 the same plans give the same outcomes — the same errors and messages,
 the same ladder trails rung for rung, the same batch-loop totals and
 failed batches, the same plan-validation verdicts. The corruption modes
-stay plan fields (a plan round-trips through its record) and the port's
-wrapper refuses them by name. The gloo cases are in
+build a wrapper and their verified joins recover (the modes against the
+wire digests, seam by seam, are ``tests/test_torch_integrity.py``); an
+unknown mode refuses by name. The gloo cases are in
 ``tests/test_torch_multiprocess.py``.
 """
 
@@ -231,11 +232,28 @@ def test_plan_from_record_roundtrip_and_unknown_key_refusal():
                                   FaultPlan(corrupt_mode="misroute"),
                                   FaultPlan(corrupt_collectives=2)])
 def test_corruption_modes_refuse_by_name(plan):
-    with pytest.raises(NotImplementedError, match="integrity digests"):
-        FaultInjectingCommunicator(EmulatedCommunicator(2), plan)
+    """The corruption modes are ported: each plan builds a wrapper, and a
+    verified join through it returns the clean rows (a live budget
+    through the ``retry_integrity`` rung, an empty one on its first
+    attempt); only an unknown mode refuses, by name."""
+    comm = FaultInjectingCommunicator(EmulatedCommunicator(2), plan)
     with pytest.raises(ValueError, match="unknown corrupt_mode"):
         FaultInjectingCommunicator(EmulatedCommunicator(2),
                                    FaultPlan(corrupt_mode="bogus"))
+    bc, bv, pc, pv = _tables()
+    clean = tdist.distributed_inner_join(
+        _tt(bc, bv), _tt(pc, pv), EmulatedCommunicator(2), **OOC_OPTS)
+    res = tdist.distributed_inner_join(
+        _tt(bc, bv), _tt(pc, pv), comm, verify_integrity=True,
+        auto_retry=2, **OOC_OPTS)
+    live = plan.corrupt_mode is not None and plan.corrupt_collectives > 0
+    assert [a.action for a in res.retry_report.attempts] == (
+        ["initial", "retry_integrity"] if live else ["initial"])
+    assert [a.integrity_ok for a in res.retry_report.attempts] == (
+        [False, True] if live else [True])
+    assert res.integrity_report.ok
+    assert res.integrity_report.checked_pairs == 2 * 2 * 2
+    assert int(res.total) == int(clean.total)
 
 
 def test_wrapper_forwards_the_counters_and_host_reads():

@@ -362,11 +362,17 @@ def test_distributed_join_retry_ladder_matches_jax(jcomm8):
 def test_distributed_join_refuses_unported_options():
     t = _ttable({"key": np.arange(8), "a": np.arange(8)}, np.ones(8, bool))
     u = _ttable({"key": np.arange(8), "b": np.arange(8)}, np.ones(8, bool))
-    for name, value in (("with_integrity", True),
-                        ("verify_integrity", True)):
-        with pytest.raises(NotImplementedError, match=name):
-            tdist.distributed_inner_join(t, u, LocalCommunicator(),
-                                         **{name: value})
+    # the wire digests are ported: one rank has no wire, so its report is
+    # vacuously clean; with_integrity is the step's switch, which the
+    # one-shot join sets itself (a TypeError, as in the JAX package)
+    res = tdist.distributed_inner_join(t, u, LocalCommunicator(),
+                                       verify_integrity=True)
+    assert res.integrity_report.ok and res.integrity_report.checked_pairs == 0
+    assert int(res.total) == 8
+    assert [a.integrity_ok for a in res.retry_report.attempts] == [True]
+    with pytest.raises(TypeError, match="with_integrity"):
+        tdist.distributed_inner_join(t, u, LocalCommunicator(),
+                                     with_integrity=True)
     # the autotuner is ported: a tuner with no history is the static plan
     from distributed_join_tpu_torch.planning.tuner import JoinTuner
     res = tdist.distributed_inner_join(t, u, LocalCommunicator(),

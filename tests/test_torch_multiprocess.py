@@ -122,6 +122,35 @@ FAULT_LOOPS = {
                          opts=dict(FAULT_LOOP_OPTS,
                                    on_batch_failure="continue")),
 }
+# the wire digests over 2 gloo processes (parallel/integrity.py): clean
+# verified joins on each flat wire, then each corruption mode on the
+# padded and ragged wires with a budget of one (the retry_integrity rung
+# recovers) and one unbounded bit flip (IntegrityError on every rank)
+INTEGRITY_CLEAN = {
+    "int_padded": dict(out_capacity_factor=3.0),
+    "int_ragged": dict(shuffle="ragged", over_decomposition=2,
+                       out_capacity_factor=4.0),
+    "int_ppermute": dict(shuffle="ppermute", out_capacity_factor=3.0),
+    "int_compressed": dict(compression_bits=16, auto_retry=2,
+                           out_capacity_factor=3.0),
+}
+INTEGRITY_MODES = ("bit_flip", "row_truncate", "row_duplicate", "misroute")
+INTEGRITY_CORRUPT = {
+    **{f"int_{wire}_{mode}": dict(
+        plan={"seed": 5, "corrupt_mode": mode, "corrupt_collectives": 1},
+        opts=dict(shuffle=wire, auto_retry=2, out_capacity_factor=3.0))
+       for wire in ("padded", "ragged") for mode in INTEGRITY_MODES},
+    # a count lie on the corrupt sender's last bucket asks for a window
+    # past its operand's end (zero-filled; the exchange keeps its sizes)
+    "int_ragged_row_duplicate_last": dict(
+        plan={"seed": 3, "corrupt_mode": "row_duplicate",
+              "corrupt_collectives": 1},
+        opts=dict(shuffle="ragged", auto_retry=2, out_capacity_factor=3.0)),
+    "int_unbounded": dict(
+        plan={"seed": 5, "corrupt_mode": "bit_flip",
+              "corrupt_collectives": 1 << 30},
+        opts=dict(auto_retry=2, out_capacity_factor=3.0)),
+}
 SHUFFLE_CAP = 4096  # no bucket of the probe side overflows it
 RAGGED_LEN = 40
 DTYPE_ROWS = 8  # rows a rank: one block of 4 or 2 rows a peer
@@ -296,6 +325,28 @@ if "faults" in spec:
             out["fault_error"] = np.array("")
         except FaultInjectedError as exc:
             out["fault_error"] = np.array(str(exc))
+
+if "integrity" in spec:
+    from distributed_join_tpu_torch.parallel.faults import (
+        FaultInjectingCommunicator, plan_from_record)
+    from distributed_join_tpu_torch.parallel.integrity import IntegrityError
+    g = spec["integrity"]
+    b = table(spec["shuffle_tables"], "build")
+    p = table(spec["shuffle_tables"], "probe")
+    for name, opts in g["clean"].items():
+        res = distributed_inner_join(b, p, comm, verify_integrity=True,
+                                     **opts)
+        save_result(name, res)
+        out[f"{name}/report"] = np.array(json.dumps(
+            res.integrity_report.as_record()))
+    for name, case in g["corrupt"].items():
+        fc = FaultInjectingCommunicator(comm, plan_from_record(case["plan"]))
+        try:
+            save_result(name, distributed_inner_join(
+                b, p, fc, verify_integrity=True, **case["opts"]))
+            out[f"{name}/error"] = np.array("")
+        except IntegrityError as exc:
+            out[f"{name}/error"] = np.array(str(exc))
 
 np.savez(f"{spec['out']}/rank{r}.npz", **out)
 bootstrap.shutdown()
@@ -484,6 +535,8 @@ def worker_runs(tmp_path_factory):
                                 "delta": str(d / "delta.npz")}
             spec["faults"] = {"joins": FAULT_JOINS, "loops": FAULT_LOOPS,
                               "telemetry": str(d / "telemetry")}
+            spec["integrity"] = {"clean": INTEGRITY_CLEAN,
+                                 "corrupt": INTEGRITY_CORRUPT}
         (d / "spec.json").write_text(json.dumps(spec))
         (d / "worker.py").write_text(WORKER)
         t0 = time.monotonic()
@@ -748,6 +801,51 @@ def test_gloo_resident_join_equals_jax(worker_runs, jcomms):
             h.rows, h.key_digest, h.generation, h.capacity_per_rank,
             h.merges)
         assert stats == cache.stats()
+
+
+def test_gloo_integrity_verified_and_corrupted(worker_runs, tmp_path):
+    """The wire digests over 2 gloo processes: every flat wire verifies
+    clean (2 n^2 pairs) with the emulated join's total; each corruption
+    mode on the padded and ragged wires is caught and recovered by one
+    ``retry_integrity`` rung; an unbounded budget raises IntegrityError on
+    both ranks, the same pairs named; and the all-to-all driver's
+    ``--verify-integrity`` record is clean."""
+    ranks, _ = worker_runs[2]
+    bc, bv, pc, pv = _uniform_tables()
+    tb, tp = _ttable(bc, bv), _ttable(pc, pv)
+    for name, opts in INTEGRITY_CLEAN.items():
+        want = tdist.distributed_inner_join(tb, tp, EmulatedCommunicator(2),
+                                            verify_integrity=True, **opts)
+        for rank in ranks:
+            rep = json.loads(str(rank[f"{name}/report"]))
+            assert rep["ok"] and rep["checked_pairs"] == 2 * 2 * 2, name
+            assert rep["channels"] == ["build", "probe"]
+            assert int(rank[f"{name}/total"]) == int(want.total), name
+            assert not bool(rank[f"{name}/overflow"])
+    clean = int(ranks[0]["int_padded/total"])
+    for name in INTEGRITY_CORRUPT:
+        errors = {str(rank[f"{name}/error"]) for rank in ranks}
+        assert len(errors) == 1, name     # every rank reads one block
+        if name == "int_unbounded":
+            assert "wire integrity violated" in errors.pop()
+            continue
+        assert errors == {""}, name
+        for rank in ranks:
+            att = json.loads(str(rank[f"{name}/attempts"]))
+            assert [a["action"] for a in att] == [
+                "initial", "retry_integrity"], name
+            assert [a["integrity_ok"] for a in att] == [False, True], name
+            assert int(rank[f"{name}/total"]) == clean, name
+    out = tmp_path / "a2a.json"
+    r = _launch(2, [sys.executable, "-m",
+                    "distributed_join_tpu_torch.benchmarks.all_to_all",
+                    "--communicator", "gloo", "--buffer-size", "65536",
+                    "--iterations", "2", "--verify-integrity",
+                    "--json-output", str(out)])
+    assert r.returncode == 0, r.stderr[-3000:]
+    rec = json.loads(out.read_text())
+    assert rec["integrity"] == {"ok": True, "checked_pairs": 4,
+                                "channels": ["wire"], "mismatches": []}
 
 
 def tdist_attempts(report) -> list:
@@ -1035,9 +1133,11 @@ def test_all_to_all_benchmark_refuses_one_rank_and_unported_flags():
                     "distributed_join_tpu_torch.benchmarks.all_to_all",
                     "--communicator", "gloo", "--buffer-size", "4096"])
     assert r.returncode != 0 and "needs >= 2 ranks" in r.stderr
-    for flag in ("--verify-integrity", "--chaos-seed"):
-        with pytest.raises(SystemExit):
-            ta2a.parse_args([flag])
+    with pytest.raises(SystemExit):
+        ta2a.parse_args(["--chaos-seed"])
+    # the wire digests are ported: --verify-integrity parses (its run is
+    # test_gloo_integrity_verified_and_corrupted's)
+    assert ta2a.parse_args(["--verify-integrity"]).verify_integrity
     # --auto-tune parses (a flag of every driver) and the run refuses it
     # with the JAX message: one exchange has no capacity to pre-size
     with pytest.raises(SystemExit, match="no capacity contract"):

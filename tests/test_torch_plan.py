@@ -262,14 +262,23 @@ def test_plan_refusals_match_the_step():
                        ValueError),
                       (dict(sort_segments=4), ValueError),
                       (dict(dcn_codec="sometimes"), ValueError),
-                      (dict(not_an_option=1), TypeError),
-                      (dict(with_integrity=True), NotImplementedError)):
+                      (dict(not_an_option=1), TypeError)):
         with pytest.raises(err):
             tplan.build_plan(tc, tb, tp, key=key, **opts)
         with pytest.raises(err):
             tdist.make_join_step(tc, key=key, **opts)
-    with pytest.raises(NotImplementedError, match="A5d"):
-        tplan.explain_join(tb, tp, tc, verify_integrity=True)
+    # the integrity switch is ported: it enters the plan and its digest,
+    # which stays the program cache's key for the same call
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+    plan = tplan.build_plan(tc, tb, tp, key=key, with_integrity=True)
+    assert plan.with_integrity
+    assert plan.digest == JoinProgramCache(tc).signature(
+        tb, tp, key=key, with_integrity=True).digest()
+    assert plan.digest != tplan.build_plan(tc, tb, tp, key=key).digest
+    tdist.make_join_step(tc, key=key, with_integrity=True)
+    verified = tplan.explain_join(tb, tp, tc, verify_integrity=True)
+    assert verified.with_integrity
+    assert verified.digest != tplan.explain_join(tb, tp, tc).digest
     hier = EmulatedCommunicator(4, n_slices=2)
     with pytest.raises(ValueError, match="hierarchical"):
         tplan.build_plan(hier, tb, tp, key=key, shuffle="padded")

@@ -438,12 +438,15 @@ def test_refusals_never_wrong_rows(n):
     # the skew sidecar is not a probe-only knob
     _raises_same(lambda: jreg.join("dim", jp, skew_threshold=0.001),
                  lambda: treg.join("dim", tp, skew_threshold=0.001))
-    # what the port does not have refuses by name; the metrics tape, the
-    # plan and the autotuner are ported
-    for opt, value in (("verify_integrity", True),
-                       ("with_integrity", True)):
-        with pytest.raises(NotImplementedError, match=opt):
-            treg.join("dim", tp, **{opt: value})
+    # the wire digests are ported: the probe side's n^2 pairs (one rank
+    # has no wire); the step's own switch follows verify_integrity
+    res = treg.join("dim", tp, verify_integrity=True)
+    assert res.integrity_report.ok
+    assert res.integrity_report.checked_pairs == (n * n if n > 1 else 0)
+    assert res.integrity_report.channels == (("probe",) if n > 1 else ())
+    with pytest.raises(TypeError, match="with_integrity"):
+        treg.join("dim", tp, with_integrity=True)
+    # the metrics tape, the plan and the autotuner are ported
     from distributed_join_tpu_torch.planning.tuner import JoinTuner
     assert treg.join("dim", tp, tuner=JoinTuner()).tuned["source"] == \
         "static"
@@ -549,7 +552,7 @@ def test_overflowing_merge_poisons_handle(n):
 
 def test_probe_only_step_refusals_match_jax():
     """The probe-only step refuses what JAX's refuses, with its exception
-    types and messages; integrity refuses by name, the metrics tape is
+    types and messages; the metrics tape and the integrity digests are
     taken."""
     jc, tc = jcomm.make_communicator("tpu", n_ranks=4), EmulatedCommunicator(4)
     for opts, exc in (({"sort_mode": "segmented"}, ValueError),
@@ -568,8 +571,8 @@ def test_probe_only_step_refusals_match_jax():
             tdist.make_probe_join_step(
                 tc, aggregate=ta.AggregateSpec.of(*spec), **opts)
         assert str(te.value) == str(je.value)
-    with pytest.raises(NotImplementedError, match="with_integrity"):
-        tdist.make_probe_join_step(tc, with_integrity=True)
+    step = tdist.make_probe_join_step(tc, with_integrity=True)
+    assert callable(step)
     tdist.make_probe_join_step(tc, with_metrics=True)
     # the multi-slice mesh
     with pytest.raises(ValueError, match="multi-slice"):

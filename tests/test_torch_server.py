@@ -520,16 +520,25 @@ def test_hung_request_poisons_as_jax(tmp_path):
 
 def test_port_refusals_by_name():
     """What waits for later slices refuses by name, naming the ROADMAP
-    item: the integrity digests, the disk tier, a multi-rank process
-    group; and the daemon's flags. ``explain`` and the autotuner
-    (``auto_tune``, ``tuner_history``, ``--auto-tune``) are ported: a dry
-    run is served, a malformed one fails, each counted."""
+    item: the disk tier, a multi-rank process group; and the daemon's
+    flags. ``explain``, the autotuner (``auto_tune``, ``tuner_history``,
+    ``--auto-tune``) and the integrity digests (``verify_integrity``,
+    ``--verify-integrity``) are ported: a dry run is served, a malformed
+    one fails, each counted; a verified service serves verified joins."""
     tc = LocalCommunicator()
-    for field, item in (("verify_integrity", "A5d"), ("persist_dir", "A6")):
-        value = "x" if field == "persist_dir" else True
+    for field, item in (("persist_dir", "A6"),):
         with pytest.raises(NotImplementedError, match=f"{field}.*{item}"):
-            ts.JoinService(tc, ts.ServiceConfig(**{field: value}),
+            ts.JoinService(tc, ts.ServiceConfig(**{field: "x"}),
                            device="cpu")
+    verified = ts.JoinService(EmulatedCommunicator(2),
+                              ts.ServiceConfig(verify_integrity=True),
+                              device="cpu")
+    vb, vp = generate_build_probe_tables(seed=3, build_nrows=512,
+                                         probe_nrows=512, device="cpu")
+    res = verified.join(vb, vp, key="key", out_capacity_factor=3.0)
+    assert res.integrity_report.ok
+    assert res.integrity_report.checked_pairs == 2 * 2 * 2
+    assert verified.explain(vb, vp)["plan"]["with_integrity"]
     for cfg in ({"auto_tune": True}, {"auto_tune": True,
                                       "tuner_history": "missing.jsonl"}):
         tuned = ts.JoinService(tc, ts.ServiceConfig(**cfg), device="cpu")
@@ -549,9 +558,12 @@ def test_port_refusals_by_name():
     one = ProcessGroupCommunicator(Mesh("gloo", 1, 0, torch.device("cpu")))
     assert ts.JoinService(one).device == torch.device("cpu")
     assert ts.parse_args(["--auto-tune", "1"]).auto_tune == "1"
+    args = ts.parse_args(["--verify-integrity", "--device", "cpu"])
+    args.request_deadline_s = None   # the daemon's main resolves it
+    assert ts._service_from_args(args).config.verify_integrity
+    assert not ts.parse_args([]).verify_integrity
     for flag, item in (("--platform", "--device"),
                        ("--persist-dir", "A6"),
-                       ("--verify-integrity", "A5d"),
                        ("--chaos-seed", "A7")):
         err = io.StringIO()
         with pytest.raises(SystemExit), contextlib.redirect_stderr(err):

@@ -153,9 +153,8 @@ def test_distinct_signatures_distinct_entries(n):
     same builds, and a repeat of every variant is a pure hit. The ladder
     rung keys an entry (``rung``; JAX keys it through
     ``metrics_static``), a schema does, and table contents do not. An
-    unknown option is a TypeError; the integrity switch refuses by name,
-    and the metrics switches key entries of their own, as in the JAX
-    package."""
+    unknown option is a TypeError; the integrity and metrics switches
+    key entries of their own, as in the JAX package."""
     (jb, tb), (jp, tp), _ = _tables()
     jc, _, tc = _comms(n)
     jcache, tcache = jprog.JoinProgramCache(jc), tprog.JoinProgramCache(tc)
@@ -183,12 +182,16 @@ def test_distinct_signatures_distinct_entries(n):
         tprog.JoinSignature.of(tc, tb, tp, not_a_join_option=1)
     with pytest.raises(TypeError):
         jprog.JoinSignature.of(jc, jb, jp, not_a_join_option=1)
-    with pytest.raises(NotImplementedError, match="with_integrity"):
-        tcache.get(tb, tp, with_integrity=True, **BASE)
+    # the integrity switch keys a (JoinResult, Metrics) program of its own
+    assert not tcache.get(tb, tp, with_integrity=True, **BASE)[1]
+    assert not jcache.get(jb, jp, with_integrity=True, **BASE)[1]
+    assert tcache.get(tb, tp, with_integrity=True, **BASE)[1]
+    assert jcache.get(jb, jp, with_integrity=True, **BASE)[1]
     metered = {tcache.signature(tb, tp, with_metrics=True, **BASE),
                tcache.signature(tb, tp, **BASE,
-                                metrics_static={"retry_attempt_max": 1})}
-    assert len(metered) == 2 and not metered & set(sigs)
+                                metrics_static={"retry_attempt_max": 1}),
+               tcache.signature(tb, tp, with_integrity=True, **BASE)}
+    assert len(metered) == 3 and not metered & set(sigs)
     built = tc.programs_built
     for opts in VARIANTS:
         assert tcache.get(tb, tp, **opts)[1]

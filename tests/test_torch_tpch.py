@@ -371,9 +371,11 @@ def test_overflow_is_reported_as_in_jax():
 def test_batch_loop_refuses_what_the_port_lacks():
     bb, pb = _host_join_batches()
     comm = LocalCommunicator()
-    with pytest.raises(NotImplementedError, match="integrity"):
-        tooc.batched_join_host(bb, pb, comm, device="cpu",
-                               verify_integrity=True)
+    # the wire digests are ported: a verified run is the plain run (its
+    # raise and degrade modes are tests/test_torch_integrity.py's)
+    assert tooc.batched_join_host(bb, pb, comm, device="cpu",
+                                  verify_integrity=True) == \
+        tooc.batched_join_host(bb, pb, comm, device="cpu")
     # the watchdog is ported: a batch deadline bounds each settle, and a
     # run inside it is the plain run
     assert tooc.batched_join_host(bb, pb, comm, device="cpu",
@@ -686,14 +688,28 @@ def test_driver_flags_cover_the_jax_driver():
 
 # flags the driver takes and its run refuses, in the JAX driver's words
 RUN_REFUSED = {"--auto-tune": "does not consult the history store"}
+# flags the driver takes and its --query run refuses, in the JAX
+# driver's words
+QUERY_REFUSED = {"--verify-integrity": "--query composes its own plan"}
 
 
 @pytest.mark.parametrize("flag", [f for f in JAX_FLAGS
                                   if f in tdriver._REFUSED
-                                  or f in RUN_REFUSED])
+                                  or f in RUN_REFUSED
+                                  or f in QUERY_REFUSED])
 def test_driver_refuses_what_the_port_lacks(flag, capsys):
     argv = [flag] + ([JAX_FLAGS[flag]] if JAX_FLAGS[flag] else [])
     jargs = jdriver.parse_args(argv)  # the JAX driver takes it
+    if flag in QUERY_REFUSED:
+        # ported: taken as the JAX driver takes it, and refused with
+        # --query in its words
+        assert getattr(tdriver.parse_args(argv), flag[2:].replace(
+            "-", "_")) == getattr(jargs, flag[2:].replace("-", "_"))
+        argv += ["--query", "q3"]
+        for drv in (jdriver, tdriver):
+            with pytest.raises(SystemExit, match=QUERY_REFUSED[flag]):
+                drv.run(drv.parse_args(argv))
+        return
     if flag in RUN_REFUSED:
         targs = tdriver.parse_args(argv)
         for run, args in ((jdriver.run, jargs), (tdriver.run, targs)):

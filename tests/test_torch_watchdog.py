@@ -285,10 +285,12 @@ def test_guarded_run_returns_0_and_finalizes(tmp_path):
 DRIVERS = {"distributed_join": (tdriver, jdriver),
            "tpch_join": (ttpch, jtpch), "all_to_all": (ta2a, ja2a)}
 STILL_REFUSED = {"--auto-tune": ([], None),
-                 "--verify-integrity": ([], "A5"),
+                 "--verify-integrity": ([], None),
                  "--chaos-seed": (["3"], "A7")}
-# --auto-tune is ported: the join driver takes it; the tpch and all_to_all
-# drivers take it and their runs refuse it in the JAX drivers' words
+# --auto-tune and --verify-integrity are ported (queue None): every driver
+# takes --verify-integrity; the join driver takes --auto-tune, the tpch
+# and all_to_all drivers take it and their runs refuse it in the JAX
+# drivers' words
 AUTO_TUNE_RUN_REFUSAL = {"distributed_join": None,
                          "tpch_join": "does not consult the history store",
                          "all_to_all": "no capacity contract to pre-size"}
@@ -302,6 +304,10 @@ def test_drivers_refuse_what_waits_by_name(driver, flag, capsys):
     jargs = jmod.parse_args([flag, *extra])   # the JAX driver takes it
     if queue is None:
         targs = tmod.parse_args([flag, *extra])
+        if flag == "--verify-integrity":
+            # ported: every driver takes the switch, as the JAX drivers do
+            assert targs.verify_integrity and jargs.verify_integrity
+            return
         assert targs.auto_tune == jargs.auto_tune == ""
         match = AUTO_TUNE_RUN_REFUSAL[driver]
         if match is not None:
@@ -322,7 +328,9 @@ def test_launcher_refuses_what_waits_by_name(flag, capsys):
         # ported: handed on to every process's command
         args = tlaunch.parse_args(["--num-processes", "2", flag, *extra,
                                    "--", "drv"])
-        assert args.command == ["drv", flag, ""]
+        # a switch goes on bare, a value-taking flag with its value
+        assert args.command == (["drv", flag] if flag == "--verify-integrity"
+                                else ["drv", flag, ""])
         return
     with pytest.raises(SystemExit):
         tlaunch.parse_args(["--num-processes", "2", flag, *extra, "--",
