@@ -97,9 +97,12 @@ Phases (any failure raises, and the script exits non-zero):
    sites and the expand against their twins on the inputs the last
    bucket's local join gave them (the padded bucket's shapes), and
    every rank times the partition and shuffle of such a join alone.
-   Last, the all-to-all benchmark at 64 and 256 MiB a rank with two
-   cards or more (the median of 5 timed windows, each window printed);
-   on one card its refusal (it needs two ranks). ``python3
+   The same launch runs phase 17(e)'s Q10 at SF-1 through the tpch
+   driver (its groups digest against the 1-rank one this process
+   computes). Last, the all-to-all benchmark at 64 and 256 MiB a rank
+   with two cards or more (the median of 5 timed windows, each window
+   printed); on one card its refusal (it needs two ranks), inside the
+   same launch. ``python3
    chip_smoke.py --phase 13`` runs this phase alone (after the build).
 14. The wires over NCCL, one process a card as in phase 13, at config
    2's shape (10 M x 10 M rows a rank, over-decomposition 4): first the
@@ -173,8 +176,8 @@ Phases (any failure raises, and the script exits non-zero):
    group on the host, both oracle-equal. (d) Q3 and Q10 at SF-1 on 4
    emulated ranks and on an emulated 2 x 2 hierarchy, each equal to the
    1-rank groups (Q10 runs the partials exchange). (e) Q10 at SF-1
-   through the NCCL launcher, one process a card, its groups digest
-   equal to the 1-rank one; with four or more cards also Q3 and Q10 at
+   over NCCL, one process a card, its groups digest equal to the 1-rank
+   one (in phase 13's launch); with four or more cards also Q3 and Q10 at
    SF-10 over 4 NCCL ranks, equal to (a)'s. (f) the groups compaction at
    (a)'s Q3 shape against its twin (``stream_compact[groups]``).
    ``python3 chip_smoke.py --phase 17`` runs this phase alone (after
@@ -229,7 +232,7 @@ Phases (any failure raises, and the script exits non-zero):
    build).
 20. The join service's daemon (``python -m
    distributed_join_tpu_torch.service.server``) over TCP on localhost,
-   on this card, in a process of its own: (a) a 10 M-row build registered
+   on this card, in the shared process: (a) a 10 M-row build registered
    over the wire and 32 resident joins of 2^18 probe rows, each equal to
    an in-process registry join, the cache 1 miss and 31 hits, the
    client's ms a request, the metrics op's ordered quantiles and the
@@ -271,7 +274,7 @@ Phases (any failure raises, and the script exits non-zero):
    knobs) and a uniform one (clean); (e) the daemon's smoke twice, the
    second gated against baselines written from the first.
    ``python3 chip_smoke.py --phase 22`` runs this phase alone.
-23. The autotuner (``planning/tuner.py``), in a process of its own: (a)
+23. The autotuner (``planning/tuner.py``), in the shared process: (a)
    the warm contract at config 2's 10 M x 10 M on one rank: a cold join
    at ``out_capacity_factor`` 0.1 escalates at least twice; fed its
    history line, the repeat runs one ``tuned_presize`` attempt at the
@@ -306,9 +309,32 @@ Phases (any failure raises, and the script exits non-zero):
    ``--verify-integrity`` records; (d) the headline with integrity off,
    its launches and row digest equal to the headline phase's. ``python3
    chip_smoke.py --phase 24`` runs this phase alone.
+25. The serving fleet (``service/fleet.py``), in the shared process:
+   (a) an in-process fleet of two replicas on this card (K = 2 table
+   replication, a persist dir a slot) beside a direct ``JoinService``
+   daemon: a 10 M-row resident build and a 1 M-row append on both
+   holders, 32 probe-only requests of 2^18 rows and wire joins at 10 M x
+   10 M, each equal to the direct service's, the warm repeats on the
+   cold request's replica with no program built, the router's and the
+   direct call's ms a request (medians over pairs, the first side
+   alternating); a holder that missed an append refuses with
+   ``StaleGenerationError`` and the router fails over; the join kernels
+   launched on the router's requests (path ``fleet``). (b) ``python -m
+   distributed_join_tpu_torch.service.fleet --smoke`` (daemon replicas
+   on this card, a shared persist dir, a scripted SIGKILL): its gates
+   and its baseline gate
+   (``results/baselines_torch/fleet_smoke.json``), kill to serving
+   seconds, the replacement's first request with its program bound from
+   disk against a replica's from an empty persist dir, each replica's
+   peak device memory. (c) ``--ha-smoke``, started after (a)'s timed
+   pairs and run beside (b): the rebuild's and the takeover's seconds,
+   its baseline gate. ``python3 chip_smoke.py
+   --phase 25`` runs this phase alone.
 
 The whole script runs phases 2 to 14 and 16 in one process, then 15,
-17, 18, 19, 20, 21, 22, 23 and 24 each in a process of its own
+17, 18, 19, 21, 22 and 24 each in a process of its own, and 20, 23 and
+25, which take no profiler session, one after another in one more
+(``--phase 20,23,25``)
 (``--phase N``): late in one
 long process the profiler has dropped launches and scaled durations. A device
 time counts only when the profiler caught every launch the wrappers made
@@ -333,7 +359,9 @@ groups site's entry carries too, phase 21(c)'s ``tape_*`` paths, and
 phase 22's ``stageprof_join`` (the k = 4 profile) and ``stageprof_q3``,
 and phase 23's ``tuner_warm``, ``tuner_service``, ``tuner_skew_fill``,
 ``tuner_wire_fill`` and ``tuner_sort_fill``, the last launching none: the
-segmented path, and phase 24's ``integrity``; the skew site's entry carries its launches on the paths
+segmented path, phase 24's ``integrity`` and phase 25's ``fleet``
+(the router's requests to its in-process replicas); the skew site's
+entry carries its launches on the paths
 that run the sidecar, phase 23's ``tuner_skew_fill`` among them);
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -1898,6 +1926,25 @@ def nccl_rank_worker(job: dict) -> int:
     comm = make_communicator("nccl")
     n = comm.n_ranks
     out = {"drivers": _worker_drivers(job.get("drivers", {}))}
+    if job.get("tpch"):
+        # the config-4 driver's queries in this process group (phase 17's
+        # Q10 over NCCL at SF-1 rides phase 13's launch)
+        from distributed_join_tpu_torch.benchmarks import tpch_join
+        from distributed_join_tpu_torch.parallel.bootstrap import process_id
+        out["tpch"] = {}
+        for label, targv in job["tpch"].items():
+            rec = tpch_join.run(tpch_join.parse_args(targv))
+            out["tpch"][label] = rec if process_id() == 0 else None
+            torch.cuda.empty_cache()
+    if job.get("a2a_refusal"):
+        # the all-to-all benchmark's run over this world (of one card):
+        # its refusal, raised before it touches the card
+        from distributed_join_tpu_torch.benchmarks import all_to_all
+        try:
+            all_to_all.run(all_to_all.parse_args(job["a2a_refusal"]))
+            out["a2a_refusal"] = None
+        except SystemExit as exc:
+            out["a2a_refusal"] = str(exc)
     if job.get("session_digest"):
         # the session's cost first, before any profiler in this process
         build, probe = generate_build_probe_tables(
@@ -1990,8 +2037,33 @@ def nccl_phase() -> dict:
 
     # one launch: the driver at k = 1 (with the resident A/B) and k = 4,
     # the k = 4 profile, then the worker's counted join and kernel checks
+    # phase 17's Q10 at SF-1 over NCCL rides this launch: its 1-rank
+    # groups digest first
+    from distributed_join_tpu_torch.benchmarks import (
+        distributed_join as jdriver,
+    )
+    from distributed_join_tpu_torch.planning.query import tpch_query_plan
+    from distributed_join_tpu_torch.utils.tpch import (
+        generate_tpch_query_tables,
+        query_filters,
+    )
+    tables = query_filters(generate_tpch_query_tables(
+        SEED, QUERY_SMALL_SF, device=DEVICE), "q10")
+    _, res, _, _ = _query_frame(tables, tpch_query_plan("q10"),
+                                LocalCommunicator())
+    q10_digest = jdriver.row_digest(res.table)
+    del tables, res
+    torch.cuda.empty_cache()
+
     driver = _driver_argv(rows, "--iterations", "4")
-    worker = _worker_record("nccl", n, {"join": True, "drivers": {
+    a2a = ["--communicator", "nccl", "--buffer-size",
+           str(A2A_MIB[0] << 20)]
+    worker = _worker_record("nccl", n, {
+        "join": True, "a2a_refusal": a2a if n < 2 else None,
+        "tpch": {"q10": ["--communicator", "nccl", "--iterations", "2",
+                         "--query", "q10", "--scale-factor",
+                         str(QUERY_SMALL_SF)]},
+        "drivers": {
         "k=1": [*driver, "--over-decomposition-factor", "1",
                 "--resident-ab", str(NCCL_RESIDENT_AB)],
         f"k={NCCL_K}": [*driver, "--over-decomposition-factor",
@@ -2027,6 +2099,15 @@ def nccl_phase() -> dict:
     prof = worker["drivers"]["profile"]
     print(f"[nccl] profile k={NCCL_K}, rank 0: " + json.dumps(prof),
           flush=True)
+    rec = worker["tpch"]["q10"]
+    _check(rec["oracle_equal"] and rec["groups_digest"] == q10_digest,
+           f"q10 over NCCL ({n} ranks, SF-{QUERY_SMALL_SF:g}): groups "
+           f"digest {rec['groups_digest']} != the 1-rank {q10_digest}")
+    print(f"[query] q10 SF-{QUERY_SMALL_SF:g} over NCCL, {n} rank(s) "
+          f"(phase 17(e), in this launch): {rec['groups']} groups, digest "
+          f"equal to the 1-rank run's, oracle-equal; ms a query "
+          f"{[round(t * 1e3, 4) for t in rec['query_s']]}; {smi}",
+          flush=True)
 
     got = worker["ranks"]
     _check(len(got) == n, f"nccl worker: {len(got)} ranks reported")
@@ -2052,12 +2133,13 @@ def nccl_phase() -> dict:
     a2a = ["-m", "distributed_join_tpu_torch.benchmarks.all_to_all",
            "--communicator", "nccl"]
     if n < 2:
-        r = _launch(n, [*a2a, "--buffer-size", str(A2A_MIB[0] << 20)])
-        _check(r.returncode != 0 and "needs >= 2 ranks" in r.stderr,
-               "all_to_all on one card: expected its refusal")
+        # run in the phase's one launch (the worker's world of one card)
+        _check("needs >= 2 ranks" in (worker["a2a_refusal"] or ""),
+               f"all_to_all on one card: expected its refusal, got "
+               f"{worker['a2a_refusal']!r}")
         print("[nccl] all_to_all needs >= 2 ranks: one card, not measured "
-              "(the benchmark refused, as the JAX benchmark does)",
-              flush=True)
+              "(the benchmark refused in the phase's NCCL world of one, as "
+              "the JAX benchmark does)", flush=True)
     for mib in (A2A_MIB if n >= 2 else ()):
         rec = _launched_record(f"all_to_all {mib} MiB", n, [
             *a2a, "--buffer-size", str(mib << 20)])
@@ -2783,9 +2865,10 @@ def query_phase() -> tuple:
     ``--agg-ab`` at config 2's shape, both sides oracle-equal. (d) Q3
     and Q10 at SF-1 on 4 emulated ranks and on an emulated 2 x 2
     hierarchy, each equal to the 1-rank groups (Q10 runs the partials
-    exchange). (e) Q10 at SF-1 through the NCCL launcher, one process a
-    card, its groups digest equal to the 1-rank one; with four or more
-    cards also Q3 and Q10 at SF-10 over 4 NCCL ranks, equal to (a)'s.
+    exchange). (e) Q10 at SF-1 over NCCL, one process a card, its groups
+    digest equal to the 1-rank one: checked in phase 13, whose launch
+    runs it; with four or more cards also Q3 and Q10 at SF-10 over 4
+    NCCL ranks (a launch of their own here), equal to (a)'s.
     (f) the groups compaction of (a)'s Q3 against its twin, right after
     that query. Prints each part's seconds. Returns the launch counts by
     path and the kernel row."""
@@ -2916,9 +2999,9 @@ def query_phase() -> tuple:
     n = torch.cuda.device_count()
     driver = ["-m", "distributed_join_tpu_torch.benchmarks.tpch_join",
               "--communicator", "nccl", "--iterations", "2"]
-    runs = [("q10", QUERY_SMALL_SF, small["q10"])]
-    if n >= EMU_RANKS:
-        runs += [(q, QUERY_SF, digests[q]) for q in QUERIES]
+    # Q10 at SF-1 over NCCL runs in phase 13's launch
+    runs = ([(q, QUERY_SF, digests[q]) for q in QUERIES]
+            if n >= EMU_RANKS else [])
     for q, sf, want in runs:
         rec = _launched_record(f"query {q} nccl", n, [
             *driver, "--query", q, "--scale-factor", str(sf)])
@@ -5658,6 +5741,379 @@ def integrity_phase() -> dict:
             "headline_launches": head_counts, "headline_digest": digest}
 
 
+# -- phase 25: the serving fleet ---------------------------------------------
+
+
+FLEET_WIRE_PAIRS = 32          # (a): warm wire joins a side, in pairs
+FLEET_SMOKE_TIMEOUT_S = 300
+
+
+def _fleet_smoke(tmp: str, flag: str, extra: tuple = ()):
+    """``python -m distributed_join_tpu_torch.service.fleet <flag>`` on
+    this device with its workdir under ``tmp``, started (not waited for):
+    ``(process, record path, start time)``."""
+    import subprocess
+    work = os.path.join(tmp, flag.strip("-"))
+    out = work + ".json"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [x for x in env.get("PYTHONPATH", "").split(os.pathsep) if x])
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_join_tpu_torch.service.fleet",
+         flag, "--device", DEVICE, "--persist-dir", work,
+         "--json-output", out, *extra],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        start_new_session=True)
+    return proc, out, time.perf_counter()
+
+
+def _fleet_smoke_kill(started) -> None:
+    """Kill a smoke started by ``_fleet_smoke`` and its replicas (its
+    session's process group), if it still runs."""
+    import signal
+    proc = started[0]
+    if proc.poll() is None:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.communicate()
+
+
+def _fleet_smoke_record(started, what: str) -> tuple:
+    """Wait for a smoke started by ``_fleet_smoke``: (its record, its
+    seconds); a non-zero exit fails the phase."""
+    proc, out, t0 = started
+    try:
+        so, se = proc.communicate(timeout=FLEET_SMOKE_TIMEOUT_S)
+    except BaseException:
+        _fleet_smoke_kill(started)
+        raise
+    secs = time.perf_counter() - t0
+    _check(proc.returncode == 0 and os.path.exists(out),
+           f"{what}: rc {proc.returncode}; {so[-2000:]} {se[-4000:]}")
+    with open(out) as fh:
+        rec = json.load(fh)
+    _check(not rec["violations"], f"{what}: {rec['violations']}")
+    return rec, secs
+
+
+def _pair_medians(first, second, pairs: int):
+    """``pairs`` back-to-back calls of ``first`` and ``second`` (each
+    returns its seconds), the side that goes first alternating: the
+    medians of each side's ms, and the quartiles (25th, 50th, 75th
+    percentile) of the pairs' ratios first / second."""
+    import numpy as np
+    a, b = [], []
+    for i in range(pairs):
+        if i % 2 == 0:
+            a.append(first(i))
+            b.append(second(i))
+        else:
+            b.append(second(i))
+            a.append(first(i))
+    ratios = np.asarray(a) / np.asarray(b)
+    return (float(np.median(a)) * 1e3, float(np.median(b)) * 1e3,
+            [float(q) for q in np.percentile(ratios, [25, 50, 75])])
+
+
+def fleet_phase() -> dict:
+    """Phase 25: the serving fleet (``service/fleet.py``) on this card, in
+    a process of its own. (a) an in-process fleet of two replicas (each a
+    ``JoinService`` on the local communicator on this card), K = 2 table
+    replication, a persist dir a slot, behind the router's TCP daemon,
+    beside a direct ``JoinService`` daemon that gets the same requests:
+    a 10 M-row resident build (phase 18's: seed 42, unique keys, capacity
+    factor 1.5) registered on both holders, a 1 M-row append on both,
+    then ``SERVING_REQUESTS`` probe-only requests of 2^18 rows and
+    ``FLEET_WIRE_PAIRS`` wire joins at config 2's 10 M x 10 M, each pair
+    sent to the router and to the direct daemon with the first side
+    alternating: equal matches, the warm repeats on the cold request's
+    replica with no program built, the router's and the direct call's ms
+    a request (medians over the pairs). Then one holder misses an append
+    (the fan-out skips it as rebuilding, and the directory is told it
+    serves): the next probe-only join meets ``StaleGenerationError`` on
+    it and fails over to the other holder, oracle-equal to the direct
+    service. Launches are counted over the router's requests (path
+    ``fleet``): the scans, both compaction sites and the expand. (b)
+    ``--smoke`` as a subprocess (two daemon
+    replicas of 2 emulated ranks on this card, a shared persist dir, a
+    scripted SIGKILL): its gates, the baseline gate against
+    ``results/baselines_torch/fleet_smoke.json``, the seconds from the
+    kill to the replacement serving, the replacement's first request
+    with its program bound from disk beside a replica's from an empty
+    persist dir, each replica's peak device memory. (c) ``--ha-smoke``
+    as a subprocess, started once (a)'s timed pairs are done, so that it
+    runs beside (b) (both under each other's load) and not beside the
+    pairs: the holder rebuild's and the standby's takeover seconds, its
+    baseline gate. Returns ``{"fleet":
+    launches}``."""
+    import shutil
+    import tempfile
+
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.service import fleet, server
+    smi = gpu_line()
+    t_part = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="fleet_phase_")
+
+    def part_done(label):
+        nonlocal t_part
+        now = time.perf_counter()
+        print(f"[phase] 25{label}: {now - t_part:.1f} s", flush=True)
+        t_part = now
+
+    ha = None
+    if DEVICE == "cuda":
+        # (a)'s peak alone: the shared process ran other phases before
+        torch.cuda.reset_peak_memory_stats()
+    cfg = fleet.FleetConfig(
+        n_replicas=2, replica_ranks=1, table_replication=2,
+        persist_dir=os.path.join(tmp, "programs"),
+        coord_dir=os.path.join(tmp, "coord"),
+        probe_interval_s=30.0, retry_budget=2, suspect_strikes=2)
+    router = fleet.FleetRouter(fleet.in_process_fleet_factory(
+        2, 1, persist_dir=cfg.persist_dir, device=DEVICE), cfg)
+    router.start()
+    rserver, rport = fleet.start_router_daemon(router)
+    rclient = server.ServiceClient("127.0.0.1", rport)
+    direct = server.JoinService(LocalCommunicator(), server.ServiceConfig(),
+                                device=DEVICE)
+    dserver, dport = server.start_daemon(direct)
+    dclient = server.ServiceClient("127.0.0.1", dport)
+    launches: dict = {}
+    resps: dict = {"router": [], "direct": []}
+
+    def send(side: str, payload: dict, what: str):
+        """One request to the router (its launches counted on the path
+        ``fleet``) or to the direct daemon: its client seconds."""
+        box = {}
+
+        def go():
+            t0 = time.perf_counter()
+            box["resp"] = (rclient if side == "router" else dclient).send(
+                dict(payload))
+            box["s"] = time.perf_counter() - t0
+
+        if side == "router":
+            _, counts = counted(go)
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+        else:
+            go()
+        resp = box["resp"]
+        _check(resp.get("ok"), f"{what} ({side}): {json.dumps(resp)[:600]}")
+        resps[side].append(resp)
+        return box["s"]
+
+    try:
+        # (a) the resident table on both holders, and on the direct service
+        reg = {"op": "register", "name": "fact", "rows": NROWS,
+               "seed": SEED, "unique_keys": True}
+        delta = {"op": "append", "name": "fact", "rows": LSM_DELTA_ROWS,
+                 "seed": SEED + 100}
+        for spec in (reg, delta):
+            for side in ("router", "direct"):
+                send(side, spec, spec["op"])
+        r_reg, r_app = resps["router"][0], resps["router"][1]
+        _check(sorted(r_reg["fleet"]["holders"]) == [0, 1]
+               and r_app["generation"] == 2
+               and sorted(r_app["fleet"]["applied"]) == [0, 1],
+               f"register/append fan-out: {r_reg['fleet']} "
+               f"{r_app['fleet']} generation {r_app['generation']}")
+        primary = fleet.affine_replica({"op": "join", "table": "fact"},
+                                       cfg.replica_ranks, cfg.n_replicas)
+
+        def probe_spec(i):
+            return {"op": "join", "table": "fact",
+                    "probe_nrows": SERVING_PROBE_ROWS, "seed": SEED + 1 + i}
+
+        def check_pairs(label, n):
+            r = resps["router"][-n:]
+            d = resps["direct"][-n:]
+            _check([x["matches"] for x in r] == [x["matches"] for x in d],
+                   f"{label}: router matches {[x['matches'] for x in r]} "
+                   f"against the direct service's "
+                   f"{[x['matches'] for x in d]}")
+            reps = {x["fleet"]["replica"] for x in r}
+            _check(len(reps) == 1 and r[0]["new_traces"] >= 1
+                   and not any(x["new_traces"] for x in r[1:]),
+                   f"{label}: replicas {reps}, builds "
+                   f"{[x['new_traces'] for x in r]}")
+            return reps.pop()
+
+        cold_r = send("router", probe_spec(0), "cold probe")
+        cold_d = send("direct", probe_spec(0), "cold probe")
+        ms_r, ms_d, q_p = _pair_medians(
+            lambda i: send("router", probe_spec(i + 1), f"probe {i + 1}"),
+            lambda i: send("direct", probe_spec(i + 1), f"probe {i + 1}"),
+            SERVING_REQUESTS - 1)
+        rep = check_pairs("probe-only", SERVING_REQUESTS)
+        _check(rep == primary, f"probe-only joins served by {rep}, the "
+               f"table's ring start is {primary}")
+        print(f"[fleet] (a) {NROWS:,}-row table on holders "
+              f"{r_reg['fleet']['holders']} (K=2), {LSM_DELTA_ROWS:,}-row "
+              f"append on both (generation 2); {SERVING_REQUESTS} probe-only "
+              f"requests of {SERVING_PROBE_ROWS:,} rows on replica {rep}, "
+              f"each equal to the direct service's, warm repeats build 0; "
+              f"cold (a build each) router {cold_r * 1e3:.4f} ms, direct "
+              f"{cold_d * 1e3:.4f} ms; warm ms a request (client clock, "
+              f"medians over {SERVING_REQUESTS - 1} pairs, the first side "
+              f"alternating): router {ms_r:.4f}, direct {ms_d:.4f}; the "
+              f"pairs' ratio router / direct quartiles {q_p[0]:.4f} "
+              f"{q_p[1]:.4f} {q_p[2]:.4f}; {smi}", flush=True)
+        part_done("a probe-only")
+
+        wire = {"op": "join", "build_nrows": NROWS, "probe_nrows": NROWS,
+                "seed": SEED, "selectivity": 0.3}
+        torch.cuda.empty_cache()
+        cold_r = send("router", wire, "cold wire join")
+        cold_d = send("direct", wire, "cold wire join")
+        wr, wd, q_w = _pair_medians(
+            lambda i: send("router", wire, f"wire join {i}"),
+            lambda i: send("direct", wire, f"wire join {i}"),
+            FLEET_WIRE_PAIRS)
+        rep_w = check_pairs("wire join", FLEET_WIRE_PAIRS + 1)
+        warm_r = [x["elapsed_s"] for x in resps["router"][-FLEET_WIRE_PAIRS:]]
+        print(f"[fleet] (a) wire join {NROWS:,} x {NROWS:,} through the "
+              f"router on replica {rep_w} (the signature's ring start "
+              f"{fleet.affine_replica(wire, 1, 2)}): "
+              f"{resps['router'][-1]['matches']:,} matches, equal to the "
+              f"direct service's, warm repeats build 0; cold router "
+              f"{cold_r * 1e3:.4f} ms, direct {cold_d * 1e3:.4f} ms; warm ms "
+              f"a request (client clock, medians over {FLEET_WIRE_PAIRS} "
+              f"pairs, the first side alternating): router {wr:.4f}, direct "
+              f"{wd:.4f}; the pairs' ratio router / direct quartiles "
+              f"{q_w[0]:.4f} {q_w[1]:.4f} {q_w[2]:.4f}; the replica's warm "
+              f"join (daemon clock) min {min(warm_r) * 1e3:.4f} ms; {smi}",
+              flush=True)
+        torch.cuda.empty_cache()
+        part_done("a wire")
+        # (c) starts now, after the timed pairs, and runs beside (b)
+        ha = _fleet_smoke(tmp, "--ha-smoke")
+
+        # the stale holder: the primary misses an append
+        entry = router._tables["fact"]
+        entry["holders"][primary]["state"] = "rebuilding"
+        delta2 = {"op": "append", "name": "fact", "rows": LSM_DELTA_ROWS,
+                  "seed": SEED + 200}
+        send("router", delta2, "append past the primary")
+        send("direct", delta2, "append")
+        app2 = resps["router"][-1]
+        _check(app2["fleet"]["applied"] == [1 - primary]
+               and app2["generation"] == 3,
+               f"the partial append: {app2['fleet']}")
+        entry["holders"][primary]["state"] = "serving"
+        before = router.stats()["failovers_total"]
+        send("router", probe_spec(SERVING_REQUESTS), "failover probe")
+        send("direct", probe_spec(SERVING_REQUESTS), "probe")
+        fo, want = resps["router"][-1], resps["direct"][-1]
+        holder = router.stats()["tables"]["fact"]["holders"][str(primary)]
+        fenced = server.ServiceClient(*router.replicas[primary].addr())
+        try:
+            refusal = fenced.send({**probe_spec(0), "min_generation": 3})
+        finally:
+            fenced.close()
+        _check(fo["matches"] == want["matches"]
+               and fo["fleet"]["replica"] == 1 - primary
+               and fo["fleet"]["attempts"] == 2
+               and fo["resident"]["generation"] == 3
+               and router.stats()["failovers_total"] == before + 1
+               and holder["state"] == "stale"
+               and refusal.get("error") == "StaleGenerationError",
+               f"stale holder: {fo.get('fleet')}, holder {holder}, "
+               f"refusal {refusal.get('error')}")
+        _require_launched(launches, JOIN_KERNELS, "the fleet path")
+        mem = direct.stats().get("device_memory") or {"peak_bytes": 0}
+        print(f"[fleet] (a) the primary holder {primary} missed the "
+              f"generation-3 append: its fenced join refused with "
+              f"StaleGenerationError, the router failed over to replica "
+              f"{fo['fleet']['replica']} in {fo['fleet']['attempts']} "
+              f"attempts, {fo['matches']:,} matches equal to the direct "
+              f"service's; the holder is now {holder['state']}; launches on "
+              f"the fleet path {launches}; peak device memory over (a) "
+              f"(both replicas and the direct service, one process) "
+              f"{mem['peak_bytes']:,} B; {smi}", flush=True)
+    except BaseException:
+        if ha is not None:
+            _fleet_smoke_kill(ha)
+        raise
+    finally:
+        for c in (rclient, dclient):
+            c.close()
+        rserver.shutdown()
+        rserver.server_close()
+        router.stop()
+        dserver.shutdown()
+        dserver.server_close()
+    del router, direct
+    torch.cuda.empty_cache()
+    part_done("a stale")
+
+    try:
+        # (b) the smoke, subprocess replicas sharing one persist dir
+        rec, secs = _fleet_smoke_record(
+            _fleet_smoke(tmp, "--smoke"), "--smoke")
+        gate = rec["baseline_gate"]
+        cold = rec["cold_replica"]
+        _check(DEVICE == "cpu" or gate.get("ok") is True,
+               f"--smoke baseline gate: {gate}")
+        _check(rec["platform"] == "cuda" or DEVICE == "cpu",
+               f"--smoke drew on {rec['platform']}")
+        _check(rec["replacement_cache"]["disk_loads"] == 1
+               and rec["replacement_cache"]["traces"] == 0
+               and cold["new_traces"] >= 1,
+               f"--smoke: replacement cache {rec['replacement_cache']}, the "
+               f"fresh-dir replica built {cold['new_traces']}")
+        print(f"[fleet] (b) --smoke ({rec['replicas']} daemon replicas x "
+              f"{rec['n_ranks']} emulated ranks on this card, shared "
+              f"persist dir, (c) beside it): {secs:.1f} s; kill -> "
+              f"drained {rec['drained_after_s']} s, -> replacement healthy "
+              f"{rec['replaced_after_s']:.3f} s, -> serving "
+              f"{rec['kill_to_serving_s']:.3f} s; the replacement's first "
+              f"request {rec['replacement_first_request_ms']:.2f} ms "
+              f"(program bound from the shared dir's entry: 0 builds, 1 "
+              f"disk load; the daemon's join "
+              f"{rec['replacement_first_request_server_s'] * 1e3:.2f} ms) "
+              f"against a replica from an empty persist dir "
+              f"{cold['first_request_ms']:.2f} ms ({cold['new_traces']} "
+              f"build; daemon {cold['first_request_server_s'] * 1e3:.2f} "
+              f"ms); failover in {rec['failover_attempts']} attempts; "
+              f"{rec['burst_shed']} of 8 shed at inflight 1; peak device "
+              f"memory by replica {json.dumps(rec['replica_memory'])}; "
+              f"baseline gate {json.dumps(gate)}; {smi}", flush=True)
+        print("[fleet] (b) counter signature "
+              + json.dumps(rec["counter_signature"]), flush=True)
+        part_done("b")
+
+        # (c) the HA smoke, started after (a)'s timed pairs
+        rec, secs = _fleet_smoke_record(ha, "--ha-smoke")
+        _check(DEVICE == "cpu" or rec["baseline_gate"].get("ok") is True,
+               f"--ha-smoke baseline gate: {rec['baseline_gate']}")
+        counters = rec["counter_signature"]["counters"]
+        print(f"[fleet] (c) --ha-smoke (K=2, beside (b)): {secs:.1f} s; "
+              f"holder kill -> failover in {rec['failover_attempts']} "
+              f"attempts, rebuild from the manifest "
+              f"{json.dumps(rec['rebuild_s'])} s (rebuilt replay: "
+              f"{counters['rebuilt_replay_new_traces']} builds), router "
+              f"kill -> standby takeover {rec['takeover_s']:.3f} s (its "
+              f"resend: {counters['takeover_new_traces']} builds); peak "
+              f"device memory by replica "
+              f"{json.dumps(rec['replica_memory'])}; baseline gate "
+              f"{json.dumps(rec['baseline_gate'])}; {smi}", flush=True)
+        print("[fleet] (c) counter signature "
+              + json.dumps(rec["counter_signature"]), flush=True)
+        part_done("c")
+    finally:
+        # (c) still running when (b) failed: it and its replicas go
+        _fleet_smoke_kill(ha)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"fleet": launches}
+
+
 def serving_kernel_entries(rows: list, paths: dict) -> list:
     """The serving shapes' rows of the kernels line: their launches on
     the path of the registry they were taken from (every warm request
@@ -5693,7 +6149,12 @@ def groups_kernel_entry(row: dict, paths: dict) -> dict:
                              for p, c in counts.items() if not c}}
 
 
-def phase_in_own_process(phase: int) -> dict:
+# phases 20, 23 and 25 take no profiler session: the whole script runs
+# them in one process of their own, one after another
+SHARED_PHASES = "20,23,25"
+
+
+def phase_in_own_process(phase) -> dict:
     """``python3 chip_smoke.py --phase N`` in a process of its own; its
     output passes through, and its line before the last (the phase's
     kernels, launches by path and rows) is returned. Late in one long
@@ -5724,10 +6185,12 @@ def main(argv=None) -> int:
            and len(argv) == 2 else None)
     fault_job = (json.loads(argv[1]) if argv[:1] == ["--fault-driver"]
                  and len(argv) == 2 else None)
-    phases = [["--phase", str(p)] for p in range(13, 25)]
+    phases = [["--phase", str(p)] for p in range(13, 26)]
+    phases.append(["--phase", SHARED_PHASES])
     if argv not in ([], *phases) and job is None and fault_job is None:
         print("usage: chip_smoke.py [--phase 13 | 14 | 15 | 16 | 17 | 18 "
-              "| 19 | 20 | 21 | 22 | 23 | 24]", file=sys.stderr)
+              f"| 19 | 20 | 21 | 22 | 23 | 24 | 25 | {SHARED_PHASES}]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -5857,6 +6320,31 @@ def main(argv=None) -> int:
         print(ok, flush=True)
         return 0
 
+    if argv == ["--phase", "25"]:
+        fleet_paths = fleet_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps({"launches_by_path": fleet_paths}), flush=True)
+        print(ok, flush=True)
+        return 0
+
+    if argv == ["--phase", SHARED_PHASES]:
+        # the phases that profile nothing, one after another in one
+        # process (each process start costs ~9 s on the card's host)
+        shared = {}
+        for p, fn in (("20", service_phase), ("23", tuner_phase),
+                      ("25", fleet_phase)):
+            t = time.perf_counter()
+            torch.cuda.empty_cache()
+            shared.update(fn())
+            print(f"[phase] phase {p} in the shared process: "
+                  f"{time.perf_counter() - t:.1f} s", flush=True)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps({"launches_by_path": shared}), flush=True)
+        print(ok, flush=True)
+        return 0
+
     if argv == ["--phase", "18"]:
         resident_paths, serving_rows = resident_phase()
         print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
@@ -5899,11 +6387,11 @@ def main(argv=None) -> int:
     paths.update(timed(segmented_phase, *plain, flat_profile=flat_prof))
     # the phases that profile kernel rows late in the script, each in a
     # process of its own (``phase_in_own_process``)
-    own15, own17, own18, own19, own20, own21, own22, own23, own24 = (
+    own15, own17, own18, own19, own21, own22, own24, shared = (
         phase_in_own_process(p)
-        for p in (15, 17, 18, 19, 20, 21, 22, 23, 24))
-    for own_phase in (own15, own17, own18, own19, own20, own21, own22,
-                      own23, own24):
+        for p in (15, 17, 18, 19, 21, 22, 24, SHARED_PHASES))
+    for own_phase in (own15, own17, own18, own19, own21, own22, own24,
+                      shared):
         paths.update(own_phase["launches_by_path"])
     # phase 24(d): integrity off leaves the headline as it was
     _check(own24["headline_launches"] == head

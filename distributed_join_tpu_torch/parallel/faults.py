@@ -169,12 +169,14 @@ def retry_with_backoff(
     max_attempts: int = 3,
     backoff_s: float = 1.0,
     deadline_s: Optional[float] = None,
+    retry_on=(Exception,),
     sleep: Callable[[float], None] = time.sleep,
     clock: Callable[[], float] = time.monotonic,
     on_retry: Optional[Callable] = None,
 ):
     """Call ``fn()`` on failure again after ``backoff_s``, doubling the
-    wait after each failure.
+    wait after each failure; only the errors of ``retry_on`` are retried
+    (any other one propagates at once).
 
     Returns ``(result, attempts)``, ``attempts`` being one record
     ``{"attempt", "elapsed_s", "error"}`` a try (``error`` None on the
@@ -196,7 +198,7 @@ def retry_with_backoff(
             attempts.append({"attempt": attempt,
                              "elapsed_s": clock() - ta, "error": None})
             return result, attempts
-        except Exception as exc:  # noqa: PERF203 - retry loop
+        except retry_on as exc:  # noqa: PERF203 - retry loop
             last = exc
             attempts.append({"attempt": attempt,
                              "elapsed_s": clock() - ta,

@@ -229,7 +229,8 @@ def distributed_query(tables: Mapping[str, Table], plan, comm,
             fn, hit = program_cache.get_keyed(
                 sig, lambda sizing=sizing, static=static:
                 make_distributed_query(comm, plan, with_metrics=with_metrics,
-                                       metrics_static=static, **sizing))
+                                       metrics_static=static, **sizing),
+                persist=True)
         else:
             fn, hit = make_distributed_query(
                 comm, plan, with_metrics=with_metrics, metrics_static=static,

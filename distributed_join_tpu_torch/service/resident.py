@@ -398,9 +398,11 @@ class ResidentTableRegistry:
 
     # -- program admission ---------------------------------------------------
 
-    def _program(self, sig: ResidentSignature, builder):
-        """``(program, hit)`` through the cache."""
-        return self.cache.get_keyed(sig, builder)
+    def _program(self, sig: ResidentSignature, builder,
+                 persist: bool = False):
+        """``(program, hit)`` through the cache; ``persist`` arms its
+        disk tier (the probe-only programs, as in the JAX package)."""
+        return self.cache.get_keyed(sig, builder, persist=persist)
 
     def _evict_program(self, sig: ResidentSignature) -> None:
         """Drop a program whose run failed a conservation or a
@@ -730,7 +732,7 @@ class ResidentTableRegistry:
                     self.comm, make_probe_join_step(self.comm, **step_opts),
                     with_aux, local_inputs=(True, False))
 
-            fn, hit = self._program(sig, build)
+            fn, hit = self._program(sig, build, persist=True)
             handle.cached_sigs.add(sig)
             with telemetry.span("resident_join", table=name,
                                 generation=handle.generation) as sp:

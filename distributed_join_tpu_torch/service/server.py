@@ -67,13 +67,21 @@ Where the port differs:
   the same sizing, counted in the cache's ``integrity_evictions`` and
   the live metrics' ``integrity_retries``), and ``explain`` plans the
   verified program, so its digest is the key the join runs under.
-- Refused by name, each naming the ROADMAP item it waits for:
-  ``persist_dir`` (the cache's disk tier, A6); ``--chaos-seed`` (A7);
-  ``--platform``; and a daemon over a process group of more than one
-  rank (A6): the JAX daemon is one controller, and a port daemon over N
-  processes would need every rank to follow rank 0's stream of requests.
-  The daemon serves on ``local`` (one card, the default), ``emulated``,
-  and ``nccl``/``gloo`` as a world of 1.
+- ``ServiceConfig.persist_dir`` and the daemon's ``--persist-dir``
+  (JAX :125-150, :179, :213) arm the program cache's disk tier
+  (``service/programs.py``: an entry binds the step's resolved options,
+  the backend and the kernels' digests; a restarted daemon binds it
+  with no new trace), and ``history_dir`` defaults to it, as in the JAX
+  package. The kernels of every good entry are loaded before the first
+  request (``JoinProgramCache.preload``).
+- Refused by name: ``--chaos-seed`` (ROADMAP A7), ``--platform`` (the
+  daemon serves on ``--device``), and a daemon over a process group of
+  more than one rank: the JAX daemon is one controller over its mesh,
+  and a port daemon over N processes would need every rank to follow
+  rank 0's stream of requests. Serving across cards is the fleet
+  (``service/fleet.py``): one daemon a card behind its router. The
+  daemon serves on ``local`` (one card, the default), ``emulated``, and
+  ``nccl``/``gloo`` as a world of 1.
 """
 
 from __future__ import annotations
@@ -107,15 +115,12 @@ SMOKE_BASELINE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))), baselines.DEFAULT_BASELINE_DIR)
 
-# What each refused option waits for (ROADMAP Queue A).
-_REFUSED_CONFIG = {
-    "persist_dir": "the program cache's disk tier (ROADMAP A6)",
-}
 MULTI_RANK_REFUSAL = (
     "a daemon over a process group of more than one rank: the JAX daemon "
     "is one controller, and a port daemon over N processes would need "
     "every rank to follow rank 0's stream of requests; serve one replica "
-    "a card (the fleet, ROADMAP A6)")
+    "a card behind the fleet's router instead (python -m "
+    "distributed_join_tpu_torch.service.fleet --device cuda)")
 
 
 class AdmissionError(RuntimeError):
@@ -155,19 +160,20 @@ class ServiceConfig:
 
     ``request_deadline_s`` is the per-request watchdog bound (None =
     unguarded); ``auto_retry`` the capacity ladder's budget, applied to
-    every request. ``history_dir`` arms the per-request workload-history
-    store, bounded by ``history_max_entries`` live entries a signature;
+    every request; ``persist_dir`` arms the program cache's disk tier.
+    ``history_dir`` (default: ``persist_dir``) arms the per-request
+    workload-history store, bounded by ``history_max_entries`` live
+    entries a signature;
     ``flight_records`` sizes the postmortem ring, and
     ``flight_recorder_path`` pins where a poison or drain dump lands
     (default: the telemetry session's directory, else the history
-    directory, else the working directory). The resident knobs size the
+    directory, else the persist directory, else the working
+    directory). The resident knobs size the
     registry (``service/resident.py``). ``auto_tune`` arms the
     autotuner, preloaded from ``tuner_history`` (default: the history
     store's file, so a restarted service keeps its tuning).
     ``verify_integrity`` applies ``distributed_inner_join``'s
-    wire-integrity contract to every wire and resident join.
-    ``persist_dir`` keeps the JAX package's field and refuses any value
-    but its default."""
+    wire-integrity contract to every wire and resident join."""
 
     auto_retry: int = 2
     verify_integrity: bool = False
@@ -223,12 +229,6 @@ class JoinService:
         )
 
         self.config = config or ServiceConfig()
-        for name, what in _REFUSED_CONFIG.items():
-            value = getattr(self.config, name)
-            if value not in (None, False):
-                raise NotImplementedError(
-                    f"ServiceConfig({name}={value!r}): {what} is not part "
-                    "of the port")
         inner = _innermost(comm)
         if isinstance(inner, ProcessGroupCommunicator) and comm.n_ranks > 1:
             raise NotImplementedError(
@@ -240,8 +240,12 @@ class JoinService:
         # connection thread's own would be the device's default stream)
         self._stream = (torch.cuda.current_stream(self.device)
                         if self.device.type == "cuda" else None)
-        self.cache = JoinProgramCache(comm,
-                                      max_entries=self.config.max_programs)
+        self.cache = JoinProgramCache(
+            comm, persist_dir=self.config.persist_dir,
+            max_entries=self.config.max_programs, device=self.device)
+        # the kernels of every persisted program, loaded before the
+        # first request
+        self.cache.preload()
         # (predicted wall, plan digest) a workload signature
         self._pred_cache: dict = {}
         self._exec_lock = threading.Lock()
@@ -264,7 +268,7 @@ class JoinService:
         self.live = tel_live.LiveMetrics()
         self.recorder = tel_live.FlightRecorder(self.config.flight_records)
         self.flight_recorder_dumped: Optional[str] = None
-        hist_dir = self.config.history_dir
+        hist_dir = self.config.history_dir or self.config.persist_dir
         self.history = (tel_history.WorkloadHistory(
             os.path.join(hist_dir, tel_history.HISTORY_FILENAME),
             max_entries_per_signature=self.config.history_max_entries)
@@ -843,7 +847,8 @@ class JoinService:
         if path is None:
             s = telemetry.sink()
             base = (s.dir if s is not None
-                    else self.config.history_dir or ".")
+                    else self.config.history_dir
+                    or self.config.persist_dir or ".")
             path = os.path.join(base, tel_live.FLIGHT_RECORDER_FILENAME)
         try:
             path = self.recorder.dump(path, reason,
@@ -905,10 +910,13 @@ class JoinService:
                 "reason": reason, "flightrecorder": path}
 
     def stats(self) -> dict:
+        """The ``stats`` op's body, the JAX package's keys; on a card also
+        ``device_memory`` (this process's allocated and peak bytes on the
+        service's device, the fleet's per-replica memory)."""
         with self._admit_lock:
             pending = self._pending
             hwm = self._pending_hwm
-        return {
+        out = {
             "served": self.served,
             "failed": self.failed,
             "rejected": self.rejected,
@@ -937,6 +945,11 @@ class JoinService:
                       else None),
             "tenants": self.live.tenants_summary(),
         }
+        if self.device.type == "cuda":
+            out["device_memory"] = {
+                "allocated_bytes": torch.cuda.memory_allocated(self.device),
+                "peak_bytes": torch.cuda.max_memory_allocated(self.device)}
+        return out
 
     def metrics_snapshot(self) -> dict:
         """The ``metrics`` op's JSON body: the live accumulator plus the
@@ -1514,7 +1527,6 @@ def _refused_flags() -> dict:
     return {
         "--platform": "platform selection (the JAX package's backend "
                       "choice; the daemon serves on --device)",
-        "--persist-dir": _REFUSED_CONFIG["persist_dir"],
         **UNPORTED_FLAGS,
     }
 
@@ -1574,9 +1586,16 @@ def parse_args(argv=None):
     p.add_argument("--maintain-runs", type=int, default=4,
                    help="pending LSM delta runs that trigger the "
                         "maintenance merge on append")
+    p.add_argument("--persist-dir", default=None, metavar="DIR",
+                   help="the program cache's disk tier: one entry a "
+                        "built program (its signature, backend and "
+                        "kernel digests) under DIR, so a restarted "
+                        "daemon, or a replica sharing DIR, binds it with "
+                        "no new trace")
     p.add_argument("--history-dir", default=None, metavar="DIR",
                    help="append one workload-history line a request to "
-                        "DIR/history.jsonl (telemetry/history.py)")
+                        "DIR/history.jsonl (telemetry/history.py). "
+                        "Default: --persist-dir when set")
     p.add_argument("--history-max-entries", type=int, default=None,
                    metavar="N",
                    help="keep the last N live entries a workload "
@@ -1651,6 +1670,7 @@ def _service_from_args(args) -> JoinService:
         max_pending=args.max_pending,
         max_batch_requests=args.max_batch_requests,
         max_programs=args.max_programs,
+        persist_dir=args.persist_dir,
         history_dir=args.history_dir,
         history_max_entries=args.history_max_entries,
         # bare --auto-tune learns from the service's own history store; a

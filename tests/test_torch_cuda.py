@@ -9,6 +9,7 @@ skips, decided in the ``card`` fixture. Run on a machine with a GPU:
 """
 
 import json
+import os
 import zlib
 
 import numpy as np
@@ -2173,3 +2174,112 @@ def test_integrity_batch_loop_on_card(card):
         verify_integrity=True, on_batch_failure="continue", stats=stats,
         **opts)
     assert total == 0 and stats["failed_batches"] == [0, 1, 2, 3]
+
+
+def test_fleet_of_two_in_process_replicas_equals_the_direct_join(
+        card, tmp_path):
+    """Two in-process replicas on the card behind the fleet's router,
+    K = 2 replication: a registered table on both holders, a probe-only
+    join and a wire join each equal to a direct ``JoinService`` on the
+    same card, the warm repeat on the same replica with no program built,
+    and the join kernels launched on the fleet's requests."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.service import fleet, server
+
+    cfg = fleet.FleetConfig(n_replicas=2, replica_ranks=1,
+                            table_replication=2, probe_interval_s=30.0,
+                            persist_dir=str(tmp_path / "programs"),
+                            coord_dir=str(tmp_path / "coord"))
+    router = fleet.FleetRouter(fleet.in_process_fleet_factory(
+        2, 1, persist_dir=cfg.persist_dir, device="cuda"), cfg)
+    router.start()
+    rserver, rport = fleet.start_router_daemon(router)
+    client = server.ServiceClient("127.0.0.1", rport)
+    direct = server.JoinService(LocalCommunicator())
+    reg = {"op": "register", "name": "t", "rows": 400_000, "seed": 3,
+           "unique_keys": True}
+    probe = {"op": "join", "table": "t", "probe_nrows": 65_536, "seed": 4}
+    wire = {"op": "join", "build_nrows": 300_000, "probe_nrows": 200_000,
+            "seed": 5, "selectivity": 0.3, "out_capacity_factor": 2.0}
+    try:
+        r = client.send(reg)
+        assert r["ok"] and sorted(r["fleet"]["holders"]) == [0, 1], r
+        build, state = server._build_from_spec(reg, direct.device)
+        direct.register_table("t", build, wire_spec={
+            k: reg[k] for k in ("rows", "seed", "unique_keys")},
+            wire_probe_state=state)
+        handle = direct.resident.get("t")
+        want_p = direct.resident_join(
+            "t", server._probe_from_spec(probe, handle, direct.device))
+        want_w = direct.join(*server._tables_from_spec(wire, direct.device),
+                             out_capacity_factor=2.0)
+        for spec, want in ((probe, want_p), (wire, want_w)):
+            cold = client.send(dict(spec))
+            torch.cuda.synchronize()
+            _kernels.reset_launch_counts(scan.join_scans,
+                                         join_mod.compact_records,
+                                         expand.expand_gather)
+            warm = client.send(dict(spec))
+            torch.cuda.synchronize()
+            assert cold["ok"] and warm["ok"], (cold, warm)
+            assert warm["fleet"]["replica"] == cold["fleet"]["replica"]
+            assert cold["new_traces"] == 1 and warm["new_traces"] == 0
+            assert warm["matches"] == cold["matches"] == want.matches > 0
+            assert scan.join_scans.launches >= 1
+            assert join_mod.compact_records.launches >= 1
+            assert expand.expand_gather.launches >= 1
+    finally:
+        client.close()
+        rserver.shutdown()
+        rserver.server_close()
+        router.stop()
+
+
+def test_program_cache_disk_tier_restart_on_card(card, tmp_path):
+    """The disk tier on the card: the entry binds the card's name and
+    capability, the CUDA version and the three join kernels by their
+    source digests; a fresh cache binds it (``source == "disk"``, no
+    trace, one disk load) with the kernels loaded before the first
+    request (``preload``), and the totals equal; an entry naming another
+    kernel digest is a counted miss."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.service import programs
+    from distributed_join_tpu_torch.utils.generators import (
+        generate_build_probe_tables,
+    )
+
+    b, p = generate_build_probe_tables(seed=7, build_nrows=300_000,
+                                       probe_nrows=300_000, device=card)
+    d = str(tmp_path / "programs")
+    c1 = programs.JoinProgramCache(LocalCommunicator(), persist_dir=d)
+    e1, _ = c1.get(b, p, key="key", out_capacity_factor=2.0)
+    assert e1.persisted and e1.source == "trace"
+    total = int(e1(b, p).total)
+    (name,) = [f for f in os.listdir(d) if f.endswith(".joinprog")]
+    doc = json.load(open(os.path.join(d, name)))
+    assert doc["backend"]["device_type"] == "cuda"
+    assert doc["backend"]["device_name"] == torch.cuda.get_device_name(0)
+    assert doc["backend"]["capability"] == list(
+        torch.cuda.get_device_capability(0))
+    assert doc["backend"]["cuda"] == torch.version.cuda
+    assert sorted(doc["kernels"]) == sorted(programs.PROGRAM_KERNELS)
+    for kname, lib in doc["kernels"].items():
+        assert lib == _kernels._library_path(kname).name
+    c2 = programs.JoinProgramCache(LocalCommunicator(), persist_dir=d)
+    assert c2.preload() == 1
+    e2, hit = c2.get(b, p, key="key", out_capacity_factor=2.0)
+    assert not hit and e2.source == "disk"
+    st = c2.stats()
+    assert (st["traces"], st["disk_loads"], st["disk_load_failures"]) == (
+        0, 1, 0)
+    assert int(e2(b, p).total) == total > 0
+    doc["kernels"]["join_scans"] = "join_scans-0000000000000000.so"
+    programs.atomic_write_json(os.path.join(d, name), doc)
+    c3 = programs.JoinProgramCache(LocalCommunicator(), persist_dir=d)
+    e3, _ = c3.get(b, p, key="key", out_capacity_factor=2.0)
+    assert e3.source == "trace"
+    assert (c3.stats()["traces"], c3.stats()["disk_load_failures"]) == (1, 1)

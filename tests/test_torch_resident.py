@@ -16,6 +16,8 @@ this toolchain; the port's cases assert that they refuse by name.
 """
 
 import json
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -453,8 +455,18 @@ def test_refusals_never_wrong_rows(n):
     res = treg.join("dim", tp, with_metrics=True, explain=True)
     assert res.telemetry.to_dict()["reduced"]["matches"] == int(res.total)
     assert res.plan.probe_only and res.plan.pipeline == "probe_join"
-    with pytest.raises(NotImplementedError, match="persist_dir"):
-        tprog.JoinProgramCache(LocalCommunicator(), persist_dir="x")
+    # the cache's disk tier is ported (tests/test_torch_persist.py): a
+    # persist_dir is taken, not refused, and the probe-only program of
+    # this handle enters it
+    with tempfile.TemporaryDirectory() as d:
+        cache = tprog.JoinProgramCache(treg.comm, persist_dir=d,
+                                       device="cpu")
+        disk = tres.ResidentTableRegistry(treg.comm, cache)
+        disk.register("dim", tb)
+        assert int(disk.join("dim", tp).total) == \
+            int(treg.join("dim", tp).total)
+        entries = [f for f in os.listdir(d) if f.endswith(".joinprog")]
+        assert len(entries) == cache.stats()["disk_persists"] >= 1
     jreg.drop("dim")
     treg.drop("dim")
     _raises_same(lambda: jreg.join("dim", jp),

@@ -518,18 +518,27 @@ def test_hung_request_poisons_as_jax(tmp_path):
         "hang": 1, "rejected": 1}
 
 
-def test_port_refusals_by_name():
-    """What waits for later slices refuses by name, naming the ROADMAP
-    item: the disk tier, a multi-rank process group; and the daemon's
-    flags. ``explain``, the autotuner (``auto_tune``, ``tuner_history``,
+def test_port_refusals_by_name(tmp_path):
+    """What the port lacks refuses by name: a multi-rank process group
+    (served by the fleet instead), ``--platform`` and ``--chaos-seed``
+    (ROADMAP A7). The disk tier (``persist_dir``, ``--persist-dir``),
+    ``explain``, the autotuner (``auto_tune``, ``tuner_history``,
     ``--auto-tune``) and the integrity digests (``verify_integrity``,
-    ``--verify-integrity``) are ported: a dry run is served, a malformed
-    one fails, each counted; a verified service serves verified joins."""
+    ``--verify-integrity``) are ported: a persisted program restarts with
+    no new trace, a dry run is served, a malformed one fails, each
+    counted; a verified service serves verified joins."""
     tc = LocalCommunicator()
-    for field, item in (("persist_dir", "A6"),):
-        with pytest.raises(NotImplementedError, match=f"{field}.*{item}"):
-            ts.JoinService(tc, ts.ServiceConfig(**{field: "x"}),
-                           device="cpu")
+    d = str(tmp_path / "programs")
+    (_, tb), (_, tp), want = _tables()
+    for restart in range(2):
+        disk = ts.JoinService(tc, ts.ServiceConfig(persist_dir=d),
+                              device="cpu")
+        res = disk.join(tb, tp, out_capacity_factor=4.0)
+        assert res.matches == want
+        assert res.new_traces == 1 - restart
+        assert disk.cache.stats()["disk_loads"] == restart
+        assert disk.history.path == os.path.join(d, "history.jsonl")
+        disk.history.close()
     verified = ts.JoinService(EmulatedCommunicator(2),
                               ts.ServiceConfig(verify_integrity=True),
                               device="cpu")
@@ -553,7 +562,7 @@ def test_port_refusals_by_name():
         "served": 1, "failed": 1}
     pg = ProcessGroupCommunicator(Mesh("gloo", 2, 0, torch.device("cpu")))
     for comm in (pg, TFaulty(pg, TFaultPlan())):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        with pytest.raises(NotImplementedError, match="fleet"):
             ts.JoinService(comm, device="cpu")
     one = ProcessGroupCommunicator(Mesh("gloo", 1, 0, torch.device("cpu")))
     assert ts.JoinService(one).device == torch.device("cpu")
@@ -563,12 +572,12 @@ def test_port_refusals_by_name():
     assert ts._service_from_args(args).config.verify_integrity
     assert not ts.parse_args([]).verify_integrity
     for flag, item in (("--platform", "--device"),
-                       ("--persist-dir", "A6"),
                        ("--chaos-seed", "A7")):
         err = io.StringIO()
         with pytest.raises(SystemExit), contextlib.redirect_stderr(err):
             ts.parse_args([flag, "1"])
         assert flag in err.getvalue() and item in err.getvalue()
+    assert ts.parse_args(["--persist-dir", d]).persist_dir == d
     # the run diagnosis is ported: the daemon takes --diagnose, as the JAX
     # daemon does
     assert ts.parse_args(["--diagnose"]).diagnose
