@@ -171,7 +171,7 @@ Phases (any failure raises, and the script exits non-zero):
    totals, ms a query over warm repeats and peak device memory; the
    first join launches the scans, both compaction sites and the
    expand, the second the groups compaction. (b) ``--agg`` at SF-10 with
-   Q3's filters, oracle-equal. (c) the join driver's ``--agg-ab 5`` at
+   Q3's filters, oracle-equal. (c) the join driver's ``--agg-ab 3`` at
    config 2's shape: min ms of the pushdown and of materialize then
    group on the host, both oracle-equal. (d) Q3 and Q10 at SF-1 on 4
    emulated ranks and on an emulated 2 x 2 hierarchy, each equal to the
@@ -287,7 +287,7 @@ Phases (any failure raises, and the script exits non-zero):
    --auto-tune`` (the second starts at the first's final rung); ``analyze
    tune F --json`` passes ``analyze check``. (c) the fill rules over 4
    emulated ranks, each fed a history this phase wrote, filled against
-   static at their settled rungs (median of 5, equal row digests): the
+   static at their settled rungs (median of 3, equal row digests): the
    skew fill on config 3's Zipf alpha 1.5 tables (B5 launches), the
    ragged wire fill (a padded run at shuffle factor 2) and the segmented
    sort fill (a stage-profiled history); a resident join with ``tuner=``
@@ -330,9 +330,21 @@ Phases (any failure raises, and the script exits non-zero):
    pairs and run beside (b): the rebuild's and the takeover's seconds,
    its baseline gate. ``python3 chip_smoke.py
    --phase 25`` runs this phase alone.
+26. The chaos soak (``parallel/chaos.py``), in a process of its own:
+   (a) ``soak(42, 20)`` over 8 emulated ranks on this card (every config
+   family, every fault kind): 0 failures, the verdict histogram, ms a
+   trial, the join kernels launched (path ``chaos``); (b) 2 hierarchical trials and 3 poisoned-history
+   tuner trials, 0 failures; (c) the ``--fleet 8 --fleet-fault kill``
+   soak over two daemon replicas on this card: its gates, kill to
+   drained and kill to replaced seconds; (d) the join driver at config
+   2's rows over 4 emulated ranks with ``--verify-integrity --auto-retry
+   1``, clean and with ``--chaos-seed`` 3 (no fault), 7 (an overflowed
+   program) and 2 (a misroute): a run refuses with ``IntegrityError`` or
+   reports the clean run's row digest (3 and 7 must). ``python3
+   chip_smoke.py --phase 26`` runs this phase alone.
 
 The whole script runs phases 2 to 14 and 16 in one process, then 15,
-17, 18, 19, 21, 22 and 24 each in a process of its own, and 20, 23 and
+17, 18, 19, 21, 22, 24 and 26 each in a process of its own, and 20, 23 and
 25, which take no profiler session, one after another in one more
 (``--phase 20,23,25``)
 (``--phase N``): late in one
@@ -359,8 +371,9 @@ groups site's entry carries too, phase 21(c)'s ``tape_*`` paths, and
 phase 22's ``stageprof_join`` (the k = 4 profile) and ``stageprof_q3``,
 and phase 23's ``tuner_warm``, ``tuner_service``, ``tuner_skew_fill``,
 ``tuner_wire_fill`` and ``tuner_sort_fill``, the last launching none: the
-segmented path, phase 24's ``integrity`` and phase 25's ``fleet``
-(the router's requests to its in-process replicas); the skew site's
+segmented path, phase 24's ``integrity``, phase 25's ``fleet``
+(the router's requests to its in-process replicas) and phase 26's
+``chaos`` (the main soak's trials); the skew site's
 entry carries its launches on the paths
 that run the sidecar, phase 23's ``tuner_skew_fill`` among them);
 the last line is
@@ -390,7 +403,7 @@ CONFIG3_ROWS = 50_000_000
 CONFIG3_HH_OUT = 48_000_000
 ZIPF_ALPHA = 1.5
 ZIPF_EMU_FACTOR = 1.6
-REPS = 10
+REPS = 5                       # CUDA-event calls a kernel row
 DEVICE = "cuda"
 C1_POSITIONS = 2**30 + 2**20   # above the scan's old 2^30 - 1 limit
 CONFIG5_ROWS = 5_000_000
@@ -2757,7 +2770,7 @@ def segmented_phase(want_total: int | None = None,
 QUERY_SF = 10.0                # Q3 and Q10, --agg: TPC-H SF-10
 QUERY_SMALL_SF = 1.0           # emulated ranks, the NCCL world of 1
 QUERY_ITERS = 3                # warm queries timed after the cold one
-AGG_AB_JOINS = 5
+AGG_AB_JOINS = 3               # (c): timed pairs
 QUERIES = ("q3", "q10")
 QUERY_SITES = JOIN_KERNELS + ("compact_groups",)
 GROUPS_REASON = ("the materializing join runs no groups compaction; the "
@@ -5058,7 +5071,7 @@ def stageprof_phase() -> dict:
 
 TUNE_RETRY = 6                 # the ladder's budget on every tuned path
 TUNE_COLD_OUT = 0.1            # (a), (b): the output factor that escalates
-TUNE_REPS = 5                  # timed calls a median
+TUNE_REPS = 3                  # timed calls a median
 TUNE_RANKS = 4                 # (c): emulated ranks of the fill rules
 TUNE_FILL_ROWS = 4_000_000     # (c): rows a side of the fill rules' tables
 TUNE_WIRE_FACTOR = 2.0         # (c): the padded run's shuffle factor
@@ -6114,6 +6127,138 @@ def fleet_phase() -> dict:
     return {"fleet": launches}
 
 
+# -- phase 26: the chaos soak ----------------------------------------------
+
+CHAOS_SEED = 42
+CHAOS_TRIALS = 20              # (a): the main soak's trials
+CHAOS_RANKS = 8                # (a), (b): emulated ranks a trial
+CHAOS_HIER = 2                 # (b): hierarchical trials
+CHAOS_TUNER = 3                # (b): poisoned-history trials
+CHAOS_FLEET = 8                # (c): trials through the fleet
+CHAOS_DRIVER_RANKS = 4         # (d): the join driver's emulated ranks
+# (d): --chaos-seed -> the fault the seed draws (chaos.wrap_communicator)
+CHAOS_DRIVER_SEEDS = {3: "none", 7: "overflow", 2: "misroute"}
+
+
+def chaos_phase() -> dict:
+    """Phase 26: the chaos soak (``parallel/chaos.py``) on this card, in a
+    process of its own. (a) ``soak(CHAOS_SEED, CHAOS_TRIALS)`` over
+    ``CHAOS_RANKS`` emulated ranks: 0 failures, the verdict histogram, ms
+    a trial, and the join kernels' launches (path ``chaos``; B5's skew
+    site is counted, not required: at a trial's rows the sidecar's
+    extract takes the sort by the JAX branch rule). (b) ``hier_slice`` and ``tuner_slice``:
+    0 failures. (c) ``fleet_slice(..., fault="kill")`` over two daemon
+    replicas on this card: its gates, and the kill-to-drain and
+    kill-to-replaced seconds. (d) the join driver at config 2's rows over
+    ``CHAOS_DRIVER_RANKS`` emulated ranks with ``--verify-integrity
+    --auto-retry 1``, without ``--chaos-seed`` and with each seed of
+    ``CHAOS_DRIVER_SEEDS``: a run either refuses with ``IntegrityError``
+    (the driver's exit is then non-zero: ``run_guarded`` re-raises) or
+    reports the clean run's row digest; seeds 3 and 7 must report it.
+    Returns ``{"launches_by_path": {"chaos": counts}}``."""
+    import statistics
+
+    from distributed_join_tpu_torch.benchmarks import (
+        distributed_join as D,
+    )
+    from distributed_join_tpu_torch.parallel import chaos
+    from distributed_join_tpu_torch.parallel.integrity import IntegrityError
+
+    smi = gpu_line()
+    t = time.perf_counter()
+    summary, counts = counted(lambda: chaos.soak(
+        CHAOS_SEED, CHAOS_TRIALS, n_ranks=CHAOS_RANKS, repro_out=None,
+        device=DEVICE))
+    secs = time.perf_counter() - t
+    _check(summary["failures"] == 0,
+           f"chaos (a): {summary['failures']} failed trials: "
+           f"{[r for r in summary['records'] if r['verdict'].startswith('FAILED')]}")
+    # B5's skew site is not required: at a trial's 64-256 rows a rank
+    # the skew sidecar's extract takes the sort (the JAX package's branch
+    # rule: the kernel only where a rank's rows are twice the capacity)
+    _require_launched(counts, JOIN_KERNELS, "the chaos soak")
+    ms = [r["elapsed_s"] * 1e3 for r in summary["records"]]
+    faults = {}
+    for r in summary["records"]:
+        faults[r["fault"]] = faults.get(r["fault"], 0) + 1
+    print(f"[chaos] (a) soak seed {CHAOS_SEED}, {CHAOS_TRIALS} trials over "
+          f"{CHAOS_RANKS} emulated ranks: verdicts "
+          f"{json.dumps(summary['verdicts'], sort_keys=True)}, faults "
+          f"{json.dumps(faults, sort_keys=True)}, 0 failures; ms a trial "
+          f"median {statistics.median(ms):.1f} min {min(ms):.1f} max "
+          f"{max(ms):.1f}; {secs:.1f} s; launches "
+          f"{json.dumps({k: counts[k] for k in (*JOIN_KERNELS, 'extract_prefix')})}"
+          f"; {smi}", flush=True)
+
+    # (b) the hierarchical and tuner slices
+    for name, fn, trials in (("hier", chaos.hier_slice, CHAOS_HIER),
+                             ("tuner", chaos.tuner_slice, CHAOS_TUNER)):
+        t = time.perf_counter()
+        sl = fn(CHAOS_SEED, trials, n_ranks=CHAOS_RANKS, repro_out=None,
+                device=DEVICE)
+        _check(sl["failures"] == 0, f"chaos (b) {name}: {sl}")
+        extra = ""
+        if name == "tuner":
+            _check(all(r["tuner_presized"] and r["tuner_corrected"]
+                       for r in sl["records"]),
+                   f"chaos (b) tuner loop open: {sl['records']}")
+            extra = ", every trial pre-sized and corrected"
+        print(f"[chaos] (b) {name} slice: {trials} trials, verdicts "
+              f"{json.dumps(sl['verdicts'], sort_keys=True)}, 0 failures"
+              f"{extra}; {time.perf_counter() - t:.1f} s", flush=True)
+
+    # (c) the fleet soak: SIGKILL of the midpoint trial's replica
+    t = time.perf_counter()
+    fl = chaos.fleet_slice(CHAOS_SEED, CHAOS_FLEET, fault="kill",
+                           device=DEVICE)
+    dr = fl["drain_replace"]
+    _check(fl["failures"] == 0 and dr["replaced"]
+           and fl["post_replacement_new_traces"] == 0,
+           f"chaos (c) fleet kill: {fl['failure_records']} {dr}")
+    print(f"[chaos] (c) fleet soak, kill, {CHAOS_FLEET} trials over two "
+          f"daemon replicas on this card: verdicts "
+          f"{json.dumps(fl['verdicts'], sort_keys=True)}, victim "
+          f"{fl['victim']}, kill to drained {dr['drained_after_s']} s, kill "
+          f"to replaced {dr.get('replaced_after_s')} s, replacement new "
+          f"traces {fl['post_replacement_new_traces']}, trace continuity "
+          f"{json.dumps(fl['trace_continuity'])}; "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+
+    # (d) the join driver's --chaos-seed at config 2's rows
+    argv = ["--communicator", "emulated", "--n-ranks",
+            str(CHAOS_DRIVER_RANKS), "--build-table-nrows", str(NROWS),
+            "--probe-table-nrows", str(NROWS), "--iterations", "1",
+            "--verify-integrity", "--auto-retry", "1"]
+    clean = D.run(D.parse_args(argv), device=DEVICE)
+    _check(clean["row_digest"] is not None and not clean["overflow"],
+           f"chaos (d) clean run: {clean['integrity']}")
+    print(f"[chaos] (d) join driver {NROWS} x {NROWS} over "
+          f"{CHAOS_DRIVER_RANKS} emulated ranks, no --chaos-seed: digest "
+          f"{clean['row_digest']}, {clean['matches_per_join']} matches",
+          flush=True)
+    for seed, fault in CHAOS_DRIVER_SEEDS.items():
+        t = time.perf_counter()
+        try:
+            rec = D.run(D.parse_args(argv + ["--chaos-seed", str(seed)]),
+                        device=DEVICE)
+        except IntegrityError as exc:
+            _check(fault not in ("none", "overflow"),
+                   f"chaos (d) seed {seed} ({fault}) refused: {exc}")
+            print(f"[chaos] (d) --chaos-seed {seed} ({fault}): refused, "
+                  f"IntegrityError on {len(exc.report.mismatches)} pairs, "
+                  f"no record; {time.perf_counter() - t:.1f} s", flush=True)
+            continue
+        _check(rec["row_digest"] == clean["row_digest"]
+               and rec["matches_per_join"] == clean["matches_per_join"],
+               f"chaos (d) seed {seed} ({fault}): digest "
+               f"{rec['row_digest']} against {clean['row_digest']}")
+        print(f"[chaos] (d) --chaos-seed {seed} ({fault}): digest equal to "
+              f"the clean run's, retry {json.dumps(rec['retry'])}, "
+              f"integrity ok {rec['integrity']['ok']}; "
+              f"{time.perf_counter() - t:.1f} s", flush=True)
+    return {"launches_by_path": {"chaos": counts}}
+
+
 def serving_kernel_entries(rows: list, paths: dict) -> list:
     """The serving shapes' rows of the kernels line: their launches on
     the path of the registry they were taken from (every warm request
@@ -6185,11 +6330,11 @@ def main(argv=None) -> int:
            and len(argv) == 2 else None)
     fault_job = (json.loads(argv[1]) if argv[:1] == ["--fault-driver"]
                  and len(argv) == 2 else None)
-    phases = [["--phase", str(p)] for p in range(13, 26)]
+    phases = [["--phase", str(p)] for p in range(13, 27)]
     phases.append(["--phase", SHARED_PHASES])
     if argv not in ([], *phases) and job is None and fault_job is None:
         print("usage: chip_smoke.py [--phase 13 | 14 | 15 | 16 | 17 | 18 "
-              f"| 19 | 20 | 21 | 22 | 23 | 24 | 25 | {SHARED_PHASES}]",
+              f"| 19 | 20 | 21 | 22 | 23 | 24 | 25 | 26 | {SHARED_PHASES}]",
               file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
@@ -6328,6 +6473,14 @@ def main(argv=None) -> int:
         print(ok, flush=True)
         return 0
 
+    if argv == ["--phase", "26"]:
+        chaos_paths = chaos_phase()
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
+              flush=True)
+        print(json.dumps(chaos_paths), flush=True)
+        print(ok, flush=True)
+        return 0
+
     if argv == ["--phase", SHARED_PHASES]:
         # the phases that profile nothing, one after another in one
         # process (each process start costs ~9 s on the card's host)
@@ -6387,11 +6540,11 @@ def main(argv=None) -> int:
     paths.update(timed(segmented_phase, *plain, flat_profile=flat_prof))
     # the phases that profile kernel rows late in the script, each in a
     # process of its own (``phase_in_own_process``)
-    own15, own17, own18, own19, own21, own22, own24, shared = (
+    own15, own17, own18, own19, own21, own22, own24, own26, shared = (
         phase_in_own_process(p)
-        for p in (15, 17, 18, 19, 21, 22, 24, SHARED_PHASES))
+        for p in (15, 17, 18, 19, 21, 22, 24, 26, SHARED_PHASES))
     for own_phase in (own15, own17, own18, own19, own21, own22, own24,
-                      shared):
+                      own26, shared):
         paths.update(own_phase["launches_by_path"])
     # phase 24(d): integrity off leaves the headline as it was
     _check(own24["headline_launches"] == head

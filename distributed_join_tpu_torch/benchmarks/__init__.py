@@ -1,16 +1,17 @@
 """Benchmark drivers of the port, and what they share: the record stamp,
-rank-0-only reporting, the telemetry and guard flags with the guarded
-run, and the refusal of the JAX drivers' flags the port does not have
-(port of ``distributed_join_tpu/benchmarks/__init__.py``: ``load_record``
+rank-0-only reporting, the telemetry, guard and chaos flags with the
+guarded run, and the refusal of the JAX drivers' flags the port does not
+have (port of ``distributed_join_tpu/benchmarks/__init__.py``: ``load_record``
 :37, ``stamp_record`` :20, ``report`` :59, ``run_guarded`` :81-185,
 ``maybe_diagnose`` :187-216, ``maybe_stage_profile`` and
 ``maybe_query_stage_profile`` :275-345, ``maybe_history`` :360-419,
 ``write_explain`` and ``explain_summary`` :219-274,
 ``collect_join_metrics`` :745, ``collect_integrity`` :705-741,
 ``add_telemetry_args`` :431-490, ``--verify-integrity``,
-``--guard-deadline-s`` and ``--auto-tune`` of ``add_robustness_args``
-:492-575, and the autotuner's driver seam ``resolve_tuner`` and
-``tuned_driver_record`` :608-652).
+``--guard-deadline-s``, ``--chaos-seed`` and ``--auto-tune`` of
+``add_robustness_args`` :492-575, the autotuner's driver seam
+``resolve_tuner`` and ``tuned_driver_record`` :608-652, and
+``maybe_chaos_communicator`` :694-702).
 
 Every driver's ``main`` runs its body through :func:`run_guarded`:
 ``--telemetry[=DIR]``, ``--trace``, ``--diagnose``, ``--history FILE``
@@ -32,7 +33,11 @@ operator at a time on the query path) into ``DIR/stageprofile.json``.
 ``--verify-integrity`` runs one untimed join with the wire digests after
 the timed loop (:func:`collect_integrity`): the record's ``"integrity"``
 is its report, and a mismatch fails the run rather than report a number
-computed from corrupt rows.
+computed from corrupt rows. ``--chaos-seed N`` wraps the driver's
+communicator in a seeded fault schedule (:func:`maybe_chaos_communicator`,
+``parallel/chaos.py``); paired with ``--verify-integrity``, a schedule
+that corrupts the wire fails the run instead of reporting its numbers
+(``collect_integrity`` rearms the spent corruption budget first).
 """
 
 from __future__ import annotations
@@ -66,14 +71,6 @@ from distributed_join_tpu_torch.table import Table
 # block is the session summary.
 SCHEMA_VERSION = 2
 
-# Flags of every JAX driver and of its launcher that wait for other parts
-# of the port, each naming what it waits for.
-UNPORTED_FLAGS = {
-    "--chaos-seed": "chaos injection (parallel/chaos.py, whose plans "
-                    "draw the corruption modes; ROADMAP A7)",
-}
-
-
 def load_record(source) -> dict:
     """A driver or bench JSON record read back (``stamp_record``'s
     inverse; JAX :37): ``source`` a path or a parsed dict. A record
@@ -100,12 +97,27 @@ def refuse_flags(parser, argv, refused: dict) -> None:
             parser.error(f"{flag}: {refused[flag]} is not part of the port")
 
 
+def innermost(comm):
+    """The communicator a wrapper (``FaultInjectingCommunicator``, the
+    ``--chaos-seed`` and ``--fault-plan`` seams) decorates, through any
+    number of wrappers; ``comm`` itself when it wraps nothing."""
+    while hasattr(comm, "_inner"):
+        comm = comm._inner
+    return comm
+
+
+def is_process_group(comm) -> bool:
+    """Whether ``comm`` (or what it wraps) runs one process a rank."""
+    return isinstance(innermost(comm), ProcessGroupCommunicator)
+
+
 def rank_device(comm, device=None) -> torch.device:
     """Where a driver's tensors live: ``device`` when given, else the
     rank's own device under a process group (its card under NCCL, the
-    CPU under gloo), else the GPU (``resolve_device``)."""
-    if device is None and isinstance(comm, ProcessGroupCommunicator):
-        return comm.device
+    CPU under gloo; through a fault wrapper too), else the GPU
+    (``resolve_device``)."""
+    if device is None and is_process_group(comm):
+        return innermost(comm).device
     return resolve_device(device)
 
 
@@ -114,7 +126,7 @@ def global_table(comm, table: Table) -> Table:
     ``spmd`` hands each process its own rank's part, so the parts are
     all-gathered (every rank's part has the same capacity); an
     in-process communicator's result holds every rank's rows already."""
-    if not isinstance(comm, ProcessGroupCommunicator):
+    if not is_process_group(comm):
         return table
     return Table({n: comm.all_gather(c) for n, c in table.columns.items()},
                  comm.all_gather(table.valid))
@@ -167,8 +179,31 @@ def add_integrity_arg(parser) -> None:
              "the JSON record under 'integrity'")
 
 
+def add_chaos_arg(parser) -> None:
+    """``--chaos-seed N`` (JAX ``add_robustness_args`` :505-511)."""
+    parser.add_argument(
+        "--chaos-seed", type=int, default=None, metavar="N",
+        help="wrap the communicator in a seeded fault schedule "
+             "(parallel/chaos.py) — deterministic chaos smoke for the "
+             "full driver stack; pair with --verify-integrity so "
+             "injected corruption is detected, not benchmarked")
+
+
+def maybe_chaos_communicator(comm, args):
+    """Driver seam for ``--chaos-seed`` (JAX :694-702): wrap (or pass
+    through) the communicator according to the flag. The schedule is
+    ``chaos.random_fault_plan`` over the seed's trial-0 rng without
+    dispatch failures, the JAX package's draw bit for bit."""
+    seed = getattr(args, "chaos_seed", None)
+    if seed is None:
+        return comm
+    from distributed_join_tpu_torch.parallel.chaos import wrap_communicator
+
+    return wrap_communicator(comm, seed)
+
+
 def collect_integrity(comm, build, probe, join_opts: dict,
-                      raise_on_mismatch: bool = True):
+                      raise_on_mismatch: bool = True, on_result=None):
     """The drivers' ``--verify-integrity`` (JAX :705-741): ONE join with
     the wire digests on the unshifted tables, untimed, after the timed
     loop, and its report's record. A mismatch raises
@@ -176,7 +211,9 @@ def collect_integrity(comm, build, probe, join_opts: dict,
     overflowed join is not checked, and the record says so. A
     fault-injecting communicator's corruption budget is rearmed first:
     the timed program spent it, and a clean verification would bless
-    numbers the corruption touched."""
+    numbers the corruption touched. ``on_result(res)`` sees the verified
+    join's result when its digests agree (the join driver digests its
+    rows)."""
     from distributed_join_tpu_torch.parallel import integrity
     from distributed_join_tpu_torch.parallel.distributed_join import (
         make_distributed_join,
@@ -196,6 +233,8 @@ def collect_integrity(comm, build, probe, join_opts: dict,
     report = integrity.verify_join_result(res)
     if not report.ok and raise_on_mismatch:
         raise integrity.IntegrityError(report)
+    if report.ok and on_result is not None:
+        on_result(res)
     return report.as_record()
 
 
@@ -435,6 +474,7 @@ FORWARDED_CHILD_FLAGS = (
     ("--sort-segments", "sort_segments", True),
     ("--auto-tune", "auto_tune", True),
     ("--verify-integrity", "verify_integrity", False),
+    ("--chaos-seed", "chaos_seed", True),
     ("--guard-deadline-s", "guard_deadline_s", True),
 )
 

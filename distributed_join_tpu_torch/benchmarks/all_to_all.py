@@ -39,8 +39,12 @@ refuses with the JAX message, as do ``--stage-profile`` (the exchange
 is one stage) and ``--auto-tune`` (no capacity to pre-size); ``--telemetry``, ``--trace``, ``--diagnose``,
 ``--history`` and ``--guard-deadline-s`` run through
 ``benchmarks.run_guarded``; ``--explain`` writes the exchange's plan and
-the cost model's prediction (``planning.build_exchange_plan``); the
-other JAX flags refuse by name.
+the cost model's prediction (``planning.build_exchange_plan``);
+``--chaos-seed N`` (JAX :108) wraps the communicator in the seed's fault
+schedule (``benchmarks.maybe_chaos_communicator``; the record's
+``chaos_seed``): a corrupted exchange fails the window's checksum, or
+the verified exchange under ``--verify-integrity``; the other JAX flags
+refuse by name.
 """
 
 from __future__ import annotations
@@ -53,13 +57,14 @@ import time
 import torch
 
 from distributed_join_tpu_torch.benchmarks import (
-    UNPORTED_FLAGS,
     add_auto_tune_arg,
+    add_chaos_arg,
     add_explain_arg,
     add_guard_arg,
     add_integrity_arg,
     add_telemetry_args,
     explain_summary,
+    maybe_chaos_communicator,
     write_explain,
     rank_device,
     refuse_flags,
@@ -71,7 +76,6 @@ from distributed_join_tpu_torch.parallel.communicator import make_communicator
 
 _REFUSED = {
     "--platform": "platform selection (the benchmark runs on the GPU)",
-    **UNPORTED_FLAGS,
 }
 
 # Timed windows a run; one window alone has read 3.4x another on the
@@ -110,6 +114,7 @@ def parse_args(argv=None):
     add_guard_arg(p)
     add_auto_tune_arg(p)
     add_integrity_arg(p)
+    add_chaos_arg(p)
     return p.parse_args(argv)
 
 
@@ -210,7 +215,8 @@ def run(args, device=None) -> tuple[dict, list]:
             "--sort-mode selects the join's LOCAL sort pipeline; "
             "this microbenchmark has no local sort")
     try:
-        comm = make_communicator(args.communicator, n_ranks=args.n_ranks)
+        comm = maybe_chaos_communicator(
+            make_communicator(args.communicator, n_ranks=args.n_ranks), args)
     except (ValueError, RuntimeError) as exc:
         raise SystemExit(f"--communicator {args.communicator} "
                          f"(--n-ranks {args.n_ranks}): {exc}") from exc
@@ -259,7 +265,7 @@ def run(args, device=None) -> tuple[dict, list]:
         "buffer_bytes_per_rank": bytes_per_rank,
         "integrity": integ,
         "explain": explain_rec,
-        "chaos_seed": None,
+        "chaos_seed": args.chaos_seed,
         "elapsed_per_exchange_s": sec,
         "aggregate_offchip_gb_per_sec": n * egress / sec / 1e9,
         "aggregate_gb_per_sec_incl_local": n * bytes_per_rank / sec / 1e9,

@@ -35,9 +35,19 @@ workload's history (``benchmarks.tuned_driver_record``: capacities and
 the rung label only) and the record carries ``tuned``.
 ``--verify-integrity`` (JAX :572-687) runs one untimed join with the wire
 digests at the final rung after the timed loop
-(``benchmarks.collect_integrity``): the record's ``integrity``, and a
-mismatch fails the run.
-Every other flag of the JAX driver refuses by name.
+(``benchmarks.collect_integrity``): the record's ``integrity`` and the
+verified rows' ``row_digest``, and a mismatch fails the run.
+``--chaos-seed N`` (JAX :282) wraps the communicator in the seed's fault
+schedule (``benchmarks.maybe_chaos_communicator``; the record's
+``chaos_seed``): a schedule that squeezes capacities is absorbed by
+``--auto-retry``, and one that corrupts the wire fails the run under
+``--verify-integrity`` rather than report its numbers. ``--expand-kernel``
+maps the JAX driver's ``auto|pallas|xla`` onto ``KernelConfig.expand``'s
+``auto|kernel|plain`` (``auto`` the kernel pipeline on a card and the
+plain join on the CPU); the record's ``expand_kernel`` is the resolved
+mode.
+Every other flag of the JAX driver refuses by name
+(``--compact-kernel`` and ``--kernel-block`` name TPU mechanisms).
 
 Skew auto-policy (JAX :359-405): with ``--zipf-alpha`` and no
 ``--skew-threshold``, the skew path runs at threshold 0.001 with the
@@ -73,8 +83,8 @@ import torch
 from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.bench import gpu_identity
 from distributed_join_tpu_torch.benchmarks import (
-    UNPORTED_FLAGS,
     add_auto_tune_arg,
+    add_chaos_arg,
     add_explain_arg,
     add_guard_arg,
     add_integrity_arg,
@@ -85,6 +95,8 @@ from distributed_join_tpu_torch.benchmarks import (
     maybe_stage_profile,
     write_explain,
     global_table,
+    is_process_group,
+    maybe_chaos_communicator,
     rank_device,
     refuse_flags,
     refuse_trace_with_profile,
@@ -103,13 +115,13 @@ from distributed_join_tpu_torch.ops.aggregate import (
     groups_frame,
 )
 from distributed_join_tpu_torch.ops.hashing import hash_columns
+from distributed_join_tpu_torch.ops.kernel_config import KernelConfig
 from distributed_join_tpu_torch.ops.segmented import resolve_sort_segments
 from distributed_join_tpu_torch.parallel.bootstrap import (
     is_coordinator,
     shutdown,
 )
 from distributed_join_tpu_torch.parallel.communicator import (
-    ProcessGroupCommunicator,
     make_communicator,
 )
 from distributed_join_tpu_torch.parallel.distributed_join import (
@@ -161,12 +173,13 @@ DTYPES = {
 
 # Flags of the JAX driver that the port does not have.
 _REFUSED = {
-    "--expand-kernel": "the kernel knobs",
     "--compact-kernel": "the kernel knobs",
     "--kernel-block": "the kernel knobs",
     "--platform": "platform selection (the driver runs on the GPU)",
-    **UNPORTED_FLAGS,
 }
+
+# --expand-kernel: the JAX driver's names onto KernelConfig.expand
+EXPAND_KERNEL = {"auto": "auto", "pallas": "kernel", "xla": "plain"}
 
 
 def parse_args(argv=None):
@@ -295,6 +308,12 @@ def parse_args(argv=None):
                         "to this many times; the trail lands under 'retry'")
     p.add_argument("--iterations", type=int, default=4,
                    help="timed dependent join steps")
+    p.add_argument("--expand-kernel", choices=list(EXPAND_KERNEL),
+                   default=None,
+                   help="the local join's formulation (KernelConfig."
+                        "expand): auto (default) = the kernel pipeline on "
+                        "a card, the plain join on the CPU; pallas = the "
+                        "kernel pipeline; xla = the plain formulation")
     p.add_argument("--json-output", default=None,
                    help="also write the record to this file")
     p.add_argument("--registration-method", default=None,
@@ -310,6 +329,7 @@ def parse_args(argv=None):
     add_guard_arg(p)
     add_auto_tune_arg(p)
     add_integrity_arg(p)
+    add_chaos_arg(p)
     args = p.parse_args(argv)
     refuse_trace_with_profile(p, args)
     return args
@@ -323,8 +343,9 @@ def _communicator(args):
             "across its slow tier: pass --shuffle hierarchical (or drop "
             "--slices)")
     try:
-        return make_communicator(args.communicator, n_ranks=args.n_ranks,
-                                 n_slices=args.slices)
+        return maybe_chaos_communicator(
+            make_communicator(args.communicator, n_ranks=args.n_ranks,
+                              n_slices=args.slices), args)
     except (ValueError, RuntimeError) as exc:
         raise SystemExit(f"--communicator {args.communicator} "
                          f"(--n-ranks {args.n_ranks}, --slices "
@@ -571,7 +592,14 @@ def _prepare(args, device):
                  sort_segments=(args.sort_segments
                                 if sort_mode == "segmented" else None),
                  **opts)
+    if expand_kernel(args) != "auto":
+        fixed["kernel_config"] = KernelConfig(expand=expand_kernel(args))
     return comm, dev, build, probe, ladder, fixed, policy, tuned_rec
+
+
+def expand_kernel(args) -> str:
+    """``--expand-kernel`` resolved to ``KernelConfig.expand``."""
+    return EXPAND_KERNEL[args.expand_kernel or "auto"]
 
 
 def row_digest(table: Table) -> torch.Tensor:
@@ -741,7 +769,7 @@ def sort_ab(comm, build, probe, n_joins: int, join_opts: dict, args):
         "plan_digest": plan.digest,
         "counter_signature": counter_signature(metrics),
     }
-    if not isinstance(comm, ProcessGroupCommunicator):
+    if not is_process_group(comm):
         keys = ([join_opts["key"]] if isinstance(join_opts["key"], str)
                 else list(join_opts["key"]))
         names = list(flat.table.columns)
@@ -861,7 +889,7 @@ def _digest_of(comm, table: Table) -> int:
     """``row_digest`` of a result over every rank: a process group's
     ranks each hold their own rows."""
     d = row_digest(table)
-    if isinstance(comm, ProcessGroupCommunicator):
+    if is_process_group(comm):
         d = comm.psum(d)
     return int(d)
 
@@ -981,7 +1009,7 @@ def run(args, device=None) -> dict:
     # the last rung's warm-up and timed joins; an in-process
     # communicator counts every rank's
     joins = 2 * args.iterations * (
-        1 if isinstance(comm, ProcessGroupCommunicator) else n)
+        1 if is_process_group(comm) else n)
     per_join = {k: (v - before[k]) / joins
                 for k, v in comm.counters().items()}
     # --telemetry: the device counters of one untimed join on the
@@ -993,8 +1021,10 @@ def run(args, device=None) -> dict:
     # --verify-integrity: one untimed join with the wire digests at the
     # final rung; a mismatch raises rather than report a throughput
     # computed from corrupt rows
-    integ = (collect_integrity(comm, build, probe,
-                               dict(fixed, **ladder.sizing()))
+    digest = []
+    integ = (collect_integrity(
+        comm, build, probe, dict(fixed, **ladder.sizing()),
+        on_result=lambda res: digest.append(_digest_of(comm, res.table)))
              if args.verify_integrity else None)
     explain_rec = None
     if args.explain:
@@ -1052,6 +1082,11 @@ def run(args, device=None) -> dict:
         "retry": ladder.report().as_record(),
         "tuned": tuned_rec,
         "integrity": integ,
+        # the verified join's rows (--verify-integrity), summed over
+        # ranks: a chaos-seeded run that returns rows returns these
+        "row_digest": digest[0] if digest else None,
+        "chaos_seed": args.chaos_seed,
+        "expand_kernel": expand_kernel(args),
         "elapsed_per_join_s": sec,
         "rows_per_sec": rows_per_sec,
         "m_rows_per_sec_per_rank": rows_per_sec / 1e6 / n,

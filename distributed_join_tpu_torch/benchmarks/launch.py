@@ -21,8 +21,9 @@
 Port of ``distributed_join_tpu/benchmarks/launch.py``: the same flags and
 the same ``DJTPU_*`` environment (``parallel/bootstrap.py``); ``--slices``,
 ``--sort-mode``, ``--sort-segments``, ``--telemetry``, ``--trace``,
-``--diagnose``, ``--history``, ``--stage-profile``, ``--auto-tune`` and
-``--guard-deadline-s`` are handed on to the command
+``--diagnose``, ``--history``, ``--stage-profile``, ``--auto-tune``,
+``--verify-integrity``, ``--chaos-seed`` and ``--guard-deadline-s`` are
+handed on to the command
 (``benchmarks.FORWARDED_CHILD_FLAGS``), unless it carries the flag
 already: every process writes its own rank's telemetry files into the
 one session directory, and each process's run is guarded, not the
@@ -45,11 +46,7 @@ import subprocess
 import sys
 import time
 
-from distributed_join_tpu_torch.benchmarks import (
-    FORWARDED_CHILD_FLAGS,
-    UNPORTED_FLAGS,
-    refuse_flags,
-)
+from distributed_join_tpu_torch.benchmarks import FORWARDED_CHILD_FLAGS
 from distributed_join_tpu_torch.parallel.bootstrap import (
     ENV_COORDINATOR,
     ENV_CPU_DEVICES,
@@ -57,7 +54,6 @@ from distributed_join_tpu_torch.parallel.bootstrap import (
     ENV_PROCESS_ID,
 )
 
-_REFUSED = dict(UNPORTED_FLAGS)
 # How long the others get to exit after a terminate before they are
 # killed.
 TERMINATE_GRACE_S = 10.0
@@ -66,8 +62,6 @@ TERMINATE_GRACE_S = 10.0
 def parse_args(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    own = argv[:argv.index("--")] if "--" in argv else argv
-    refuse_flags(p, own, _REFUSED)
     p.add_argument("--num-processes", type=int, required=True)
     p.add_argument("--process-id", type=int, default=None,
                    help="run only this process (one launcher a host); "
@@ -108,6 +102,9 @@ def parse_args(argv=None):
     p.add_argument("--verify-integrity", action="store_true",
                    help="handed on to every process (the drivers' one "
                         "verified join after the timed loop)")
+    p.add_argument("--chaos-seed", type=int, default=None, metavar="N",
+                   help="handed on to every process (each driver wraps "
+                        "its communicator in the seed's fault schedule)")
     p.add_argument("--guard-deadline-s", type=float, default=None,
                    metavar="S", help="handed on to every process")
     p.add_argument("command", nargs=argparse.REMAINDER,

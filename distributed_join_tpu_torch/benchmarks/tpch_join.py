@@ -50,8 +50,9 @@ run refuses it with the JAX driver's message (JAX :131-137).
 batched paths verify every batch (``batched_join_host``'s contract), the
 single shot runs one verified join after its timed loop
 (``benchmarks.collect_integrity``, the record's ``integrity``), and the
-``--query`` path refuses it, as the JAX driver's does. ``--chaos-seed``
-refuses by name. The ``--query`` record's
+``--query`` path refuses it, as the JAX driver's does. ``--chaos-seed N``
+(JAX :210) wraps the communicator in the seed's fault schedule
+(``benchmarks.maybe_chaos_communicator``) on every path. The ``--query`` record's
 ``programs_traced``, ``warm_new_traces`` and ``warm_cache_hit`` come
 from the ``JoinProgramCache`` the plan runs through, and its
 ``counter_signature``, ``wire`` and ``wire_exact`` from one untimed
@@ -76,8 +77,8 @@ import torch
 from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.bench import gpu_identity
 from distributed_join_tpu_torch.benchmarks import (
-    UNPORTED_FLAGS,
     add_auto_tune_arg,
+    add_chaos_arg,
     add_explain_arg,
     add_guard_arg,
     add_integrity_arg,
@@ -87,6 +88,7 @@ from distributed_join_tpu_torch.benchmarks import (
     explain_summary,
     write_explain,
     global_table,
+    maybe_chaos_communicator,
     maybe_query_stage_profile,
     rank_device,
     refuse_flags,
@@ -140,7 +142,6 @@ SEED = 42
 # Flags of the JAX driver that the port does not have.
 _REFUSED = {
     "--platform": "platform selection (the driver runs on the GPU)",
-    **UNPORTED_FLAGS,
 }
 
 
@@ -216,6 +217,7 @@ def parse_args(argv=None):
     add_guard_arg(p)
     add_auto_tune_arg(p)
     add_integrity_arg(p)
+    add_chaos_arg(p)
     return p.parse_args(argv)
 
 
@@ -331,7 +333,8 @@ def run(args, device=None) -> dict:
     say nothing of a GPU)."""
     _guards(args)
     try:
-        comm = make_communicator(args.communicator, n_ranks=args.n_ranks)
+        comm = maybe_chaos_communicator(
+            make_communicator(args.communicator, n_ranks=args.n_ranks), args)
     except (ValueError, RuntimeError) as exc:
         raise SystemExit(f"--communicator {args.communicator} "
                          f"(--n-ranks {args.n_ranks}): {exc}") from exc

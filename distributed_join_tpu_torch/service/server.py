@@ -74,8 +74,11 @@ Where the port differs:
   with no new trace), and ``history_dir`` defaults to it, as in the JAX
   package. The kernels of every good entry are loaded before the first
   request (``JoinProgramCache.preload``).
-- Refused by name: ``--chaos-seed`` (ROADMAP A7), ``--platform`` (the
-  daemon serves on ``--device``), and a daemon over a process group of
+- ``--chaos-seed N`` (JAX :2067-2080) wraps the daemon's communicator in
+  the seed's fault schedule (``benchmarks.maybe_chaos_communicator``)
+  before ``--fault-plan`` applies its scripted one on top.
+- Refused by name: ``--platform`` (the daemon serves on ``--device``),
+  and a daemon over a process group of
   more than one rank: the JAX daemon is one controller over its mesh,
   and a port daemon over N processes would need every rank to follow
   rank 0's stream of requests. Serving across cards is the fleet
@@ -148,12 +151,6 @@ def _host_total(res) -> tuple:
     return int(total), bool(overflow)
 
 
-def _innermost(comm):
-    while hasattr(comm, "_inner"):
-        comm = comm._inner
-    return comm
-
-
 @dataclasses.dataclass
 class ServiceConfig:
     """Serving policy knobs (the per-run driver flags, made resident).
@@ -220,7 +217,10 @@ class JoinService:
 
     def __init__(self, comm, config: Optional[ServiceConfig] = None,
                  device=None):
-        from distributed_join_tpu_torch.benchmarks import rank_device
+        from distributed_join_tpu_torch.benchmarks import (
+            innermost,
+            rank_device,
+        )
         from distributed_join_tpu_torch.parallel.communicator import (
             ProcessGroupCommunicator,
         )
@@ -229,7 +229,7 @@ class JoinService:
         )
 
         self.config = config or ServiceConfig()
-        inner = _innermost(comm)
+        inner = innermost(comm)
         if isinstance(inner, ProcessGroupCommunicator) and comm.n_ranks > 1:
             raise NotImplementedError(
                 f"{comm.n_ranks} ranks over {inner.name}: "
@@ -1522,18 +1522,16 @@ def watch(host: str, port: int, interval_s: float = 2.0, count: int = 0,
 # -- the CLI daemon ----------------------------------------------------
 
 def _refused_flags() -> dict:
-    from distributed_join_tpu_torch.benchmarks import UNPORTED_FLAGS
-
     return {
         "--platform": "platform selection (the JAX package's backend "
                       "choice; the daemon serves on --device)",
-        **UNPORTED_FLAGS,
     }
 
 
 def parse_args(argv=None):
     from distributed_join_tpu_torch.benchmarks import (
         add_auto_tune_arg,
+        add_chaos_arg,
         add_guard_arg,
         add_telemetry_args,
         refuse_flags,
@@ -1645,16 +1643,21 @@ def parse_args(argv=None):
     add_telemetry_args(p)
     add_guard_arg(p)
     add_auto_tune_arg(p)
+    add_chaos_arg(p)
     return p.parse_args(argv)
 
 
 def _service_from_args(args) -> JoinService:
+    from distributed_join_tpu_torch.benchmarks import (
+        maybe_chaos_communicator,
+    )
     from distributed_join_tpu_torch.parallel.communicator import (
         make_communicator,
     )
 
-    comm = make_communicator(args.communicator, n_ranks=args.n_ranks,
-                             n_slices=args.slices)
+    comm = maybe_chaos_communicator(
+        make_communicator(args.communicator, n_ranks=args.n_ranks,
+                          n_slices=args.slices), args)
     if args.fault_plan:
         from distributed_join_tpu_torch.parallel.faults import (
             FaultInjectingCommunicator,

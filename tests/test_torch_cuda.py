@@ -2283,3 +2283,79 @@ def test_program_cache_disk_tier_restart_on_card(card, tmp_path):
     e3, _ = c3.get(b, p, key="key", out_capacity_factor=2.0)
     assert e3.source == "trace"
     assert (c3.stats()["traces"], c3.stats()["disk_load_failures"]) == (1, 1)
+
+
+def _join_launches():
+    return (scan.join_scans, join_mod.compact_records,
+            join_mod.pack_matched_builds, expand.expand_gather)
+
+
+def test_chaos_soak_on_card_grades_clean(card):
+    """The seeded soak on the card (``parallel/chaos.py``, 8 emulated
+    ranks, the GPU by default): ``soak(42, 4)`` grades 0 failures over the
+    four config families, every trial's join launched the join kernels,
+    and ``--trial K`` replays trial K's record."""
+    from distributed_join_tpu_torch.parallel import chaos
+
+    torch.cuda.synchronize()
+    _kernels.reset_launch_counts(*_join_launches())
+    summary = chaos.soak(42, 4, repro_out=None)
+    torch.cuda.synchronize()
+    assert summary["failures"] == 0, summary
+    assert summary["device"] == "cuda"
+    assert [r["config"]["mode"] for r in summary["records"]] == \
+        list(chaos.CONFIGS)
+    for w in _join_launches():
+        assert w.launches >= 4, w.__name__
+    rec = summary["records"][2]
+    (again,) = chaos.soak(42, 1, only_trial=2, repro_out=None)["records"]
+    for f in ("config", "fault_plan", "verdict", "expected_total",
+              "got_total"):
+        assert again[f] == rec[f], f
+
+
+def test_chaos_hier_and_tuner_slices_on_card(card):
+    """Two hierarchical trials and the poisoned-history tuner slice on
+    the card: never a FAILED verdict; the tuner pre-sized from the lie
+    and learned the escalated rung."""
+    from distributed_join_tpu_torch.parallel import chaos
+
+    hier = chaos.hier_slice(42, 2)
+    assert hier["failures"] == 0 and hier["device"] == "cuda", hier
+    tuner = chaos.tuner_slice(7, 2)
+    assert tuner["failures"] == 0, tuner
+    for rec in tuner["records"]:
+        assert rec["tuner_presized"] and rec["tuner_corrected"], rec
+
+
+@pytest.mark.parametrize("mode", ["bit_flip", "row_truncate",
+                                  "row_duplicate", "misroute"])
+def test_chaos_corruption_mode_on_card_detected_or_recovered(card, mode):
+    """A chaos-graded trial of each corruption mode on the card, on the
+    padded and ragged wires: detected or recovered, never FAILED (never
+    silently joined), the budget spent."""
+    from distributed_join_tpu_torch.parallel import chaos
+    from distributed_join_tpu_torch.parallel.communicator import (
+        EmulatedCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.faults import (
+        FaultInjectingCommunicator,
+        FaultPlan,
+    )
+
+    config = {"build_rows": 1024, "probe_rows": 2048, "rand_max": 700,
+              "selectivity": 0.5, "table_seed": 11, "auto_retry": 2}
+    for shuffle in ("padded", "ragged"):
+        b, p = chaos._tables(config, card)
+        cols, total = chaos._oracle(b, p)
+        comm = FaultInjectingCommunicator(
+            EmulatedCommunicator(4),
+            FaultPlan(seed=5, corrupt_mode=mode, corrupt_collectives=1,
+                      corrupt_rank=1))
+        out = chaos._graded_join(
+            b, p, comm, config,
+            dict(out_capacity_factor=3.0, shuffle_capacity_factor=3.0,
+                 shuffle=shuffle), cols, total, True,
+            chaos._loud(True, total))
+        assert out.verdict in ("detected", "recovered", "ok"), out
+        assert not out.failed and comm._corruptions == 1

@@ -973,25 +973,31 @@ def test_launcher_takes_the_job_down_with_the_first_failing_rank():
 
 
 def test_launcher_refusals():
-    """Flags the port lacks refuse by name, several ranks a process are
-    refused, and NCCL without enough cards is refused before a process
-    starts (no fallback to the CPU)."""
+    """Several ranks a process are refused, and NCCL without enough cards
+    is refused before a process starts (no fallback to the CPU);
+    ``--auto-tune`` and ``--chaos-seed`` are handed on to every
+    process's command once."""
     base = [sys.executable, "-m",
             "distributed_join_tpu_torch.benchmarks.launch",
             "--num-processes", "2"]
-    for extra, match in ((["--chaos-seed", "2"], "--chaos-seed"),
-                         (["--cpu-devices-per-process", "4"], "one rank")):
+    for extra, match in ((["--cpu-devices-per-process", "4"], "one rank"),):
         r = subprocess.run([*base, *extra, "--", "true"], env=_env(),
                            capture_output=True, text=True, timeout=60)
         assert r.returncode != 0 and match in r.stderr, r.stderr
-    # --auto-tune is ported: the launcher hands it on to the command
-    r = subprocess.run([*base, "--cpu-devices-per-process", "1",
-                        "--auto-tune", "h.jsonl", "--", sys.executable,
-                        "-c", "import sys; assert sys.argv[1:] == "
-                        "['--auto-tune', 'h.jsonl'], sys.argv"],
-                       env=_env(), capture_output=True, text=True,
-                       timeout=60)
-    assert r.returncode == 0, r.stderr
+    # --auto-tune and --chaos-seed are ported: the launcher hands each on
+    # to the command (a flag the command carries already wins)
+    for flags, cmd_flags, want in (
+            (["--auto-tune", "h.jsonl"], [], ["--auto-tune", "h.jsonl"]),
+            (["--chaos-seed", "2"], [], ["--chaos-seed", "2"]),
+            (["--chaos-seed", "2"], ["--chaos-seed", "9"],
+             ["--chaos-seed", "9"])):
+        r = subprocess.run([*base, "--cpu-devices-per-process", "1",
+                            *flags, "--", sys.executable, "-c",
+                            "import sys; assert sys.argv[1:] == "
+                            f"{want!r}, sys.argv", *cmd_flags],
+                           env=_env(), capture_output=True, text=True,
+                           timeout=60)
+        assert r.returncode == 0, r.stderr
     if not torch.cuda.is_available():
         r = subprocess.run([*base, "--", "true"], env=_env(),
                            capture_output=True, text=True, timeout=60)
@@ -1133,8 +1139,21 @@ def test_all_to_all_benchmark_refuses_one_rank_and_unported_flags():
                     "distributed_join_tpu_torch.benchmarks.all_to_all",
                     "--communicator", "gloo", "--buffer-size", "4096"])
     assert r.returncode != 0 and "needs >= 2 ranks" in r.stderr
+    # --chaos-seed is ported: the communicator runs the seed's schedule;
+    # seed 3 draws no fault (the record carries the seed), seed 0 flips
+    # bits on the wire and the window's checksum refuses the run
+    def a2a(seed):
+        return ta2a.run(ta2a.parse_args(
+            ["--communicator", "emulated", "--n-ranks", "4",
+             "--buffer-size", "4096", "--iterations", "2",
+             "--chaos-seed", str(seed)]), device="cpu")
+    rec, _ = a2a(3)
+    assert rec["chaos_seed"] == 3 and rec["communicator"] == \
+        "faulty(emulated)"
+    with pytest.raises(SystemExit, match="checksum"):
+        a2a(0)
     with pytest.raises(SystemExit):
-        ta2a.parse_args(["--chaos-seed"])
+        ta2a.parse_args(["--chaos-seed"])   # the seed is required
     # the wire digests are ported: --verify-integrity parses (its run is
     # test_gloo_integrity_verified_and_corrupted's)
     assert ta2a.parse_args(["--verify-integrity"]).verify_integrity

@@ -520,8 +520,9 @@ def test_hung_request_poisons_as_jax(tmp_path):
 
 def test_port_refusals_by_name(tmp_path):
     """What the port lacks refuses by name: a multi-rank process group
-    (served by the fleet instead), ``--platform`` and ``--chaos-seed``
-    (ROADMAP A7). The disk tier (``persist_dir``, ``--persist-dir``),
+    (served by the fleet instead) and ``--platform``. ``--chaos-seed`` is
+    ported: the daemon wraps its communicator in the seed's schedule (the
+    JAX package's draw), and ``--fault-plan`` goes on top of it. The disk tier (``persist_dir``, ``--persist-dir``),
     ``explain``, the autotuner (``auto_tune``, ``tuner_history``,
     ``--auto-tune``) and the integrity digests (``verify_integrity``,
     ``--verify-integrity``) are ported: a persisted program restarts with
@@ -571,12 +572,25 @@ def test_port_refusals_by_name(tmp_path):
     args.request_deadline_s = None   # the daemon's main resolves it
     assert ts._service_from_args(args).config.verify_integrity
     assert not ts.parse_args([]).verify_integrity
-    for flag, item in (("--platform", "--device"),
-                       ("--chaos-seed", "A7")):
+    for flag, item in (("--platform", "--device"),):
         err = io.StringIO()
         with pytest.raises(SystemExit), contextlib.redirect_stderr(err):
             ts.parse_args([flag, "1"])
         assert flag in err.getvalue() and item in err.getvalue()
+    from distributed_join_tpu.parallel import chaos as jchaos
+    want = dataclasses.asdict(jchaos.random_fault_plan(
+        jchaos._trial_rng(1, 0), dispatch_failures=False))
+    for extra in ([], ["--fault-plan", '{"seed": 5}']):
+        args = ts.parse_args(["--chaos-seed", "1", "--device", "cpu",
+                              *extra])
+        args.request_deadline_s = None
+        comm = ts._service_from_args(args).comm
+        assert isinstance(comm, TFaulty)
+        if extra:   # the scripted plan wraps the seeded one
+            assert comm.plan == TFaultPlan(seed=5)
+            comm = comm._inner
+        assert dataclasses.asdict(comm.plan) == want
+    assert ts.parse_args([]).chaos_seed is None
     assert ts.parse_args(["--persist-dir", d]).persist_dir == d
     # the run diagnosis is ported: the daemon takes --diagnose, as the JAX
     # daemon does

@@ -727,7 +727,11 @@ def test_driver_refuses_what_the_port_lacks(argv, match, capsys, tmp_path,
     emulated ranks over the ragged wire the record holds both sides of
     the aggregate A/B, each equal to the numpy oracle, or of the resident
     A/B, with equal matches and row digests, or the plan's summary (the
-    ragged wire's bytes an estimate) beside its ``explain.json``."""
+    ragged wire's bytes an estimate) beside its ``explain.json``.
+    ``--expand-kernel`` is ported too (its JAX names onto
+    ``KernelConfig.expand``, the plain formulation's matches equal to the
+    kernel pipeline's on the ragged wire), and ``--compact-kernel``, a
+    TPU mechanism, refuses in its place."""
     from distributed_join_tpu_torch.benchmarks import (
         distributed_join as tdriver,
     )
@@ -760,6 +764,15 @@ def test_driver_refuses_what_the_port_lacks(argv, match, capsys, tmp_path,
         assert len(ab["materialize_walls_s"]) == len(ab["pushdown_walls_s"]) \
             == 2
         return
+    if argv[0] == "--expand-kernel":
+        recs = [tdriver.run(tdriver.parse_args(
+            ["--expand-kernel", flag, "--communicator", "emulated",
+             "--n-ranks", "4", "--shuffle", "ragged", "--build-table-nrows",
+             "4000", "--probe-table-nrows", "4000", "--iterations", "1"]),
+            device="cpu") for flag in ("xla", "pallas")]
+        assert [r["expand_kernel"] for r in recs] == ["plain", "kernel"]
+        assert recs[0]["matches_per_join"] == recs[1]["matches_per_join"] > 0
+        argv, match = ["--compact-kernel", "mxu"], "--compact-kernel"
     with pytest.raises(SystemExit):
         tdriver.parse_args(argv)
     assert match in capsys.readouterr().err

@@ -465,11 +465,19 @@ def test_config_driver_emulated_ranks_and_refusals(capsys):
         "--iterations", "1"]), device="cpu")
     assert rec["n_ranks"] == 4 and rec["communicator"] == "emulated"
     assert rec["skew_threshold"] is None and rec["matches_per_join"] > 0
-    for argv in (["--expand-kernel=xla"], ["--platform", "cpu"],
-                 ["--chaos-seed", "3"]):
+    for argv in (["--compact-kernel=mxu"], ["--kernel-block", "8"],
+                 ["--platform", "cpu"]):
         with pytest.raises(SystemExit):
             tdriver.parse_args(argv)
         assert argv[0].split("=")[0] in capsys.readouterr().err
+    # --expand-kernel and --chaos-seed are ported: the JAX driver's
+    # names map onto KernelConfig.expand, and the seed is the record's
+    for flag, mode in (("xla", "plain"), ("pallas", "kernel"),
+                       ("auto", "auto")):
+        assert tdriver.expand_kernel(tdriver.parse_args(
+            [f"--expand-kernel={flag}"])) == mode
+    assert tdriver.expand_kernel(tdriver.parse_args([])) == "auto"
+    assert tdriver.parse_args(["--chaos-seed", "3"]).chaos_seed == 3
     # --auto-tune is ported: the driver takes it as the JAX driver does
     assert tdriver.parse_args(["--auto-tune"]).auto_tune == ""
     # --agg-ab is ported: with the skew sidecar on it records the JAX

@@ -691,15 +691,34 @@ RUN_REFUSED = {"--auto-tune": "does not consult the history store"}
 # flags the driver takes and its --query run refuses, in the JAX
 # driver's words
 QUERY_REFUSED = {"--verify-integrity": "--query composes its own plan"}
+# flags the port lacked once and takes now, each with a check of what it
+# does: --chaos-seed wraps the communicator in the seed's schedule (seed
+# 3 draws none; seed 0 flips bits, and the verified join refuses)
+TAKEN = {"--chaos-seed": None}
 
 
 @pytest.mark.parametrize("flag", [f for f in JAX_FLAGS
                                   if f in tdriver._REFUSED
                                   or f in RUN_REFUSED
-                                  or f in QUERY_REFUSED])
+                                  or f in QUERY_REFUSED
+                                  or f in TAKEN])
 def test_driver_refuses_what_the_port_lacks(flag, capsys):
     argv = [flag] + ([JAX_FLAGS[flag]] if JAX_FLAGS[flag] else [])
     jargs = jdriver.parse_args(argv)  # the JAX driver takes it
+    if flag in TAKEN:
+        from distributed_join_tpu_torch.parallel.integrity import (
+            IntegrityError,
+        )
+        assert tdriver.parse_args(argv).chaos_seed == jargs.chaos_seed
+        base = ["--scale-factor", "0.002", "--iterations", "1",
+                "--verify-integrity", "--communicator", "emulated",
+                "--n-ranks", "4", "--chaos-seed"]
+        rec = tdriver.run(tdriver.parse_args(base + ["3"]), device="cpu")
+        assert rec["communicator"] == "faulty(emulated)"
+        assert rec["integrity"]["ok"] and not rec["overflow"]
+        with pytest.raises(IntegrityError):
+            tdriver.run(tdriver.parse_args(base + ["0"]), device="cpu")
+        return
     if flag in QUERY_REFUSED:
         # ported: taken as the JAX driver takes it, and refused with
         # --query in its words

@@ -780,7 +780,7 @@ def test_auto_tune_parse_and_forwarding_equal_jax():
                                 "a.jsonl", "--", "drv", "--auto-tune=b"])
     assert targs.command == ["drv", "--auto-tune=b"]
     assert ("--auto-tune", "auto_tune", True) in tbench.FORWARDED_CHILD_FLAGS
-    assert "--auto-tune" not in tbench.UNPORTED_FLAGS
+    assert "--auto-tune" not in tdriver._REFUSED
 
 
 def test_resolve_tuner_usage_errors_equal_jax(tmp_path):

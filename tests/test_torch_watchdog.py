@@ -286,11 +286,12 @@ DRIVERS = {"distributed_join": (tdriver, jdriver),
            "tpch_join": (ttpch, jtpch), "all_to_all": (ta2a, ja2a)}
 STILL_REFUSED = {"--auto-tune": ([], None),
                  "--verify-integrity": ([], None),
-                 "--chaos-seed": (["3"], "A7")}
-# --auto-tune and --verify-integrity are ported (queue None): every driver
-# takes --verify-integrity; the join driver takes --auto-tune, the tpch
-# and all_to_all drivers take it and their runs refuse it in the JAX
-# drivers' words
+                 "--chaos-seed": (["3"], None)}
+# --auto-tune, --verify-integrity and --chaos-seed are ported (queue
+# None): every driver takes --verify-integrity and --chaos-seed (its
+# communicator wrapped in the seed's fault schedule, JAX's draw); the join
+# driver takes --auto-tune, the tpch and all_to_all drivers take it and
+# their runs refuse it in the JAX drivers' words
 AUTO_TUNE_RUN_REFUSAL = {"distributed_join": None,
                          "tpch_join": "does not consult the history store",
                          "all_to_all": "no capacity contract to pre-size"}
@@ -307,6 +308,28 @@ def test_drivers_refuse_what_waits_by_name(driver, flag, capsys):
         if flag == "--verify-integrity":
             # ported: every driver takes the switch, as the JAX drivers do
             assert targs.verify_integrity and jargs.verify_integrity
+            return
+        if flag == "--chaos-seed":
+            # ported: the seed parses as in the JAX driver, and the seam
+            # wraps the communicator in the schedule JAX draws for it
+            import dataclasses
+
+            from distributed_join_tpu.parallel import chaos as jchaos
+            from distributed_join_tpu_torch.benchmarks import (
+                maybe_chaos_communicator,
+            )
+            from distributed_join_tpu_torch.parallel.communicator import (
+                EmulatedCommunicator,
+            )
+            assert targs.chaos_seed == jargs.chaos_seed == 3
+            comm = EmulatedCommunicator(2)
+            wrapped = maybe_chaos_communicator(comm, targs)
+            want = jchaos.random_fault_plan(jchaos._trial_rng(3, 0),
+                                            dispatch_failures=False)
+            assert dataclasses.asdict(wrapped.plan) == \
+                dataclasses.asdict(want)
+            assert maybe_chaos_communicator(
+                comm, tmod.parse_args([])) is comm
             return
         assert targs.auto_tune == jargs.auto_tune == ""
         match = AUTO_TUNE_RUN_REFUSAL[driver]
@@ -330,7 +353,7 @@ def test_launcher_refuses_what_waits_by_name(flag, capsys):
                                    "--", "drv"])
         # a switch goes on bare, a value-taking flag with its value
         assert args.command == (["drv", flag] if flag == "--verify-integrity"
-                                else ["drv", flag, ""])
+                                else ["drv", flag, *(extra or [""])])
         return
     with pytest.raises(SystemExit):
         tlaunch.parse_args(["--num-processes", "2", flag, *extra, "--",
