@@ -342,11 +342,25 @@ Phases (any failure raises, and the script exits non-zero):
    program) and 2 (a misroute): a run refuses with ``IntegrityError`` or
    reports the clean run's row digest (3 and 7 must). ``python3
    chip_smoke.py --phase 26`` runs this phase alone.
+27. The native driver (``native/join_main.cpp``: libtorch, the
+   join_scans, stream_compact and expand_gather kernels called through
+   their C entry points; g++ builds it in a thread beside nvcc at the
+   top of the script), in the shared process: (a) ``--selftest``; (b) at
+   1 M x 1 M, 8 iterations, the driver's dumped tables through the
+   port's ``build_looped_join`` give its total, overflow and checksum
+   exactly, and native against Python ms a join on those tables in 5
+   alternating pairs (the Python host share of a one-rank join; no
+   gate); (c) at 10 M x 10 M: ``matches_per_join`` equals the driver's
+   count of probe hits, no overflow, its rows/s beside the headline's;
+   (d) (c)'s launches are path ``native``; (e) the 14 schedule programs
+   recorded over 8 emulated ranks on this card equal
+   ``results/schedules_torch/``. It runs in the shared process
+   (``--phase 20,23,25,27``).
 
 The whole script runs phases 2 to 14 and 16 in one process, then 15,
-17, 18, 19, 21, 22, 24 and 26 each in a process of its own, and 20, 23 and
-25, which take no profiler session, one after another in one more
-(``--phase 20,23,25``)
+17, 18, 19, 21, 22, 24 and 26 each in a process of its own, and 20, 23,
+25 and 27, which take no profiler session, one after another in one
+more (``--phase 20,23,25,27``)
 (``--phase N``): late in one
 long process the profiler has dropped launches and scaled durations. A device
 time counts only when the profiler caught every launch the wrappers made
@@ -373,13 +387,18 @@ and phase 23's ``tuner_warm``, ``tuner_service``, ``tuner_skew_fill``,
 ``tuner_wire_fill`` and ``tuner_sort_fill``, the last launching none: the
 segmented path, phase 24's ``integrity``, phase 25's ``fleet``
 (the router's requests to its in-process replicas) and phase 26's
-``chaos`` (the main soak's trials); the skew site's
+``chaos`` (the main soak's trials) and phase 27's ``native`` (the
+native driver's 10 M-row run); the skew site's
 entry carries its launches on the paths
 that run the sidecar, phase 23's ``tuner_skew_fill`` among them);
 the last line is
 {"ok": true, "device": {...}}. Without a CUDA device the script exits
 with code 2, and without the package beside it with code 3; neither
 prints a result.
+
+A line marked ``# noqa: DJL004`` reads a reduction to the host for a
+check or a sizing, after the calls it checks and outside every timed
+window; joinlint reports any other such read.
 """
 
 from __future__ import annotations
@@ -545,7 +564,8 @@ def max_abs_err(got, want, n: int | None = None) -> float:
     for g, w in zip(got, want):
         g, w = (g, w) if n is None else (g[:n], w[:n])
         if g.numel() and not torch.equal(g, w):
-            err = max(err, float((g.double() - w.double()).abs().max()), 1.0)
+            d = (g.double() - w.double()).abs().max()
+            err = max(err, float(d), 1.0)  # noqa: DJL004
     return err
 
 
@@ -566,7 +586,7 @@ def row_digest(res) -> tuple:
             hc = fmix64(col)
             h = hc if h is None else hash_combine(h, hc)
     h = h[t.valid]
-    return int(t.valid.sum()), int(h.sum()), _xor_reduce(h)
+    return int(t.valid.sum()), int(h.sum()), _xor_reduce(h)  # noqa: DJL004
 
 
 def _xor_reduce(h: torch.Tensor) -> int:
@@ -617,12 +637,13 @@ def stage_inputs(build, probe, out_cap: int) -> dict:
     pack_lane = [to_u64_lane(svals[("b", "build_payload")])]
     pack = stream_compact_reference(matched, sc["mb_pos"], pack_lane,
                                     build.capacity)
-    total = int(sc["cnt"].sum(dtype=torch.int64))
+    total = int(sc["cnt"].sum(dtype=torch.int64))  # noqa: DJL004
     return dict(tag=stag, first=first, is_rec=is_rec, rec_pos=sc["rec_pos"],
                 rec_lanes=rec_lanes, matched=matched, mb_pos=sc["mb_pos"],
                 pack_lane=pack_lane, S=S, lo=lo,
                 rec_cols=[compacted[1], compacted[2]], pack=pack,
-                kept=kept, total=total, n_matched=int(matched.sum()),
+                kept=kept, total=total,
+                n_matched=int(matched.sum()),  # noqa: DJL004
                 nb=build.capacity, out_cap=out_cap,
                 sort_ops=(m_ops[0], m_tag, m_val),
                 join_sort=lambda: J._merged_sort(build, probe, keys, b1d,
@@ -687,7 +708,7 @@ def kernel_phase(build, probe, out_cap: int) -> list:
     # written. No pos byte: pos == cumsum(mask) - 1 (the contract) follows
     # from the mask, so the function needs none of it (the kernel reads
     # one a tile).
-    surv = int(x["is_rec"].sum())
+    surv = int(x["is_rec"].sum())  # noqa: DJL004
     kept = min(surv, out_cap)
     k = len(x["rec_lanes"])
     nm = x["n_matched"]
@@ -804,7 +825,7 @@ def live_digit_passes(operands, nk: int) -> tuple[int, int]:
             word = word | ms._wide(planes[i + 1])
         for b in range(8):
             digit = (word >> (8 * b)) & 0xFF
-            live += int(digit.amin() != digit.amax())
+            live += int(digit.amin() != digit.amax())  # noqa: DJL004
     return live, 8 * ((len(planes) + 1) // 2)
 
 
@@ -1060,7 +1081,7 @@ def skew_site_row(build, probe, args) -> dict:
     rows = []
     for name, mask, cap in sites:
         pos = torch.cumsum(mask.to(torch.int32), 0, dtype=torch.int32) - 1
-        surv = int(mask.sum())
+        surv = int(mask.sum())  # noqa: DJL004
         kept = min(surv, cap)
         print(f"[config3] {name}: {surv} survivors, capacity {cap}",
               flush=True)
@@ -1394,14 +1415,14 @@ def expected_typed_rows(build, probe) -> dict:
     bk = build.columns["key"][build.valid]
     pk = probe.columns["key"][probe.valid]
     sb = torch.sort(bk).values
-    matches = int((torch.searchsorted(sb, pk, right=True)
+    matches = int((torch.searchsorted(sb, pk, right=True)  # noqa: DJL004
                    - torch.searchsorted(sb, pk)).sum())
     hit_p = torch.isin(pk, bk)
-    unmatched_p = int((~hit_p).sum())
-    unmatched_b = int((~torch.isin(bk, pk)).sum())
+    unmatched_p = int((~hit_p).sum())  # noqa: DJL004
+    unmatched_b = int((~torch.isin(bk, pk)).sum())  # noqa: DJL004
     return {"left": matches + unmatched_p, "right": matches + unmatched_b,
             "full_outer": matches + unmatched_p + unmatched_b,
-            "semi": int(hit_p.sum()), "anti": unmatched_p}
+            "semi": int(hit_p.sum()), "anti": unmatched_p}  # noqa: DJL004
 
 
 def join_kernel_ms(top: list) -> dict:
@@ -1478,7 +1499,7 @@ def typed_kernel_rows(build, probe, caps) -> list:
                        ("stream_compact[valid-build pack]",
                         "pack_valid_builds")):
         mask, pos, lanes, cap = calls[site]
-        kept = min(int(mask.sum()), cap)
+        kept = min(int(mask.sum()), cap)  # noqa: DJL004
         lib = (lambda m=mask, packed=torch.stack(lanes, 1): packed[m])
         got = compact.stream_compact(mask, pos, lanes, cap)
         want = compact.stream_compact_reference(mask, pos, lanes, cap)
@@ -1490,8 +1511,8 @@ def typed_kernel_rows(build, probe, caps) -> list:
                 compact.stream_compact_reference(m, q, ls, c),
             lib, nbytes=n + 2 * kept * 8 * len(lanes), ops=n)
         del got, want, lib
-    n_rec = int(calls["compact_records"][0].sum())
-    n_valid_b = int(build.valid.sum())
+    n_rec = int(calls["compact_records"][0].sum())  # noqa: DJL004
+    n_valid_b = int(build.valid.sum())  # noqa: DJL004
     S, rc, cap, lo, pk = calls["expand_gather"]
     got_r, got_b = expand.expand_gather(S, rc, cap, lo=lo, build_cols=pk)
     want_r, want_b = expand.expand_gather_reference(S, rc, cap, lo=lo,
@@ -1514,7 +1535,7 @@ def typed_kernel_rows(build, probe, caps) -> list:
     tot = min(int(res.total), caps["anti"])
     del res
     S, rc, cap, _, _ = calls["expand_gather"]
-    n_rec = int(calls["compact_records"][0].sum())
+    n_rec = int(calls["compact_records"][0].sum())  # noqa: DJL004
     got_r, got_s = expand.expand_gather(S, rc, cap)
     want_r, want_s = expand.expand_gather_reference(S, rc, cap)
     run_len = torch.diff(torch.cat([
@@ -1727,7 +1748,7 @@ def bucket_kernel_rows(calls, label: str = "nccl bucket") -> list:
         lambda: scan.join_scans(tag, first),
         lambda: scan.join_scans_reference(tag, first), None,
         nbytes=2 * n + 6 * 4 * n, ops=40 * n)
-    total = int(want["cnt"].sum(dtype=torch.int64))
+    total = int(want["cnt"].sum(dtype=torch.int64))  # noqa: DJL004
     del got, want
     kept = {}
     for name, site in ((f"stream_compact[record, {label}]",
@@ -1735,7 +1756,7 @@ def bucket_kernel_rows(calls, label: str = "nccl bucket") -> list:
                        (f"stream_compact[pack, {label}]",
                         "pack_matched_builds")):
         mask, pos, lanes, cap = calls[site]
-        kept[site] = min(int(mask.sum()), cap)
+        kept[site] = min(int(mask.sum()), cap)  # noqa: DJL004
         lib = (lambda m=mask, packed=torch.stack(lanes, 1): packed[m])
         got = compact.stream_compact(mask, pos, lanes, cap)
         want = compact.stream_compact_reference(mask, pos, lanes, cap)
@@ -2229,7 +2250,7 @@ def codec_rows(build, probe) -> list:
                 rows.append({
                     "column": f"{side}.{name}", "bits": bits, "rows": cap,
                     "overflow": bool(enc[2].any()),
-                    "required_bits": int(enc[3].max()),
+                    "required_bits": int(enc[3].max()),  # noqa: DJL004
                     "encode_ms": e_ms, "decode_ms": d_ms,
                     "raw_bytes": col.nbytes, "saved_bytes": saved,
                     "break_even_gb_per_s": saved / ((e_ms + d_ms) * 1e6)})
@@ -2425,7 +2446,7 @@ def tpch_expected_matches(orders_batches, lineitem_batches) -> int:
 
     for b in orders_batches:
         present[index(b["o_orderkey"])] = True
-    return sum(int(present[index(b["l_orderkey"])].sum())
+    return sum(int(present[index(b["l_orderkey"])].sum())  # noqa: DJL004
                for b in lineitem_batches)
 
 
@@ -2806,7 +2827,7 @@ def groups_kernel_row(call) -> dict:
     from distributed_join_tpu_torch.ops import compact
     mask, pos, lanes, cap = call
     n = mask.shape[0]
-    kept = min(int(mask.sum()), cap)
+    kept = min(int(mask.sum()), cap)  # noqa: DJL004
     packed = torch.stack(lanes, 1)
     rows = []
     got = compact.stream_compact(mask, pos, lanes, cap)
@@ -3088,7 +3109,7 @@ def _key_digest(table) -> int:
     the uint64 sum of the valid rows' key hashes."""
     from distributed_join_tpu_torch.ops.hashing import hash_columns
     h = hash_columns([table.columns["key"]])
-    return int(torch.where(table.valid, h, 0).sum()) % 2**64
+    return int(torch.where(table.valid, h, 0).sum()) % 2**64  # noqa: DJL004
 
 
 def serving_profile(registry, probe, joins: int = 3) -> dict:
@@ -4889,7 +4910,7 @@ def stageprof_phase() -> dict:
                f"phase 22 Q3 {op.op_id}: matches {got} against {red}")
         if op.aggregate is not None:
             _check(got["agg.groups"] == red["agg.groups"]
-                   == int(mono.table.valid.sum()) > 0,
+                   == int(mono.table.valid.sum()) > 0,  # noqa: DJL004
                    f"phase 22 Q3 {op.op_id}: groups {got} against {red}")
     _require_launched(qcounts, QUERY_SITES, "the Q3 profile")
     paths["stageprof_q3"] = qcounts
@@ -6294,9 +6315,224 @@ def groups_kernel_entry(row: dict, paths: dict) -> dict:
                              for p, c in counts.items() if not c}}
 
 
-# phases 20, 23 and 25 take no profiler session: the whole script runs
-# them in one process of their own, one after another
-SHARED_PHASES = "20,23,25"
+# -- phase 27: the native driver ---------------------------------------
+
+NATIVE_ROWS = 1_000_000        # (b): the Python against native pairs
+NATIVE_BIG_ROWS = 10_000_000   # (c): config 2's rows
+NATIVE_ITERS = 8
+NATIVE_PAIRS = 5
+_DRIVER_BUILD: dict = {}
+
+
+def start_driver_build() -> None:
+    """Compile ``native/join_main.cpp`` (g++ against libtorch) in a
+    thread, while the kernels build; :func:`native_phase` waits for it."""
+    import threading
+
+    from distributed_join_tpu_torch.native import export_join
+
+    def run():
+        try:
+            t = time.perf_counter()
+            _DRIVER_BUILD["path"] = str(export_join.build_driver())
+            _DRIVER_BUILD["s"] = time.perf_counter() - t
+        except Exception as exc:  # noqa: BLE001 — re-raised in native_phase
+            _DRIVER_BUILD["error"] = exc
+
+    _DRIVER_BUILD["thread"] = threading.Thread(target=run,
+                                               name="driver-build")
+    _DRIVER_BUILD["thread"].start()
+
+
+def _driver_path() -> str:
+    if "thread" not in _DRIVER_BUILD:
+        start_driver_build()
+    _DRIVER_BUILD["thread"].join()
+    if "error" in _DRIVER_BUILD:
+        raise _DRIVER_BUILD["error"]
+    return _DRIVER_BUILD["path"]
+
+
+def _native_run(driver: str, *argv) -> dict:
+    """One driver run; its JSON record (the last line)."""
+    import subprocess
+
+    r = subprocess.run([driver, *argv], capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        _fail(f"join_main {' '.join(argv)} exited {r.returncode}: "
+              f"{r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def native_phase() -> dict:
+    """Phase 27: the native driver (``native/join_main.cpp``, libtorch,
+    the join_scans, stream_compact and expand_gather kernels called
+    through their C entry points), in the shared process. (a)
+    ``--selftest``; (b) at 1 M x 1 M, 8 iterations, the driver's tables
+    (``--dump-tables``) through the port's ``build_looped_join`` on this
+    card and through ``export_join.numpy_reference`` give the driver's
+    total, overflow and checksum exactly, then native against Python ms
+    a join on those tables in 5 alternating pairs (the Python host share
+    of a one-rank join; recorded, no gate); (c) at 10 M x 10 M, 8
+    iterations, with ``--dump-tables``: the numpy reference gives the
+    driver's three outputs exactly, ``matches_per_join`` equals the
+    driver's own count of probe hits, no overflow, rows/s; and each
+    kernel the driver calls, on the inputs its first join gives it (20 M
+    merged positions, 12 M output slots), equals its plain twin; (d)
+    (c)'s kernel launches are path ``native``; (e) the 14 schedule
+    programs recorded over 8 emulated ranks on this card equal
+    ``results/schedules_torch/``. Returns ``{"native": counts,
+    "native_rows_per_sec": (c)'s rate}``."""
+    from distributed_join_tpu_torch.analysis import schedule
+    from distributed_join_tpu_torch.native import export_join
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, "build", "native", "chip_smoke")
+    t = time.perf_counter()
+    driver = _driver_path()
+    print(f"[native] driver {os.path.basename(driver)} (g++ "
+          f"{_DRIVER_BUILD.get('s', 0.0):.1f} s in the background); wait "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+
+    import subprocess
+    r = subprocess.run([driver, "--selftest"], capture_output=True,
+                       text=True, timeout=120)
+    _check(r.returncode == 0 and "11 22 33 44" in r.stdout,
+           f"(a) join_main --selftest: {r.returncode} {r.stdout} {r.stderr}")
+    print(f"[native] (a) {r.stdout.strip()}", flush=True)
+
+    def export(rows, name):
+        out = os.path.join(work, name)
+        export_join.main(["--build-table-nrows", str(rows),
+                          "--probe-table-nrows", str(rows),
+                          "--iterations", str(NATIVE_ITERS), "-o", out])
+        return out
+
+    def dumped(rows, name):
+        """The driver's run at ``rows`` with ``--dump-tables``: its
+        record, its outputs, the tables on the card, and the numpy
+        reference's outputs on them."""
+        tables = os.path.join(work, f"tables_{name}")
+        art = export(rows, f"art_{name}")
+        rec = _native_run(driver, "--artifact-dir", art, "--dump-tables",
+                          tables)
+        cols = export_join.load_tables(tables, rows, rows)
+        ref = export_join.numpy_reference(cols, NATIVE_ITERS,
+                                          _native_out_rows(rows))
+        return rec, [rec["total_matches_x_iters"], rec["overflow"],
+                     rec["dce_guard_checksum"]], \
+            [c.to(DEVICE) for c in cols], ref
+
+    _, want, cols, ref = dumped(NATIVE_ROWS, "1m")
+    art = os.path.join(work, "art_1m")
+    looped, _ = export_join.build_looped_join(
+        NATIVE_ROWS, NATIVE_ROWS, NATIVE_ITERS, _native_out_rows(NATIVE_ROWS),
+        DEVICE)
+    got = [x.item() for x in looped(*cols)]
+    _check(got == want == ref,
+           f"(b) 1 M x 1 M: join_main {want}, the port's build_looped_join "
+           f"{got}, the numpy reference {ref} (total x iters, overflow, "
+           "checksum)")
+    print(f"[native] (b) 1 M x 1 M, {NATIVE_ITERS} iterations: native == "
+          f"python == numpy (total x iters, overflow, checksum) = {want}",
+          flush=True)
+
+    def python_s():
+        looped(*cols)[0].item()                   # warm-up loop
+        t0 = time.perf_counter()
+        looped(*cols)[0].item()                   # one host read
+        return (time.perf_counter() - t0) / NATIVE_ITERS
+
+    native_ms, python_ms = [], []
+    for _ in range(NATIVE_PAIRS):
+        native_ms.append(1e3 * _native_run(
+            driver, "--artifact-dir", art)["elapsed_per_join_s"])
+        python_ms.append(1e3 * python_s())
+    med_n, med_p = float(np.median(native_ms)), float(np.median(python_ms))
+    print(f"[native] (b) ms a join at 1 M x 1 M, {NATIVE_PAIRS} alternating "
+          f"pairs: native {native_ms} python {python_ms}; medians native "
+          f"{med_n:.4f} python {med_p:.4f}: the Python host share "
+          f"{(med_p - med_n) / med_p:.3f} of a one-rank join", flush=True)
+    del cols, looped
+
+    big, want, cols, ref = dumped(NATIVE_BIG_ROWS, "10m")
+    _check(want == ref and big["matches_per_join"] == big["probe_hits"] > 0
+           and not big["overflow"],
+           f"(c) 10 M x 10 M: join_main {want} against the numpy reference "
+           f"{ref} (total x iters, overflow, checksum); matches_per_join "
+           f"{big['matches_per_join']} against {big['probe_hits']} probe "
+           "hits")
+    print(f"[native] (c) 10 M x 10 M: native == numpy (total x iters, "
+          f"overflow, checksum) = {want}; {json.dumps(big)}", flush=True)
+    errs = native_kernel_checks(cols, _native_out_rows(NATIVE_BIG_ROWS))
+    print(f"[native] (c) each kernel against its plain twin at this run's "
+          f"shapes (iteration 0): max_abs_err {errs}", flush=True)
+    del cols
+    by_site = big["kernel_launches_by_site"]
+    counts = {w.__name__: 0 for w in _launch_wrappers()}
+    counts.update(by_site)
+    _require_launched(counts, JOIN_KERNELS, "the native driver",
+                      NATIVE_ITERS)
+    print(f"[native] (d) launches on path native: {by_site}", flush=True)
+
+    t = time.perf_counter()
+    violations, scheds = schedule.check_schedules(
+        schedule_dir=os.path.join(root, schedule.DEFAULT_SCHEDULE_DIR),
+        device=DEVICE)
+    _check(not violations, "(e) schedules on the card: "
+           + "; ".join(violations))
+    print(f"[native] (e) {len(scheds)} programs recorded on {DEVICE} over "
+          f"{schedule.N_RANKS} emulated ranks equal results/schedules_torch/ "
+          f"({time.perf_counter() - t:.1f} s)", flush=True)
+    return {"native": counts, "native_rows_per_sec": big["rows_per_sec"]}
+
+
+def _native_out_rows(rows: int) -> int:
+    """export_join's output rows for ``rows`` probe rows (its default
+    capacity factor, 1.2)."""
+    return int(np.ceil(rows * 1.2))
+
+
+def native_kernel_checks(cols, out_cap: int) -> dict:
+    """B1, B2 at its record and pack sites and B3 in build mode on the
+    inputs the native driver's first join gives them (the dumped tables,
+    ``out_cap`` output slots), each against its plain twin over the
+    prefix its contract defines; ``{site: max_abs_err}``, all 0."""
+    from distributed_join_tpu_torch.ops import compact, expand, scan
+    from distributed_join_tpu_torch.table import Table
+
+    bk, bp, bv, pk, pp, pv = cols
+    x = stage_inputs(Table({"key": bk, "build_payload": bp}, bv),
+                     Table({"key": pk, "probe_payload": pp}, pv), out_cap)
+    got = scan.join_scans(x["tag"], x["first"])
+    want = scan.join_scans_reference(x["tag"], x["first"])
+    errs = {"join_scans": max_abs_err([got[k] for k in scan.NAMES],
+                                      [want[k] for k in scan.NAMES])}
+    for site, mask, pos, lanes, cap, kept in (
+            ("stream_compact[record]", x["is_rec"], x["rec_pos"],
+             x["rec_lanes"], out_cap, x["kept"]),
+            ("stream_compact[pack]", x["matched"], x["mb_pos"],
+             x["pack_lane"], x["nb"], x["n_matched"])):
+        errs[site] = max_abs_err(
+            compact.stream_compact(mask, pos, lanes, cap),
+            compact.stream_compact_reference(mask, pos, lanes, cap), kept)
+    S, lo, rc, pack = x["S"], x["lo"], x["rec_cols"], x["pack"]
+    got_r, got_b = expand.expand_gather(S, rc, out_cap, lo=lo,
+                                        build_cols=pack)
+    want_r, want_b = expand.expand_gather_reference(S, rc, out_cap, lo=lo,
+                                                    build_cols=pack)
+    errs["expand_gather[build]"] = max_abs_err(
+        got_r + got_b, want_r + want_b, min(x["total"], out_cap))
+    torch.cuda.synchronize()
+    _check(not any(errs.values()), f"(c) a kernel disagrees with its plain "
+                                   f"twin at the native path's shapes: {errs}")
+    return errs
+
+
+# phases 20, 23, 25 and 27 take no profiler session: the whole script
+# runs them in one process of their own, one after another
+SHARED_PHASES = "20,23,25,27"
 
 
 def phase_in_own_process(phase) -> dict:
@@ -6360,6 +6596,8 @@ def main(argv=None) -> int:
     print(f"[gpu] {smi}", flush=True)
     print(f"[gpu] torch {torch.__version__} cuda {torch.version.cuda} "
           f"{torch.cuda.get_device_name(0)}", flush=True)
+    if argv in ([], ["--phase", SHARED_PHASES]):
+        start_driver_build()   # g++ beside nvcc: phase 27 waits for it
     t0 = time.perf_counter()
     reports = _kernels.build(verbose=True)
     secs = time.perf_counter() - t0
@@ -6486,15 +6724,17 @@ def main(argv=None) -> int:
         # process (each process start costs ~9 s on the card's host)
         shared = {}
         for p, fn in (("20", service_phase), ("23", tuner_phase),
-                      ("25", fleet_phase)):
+                      ("25", fleet_phase), ("27", native_phase)):
             t = time.perf_counter()
             torch.cuda.empty_cache()
             shared.update(fn())
             print(f"[phase] phase {p} in the shared process: "
                   f"{time.perf_counter() - t:.1f} s", flush=True)
+        rate = shared.pop("native_rows_per_sec")
         print(f"[done] {time.perf_counter() - t_start:.1f} s; {smi}",
               flush=True)
-        print(json.dumps({"launches_by_path": shared}), flush=True)
+        print(json.dumps({"launches_by_path": shared,
+                          "native_rows_per_sec": rate}), flush=True)
         print(ok, flush=True)
         return 0
 
@@ -6523,7 +6763,7 @@ def main(argv=None) -> int:
     del build, probe
     torch.cuda.empty_cache()
 
-    _, head, head_digests = timed(headline_phase)
+    head_rec, head, head_digests = timed(headline_phase)
     rec = timed(record_mode_phase)
     timed(emulated_phase)
     skew_row, c3 = timed(config3_phase)
@@ -6557,6 +6797,13 @@ def main(argv=None) -> int:
     print(f"[integrity] (d) the headline with integrity off equals the "
           f"headline phase's: launches {head}, digest "
           f"{head_digests['match_sized']}", flush=True)
+    print(f"[native] (c) 10 M x 10 M: native "
+          f"{shared['native_rows_per_sec'] / 1e6:.2f} M rows/s against "
+          f"the headline's {head_rec['value_capacity_contract']:.2f} M "
+          "rows/s at the same output contract, 1.2 x probe rows (the "
+          "generators differ: the driver's build keys are unique and its "
+          "probe hits drawn by std::mt19937_64; the headline draws build "
+          "keys with replacement)", flush=True)
     tpch_rows, (groups_row,), serving_rows = (
         own15["rows"], own17["rows"], own18["rows"])
 

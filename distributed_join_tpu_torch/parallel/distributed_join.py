@@ -249,10 +249,11 @@ def _new_tape(with_aux: bool, metrics_static) -> Optional[MetricsTape]:
 
 def _bill_partition(tape, pt, cap: int) -> None:
     """A side's partitioned rows and its tightest bucket's headroom under
-    the shuffle capacity (device scalars)."""
-    tape.add("rows_partitioned", pt.counts.sum(dtype=torch.int64))
-    tape.record_min("overflow_margin_min",
-                    cap - pt.counts.max().to(torch.int64))
+    the shuffle capacity (device scalars); nothing without a tape."""
+    if tape is not None:
+        tape.add("rows_partitioned", pt.counts.sum(dtype=torch.int64))
+        tape.record_min("overflow_margin_min",
+                        cap - pt.counts.max().to(torch.int64))
 
 
 def _scopes(tape, n: int, suffix: str = "") -> list:

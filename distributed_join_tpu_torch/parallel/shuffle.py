@@ -89,9 +89,11 @@ def _mover(comm: Communicator, via: str):
 
 
 def _bill_rows(tape, counts: torch.Tensor, recv_counts: torch.Tensor) -> None:
-    """The actual rows a shuffle sent and received, as device scalars."""
-    tape.add("rows_shuffled", counts.sum(dtype=torch.int64))
-    tape.add("rows_received", recv_counts.sum(dtype=torch.int64))
+    """The actual rows a shuffle sent and received, as device scalars;
+    nothing without a tape."""
+    if tape is not None:
+        tape.add("rows_shuffled", counts.sum(dtype=torch.int64))
+        tape.add("rows_received", recv_counts.sum(dtype=torch.int64))
 
 
 def _pad_digests(digest_tape, sent_cols, counts, recv_cols,

@@ -1175,6 +1175,25 @@ def check_file(path: str) -> list:
         elif "counter_signature" in doc:
             problems.append("counter_signature is not an object")
         return problems
+    elif name.endswith(".joinprog") or \
+            doc.get("kind") == "join_program":
+        # A program-cache disk entry (service/programs.py _entry_doc):
+        # the signature it was built for, its digest, the backend it
+        # binds to and the kernel binaries it launches.
+        for key in ("kind", "schema_version", "digest", "signature",
+                    "backend", "kernels"):
+            if key not in doc:
+                problems.append(f"missing required key {key!r}")
+        if "digest" in doc and not (isinstance(doc["digest"], str)
+                                    and doc["digest"]):
+            problems.append("digest is not a non-empty string")
+        for key in ("signature", "backend", "kernels"):
+            if key in doc and not isinstance(doc[key], dict):
+                problems.append(f"{key} is not an object")
+        backend = doc.get("backend")
+        if isinstance(backend, dict) and "device_type" not in backend:
+            problems.append("backend missing 'device_type'")
+        return problems
     elif name.startswith("explain") or doc.get("kind") == "explain":
         # The EXPLAIN artifact (planning/plan.py): a plan + cost
         # prediction pair, recognized by basename OR kind stamp.

@@ -25,7 +25,6 @@ runs on a machine without pandas.
 
 from __future__ import annotations
 
-import ctypes
 import ctypes.util
 import functools
 from typing import List, Tuple

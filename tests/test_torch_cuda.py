@@ -2359,3 +2359,74 @@ def test_chaos_corruption_mode_on_card_detected_or_recovered(card, mode):
             chaos._loud(True, total))
         assert out.verdict in ("detected", "recovered", "ok"), out
         assert not out.failed and comm._corruptions == 1
+
+
+# The JAX package's program on the driver's 64 K-row tables, 2
+# iterations: (total x iters, overflow, checksum). This machine runs no
+# JAX: tests/test_torch_native.py
+# test_driver_at_the_card_test_size_equals_the_jax_program computes the
+# same numbers live from the JAX package on the CPU.
+JAX_AT_64K = [39230, False, 5154481199]
+
+
+def test_native_driver_on_card_equals_the_python_join(card, tmp_path):
+    """The libtorch driver (native/join_main.cpp) on the card, at 64 K
+    rows: its kernel path's total, overflow and checksum equal the JAX
+    package's program on its tables, the port's build_looped_join on the
+    card, the numpy reference and the driver's own ATen twins
+    (``--device cpu``), and every kernel launched once a join (the
+    record pack and the build pack twice a join)."""
+    import subprocess
+
+    from distributed_join_tpu_torch.native import export_join
+
+    rows, iters = 65536, 2
+    driver = str(export_join.build_driver())
+    r = subprocess.run([driver, "--selftest"], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0 and "11 22 33 44" in r.stdout, r.stderr
+    art, tables = tmp_path / "art", tmp_path / "tables"
+    export_join.main(["--build-table-nrows", str(rows),
+                      "--probe-table-nrows", str(rows), "--iterations",
+                      str(iters), "-o", str(art)])
+    r = subprocess.run([driver, "--artifact-dir", str(art), "--dump-tables",
+                        str(tables)], capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 0, r.stderr
+    rec = json.loads(r.stdout.strip().splitlines()[-1])
+    assert rec["device"] == torch.cuda.get_device_name(0)
+    assert rec["kernel_launches"] == {"djt_join_scans": iters,
+                                      "djt_stream_compact": 2 * iters,
+                                      "djt_expand_gather": iters}
+    assert rec["matches_per_join"] == rec["probe_hits"] > 0
+    want = [rec["total_matches_x_iters"], rec["overflow"],
+            rec["dce_guard_checksum"]]
+    assert want == JAX_AT_64K
+    cols = export_join.load_tables(str(tables), rows, rows)
+    assert export_join.numpy_reference(
+        cols, iters, int(np.ceil(rows * 1.2))) == want
+    looped, _ = export_join.build_looped_join(
+        rows, rows, iters, int(np.ceil(rows * 1.2)), card)
+    assert [x.item() for x in looped(*[c.to(card) for c in cols])] == want
+    r = subprocess.run([driver, "--artifact-dir", str(art), "--device",
+                        "cpu"], capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    twin = json.loads(r.stdout.strip().splitlines()[-1])
+    assert [twin["total_matches_x_iters"], twin["overflow"],
+            twin["dce_guard_checksum"]] == want
+
+
+@pytest.mark.parametrize("name", sorted(
+    f[:-5] for f in os.listdir(os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "results", "schedules_torch")) if f.endswith(".json")))
+def test_schedule_on_card_equals_the_golden(card, name):
+    """Each key program over 8 emulated ranks on the card (the kernel
+    pipeline) issues the committed schedule on every rank."""
+    from distributed_join_tpu_torch.analysis import schedule
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sched = schedule.record_program(name,
+                                    schedule.key_programs(card)[name])
+    assert schedule.check_program(sched, os.path.join(
+        root, schedule.DEFAULT_SCHEDULE_DIR)) == []
