@@ -1,0 +1,9 @@
+"""Device ms an operation of the work launched inside the port's
+``shuffle`` spans (``parallel/distributed_join.py``), the mean over
+the ranks."""
+
+from joinbench.layers._common import per_op_mean, span_ms
+
+
+def read(ctx):
+    return per_op_mean(ctx, span_ms("shuffle"))
