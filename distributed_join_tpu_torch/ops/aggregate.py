@@ -49,6 +49,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.ops.compact import stream_compact
 from distributed_join_tpu_torch.ops.join import (
     _lexsort,
@@ -521,7 +522,8 @@ def local_join_aggregate(build: Table, probe: Table, keys: Sequence[str],
     overflow)``: ``partials`` carries the combinable lanes of
     :func:`partial_lane_schema` (finalize with :func:`finalize_groups`
     after the last combine), ``total`` the rows the materializing join
-    would emit."""
+    would emit. The sort runs in the ``merged_sort`` phase, the run
+    reductions and the compaction in ``agg_reduce``."""
     keys = list(keys)
     bcols, pcols = table_schema(build), table_schema(probe)
     lanes_schema = partial_lane_schema(spec, bcols, pcols)
@@ -539,87 +541,91 @@ def local_join_aggregate(build: Table, probe: Table, keys: Sequence[str],
             needed[(mode[0], g)] = None
 
     nb = build.capacity
-    m_ops, tag = _masked_keys(build, probe, keys)
-    perm = _lexsort([*m_ops, tag])
-    skeys = [op[perm] for op in m_ops]
-    stag = tag[perm]
-    svals = {}
-    for side, col in needed:
-        c = (build if side == "b" else probe).columns[col]
-        other = (probe if side == "b" else build).capacity
-        pad = c.new_zeros(other)
-        svals[(side, col)] = torch.cat([c, pad] if side == "b"
-                                       else [pad, c])[perm]
-    del perm
+    with telemetry.phase("merged_sort"):
+        m_ops, tag = _masked_keys(build, probe, keys)
+        perm = _lexsort([*m_ops, tag])
+        skeys = [op[perm] for op in m_ops]
+        stag = tag[perm]
+        svals = {}
+        for side, col in needed:
+            c = (build if side == "b" else probe).columns[col]
+            other = (probe if side == "b" else build).capacity
+            pad = c.new_zeros(other)
+            svals[(side, col)] = torch.cat([c, pad] if side == "b"
+                                           else [pad, c])[perm]
+        del perm
 
-    runs = _Runs.of(_run_starts(skeys))
-    is_build, is_probe = stag == 0, stag == 1
-    b_cnt = runs.sum(is_build.to(torch.int32))
-    p_cnt = runs.sum(is_probe.to(torch.int32))
-    # the join total the materializing pipeline would produce
-    total = (b_cnt.to(torch.int64) * p_cnt.to(torch.int64)).sum()
+    with telemetry.phase("agg_reduce"):
+        runs = _Runs.of(_run_starts(skeys))
+        is_build, is_probe = stag == 0, stag == 1
+        b_cnt = runs.sum(is_build.to(torch.int32))
+        p_cnt = runs.sum(is_probe.to(torch.int32))
+        # the join total the materializing pipeline would produce
+        total = (b_cnt.to(torch.int64) * p_cnt.to(torch.int64)).sum()
 
-    def side_total(side, col, op, adt=None):
-        """Run totals (sum, min or max) of one side's column."""
-        v = svals[(side, col)]
-        on = is_build if side == "b" else is_probe
-        if op == "sum":
-            v = v.to(adt)
-            return runs.sum(torch.where(on, v, torch.zeros_like(v)))
-        return runs.reduce(torch.where(
-            on, v, torch.full_like(v, _identity(v.dtype, op))), op)
+        def side_total(side, col, op, adt=None):
+            """Run totals (sum, min or max) of one side's column."""
+            v = svals[(side, col)]
+            on = is_build if side == "b" else is_probe
+            if op == "sum":
+                v = v.to(adt)
+                return runs.sum(torch.where(on, v, torch.zeros_like(v)))
+            return runs.reduce(torch.where(
+                on, v, torch.full_like(v, _identity(v.dtype, op))), op)
 
-    if mode == "key":
-        reduced = []
-        for lane_name, op, col, dt in lanes_schema:
-            adt = _torch_dtype(dt)
-            if op == "sum" and col is None:       # a count lane
-                x = b_cnt.to(adt) * p_cnt.to(adt)
-            elif op == "sum":
-                other = b_cnt if side_of(col) == "p" else p_cnt
-                x = side_total(side_of(col), col, "sum", adt) * other.to(adt)
-            elif op in ("min", "max"):
-                x = side_total(side_of(col), col, op)
-            else:  # first: builds open a run, its probes follow them
-                sd = side_of(col)
-                x = runs.at_start(svals[(sd, col)],
-                                  None if sd == "b" else b_cnt)
-            reduced.append((lane_name, x))
-        is_rec = (b_cnt > 0) & (p_cnt > 0)
-        cols = ([(kname, runs.at_start(sk))
-                 for kname, sk in zip(keys, skeys)] + reduced)
-        groups, valid, g_total, overflow = _compact_runs(
-            is_rec, cols, groups_capacity)
-        group_names = keys
-    else:
-        # probe (build) mode: each contributing probe (build) row's
-        # share of its run, then one regroup by the group columns
-        own, other = ("p", "b") if mode == "probe" else ("b", "p")
-        mine = is_probe if mode == "probe" else is_build
-        other_cnt = (b_cnt if mode == "probe" else p_cnt)[runs.rid]
-        part = mine & (other_cnt > 0)
-        lanes = []
-        for lane_name, op, col, dt in lanes_schema:
-            adt = _torch_dtype(dt)
-            if op == "sum" and col is None:
-                contrib = other_cnt.to(adt)
-            elif op == "sum":
-                if side_of(col) == own:
-                    contrib = svals[(own, col)].to(adt) * other_cnt.to(adt)
-                else:
-                    contrib = side_total(other, col, "sum", adt)[runs.rid]
-            elif op in ("min", "max"):
-                if side_of(col) == own:
+        if mode == "key":
+            reduced = []
+            for lane_name, op, col, dt in lanes_schema:
+                adt = _torch_dtype(dt)
+                if op == "sum" and col is None:       # a count lane
+                    x = b_cnt.to(adt) * p_cnt.to(adt)
+                elif op == "sum":
+                    other = b_cnt if side_of(col) == "p" else p_cnt
+                    x = (side_total(side_of(col), col, "sum", adt)
+                         * other.to(adt))
+                elif op in ("min", "max"):
+                    x = side_total(side_of(col), col, op)
+                else:  # first: builds open a run, its probes follow them
+                    sd = side_of(col)
+                    x = runs.at_start(svals[(sd, col)],
+                                      None if sd == "b" else b_cnt)
+                reduced.append((lane_name, x))
+            is_rec = (b_cnt > 0) & (p_cnt > 0)
+            cols = ([(kname, runs.at_start(sk))
+                     for kname, sk in zip(keys, skeys)] + reduced)
+            groups, valid, g_total, overflow = _compact_runs(
+                is_rec, cols, groups_capacity)
+            group_names = keys
+        else:
+            # probe (build) mode: each contributing probe (build) row's
+            # share of its run, then one regroup by the group columns
+            own, other = ("p", "b") if mode == "probe" else ("b", "p")
+            mine = is_probe if mode == "probe" else is_build
+            other_cnt = (b_cnt if mode == "probe" else p_cnt)[runs.rid]
+            part = mine & (other_cnt > 0)
+            lanes = []
+            for lane_name, op, col, dt in lanes_schema:
+                adt = _torch_dtype(dt)
+                if op == "sum" and col is None:
+                    contrib = other_cnt.to(adt)
+                elif op == "sum":
+                    if side_of(col) == own:
+                        contrib = (svals[(own, col)].to(adt)
+                                   * other_cnt.to(adt))
+                    else:
+                        contrib = side_total(other, col, "sum", adt)[runs.rid]
+                elif op in ("min", "max"):
+                    if side_of(col) == own:
+                        contrib = svals[(own, col)]
+                    else:
+                        contrib = side_total(other, col, op)[runs.rid]
+                else:  # first: a carry of the grouped side
                     contrib = svals[(own, col)]
-                else:
-                    contrib = side_total(other, col, op)[runs.rid]
-            else:  # first: a carry of the grouped side
-                contrib = svals[(own, col)]
-            lanes.append((lane_name, op, contrib))
-        group_vals = [(g, svals[(own, g)]) for g in spec.group_keys]
-        groups, valid, g_total, overflow = _reduce_sorted(
-            group_vals, lanes, part, groups_capacity)
-        group_names = list(spec.group_keys)
+                lanes.append((lane_name, op, contrib))
+            group_vals = [(g, svals[(own, g)]) for g in spec.group_keys]
+            groups, valid, g_total, overflow = _reduce_sorted(
+                group_vals, lanes, part, groups_capacity)
+            group_names = list(spec.group_keys)
 
     cols = {nm: groups[nm] for nm in group_names}
     for lane_name, _, _, _ in lanes_schema:

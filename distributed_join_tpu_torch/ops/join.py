@@ -42,6 +42,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.ops.compact import stream_compact
 from distributed_join_tpu_torch.ops.expand import (
     expand_gather,
@@ -168,30 +169,32 @@ def _merged_sort(build: Table, probe: Table, keys, b1d, p1d,
     pairs sharing one lane (a build row never needs a probe value). With
     2-D columns on a side, that side's row index rides too (``__prow``,
     ``__browidx``: int32, per side).
-    Returns (sorted keys, sorted tag, {("p"|"b", name): sorted lane})."""
+    Returns (sorted keys, sorted tag, {("p"|"b", name): sorted lane}),
+    all of it launched inside the ``merged_sort`` phase."""
     nb, npr = build.capacity, probe.capacity
-    m_ops, tag = _masked_keys(build, probe, keys)
-    perm = _lexsort([*m_ops, tag])
-    pq = [(nm, probe.columns[nm]) for nm in p1d]
-    bq = [(nm, build.columns[nm]) for nm in b1d]
-    if p2d:
-        pq.append(("__prow", torch.arange(npr, dtype=torch.int32,
-                                          device=probe.device)))
-    if b2d:
-        bq.append(("__browidx", torch.arange(nb, dtype=torch.int32,
-                                             device=build.device)))
-    svals = {}
-    for pnm, pc in pq:
-        mate = next((t for t in bq if t[1].dtype == pc.dtype), None)
-        if mate is not None:
-            bq.remove(mate)
-            lane = torch.cat([mate[1], pc])
-            svals[("b", mate[0])] = svals[("p", pnm)] = lane[perm]
-        else:
-            svals[("p", pnm)] = torch.cat([pc.new_zeros(nb), pc])[perm]
-    for bnm, bc in bq:
-        svals[("b", bnm)] = torch.cat([bc, bc.new_zeros(npr)])[perm]
-    return [op[perm] for op in m_ops], tag[perm], svals
+    with telemetry.phase("merged_sort"):
+        m_ops, tag = _masked_keys(build, probe, keys)
+        perm = _lexsort([*m_ops, tag])
+        pq = [(nm, probe.columns[nm]) for nm in p1d]
+        bq = [(nm, build.columns[nm]) for nm in b1d]
+        if p2d:
+            pq.append(("__prow", torch.arange(npr, dtype=torch.int32,
+                                              device=probe.device)))
+        if b2d:
+            bq.append(("__browidx", torch.arange(nb, dtype=torch.int32,
+                                                 device=build.device)))
+        svals = {}
+        for pnm, pc in pq:
+            mate = next((t for t in bq if t[1].dtype == pc.dtype), None)
+            if mate is not None:
+                bq.remove(mate)
+                lane = torch.cat([mate[1], pc])
+                svals[("b", mate[0])] = svals[("p", pnm)] = lane[perm]
+            else:
+                svals[("p", pnm)] = torch.cat([pc.new_zeros(nb), pc])[perm]
+        for bnm, bc in bq:
+            svals[("b", bnm)] = torch.cat([bc, bc.new_zeros(npr)])[perm]
+        return [op[perm] for op in m_ops], tag[perm], svals
 
 
 def _row_gather(col: torch.Tensor, idx: torch.Tensor, n: int):
@@ -426,18 +429,20 @@ def _join_plain(build, probe, keys, b1d, p1d, out_capacity, b2d=(),
     perm_b = _lexsort([*b_ops, btag])
     sb_payload = {nm: build.columns[nm][perm_b] for nm in b1d}
 
-    # 2. merged sort: keys + side tag; probe payloads ride (zeros on
-    #    build rows, which an unmatched build's record carries), and the
-    #    merged row index for 2-D columns (the permutation itself).
-    m_ops, tag = _masked_keys(build, probe, keys)
-    perm = _lexsort([*m_ops, tag])
-    skeys = [op[perm] for op in m_ops]
-    stag = tag[perm]
-    sp_payload = {
-        nm: torch.cat([probe.columns[nm].new_zeros(nb),
-                       probe.columns[nm]])[perm]
-        for nm in p1d
-    }
+    # 2. merged sort (the ``merged_sort`` phase): keys + side tag; probe
+    #    payloads ride (zeros on build rows, which an unmatched build's
+    #    record carries), and the merged row index for 2-D columns (the
+    #    permutation itself).
+    with telemetry.phase("merged_sort"):
+        m_ops, tag = _masked_keys(build, probe, keys)
+        perm = _lexsort([*m_ops, tag])
+        skeys = [op[perm] for op in m_ops]
+        stag = tag[perm]
+        sp_payload = {
+            nm: torch.cat([probe.columns[nm].new_zeros(nb),
+                           probe.columns[nm]])[perm]
+            for nm in p1d
+        }
 
     # 3. runs and counts; the typed joins' emission
     is_build = stag == 0

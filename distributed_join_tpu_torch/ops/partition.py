@@ -13,6 +13,7 @@ from typing import Sequence
 
 import torch
 
+from distributed_join_tpu_torch import telemetry
 from distributed_join_tpu_torch.ops.hashing import bucket_ids
 from distributed_join_tpu_torch.table import Table
 
@@ -77,17 +78,20 @@ def radix_hash_partition(table: Table, key_cols: Sequence[str],
     (``parallel/shuffle.shuffle_ragged``) needs each bucket's rows by
     length descending, so that the rows alive at a u32 word plane form
     a prefix of the bucket. Two stable sorts give the JAX package's
-    two-key stable sort: the column first, then the bucket id."""
+    two-key stable sort: the column first, then the bucket id. The
+    hash and the bucket ids run in the ``partition_hash`` phase; the
+    sorts and the offsets follow it."""
     if sub_buckets > 1 and order_within is not None:
         raise ValueError(
             "sub_buckets and order_within are mutually exclusive: the "
             "within-bucket order slot is either the segment id or the "
             "varwidth length, never both")
-    b = bucket_ids([table.columns[c] for c in key_cols], n_buckets,
-                   sub_buckets=sub_buckets)
-    n_buckets = n_buckets * max(int(sub_buckets), 1)
-    # Padding rows get bucket n_buckets: they sort after every real one.
-    b = torch.where(table.valid, b, torch.full_like(b, n_buckets))
+    with telemetry.phase("partition_hash"):
+        b = bucket_ids([table.columns[c] for c in key_cols], n_buckets,
+                       sub_buckets=sub_buckets)
+        n_buckets = n_buckets * max(int(sub_buckets), 1)
+        # Padding rows get bucket n_buckets: they sort after every real one.
+        b = torch.where(table.valid, b, torch.full_like(b, n_buckets))
     if order_within is None:
         sorted_b, order = torch.sort(b, stable=True)
     else:

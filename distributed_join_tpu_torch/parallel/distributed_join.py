@@ -1111,6 +1111,7 @@ def resolve_join_ladder(build: Table, probe: Table, n_ranks: int,
     )
 
 
+@telemetry.phased("entry")
 def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
                            key="key", auto_retry: int = 0,
                            verify_integrity: bool = False,
@@ -1208,7 +1209,8 @@ def distributed_inner_join(build: Table, probe: Table, comm: Communicator,
         if validating:
             faults.clear_plan_violations()
         res = fn(build, probe)
-        overflow = bool(res.overflow)
+        with telemetry.phase("sync.overflow"):
+            overflow = bool(res.overflow)
         if validating:
             faults.check_plan_violations()
         report = None

@@ -185,6 +185,7 @@ class QuerySignature:
         return _digest(self.canonical())
 
 
+@telemetry.phased("entry")
 def distributed_query(tables: Mapping[str, Table], plan, comm,
                       auto_retry: int = 0, program_cache=None,
                       with_metrics=None, **defaults) -> QueryResult:
@@ -238,7 +239,9 @@ def distributed_query(tables: Mapping[str, Table], plan, comm,
         if first_hit is None:
             first_hit = hit
         res = fn(*args)
-        if not bool(res.overflow):
+        with telemetry.phase("sync.overflow"):
+            overflow = bool(res.overflow)
+        if not overflow:
             break
     object.__setattr__(res, "plan_digest", plan.digest())
     object.__setattr__(res, "cache_hit", bool(first_hit))

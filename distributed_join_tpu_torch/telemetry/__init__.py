@@ -6,6 +6,8 @@ process-global session with three parts:
 - :mod:`.spans` — hierarchical host-side spans, each also a
   ``torch.profiler.record_function`` range (and an NVTX range on a card),
   so span names line up with the kernels of a ``--trace`` device trace;
+  and phases (:func:`phase`), device-trace ranges alone, inside a span's
+  work;
 - :mod:`.export` — the :class:`~.export.TelemetrySink`: the JSONL event
   log, the Chrome trace with counter tracks, the rank-0 summary, and the
   ``torch.profiler`` device trace of ``--trace``;
@@ -25,14 +27,15 @@ process-global session with three parts:
   flow events; the read side is :mod:`.analyze`.
 
 The contract: **telemetry off changes nothing**. Until :func:`configure`
-activates a session every function here is a no-op and :func:`span` the
-shared ``nullcontext``. So is every call on a muted thread (an emulated
-rank other than rank 0; :mod:`.spans`).
+activates a session every function here is a no-op and :func:`span` and
+:func:`phase` the shared ``nullcontext``. So is every call on a muted
+thread (an emulated rank other than rank 0; :mod:`.spans`).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Optional
 
 from distributed_join_tpu_torch.telemetry import spans as _spans
@@ -43,9 +46,9 @@ __all__ = [
     "Metrics", "MetricsTape", "TelemetrySink",
     "configure", "configure_from_args", "counter_add",
     "current_trace", "emit_metrics", "enabled", "event", "finalize",
-    "maybe_start_device_trace", "refresh_rank", "request_scope",
-    "session", "sink", "span", "span_complete", "stage_profile",
-    "stop_device_trace", "summary",
+    "maybe_start_device_trace", "phase", "phased", "refresh_rank",
+    "request_scope", "session", "sink", "span", "span_complete",
+    "stage_profile", "stop_device_trace", "summary",
 ]
 
 _active: Optional[TelemetrySink] = None
@@ -161,6 +164,28 @@ def span(name: str, **payload):
     if s is None:
         return _null
     return _spans.span_scope(s, name, payload or None)
+
+
+def phase(name: str):
+    """A named device-trace range inside a step's work (the shared
+    nullcontext when off or muted): a ``record_function`` range where a
+    profiler records this thread, and an NVTX range on a card, with no
+    event, payload, stack entry or sync (:mod:`.spans`)."""
+    if _recording() is None:
+        return _null
+    return _spans._device_range(name)
+
+
+def phased(name: str):
+    """Decorator: every call of the function runs inside
+    :func:`phase` ``name`` (the port's entry points take ``entry``)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def run(*args, **kwargs):
+            with phase(name):
+                return fn(*args, **kwargs)
+        return run
+    return wrap
 
 
 def span_complete(name: str, t0_perf: float, dur_s: float, **payload) -> None:

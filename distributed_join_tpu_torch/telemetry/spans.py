@@ -34,6 +34,18 @@ Three differences from the JAX package, each on purpose:
   scalar with ``sp.sync_on(tensor)``; it is fetched at span close
   (:func:`fetch_one_scalar`), the one honest sync, as in the JAX
   package, at the JAX package's ``sync_on`` sites only.
+
+**Phases** (``telemetry.phase(name)``) name the parts of a span's work
+in a device trace: a step's span is as coarse as the JAX package's, and
+the kernels of its merged sort, its run reductions or its hash passes
+cannot be told apart inside it. A phase is :func:`_device_range` alone,
+under an active session on a thread that records: no event-log
+record, no payload, no entry on the span stack, no sync. So a span's
+path, the event log and the Chrome trace are the same with phases as
+without, and only a ``torch.profiler`` trace (or ``nsys``) shows them.
+The phases of the port's hot path, and the ``sync.<site>`` ranges
+around its blocking device-to-host reads (one synchronising call each),
+are listed in ``PHASES.md`` beside this module.
 """
 
 from __future__ import annotations

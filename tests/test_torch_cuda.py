@@ -2430,3 +2430,91 @@ def test_schedule_on_card_equals_the_golden(card, name):
                                     schedule.key_programs(card)[name])
     assert schedule.check_program(sched, os.path.join(
         root, schedule.DEFAULT_SCHEDULE_DIR)) == []
+
+
+def _sync_call(card, what):
+    """A small call of the benchmark's two entries on one card, as the
+    benchmark makes them: an inner join of uniform int64 keys (half the
+    probes hit) and Q3 through a program cache, each on the local
+    communicator with ``auto_retry`` and the metrics tape off."""
+    from distributed_join_tpu_torch.parallel.communicator import (
+        LocalCommunicator,
+    )
+    from distributed_join_tpu_torch.parallel.distributed_join import (
+        distributed_inner_join,
+    )
+    from distributed_join_tpu_torch.parallel.query_exec import (
+        distributed_query,
+    )
+    from distributed_join_tpu_torch.planning.query import tpch_query_plan
+    from distributed_join_tpu_torch.service.programs import JoinProgramCache
+    from distributed_join_tpu_torch.utils import tpch
+
+    comm = LocalCommunicator()
+    if what == "join":
+        g = torch.Generator(device=card)
+        g.manual_seed(5)
+        n = 1 << 18
+        build = Table.from_dense({
+            "key": torch.randperm(n, generator=g, device=card),
+            "build_payload": torch.arange(n, device=card)})
+        probe = Table.from_dense({
+            "key": torch.randint(0, 2 * n, (n,), generator=g, device=card),
+            "probe_payload": torch.arange(n, device=card)})
+        return lambda: distributed_inner_join(
+            build, probe, comm, key="key", auto_retry=4, with_metrics=False)
+    tables = tpch.query_filters(tpch.generate_tpch_query_tables(
+        seed=5, scale_factor=0.05, device=card), "q3")
+    cache, plan = JoinProgramCache(comm), tpch_query_plan("q3")
+    return lambda: distributed_query(tables, plan, comm, auto_retry=4,
+                                     program_cache=cache,
+                                     with_metrics=False)
+
+
+@pytest.mark.parametrize("what", ["join", "q3"])
+def test_every_sync_of_an_entry_has_its_range(card, tmp_path, what):
+    """Under ``set_sync_debug_mode("warn")`` a call warns once for each
+    synchronising operation; a device trace of the same call under a
+    telemetry session holds as many ``sync.*`` ranges inside its
+    ``entry`` range, each around exactly one of the runtime's waits for
+    the device, and no such wait of the entry lies outside them."""
+    import warnings
+
+    from distributed_join_tpu_torch import telemetry
+
+    run = _sync_call(card, what)
+    run()                               # kernels built, program cached
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as got:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in got
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    with telemetry.session(str(tmp_path / "tel"), rank=0):
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    with open(tmp_path / "trace.json") as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+    def inside(e, r):
+        return (e["tid"] == r["tid"] and r["ts"] <= e["ts"]
+                and e["ts"] + e["dur"] <= r["ts"] + r["dur"])
+
+    host = [e for e in events if e.get("cat") == "user_annotation"]
+    ranges = [e for e in host if e["name"].startswith("sync.")]
+    (entry,) = [e for e in host if e["name"] == "entry"]
+    waits = [e for e in events if e.get("cat") == "cuda_runtime"
+             and "Synchronize" in e["name"] and inside(e, entry)]
+    assert len(ranges) == len(syncs) > 0
+    assert all(inside(r, entry) for r in ranges)
+    assert [sum(inside(w, r) for w in waits) for r in ranges] == [1] * len(
+        ranges)
+    assert len(waits) == len(ranges)

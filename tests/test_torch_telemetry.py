@@ -13,6 +13,7 @@ comparison, and nothing else: timestamps and durations (``ts_us``,
 ids, pids and file paths of the two sessions.
 """
 
+import contextlib
 import json
 import os
 import threading
@@ -395,6 +396,126 @@ def test_retry_attempt_events_as_jax(tmp_path, jcomms):
     assert len(out["t"]) > 1
 
 
+# -- phases: device-trace ranges inside the steps ----------------------------
+
+PHASES = ("entry", "merged_sort", "agg_reduce", "partition_hash")
+
+
+def _children(ranges, parent):
+    """The names of the ranges directly inside each ``parent`` range, in
+    start order (``ranges``: ``(name, start, end)`` of one thread)."""
+    def inside(a, b):
+        return a is not b and b[1] <= a[1] and a[2] <= b[2]
+
+    out = []
+    for p in (r for r in ranges if r[0] == parent):
+        kids = [r for r in ranges if inside(r, p)]
+        out.append([r[0] for r in sorted(kids, key=lambda r: r[1])
+                    if not any(inside(r, k) for k in kids)])
+    return out
+
+
+def _phase_agg_join(comm):
+    spec = tagg.AggregateSpec.of(["key"], [["count", None, "n"],
+                                           ["sum", "build_payload", "s"]])
+    return tdist.make_distributed_join(comm, aggregate=spec, key="key",
+                                       out_capacity_factor=8.0,
+                                       with_metrics=False)
+
+
+PHASE_CASES = {
+    # a one-rank join: the entry, its step's join span and the overflow
+    # read; the CPU takes the plain join, whose step 2 is the merged sort
+    "join": (lambda tb, tp: tdist.distributed_inner_join(
+        tb, tp, LocalCommunicator(), with_metrics=False,
+        out_capacity_factor=4.0),
+        {"entry": [["join", "sync.overflow"]], "join": [["merged_sort"]]}),
+    # a one-rank fused aggregate: the sort, then the run reductions
+    "aggregate": (lambda tb, tp: _phase_agg_join(LocalCommunicator())(
+        tb, tp), {"join_agg": [["merged_sort", "agg_reduce"]]}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PHASE_CASES))
+def test_phases_nest_in_the_device_trace(tmp_path, case):
+    """Under a CPU ``torch.profiler`` with a session on, the phases are
+    ``record_function`` ranges inside the spans of the work they name,
+    and the session's event log holds none of them."""
+    call, want = PHASE_CASES[case]
+    b, bv, p, pv = _tables(rand_max=64)
+    tb, tp = _tt(b, bv), _tt(p, pv)
+    with ttel.session(str(tmp_path / "tel"), rank=0) as sink:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            call(tb, tp)
+        events_path = sink.events_path
+    prof.export_chrome_trace(str(tmp_path / "prof.json"))
+    with open(tmp_path / "prof.json") as f:
+        ranges = [(e["name"], e["ts"], e["ts"] + e["dur"])
+                  for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and e.get("cat") == "user_annotation"]
+    for parent, kids in want.items():
+        assert _children(ranges, parent) == kids, parent
+    logged = {e["name"] for e in _events(events_path)}
+    assert logged and not logged & {*PHASES, "sync.overflow"}
+
+
+def test_phases_on_rank0_only_under_emulation(tmp_path, monkeypatch):
+    """Under the emulated communicator the ranks are threads: rank 0's
+    records the partition's hash inside ``partition`` and no phase inside
+    ``shuffle`` (the wire's kernels are named in a device trace by
+    themselves); the muted ranks record nothing. (A profiler
+    records only the thread that started it, so the ranges are taken
+    where they are entered, in entry order.)"""
+    from distributed_join_tpu_torch.telemetry import spans as tspans
+
+    real, lock = tspans._device_range, threading.Lock()
+    ranges, clock = {}, iter(range(1 << 30))
+
+    @contextlib.contextmanager
+    def taken(name):
+        with lock:
+            r = [name, next(clock), None]
+            ranges.setdefault(threading.current_thread().name, []).append(r)
+        with real(name):
+            yield
+        with lock:
+            r[2] = next(clock)
+
+    monkeypatch.setattr(tspans, "_device_range", taken)
+    b, bv, p, pv = _tables()
+    with ttel.session(str(tmp_path), rank=0):
+        tdist.distributed_inner_join(_tt(b, bv), _tt(p, pv),
+                                     EmulatedCommunicator(4),
+                                     with_metrics=False,
+                                     out_capacity_factor=4.0)
+    assert set(ranges) == {threading.current_thread().name, "rank0"}
+    rank0 = ranges["rank0"]
+    assert _children(rank0, "partition") == [["partition_hash"] * 2]
+    assert _children(rank0, "shuffle") == [[]]
+    assert _children(rank0, "join") == [["merged_sort"]]
+    assert [r[0] for r in ranges[threading.current_thread().name]] == [
+        "entry", "sync.overflow"]
+
+
+@pytest.mark.parametrize("where", ["off", "muted"])
+def test_phase_is_the_shared_nullcontext(tmp_path, where):
+    """With no session, or on a muted thread (an emulated rank other
+    than 0), a phase is the shared ``nullcontext`` that ``span`` returns
+    there."""
+    from distributed_join_tpu_torch.telemetry import spans as tspans
+
+    if where == "off":
+        assert ttel.phase("merged_sort") is ttel.span("join")
+        return
+    got = {}
+    with ttel.session(str(tmp_path), rank=0):
+        assert ttel.phase("merged_sort") is not ttel.span("join")
+        with tspans.adopted(tspans.thread_context(), mute=True):
+            got["phase"], got["span"] = (ttel.phase("merged_sort"),
+                                         ttel.span("join"))
+    assert got["phase"] is got["span"]
+    assert isinstance(got["phase"], contextlib.nullcontext)
 # -- the out-of-core loop -----------------------------------------------------
 
 
